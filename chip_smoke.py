@@ -1,0 +1,424 @@
+#!/usr/bin/env python3
+"""On-card smoke test of the PyTorch/CUDA port (``dsl_tpu_torch``).
+
+Run from the root of a checkout on a machine with one NVIDIA H100:
+
+    python3 chip_smoke.py
+
+Phases (any failure ends the run with a traceback and a non-zero exit):
+
+1. device: CUDA is required; the card's name and power limit are printed as
+   ``nvidia-smi`` reports them.
+2. build: the predict path's kernel is compiled from ``csrc/`` with
+   ``nvcc`` for sm_90a.
+3. kernels vs plain versions: ``nms_keep`` against ``nms_keep_reference``
+   on the card, bit-identical keeps on every edge case of
+   ``dsl_tpu_torch.ops.nms_cases``.
+4. main path at full width: the flagship FCOS-RLA-R50 from
+   ``configs/fcos_semi/RLA_r50_fcos_semi_dsl.py`` with seeded numpy weights
+   through the weight bridge, built by ``init_detector``; with every kernel
+   count at 0, ``detector_predict`` on B=8 at 800x1344 in f32 and in bf16
+   and one ``inference_detector`` request; then the counts are read. The
+   dets must be finite and (8, 100, 5) with detections in every image, at
+   least 2000 candidates per image must clear score_thr (so NMS runs at its
+   full N = 2000), each predict must launch the NMS kernel once, and the
+   keeps of the real NMS inputs must equal the plain version's. The f32 head
+   outputs must agree with a CPU run of the same model on a small input.
+5. timing: predict ms (median, min and max of 20) and img/s in f32 and
+   bf16, one ``torch.profiler`` trace of each for the device's idle share
+   and its largest kernels, and each kernel's time beside its plain version
+   and its bound.
+
+f32 runs with TF32 off (``torch.backends.cudnn.allow_tf32`` and
+``torch.backends.cuda.matmul.allow_tf32`` False): cuDNN convolutions would
+otherwise round their inputs to TF32.
+
+The last lines are the kernels JSON line and the
+``{"ok": true, "device": {...}}`` line.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import copy
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+CONFIG = ROOT / "configs" / "fcos_semi" / "RLA_r50_fcos_semi_dsl.py"
+DEVICE = "cuda"
+BATCH = 8
+CANVAS = (800, 1344)          # Resize(1333, 800) + pad to 32, the serving canvas
+H100_BYTES_PER_S = 3.35e12    # HBM3, H100 SXM data sheet
+H100_F32_FLOP_PER_S = 67e12   # f32 outside the tensor cores, H100 SXM data sheet
+IOU_OPS = 14                  # f32 ops per IoU test: 4 min/max, 2 sub, 2 clamp,
+                              # mul, add, sub, floor, div, compare
+AREA_OPS = 5
+
+
+def log(*args):
+    print(*args, flush=True)
+
+
+def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Mean device time of fn() over reps launches, by CUDA events."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def host_ms(fn, reps: int, warmup: int = 2) -> list[float]:
+    """Wall time of each of reps calls of fn(), each ending in a synchronize."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def device_busy(fn) -> tuple[float, float, int, list] | None:
+    """One torch.profiler trace of fn(): the union of device kernel time,
+    the traced window (first event to last), the number of kernels and the
+    five kernels that take the most time, or None where the profiler saw no
+    device event."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.device_type == DeviceType.CUDA)
+    if not spans:
+        return None
+    busy, cur_start, cur_end = 0.0, *spans[0]
+    for s, e in spans[1:]:
+        if s > cur_end:
+            busy += cur_end - cur_start
+            cur_start, cur_end = s, e
+        else:
+            cur_end = max(cur_end, e)
+    busy += cur_end - cur_start
+    window = (max(e.time_range.end for e in events)
+              - min(e.time_range.start for e in events))
+    per_name: dict[str, float] = {}
+    for e in events:
+        if e.device_type == DeviceType.CUDA:
+            per_name[e.name] = per_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:5]
+    return busy / 1e3, window / 1e3, len(spans), top
+
+
+def phase_device():
+    import torch
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60).stdout.strip()
+    smi = smi.splitlines()[0]
+    name = torch.cuda.get_device_name(0)
+    log(f"[device] {name}, {torch.cuda.device_count()} card(s); nvidia-smi: {smi}")
+    log(f"[device] torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"python {sys.version.split()[0]}")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return name, smi
+
+
+def phase_build():
+    import dsl_tpu_torch
+    from dsl_tpu_torch.ops import build
+
+    # the port must come from this checkout, not from an installed copy
+    found = Path(dsl_tpu_torch.__file__).resolve().parent.parent
+    if found != ROOT:
+        raise RuntimeError(f"dsl_tpu_torch was imported from {found}, not "
+                           f"from this checkout ({ROOT})")
+    t0 = time.perf_counter()
+    path = build.build("nms_kernel", verbose=True)
+    log(f"[build] {path.name} in {time.perf_counter() - t0:.1f} s")
+
+
+def phase_kernel_cases():
+    """Every edge case: the kernel's keeps equal the plain version's."""
+    import torch
+
+    from dsl_tpu_torch.ops import nms_cases
+    from dsl_tpu_torch.ops.nms import nms_keep, nms_keep_reference
+
+    worst = 0
+    for name, boxes, valid, thr in nms_cases.cases() + [nms_cases.tiny_boxes()]:
+        b = torch.from_numpy(boxes).to(DEVICE)
+        v = torch.from_numpy(valid).to(DEVICE)
+        got = nms_keep(b, v, thr)
+        want = nms_keep_reference(b, v, thr)
+        torch.cuda.synchronize()
+        diff = int((got.int() - want.int()).abs().max()) if got.numel() else 0
+        worst = max(worst, diff)
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"nms_keep != nms_keep_reference on {name}: "
+                f"{int((got != want).sum())} of {got.numel()} keeps differ")
+        log(f"[kernel] {name}: B={b.shape[0]} N={b.shape[1]} thr={thr} "
+            f"kept {int(got.sum())} — bit-identical")
+    return worst
+
+
+@contextlib.contextmanager
+def recording_nms():
+    """Record the inputs and keeps of every nms_keep call the predict path
+    makes (the real wrapper still runs and counts)."""
+    import dsl_tpu_torch.core.nms as core_nms
+
+    real = core_nms.nms_keep
+    calls = []
+
+    def record(boxes, valid, thr):
+        keep = real(boxes, valid, thr)
+        calls.append((boxes.clone(), valid.clone(), thr, keep.clone()))
+        return keep
+
+    core_nms.nms_keep = record
+    try:
+        yield calls
+    finally:
+        core_nms.nms_keep = real
+
+
+def seeded_variables(cfg) -> dict:
+    """Seeded numpy weights in the flax layout for the config's detector."""
+    from dsl_tpu_torch.models import build_detector
+    from dsl_tpu_torch.utils.jax_bridge import state_dict_to_flax
+    from dsl_tpu_torch.utils.random_weights import fill_variables
+
+    shapes = state_dict_to_flax(build_detector(dict(cfg.model)).state_dict())
+    return fill_variables(shapes)
+
+
+def phase_main_path():
+    import numpy as np
+    import torch
+
+    from dsl_tpu_torch.apis import inference_detector, init_detector
+    from dsl_tpu_torch.config import Config
+    from dsl_tpu_torch.models import detector_predict, fcos_get_bboxes
+    from dsl_tpu_torch.ops.nms import nms_keep, nms_keep_reference
+    from dsl_tpu_torch.utils.precision import outputs_to_f32
+
+    cfg = Config.fromfile(str(CONFIG))
+    variables = seeded_variables(cfg)
+    bundle = init_detector(cfg, variables=variables, device=DEVICE)
+    det = bundle.detector
+    n_params = sum(p.numel() for p in det.parameters())
+    log(f"[main] {CONFIG.relative_to(ROOT)}: {type(det).__name__}, "
+        f"{n_params / 1e6:.2f} M parameters, B={BATCH} at {CANVAS[0]}x{CANVAS[1]}")
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    images = torch.randn((BATCH, 3, *CANVAS), generator=gen, device=DEVICE)
+    request = np.random.RandomState(0).randint(0, 256, (480, 640, 3), np.uint8)
+    tc = dict(cfg.model.test_cfg)
+
+    # -- the main path, counted --------------------------------------------
+    nms_keep.launches = 0
+    with recording_nms() as calls:
+        out32 = detector_predict(det, images, device=DEVICE)
+        torch.cuda.synchronize()
+        launches_f32 = nms_keep.launches
+        out16 = detector_predict(det, images, compute_dtype=torch.bfloat16,
+                                 device=DEVICE)
+        torch.cuda.synchronize()
+        launches_bf16 = nms_keep.launches - launches_f32
+        result = inference_detector(bundle, request)
+        torch.cuda.synchronize()
+    launches = {"nms_keep": nms_keep.launches}
+    log(f"[main] launches: {launches} (f32 predict {launches_f32}, bf16 "
+        f"predict {launches_bf16}, one request {launches['nms_keep'] - launches_f32 - launches_bf16})")
+    if launches_f32 != 1 or launches_bf16 != 1 or launches["nms_keep"] != 3:
+        raise AssertionError(f"NMS kernel launches {launches}: expected one "
+                             f"per predict")
+
+    for tag, (dets, labels, valid) in (("f32", out32), ("bf16", out16)):
+        if tuple(dets.shape) != (BATCH, tc["max_per_img"], 5):
+            raise AssertionError(f"{tag} dets shape {tuple(dets.shape)}")
+        if not bool(torch.isfinite(dets).all()):
+            raise AssertionError(f"{tag} dets are not finite")
+        per_img = valid.sum(1).tolist()
+        if min(per_img) == 0:
+            raise AssertionError(f"{tag}: an image has no detection: {per_img}")
+        log(f"[main] {tag}: dets {tuple(dets.shape)} finite, valid per image "
+            f"{per_img}, labels seen {sorted(set(labels[valid].tolist()))[:10]}")
+    if len(result) != cfg.model.bbox_head.num_classes:
+        raise AssertionError(f"inference_detector gave {len(result)} classes")
+    log(f"[main] inference_detector: {sum(len(r) for r in result)} boxes "
+        f"over {sum(1 for r in result if len(r))} classes")
+
+    # NMS at full N: enough candidates clear score_thr in every image
+    with torch.no_grad():
+        heads = outputs_to_f32(det(images))
+        _, scores, _ = fcos_get_bboxes(det.bbox_head, *heads, with_nms=False)
+    cands = (scores > tc["score_thr"]).flatten(1).sum(1).tolist()
+    log(f"[main] candidates over score_thr per image: {cands}")
+    if min(cands) < 2000:
+        raise AssertionError(f"fewer than 2000 candidates: {cands}")
+
+    # the kernel's keeps on the real NMS inputs equal the plain version's
+    worst = 0
+    for boxes, valid, thr, keep in calls:
+        want = nms_keep_reference(boxes, valid, thr)
+        torch.cuda.synchronize()
+        worst = max(worst, int((keep.int() - want.int()).abs().max()))
+        if tuple(boxes.shape) not in ((BATCH, 2000, 4), (1, 2000, 4)):
+            raise AssertionError(f"NMS input shape {tuple(boxes.shape)}")
+        if not torch.equal(keep, want):
+            raise AssertionError(f"predict NMS keeps differ from the plain "
+                                 f"version at {tuple(boxes.shape)}")
+        log(f"[main] NMS input {tuple(boxes.shape)}: {int(valid.sum())} valid, "
+            f"{int(keep.sum())} kept — bit-identical to the plain version")
+
+    # f32 head outputs agree with a CPU run of the same model, small input
+    small = images[:1, :, :128, :192]
+    with torch.no_grad():
+        gpu = outputs_to_f32(det(small))
+        cpu_det = copy.deepcopy(det).cpu()
+        cpu = cpu_det(small.cpu())
+    worst_rel = 0.0
+    for g_lvls, c_lvls in zip(gpu, cpu):
+        for g, c in zip(g_lvls, c_lvls):
+            rel = float((g.cpu() - c).abs().max() / c.abs().max().clamp_min(1.0))
+            worst_rel = max(worst_rel, rel)
+    log(f"[main] f32 head outputs, card vs CPU at 1x128x192: worst |diff| / "
+        f"max|ref| = {worst_rel:.3e}")
+    if worst_rel > 1e-3:
+        raise AssertionError(f"card and CPU disagree: {worst_rel}")
+
+    big_call = next(c for c in calls if c[0].shape[0] == BATCH)
+    return bundle, images, launches, worst, big_call
+
+
+def kernel_bound_ms(boxes, valid, keep) -> tuple[float, str]:
+    """Least time for greedy NMS on these inputs: inputs read once and keep
+    written once over the memory rate, against the IoU tests this data
+    needs (each kept box against every later valid box) over the f32 rate."""
+    b, n = valid.shape
+    bytes_moved = boxes.numel() * 4 + valid.numel() + keep.numel()
+    later_valid = valid.flip(1).cumsum(1).flip(1) - valid.long()
+    pairs = int((later_valid * keep).sum())
+    ops = IOU_OPS * pairs + AREA_OPS * int(valid.sum())
+    t_bytes = bytes_moved / H100_BYTES_PER_S * 1e3
+    t_ops = ops / H100_F32_FLOP_PER_S * 1e3
+    log(f"[bound] nms_keep B={b} N={n}: {bytes_moved} bytes, {pairs} IoU "
+        f"tests = {ops} ops -> {t_bytes * 1e3:.3f} us by bytes, "
+        f"{t_ops * 1e3:.3f} us by ops")
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def phase_timing(bundle, images, big_call, smi: str):
+    import torch
+    from torch.func import functional_call
+
+    from dsl_tpu_torch.models import detector_predict, fcos_get_bboxes
+    from dsl_tpu_torch.ops.nms import nms_keep, nms_keep_reference
+    from dsl_tpu_torch.utils.precision import outputs_to_f32, to_compute
+
+    det = bundle.detector
+    tc = dict(bundle.cfg.model.test_cfg)
+    for tag, dtype in (("f32", None), ("bf16", torch.bfloat16)):
+        def predict():
+            return detector_predict(det, images, compute_dtype=dtype,
+                                    device=DEVICE)
+
+        torch.cuda.reset_peak_memory_stats()
+        times = sorted(host_ms(predict, reps=20))
+        ms = times[len(times) // 2]
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"[time] predict {tag} B={BATCH} {CANVAS[0]}x{CANVAS[1]}: median "
+            f"{ms:.2f} ms/batch (min {times[0]:.2f}, max {times[-1]:.2f}, "
+            f"20 reps), {BATCH / ms * 1e3:.1f} img/s, peak memory "
+            f"{peak:.2f} GiB  ({smi})")
+        traced = device_busy(predict)
+        if traced is None:
+            log(f"[trace] predict {tag}: device idle share not measured "
+                f"(the profiler saw no device event)")
+            continue
+        busy, window, n_kernels, top = traced
+        log(f"[trace] predict {tag}: {n_kernels} kernels, device busy "
+            f"{busy:.2f} ms of a {window:.2f} ms window, idle share "
+            f"{1 - busy / window:.3f}  ({smi})")
+        for kname, us in top:
+            log(f"[trace]   {us / 1e3:8.3f} ms  {kname[:100]}")
+    for tag, dtype in (("f32", None), ("bf16", torch.bfloat16)):
+        variables, x = to_compute(det, images, dtype)
+        with torch.no_grad():
+            fwd = cuda_ms(lambda: functional_call(det, variables, (x,)), reps=5)
+            heads = outputs_to_f32(functional_call(det, variables, (x,)))
+        post = cuda_ms(lambda: fcos_get_bboxes(
+            det.bbox_head, *heads, nms_pre=tc["nms_pre"],
+            score_thr=tc["score_thr"],
+            iou_threshold=tc["nms"]["iou_threshold"],
+            max_per_img=tc["max_per_img"]), reps=10)
+        log(f"[time] {tag} split: forward {fwd:.2f} ms, decode + NMS "
+            f"{post:.2f} ms (device time)  ({smi})")
+
+    boxes, valid, thr, keep = big_call
+    ms = cuda_ms(lambda: nms_keep(boxes, valid, thr), reps=100, warmup=5)
+    plain = cuda_ms(lambda: nms_keep_reference(boxes, valid, thr), reps=10)
+    bound, bound_by = kernel_bound_ms(boxes, valid, keep)
+    log(f"[time] nms_keep B={boxes.shape[0]} N={boxes.shape[1]}: kernel "
+        f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.6f} ms ({bound_by})"
+        f"  ({smi})")
+    return dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=bound_by)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card",
+              file=sys.stderr)
+        return 2
+    t_start = time.perf_counter()
+    name, smi = phase_device()
+    phase_build()
+    case_err = phase_kernel_cases()
+    bundle, images, launches, path_err, big_call = phase_main_path()
+    nms_times = phase_timing(bundle, images, big_call, smi)
+    kernels = [dict(
+        name="nms_keep", route="cuda",
+        source="dsl_tpu_torch/csrc/nms_kernel.cu",
+        replaces="dsl_tpu/ops/nms_pallas.py:34",
+        launches=launches["nms_keep"],
+        max_abs_err=float(max(case_err, path_err)),
+        ms=nms_times["ms"], plain_ms=nms_times["plain_ms"],
+        bound_ms=nms_times["bound_ms"], bound_by=nms_times["bound_by"],
+        library_ms=None)]
+    log(f"[done] {time.perf_counter() - t_start:.1f} s")
+    print(smi)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

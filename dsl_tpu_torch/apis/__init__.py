@@ -1,0 +1,2 @@
+from dsl_tpu_torch.apis.inference import (  # noqa: F401
+    DetectorBundle, inference_detector, init_detector)

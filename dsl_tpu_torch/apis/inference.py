@@ -1,0 +1,107 @@
+"""Single-image inference API.
+
+Counterpart of ``dsl_tpu/apis/inference.py``: ``init_detector`` builds the
+detector and returns a bundle; ``inference_detector(bundle, img)`` takes a
+path or a BGR uint8 ndarray and returns per-class box lists (the mmdet
+result format: a list of C arrays of shape (n_i, 5)).
+
+Resize and normalize run in torch on the detector's device (bilinear,
+``align_corners=False``, rounded to uint8 levels as ``cv2.resize`` does for
+uint8 images; then the BGR->RGB flip and mean/std), so the serving machine
+needs no OpenCV; ``cv2`` is imported only to read an image file.
+
+Entry points run on CUDA unless the caller passes ``device="cpu"``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from dsl_tpu_torch.config import Config
+from dsl_tpu_torch.models import build_detector, detector_predict
+from dsl_tpu_torch.utils.device import resolve_device
+from dsl_tpu_torch.utils.jax_bridge import flax_to_state_dict
+
+# Resize(1333, 800) + pad to a multiple of 32
+DEFAULT_CANVAS = (800, 1344)
+IMG_MEAN = (123.675, 116.28, 103.53)
+IMG_STD = (58.395, 57.12, 57.375)
+
+
+class DetectorBundle:
+    def __init__(self, detector, cfg, canvas_hw=DEFAULT_CANVAS):
+        self.detector = detector
+        self.cfg = cfg
+        self.canvas_hw = tuple(canvas_hw)
+        self.device = next(detector.parameters()).device
+
+
+def init_detector(config, variables: dict | None = None,
+                  device: str | torch.device = "cuda",
+                  canvas_hw=None) -> DetectorBundle:
+    """Build the detector of ``config`` (a path or a Config) on ``device``.
+
+    ``variables`` is a flax ``{"params", "batch_stats"}`` tree of numpy
+    arrays, loaded through the weight bridge; without it the weights are the
+    modules' random init from seed 0.
+    """
+    device = resolve_device(device)
+    if isinstance(config, str):
+        config = Config.fromfile(config)
+    if canvas_hw is None:
+        canvas_hw = tuple(config.get("canvas_hw", DEFAULT_CANVAS))
+    detector = build_detector(dict(config.model))
+    if variables is None:
+        detector.init_weights(torch.Generator().manual_seed(0))
+    else:
+        detector.load_state_dict(flax_to_state_dict(variables))
+    detector = detector.to(device).eval()
+    return DetectorBundle(detector, config, canvas_hw)
+
+
+def preprocess(bundle: DetectorBundle, arr: np.ndarray):
+    """BGR HWC image -> (canvas (1, 3, H, W), img_shapes (1, 2),
+    scale_factors (1, 4)) on the bundle's device."""
+    h, w = arr.shape[:2]
+    ch, cw = bundle.canvas_hw
+    factor = min(1344 / max(h, w), 800 / min(h, w))
+    nw, nh = int(w * factor + 0.5), int(h * factor + 0.5)
+    img = torch.from_numpy(np.ascontiguousarray(arr)).to(bundle.device)
+    img = img.permute(2, 0, 1)[None].float()
+    out = F.interpolate(img, size=(nh, nw), mode="bilinear",
+                        align_corners=False)
+    if arr.dtype == np.uint8:
+        out = out.round().clamp(0, 255)
+    mean = torch.tensor(IMG_MEAN, device=bundle.device)[None, :, None, None]
+    std = torch.tensor(IMG_STD, device=bundle.device)[None, :, None, None]
+    out = (out.flip(1) - mean) / std
+    canvas = out.new_zeros((1, 3, ch, cw))
+    canvas[:, :, :min(nh, ch), :min(nw, cw)] = out[:, :, :ch, :cw]
+    sf = torch.tensor([[nw / w, nh / h, nw / w, nh / h]], dtype=torch.float32,
+                      device=bundle.device)
+    shapes = torch.tensor([[nh, nw]], dtype=torch.float32, device=bundle.device)
+    return canvas, shapes, sf
+
+
+def inference_detector(bundle: DetectorBundle, img):
+    """img: file path or BGR ndarray. Returns a list per class of (n, 5)."""
+    if isinstance(img, str):
+        import cv2
+
+        arr = cv2.imread(img, cv2.IMREAD_COLOR)
+        if arr is None:
+            raise FileNotFoundError(img)
+    else:
+        arr = img
+    canvas, shapes, sf = preprocess(bundle, arr)
+    dets, labels, valid = detector_predict(
+        bundle.detector, canvas, img_shapes=shapes, scale_factors=sf,
+        test_cfg=dict(bundle.cfg.model.get("test_cfg", {}) or {}),
+        device=bundle.device)
+    keep = valid[0].cpu().numpy()
+    dets = dets[0].cpu().numpy()[keep]
+    labels = labels[0].cpu().numpy()[keep]
+    num_classes = bundle.cfg.model["bbox_head"]["num_classes"]
+    return [dets[labels == c] for c in range(num_classes)]

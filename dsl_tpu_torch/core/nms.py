@@ -1,0 +1,138 @@
+"""Hard NMS family with static output sizes and an explicit batch dimension.
+
+Counterpart of ``dsl_tpu/core/nms.py`` (``nms``, ``batched_nms``,
+``multiclass_nms``), where the JAX package vmaps over images: here every
+function takes (B, ...) inputs and calls :func:`nms_keep` once for the whole
+batch. JAX's ``argsort`` is stable and ``lax.top_k`` breaks ties toward the
+lower index; ``torch.topk`` promises no tie order, so every ranking here is
+``torch.sort(..., descending=True, stable=True)`` and a slice.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from dsl_tpu_torch.ops.nms import nms_keep
+
+NEG_INF = -1e30
+
+
+def _sort_desc(x: torch.Tensor, k: int | None = None):
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    if k is not None:
+        vals, idx = vals[..., :k], idx[..., :k]
+    return vals, idx
+
+
+def _gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x (B, N, ...) at idx (B, K) along dim 1."""
+    flat = idx.reshape(*idx.shape, *(1,) * (x.dim() - 2))
+    return torch.take_along_dim(x, flat, dim=1)
+
+
+def nms(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float = 0.5,
+        max_out: int = 100, valid: torch.Tensor | None = None):
+    """Hard NMS per image with ``max_out`` output slots.
+
+    boxes (B, N, 4), scores (B, N), valid optional (B, N) bool.
+    Returns dets (B, max_out, 5) [x1, y1, x2, y2, score] with padded rows at
+    score NEG_INF and zero boxes, idx (B, max_out) into the input (0 where
+    padded), out_valid (B, max_out) bool.
+    """
+    bsz, n = scores.shape
+    if valid is None:
+        valid = torch.ones((bsz, n), dtype=torch.bool, device=scores.device)
+    masked = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
+    scores_s, order = _sort_desc(masked)
+    boxes_s = _gather_rows(boxes, order).contiguous()
+    valid_s = torch.gather(valid, 1, order).contiguous()
+
+    keep = nms_keep(boxes_s, valid_s, iou_threshold)
+
+    kept = torch.where(keep, scores_s, torch.full_like(scores_s, NEG_INF))
+    # scores_s is descending, so the top of `kept` stays in score order
+    k = min(max_out, n)
+    top_scores, top_pos = _sort_desc(kept, k)
+    if k < max_out:
+        pad = max_out - k
+        top_scores = torch.cat(
+            [top_scores, top_scores.new_full((bsz, pad), NEG_INF)], dim=1)
+        top_pos = torch.cat([top_pos, top_pos.new_zeros((bsz, pad))], dim=1)
+    out_valid = top_scores > NEG_INF / 2
+    out_boxes = torch.where(out_valid[..., None], _gather_rows(boxes_s, top_pos),
+                            torch.zeros((), dtype=boxes.dtype, device=boxes.device))
+    dets = torch.cat([out_boxes, top_scores[..., None]], dim=-1)
+    idx = torch.where(out_valid, torch.gather(order, 1, top_pos),
+                      torch.zeros_like(top_pos))
+    return dets, idx, out_valid
+
+
+def batched_nms(boxes: torch.Tensor, scores: torch.Tensor,
+                labels: torch.Tensor, iou_threshold: float = 0.5,
+                max_out: int = 100, valid: torch.Tensor | None = None):
+    """Class-aware NMS by the class-offset trick: each class's boxes are
+    shifted by ``label * max_coord`` so different classes never overlap.
+    ``max_coord`` is taken per image, as the JAX package's vmap does.
+
+    Returns (dets, idx, out_valid) as :func:`nms`, plus out_labels.
+    """
+    bsz, n = scores.shape
+    if valid is None:
+        valid = torch.ones((bsz, n), dtype=torch.bool, device=scores.device)
+    zero = torch.zeros((), dtype=boxes.dtype, device=boxes.device)
+    max_coord = torch.where(valid[..., None], boxes, zero).amax(dim=(1, 2)) + 1.0
+    offsets = labels.to(boxes.dtype)[..., None] * max_coord[:, None, None]
+    dets, idx, out_valid = nms(boxes + offsets, scores, iou_threshold, max_out,
+                               valid)
+    out_boxes = torch.where(out_valid[..., None], _gather_rows(boxes, idx), zero)
+    out_dets = torch.cat([out_boxes, dets[..., 4:5]], dim=-1)
+    out_labels = torch.where(out_valid, torch.gather(labels, 1, idx),
+                             torch.zeros_like(idx))
+    return out_dets, idx, out_valid, out_labels
+
+
+def multiclass_nms(multi_bboxes: torch.Tensor, multi_scores: torch.Tensor,
+                   score_thr: float = 0.05, iou_threshold: float = 0.5,
+                   max_per_img: int = 100, pre_nms_top: int = 2000,
+                   valid: torch.Tensor | None = None, nms_type: str = "nms",
+                   score_factors: torch.Tensor | None = None):
+    """Multi-class NMS over per-point class scores, static shapes throughout.
+
+    Every (point, class) pair whose RAW score exceeds ``score_thr`` is a
+    candidate; ``score_factors`` (centerness) multiply after the threshold;
+    the ``pre_nms_top`` best candidates go through class-offset NMS and the
+    top ``max_per_img`` survive.
+
+    multi_bboxes (B, P, 4) class-agnostic boxes, multi_scores (B, P, C),
+    valid optional (B, P), score_factors optional (B, P).
+    Returns dets (B, max_per_img, 5), labels (B, max_per_img), out_valid.
+    """
+    if nms_type != "nms":
+        raise NotImplementedError(
+            f"nms_type={nms_type!r}: only hard NMS is ported so far")
+    if multi_bboxes.dim() != 3:
+        raise NotImplementedError("per-class boxes (B, P, C, 4) are not ported")
+    bsz, p, c = multi_scores.shape
+    if valid is None:
+        valid = torch.ones((bsz, p), dtype=torch.bool, device=multi_scores.device)
+    cand = valid[..., None] & (multi_scores > score_thr)
+    if score_factors is not None:
+        multi_scores = multi_scores * score_factors[..., None]
+    flat = torch.where(cand, multi_scores,
+                       torch.full_like(multi_scores, NEG_INF)).reshape(bsz, -1)
+    top_scores, flat_idx = _sort_desc(flat, min(pre_nms_top, p * c))
+    point_idx = flat_idx // c
+    cls_idx = flat_idx % c
+    cand_boxes = _gather_rows(multi_bboxes, point_idx)
+    cand_valid = top_scores > NEG_INF / 2
+    dets, _, out_valid, out_labels = batched_nms(
+        cand_boxes, top_scores, cls_idx, iou_threshold, max_per_img, cand_valid)
+    return dets, out_labels, out_valid
+
+
+def soft_nms(*args, **kwargs):
+    raise NotImplementedError("soft_nms is not ported yet")
+
+
+def fast_nms(*args, **kwargs):
+    raise NotImplementedError("fast_nms is not ported yet")

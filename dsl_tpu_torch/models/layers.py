@@ -1,0 +1,133 @@
+"""Shared building blocks: convs, norms, scale.
+
+Counterpart of the parts of ``dsl_tpu/models/layers.py`` that the FCOS-RLA
+flagship uses. Tensors are NCHW. Convolutions take explicit padding
+``p = d*(k-1)//2`` (none for 1x1), which is what the JAX package passes to
+``nn.Conv``, so the two frameworks pad alike at every stride.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+class FrozenBatchNorm(nn.Module):
+    """BatchNorm that always uses its stored statistics (``norm_eval=True``).
+
+    ``weight``/``bias`` are parameters, ``running_mean``/``running_var``
+    buffers (mmdet's names). The statistics fold into a scale and shift in
+    float32, which then apply in the input's dtype, so a bf16 backbone stays
+    bf16.
+    """
+
+    def __init__(self, num_features: int, eps: float = 1e-5,
+                 zero_init: bool = False):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.zeros(num_features) if zero_init
+                                   else torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        inv32 = self.weight.float() * torch.rsqrt(self.running_var.float()
+                                                  + self.eps)
+        shift32 = self.bias.float() - self.running_mean.float() * inv32
+        return (x * inv32.to(x.dtype)[:, None, None]
+                + shift32.to(x.dtype)[:, None, None])
+
+
+class GroupNorm(nn.GroupNorm):
+    """GroupNorm(32, eps 1e-5) as the JAX package builds it.
+
+    flax computes the variance as E[x^2] - E[x]^2; ``F.group_norm`` takes two
+    passes. The parity tests state the tolerance that follows.
+    """
+
+    def __init__(self, num_channels: int, num_groups: int = 32,
+                 zero_init: bool = False):
+        super().__init__(num_groups, num_channels, eps=1e-5)
+        if zero_init:
+            nn.init.zeros_(self.weight)
+
+
+def make_norm(norm_cfg: dict | None, num_features: int,
+              zero_init: bool = False) -> nn.Module:
+    """'BN'/'SyncBN' -> FrozenBatchNorm, 'GN' -> GroupNorm. ``zero_init``
+    zero-inits the affine scale (mmdet's ``zero_init_residual``)."""
+    norm_cfg = norm_cfg or dict(type="BN")
+    t = norm_cfg.get("type", "BN")
+    if t in ("BN", "SyncBN"):
+        return FrozenBatchNorm(num_features, zero_init=zero_init)
+    if t == "GN":
+        return GroupNorm(num_features, norm_cfg.get("num_groups", 32),
+                         zero_init=zero_init)
+    raise ValueError(f"unknown norm type {t}")
+
+
+class Scale(nn.Module):
+    """Learnable scalar multiplier (mmcv ``Scale``)."""
+
+    def __init__(self, init_value: float = 1.0):
+        super().__init__()
+        self.scale = nn.Parameter(torch.tensor(float(init_value)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x * self.scale
+
+
+def make_conv(conv_cfg: dict | None, in_channels: int, out_channels: int,
+              kernel_size: int, stride: int = 1, dilation: int = 1,
+              use_bias: bool = False) -> nn.Conv2d:
+    """``nn.Conv2d`` with the JAX package's explicit padding. Conv types
+    other than the plain one (weight-standardised 'ConvWS') are not ported
+    yet and raise."""
+    if conv_cfg:
+        raise NotImplementedError(
+            f"conv type {conv_cfg.get('type')!r} is not ported yet")
+    p = dilation * (kernel_size - 1) // 2
+    return nn.Conv2d(in_channels, out_channels, kernel_size, stride=stride,
+                     padding=p, dilation=dilation, bias=use_bias)
+
+
+def conv3x3(in_channels: int, out_channels: int, stride: int = 1,
+            dilation: int = 1, use_bias: bool = False) -> nn.Conv2d:
+    return make_conv(None, in_channels, out_channels, 3, stride, dilation,
+                     use_bias)
+
+
+def conv1x1(in_channels: int, out_channels: int, stride: int = 1,
+            use_bias: bool = False) -> nn.Conv2d:
+    return make_conv(None, in_channels, out_channels, 1, stride,
+                     use_bias=use_bias)
+
+
+def max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
+    """3x3/2 max pool with pad 1 (``MaxPool2d(3, 2, 1)``)."""
+    return F.max_pool2d(x, 3, stride=2, padding=1)
+
+
+def he_normal_(weight: torch.Tensor, generator: torch.Generator | None = None):
+    """flax ``he_normal``: truncated normal, variance 2/fan_in."""
+    fan_in = weight[0].numel()
+    # flax truncates at 2 std and rescales so the variance stays 2/fan_in
+    std = math.sqrt(2.0 / fan_in) / 0.87962566103423978
+    return nn.init.trunc_normal_(weight, 0.0, std, -2 * std, 2 * std,
+                                 generator=generator)
+
+
+def normal_init(module: nn.Module, std: float = 0.01, bias: float = 0.0,
+                generator: torch.Generator | None = None):
+    nn.init.normal_(module.weight, 0.0, std, generator=generator)
+    if getattr(module, "bias", None) is not None:
+        nn.init.constant_(module.bias, bias)
+
+
+def bias_init_with_prob(prior_prob: float) -> float:
+    """Focal-loss classifier bias: -log((1-p)/p)."""
+    return float(-math.log((1 - prior_prob) / prior_prob))

@@ -1,0 +1,101 @@
+"""Feature Pyramid Network, NCHW.
+
+Counterpart of ``dsl_tpu/models/necks/fpn.py`` in the form the DSL configs
+use: ``start_level=1``, ``add_extra_convs='on_output'``,
+``relu_before_extra_convs=True``, no norm, nearest top-down upsample. P3-P5
+come from lateral + top-down fusion, P6/P7 from stride-2 3x3 convs on P5's
+output with a relu before the second. Other forms raise.
+
+Submodule names are mmdet's: ``lateral_convs.i.conv`` and ``fpn_convs.i.conv``,
+the extra convs continuing the ``fpn_convs`` numbering.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from dsl_tpu_torch.registry import NECKS
+from dsl_tpu_torch.models.layers import make_conv
+
+
+def _upsample_nearest_2x(x: torch.Tensor, target_hw) -> torch.Tensor:
+    """Repeat 2x then crop to the lateral's (H, W) — the JAX package's form,
+    which differs from ``interpolate(size=...)`` on odd sizes."""
+    th, tw = target_hw
+    out = x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
+    return out[:, :, :th, :tw]
+
+
+class _ConvModule(nn.Module):
+    """mmcv ``ConvModule`` with no norm and no activation: keeps the
+    ``.conv`` level of mmdet's parameter names."""
+
+    def __init__(self, conv: nn.Conv2d):
+        super().__init__()
+        self.conv = conv
+
+    def forward(self, x):
+        return self.conv(x)
+
+
+@NECKS.register
+class FPN(nn.Module):
+    def __init__(self, in_channels: Sequence[int] = (256, 512, 1024, 2048),
+                 out_channels: int = 256, num_outs: int = 5,
+                 start_level: int = 0, end_level: int = -1,
+                 add_extra_convs: bool | str = False,
+                 relu_before_extra_convs: bool = False,
+                 no_norm_on_lateral: bool = True, conv_cfg: dict | None = None,
+                 norm_cfg: dict | None = None,
+                 upsample_cfg: dict | None = None):
+        super().__init__()
+        if add_extra_convs != "on_output" or end_level != -1:
+            raise NotImplementedError(
+                f"FPN add_extra_convs={add_extra_convs!r}, end_level="
+                f"{end_level}: only 'on_output' to the last level is ported")
+        if norm_cfg is not None or conv_cfg is not None:
+            raise NotImplementedError("FPN with norm/conv_cfg is not ported yet")
+        if (upsample_cfg or {}).get("mode", "nearest") != "nearest":
+            raise NotImplementedError("only nearest FPN upsampling is ported")
+        self.in_channels = list(in_channels)
+        self.start_level = start_level
+        self.relu_before_extra_convs = relu_before_extra_convs
+        used = self.in_channels[start_level:]
+
+        def conv(cin, k, stride):
+            return _ConvModule(make_conv(None, cin, out_channels, k, stride,
+                                         use_bias=True))
+
+        self.lateral_convs = nn.ModuleList(conv(c, 1, 1) for c in used)
+        convs = [conv(out_channels, 3, 1) for _ in used]
+        convs += [conv(out_channels, 3, 2) for _ in range(num_outs - len(used))]
+        self.fpn_convs = nn.ModuleList(convs)
+
+    def init_weights(self, generator: torch.Generator | None = None):
+        for m in self.modules():
+            if isinstance(m, nn.Conv2d):
+                nn.init.xavier_uniform_(m.weight, generator=generator)
+                nn.init.zeros_(m.bias)
+
+    def forward(self, inputs):
+        if len(inputs) != len(self.in_channels):
+            raise ValueError(f"FPN got {len(inputs)} inputs for "
+                             f"{len(self.in_channels)} in_channels")
+        used = inputs[self.start_level:]
+        n_used = len(used)
+        laterals = [lat(x) for lat, x in zip(self.lateral_convs, used)]
+        for i in range(n_used - 1, 0, -1):
+            laterals[i - 1] = laterals[i - 1] + _upsample_nearest_2x(
+                laterals[i], laterals[i - 1].shape[2:])
+        outs = [self.fpn_convs[i](laterals[i]) for i in range(n_used)]
+        src = outs[-1]
+        for i, extra in enumerate(self.fpn_convs[n_used:]):
+            if i > 0 and self.relu_before_extra_convs:
+                src = F.relu(src)
+            src = extra(src)
+            outs.append(src)
+        return tuple(outs)

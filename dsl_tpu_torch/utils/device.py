@@ -1,0 +1,15 @@
+"""Device choice for the port's entry points."""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device: str | torch.device = "cuda") -> torch.device:
+    """The torch device for an entry point: CUDA unless the caller asks for
+    the CPU, and an error, not a quiet CPU run, where CUDA is absent."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' to run "
+                           "on the CPU")
+    return device

@@ -1,0 +1,123 @@
+"""Weight bridge between the JAX package's flax variables and the port's
+``state_dict``.
+
+``flax_to_state_dict`` maps a ``{"params", "batch_stats"}`` tree of numpy
+arrays (as ``dsl_tpu``'s detectors hold them) to the port's state_dict;
+``state_dict_to_flax`` maps back. Neither imports JAX or flax: the tree is
+plain nested dicts. What changes on the way:
+
+- conv kernels: flax HWIO <-> torch OIHW (``transpose(3, 2, 0, 1)``);
+- FrozenBN: ``params/scale,bias`` + ``batch_stats/mean,var`` <->
+  ``weight, bias, running_mean, running_var``; GroupNorm ``scale,bias`` <->
+  ``weight, bias``; the per-level ``Scale`` keeps its scalar ``scale``;
+- module names: flax's flat names (``layer2_0``, ``stage_bn1_0``,
+  ``extra_conv0``, ``cls_gn3``, ``scale2``) <-> the mmdet/RLA checkpoint
+  names the port's modules carry (``stages.1.0``, ``stage_bns.1.0``,
+  ``fpn_convs.3.conv``, ``cls_convs.3.gn``, ``scales.2``).
+"""
+
+from __future__ import annotations
+
+import re
+
+import numpy as np
+import torch
+
+# (flax dotted module path pattern, torch replacement); `{n_lat}` is the
+# number of FPN laterals, where mmdet's fpn_convs list continues with the
+# extra convs.
+_TO_TORCH = [
+    (r"\blayer(\d+)_(\d+)\b", lambda m, n: f"stages.{int(m[1]) - 1}.{m[2]}"),
+    (r"\bdownsample_conv\b", lambda m, n: "downsample.0"),
+    (r"\bdownsample_bn\b", lambda m, n: "downsample.1"),
+    (r"\bconv_out(\d+)\b", lambda m, n: f"conv_outs.{m[1]}"),
+    (r"\brecurrent_conv(\d+)\b", lambda m, n: f"recurrent_convs.{m[1]}"),
+    (r"\bstage_bn(\d+)_(\d+)\b", lambda m, n: f"stage_bns.{m[1]}.{m[2]}"),
+    (r"\blateral_conv(\d+)\b", lambda m, n: f"lateral_convs.{m[1]}.conv"),
+    (r"\bfpn_conv(\d+)\b", lambda m, n: f"fpn_convs.{m[1]}.conv"),
+    (r"\bextra_conv(\d+)\b", lambda m, n: f"fpn_convs.{n + int(m[1])}.conv"),
+    (r"\b(cls|reg)_conv(\d+)\b", lambda m, n: f"{m[1]}_convs.{m[2]}.conv"),
+    (r"\b(cls|reg)_gn(\d+)\b", lambda m, n: f"{m[1]}_convs.{m[2]}.gn"),
+    (r"\bscale(\d+)\b", lambda m, n: f"scales.{m[1]}"),
+]
+
+_TO_FLAX = [
+    (r"\bstages\.(\d+)\.(\d+)\b", lambda m, n: f"layer{int(m[1]) + 1}_{m[2]}"),
+    (r"\bdownsample\.0\b", lambda m, n: "downsample_conv"),
+    (r"\bdownsample\.1\b", lambda m, n: "downsample_bn"),
+    (r"\bconv_outs\.(\d+)\b", lambda m, n: f"conv_out{m[1]}"),
+    (r"\brecurrent_convs\.(\d+)\b", lambda m, n: f"recurrent_conv{m[1]}"),
+    (r"\bstage_bns\.(\d+)\.(\d+)\b", lambda m, n: f"stage_bn{m[1]}_{m[2]}"),
+    (r"\blateral_convs\.(\d+)\.conv\b", lambda m, n: f"lateral_conv{m[1]}"),
+    (r"\bfpn_convs\.(\d+)\.conv\b",
+     lambda m, n: (f"fpn_conv{m[1]}" if int(m[1]) < n
+                   else f"extra_conv{int(m[1]) - n}")),
+    (r"\b(cls|reg)_convs\.(\d+)\.conv\b", lambda m, n: f"{m[1]}_conv{m[2]}"),
+    (r"\b(cls|reg)_convs\.(\d+)\.gn\b", lambda m, n: f"{m[1]}_gn{m[2]}"),
+    (r"\bscales\.(\d+)\b", lambda m, n: f"scale{m[1]}"),
+]
+
+
+def _rename(path: str, rules, n_lat: int) -> str:
+    for pattern, repl in rules:
+        path = re.sub(pattern, lambda m: repl(m, n_lat), path)
+    return path
+
+
+def _leaves(tree: dict, prefix: tuple = ()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def flax_to_state_dict(variables: dict) -> dict[str, torch.Tensor]:
+    """flax ``{"params", "batch_stats"}`` tree of arrays -> port state_dict."""
+    params = variables["params"]
+    n_lat = sum(1 for k in params.get("neck", {}) if k.startswith("lateral_conv"))
+    sd: dict[str, torch.Tensor] = {}
+    for collection in ("params", "batch_stats"):
+        for path, arr in _leaves(variables.get(collection, {})):
+            module = _rename(".".join(path[:-1]), _TO_TORCH, n_lat)
+            leaf = path[-1]
+            arr = np.asarray(arr)
+            if collection == "batch_stats":
+                name = {"mean": "running_mean", "var": "running_var"}[leaf]
+            elif leaf == "kernel":
+                name = "weight"
+                arr = np.transpose(arr, (3, 2, 0, 1))
+            elif leaf == "scale":
+                name = "scale" if re.search(r"\bscales\.\d+$", module) else "weight"
+            else:
+                name = leaf
+            # np.array, not ascontiguousarray, which makes 0-d arrays 1-d
+            sd[f"{module}.{name}"] = torch.from_numpy(np.array(arr, np.float32))
+    return sd
+
+
+def state_dict_to_flax(state_dict: dict) -> dict:
+    """Port state_dict -> flax ``{"params", "batch_stats"}`` tree of numpy
+    arrays (the inverse of :func:`flax_to_state_dict`)."""
+    n_lat = len({m[1] for k in state_dict
+                 if (m := re.match(r"neck\.lateral_convs\.(\d+)\.", k))})
+    out: dict = {"params": {}, "batch_stats": {}}
+    for key, value in state_dict.items():
+        module, name = key.rsplit(".", 1)
+        if name == "num_batches_tracked":
+            continue
+        arr = value.detach().cpu().numpy()
+        collection = "params"
+        if name in ("running_mean", "running_var"):
+            collection, leaf = "batch_stats", name[len("running_"):]
+        elif name == "weight" and arr.ndim == 4:
+            leaf, arr = "kernel", np.transpose(arr, (2, 3, 1, 0))
+        elif name == "weight":
+            leaf = "scale"
+        else:
+            leaf = name
+        d = out[collection]
+        for part in _rename(module, _TO_FLAX, n_lat).split("."):
+            d = d.setdefault(part, {})
+        d[leaf] = np.array(arr)
+    return out

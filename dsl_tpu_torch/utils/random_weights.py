@@ -1,0 +1,61 @@
+"""Seeded numpy weights in the flax variable layout, for smoke runs and
+parity tests (no pretrained checkpoint ships with the repo).
+
+``fill_variables`` takes a tree whose leaves have a ``.shape`` (flax
+``ShapeDtypeStruct``s from ``jax.eval_shape``, or the arrays of
+``state_dict_to_flax``) and returns float32 arrays:
+
+- conv kernels: normals with variance 1/fan_in, so activations stay O(1)
+  through the depth;
+- norm scales near 1, biases small, BN means small and variances in
+  [0.5, 1.5] (positive, as real statistics are);
+- the classifier: a small kernel and a bias per class, ``LIVE_CLASSES``
+  classes with scores well above ``score_thr`` (logits in [-1.5, 1]) and
+  the rest far below it (-8), so predict has many candidates for NMS and
+  none lies near the threshold;
+- the box regressor: a small kernel and biases in [1.5, 3], so boxes span
+  a few strides and neighbouring points' boxes overlap past the NMS
+  threshold, as real detections do (random relu'd distances would give
+  thin boxes that suppress nothing).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+LIVE_CLASSES = 8
+
+
+def fill_variables(shapes: dict, seed: int = 0) -> dict:
+    rng = np.random.RandomState(seed)
+
+    def fill(path, leaf):
+        name = path[-1]
+        shape = tuple(leaf.shape)
+        if path[-2:] == ("conv_cls", "kernel"):
+            v = rng.randn(*shape) * 0.02 / np.sqrt(np.prod(shape[:-1]))
+        elif path[-2:] == ("conv_cls", "bias"):
+            live = np.arange(shape[0]) < LIVE_CLASSES
+            v = np.where(live, rng.uniform(-1.5, 1.0, shape), -8.0)
+        elif path[-2:] == ("conv_reg", "kernel"):
+            v = rng.randn(*shape) * 0.3 / np.sqrt(np.prod(shape[:-1]))
+        elif path[-2:] == ("conv_reg", "bias"):
+            v = rng.uniform(1.5, 3.0, shape)
+        elif name == "kernel":
+            v = rng.randn(*shape) / np.sqrt(np.prod(shape[:-1]))
+        elif name == "var":
+            v = rng.uniform(0.5, 1.5, shape)
+        elif name == "mean":
+            v = rng.randn(*shape) * 0.1
+        elif name == "scale":
+            v = 1.0 + 0.1 * rng.randn(*shape)
+        else:
+            v = 0.1 * rng.randn(*shape)
+        return np.asarray(v, np.float32)
+
+    def walk(tree, prefix=()):
+        return {k: walk(v, prefix + (k,)) if hasattr(v, "items")
+                else fill(prefix + (k,), v) for k, v in tree.items()}
+
+    return walk(shapes)
