@@ -13,7 +13,8 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    ``nvcc`` for sm_90a.
 3. kernels vs plain versions: ``nms_keep`` against ``nms_keep_reference``
    on the card, bit-identical keeps on every edge case of
-   ``dsl_tpu_torch.ops.nms_cases``.
+   ``dsl_tpu_torch.ops.nms_cases`` and on its card-only ``timing_cases()``
+   (up to B=1, N=30000).
 4. main path at full width: the flagship FCOS-RLA-R50 from
    ``configs/fcos_semi/RLA_r50_fcos_semi_dsl.py`` with seeded numpy weights
    through the weight bridge, built by ``init_detector``; with every kernel
@@ -26,8 +27,13 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    outputs must agree with a CPU run of the same model on a small input.
 5. timing: predict ms (median, min and max of 20) and img/s in f32 and
    bf16, one ``torch.profiler`` trace of each for the device's idle share
-   and its largest kernels, and each kernel's time beside its plain version
-   and its bound.
+   and its largest kernels. Then the NMS kernel on four inputs (the
+   recorded f32 predict input at B=8, the recorded request input at B=1,
+   and the dense and sparse timing cases at B=8): the device time of each
+   of its two passes from one ``torch.profiler`` trace over 100 calls, the
+   wrapper's time by CUDA events over 100 calls (host work included), the
+   plain version's time and the bound. The kernels line reports the
+   predict input: ``ms`` is the two passes' device time per call.
 
 f32 runs with TF32 off (``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32`` False): cuDNN convolutions would
@@ -57,6 +63,9 @@ H100_F32_FLOP_PER_S = 67e12   # f32 outside the tensor cores, H100 SXM data shee
 IOU_OPS = 14                  # f32 ops per IoU test: 4 min/max, 2 sub, 2 clamp,
                               # mul, add, sub, floor, div, compare
 AREA_OPS = 5
+NMS_PASSES = {"mask": "nms_mask_kernel", "scan": "nms_scan_kernel"}
+NMS_TRACE_REPS = 100          # nms_keep calls in one profiler trace
+NMS_TRACE_TRIES = 3           # traces taken before a lossy one fails the run
 
 
 def log(*args):
@@ -162,14 +171,16 @@ def phase_build():
 
 
 def phase_kernel_cases():
-    """Every edge case: the kernel's keeps equal the plain version's."""
+    """Every edge case and every card-only case: the kernel's keeps equal
+    the plain version's."""
     import torch
 
     from dsl_tpu_torch.ops import nms_cases
     from dsl_tpu_torch.ops.nms import nms_keep, nms_keep_reference
 
     worst = 0
-    for name, boxes, valid, thr in nms_cases.cases() + [nms_cases.tiny_boxes()]:
+    for name, boxes, valid, thr in (nms_cases.cases() + [nms_cases.tiny_boxes()]
+                                    + nms_cases.timing_cases()):
         b = torch.from_numpy(boxes).to(DEVICE)
         v = torch.from_numpy(valid).to(DEVICE)
         got = nms_keep(b, v, thr)
@@ -312,8 +323,7 @@ def phase_main_path():
     if worst_rel > 1e-3:
         raise AssertionError(f"card and CPU disagree: {worst_rel}")
 
-    big_call = next(c for c in calls if c[0].shape[0] == BATCH)
-    return bundle, images, launches, worst, big_call
+    return bundle, images, launches, worst, calls
 
 
 def kernel_bound_ms(boxes, valid, keep) -> tuple[float, str]:
@@ -333,12 +343,11 @@ def kernel_bound_ms(boxes, valid, keep) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def phase_timing(bundle, images, big_call, smi: str):
+def phase_timing(bundle, images, smi: str):
     import torch
     from torch.func import functional_call
 
     from dsl_tpu_torch.models import detector_predict, fcos_get_bboxes
-    from dsl_tpu_torch.ops.nms import nms_keep, nms_keep_reference
     from dsl_tpu_torch.utils.precision import outputs_to_f32, to_compute
 
     det = bundle.detector
@@ -380,14 +389,84 @@ def phase_timing(bundle, images, big_call, smi: str):
         log(f"[time] {tag} split: forward {fwd:.2f} ms, decode + NMS "
             f"{post:.2f} ms (device time)  ({smi})")
 
-    boxes, valid, thr, keep = big_call
-    ms = cuda_ms(lambda: nms_keep(boxes, valid, thr), reps=100, warmup=5)
-    plain = cuda_ms(lambda: nms_keep_reference(boxes, valid, thr), reps=10)
-    bound, bound_by = kernel_bound_ms(boxes, valid, keep)
-    log(f"[time] nms_keep B={boxes.shape[0]} N={boxes.shape[1]}: kernel "
-        f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.6f} ms ({bound_by})"
-        f"  ({smi})")
-    return dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=bound_by)
+
+def nms_pass_ms(boxes, valid, thr) -> dict[str, float]:
+    """Device time per call of each pass of nms_keep, from a torch.profiler
+    trace over NMS_TRACE_REPS calls: the mean device duration of the pass's
+    kernel, by name. The trace may drop records (seen on the card): one that
+    kept fewer than half of the calls of a pass is taken again, up to
+    NMS_TRACE_TRIES traces, and then fails the run."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dsl_tpu_torch.ops.nms import nms_keep
+
+    for _ in range(5):
+        nms_keep(boxes, valid, thr)
+    torch.cuda.synchronize()
+    for _ in range(NMS_TRACE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(NMS_TRACE_REPS):
+                nms_keep(boxes, valid, thr)
+            torch.cuda.synchronize()
+        total = {p: 0.0 for p in NMS_PASSES}
+        count = {p: 0 for p in NMS_PASSES}
+        for e in prof.events():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            for p, kname in NMS_PASSES.items():
+                if kname in e.name:
+                    total[p] += e.time_range.elapsed_us()
+                    count[p] += 1
+        if max(count.values()) > NMS_TRACE_REPS:
+            raise AssertionError(f"profiler saw {count} NMS pass kernels over "
+                                 f"{NMS_TRACE_REPS} calls")
+        if min(count.values()) < NMS_TRACE_REPS:
+            log(f"[trace] nms_keep: the profiler kept {count} of "
+                f"{NMS_TRACE_REPS} records")
+        if 2 * min(count.values()) >= NMS_TRACE_REPS:
+            return {p: total[p] / count[p] / 1e3 for p in NMS_PASSES}
+    raise AssertionError(f"{NMS_TRACE_TRIES} profiler traces each kept fewer "
+                         f"than half of {NMS_TRACE_REPS} NMS calls")
+
+
+def phase_nms_timing(calls, smi: str) -> dict:
+    """The NMS kernel on its four timing inputs: the recorded f32 predict
+    input (B=8) and request input (B=1) of the main path, and the dense and
+    sparse cases of nms_cases.timing_cases(). Per input: each pass's device
+    time and their sum per call (profiler), the wrapper's time (CUDA events
+    around 100 calls of nms_keep, host work included), the plain version's
+    time and the bound."""
+    import torch
+
+    from dsl_tpu_torch.ops import nms_cases
+    from dsl_tpu_torch.ops.nms import nms_keep, nms_keep_reference
+
+    predict = next(c for c in calls if c[0].shape[0] == BATCH)
+    request = next(c for c in calls if c[0].shape[0] == 1)
+    inputs = [("predict_b8", *predict[:3]), ("request_b1", *request[:3])]
+    for name, boxes, valid, thr in nms_cases.timing_cases():
+        if name in ("dense_b8", "sparse_b8"):
+            inputs.append((name, torch.from_numpy(boxes).to(DEVICE),
+                           torch.from_numpy(valid).to(DEVICE), thr))
+    out = {}
+    for name, boxes, valid, thr in inputs:
+        keep = nms_keep_reference(boxes, valid, thr)
+        passes = nms_pass_ms(boxes, valid, thr)
+        device = sum(passes.values())
+        wrapper = cuda_ms(lambda: nms_keep(boxes, valid, thr), reps=100, warmup=5)
+        plain = cuda_ms(lambda: nms_keep_reference(boxes, valid, thr), reps=5)
+        bound, bound_by = kernel_bound_ms(boxes, valid, keep)
+        split = ", ".join(f"{p} {ms:.4f}" for p, ms in passes.items())
+        log(f"[time] nms_keep {name} B={boxes.shape[0]} N={boxes.shape[1]} "
+            f"kept {int(keep.sum())}: device {device:.4f} ms ({split}), "
+            f"wrapper {wrapper:.4f} ms, plain {plain:.4f} ms, bound "
+            f"{bound:.6f} ms ({bound_by}), {device / bound:.1f}x the bound"
+            f"  ({smi})")
+        out[name] = dict(ms=device, wrapper_ms=wrapper, plain_ms=plain,
+                         bound_ms=bound, bound_by=bound_by, **passes)
+    return out
 
 
 def main() -> int:
@@ -401,8 +480,9 @@ def main() -> int:
     name, smi = phase_device()
     phase_build()
     case_err = phase_kernel_cases()
-    bundle, images, launches, path_err, big_call = phase_main_path()
-    nms_times = phase_timing(bundle, images, big_call, smi)
+    bundle, images, launches, path_err, calls = phase_main_path()
+    phase_timing(bundle, images, smi)
+    nms_times = phase_nms_timing(calls, smi)["predict_b8"]
     kernels = [dict(
         name="nms_keep", route="cuda",
         source="dsl_tpu_torch/csrc/nms_kernel.cu",

@@ -6,20 +6,23 @@ dependencies:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_port_cuda.py
 
 - ``nms_keep`` launches ``csrc/nms_kernel.cu`` and gives keeps bit-identical
-  to ``nms_keep_reference`` on every case of ``dsl_tpu_torch.ops.nms_cases``;
+  to ``nms_keep_reference`` on every case of ``dsl_tpu_torch.ops.nms_cases``,
+  the card-only ``timing_cases()`` included;
 - the wrapper refuses what the kernel does not take (a non-contiguous or
-  misaligned box tensor, tensors on two devices) instead of launching;
+  misaligned box tensor, tensors on two devices) instead of launching, and
+  takes an N past the first kernel's shared-memory ceiling (about 28k);
 - the launch goes to the tensors' card whichever card is current (two
   cards needed).
 """
 
+import numpy as np
 import pytest
 import torch
 
 from dsl_tpu_torch.ops import nms_cases
 from dsl_tpu_torch.ops.nms import nms_keep, nms_keep_reference
 
-CASES = nms_cases.cases() + [nms_cases.tiny_boxes()]
+CASES = nms_cases.cases() + [nms_cases.tiny_boxes()] + nms_cases.timing_cases()
 
 
 @pytest.fixture
@@ -60,6 +63,14 @@ def test_kernel_refuses_what_it_does_not_take(card):
     with pytest.raises(ValueError, match="one CUDA device"):
         nms_keep(b, v.cpu(), thr)
     assert nms_keep.launches == before
+    # the first version's scan kept (N/64 + 1) * N/8 bytes in shared memory
+    # and refused N of about 28k and more; the scratch in device memory is
+    # the only limit now
+    big = torch.from_numpy(nms_cases.random_boxes(np.random.RandomState(0), 1,
+                                                  40000)).to(card)
+    keep = nms_keep(big, torch.ones(1, 40000, dtype=torch.bool, device=card), thr)
+    torch.cuda.synchronize()
+    assert nms_keep.launches == before + 1 and bool(keep[0, 0])
 
 
 @pytest.mark.cuda

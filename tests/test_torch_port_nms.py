@@ -7,6 +7,8 @@
   wherever the union is >= 1e-6 (the two floors agree there);
 - one case of overlapping boxes with unions below 1e-6, where the 1e-10
   floor (kernel, reference) and the 1e-6 floor (``_greedy_keep``) part;
+- the pairs of the ``iou_ulp`` cases land one ulp below, at and one ulp
+  above the f32 threshold;
 - ``nms``, ``batched_nms`` and ``multiclass_nms`` against JAX on random
   inputs with tied scores: equal labels and masks, values within 1e-6.
 """
@@ -21,8 +23,9 @@ import torch
 
 from dsl_tpu.ops.nms_pallas import pallas_nms_keep
 from dsl_tpu_torch.core import nms as tnms
+from dsl_tpu_torch.core.boxes import bbox_overlaps
 from dsl_tpu_torch.ops import nms_cases
-from dsl_tpu_torch.ops.nms import nms_keep, nms_keep_reference
+from dsl_tpu_torch.ops.nms import UNION_FLOOR, nms_keep, nms_keep_reference
 
 torch.set_num_threads(2)
 
@@ -81,6 +84,23 @@ def test_union_floor_is_the_kernels():
     np.testing.assert_array_equal(got, pallas)
     # with the 1e-6 floor these IoUs shrink below thr and nothing goes
     assert jacobi.all() and not got.all()
+
+
+@pytest.mark.parametrize("thr", nms_cases.ULP_THRESHOLDS)
+def test_threshold_pairs_straddle_the_threshold(thr):
+    """The pairs of the iou_ulp cases land one ulp below, at and one ulp
+    above the f32 threshold in the plain version's arithmetic."""
+    boxes = nms_cases.threshold_pairs(np.random.RandomState(0), thr)[0]
+    iou = torch.diagonal(bbox_overlaps(torch.from_numpy(boxes[0::2]),
+                                       torch.from_numpy(boxes[1::2]),
+                                       eps=UNION_FLOOR)).numpy()
+    t = np.float32(thr)
+    want = np.repeat([np.nextafter(t, np.float32(0)), t,
+                      np.nextafter(t, np.float32(1))],
+                     nms_cases.PAIRS_PER_TARGET)
+    np.testing.assert_array_equal(iou, want)
+    np.testing.assert_array_equal(
+        iou, nms_cases.iou_f32(boxes[0::2], boxes[1::2]))
 
 
 def test_nms_keep_takes_the_plain_version_on_cpu():
