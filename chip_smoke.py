@@ -35,6 +35,34 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    plain version's time and the bound. The kernels line reports the
    predict input: ``ms`` is the two passes' device time per call.
 
+6. train path at full width: the flagship's training entry point
+   (``build_detector``, ``frozen_backbone_mask``,
+   ``build_optimizer_from_cfg`` with the config's optimizer blocks,
+   ``create_train_state``, ``make_train_step``) on one seeded batch of 2
+   labeled and 2 unlabeled images at 800x1344 plus the half-res copy of the
+   last one (the si pair), B=5. With every kernel count at 0: 3 warm-up and
+   20 timed steps in f32, the same from the same seeded state in bf16, then
+   one ``make_eval_step(use_teacher=True)`` on the batch's images; then the
+   counts are read. Losses and ``grad_norm`` must be finite, ``step`` 23,
+   the frozen parameters bit-identical to their start, the teacher after
+   the first step equal to ``ema_update`` of its start and the student;
+   the first bf16 step's losses and ``grad_norm`` (si-soft aside) must part
+   from the first f32 step's by more than 1e-5 and at most 2e-2 relative
+   (bf16 ran, and near f32); the steps must launch the NMS kernel 0 times
+   and the eval step once, and the eval step's keeps (B=5, N=2000) must
+   equal the plain version's. Then
+   one f32 step of the same model on a small batch (a labeled image and its
+   half-res copy, 128x192) on the card and on the CPU: losses within 1e-4
+   and ``grad_norm`` within 1e-3 relative, the updated parameters within
+   the banded check (per parameter 5% of its update, floor 1e-5; all of
+   them 1e-3 in relative L2).
+7. train timing, f32 and bf16: step ms (median, min and max of the 20
+   timed steps, each ending in a synchronize), img/s over the 4 real
+   images, peak device memory, one ``torch.profiler`` trace of a step
+   (device busy, idle share, the 10 largest kernels) and a split of one
+   step by CUDA events into forward, targets + loss, backward, clip + SGD
+   and EMA.
+
 f32 runs with TF32 off (``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32`` False): cuDNN convolutions would
 otherwise round their inputs to TF32.
@@ -66,6 +94,12 @@ AREA_OPS = 5
 NMS_PASSES = {"mask": "nms_mask_kernel", "scan": "nms_scan_kernel"}
 NMS_TRACE_REPS = 100          # nms_keep calls in one profiler trace
 NMS_TRACE_TRIES = 3           # traces taken before a lossy one fails the run
+TRAIN_WARMUP, TRAIN_STEPS = 3, 20
+# the flagship's LR steps at epochs 20 and 26: with any real epoch length
+# the smoke's steps stay in the warm-up
+TRAIN_STEPS_PER_EPOCH = 1000
+TRAIN_SEED = 0
+SPLIT = ("forward", "loss", "backward", "optimizer", "ema")
 
 
 def log(*args):
@@ -108,7 +142,7 @@ def host_ms(fn, reps: int, warmup: int = 2) -> list[float]:
 def device_busy(fn) -> tuple[float, float, int, list] | None:
     """One torch.profiler trace of fn(): the union of device kernel time,
     the traced window (first event to last), the number of kernels and the
-    five kernels that take the most time, or None where the profiler saw no
+    ten kernels that take the most time, or None where the profiler saw no
     device event."""
     import torch
     from torch.autograd import DeviceType
@@ -136,7 +170,7 @@ def device_busy(fn) -> tuple[float, float, int, list] | None:
     for e in events:
         if e.device_type == DeviceType.CUDA:
             per_name[e.name] = per_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:5]
+    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:10]
     return busy / 1e3, window / 1e3, len(spans), top
 
 
@@ -228,18 +262,15 @@ def seeded_variables(cfg) -> dict:
     return fill_variables(shapes)
 
 
-def phase_main_path():
+def phase_main_path(cfg, variables):
     import numpy as np
     import torch
 
     from dsl_tpu_torch.apis import inference_detector, init_detector
-    from dsl_tpu_torch.config import Config
     from dsl_tpu_torch.models import detector_predict, fcos_get_bboxes
     from dsl_tpu_torch.ops.nms import nms_keep, nms_keep_reference
     from dsl_tpu_torch.utils.precision import outputs_to_f32
 
-    cfg = Config.fromfile(str(CONFIG))
-    variables = seeded_variables(cfg)
     bundle = init_detector(cfg, variables=variables, device=DEVICE)
     det = bundle.detector
     n_params = sum(p.numel() for p in det.parameters())
@@ -469,6 +500,249 @@ def phase_nms_timing(calls, smi: str) -> dict:
     return out
 
 
+def train_batch(cfg, seed: int, canvas, n_labeled: int, n_unlabeled: int,
+                side, device):
+    """The seeded semi batch (see ``random_batch.semi_batch``): 1-20 GT
+    boxes per image (K=100), no ignore box on a labeled image and 0-10 on an
+    unlabeled one (Ki=60), the unlabeled images weighted by the head's
+    ``loss_weight``, plus the half-res copy of the last image."""
+    import numpy as np
+
+    from dsl_tpu_torch.utils.random_batch import semi_batch, to_torch
+
+    rng = np.random.RandomState(seed)
+    n = n_labeled + n_unlabeled
+    batch = semi_batch(
+        seed, canvas, n_gt=list(rng.randint(1, 21, n)),
+        n_ignore=[0] * n_labeled + list(rng.randint(0, 11, n_unlabeled)),
+        n_labeled=n_labeled, side=side,
+        unlabeled_weight=cfg.model.bbox_head.loss_weight)
+    return to_torch(batch, device)
+
+
+def train_entry(cfg, variables, dtype, device):
+    """The training entry point: detector with the seeded weights, frozen
+    mask, the config's optimizer, train state and step."""
+    from dsl_tpu_torch.models import build_detector
+    from dsl_tpu_torch.train import (
+        build_optimizer_from_cfg, create_train_state, frozen_backbone_mask,
+        make_train_step)
+    from dsl_tpu_torch.utils.jax_bridge import flax_to_state_dict
+
+    det = build_detector(dict(cfg.model))
+    det.load_state_dict(flax_to_state_dict(variables))
+    frozen = frozen_backbone_mask(det, cfg.model.backbone.frozen_stages)
+    tx, _ = build_optimizer_from_cfg(
+        dict(cfg.optimizer), dict(cfg.optimizer_config), dict(cfg.lr_config),
+        steps_per_epoch=TRAIN_STEPS_PER_EPOCH)
+    ema = dict(cfg.ema_config)
+    state = create_train_state(det, tx, ema_ratio=ema["ratio"], device=device)
+    step = make_train_step(det, tx, ema_interval=ema["interval"],
+                           ema_start_iter=ema["start_point"],
+                           compute_dtype=dtype, frozen_mask=frozen,
+                           device=device)
+    return state, step
+
+
+def phase_train(cfg, variables, smi: str):
+    """The train path, counted: 3 + 20 steps in f32 and in bf16 from the
+    same seeded state, then one teacher eval step, whose NMS keeps are held
+    against the plain version. Returns the launch counts, the largest keep
+    error and, per precision, the state, its step and the batch for the
+    timing."""
+    import torch
+
+    from dsl_tpu_torch.ops.nms import nms_keep, nms_keep_reference
+    from dsl_tpu_torch.train import ema_update, make_eval_step
+
+    batch = train_batch(cfg, TRAIN_SEED, CANVAS, 2, 2, (16, 600), DEVICE)
+    log(f"[train] B={batch['images'].shape[0]} at {CANVAS[0]}x{CANVAS[1]} "
+        f"(2 labeled, 2 unlabeled, 1 half-res copy): valid GT per image "
+        f"{batch['gt_valid'].sum(1).tolist()}, ignore "
+        f"{batch['ignore_valid'].sum(1).tolist()}, source weights "
+        f"{batch['source_weight'].tolist()}")
+    runs, firsts = {}, {}
+    nms_keep.launches = 0
+    for tag, dtype in (("f32", None), ("bf16", torch.bfloat16)):
+        state, step = train_entry(cfg, variables, dtype, DEVICE)
+        det = state.student
+        frozen = {n: p.detach().clone() for n, p in det.named_parameters()
+                  if not p.requires_grad}
+        torch.cuda.reset_peak_memory_stats()
+        teacher0 = state.teacher_params
+        metrics = [step(state, batch)]
+        want = ema_update(teacher0, dict(det.named_parameters()),
+                          state.ema_ratio)
+        for n, t in state.teacher_params.items():
+            rel = float((t - want[n]).abs().max()
+                        / want[n].abs().max().clamp_min(1e-12))
+            if rel > 1e-6:
+                raise AssertionError(f"{tag}: teacher {n} is not the EMA of "
+                                     f"its start and the student ({rel})")
+        metrics += [step(state, batch) for _ in range(TRAIN_WARMUP - 1)]
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            metrics.append(step(state, batch))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        keys = {"loss", "loss_cls", "loss_bbox", "loss_centerness",
+                "loss_sisoft", "grad_norm"}
+        for i, m in enumerate(metrics):
+            if set(m) != keys:
+                raise AssertionError(f"{tag} step {i}: metrics {sorted(m)}")
+            bad = [k for k, v in m.items() if not bool(torch.isfinite(v))]
+            if bad:
+                raise AssertionError(f"{tag} step {i}: not finite: {bad}")
+        if state.step != TRAIN_WARMUP + TRAIN_STEPS:
+            raise AssertionError(f"{tag}: step {state.step}")
+        for n, p in det.named_parameters():
+            if n in frozen and not torch.equal(p, frozen[n]):
+                raise AssertionError(f"{tag}: frozen {n} moved")
+        first, last = metrics[0], metrics[-1]
+        log(f"[train] {tag}: step {state.step}; {len(frozen)} frozen "
+            f"parameters bit-identical; teacher = ema_update after step 1")
+        for name, m in (("first", first), ("last", last)):
+            log(f"[train] {tag} {name} step: " + ", ".join(
+                f"{k} {float(v):.5f}" for k, v in sorted(m.items())))
+        times.sort()
+        ms = times[len(times) // 2]
+        log(f"[time] train step {tag} B=5 {CANVAS[0]}x{CANVAS[1]}: median "
+            f"{ms:.2f} ms (min {times[0]:.2f}, max {times[-1]:.2f}, "
+            f"{TRAIN_STEPS} steps), {4 / ms * 1e3:.2f} img/s (4 real "
+            f"images), peak memory {peak:.2f} GiB  ({smi})")
+        runs[tag] = (state, step)
+        firsts[tag] = first
+    # bf16 ran: its first step parts from f32's (same state and batch) by
+    # more than f32 rounding, and stays within the parity tests' bf16 limit.
+    # si-soft is left out: before soft_warm_up it is a tiny mean square of
+    # differences of near-equal logits, and bf16 moves it by tens of percent
+    rel = {k: float((firsts["bf16"][k] - v).abs() / v.abs().clamp_min(1e-12))
+           for k, v in firsts["f32"].items() if k != "loss_sisoft"}
+    log("[train] first step, bf16 vs f32: relative differences " + ", ".join(
+        f"{k} {v:.2e}" for k, v in sorted(rel.items())))
+    if max(rel.values()) <= 1e-5 or max(rel.values()) > 2e-2:
+        raise AssertionError(f"bf16 vs f32 first step: {rel} (expected the "
+                             f"largest in (1e-5, 2e-2])")
+    train_launches = nms_keep.launches
+    teacher_eval = make_eval_step(runs["bf16"][0].student,
+                                  test_cfg=dict(cfg.model.test_cfg),
+                                  use_teacher=True, device=DEVICE)
+    n_img = batch["images"].shape[0]
+    with recording_nms() as calls:
+        dets, labels, valid = teacher_eval(runs["bf16"][0], batch["images"])
+        torch.cuda.synchronize()
+    eval_launches = nms_keep.launches - train_launches
+    log(f"[train] launches: nms_keep {train_launches} in the train steps, "
+        f"{eval_launches} in the eval step")
+    if train_launches != 0 or eval_launches != 1:
+        raise AssertionError(f"NMS launches: {train_launches} in the steps, "
+                             f"{eval_launches} in the eval step")
+    if (tuple(dets.shape) != (n_img, cfg.model.test_cfg.max_per_img, 5)
+            or not bool(torch.isfinite(dets).all())):
+        raise AssertionError(f"teacher eval dets {tuple(dets.shape)}")
+    log(f"[train] teacher eval: dets {tuple(dets.shape)} finite, valid per "
+        f"image {valid.sum(1).tolist()}")
+    worst = 0
+    for boxes, cand_valid, thr, keep in calls:
+        if tuple(boxes.shape) != (n_img, 2000, 4):
+            raise AssertionError(f"teacher eval NMS input {tuple(boxes.shape)}")
+        want = nms_keep_reference(boxes, cand_valid, thr)
+        torch.cuda.synchronize()
+        worst = max(worst, int((keep.int() - want.int()).abs().max()))
+        if not torch.equal(keep, want):
+            raise AssertionError(f"teacher eval NMS keeps differ from the "
+                                 f"plain version at {tuple(boxes.shape)}")
+        log(f"[train] teacher eval NMS input {tuple(boxes.shape)}: "
+            f"{int(cand_valid.sum())} valid, {int(keep.sum())} kept — "
+            f"bit-identical to the plain version")
+    return {"nms_keep": nms_keep.launches}, worst, runs, batch
+
+
+def phase_train_timing(runs, batch, smi: str):
+    """Per precision: one profiler trace of a step, and a step split by
+    CUDA events recorded where the step enqueues each part."""
+    import torch
+
+    for tag, (state, step) in runs.items():
+        traced = device_busy(lambda: step(state, batch))
+        if traced is None:
+            log(f"[trace] train step {tag}: device idle share not measured "
+                f"(the profiler saw no device event)")
+        else:
+            busy, window, n_kernels, top = traced
+            log(f"[trace] train step {tag}: {n_kernels} kernels, device busy "
+                f"{busy:.2f} ms of a {window:.2f} ms window, idle share "
+                f"{1 - busy / window:.3f}  ({smi})")
+            for kname, us in top:
+                log(f"[trace]   {us / 1e3:8.3f} ms  {kname[:100]}")
+        events = {}
+
+        def mark(name):
+            events[name] = torch.cuda.Event(enable_timing=True)
+            events[name].record()
+
+        torch.cuda.synchronize()
+        mark("start")
+        step(state, batch, mark=mark)
+        torch.cuda.synchronize()
+        names = ("start",) + SPLIT
+        parts = {b: events[a].elapsed_time(events[b])
+                 for a, b in zip(names, names[1:])}
+        log(f"[time] train step {tag} split (CUDA events): " + ", ".join(
+            f"{k} {v:.2f}" for k, v in parts.items())
+            + f" ms; sum {sum(parts.values()):.2f} ms  ({smi})")
+
+
+def banded_max_ratio(got: dict, want: dict, init: dict) -> tuple[float, float]:
+    """The banded check of the parity tests on two updated state dicts:
+    the worst per-parameter |got - want| / max(0.05 * scale, 1e-5), scale
+    the larger update, and the relative L2 error of all updates."""
+    import torch
+
+    worst, num, den = 0.0, 0.0, 0.0
+    for n, w in want.items():
+        dw = (w - init[n]).double()
+        dg = (got[n] - init[n]).double()
+        scale = float(torch.maximum(dw.abs().max(), dg.abs().max()))
+        worst = max(worst, float((dg - dw).abs().max()) / max(0.05 * scale, 1e-5))
+        num += float(((dg - dw) ** 2).sum())
+        den += float((dw ** 2).sum())
+    return worst, (num / den) ** 0.5
+
+
+def phase_train_card_vs_cpu(cfg, variables):
+    """One f32 step of the flagship on a labeled image and its half-res
+    copy at 128x192, on the card and on the CPU."""
+    import torch
+
+    results = {}
+    for device in (DEVICE, "cpu"):
+        state, step = train_entry(cfg, variables, None, device)
+        init = {n: p.detach().cpu().clone()
+                for n, p in state.student.named_parameters()}
+        metrics = step(state, train_batch(cfg, TRAIN_SEED + 1, (128, 192), 1,
+                                          0, (8, 100), device))
+        results[device] = (
+            {k: float(v) for k, v in metrics.items()},
+            {n: p.detach().cpu() for n, p in state.student.named_parameters()})
+    (m_card, p_card), (m_cpu, p_cpu) = results[DEVICE], results["cpu"]
+    for k, v in m_cpu.items():
+        rel = abs(m_card[k] - v) / max(abs(v), 1e-12)
+        if rel > (1e-3 if k == "grad_norm" else 1e-4):
+            raise AssertionError(f"card vs CPU {k}: {m_card[k]} vs {v}")
+    worst, l2 = banded_max_ratio(p_card, p_cpu, init)
+    log(f"[train] card vs CPU, one f32 step at 2x128x192: " + ", ".join(
+        f"{k} {m_card[k]:.6f}/{m_cpu[k]:.6f}" for k in sorted(m_cpu))
+        + f"; updates: worst banded ratio {worst:.3f} (limit 1), relative "
+        f"L2 {l2:.2e} (limit 1e-3)")
+    if worst > 1 or l2 > 1e-3:
+        raise AssertionError(f"card vs CPU updates: banded ratio {worst}, "
+                             f"L2 {l2}")
+
+
 def main() -> int:
     import torch
 
@@ -480,15 +754,27 @@ def main() -> int:
     name, smi = phase_device()
     phase_build()
     case_err = phase_kernel_cases()
-    bundle, images, launches, path_err, calls = phase_main_path()
+    from dsl_tpu_torch.config import Config
+
+    cfg = Config.fromfile(str(CONFIG))
+    variables = seeded_variables(cfg)
+    bundle, images, launches, path_err, calls = phase_main_path(cfg, variables)
     phase_timing(bundle, images, smi)
     nms_times = phase_nms_timing(calls, smi)["predict_b8"]
+    del bundle, images, calls
+    torch.cuda.empty_cache()
+    train_launches, train_err, runs, batch = phase_train(cfg, variables, smi)
+    launches["nms_keep"] += train_launches["nms_keep"]
+    phase_train_timing(runs, batch, smi)
+    del runs
+    torch.cuda.empty_cache()
+    phase_train_card_vs_cpu(cfg, variables)
     kernels = [dict(
         name="nms_keep", route="cuda",
         source="dsl_tpu_torch/csrc/nms_kernel.cu",
         replaces="dsl_tpu/ops/nms_pallas.py:34",
         launches=launches["nms_keep"],
-        max_abs_err=float(max(case_err, path_err)),
+        max_abs_err=float(max(case_err, path_err, train_err)),
         ms=nms_times["ms"], plain_ms=nms_times["plain_ms"],
         bound_ms=nms_times["bound_ms"], bound_by=nms_times["bound_by"],
         library_ms=None)]

@@ -34,3 +34,8 @@ class MlvlPointGenerator:
                              f"{len(self.strides)} strides")
         return [self.single_level_points(sz, s, device)
                 for sz, s in zip(featmap_sizes, self.strides)]
+
+    def flat_points(self, featmap_sizes: list[tuple[int, int]],
+                    device: torch.device | str = "cpu") -> torch.Tensor:
+        """All levels concatenated in level order: (sum H*W, 2)."""
+        return torch.cat(self.grid_points(featmap_sizes, device), dim=0)

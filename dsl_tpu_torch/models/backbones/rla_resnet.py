@@ -11,6 +11,9 @@ the block strides.
 Submodule names are the reference RLA checkpoint's (``stages.S.B.convK``,
 ``downsample.{0,1}``, ``conv_outs.S``, ``recurrent_convs.S``,
 ``stage_bns.S.B``), the names ``dsl_tpu/utils/torch_import.py`` reads.
+
+``frozen_stages`` sets ``requires_grad=False`` on the parameters that
+:func:`is_frozen` names.
 """
 
 from __future__ import annotations
@@ -24,6 +27,24 @@ from torch import nn
 from dsl_tpu_torch.registry import BACKBONES
 from dsl_tpu_torch.models.layers import (
     conv1x1, conv3x3, he_normal_, make_norm, max_pool_3x3_s2)
+
+
+def is_frozen(name: str, frozen_stages: int) -> bool:
+    """Whether the backbone parameter ``name`` is frozen, as
+    ``dsl_tpu/train/optim.py:45-79`` reads the reference's ``_freeze_stages``:
+    with ``frozen_stages >= 0`` the stem (``conv1``, ``bn1``); with
+    ``frozen_stages = k`` also stages ``0..k-1`` with their ``conv_outs``,
+    ``recurrent_convs`` and ``stage_bns``; and always ``stage_bns.3.2``, the
+    hidden-state BN after the last block, whose output nothing reads."""
+    parts = name.split(".")
+    if parts[:3] == ["stage_bns", "3", "2"]:
+        return True
+    if frozen_stages < 0:
+        return False
+    if parts[0] in ("conv1", "bn1"):
+        return True
+    return (parts[0] in ("stages", "conv_outs", "recurrent_convs", "stage_bns")
+            and int(parts[1]) < frozen_stages)
 
 
 class RLABottleneck(nn.Module):
@@ -70,8 +91,9 @@ class RLAResNet(nn.Module):
                  norm_cfg: dict | None = None, pretrained: str | None = None,
                  num_classes: int = 1000, zero_init_last_bn: bool = True):
         super().__init__()
-        # frozen_stages / norm_eval / style / pretrained / num_classes are
-        # training or import options; the predict path does not read them.
+        # norm_eval / style / num_classes are accepted for config parity, as
+        # in the JAX package: BN is FrozenBatchNorm, the stride sits on the
+        # 3x3 whatever the style, and there is no classifier.
         if SE or ECA is not None:
             raise NotImplementedError("RLA-ResNet with SE/ECA is not ported yet")
         if pretrained:
@@ -103,6 +125,9 @@ class RLAResNet(nn.Module):
             self.recurrent_convs.append(conv3x3(rla_channel, rla_channel))
             self.stage_bns.append(nn.ModuleList(
                 make_norm(norm_cfg, rla_channel) for _ in range(n_blocks)))
+        for name, p in self.named_parameters():
+            if is_frozen(name, frozen_stages):
+                p.requires_grad_(False)
 
     def init_weights(self, generator: torch.Generator | None = None):
         for m in self.modules():

@@ -1,10 +1,10 @@
-"""Single-stage detector (FCOS), its builder and its predict function.
+"""Single-stage detector (FCOS), build_detector, its loss and its predict.
 
 Counterpart of the single-stage branch of
 ``dsl_tpu/models/detectors/single_stage.py``: ``SingleStageDetector`` /
 ``FCOS`` (backbone -> neck -> head), ``build_detector`` for single-stage
-configs, and the FCOS branch of ``detector_predict``. Other detector
-families are not ported yet and raise.
+configs, and the FCOS branches of ``detector_loss`` and ``detector_predict``.
+Other detector families and heads are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -16,7 +16,8 @@ from torch import nn
 from torch.func import functional_call
 
 from dsl_tpu_torch.registry import DETECTORS, MODELS, build_from_cfg
-from dsl_tpu_torch.models.dense_heads.fcos_head import FCOSHead, fcos_get_bboxes
+from dsl_tpu_torch.models.dense_heads.fcos_head import (
+    FCOSHead, fcos_get_bboxes, fcos_loss)
 from dsl_tpu_torch.utils.device import resolve_device
 from dsl_tpu_torch.utils.precision import outputs_to_f32, to_compute
 
@@ -42,9 +43,10 @@ class SingleStageDetector(nn.Module):
             feats = self.neck(feats)
         return feats
 
-    def forward(self, images: torch.Tensor):
-        """images NCHW -> the head's inference outputs (NHWC per level)."""
-        return self.bbox_head(self.extract_feat(images))
+    def forward(self, images: torch.Tensor, training: bool = False):
+        """images NCHW -> the head's outputs (NHWC per level), in training
+        or inference mode."""
+        return self.bbox_head(self.extract_feat(images), training=training)
 
 
 @DETECTORS.register
@@ -53,8 +55,8 @@ class FCOS(SingleStageDetector):
 
 
 def build_detector(cfg: dict) -> nn.Module:
-    """Build a single-stage detector from a model config dict (its
-    ``train_cfg`` is for training, which is not ported yet)."""
+    """Build a single-stage detector from a model config dict (FCOS reads
+    no ``train_cfg``: its assignment options are the head's)."""
     cfg = dict(cfg)
     if "rpn_head" in cfg or "bbox_heads" in cfg or "necks" in cfg:
         raise NotImplementedError("only single-stage detectors are ported yet")
@@ -72,21 +74,61 @@ def build_detector(cfg: dict) -> nn.Module:
                    test_cfg=cfg.get("test_cfg"))
 
 
+def _fcos_head(detector: nn.Module) -> FCOSHead:
+    head = detector.bbox_head
+    if not isinstance(head, FCOSHead):
+        raise NotImplementedError(
+            f"{type(head).__name__} is not ported yet: only FCOSHead")
+    return head
+
+
+def _parse_losses(losses: dict):
+    """Sum every key holding ``loss`` into the total, in f32; return it and
+    the log vars (each loss and ``loss``, detached), as 0-d tensors."""
+    losses = {k: v.float() for k, v in losses.items()}
+    total = sum(v for k, v in losses.items() if "loss" in k)
+    log_vars = {k: v.detach() for k, v in losses.items()}
+    log_vars["loss"] = total.detach()
+    return total, log_vars
+
+
+def detector_loss(detector: nn.Module, batch: dict, cur_iter: int = 0,
+                  compute_dtype=None, mark=None):
+    """Training forward + loss of an FCOS detector.
+
+    ``batch["images"]`` is (B, 3, H, W) on the detector's device; the other
+    keys are ``fcos_loss``'s. With ``compute_dtype=torch.bfloat16`` the
+    forward runs on bf16 copies of every variable (gradients reach the f32
+    parameters through the casts); the head outputs and the losses are f32.
+    ``mark(name)``, where given, is called once the forward is enqueued
+    (``"forward"``), for a timing split. Returns (total, log_vars).
+    """
+    head = _fcos_head(detector)
+    variables, images = to_compute(detector, batch["images"], compute_dtype)
+    outputs = outputs_to_f32(functional_call(detector, variables, (images,),
+                                             {"training": True}))
+    if mark is not None:
+        mark("forward")
+    return _parse_losses(fcos_loss(head, *outputs, batch, cur_iter=cur_iter))
+
+
 @torch.no_grad()
 def detector_predict(detector: nn.Module, images: torch.Tensor,
                      img_shapes: torch.Tensor | None = None,
                      scale_factors: torch.Tensor | None = None,
                      test_cfg: dict | None = None, compute_dtype=None,
-                     device: str | torch.device = "cuda"):
+                     device: str | torch.device = "cuda",
+                     params: dict | None = None):
     """Inference forward + decode + NMS for a batch.
 
     images (B, 3, H, W) on the detector's device; img_shapes (B, 2) and
     scale_factors (B, 4) optional, as in the JAX package. With
     ``compute_dtype`` every floating variable and the images are cast to it
     for the forward (the module is left as it is); head outputs return to
-    f32 before decode. ``device`` must be where the detector and the images
-    lie: CUDA by default, the CPU only when asked for. Returns dets
-    (B, max_per_img, 5), labels, valid.
+    f32 before decode. ``params`` (name -> tensor) replaces the detector's
+    parameters, e.g. with the EMA teacher's. ``device`` must be where the
+    detector and the images lie: CUDA by default, the CPU only when asked
+    for. Returns dets (B, max_per_img, 5), labels, valid.
     """
     device = resolve_device(device)
     param_dev = next(detector.parameters()).device
@@ -98,13 +140,10 @@ def detector_predict(detector: nn.Module, images: torch.Tensor,
     if images.device != param_dev:
         raise ValueError(f"detector_predict: the detector lies on {param_dev}, "
                          f"the images on {images.device}")
-    head = detector.bbox_head
-    if not isinstance(head, FCOSHead):
-        raise NotImplementedError(
-            f"predict for {type(head).__name__} is not ported yet")
+    head = _fcos_head(detector)
     tc = dict(test_cfg or detector.test_cfg or {})
     nms_cfg = dict(tc.get("nms", {}) or {})
-    variables, images = to_compute(detector, images, compute_dtype)
+    variables, images = to_compute(detector, images, compute_dtype, params)
     outputs = outputs_to_f32(functional_call(detector, variables, (images,)))
     cls_scores, bbox_preds, centernesses = outputs
     return fcos_get_bboxes(

@@ -14,6 +14,9 @@ plain nested dicts. What changes on the way:
   ``extra_conv0``, ``cls_gn3``, ``scale2``) <-> the mmdet/RLA checkpoint
   names the port's modules carry (``stages.1.0``, ``stage_bns.1.0``,
   ``fpn_convs.3.conv``, ``cls_convs.3.gn``, ``scales.2``).
+
+``dsl_tpu_torch.train.bridge`` carries a whole train state across on top of
+these two.
 """
 
 from __future__ import annotations

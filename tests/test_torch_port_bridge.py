@@ -8,7 +8,8 @@
   port's parameter names are the reference checkpoints' names;
 - ``import dsl_tpu_torch`` (and every module of it) brings in no ``jax``,
   ``flax`` or ``dsl_tpu`` module, checked in a fresh interpreter and by an
-  AST scan of the package and ``chip_smoke.py``.
+  AST scan of the package and ``chip_smoke.py``; the weight bridge
+  (``utils``) loads no module of the train layer.
 """
 
 import ast
@@ -95,14 +96,21 @@ def test_import_brings_in_no_jax():
     code = (
         "import sys\n"
         "before = set(sys.modules)\n"
+        "import dsl_tpu_torch.utils.jax_bridge, dsl_tpu_torch.utils.random_weights\n"
+        "utils = sorted(set(sys.modules) - before)\n"
         "import dsl_tpu_torch, dsl_tpu_torch.apis, dsl_tpu_torch.models\n"
         "import dsl_tpu_torch.ops.nms, dsl_tpu_torch.ops.nms_cases\n"
-        "import dsl_tpu_torch.utils.jax_bridge, dsl_tpu_torch.utils.random_weights\n"
+        "import dsl_tpu_torch.train, dsl_tpu_torch.train.bridge\n"
+        "import dsl_tpu_torch.core.losses, dsl_tpu_torch.core.targets\n"
+        "import dsl_tpu_torch.utils.random_batch\n"
         "import json\n"
+        "print(json.dumps(utils))\n"
         "print(json.dumps(sorted(set(sys.modules) - before)))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                          capture_output=True, text=True, timeout=120)
-    added = json.loads(out.stdout.strip().splitlines()[-1])
+    utils, added = map(json.loads, out.stdout.strip().splitlines()[-2:])
+    # the weight bridge is a leaf below the train layer
+    assert not [m for m in utils if m.startswith("dsl_tpu_torch.train")]
     assert any(m.startswith("dsl_tpu_torch") for m in added)
     bad = [m for m in added if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad

@@ -79,3 +79,78 @@ def nchw(x) -> torch.Tensor:
 
 def nhwc(t: torch.Tensor) -> np.ndarray:
     return t.detach().permute(0, 2, 3, 1).numpy()
+
+
+# the flagship's schedule (configs/_base_/schedules/schedule_semi.py) and EMA
+OPTIMIZER = dict(type="SGD", lr=0.01, momentum=0.9, weight_decay=1e-4,
+                 paramwise_cfg=dict(bias_lr_mult=2.0, bias_decay_mult=0.0))
+OPTIMIZER_CONFIG = dict(grad_clip=dict(max_norm=35, norm_type=2))
+LR_CONFIG = dict(policy="step", warmup="linear", warmup_iters=500,
+                 warmup_ratio=1.0 / 3, step=[20, 26])
+STEPS_PER_EPOCH = 1000
+
+
+def semi_batch(seed: int = 1):
+    """A tiny semi batch at 64x96: a labeled image with GT, a labeled one
+    with none, an unlabeled one with GT and two ignore boxes, and the
+    unlabeled image's half-res copy (the si pair)."""
+    from dsl_tpu_torch.utils.random_batch import semi_batch as make
+
+    return make(seed, (64, 96), n_gt=[3, 0, 5], n_ignore=[0, 0, 2],
+                n_labeled=2, k=8, ki=4, side=(4, 40))
+
+
+def jax_batch(batch: dict) -> dict:
+    import jax
+    import jax.numpy as jnp
+
+    return jax.tree_util.tree_map(jnp.asarray, batch)
+
+
+def frozen_tree(port) -> dict:
+    """The port's frozen parameters (requires_grad False) as a flax-layout
+    bool tree."""
+    from dsl_tpu_torch.utils.jax_bridge import state_dict_to_flax
+
+    flags = {n: torch.full_like(p, float(not p.requires_grad))
+             for n, p in port.named_parameters()}
+    return _as_bool(state_dict_to_flax(flags)["params"])
+
+
+def _as_bool(tree):
+    if isinstance(tree, dict):
+        return {k: _as_bool(v) for k, v in tree.items()}
+    return bool(np.asarray(tree).all())
+
+
+def assert_banded(got: dict, want: dict, init: dict | None = None,
+                  rel: float = 0.05, floor: float = 1e-5, l2: float = 1e-3,
+                  skip: dict | None = None):
+    """Per-leaf |got - want| <= max(rel * scale, floor), scale the larger of
+    the two's largest |delta| from ``init`` (zeros without one), and the
+    concatenated deltas within ``l2`` relative L2 error; leaves marked in
+    ``skip`` are left out. Returns the number of leaves compared."""
+    import jax
+
+    flat_w = jax.tree_util.tree_flatten_with_path(want)[0]
+    flat_g = dict(jax.tree_util.tree_flatten_with_path(got)[0])
+    flat_i = dict(jax.tree_util.tree_flatten_with_path(init)[0]) if init else {}
+    flat_s = dict(jax.tree_util.tree_flatten_with_path(skip)[0]) if skip else {}
+    d_got, d_want, n = [], [], 0
+    for path, w in flat_w:
+        if flat_s.get(path, False):
+            continue
+        base = np.asarray(flat_i[path]) if init else 0.0
+        dw = (np.asarray(w) - base).ravel()
+        dg = (np.asarray(flat_g[path]) - base).ravel()
+        scale = float(max(np.abs(dw).max(), np.abs(dg).max()))
+        err = float(np.abs(dg - dw).max())
+        assert err <= max(rel * scale, floor), (
+            f"{jax.tree_util.keystr(path)}: err {err:.3e}, scale {scale:.3e}")
+        d_got.append(dg)
+        d_want.append(dw)
+        n += 1
+    d_got, d_want = np.concatenate(d_got), np.concatenate(d_want)
+    rel_l2 = np.linalg.norm(d_got - d_want) / np.linalg.norm(d_want)
+    assert rel_l2 < l2, f"aggregate relative L2 error {rel_l2:.3e}"
+    return n
