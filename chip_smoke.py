@@ -9,8 +9,9 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
 
 1. device: CUDA is required; the card's name and power limit are printed as
    ``nvidia-smi`` reports them.
-2. build: the predict path's kernel is compiled from ``csrc/`` with
-   ``nvcc`` for sm_90a.
+2. build: every source of ``csrc/`` (the NMS kernel and the nvJPEG
+   decode shim) is compiled with ``nvcc`` for sm_90a, one ``nvcc`` each,
+   all started together.
 3. kernels vs plain versions: ``nms_keep`` against ``nms_keep_reference``
    on the card, bit-identical keeps on every edge case of
    ``dsl_tpu_torch.ops.nms_cases`` and on its card-only ``timing_cases()``
@@ -63,6 +64,28 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    step by CUDA events into forward, targets + loss, backward, clip + SGD
    and EMA.
 
+8. decode: nvJPEG (``data/image_io.read_image`` on the card) on each JPEG
+   fixture of ``tests/torch_port_data/`` against its committed OpenCV
+   decode, within ``DECODE_*``, and its time per image.
+9. semi loop at full width: ``train_detector`` on the flagship config cut
+   as the port runs it today (without ``PatchShuffle``,
+   ``RandomAugmentBBox_Fast``, ``UBAug`` and ``evaluation``; 2 epochs; the
+   refresh from epoch 1; ``preload`` 6, ``refresh_batch`` 8) over a
+   synthetic semicoco directory of copies of the fixtures (8 labeled, 16
+   unlabeled), with seeded weights, B=5 per step. With every kernel count
+   at 0 before it, read after: losses finite; NMS launched once per refresh
+   chunk and never in a train step; every unlabeled label file rewritten;
+   ``adathres.json`` written; the second epoch's dataset read the
+   rewritten files; ``resume_from`` the epoch-1 checkpoint restores the
+   state bit for bit. Then, on the trained state: one chunk refreshed on
+   the side stream while a train step runs writes the labels of a
+   synchronous refresh from the same teacher snapshot (same tags and
+   counts, boxes within 1 px), whose NMS keeps equal the plain version's;
+   the torch-level host syncs of a dispatch; refresh img/s at B=8; the
+   peak device memory of a refresh of the whole unlabeled set within one
+   image of a one-chunk refresh's; the semi iteration (step + complete + dispatch) against the bare step on one
+   batch; one profiler trace of a semi iteration.
+
 f32 runs with TF32 off (``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32`` False): cuDNN convolutions would
 otherwise round their inputs to TF32.
@@ -78,6 +101,7 @@ import copy
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -200,8 +224,9 @@ def phase_build():
         raise RuntimeError(f"dsl_tpu_torch was imported from {found}, not "
                            f"from this checkout ({ROOT})")
     t0 = time.perf_counter()
-    path = build.build("nms_kernel", verbose=True)
-    log(f"[build] {path.name} in {time.perf_counter() - t0:.1f} s")
+    paths = build.build_all(verbose=True)
+    log(f"[build] {', '.join(p.name for p in paths.values())} in "
+        f"{time.perf_counter() - t0:.1f} s (one nvcc each, in parallel)")
 
 
 def phase_kernel_cases():
@@ -743,6 +768,497 @@ def phase_train_card_vs_cpu(cfg, variables):
                              f"L2 {l2}")
 
 
+# -- the semi-supervised loop (phases 8-9) ----------------------------------
+
+SEMI_LABELED, SEMI_UNLABELED = 8, 16   # copies of the JPEG fixtures
+SEMI_EPOCHS, SEMI_START = 2, 1
+SEMI_TIMED_ITERS = 10
+# nvJPEG against OpenCV's decodes of the fixtures: libjpeg-turbo's "fancy"
+# chroma upsampling and IDCT part from nvJPEG's at colour edges (measured
+# on the card: a mean of 0.7-0.9 levels, 0.6-1.5% of values off by more
+# than 4, at most 29; grayscale at most 1)
+DECODE_MEAN_LEVELS, DECODE_SHARE_OVER_4, DECODE_MAX_LEVELS = 1.5, 0.03, 48
+
+
+def tests_on_path():
+    """Make the test helpers importable (``torch_port_make_fixtures`` and
+    ``torch_port_util``, which import JAX only inside the functions that
+    build the JAX side)."""
+    sys.path.insert(0, str(ROOT / "tests"))
+
+
+def fixtures():
+    """(name, path, height, width) of the committed JPEG fixtures, and
+    their committed OpenCV decodes."""
+    from torch_port_make_fixtures import FIXTURES, OUT, load_decodes
+
+    return ([(n, OUT / f"{n}.jpg", h, w) for n, (h, w, _) in FIXTURES.items()],
+            load_decodes())
+
+
+def decode_stats(got, want) -> tuple[float, float, int]:
+    """Mean |diff| in levels, share of values off by more than 4, max."""
+    d = (got.int() - want.int()).abs()
+    return (float(d.float().mean()), float((d > 4).float().mean()),
+            int(d.max()))
+
+
+def phase_decode(smi: str) -> dict:
+    """nvJPEG on each fixture against the committed cv2 decode, and its time
+    per image (host clock around each decode, ending in a synchronize)."""
+    import torch
+
+    from dsl_tpu_torch.data.image_io import decode_jpeg, read_image
+
+    files, decodes = fixtures()
+    out = {}
+    for name, path, h, w in files:
+        got = read_image(path, DEVICE)
+        torch.cuda.synchronize()
+        want = torch.from_numpy(decodes[name]).to(DEVICE)
+        if tuple(got.shape) != (h, w, 3) or got.dtype != torch.uint8:
+            raise AssertionError(f"decode of {name}: {tuple(got.shape)} {got.dtype}")
+        mean, over4, worst = decode_stats(got, want)
+        data = path.read_bytes()
+        times = sorted(host_ms(lambda: decode_jpeg(data, torch.device(DEVICE)),
+                               reps=20))
+        ms = times[len(times) // 2]
+        log(f"[decode] nvJPEG {name} ({len(data)} bytes, {w}x{h}): vs cv2 "
+            f"mean |diff| {mean:.3f} levels, {over4 * 100:.2f}% off by more "
+            f"than 4, max {worst}; {ms:.3f} ms per image (median of 20, min "
+            f"{times[0]:.3f})  ({smi})")
+        if (mean > DECODE_MEAN_LEVELS or over4 > DECODE_SHARE_OVER_4
+                or worst > DECODE_MAX_LEVELS):
+            raise AssertionError(f"nvJPEG decode of {name} is outside the "
+                                 f"tolerance: {mean}, {over4}, {worst}")
+        out[name] = ms
+    return out
+
+
+def semi_config_for(tmp: Path) -> tuple[dict, dict]:
+    """The cut flagship config on a synthetic semicoco directory in tmp."""
+    from dsl_tpu_torch.config import Config
+    from dsl_tpu_torch.utils import synthetic_data
+    from torch_port_util import cut_flagship
+
+    files, _ = fixtures()
+    paths = synthetic_data.make_semicoco_dir(
+        tmp / "data", [(str(p), h, w) for _, p, h, w in files],
+        SEMI_LABELED, SEMI_UNLABELED)
+    cfg = Config.fromfile(str(CONFIG))._cfg_dict
+    cfg = cut_flagship(cfg, SEMI_EPOCHS, SEMI_START)
+    return synthetic_data.semi_config(cfg, paths), paths
+
+
+@contextlib.contextmanager
+def counting_semi_loop():
+    """Record, while the semi loop runs, the NMS launches of every train
+    step and of every refresh chunk, which label files the datasets read
+    after each step count, and a host copy of the state at each checkpoint
+    (the wrappers call the real code)."""
+    import dsl_tpu_torch.apis.train as api
+    import dsl_tpu_torch.train.runner as runner_mod
+    from dsl_tpu_torch.data.datasets.semicoco import SemiCOCODataset
+    from dsl_tpu_torch.ops.nms import nms_keep
+    from dsl_tpu_torch.train.semi import PseudoLabelRefresher
+
+    rec = dict(step_launches=[], chunk_launches=[], chunk_sizes=[], reads=[],
+               saved={})
+    real_make, real_chunk = api.make_train_step, PseudoLabelRefresher._predict_chunk
+    real_read, real_save = SemiCOCODataset._read_store, runner_mod.save_checkpoint
+
+    def make_train_step(*args, **kwargs):
+        step = real_make(*args, **kwargs)
+
+        def counted(state, batch, mark=None):
+            before = nms_keep.launches
+            metrics = step(state, batch, mark)
+            rec["step_launches"].append(nms_keep.launches - before)
+            return metrics
+
+        return counted
+
+    def predict_chunk(self, params, chunk):
+        before = nms_keep.launches
+        out = real_chunk(self, params, chunk)
+        rec["chunk_launches"].append(nms_keep.launches - before)
+        rec["chunk_sizes"].append(len(chunk))
+        return out
+
+    def read_store(self, filename):
+        data = real_read(self, filename)
+        rec["reads"].append((len(rec["step_launches"]), self.ann_path,
+                             filename, "scores" in data))
+        return data
+
+    def save_checkpoint(path, state, meta=None):
+        real_save(path, state, meta)
+        rec["saved"][meta["epoch"]] = state_snapshot(state)
+
+    api.make_train_step = make_train_step
+    PseudoLabelRefresher._predict_chunk = predict_chunk
+    SemiCOCODataset._read_store = read_store
+    runner_mod.save_checkpoint = save_checkpoint
+    try:
+        yield rec
+    finally:
+        api.make_train_step = real_make
+        PseudoLabelRefresher._predict_chunk = real_chunk
+        SemiCOCODataset._read_store = real_read
+        runner_mod.save_checkpoint = real_save
+
+
+def state_snapshot(state) -> dict:
+    """Every tensor and counter of a TrainState, on the host."""
+    import torch
+
+    opt = state.optimizer
+    return dict(
+        student={k: v.detach().cpu().clone()
+                 for k, v in state.student.state_dict().items()},
+        teacher={k: v.cpu().clone() for k, v in state.teacher_params.items()},
+        momentum=[opt.state[p]["momentum_buffer"].cpu().clone()
+                  if "momentum_buffer" in opt.state.get(p, {}) else None
+                  for g in opt.param_groups for p in g["params"]],
+        counters=(state.step, state.opt_count, float(state.ema_ratio),
+                  state.ema_initialized))
+
+
+def snapshots_equal(a: dict, b: dict) -> list[str]:
+    import torch
+
+    bad = [k for k in a["student"] if not torch.equal(a["student"][k],
+                                                       b["student"][k])]
+    bad += [k for k in a["teacher"] if not torch.equal(a["teacher"][k],
+                                                       b["teacher"][k])]
+    bad += [f"momentum {i}" for i, (x, y) in enumerate(zip(a["momentum"],
+                                                           b["momentum"]))
+            if (x is None) != (y is None) or (x is not None and not torch.equal(x, y))]
+    if a["counters"] != b["counters"]:
+        bad.append(f"counters {a['counters']} vs {b['counters']}")
+    return bad
+
+
+def phase_semi(variables, smi: str, tmp: Path):
+    """The semi loop through ``train_detector`` at full width, with every
+    kernel count at 0 before it and read after; its checks."""
+    import json as _json
+
+    import torch
+
+    from dsl_tpu_torch.apis import train_detector
+    from dsl_tpu_torch.config import Config
+    from dsl_tpu_torch.data.image_io import decode_jpeg
+    from dsl_tpu_torch.ops.nms import nms_keep
+    from torch_port_util import STRONG_AUGMENTATIONS, tree_of
+
+    cfg, paths = semi_config_for(tmp)
+    unl_store = Path(paths["unlabel_store"])
+    before = tree_of(unl_store)
+    log(f"[semi] {CONFIG.relative_to(ROOT)} cut: without "
+        f"{', '.join(STRONG_AUGMENTATIONS)} and `evaluation`; "
+        f"max_epochs {SEMI_EPOCHS}, unlabel_pred.start_point {SEMI_START}, "
+        f"preload {cfg['data']['unlabel_pred']['preload']}, refresh_batch 8; "
+        f"{SEMI_LABELED} labeled and {SEMI_UNLABELED} unlabeled images "
+        f"(copies of the JPEG fixtures), full width, canvas "
+        f"{CANVAS[0]}x{CANVAS[1]}, B=5 per step")
+    nms_keep.launches = 0
+    decode_jpeg.decodes = 0
+    t0 = time.perf_counter()
+    with counting_semi_loop() as rec:
+        runner = train_detector(Config(cfg), str(tmp / "work"), seed=0,
+                                device=DEVICE, variables=variables)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = nms_keep.launches
+    iters = len(runner.data_loader)
+    log(f"[semi] train_detector: {SEMI_EPOCHS} epochs of {iters} iterations in "
+        f"{wall:.1f} s (set-up and first refresh included); {decode_jpeg.decodes} "
+        f"nvJPEG decodes; NMS launches {launches}: {sum(rec['step_launches'])} "
+        f"in {len(rec['step_launches'])} train steps, "
+        f"{sum(rec['chunk_launches'])} in {len(rec['chunk_launches'])} refresh "
+        f"chunks of {rec['chunk_sizes']} images")
+
+    # losses finite, every step counted
+    hist = runner.log_buffer.history
+    if len(rec["step_launches"]) != SEMI_EPOCHS * iters:
+        raise AssertionError(f"{len(rec['step_launches'])} steps")
+    bad = [k for k, v in hist.items() if k.startswith("loss") or k == "grad_norm"
+           if not all(bool(torch.isfinite(torch.as_tensor(x))) for x in v)]
+    if bad:
+        raise AssertionError(f"semi loop: not finite: {bad}")
+    log("[semi] losses finite over all steps; last step: " + ", ".join(
+        f"{k} {float(v[-1]):.4f}" for k, v in hist.items()
+        if k.startswith("loss") or k == "grad_norm"))
+    # NMS: once per refresh chunk, never in a train step
+    if (any(rec["step_launches"]) or not rec["chunk_launches"]
+            or any(n != 1 for n in rec["chunk_launches"])
+            or launches != len(rec["chunk_launches"])):
+        raise AssertionError(f"NMS launches: steps {rec['step_launches']}, "
+                             f"chunks {rec['chunk_launches']}, total {launches}")
+    # every unlabeled label file rewritten by the refresher, adathres written
+    after = tree_of(unl_store)
+    stale = [n for n in before if after[n] == before[n]
+             or "scores" not in _json.loads(after[n])]
+    if stale:
+        raise AssertionError(f"label files not rewritten: {stale}")
+    with open(paths["adathres"], encoding="utf-8") as f:
+        ada = _json.load(f)
+    if not ada.get("thres"):
+        raise AssertionError(f"adathres.json: {ada}")
+    boxes = sum(_json.loads(v)["targetNum"] for v in after.values())
+    log(f"[semi] all {len(after)} unlabeled label files rewritten ({boxes} "
+        f"boxes); adathres.json: {len(ada['thres'])} classes, thresholds "
+        f"{sorted(round(v, 4) for v in ada['thres'].values())[:4]}...")
+    # the second epoch's unlabeled dataset read the refreshed files
+    late = [r for r in rec["reads"] if r[0] >= iters
+            and r[1] == paths["unlabel_store"]]
+    if not late or not all(r[3] for r in late):
+        raise AssertionError(f"epoch 2 read {len(late)} unlabeled label "
+                             f"files, {sum(r[3] for r in late)} refreshed")
+    log(f"[semi] epoch 2 read {len(late)} unlabeled label files, all of them "
+        f"written by the refresher")
+    # resume from the epoch-1 checkpoint restores the state bit for bit
+    cfg_resume = dict(cfg, runner=dict(cfg["runner"], max_epochs=1))
+    resumed = train_detector(Config(cfg_resume), str(tmp / "resume"),
+                             resume_from=str(tmp / "work" / "epoch_1.pth"),
+                             seed=0, device=DEVICE, variables=variables)
+    bad = snapshots_equal(rec["saved"][1], state_snapshot(resumed.state))
+    if bad:
+        raise AssertionError(f"resume differs in {len(bad)}: {bad[:3]}")
+    log(f"[semi] resume_from epoch_1.pth: student, teacher, momentum, step "
+        f"{resumed.state.step}, opt_count, ema_ratio, ema_initialized "
+        f"bit-identical to the state saved")
+    del resumed
+    return runner, launches
+
+
+@contextlib.contextmanager
+def recording_heads():
+    """Record the head outputs each predict decodes (clones, on the stream
+    that made them)."""
+    import dsl_tpu_torch.models.detectors.single_stage as single_stage
+
+    real = single_stage.fcos_get_bboxes
+    outs = []
+
+    def record(head, *heads, **kwargs):
+        outs.append([t.clone() for lvl in heads for t in lvl])
+        return real(head, *heads, **kwargs)
+
+    single_stage.fcos_get_bboxes = record
+    try:
+        yield outs
+    finally:
+        single_stage.fcos_get_bboxes = real
+
+
+def heads_equal(a, b) -> bool:
+    import torch
+
+    return len(a) == len(b) and all(
+        torch.equal(x, y) for ca, cb in zip(a, b) for x, y in zip(ca, cb))
+
+
+def heads_rel_diff(a, b) -> float:
+    """max |a - b| / max |b| over recorded head outputs."""
+    if len(a) != len(b):
+        raise AssertionError(f"{len(a)} vs {len(b)} predicts recorded")
+    return max(float((x - y).abs().max() / y.abs().max().clamp_min(1e-12))
+               for ca, cb in zip(a, b) for x, y in zip(ca, cb))
+
+
+def refresh_store_pairs(a: Path, b: Path, names) -> tuple[int, int, float]:
+    """Each file of ``names`` in store a against store b, paired by
+    ``torch_port_util.pair_labels`` (tag, 1 px, 1e-3 in score): (boxes in
+    a, boxes left unpaired, largest difference of a pair)."""
+    import json as _json
+
+    from torch_port_util import pair_labels
+
+    n, unpaired, worst = 0, 0, 0.0
+    for name in names:
+        x = _json.loads((a / f"{name}.json").read_text())
+        y = _json.loads((b / f"{name}.json").read_text())
+        u, w = pair_labels(x, y)
+        n, unpaired, worst = n + x["targetNum"], unpaired + u, max(worst, w)
+    return n, unpaired, worst
+
+
+def phase_semi_overlap_and_timing(runner, smi: str, tmp: Path):
+    """On the trained state: one chunk refreshed on the side stream while a
+    train step runs, against a synchronous refresh from the same teacher
+    snapshot; then refresh img/s, the semi iteration against the bare step
+    on one batch, and one profiler trace of an iteration."""
+    import copy as _copy
+    import shutil
+    import types
+
+    import torch
+
+    from dsl_tpu_torch.data.pipelines.transforms import keep_ratio_size
+    from dsl_tpu_torch.ops.nms import nms_keep_reference
+    from dsl_tpu_torch.train.label_store import LabelStore
+    from torch_port_util import tree_of
+
+    ref = runner.refresher
+    state, step = runner.state, runner.train_step
+    batch = next(iter(runner.data_loader))
+    batch.pop("meta")
+    names = [i["filename"] for i in ref.image_infos[:ref.refresh_batch]]
+
+    def refresher_into(dirname):
+        root = tmp / dirname
+        shutil.copytree(ref.store.root, root)
+        r = _copy.copy(ref)
+        r.store = LabelStore(str(root), ref.store.id2cat, ref.store.cat2id)
+        return r, root
+
+    overlapped, root_a = refresher_into("store_overlapped")
+    synchronous, root_b = refresher_into("store_synchronous")
+    again, root_c = refresher_into("store_synchronous_again")
+    snapshot = types.SimpleNamespace(teacher_params=state.teacher_params,
+                                     student=state.student)
+    torch.cuda.synchronize()
+    with recording_heads() as heads_o:
+        complete = overlapped.dispatch_refresh(state, names)
+        step(state, batch)
+        complete()
+    with recording_heads() as heads_1, recording_nms() as calls:
+        synchronous.refresh_images(snapshot, names)
+    with recording_heads() as heads_2:
+        again.refresh_images(snapshot, names)
+    torch.cuda.synchronize()
+    # a race would show in the head outputs; where the forward is
+    # deterministic (two synchronous refreshes bit-identical), the
+    # overlapped one must be bit-identical too, down to the label files
+    exact = heads_equal(heads_1, heads_2)
+    diff = heads_rel_diff(heads_o, heads_1)
+    same_files = tree_of(root_a) == tree_of(root_b)
+    log(f"[semi] one chunk ({len(names)} images) refreshed on the side stream "
+        f"during a train step vs a synchronous refresh from the same teacher "
+        f"snapshot: head outputs max |diff| / max |ref| {diff:.3e}, label files "
+        f"{'identical' if same_files else 'differ'}; two synchronous refreshes "
+        f"{'bit-identical' if exact else 'differ'} (max |diff| / max |ref| "
+        f"{heads_rel_diff(heads_2, heads_1):.3e})")
+    n, unpaired, worst = refresh_store_pairs(root_a, root_b, names)
+    n2, unpaired2, _ = refresh_store_pairs(root_c, root_b, names)
+    log(f"[semi] label files paired by tag, 1 px and 1e-3 in score: "
+        f"overlapped vs synchronous {unpaired} of {n} boxes unpaired (pairs "
+        f"within {worst} px); synchronous vs synchronous {unpaired2} of {n2}")
+    if exact and not (diff == 0 and same_files):
+        raise AssertionError("the overlapped refresh differs from a "
+                             "deterministic synchronous refresh")
+    if diff > 1e-4:
+        raise AssertionError(f"overlapped refresh head outputs {diff}")
+    keep_err = 0
+    for boxes, valid, thr, keep in calls:
+        want = nms_keep_reference(boxes, valid, thr)
+        torch.cuda.synchronize()
+        keep_err = max(keep_err, int((keep.int() - want.int()).abs().max()))
+        if not torch.equal(keep, want):
+            raise AssertionError(f"refresh NMS keeps differ from the plain "
+                                 f"version at {tuple(boxes.shape)}")
+        log(f"[semi] refresh NMS input {tuple(boxes.shape)}: {int(valid.sum())} "
+            f"valid, {int(keep.sum())} kept — bit-identical to the plain version")
+
+    # host syncs inside a dispatch (torch's sync debug mode)
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            done = synchronous.dispatch_refresh(snapshot, names[:1])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        done()
+    syncs = [f"{Path(w.filename).name}:{w.lineno}" for w in caught
+             if "synchronizing" in str(w.message)]
+    log(f"[semi] torch-level synchronizing calls in one refresh dispatch "
+        f"(sync debug mode): {len(syncs)} {syncs}")
+
+    # refresh img/s at refresh_batch
+    def refresh():
+        synchronous.refresh_images(snapshot, names)
+
+    times = sorted(host_ms(refresh, reps=5, warmup=1))
+    ms = times[len(times) // 2]
+    log(f"[time] refresh of {len(names)} images (decode, resize, predict f32 "
+        f"at B={ref.refresh_batch}, NMS, store write): median {ms:.2f} ms "
+        f"(min {times[0]:.2f}, max {times[-1]:.2f}, 5 reps), "
+        f"{len(names) / ms * 1e3:.1f} img/s  ({smi})")
+
+    # a refresh of the whole set reads one chunk of images at a time: its
+    # peak device memory is one chunk's within less than one image
+    every = [i["filename"] for i in ref.image_infos]
+    one_image = min(3 * h * w for h, w in (
+        keep_ratio_size(i["height"], i["width"], ref.img_scale)
+        for i in ref.image_infos))
+    peaks = {}
+    for n in (len(names), len(every)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        synchronous.refresh_images(snapshot, every[:n])
+        torch.cuda.synchronize()
+        peaks[n] = torch.cuda.max_memory_allocated() - base
+    log("[semi] peak device memory of a refresh above its start: "
+        + ", ".join(f"{n} images {v / 2**20:.2f} MiB" for n, v in peaks.items())
+        + f"; one resized image {one_image / 2**20:.2f} MiB")
+    if peaks[len(every)] - peaks[len(names)] >= one_image:
+        raise AssertionError(f"a refresh of {len(every)} images holds more "
+                             f"than one chunk on the device: {peaks}")
+
+    # the semi iteration (step + complete + dispatch) against the bare step
+    upcoming = [i["filename"] for i in ref.image_infos] * 2
+    pending = [None]
+
+    def iteration(it):
+        step(state, batch)
+        if pending[0] is not None:
+            pending[0]()
+        pending[0] = ref.dispatch_after_train_iter(
+            state, SEMI_START, upcoming, it % SEMI_UNLABELED, 2)
+
+    def run(fn, n):
+        torch.cuda.synchronize()
+        marks = [time.perf_counter()]
+        for it in range(n):
+            fn(it)
+            marks.append(time.perf_counter())
+        if pending[0] is not None:
+            pending[0]()
+            pending[0] = None
+        torch.cuda.synchronize()
+        total = (time.perf_counter() - marks[0]) * 1e3
+        per = sorted((b - a) * 1e3 for a, b in zip(marks, marks[1:]))
+        return per[len(per) // 2], total / n
+
+    for _ in range(2):
+        iteration(0)
+    semi_med, semi_mean = run(iteration, SEMI_TIMED_ITERS)
+    bare_med, bare_mean = run(lambda it: step(state, batch), SEMI_TIMED_ITERS)
+    log(f"[time] semi iteration (step + complete + dispatch of one image's "
+        f"refresh at B={ref.refresh_batch}), f32: median {semi_med:.2f} ms, "
+        f"mean {semi_mean:.2f} ms over {SEMI_TIMED_ITERS}; bare step on the "
+        f"same batch: median {bare_med:.2f} ms, mean {bare_mean:.2f} ms; "
+        f"ratio {semi_mean / bare_mean:.3f}  ({smi})")
+    traced = device_busy(lambda: (iteration(0), pending[0]()))
+    pending[0] = None
+    if traced is None:
+        log("[trace] semi iteration: device idle share not measured (the "
+            "profiler saw no device event)")
+    else:
+        busy, window, n_kernels, top = traced
+        log(f"[trace] semi iteration: {n_kernels} kernels, device busy "
+            f"{busy:.2f} ms of a {window:.2f} ms window, idle share "
+            f"{1 - busy / window:.3f}  ({smi})")
+        for kname, us in top[:5]:
+            log(f"[trace]   {us / 1e3:8.3f} ms  {kname[:100]}")
+    return keep_err
+
+
 def main() -> int:
     import torch
 
@@ -751,6 +1267,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     t_start = time.perf_counter()
+    tests_on_path()
     name, smi = phase_device()
     phase_build()
     case_err = phase_kernel_cases()
@@ -769,12 +1286,18 @@ def main() -> int:
     del runs
     torch.cuda.empty_cache()
     phase_train_card_vs_cpu(cfg, variables)
+    phase_decode(smi)
+    with tempfile.TemporaryDirectory(prefix="_semi_smoke_", dir=ROOT) as tmp:
+        runner, semi_launches = phase_semi(variables, smi, Path(tmp))
+        semi_err = phase_semi_overlap_and_timing(runner, smi, Path(tmp))
+        del runner
+    launches["nms_keep"] += semi_launches
     kernels = [dict(
         name="nms_keep", route="cuda",
         source="dsl_tpu_torch/csrc/nms_kernel.cu",
         replaces="dsl_tpu/ops/nms_pallas.py:34",
         launches=launches["nms_keep"],
-        max_abs_err=float(max(case_err, path_err, train_err)),
+        max_abs_err=float(max(case_err, path_err, train_err, semi_err)),
         ms=nms_times["ms"], plain_ms=nms_times["plain_ms"],
         bound_ms=nms_times["bound_ms"], bound_by=nms_times["bound_by"],
         library_ms=None)]

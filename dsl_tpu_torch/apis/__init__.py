@@ -1,2 +1,3 @@
 from dsl_tpu_torch.apis.inference import (  # noqa: F401
     DetectorBundle, inference_detector, init_detector)
+from dsl_tpu_torch.apis.train import train_detector  # noqa: F401

@@ -5,21 +5,25 @@ detector and returns a bundle; ``inference_detector(bundle, img)`` takes a
 path or a BGR uint8 ndarray and returns per-class box lists (the mmdet
 result format: a list of C arrays of shape (n_i, 5)).
 
-Resize and normalize run in torch on the detector's device (bilinear,
-``align_corners=False``, rounded to uint8 levels as ``cv2.resize`` does for
-uint8 images; then the BGR->RGB flip and mean/std), so the serving machine
-needs no OpenCV; ``cv2`` is imported only to read an image file.
+A path is read by ``data/image_io.read_image`` on the detector's device
+(nvJPEG on the card, ``cv2.imread`` on the CPU). Resize and normalize run in
+torch there (bilinear, ``align_corners=False``, rounded to uint8 levels as
+``cv2.resize`` does for uint8 images; then the BGR->RGB flip and mean/std),
+so the serving machine needs no OpenCV.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from dsl_tpu_torch.config import Config
+from dsl_tpu_torch.data.image_io import read_image
+from dsl_tpu_torch.data.pipelines.transforms import resize_image
 from dsl_tpu_torch.models import build_detector, detector_predict
 from dsl_tpu_torch.utils.device import resolve_device
 from dsl_tpu_torch.utils.jax_bridge import flax_to_state_dict
@@ -61,19 +65,16 @@ def init_detector(config, variables: dict | None = None,
     return DetectorBundle(detector, config, canvas_hw)
 
 
-def preprocess(bundle: DetectorBundle, arr: np.ndarray):
-    """BGR HWC image -> (canvas (1, 3, H, W), img_shapes (1, 2),
-    scale_factors (1, 4)) on the bundle's device."""
-    h, w = arr.shape[:2]
+def preprocess(bundle: DetectorBundle, img):
+    """BGR HWC image (ndarray or tensor) -> (canvas (1, 3, H, W),
+    img_shapes (1, 2), scale_factors (1, 4)) on the bundle's device."""
+    h, w = img.shape[:2]
     ch, cw = bundle.canvas_hw
     factor = min(1344 / max(h, w), 800 / min(h, w))
     nw, nh = int(w * factor + 0.5), int(h * factor + 0.5)
-    img = torch.from_numpy(np.ascontiguousarray(arr)).to(bundle.device)
-    img = img.permute(2, 0, 1)[None].float()
-    out = F.interpolate(img, size=(nh, nw), mode="bilinear",
-                        align_corners=False)
-    if arr.dtype == np.uint8:
-        out = out.round().clamp(0, 255)
+    img = torch.as_tensor(np.ascontiguousarray(img) if isinstance(
+        img, np.ndarray) else img).to(bundle.device)
+    out = resize_image(img, nh, nw).permute(2, 0, 1)[None].float()
     mean = torch.tensor(IMG_MEAN, device=bundle.device)[None, :, None, None]
     std = torch.tensor(IMG_STD, device=bundle.device)[None, :, None, None]
     out = (out.flip(1) - mean) / std
@@ -87,15 +88,9 @@ def preprocess(bundle: DetectorBundle, arr: np.ndarray):
 
 def inference_detector(bundle: DetectorBundle, img):
     """img: file path or BGR ndarray. Returns a list per class of (n, 5)."""
-    if isinstance(img, str):
-        import cv2
-
-        arr = cv2.imread(img, cv2.IMREAD_COLOR)
-        if arr is None:
-            raise FileNotFoundError(img)
-    else:
-        arr = img
-    canvas, shapes, sf = preprocess(bundle, arr)
+    if isinstance(img, (str, os.PathLike)):
+        img = read_image(img, bundle.device)
+    canvas, shapes, sf = preprocess(bundle, img)
     dets, labels, valid = detector_predict(
         bundle.detector, canvas, img_shapes=shapes, scale_factors=sf,
         test_cfg=dict(bundle.cfg.model.get("test_cfg", {}) or {}),

@@ -1,0 +1,168 @@
+"""train_detector: config -> datasets -> loaders -> train step -> runner.
+
+Counterpart of the FCOS semi branch of ``dsl_tpu/apis/train.py``:
+``build_detector`` -> ``frozen_backbone_mask`` -> ``build_optimizer_from_cfg``
+(``steps_per_epoch`` = the loader's length) -> ``create_train_state`` ->
+``make_train_step`` (bf16 when ``cfg.fp16``), the ``MultiDataLoader`` of
+``data.train`` and ``data.unlabel_train``, the pseudo-label refresher of
+``data.unlabel_pred`` with ``adathres_file`` from ``unlabel_train.thres``,
+then :class:`SemiRunner`.
+
+One device, CUDA unless the caller passes ``device="cpu"``. Not ported yet,
+and refused with ``NotImplementedError``: evaluation during training
+(``evaluation`` with ``data.val``), a ``pretrained`` backbone or
+``load_from`` file, Dynamic R-CNN, Seesaw and GHM losses, a training set
+without an unlabeled one. ``variables`` (a flax-layout tree, through the
+weight bridge) gives the initial weights; without it they are the modules'
+initialization from ``seed``. The pipelines draw from one
+``np.random.RandomState(seed)``, as the JAX package's draw from the global
+``np.random`` after ``np.random.seed(seed)``.
+"""
+
+from __future__ import annotations
+
+import json
+import os.path as osp
+
+import numpy as np
+import torch
+
+from dsl_tpu_torch.data.formatting import DEFAULT_CANVAS
+from dsl_tpu_torch.data.loader import DetDataLoader, MultiDataLoader
+from dsl_tpu_torch.data.pipelines import test_pipeline_params
+from dsl_tpu_torch.models import build_detector
+from dsl_tpu_torch.registry import DATASETS, build_from_cfg
+from dsl_tpu_torch.train import (
+    build_optimizer_from_cfg, create_train_state, frozen_backbone_mask,
+    make_train_step)
+from dsl_tpu_torch.train.label_store import LabelStore
+from dsl_tpu_torch.train.runner import SemiRunner
+from dsl_tpu_torch.train.semi import PseudoLabelRefresher
+from dsl_tpu_torch.utils.device import resolve_device
+from dsl_tpu_torch.utils.jax_bridge import flax_to_state_dict
+from dsl_tpu_torch.utils.logger import get_root_logger
+
+DEFAULT_NORM = dict(mean=(123.675, 116.28, 103.53),
+                    std=(58.395, 57.12, 57.375), to_rgb=True)
+
+
+def _refuse_unported(cfg):
+    data = cfg.data
+    if cfg.get("evaluation") and "val" in data:
+        raise NotImplementedError(
+            "evaluation during training (COCO protocol) is not ported yet; "
+            "drop `evaluation` from the config")
+    if cfg.model.get("backbone", {}).get("pretrained") or cfg.get("load_from"):
+        raise NotImplementedError("pretrained / load_from weights are not "
+                                  "ported yet; pass `variables`")
+    if cfg.model.get("type") == "DynamicRCNN":
+        raise NotImplementedError("Dynamic R-CNN is not ported yet")
+    head = cfg.model.get("bbox_head", {}) or {}
+    for key in ("loss_cls", "loss_bbox"):
+        kind = dict(head.get(key, {}) or {}).get("type")
+        if kind in ("SeesawLoss", "GHMC", "GHMR"):
+            raise NotImplementedError(f"{kind} is not ported yet")
+    if "unlabel_train" not in data:
+        raise NotImplementedError("training without an unlabeled set is not "
+                                  "ported yet")
+
+
+def build_dataset(cfg: dict, device, rng):
+    return build_from_cfg({**dict(cfg), "device": device, "rng": rng}, DATASETS)
+
+
+def train_detector(cfg, work_dir: str, resume_from: str | None = None,
+                   seed: int = 0, device: str | torch.device = "cuda",
+                   variables: dict | None = None) -> SemiRunner:
+    """Train the config's detector; returns the runner after its last
+    epoch (its ``state`` holds the result)."""
+    device = resolve_device(device)
+    _refuse_unported(cfg)
+    logger = get_root_logger(log_file=osp.join(work_dir, "train.log"))
+    rng = np.random.RandomState(seed)
+    torch.manual_seed(seed)
+
+    detector = build_detector(dict(cfg.model))
+    if variables is None:
+        detector.init_weights(torch.Generator().manual_seed(seed))
+    else:
+        detector.load_state_dict(flax_to_state_dict(variables))
+
+    canvas = tuple(cfg.get("canvas_hw") or DEFAULT_CANVAS)
+    data_cfg = cfg.data
+    spg = data_cfg.get("samples_per_gpu", 2)
+    train_ds = build_dataset(data_cfg["train"], device, rng)
+    unlabel_ds = build_dataset(data_cfg["unlabel_train"], device, rng)
+    ratio = data_cfg.get("batch_config", {}).get("ratio", [[1, 1]])[0]
+    data_loader = MultiDataLoader(
+        DetDataLoader(train_ds, spg, canvas_hw=canvas, seed=seed),
+        DetDataLoader(unlabel_ds, spg, canvas_hw=canvas, seed=seed + 1),
+        ratio=ratio,
+        unlabel_weight=cfg.model.get("bbox_head", {}).get("loss_weight", 1.0),
+        scale_invariant=bool(cfg.get("scale_invariant", False)))
+
+    runner_cfg = dict(cfg.get("runner", {}) or {})
+    max_epochs = runner_cfg.get("max_epochs", 12)
+    frozen = frozen_backbone_mask(
+        detector, cfg.model.get("backbone", {}).get("frozen_stages", -1))
+    tx, _ = build_optimizer_from_cfg(
+        dict(cfg.optimizer),
+        optimizer_config=dict(cfg.get("optimizer_config", {}) or {}),
+        lr_config=dict(cfg.get("lr_config", {}) or {}),
+        steps_per_epoch=len(data_loader), total_epochs=max_epochs,
+        momentum_config=dict(cfg.get("momentum_config", {}) or {}) or None)
+    ema_cfg = dict(cfg.get("ema_config", {}) or {})
+    state = create_train_state(detector, tx,
+                               ema_ratio=ema_cfg.get("ratio", 0.99),
+                               device=device)
+    compute_dtype = torch.bfloat16 if cfg.get("fp16") else None
+    train_step = make_train_step(
+        detector, tx,
+        ema_interval=(ema_cfg.get("interval", 1)
+                      if ema_cfg.get("mode", "iteration") == "iteration" else -1),
+        ema_start_iter=ema_cfg.get("start_point", 1),
+        compute_dtype=compute_dtype, frozen_mask=frozen, device=device)
+
+    refresher, adathres_file = None, None
+    if "unlabel_pred" in data_cfg:
+        up = dict(data_cfg["unlabel_pred"])
+        with open(up["category_info_path"], "r", encoding="utf-8") as f:
+            cat_info = json.load(f)
+        store = LabelStore(up["anno_root_path"], cat_info["id2cat"],
+                           cat_info["cat2id"])
+        ec = dict(up.get("eval_checkpoint_config", {}) or {})
+        tp = test_pipeline_params(up.get("pipeline"))
+        refresher = PseudoLabelRefresher(
+            detector, store,
+            image_root=up.get("image_root_path", up.get("img_path", "")),
+            image_infos=unlabel_ds.data_infos,
+            test_cfg=dict(cfg.model.get("test_cfg", {}) or {}),
+            canvas_hw=canvas, img_scale=tp["img_scale"],
+            img_norm=tp["img_norm"] or DEFAULT_NORM,
+            infer_score_thre=up.get("infer_score_thre", 0.1),
+            iou=up.get("eval_config", {}).get("iou", [0.6])[0],
+            fuse_history=up.get("fuse_history", False),
+            first_fuse=up.get("first_fuse", False),
+            first_score_thre=up.get("first_score_thre", 0.1),
+            use_ema=up.get("use_ema", True),
+            eval_flip=up.get("eval_flip", False),
+            mode=ec.get("mode", "iteration"),
+            interval=ec.get("interval", 1),
+            start_point=up.get("start_point", 8),
+            preload=up.get("preload", 6), device=device)
+        thres = data_cfg["unlabel_train"].get("thres")
+        if isinstance(thres, str):
+            adathres_file = thres
+
+    runner = SemiRunner(
+        train_step, state, data_loader, work_dir, max_epochs=max_epochs,
+        log_interval=dict(cfg.get("log_config", {}) or {}).get("interval", 10),
+        refresher=refresher, adathres_file=adathres_file,
+        checkpoint_interval=dict(
+            cfg.get("checkpoint_config", {}) or {}).get("interval", 1),
+        ema_step_decay=list(ema_cfg.get("step_decay") or []),
+        ema_decay_ratio=ema_cfg.get("decay_ratio", 0.1), logger=logger)
+    if resume_from:
+        runner.resume(resume_from)
+    runner.run()
+    return runner

@@ -1,0 +1,98 @@
+"""COCO dataset (one annotation file), the reading half.
+
+Counterpart of ``dsl_tpu/data/datasets/coco.py``: category ids remapped to
+contiguous labels, xywh -> xyxy, ``iscrowd`` -> ignore boxes, empty and
+small images filtered. COCO-protocol evaluation is not ported yet.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from dsl_tpu_torch.data.coco_api import COCO
+from dsl_tpu_torch.data.datasets.custom import CustomDataset
+from dsl_tpu_torch.registry import DATASETS
+
+COCO_CLASSES = (
+    'person', 'bicycle', 'car', 'motorcycle', 'airplane', 'bus', 'train',
+    'truck', 'boat', 'traffic light', 'fire hydrant', 'stop sign',
+    'parking meter', 'bench', 'bird', 'cat', 'dog', 'horse', 'sheep', 'cow',
+    'elephant', 'bear', 'zebra', 'giraffe', 'backpack', 'umbrella', 'handbag',
+    'tie', 'suitcase', 'frisbee', 'skis', 'snowboard', 'sports ball', 'kite',
+    'baseball bat', 'baseball glove', 'skateboard', 'surfboard',
+    'tennis racket', 'bottle', 'wine glass', 'cup', 'fork', 'knife', 'spoon',
+    'bowl', 'banana', 'apple', 'sandwich', 'orange', 'broccoli', 'carrot',
+    'hot dog', 'pizza', 'donut', 'cake', 'chair', 'couch', 'potted plant',
+    'bed', 'dining table', 'toilet', 'tv', 'laptop', 'mouse', 'remote',
+    'keyboard', 'cell phone', 'microwave', 'oven', 'toaster', 'sink',
+    'refrigerator', 'book', 'clock', 'vase', 'scissors', 'teddy bear',
+    'hair drier', 'toothbrush')
+
+
+@DATASETS.register(name="CocoDataset")
+class CocoDataset(CustomDataset):
+    CLASSES = COCO_CLASSES
+
+    def load_annotations(self, ann_file):
+        self.coco = COCO(ann_file)
+        # keep the declared class order where the file has those names
+        try:
+            self.cat_ids = self.coco.get_cat_ids(cat_names=self.CLASSES)
+        except KeyError:
+            self.cat_ids = sorted(self.coco.cats.keys())
+        if not self.cat_ids:
+            self.cat_ids = list(range(len(self.CLASSES)))
+        self.cat2label = {cid: i for i, cid in enumerate(self.cat_ids)}
+        self.img_ids = self.coco.get_img_ids()
+        data_infos = []
+        for i in self.img_ids:
+            info = dict(self.coco.load_imgs([i])[0])
+            info["filename"] = info.get("file_name", info.get("filename"))
+            data_infos.append(info)
+        return data_infos
+
+    def get_ann_info(self, idx):
+        img_id = self.data_infos[idx]["id"]
+        anns = self.coco.img_to_anns.get(img_id, [])
+        return self._parse_ann_info(self.data_infos[idx], anns)
+
+    def _parse_ann_info(self, img_info, anns):
+        bboxes, labels, ignore, masks = [], [], [], []
+        for a in anns:
+            if a.get("ignore", False):
+                continue
+            x, y, w, h = a["bbox"]
+            iw = max(0, min(x + w, img_info["width"]) - max(x, 0))
+            ih = max(0, min(y + h, img_info["height"]) - max(y, 0))
+            if iw * ih == 0 or a.get("area", w * h) <= 0 or w < 1 or h < 1:
+                continue
+            if a["category_id"] not in self.cat2label:
+                continue
+            box = [x, y, x + w, y + h]
+            if a.get("iscrowd", False):
+                ignore.append(box)
+            else:
+                bboxes.append(box)
+                labels.append(self.cat2label[a["category_id"]])
+                masks.append(a.get("segmentation", None))
+        return dict(
+            bboxes=np.asarray(bboxes, np.float32).reshape(-1, 4),
+            labels=np.asarray(labels, np.int64),
+            bboxes_ignore=np.asarray(ignore, np.float32).reshape(-1, 4),
+            masks=masks)
+
+    def _filter_imgs(self, min_size=32):
+        valid = []
+        for i, info in enumerate(self.data_infos):
+            if min(info["width"], info["height"]) < min_size:
+                continue
+            if self.filter_empty_gt and not self.coco.img_to_anns.get(
+                    info["id"]):
+                continue
+            valid.append(i)
+        self.img_ids = [self.data_infos[i]["id"] for i in valid]
+        return valid
+
+    def evaluate(self, results, metric="bbox", **kwargs):
+        raise NotImplementedError(
+            "COCO-protocol evaluation is not ported to dsl_tpu_torch yet")

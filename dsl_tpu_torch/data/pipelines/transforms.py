@@ -1,0 +1,204 @@
+"""Geometric and photometric transforms on device tensors.
+
+Counterpart of the part of ``dsl_tpu/data/pipelines/transforms.py`` the
+flagship config runs: ``Resize`` (a list of scales, ``multiscale_mode``
+'value' or 'range', ``keep_ratio``), ``RandomFlip``, ``Normalize``,
+``Pad`` (``size_divisor``) and ``MultiScaleFlipAug``. ``results["img"]`` is
+an (H, W, 3) tensor on its device; boxes are host numpy arrays, transformed
+as the JAX package does. Random draws come from the ``rng`` argument in the
+JAX package's order of ``np.random`` calls.
+
+Resize is bilinear with ``align_corners=False``; a uint8 image is rounded
+back to uint8 levels. ``cv2.resize`` works in fixed point, so a pixel may
+differ from the JAX package's by one level.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from dsl_tpu_torch.data.pipelines.compose import Compose
+from dsl_tpu_torch.registry import PIPELINES
+
+
+def keep_ratio_size(h: int, w: int, scale) -> tuple[int, int]:
+    """(new_h, new_w) that fits (h, w) into ``scale`` = (long, short) edges,
+    rounded as mmcv's ``rescale_size``."""
+    factor = min(max(scale) / max(h, w), min(scale) / min(h, w))
+    return int(h * factor + 0.5), int(w * factor + 0.5)
+
+
+def resize_image(img: torch.Tensor, new_h: int, new_w: int) -> torch.Tensor:
+    """(H, W, C) -> (new_h, new_w, C), bilinear, ``align_corners=False``;
+    uint8 stays uint8 (rounded, as ``cv2.resize`` rounds)."""
+    x = img.permute(2, 0, 1)[None].float()
+    out = F.interpolate(x, size=(new_h, new_w), mode="bilinear",
+                        align_corners=False)[0].permute(1, 2, 0)
+    if img.dtype == torch.uint8:
+        out = out.round().clamp(0, 255).to(torch.uint8)
+    return out.contiguous()
+
+
+@PIPELINES.register
+class Resize:
+    """Resize image and boxes. ``img_scale`` holds (long, short) tuples."""
+
+    def __init__(self, img_scale=None, multiscale_mode="range",
+                 keep_ratio=True, bbox_clip_border=True):
+        if img_scale is None:
+            self.img_scale = None
+        elif isinstance(img_scale, list):
+            self.img_scale = [tuple(s) for s in img_scale]
+        else:
+            self.img_scale = [tuple(img_scale)]
+        self.multiscale_mode = multiscale_mode
+        self.keep_ratio = keep_ratio
+        self.bbox_clip_border = bbox_clip_border
+
+    def _pick_scale(self, rng):
+        if len(self.img_scale) == 1:
+            return self.img_scale[0], 0
+        if self.multiscale_mode == "value":
+            idx = rng.randint(len(self.img_scale))
+            return self.img_scale[idx], idx
+        longs = [max(s) for s in self.img_scale]
+        shorts = [min(s) for s in self.img_scale]
+        long_edge = rng.randint(min(longs), max(longs) + 1)
+        short_edge = rng.randint(min(shorts), max(shorts) + 1)
+        return (long_edge, short_edge), None
+
+    def __call__(self, results, rng):
+        if results.get("scale") is not None:
+            scale, scale_idx = tuple(results["scale"]), results.get("scale_idx")
+        else:
+            scale, scale_idx = self._pick_scale(rng)
+        img = results["img"]
+        h, w = img.shape[:2]
+        if self.keep_ratio:
+            new_h, new_w = keep_ratio_size(h, w, scale)
+        else:
+            new_w, new_h = scale[0], scale[1]
+        out = resize_image(img, new_h, new_w)
+        w_scale, h_scale = new_w / w, new_h / h
+        results["img"] = out
+        results["img_shape"] = tuple(out.shape)
+        results["pad_shape"] = tuple(out.shape)
+        results["scale_factor"] = np.array(
+            [w_scale, h_scale, w_scale, h_scale], np.float32)
+        results["scale"] = scale
+        results["scale_idx"] = scale_idx
+        results["keep_ratio"] = self.keep_ratio
+        for key in results.get("bbox_fields", []):
+            boxes = results[key]
+            if len(boxes) == 0:
+                continue
+            boxes = boxes * results["scale_factor"]
+            if self.bbox_clip_border:
+                boxes[:, 0::2] = np.clip(boxes[:, 0::2], 0, new_w)
+                boxes[:, 1::2] = np.clip(boxes[:, 1::2], 0, new_h)
+            results[key] = boxes
+        return results
+
+
+@PIPELINES.register
+class RandomFlip:
+    def __init__(self, flip_ratio=None, direction="horizontal"):
+        self.flip_ratio = flip_ratio
+        self.direction = direction
+
+    def __call__(self, results, rng):
+        if "flip" not in results:
+            flip = self.flip_ratio is not None and rng.rand() < self.flip_ratio
+            results["flip"] = flip
+            results["flip_direction"] = self.direction if flip else None
+        if results["flip"]:
+            img = results["img"]
+            h, w = img.shape[:2]
+            horizontal = results["flip_direction"] == "horizontal"
+            results["img"] = img.flip(1 if horizontal else 0)
+            for key in results.get("bbox_fields", []):
+                old = results[key]
+                b = old.copy()
+                if len(b):
+                    if horizontal:
+                        b[:, 0], b[:, 2] = w - old[:, 2], w - old[:, 0]
+                    else:
+                        b[:, 1], b[:, 3] = h - old[:, 3], h - old[:, 1]
+                results[key] = b
+        return results
+
+
+@PIPELINES.register
+class Normalize:
+    def __init__(self, mean, std, to_rgb=True):
+        self.mean = np.asarray(mean, np.float32)
+        self.std = np.asarray(std, np.float32)
+        self.to_rgb = to_rgb
+
+    def __call__(self, results, rng):
+        img = results["img"].float()
+        if self.to_rgb:
+            img = img.flip(-1)
+        mean = torch.from_numpy(self.mean).to(img.device)
+        std = torch.from_numpy(self.std).to(img.device)
+        results["img"] = (img - mean) / std
+        results["img_norm_cfg"] = dict(mean=self.mean, std=self.std,
+                                       to_rgb=self.to_rgb)
+        return results
+
+
+@PIPELINES.register
+class Pad:
+    """Pad right and bottom to a fixed size or a size divisor."""
+
+    def __init__(self, size=None, size_divisor=None, pad_val=0):
+        self.size = size
+        self.size_divisor = size_divisor
+        self.pad_val = pad_val
+
+    def __call__(self, results, rng):
+        img = results["img"]
+        h, w = img.shape[:2]
+        if self.size is not None:
+            th, tw = self.size
+        else:
+            d = self.size_divisor
+            th, tw = (h + d - 1) // d * d, (w + d - 1) // d * d
+        out = img.new_full((th, tw, *img.shape[2:]), self.pad_val)
+        out[:h, :w] = img
+        results["img"] = out
+        results["pad_shape"] = tuple(out.shape)
+        results["pad_fixed_size"] = self.size
+        results["pad_size_divisor"] = self.size_divisor
+        return results
+
+
+@PIPELINES.register
+class MultiScaleFlipAug:
+    """Test-time wrapper: the inner transforms at each scale (and flipped
+    where ``flip``); every key of the result becomes a list."""
+
+    def __init__(self, transforms, img_scale=None, flip=False,
+                 flip_direction="horizontal"):
+        self.transforms = Compose(transforms)
+        self.img_scale = ([tuple(img_scale)] if isinstance(img_scale, tuple)
+                          or (isinstance(img_scale, list)
+                              and np.isscalar(img_scale[0]))
+                          else [tuple(s) for s in (img_scale or [])])
+        self.flip = flip
+        self.flip_direction = flip_direction
+
+    def __call__(self, results, rng):
+        aug_results = []
+        for scale in self.img_scale:
+            for f in ([False, True] if self.flip else [False]):
+                r = {k: (v.copy() if isinstance(v, np.ndarray) else v)
+                     for k, v in results.items()}
+                r["scale"] = scale
+                r["scale_idx"] = None
+                r["flip"] = f
+                r["flip_direction"] = self.flip_direction if f else None
+                aug_results.append(self.transforms(r, rng))
+        return {key: [r[key] for r in aug_results] for key in aug_results[0]}

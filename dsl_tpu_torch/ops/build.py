@@ -4,6 +4,7 @@ interface, loaded with ``ctypes``.
 Each ``csrc/<name>.cu`` becomes ``_build/lib<name>-<hash>.so`` (the hash is
 of the source and the flags, so an edited source is rebuilt), compiled with
 ``nvcc`` for ``sm_90a`` at first use; nothing here runs at import time.
+:func:`build_all` starts one ``nvcc`` per source, all at once.
 """
 
 from __future__ import annotations
@@ -24,6 +25,10 @@ BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
+# libraries a source links against, beyond the CUDA runtime
+LINK_FLAGS = {"nvjpeg_decode": ("-lnvjpeg",)}
+SOURCES = tuple(sorted(p.stem for p in CSRC_DIR.glob("*.cu")))
+
 _loaded: dict[str, ctypes.CDLL] = {}
 
 
@@ -39,33 +44,52 @@ def _nvcc() -> str:
                        "the port's kernels")
 
 
+def _flags(name: str) -> tuple[str, ...]:
+    return NVCC_FLAGS + LINK_FLAGS.get(name, ())
+
+
 def _target(name: str) -> Path:
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(src.read_bytes() + " ".join(_flags(name)).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
-def build(name: str, verbose: bool = False) -> Path:
-    """Compile ``csrc/<name>.cu`` unless it is built already; return the path.
+def build_all(names=SOURCES, verbose: bool = False) -> dict[str, Path]:
+    """Compile every ``csrc/<name>.cu`` of ``names`` that is not built yet,
+    one ``nvcc`` each, all started together; return name -> library path.
 
     With ``verbose`` the compiler prints the kernels' registers and shared
     memory (``-Xptxas -v``)."""
-    target = _target(name)
-    if target.exists():
-        return target
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = target.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
-    proc = subprocess.run(cmd, stdout=subprocess.PIPE,
-                          stderr=subprocess.STDOUT, text=True, check=False)
-    if proc.returncode != 0:
-        raise RuntimeError(f"kernel build failed: {name}: nvcc exit "
-                           f"{proc.returncode}\n{proc.stdout}")
-    if verbose and proc.stdout:
-        print(proc.stdout, end="")
-    os.replace(tmp, target)
-    return target
+    targets = {name: _target(name) for name in names}
+    todo = {name: t for name, t in targets.items() if not t.exists()}
+    if todo:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
+    procs = {}
+    for name, target in todo.items():
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *_flags(name), *(["-Xptxas", "-v"] if verbose else []),
+               "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp)
+    failed = []
+    for name, (proc, tmp) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name}: nvcc exit {proc.returncode}\n{out}")
+            continue
+        if verbose and out:
+            print(out, end="")
+        os.replace(tmp, targets[name])
+    if failed:
+        raise RuntimeError("kernel build failed: " + "\n".join(failed))
+    return targets
+
+
+def build(name: str, verbose: bool = False) -> Path:
+    """Compile ``csrc/<name>.cu`` unless it is built already; return the path."""
+    return build_all((name,), verbose)[name]
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -46,3 +46,5 @@ def build_from_cfg(cfg: dict, registry: Registry) -> Any:
 
 MODELS = Registry("models")
 BACKBONES = NECKS = HEADS = DETECTORS = MODELS
+DATASETS = Registry("datasets")
+PIPELINES = Registry("pipelines")

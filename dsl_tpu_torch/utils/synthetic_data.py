@@ -1,0 +1,109 @@
+"""A synthetic semicoco directory, for smoke runs and parity tests (no
+dataset ships with the repo).
+
+:func:`make_semicoco_dir` lays out what ``tools/coco_convert2_semicoco_json.py``
+makes from COCO, from a few JPEG files copied under new names:
+
+  images/full/<name>.jpg
+  labeled.json, unlabeled.json        COCO image lists (80 COCO categories)
+  prepared_annos/<name>.jpg.json      per-image GT of the labeled images
+  unlabel_prepared_annos/<name>.jpg.json
+                                      initial labels of the unlabeled ones
+  mmdet_category_info.json            cat2id / id2cat, background last
+
+Each label file holds 1-5 seeded boxes with COCO tags and no scores
+(``imageName/targetNum/rects/tags/masks``), as the converter writes them.
+:func:`semi_config` points a config's ``data`` block at such a directory.
+"""
+
+from __future__ import annotations
+
+import copy
+import json
+import shutil
+from pathlib import Path
+
+import numpy as np
+
+from dsl_tpu_torch.data.datasets.coco import COCO_CLASSES
+
+BACKGROUND = "background"
+
+
+def _boxes(rng: np.random.RandomState, h: int, w: int, n: int) -> list:
+    out = []
+    for _ in range(n):
+        bw, bh = rng.randint(w // 8, w // 2), rng.randint(h // 8, h // 2)
+        x1, y1 = rng.randint(0, w - bw), rng.randint(0, h - bh)
+        out.append([float(x1), float(y1), float(x1 + bw), float(y1 + bh)])
+    return out
+
+
+def _write_label(path: Path, name: str, rects: list, tags: list):
+    data = dict(imageName="full/" + name, targetNum=len(rects), rects=rects,
+                tags=tags, masks=[[] for _ in rects])
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump(data, f, indent=4, ensure_ascii=False)
+
+
+def make_semicoco_dir(root, sources: list[tuple[str, int, int]],
+                      n_labeled: int, n_unlabeled: int, seed: int = 0) -> dict:
+    """``sources`` are (jpeg path, height, width); image i of each split is
+    a copy of source ``i % len(sources)``. Returns the paths by role."""
+    root = Path(root)
+    rng = np.random.RandomState(seed)
+    img_dir = root / "images" / "full"
+    lab_dir = root / "prepared_annos"
+    unl_dir = root / "unlabel_prepared_annos"
+    for d in (img_dir, lab_dir, unl_dir):
+        d.mkdir(parents=True, exist_ok=True)
+    cat2id = {c: i for i, c in enumerate(COCO_CLASSES)}
+    cat2id[BACKGROUND] = len(COCO_CLASSES)
+    info = root / "mmdet_category_info.json"
+    with open(info, "w", encoding="utf-8") as f:
+        json.dump(dict(cat2id=cat2id,
+                       id2cat={str(i): c for c, i in cat2id.items()}),
+                  f, indent=4, ensure_ascii=False)
+    categories = [dict(id=i + 1, name=c) for i, c in enumerate(COCO_CLASSES)]
+    lists = {}
+    for split, count, label_dir in (("labeled", n_labeled, lab_dir),
+                                    ("unlabeled", n_unlabeled, unl_dir)):
+        images = []
+        for i in range(count):
+            src, h, w = sources[i % len(sources)]
+            name = f"{split}_{i:03d}.jpg"
+            shutil.copyfile(src, img_dir / name)
+            images.append(dict(id=i + 1, file_name=name, width=w, height=h))
+            n = rng.randint(1, 6)
+            tags = [COCO_CLASSES[k] for k in rng.randint(0, len(COCO_CLASSES), n)]
+            _write_label(label_dir / f"{name}.json", name, _boxes(rng, h, w, n),
+                         tags)
+        lists[split] = root / f"{split}.json"
+        with open(lists[split], "w", encoding="utf-8") as f:
+            json.dump(dict(images=images, categories=categories,
+                           annotations=[]), f)
+    return dict(root=str(root), images=str(img_dir), labeled=str(lists["labeled"]),
+                unlabeled=str(lists["unlabeled"]), label_store=str(lab_dir),
+                unlabel_store=str(unl_dir), category_info=str(info),
+                adathres=str(root / "adathres.json"))
+
+
+def semi_config(cfg: dict, paths: dict) -> dict:
+    """A copy of ``cfg`` (a plain dict) whose ``data.train``,
+    ``data.unlabel_train`` and ``data.unlabel_pred`` read ``paths`` (as
+    :func:`make_semicoco_dir` returns them); ``unlabel_train.thres`` becomes
+    the directory's ``adathres.json`` where it names a file."""
+    cfg = copy.deepcopy(cfg)
+    data = cfg["data"]
+    common = dict(labelmapper=paths["category_info"], img_prefix=paths["images"])
+    data["train"].update(ann_file=paths["labeled"],
+                         ann_path=paths["label_store"], **common)
+    data["unlabel_train"].update(ann_file=paths["unlabeled"],
+                                 ann_path=paths["unlabel_store"], **common)
+    if isinstance(data["unlabel_train"].get("thres"), str):
+        data["unlabel_train"]["thres"] = paths["adathres"]
+    data["unlabel_pred"].update(
+        image_root_path=paths["images"], image_list_file=paths["unlabeled"],
+        anno_root_path=paths["unlabel_store"],
+        category_info_path=paths["category_info"])
+    return cfg

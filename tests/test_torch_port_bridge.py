@@ -6,10 +6,11 @@
   through the JAX package's own checkpoint importer
   (``dsl_tpu.utils.torch_import``) to the same flax variables, so the
   port's parameter names are the reference checkpoints' names;
-- ``import dsl_tpu_torch`` (and every module of it) brings in no ``jax``,
-  ``flax`` or ``dsl_tpu`` module, checked in a fresh interpreter and by an
-  AST scan of the package and ``chip_smoke.py``; the weight bridge
-  (``utils``) loads no module of the train layer.
+- ``import dsl_tpu_torch`` and every module of it (found by walking the
+  package) bring in no ``jax``, ``flax`` or ``dsl_tpu`` module, checked in
+  a fresh interpreter and by an AST scan of the package and
+  ``chip_smoke.py``; the weight bridge (``utils``) loads no module of the
+  train layer.
 """
 
 import ast
@@ -98,17 +99,23 @@ def test_import_brings_in_no_jax():
         "before = set(sys.modules)\n"
         "import dsl_tpu_torch.utils.jax_bridge, dsl_tpu_torch.utils.random_weights\n"
         "utils = sorted(set(sys.modules) - before)\n"
-        "import dsl_tpu_torch, dsl_tpu_torch.apis, dsl_tpu_torch.models\n"
-        "import dsl_tpu_torch.ops.nms, dsl_tpu_torch.ops.nms_cases\n"
-        "import dsl_tpu_torch.train, dsl_tpu_torch.train.bridge\n"
-        "import dsl_tpu_torch.core.losses, dsl_tpu_torch.core.targets\n"
-        "import dsl_tpu_torch.utils.random_batch\n"
+        "import importlib, pkgutil, dsl_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    dsl_tpu_torch.__path__, 'dsl_tpu_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
         "import json\n"
+        "print(json.dumps(names))\n"
         "print(json.dumps(utils))\n"
         "print(json.dumps(sorted(set(sys.modules) - before)))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                          capture_output=True, text=True, timeout=120)
-    utils, added = map(json.loads, out.stdout.strip().splitlines()[-2:])
+    names, utils, added = map(json.loads, out.stdout.strip().splitlines()[-3:])
+    files = sorted((REPO / "dsl_tpu_torch").rglob("*.py"))
+    assert len(names) + 1 == len(files) > 40     # the root package aside
+    for module in ("data.image_io", "data.loader", "train.semi",
+                   "train.runner", "apis.train", "utils.checkpoint"):
+        assert f"dsl_tpu_torch.{module}" in names
     # the weight bridge is a leaf below the train layer
     assert not [m for m in utils if m.startswith("dsl_tpu_torch.train")]
     assert any(m.startswith("dsl_tpu_torch") for m in added)

@@ -17,7 +17,19 @@ dependencies:
 - one f32 train step of the tiny flagship on the card agrees with the same
   step on the CPU (losses within 1e-4 and ``grad_norm`` within 1e-3
   relative, the updated parameters within 5% of each one's update, floor
-  1e-5), and the teacher's eval step launches the NMS kernel once.
+  1e-5), and the teacher's eval step launches the NMS kernel once;
+- nvJPEG decodes each JPEG fixture within the stated tolerance of its
+  committed OpenCV decode (``DECODE_*`` below: libjpeg-turbo's chroma
+  upsampling and IDCT part from nvJPEG's by a few levels at colour edges),
+  and a file that is not JPEG raises on the CUDA route, naming its format;
+  decodes enqueued on a stream that is still busy (as the loader's and the
+  refresh's are, behind a train step) equal decodes on an idle one;
+- ``inference_detector`` takes a path on the card (nvJPEG, no OpenCV) and
+  preprocesses it as it does the committed decode, within that tolerance;
+- a pseudo-label refresh on the refresher's side stream gives the NMS keeps
+  and detections of the same refresh on the main stream;
+- ``train_detector`` refuses to start without CUDA (this one runs
+  everywhere).
 """
 
 import numpy as np
@@ -33,8 +45,12 @@ from dsl_tpu_torch.train import (
     make_eval_step, make_train_step)
 from dsl_tpu_torch.utils.jax_bridge import flax_to_state_dict, state_dict_to_flax
 from dsl_tpu_torch.utils.random_batch import to_torch
+from torch_port_make_fixtures import FIXTURES, OUT, load_decodes
 
 CASES = nms_cases.cases() + [nms_cases.tiny_boxes()] + nms_cases.timing_cases()
+# nvJPEG vs OpenCV, per fixture: mean |diff| in levels, share of values off
+# by more than 4, largest difference
+DECODE_MEAN, DECODE_SHARE_OVER_4, DECODE_MAX = 1.5, 0.03, 48
 
 
 @pytest.fixture
@@ -153,3 +169,132 @@ def test_teacher_eval_step_launches_nms_once(card):
     torch.cuda.synchronize()
     assert nms_keep.launches == before + 1
     assert dets.shape == (4, 100, 5) and bool(torch.isfinite(dets).all())
+
+
+def _decode_within_tolerance(got: torch.Tensor, want: torch.Tensor):
+    d = (got.int() - want.int()).abs()
+    assert float(d.float().mean()) <= DECODE_MEAN
+    assert float((d > 4).float().mean()) <= DECODE_SHARE_OVER_4
+    assert int(d.max()) <= DECODE_MAX
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(FIXTURES))
+def test_nvjpeg_matches_cv2_decode(card, name):
+    from dsl_tpu_torch.data.image_io import read_image
+
+    h, w, _ = FIXTURES[name]
+    got = read_image(OUT / f"{name}.jpg", card)
+    torch.cuda.synchronize()
+    assert got.shape == (h, w, 3) and got.dtype == torch.uint8
+    assert got.device.type == "cuda"
+    _decode_within_tolerance(got.cpu(), torch.from_numpy(load_decodes()[name]))
+
+
+@pytest.mark.cuda
+def test_decodes_queued_behind_work_equal_decodes_on_an_idle_stream(card):
+    """Twenty decodes (past the decoder's ring of eight staging states)
+    enqueued behind 0.1 s of work on their stream."""
+    from dsl_tpu_torch.data.image_io import read_image
+
+    paths = [OUT / f"{n}.jpg" for n in sorted(FIXTURES)]
+    want = [read_image(p, card) for p in paths]
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream(card)
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(200_000_000)
+        got = [read_image(p, card) for p in paths * 5]
+    torch.cuda.synchronize()
+    for i, g in enumerate(got):
+        assert torch.equal(g, want[i % len(paths)]), i
+
+
+@pytest.mark.cuda
+def test_non_jpeg_raises_on_the_cuda_route(card, tmp_path):
+    from dsl_tpu_torch.data.image_io import read_image
+
+    png = tmp_path / "x.png"
+    png.write_bytes(b"\x89PNG\r\n\x1a\n" + bytes(64))
+    with pytest.raises(ValueError, match="PNG is not JPEG"):
+        read_image(png, card)
+    bmp = tmp_path / "x.bmp"
+    bmp.write_bytes(b"BM" + bytes(64))
+    with pytest.raises(ValueError, match="BMP is not JPEG"):
+        read_image(bmp, card)
+
+
+@pytest.mark.cuda
+def test_inference_detector_reads_a_path_on_the_card(card):
+    from dsl_tpu_torch.apis import inference_detector, init_detector
+    from dsl_tpu_torch.apis.inference import IMG_STD, preprocess
+    from dsl_tpu_torch.config import Config
+    from dsl_tpu_torch.data.image_io import read_image
+
+    name = "coco_640x480"
+    variables = U.fill_variables(state_dict_to_flax(
+        build_detector(U.TINY_CFG).state_dict()), seed=0)
+    bundle = init_detector(Config(dict(model=U.TINY_CFG)), variables,
+                           device=card, canvas_hw=(96, 128))
+    path = OUT / f"{name}.jpg"
+    result = inference_detector(bundle, str(path))
+    assert len(result) == 80
+    assert all(r.shape[1] == 5 and np.isfinite(r).all() for r in result)
+    assert sum(len(r) for r in result) > 0
+    got, shapes, _ = preprocess(bundle, read_image(path, card))
+    want, shapes_want, _ = preprocess(bundle, load_decodes()[name])
+    assert torch.equal(shapes, shapes_want)
+    # normalized levels back to 0-255 levels, then the decode tolerance
+    # (resizing averages neighbours, so it cannot widen the differences)
+    std = torch.tensor(IMG_STD, device=card)[None, :, None, None]
+    d = ((got - want) * std).abs()
+    assert float(d.mean()) <= DECODE_MEAN and float(d.max()) <= DECODE_MAX + 1
+
+
+@pytest.mark.cuda
+def test_refresh_on_the_side_stream_matches_the_main_stream(card, tmp_path):
+    import dsl_tpu_torch.core.nms as core_nms
+    from dsl_tpu_torch.train.label_store import LabelStore
+    from dsl_tpu_torch.train.semi import PseudoLabelRefresher
+
+    state, _ = _tiny_train(card)
+    store = LabelStore(str(tmp_path / "store"), {"0": "a"}, {"a": 0})
+    names = sorted(f"{n}.jpg" for n in FIXTURES)
+    infos = [dict(filename=f"{n}.jpg", height=h, width=w)
+             for n, (h, w, _) in sorted(FIXTURES.items())]
+    refresher = PseudoLabelRefresher(
+        state.student, store, str(OUT), infos, test_cfg=U.TINY_CFG["test_cfg"],
+        canvas_hw=(64, 96), img_scale=(96, 64), refresh_batch=8, device=card)
+    real, keeps = core_nms.nms_keep, []
+
+    def record(boxes, valid, thr):
+        keep = real(boxes, valid, thr)
+        keeps.append((torch.cuda.current_stream(card), keep.clone()))
+        return keep
+
+    core_nms.nms_keep = record
+    try:
+        on_main = refresher._predict_all(state.teacher_params, names)
+        side = torch.cuda.Stream(card)
+        side.wait_stream(torch.cuda.current_stream(card))
+        with torch.cuda.stream(side):
+            on_side = refresher._predict_all(state.teacher_params, names)
+        torch.cuda.synchronize()
+    finally:
+        core_nms.nms_keep = real
+    assert len(keeps) == 2
+    assert keeps[0][0] == torch.cuda.default_stream(card)
+    assert keeps[1][0] == side
+    assert torch.equal(keeps[0][1], keeps[1][1])
+    for (_, main_results), (_, side_results) in zip(on_main, on_side):
+        for a, b in zip(main_results, side_results):
+            for x, y in zip(a[1:], b[1:]):
+                assert torch.equal(x, y)
+
+
+def test_train_detector_raises_without_cuda(monkeypatch, tmp_path):
+    from dsl_tpu_torch.apis import train_detector
+    from dsl_tpu_torch.config import Config
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_detector(Config(dict(model=U.TINY_CFG)), str(tmp_path))

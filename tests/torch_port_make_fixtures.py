@@ -1,0 +1,101 @@
+#!/usr/bin/env python3
+"""Write the port's JPEG fixtures and their OpenCV decodes.
+
+    python tests/torch_port_make_fixtures.py
+
+Writes ``tests/torch_port_data/<name>.jpg`` with ``cv2.imwrite`` (baseline
+JPEG, quality 90, 4:2:0 chroma for the colour ones, no EXIF block) and
+``tests/torch_port_data/cv2_decodes.npz``: each file read back with
+``cv2.imread(path, cv2.IMREAD_COLOR)`` (H, W, 3 uint8 BGR). For the
+grayscale file that gives three equal channels, and the archive keeps one
+of them, (H, W). Each decode is stored as its differences along a row
+(modulo 256), which compress several times better than the pixels of
+smooth content; :func:`load_decodes` sums them back and widens the
+grayscale one again. The machine with the card has no OpenCV, so its
+decoder is held against these committed decodes.
+
+The content is smooth (low-frequency waves, gradients and a few soft
+discs), seeded, at COCO-like landscape sizes; one file is grayscale.
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+
+import numpy as np
+
+OUT = Path(__file__).resolve().parent / "torch_port_data"
+SEED = 0
+# name -> (height, width, grayscale)
+FIXTURES = {
+    "coco_640x480": (480, 640, False),
+    "coco_640x427": (427, 640, False),
+    "coco_500x375": (375, 500, False),
+    "gray_640x480": (480, 640, True),
+}
+
+
+def smooth_image(rng: np.random.RandomState, h: int, w: int) -> np.ndarray:
+    """(h, w, 3) uint8 BGR: per channel a sum of a few long waves and a
+    gradient, plus soft discs that give objects' edges to detect."""
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
+    img = np.empty((h, w, 3))
+    for c in range(3):
+        acc = 110 + 40 * (xx / w) * rng.uniform(-1, 1) + 40 * (yy / h) * rng.uniform(-1, 1)
+        for _ in range(3):
+            fx, fy = rng.uniform(0.5, 3.0, 2)
+            acc += 25 * np.sin(2 * np.pi * (fx * xx / w + fy * yy / h) + rng.uniform(0, 6.3))
+        img[..., c] = acc
+    for _ in range(4):
+        cy, cx = rng.uniform(0.2, 0.8) * h, rng.uniform(0.2, 0.8) * w
+        r = rng.uniform(0.08, 0.2) * min(h, w)
+        d = np.sqrt((yy - cy) ** 2 + (xx - cx) ** 2)
+        alpha = np.clip((r - d) / 6.0, 0.0, 1.0)[..., None]
+        img = img * (1 - alpha) + rng.uniform(20, 235, 3) * alpha
+    return np.clip(np.round(img), 0, 255).astype(np.uint8)
+
+
+def load_decodes() -> dict[str, np.ndarray]:
+    """The committed cv2 decodes, each (H, W, 3) uint8 BGR."""
+    out = {}
+    with np.load(OUT / "cv2_decodes.npz") as f:
+        for name, diffs in f.items():
+            img = np.cumsum(diffs, axis=1, dtype=np.uint8)
+            out[name] = np.repeat(img[..., None], 3, 2) if img.ndim == 2 else img
+    return out
+
+
+def main() -> None:
+    import cv2
+
+    OUT.mkdir(parents=True, exist_ok=True)
+    rng = np.random.RandomState(SEED)
+    decodes = {}
+    for name, (h, w, gray) in FIXTURES.items():
+        img = smooth_image(rng, h, w)
+        path = OUT / f"{name}.jpg"
+        params = [cv2.IMWRITE_JPEG_QUALITY, 90]
+        if gray:
+            img = cv2.cvtColor(img, cv2.COLOR_BGR2GRAY)
+        else:
+            params += [cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+                       cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420]
+        if not cv2.imwrite(str(path), img, params):
+            raise RuntimeError(f"cv2.imwrite failed for {path}")
+        bgr = cv2.imread(str(path), cv2.IMREAD_COLOR)
+        if gray:
+            if not (bgr == bgr[..., :1]).all():
+                raise RuntimeError(f"{path}: cv2 gave unequal channels")
+            bgr = bgr[..., 0]
+        decodes[name] = np.diff(bgr, axis=1, prepend=np.uint8(0))
+        print(f"{path.name}: {path.stat().st_size} bytes, decode {bgr.shape}")
+    np.savez_compressed(OUT / "cv2_decodes.npz", **decodes)
+    print(f"cv2_decodes.npz: {(OUT / 'cv2_decodes.npz').stat().st_size} bytes")
+    for name, img in load_decodes().items():
+        want = cv2.imread(str(OUT / f"{name}.jpg"), cv2.IMREAD_COLOR)
+        if not np.array_equal(img, want):
+            raise RuntimeError(f"{name}: the stored decode does not read back")
+
+
+if __name__ == "__main__":
+    main()

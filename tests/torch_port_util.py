@@ -3,12 +3,17 @@
 The JAX flagship and the port are built from the same config dict (the one
 ``__graft_entry__._flagship_detector`` builds); variables come from
 ``jax.eval_shape`` plus the port's seeded numpy fill (no flax init forward),
-and reach the port through the weight bridge.
+and reach the port through the weight bridge. The semi loop's helpers at
+the end (the flagship config as the port runs it today, label-file
+comparison) are read by ``chip_smoke.py`` too, so this module imports JAX
+only inside the functions that build the JAX side.
 """
 
 from __future__ import annotations
 
 import copy
+import os
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -154,3 +159,52 @@ def assert_banded(got: dict, want: dict, init: dict | None = None,
     rel_l2 = np.linalg.norm(d_got - d_want) / np.linalg.norm(d_want)
     assert rel_l2 < l2, f"aggregate relative L2 error {rel_l2:.3e}"
     return n
+
+
+# -- the semi loop (also read by chip_smoke.py) -----------------------------
+
+def tree_of(path) -> dict[str, bytes]:
+    """File name -> bytes of every file in a directory."""
+    return {name: (Path(path) / name).read_bytes()
+            for name in sorted(os.listdir(path))}
+
+
+# the flagship's strong augmentations, not ported yet
+STRONG_AUGMENTATIONS = ("PatchShuffle", "RandomAugmentBBox_Fast", "UBAug")
+
+
+def cut_flagship(cfg: dict, max_epochs: int, start_point: int) -> dict:
+    """A copy of the flagship config as the port runs it today: without the
+    strong augmentations and ``evaluation``, ``max_epochs`` epochs, the
+    refresh from epoch ``start_point``."""
+    cfg = copy.deepcopy(cfg)
+    for key in ("train", "unlabel_train"):
+        cfg["data"][key]["pipeline"] = [
+            t for t in cfg["data"][key]["pipeline"]
+            if t["type"] not in STRONG_AUGMENTATIONS]
+    cfg.pop("evaluation", None)
+    cfg["runner"]["max_epochs"] = max_epochs
+    cfg["data"]["unlabel_pred"]["start_point"] = start_point
+    return cfg
+
+
+def pair_labels(got: dict, want: dict, px: float = 1.0,
+                score: float = 1e-3) -> tuple[int, float]:
+    """Pair the boxes of one label file with another's: each box of ``got``
+    with an unused box of ``want`` of the same tag within ``px`` on every
+    side and ``score`` in score (a pairing, not an order: near-equal scores
+    may come in either order). Returns (boxes of either file left
+    unpaired, the largest difference of a pair)."""
+    free = list(range(want["targetNum"]))
+    worst, unpaired = 0.0, 0
+    for tag, rect, s in zip(got["tags"], got["rects"], got["scores"]):
+        for j in free:
+            d = max(abs(u - v) for u, v in zip(rect, want["rects"][j]))
+            if want["tags"][j] == tag and d <= px and abs(
+                    s - want["scores"][j]) <= score:
+                free.remove(j)
+                worst = max(worst, d)
+                break
+        else:
+            unpaired += 1
+    return unpaired + len(free), worst
