@@ -67,14 +67,27 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
 8. decode: nvJPEG (``data/image_io.read_image`` on the card) on each JPEG
    fixture of ``tests/torch_port_data/`` against its committed OpenCV
    decode, within ``DECODE_*``, and its time per image.
-9. semi loop at full width: ``train_detector`` on the flagship config cut
-   as the port runs it today (without ``PatchShuffle``,
-   ``RandomAugmentBBox_Fast``, ``UBAug`` and ``evaluation``; 2 epochs; the
-   refresh from epoch 1; ``preload`` 6, ``refresh_batch`` 8) over a
-   synthetic semicoco directory of copies of the fixtures (8 labeled, 16
-   unlabeled), with seeded weights, B=5 per step. With every kernel count
-   at 0 before it, read after: losses finite; NMS launched once per refresh
-   chunk and never in a train step; every unlabeled label file rewritten;
+9. strong augmentations at full size: the four fixtures (their committed
+   OpenCV decodes, on the card) resized by the flagship's ``Resize`` to
+   its two scales, with seeded boxes. ``PatchShuffle``,
+   ``RandomAugmentBBox_Fast(aug_type='affine')``,
+   ``RandomAugmentBBox(aug_type='strong')`` and ``UBAug`` each run on the
+   card and on the CPU from the same seeds: images bit-identical, boxes
+   equal. Per transform: median ms per image over 20 (host clock to a
+   synchronize), kernels per image (one ``torch.profiler`` trace), and host
+   syncs per image (``torch.cuda.set_sync_debug_mode``); any sync fails.
+10. semi loop at full width: ``train_detector`` on the flagship config as
+   written (its own train pipelines with ``PatchShuffle``,
+   ``RandomAugmentBBox_Fast``, ``UBAug``, and its ``evaluation``), only
+   its schedule and data paths overridden (``OVERRIDES``: 2 epochs, the
+   refresh from epoch 1; ``preload`` 6, ``refresh_batch`` 8 as written),
+   over a synthetic semicoco directory of copies of the fixtures (8
+   labeled, 16 unlabeled, 12 val images with COCO GT), with seeded
+   weights, B=5 per step. With every kernel count at 0 before it, read
+   after: losses finite; NMS launched once per refresh chunk and per
+   evaluation batch, never in a train step; evaluation after each epoch on
+   the teacher's parameters, ``bbox_mAP`` finite in [0, 1] in
+   ``train.log.json``; every unlabeled label file rewritten;
    ``adathres.json`` written; the second epoch's dataset read the
    rewritten files; ``resume_from`` the epoch-1 checkpoint restores the
    state bit for bit. Then, on the trained state: one chunk refreshed on
@@ -83,8 +96,17 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    counts, boxes within 1 px), whose NMS keeps equal the plain version's;
    the torch-level host syncs of a dispatch; refresh img/s at B=8; the
    peak device memory of a refresh of the whole unlabeled set within one
-   image of a one-chunk refresh's; the semi iteration (step + complete + dispatch) against the bare step on one
-   batch; one profiler trace of a semi iteration.
+   image of a one-chunk refresh's; the loader's time per batch with the
+   flagship's pipelines (host clock to a synchronize, median); the semi
+   iteration (step + complete + dispatch) with a batch from the loader
+   each iteration, with one fixed batch, and the bare step on it; one
+   profiler trace of a semi iteration.
+11. evaluation: with the counts at 0, ``single_device_test`` over the val
+   set at full width in f32 on the teacher's parameters (NMS once per
+   batch of 8), its detections equal to ``detector_predict`` called
+   directly on the same batches (boxes 1e-3 relative, scores 1e-4), img/s
+   (host clock to a synchronize, median of 3); the val GT fed back as
+   detections scores ``bbox_mAP`` 1.0 exactly.
 
 f32 runs with TF32 off (``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32`` False): cuDNN convolutions would
@@ -124,6 +146,10 @@ TRAIN_WARMUP, TRAIN_STEPS = 3, 20
 TRAIN_STEPS_PER_EPOCH = 1000
 TRAIN_SEED = 0
 SPLIT = ("forward", "loss", "backward", "optimizer", "ema")
+# what torch's sync debug mode says at a synchronizing call (setting the
+# mode also warns that it is a prototype "that does not yet detect all
+# synchronizing operations", which is not a sync)
+SYNC_WARNING = "called a synchronizing CUDA operation"
 
 
 def log(*args):
@@ -196,6 +222,23 @@ def device_busy(fn) -> tuple[float, float, int, list] | None:
             per_name[e.name] = per_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     top = sorted(per_name.items(), key=lambda kv: -kv[1])[:10]
     return busy / 1e3, window / 1e3, len(spans), top
+
+
+def device_ops(fn) -> tuple[int, int] | None:
+    """Kernels, and memory copies and sets, the device ran in one
+    torch.profiler trace of fn(); None where it saw no device event."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not names:
+        return None
+    copies = sum(n.startswith(("Memcpy", "Memset")) for n in names)
+    return len(names) - copies, copies
 
 
 def phase_device():
@@ -768,10 +811,13 @@ def phase_train_card_vs_cpu(cfg, variables):
                              f"L2 {l2}")
 
 
-# -- the semi-supervised loop (phases 8-9) ----------------------------------
+# -- the semi-supervised loop (phases 8, 10) --------------------------------
 
-SEMI_LABELED, SEMI_UNLABELED = 8, 16   # copies of the JPEG fixtures
+SEMI_LABELED, SEMI_UNLABELED, SEMI_VAL = 8, 16, 12  # copies of the fixtures
 SEMI_EPOCHS, SEMI_START = 2, 1
+# the flagship config's only overrides in the semi phase: its schedule
+OVERRIDES = {"runner.max_epochs": SEMI_EPOCHS,
+             "data.unlabel_pred.start_point": SEMI_START}
 SEMI_TIMED_ITERS = 10
 # nvJPEG against OpenCV's decodes of the fixtures: libjpeg-turbo's "fancy"
 # chroma upsampling and IDCT part from nvJPEG's at colour edges (measured
@@ -836,26 +882,34 @@ def phase_decode(smi: str) -> dict:
 
 
 def semi_config_for(tmp: Path) -> tuple[dict, dict]:
-    """The cut flagship config on a synthetic semicoco directory in tmp."""
+    """The flagship config with ``OVERRIDES`` on a synthetic semicoco
+    directory (with a val set) in tmp."""
     from dsl_tpu_torch.config import Config
     from dsl_tpu_torch.utils import synthetic_data
-    from torch_port_util import cut_flagship
 
     files, _ = fixtures()
     paths = synthetic_data.make_semicoco_dir(
         tmp / "data", [(str(p), h, w) for _, p, h, w in files],
-        SEMI_LABELED, SEMI_UNLABELED)
-    cfg = Config.fromfile(str(CONFIG))._cfg_dict
-    cfg = cut_flagship(cfg, SEMI_EPOCHS, SEMI_START)
+        SEMI_LABELED, SEMI_UNLABELED, n_val=SEMI_VAL)
+    cfg = copy.deepcopy(Config.fromfile(str(CONFIG))._cfg_dict)
+    for key, value in OVERRIDES.items():
+        *parents, leaf = key.split(".")
+        node = cfg
+        for k in parents:
+            node = node[k]
+        node[leaf] = value
     return synthetic_data.semi_config(cfg, paths), paths
 
 
 @contextlib.contextmanager
 def counting_semi_loop():
     """Record, while the semi loop runs, the NMS launches of every train
-    step and of every refresh chunk, which label files the datasets read
-    after each step count, and a host copy of the state at each checkpoint
-    (the wrappers call the real code)."""
+    step, of every refresh chunk and of every evaluation (with the
+    parameters each evaluation batch predicted with, and the state's
+    teacher dict then), which label files the datasets read after each step
+    count, and a host copy of the state at each checkpoint (the wrappers
+    call the real code)."""
+    import dsl_tpu_torch.apis.test as test_api
     import dsl_tpu_torch.apis.train as api
     import dsl_tpu_torch.train.runner as runner_mod
     from dsl_tpu_torch.data.datasets.semicoco import SemiCOCODataset
@@ -863,9 +917,11 @@ def counting_semi_loop():
     from dsl_tpu_torch.train.semi import PseudoLabelRefresher
 
     rec = dict(step_launches=[], chunk_launches=[], chunk_sizes=[], reads=[],
-               saved={})
+               saved={}, evals=[])
     real_make, real_chunk = api.make_train_step, PseudoLabelRefresher._predict_chunk
     real_read, real_save = SemiCOCODataset._read_store, runner_mod.save_checkpoint
+    real_eval, real_predict = runner_mod.SemiRunner.evaluate, test_api.detector_predict
+    eval_params = []
 
     def make_train_step(*args, **kwargs):
         step = real_make(*args, **kwargs)
@@ -895,10 +951,27 @@ def counting_semi_loop():
         real_save(path, state, meta)
         rec["saved"][meta["epoch"]] = state_snapshot(state)
 
+    def evaluate(self):
+        before = nms_keep.launches
+        eval_params.clear()
+        metrics = real_eval(self)
+        rec["evals"].append(dict(
+            epoch=self.epoch + 1, launches=nms_keep.launches - before,
+            batches=len(eval_params), metrics=metrics,
+            on_teacher=bool(eval_params) and all(
+                p is self.state.teacher_params for p in eval_params)))
+        return metrics
+
+    def eval_predict(*args, **kwargs):
+        eval_params.append(kwargs.get("params"))
+        return real_predict(*args, **kwargs)
+
     api.make_train_step = make_train_step
     PseudoLabelRefresher._predict_chunk = predict_chunk
     SemiCOCODataset._read_store = read_store
     runner_mod.save_checkpoint = save_checkpoint
+    runner_mod.SemiRunner.evaluate = evaluate
+    test_api.detector_predict = eval_predict
     try:
         yield rec
     finally:
@@ -906,6 +979,8 @@ def counting_semi_loop():
         PseudoLabelRefresher._predict_chunk = real_chunk
         SemiCOCODataset._read_store = real_read
         runner_mod.save_checkpoint = real_save
+        runner_mod.SemiRunner.evaluate = real_eval
+        test_api.detector_predict = real_predict
 
 
 def state_snapshot(state) -> dict:
@@ -947,20 +1022,25 @@ def phase_semi(variables, smi: str, tmp: Path):
     import torch
 
     from dsl_tpu_torch.apis import train_detector
+    from dsl_tpu_torch.apis.test import BATCH_SIZE
     from dsl_tpu_torch.config import Config
     from dsl_tpu_torch.data.image_io import decode_jpeg
     from dsl_tpu_torch.ops.nms import nms_keep
-    from torch_port_util import STRONG_AUGMENTATIONS, tree_of
+    from torch_port_util import tree_of
 
     cfg, paths = semi_config_for(tmp)
     unl_store = Path(paths["unlabel_store"])
     before = tree_of(unl_store)
-    log(f"[semi] {CONFIG.relative_to(ROOT)} cut: without "
-        f"{', '.join(STRONG_AUGMENTATIONS)} and `evaluation`; "
-        f"max_epochs {SEMI_EPOCHS}, unlabel_pred.start_point {SEMI_START}, "
+    pipes = {k: [t["type"] for t in cfg["data"][k]["pipeline"]]
+             for k in ("train", "unlabel_train")}
+    log(f"[semi] {CONFIG.relative_to(ROOT)} as written, overrides: "
+        + ", ".join(f"{k} = {v}" for k, v in OVERRIDES.items())
+        + "; data paths -> a synthetic semicoco directory")
+    log(f"[semi] train pipeline {pipes['train']}; unlabel_train pipeline "
+        f"{pipes['unlabel_train']}; evaluation {cfg['evaluation']}; "
         f"preload {cfg['data']['unlabel_pred']['preload']}, refresh_batch 8; "
-        f"{SEMI_LABELED} labeled and {SEMI_UNLABELED} unlabeled images "
-        f"(copies of the JPEG fixtures), full width, canvas "
+        f"{SEMI_LABELED} labeled, {SEMI_UNLABELED} unlabeled and {SEMI_VAL} "
+        f"val images (copies of the JPEG fixtures), full width, canvas "
         f"{CANVAS[0]}x{CANVAS[1]}, B=5 per step")
     nms_keep.launches = 0
     decode_jpeg.decodes = 0
@@ -972,12 +1052,14 @@ def phase_semi(variables, smi: str, tmp: Path):
     wall = time.perf_counter() - t0
     launches = nms_keep.launches
     iters = len(runner.data_loader)
+    eval_launches = sum(e["launches"] for e in rec["evals"])
     log(f"[semi] train_detector: {SEMI_EPOCHS} epochs of {iters} iterations in "
-        f"{wall:.1f} s (set-up and first refresh included); {decode_jpeg.decodes} "
-        f"nvJPEG decodes; NMS launches {launches}: {sum(rec['step_launches'])} "
-        f"in {len(rec['step_launches'])} train steps, "
-        f"{sum(rec['chunk_launches'])} in {len(rec['chunk_launches'])} refresh "
-        f"chunks of {rec['chunk_sizes']} images")
+        f"{wall:.1f} s (set-up, first refresh and evaluations included); "
+        f"{decode_jpeg.decodes} nvJPEG decodes; NMS launches {launches}: "
+        f"{sum(rec['step_launches'])} in {len(rec['step_launches'])} train "
+        f"steps, {sum(rec['chunk_launches'])} in {len(rec['chunk_launches'])} "
+        f"refresh chunks of {rec['chunk_sizes']} images, {eval_launches} in "
+        f"{len(rec['evals'])} evaluations of {SEMI_VAL} images")
 
     # losses finite, every step counted
     hist = runner.log_buffer.history
@@ -990,12 +1072,29 @@ def phase_semi(variables, smi: str, tmp: Path):
     log("[semi] losses finite over all steps; last step: " + ", ".join(
         f"{k} {float(v[-1]):.4f}" for k, v in hist.items()
         if k.startswith("loss") or k == "grad_norm"))
-    # NMS: once per refresh chunk, never in a train step
+    # NMS: once per refresh chunk and per evaluation batch, never in a
+    # train step
+    n_batches = -(-SEMI_VAL // BATCH_SIZE)
     if (any(rec["step_launches"]) or not rec["chunk_launches"]
             or any(n != 1 for n in rec["chunk_launches"])
-            or launches != len(rec["chunk_launches"])):
+            or any(e["launches"] != n_batches or e["batches"] != n_batches
+                   for e in rec["evals"])
+            or launches != len(rec["chunk_launches"]) + eval_launches):
         raise AssertionError(f"NMS launches: steps {rec['step_launches']}, "
-                             f"chunks {rec['chunk_launches']}, total {launches}")
+                             f"chunks {rec['chunk_launches']}, evaluations "
+                             f"{rec['evals']}, total {launches}")
+    # evaluation after each epoch, on the teacher, mAP in train.log.json
+    logged = [_json.loads(x) for x in (tmp / "work" / "train.log.json")
+              .read_text().splitlines() if '"mode": "val"' in x]
+    if ([e["epoch"] for e in rec["evals"]] != list(range(1, SEMI_EPOCHS + 1))
+            or not all(e["on_teacher"] for e in rec["evals"])
+            or [v["epoch"] for v in logged] != list(range(1, SEMI_EPOCHS + 1))
+            or not all(0.0 <= v["bbox_mAP"] <= 1.0 for v in logged)):
+        raise AssertionError(f"evaluation: {rec['evals']}; logged {logged}")
+    for v in logged:
+        log(f"[semi] evaluation after epoch {v['epoch']} on the teacher's "
+            f"parameters ({n_batches} batches, one NMS launch each): "
+            + ", ".join(f"{k} {v[k]}" for k in v if k.startswith("bbox")))
     # every unlabeled label file rewritten by the refresher, adathres written
     after = tree_of(unl_store)
     stale = [n for n in before if after[n] == before[n]
@@ -1030,7 +1129,7 @@ def phase_semi(variables, smi: str, tmp: Path):
         f"{resumed.state.step}, opt_count, ema_ratio, ema_initialized "
         f"bit-identical to the state saved")
     del resumed
-    return runner, launches
+    return runner, launches, cfg
 
 
 @contextlib.contextmanager
@@ -1174,7 +1273,7 @@ def phase_semi_overlap_and_timing(runner, smi: str, tmp: Path):
             torch.cuda.set_sync_debug_mode(0)
         done()
     syncs = [f"{Path(w.filename).name}:{w.lineno}" for w in caught
-             if "synchronizing" in str(w.message)]
+             if SYNC_WARNING in str(w.message)]
     log(f"[semi] torch-level synchronizing calls in one refresh dispatch "
         f"(sync debug mode): {len(syncs)} {syncs}")
 
@@ -1235,15 +1334,45 @@ def phase_semi_overlap_and_timing(runner, smi: str, tmp: Path):
         per = sorted((b - a) * 1e3 for a, b in zip(marks, marks[1:]))
         return per[len(per) // 2], total / n
 
+    # the loader with the flagship's pipelines: decode, Resize,
+    # PatchShuffle, RandomFlip, RandomAugmentBBox_Fast, UBAug, Normalize,
+    # Pad and the batch, on the main stream
+    def batches():
+        epoch = 0
+        while True:
+            runner.data_loader.set_epoch(epoch)
+            for b in runner.data_loader:
+                b.pop("meta")
+                yield b
+            epoch += 1
+
+    stream = batches()
+    loader_ms = sorted(host_ms(lambda: next(stream), reps=SEMI_TIMED_ITERS))
+    log(f"[time] loader, one batch of 2 labeled + 2 unlabeled images and the "
+        f"half-res copy through the flagship's pipelines (host clock to a "
+        f"synchronize): median {loader_ms[len(loader_ms) // 2]:.2f} ms (min "
+        f"{loader_ms[0]:.2f}, max {loader_ms[-1]:.2f}, {SEMI_TIMED_ITERS} "
+        f"batches)  ({smi})")
+
+    def loader_iteration(it):
+        step(state, next(stream))
+        if pending[0] is not None:
+            pending[0]()
+        pending[0] = ref.dispatch_after_train_iter(
+            state, SEMI_START, upcoming, it % SEMI_UNLABELED, 2)
+
     for _ in range(2):
         iteration(0)
     semi_med, semi_mean = run(iteration, SEMI_TIMED_ITERS)
+    real_med, real_mean = run(loader_iteration, SEMI_TIMED_ITERS)
     bare_med, bare_mean = run(lambda it: step(state, batch), SEMI_TIMED_ITERS)
     log(f"[time] semi iteration (step + complete + dispatch of one image's "
-        f"refresh at B={ref.refresh_batch}), f32: median {semi_med:.2f} ms, "
-        f"mean {semi_mean:.2f} ms over {SEMI_TIMED_ITERS}; bare step on the "
-        f"same batch: median {bare_med:.2f} ms, mean {bare_mean:.2f} ms; "
-        f"ratio {semi_mean / bare_mean:.3f}  ({smi})")
+        f"refresh at B={ref.refresh_batch}), f32: with a fixed batch median "
+        f"{semi_med:.2f} ms, mean {semi_mean:.2f} ms; with the loader's next "
+        f"batch each iteration median {real_med:.2f} ms, mean "
+        f"{real_mean:.2f} ms; over {SEMI_TIMED_ITERS}; bare step on the fixed "
+        f"batch: median {bare_med:.2f} ms, mean {bare_mean:.2f} ms; ratio "
+        f"{semi_mean / bare_mean:.3f}  ({smi})")
     traced = device_busy(lambda: (iteration(0), pending[0]()))
     pending[0] = None
     if traced is None:
@@ -1257,6 +1386,242 @@ def phase_semi_overlap_and_timing(runner, smi: str, tmp: Path):
         for kname, us in top[:5]:
             log(f"[trace]   {us / 1e3:8.3f} ms  {kname[:100]}")
     return keep_err
+
+# -- strong augmentations (phase 9) and evaluation (phase 11) -----------------
+
+STRONG_RUNS = 16              # seeded runs of each transform, card vs CPU
+STRONG_TIMED = 20             # images timed per transform
+STRONG_TRANSFORMS = (         # as the flagship config writes them
+    dict(type="PatchShuffle", ratio=0.5, ranges=[0.0, 1.0],
+         mode=["flip", "flop"]),
+    dict(type="RandomAugmentBBox_Fast", aug_type="affine"),
+    dict(type="RandomAugmentBBox", aug_type="strong"),
+    dict(type="UBAug"),
+)
+
+
+def strong_aug_inputs() -> list[dict]:
+    """The fixtures' committed decodes on the card, resized by the
+    flagship's ``Resize`` to each of its two scales, with 4 seeded GT boxes
+    (labels 0-3) and 2 ignore boxes: the results as ``PatchShuffle`` gets
+    them."""
+    import numpy as np
+    import torch
+
+    from dsl_tpu_torch.data.pipelines.transforms import (keep_ratio_size,
+                                                         resize_image)
+
+    files, decodes = fixtures()
+    out = []
+    for scale in ((1333, 640), (1333, 800)):
+        for i, (name, _, h, w) in enumerate(files):
+            nh, nw = keep_ratio_size(h, w, scale)
+            img = resize_image(torch.from_numpy(decodes[name]).to(DEVICE), nh, nw)
+            rng = np.random.RandomState(i)
+            x1, y1 = rng.uniform(0, nw * 0.7, 6), rng.uniform(0, nh * 0.7, 6)
+            boxes = np.stack([x1, y1, x1 + rng.uniform(8, nw * 0.3, 6),
+                              y1 + rng.uniform(8, nh * 0.3, 6)], 1)
+            boxes = boxes.astype(np.float32)
+            out.append(dict(img=img, gt_bboxes=boxes[:4],
+                            gt_bboxes_ignore=boxes[4:], gt_labels=np.arange(4),
+                            img_fields=["img"],
+                            bbox_fields=["gt_bboxes", "gt_bboxes_ignore"]))
+    torch.cuda.synchronize()
+    return out
+
+
+def _fresh(results: dict, device=None) -> dict:
+    """A copy of ``results`` (host arrays and lists copied, the image shared
+    or copied to ``device``)."""
+    import numpy as np
+
+    out = {k: (v.copy() if isinstance(v, (np.ndarray, list)) else v)
+           for k, v in results.items()}
+    if device is not None:
+        out["img"] = results["img"].to(device)
+    return out
+
+
+def phase_strong_aug(smi: str) -> dict:
+    """Each strong augmentation on the card and on the CPU from the same
+    seeds (bit-identical images, equal boxes), then its time, kernels and
+    host syncs per image on the card."""
+    import random
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from dsl_tpu_torch.registry import PIPELINES, build_from_cfg
+
+    inputs = strong_aug_inputs()
+    sizes = sorted({tuple(r["img"].shape[:2]) for r in inputs})
+    log(f"[strong] inputs: the {len(inputs) // 2} fixtures at the flagship's "
+        f"Resize scales (1333, 640) and (1333, 800): {sizes}")
+    out = {}
+    for cfg in STRONG_TRANSFORMS:
+        t = build_from_cfg(dict(cfg), PIPELINES)
+        label = ", ".join(f"{k}={v}" for k, v in cfg.items() if k != "type")
+        label = f"{cfg['type']}({label})"
+        moved = 0
+        for seed in range(STRONG_RUNS):
+            src = inputs[seed % len(inputs)]
+            card = t(_fresh(src), np.random.RandomState(seed),
+                     random.Random(seed))
+            cpu = t(_fresh(src, "cpu"), np.random.RandomState(seed),
+                    random.Random(seed))
+            got = card["img"].cpu()
+            if not torch.equal(got, cpu["img"]):
+                diff = (got.int() - cpu["img"].int()).abs()
+                raise AssertionError(
+                    f"{label}, seed {seed}: card and CPU images differ in "
+                    f"{int((diff > 0).sum())} values, max {int(diff.max())}")
+            for key in ("gt_bboxes", "gt_bboxes_ignore", "gt_labels"):
+                if not np.array_equal(card[key], cpu[key]):
+                    raise AssertionError(f"{label}, seed {seed}: {key} differ")
+            moved += not torch.equal(got, src["img"].cpu())
+
+        def one(i, t=t):
+            t(_fresh(inputs[i % len(inputs)]), np.random.RandomState(1000 + i),
+              random.Random(1000 + i))
+
+        times = []
+        for i in range(STRONG_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            one(i)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        times.sort()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                for i in range(STRONG_TIMED):
+                    one(i)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        syncs = [f"{Path(w.filename).name}:{w.lineno}" for w in caught
+                 if SYNC_WARNING in str(w.message)]
+        traced = device_ops(lambda: [one(i) for i in range(STRONG_TIMED)])
+        kernels = copies = None
+        if traced is not None:
+            kernels, copies = (n / STRONG_TIMED for n in traced)
+        out[cfg["type"] + ("_" + cfg["aug_type"] if "aug_type" in cfg else "")] = (
+            times[len(times) // 2], kernels, len(syncs) / STRONG_TIMED)
+        log(f"[strong] {label}: card = CPU bit for bit on {STRONG_RUNS} seeded "
+            f"runs ({moved} changed the image), boxes and labels equal; "
+            f"{times[len(times) // 2]:.3f} ms per image (median of "
+            f"{STRONG_TIMED}, min {times[0]:.3f}, max {times[-1]:.3f}); "
+            + (f"{kernels:.1f} kernels and {copies:.2f} copies or sets per "
+               f"image" if kernels is not None
+               else "kernels not measured (the profiler saw no device event)")
+            + f"; {len(syncs) / STRONG_TIMED:.2f} host syncs per image  ({smi})")
+        if syncs:
+            raise AssertionError(f"{label}: host syncs {syncs[:5]}")
+    return out
+
+
+def phase_eval(runner, cfg: dict, smi: str) -> tuple[int, float]:
+    """``single_device_test`` over the val set on the teacher, counted; its
+    detections against ``detector_predict`` on the same batches; its
+    img/s; the GT as detections."""
+    import random
+
+    import numpy as np
+    import torch
+
+    import dsl_tpu_torch.apis.test as test_api
+    from dsl_tpu_torch.apis.test import BATCH_SIZE
+    from dsl_tpu_torch.apis.train import build_dataset
+    from dsl_tpu_torch.data.pipelines import test_pipeline_params
+    from dsl_tpu_torch.models import detector_predict
+    from dsl_tpu_torch.ops.nms import nms_keep, nms_keep_reference
+
+    val = build_dataset({**cfg["data"]["val"], "test_mode": True}, DEVICE,
+                        np.random.RandomState(0), random.Random(0))
+    tp = test_pipeline_params(cfg["data"]["val"]["pipeline"])
+    det, params = runner.refresher.detector, runner.state.teacher_params
+    args = dict(test_cfg=dict(cfg["model"]["test_cfg"]), canvas_hw=CANVAS,
+                img_scale=tp["img_scale"], img_norm=tp["img_norm"],
+                device=DEVICE)
+    calls = []
+    real = test_api.detector_predict
+
+    def record(detector, images, **kwargs):
+        out = real(detector, images, **kwargs)
+        calls.append((images.clone(), kwargs, [t.clone() for t in out]))
+        return out
+
+    nms_keep.launches = 0
+    test_api.detector_predict = record
+    with recording_nms() as nms_calls:
+        metrics, results = test_api.single_device_test(
+            det, params, val, return_results=True, **args)
+        torch.cuda.synchronize()
+    test_api.detector_predict = real
+    launches = nms_keep.launches
+    n_batches = -(-len(val) // BATCH_SIZE)
+    if launches != n_batches or len(calls) != n_batches or len(results) != len(val):
+        raise AssertionError(f"evaluation: {launches} NMS launches, "
+                             f"{len(calls)} predicts, {len(results)} results "
+                             f"for {len(val)} images")
+    keep_err = 0
+    for boxes, valid, thr, keep in nms_calls:
+        want = nms_keep_reference(boxes, valid, thr)
+        keep_err = max(keep_err, int((keep.int() - want.int()).abs().max()))
+        if not torch.equal(keep, want):
+            raise AssertionError("evaluation NMS keeps differ from the plain "
+                                 "version")
+    # the same batches through detector_predict directly
+    worst_box, worst_score, n_dets, row = 0.0, 0.0, 0, 0
+    for images, kwargs, _ in calls:
+        dets, labels, valid = (t.cpu().numpy() for t in detector_predict(
+            det, images, **kwargs))
+        for bi in range(len(dets)):
+            got_d, got_l = results[row]
+            m = valid[bi]
+            if not (np.array_equal(got_l, labels[bi][m])
+                    and got_d.shape == dets[bi][m].shape
+                    and np.isfinite(got_d).all()):
+                raise AssertionError(f"evaluation image {row}: detections "
+                                     f"differ from detector_predict's")
+            want = dets[bi][m]
+            scale = np.maximum(np.abs(want[:, :4]), 1.0)
+            worst_box = max(worst_box, float((np.abs(got_d[:, :4] - want[:, :4])
+                                              / scale).max(initial=0)))
+            worst_score = max(worst_score, float(np.abs(
+                got_d[:, 4] - want[:, 4]).max(initial=0)))
+            n_dets += len(want)
+            row += 1
+    if worst_box > 1e-3 or worst_score > 1e-4:
+        raise AssertionError(f"evaluation vs detector_predict: boxes "
+                             f"{worst_box}, scores {worst_score}")
+    if not all(np.isfinite(v) and -1 <= v <= 1 for v in metrics.values()):
+        raise AssertionError(f"evaluation metrics {metrics}")
+    log(f"[eval] single_device_test over {len(val)} val images at full width, "
+        f"f32, on the teacher: {n_batches} batches, NMS launches {launches} "
+        f"(keeps = the plain version's); {n_dets} detections, equal to "
+        f"detector_predict's on the same batches (boxes within "
+        f"{worst_box:.2e} relative, scores {worst_score:.2e}); {metrics}")
+    # the GT fed back as detections
+    gt = []
+    for i in range(len(val)):
+        ann = val.get_ann_info(i)
+        gt.append((np.concatenate([ann["bboxes"], np.ones(
+            (len(ann["bboxes"]), 1), np.float32)], 1), ann["labels"]))
+    gt_metrics = val.evaluate(gt, verbose=False)
+    if gt_metrics["bbox_mAP"] != 1.0:
+        raise AssertionError(f"the GT as detections: {gt_metrics}")
+    log(f"[eval] the val GT fed back as detections: bbox_mAP "
+        f"{gt_metrics['bbox_mAP']}, bbox_mAP_50 {gt_metrics['bbox_mAP_50']}")
+    times = sorted(host_ms(lambda: test_api.single_device_test(
+        det, params, val, evaluate=False, **args), reps=3, warmup=1))
+    ms = times[1]
+    log(f"[time] single_device_test (nvJPEG, resize, canvas, f32 predict at "
+        f"B<={BATCH_SIZE}, NMS, host copies) over {len(val)} images: median "
+        f"{ms:.2f} ms of 3, {len(val) / ms * 1e3:.1f} img/s  ({smi})")
+    return launches, keep_err
 
 
 def main() -> int:
@@ -1287,17 +1652,20 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_train_card_vs_cpu(cfg, variables)
     phase_decode(smi)
+    phase_strong_aug(smi)
     with tempfile.TemporaryDirectory(prefix="_semi_smoke_", dir=ROOT) as tmp:
-        runner, semi_launches = phase_semi(variables, smi, Path(tmp))
+        runner, semi_launches, semi_cfg = phase_semi(variables, smi, Path(tmp))
         semi_err = phase_semi_overlap_and_timing(runner, smi, Path(tmp))
+        eval_launches, eval_err = phase_eval(runner, semi_cfg, smi)
         del runner
-    launches["nms_keep"] += semi_launches
+    launches["nms_keep"] += semi_launches + eval_launches
     kernels = [dict(
         name="nms_keep", route="cuda",
         source="dsl_tpu_torch/csrc/nms_kernel.cu",
         replaces="dsl_tpu/ops/nms_pallas.py:34",
         launches=launches["nms_keep"],
-        max_abs_err=float(max(case_err, path_err, train_err, semi_err)),
+        max_abs_err=float(max(case_err, path_err, train_err, semi_err,
+                              eval_err)),
         ms=nms_times["ms"], plain_ms=nms_times["plain_ms"],
         bound_ms=nms_times["bound_ms"], bound_by=nms_times["bound_by"],
         library_ms=None)]

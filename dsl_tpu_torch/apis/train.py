@@ -6,27 +6,32 @@ Counterpart of the FCOS semi branch of ``dsl_tpu/apis/train.py``:
 ``make_train_step`` (bf16 when ``cfg.fp16``), the ``MultiDataLoader`` of
 ``data.train`` and ``data.unlabel_train``, the pseudo-label refresher of
 ``data.unlabel_pred`` with ``adathres_file`` from ``unlabel_train.thres``,
-then :class:`SemiRunner`.
+the evaluation of ``data.val`` every ``evaluation.interval`` epochs on the
+EMA teacher's parameters (the refresher's snapshot: the state's teacher
+dict through ``detector_predict``, no second model), then
+:class:`SemiRunner`.
 
 One device, CUDA unless the caller passes ``device="cpu"``. Not ported yet,
-and refused with ``NotImplementedError``: evaluation during training
-(``evaluation`` with ``data.val``), a ``pretrained`` backbone or
+and refused with ``NotImplementedError``: a ``pretrained`` backbone or
 ``load_from`` file, Dynamic R-CNN, Seesaw and GHM losses, a training set
 without an unlabeled one. ``variables`` (a flax-layout tree, through the
 weight bridge) gives the initial weights; without it they are the modules'
 initialization from ``seed``. The pipelines draw from one
-``np.random.RandomState(seed)``, as the JAX package's draw from the global
-``np.random`` after ``np.random.seed(seed)``.
+``np.random.RandomState(seed)`` and one ``random.Random(seed)``, as the
+JAX package's draw from the global ``np.random`` and Python's ``random``
+after ``set_random_seed(seed)`` seeds both.
 """
 
 from __future__ import annotations
 
 import json
 import os.path as osp
+import random
 
 import numpy as np
 import torch
 
+from dsl_tpu_torch.apis.test import single_device_test
 from dsl_tpu_torch.data.formatting import DEFAULT_CANVAS
 from dsl_tpu_torch.data.loader import DetDataLoader, MultiDataLoader
 from dsl_tpu_torch.data.pipelines import test_pipeline_params
@@ -48,10 +53,6 @@ DEFAULT_NORM = dict(mean=(123.675, 116.28, 103.53),
 
 def _refuse_unported(cfg):
     data = cfg.data
-    if cfg.get("evaluation") and "val" in data:
-        raise NotImplementedError(
-            "evaluation during training (COCO protocol) is not ported yet; "
-            "drop `evaluation` from the config")
     if cfg.model.get("backbone", {}).get("pretrained") or cfg.get("load_from"):
         raise NotImplementedError("pretrained / load_from weights are not "
                                   "ported yet; pass `variables`")
@@ -67,8 +68,9 @@ def _refuse_unported(cfg):
                                   "ported yet")
 
 
-def build_dataset(cfg: dict, device, rng):
-    return build_from_cfg({**dict(cfg), "device": device, "rng": rng}, DATASETS)
+def build_dataset(cfg: dict, device, rng, pyrng):
+    return build_from_cfg({**dict(cfg), "device": device, "rng": rng,
+                           "pyrng": pyrng}, DATASETS)
 
 
 def train_detector(cfg, work_dir: str, resume_from: str | None = None,
@@ -79,7 +81,7 @@ def train_detector(cfg, work_dir: str, resume_from: str | None = None,
     device = resolve_device(device)
     _refuse_unported(cfg)
     logger = get_root_logger(log_file=osp.join(work_dir, "train.log"))
-    rng = np.random.RandomState(seed)
+    rng, pyrng = np.random.RandomState(seed), random.Random(seed)
     torch.manual_seed(seed)
 
     detector = build_detector(dict(cfg.model))
@@ -91,8 +93,8 @@ def train_detector(cfg, work_dir: str, resume_from: str | None = None,
     canvas = tuple(cfg.get("canvas_hw") or DEFAULT_CANVAS)
     data_cfg = cfg.data
     spg = data_cfg.get("samples_per_gpu", 2)
-    train_ds = build_dataset(data_cfg["train"], device, rng)
-    unlabel_ds = build_dataset(data_cfg["unlabel_train"], device, rng)
+    train_ds = build_dataset(data_cfg["train"], device, rng, pyrng)
+    unlabel_ds = build_dataset(data_cfg["unlabel_train"], device, rng, pyrng)
     ratio = data_cfg.get("batch_config", {}).get("ratio", [[1, 1]])[0]
     data_loader = MultiDataLoader(
         DetDataLoader(train_ds, spg, canvas_hw=canvas, seed=seed),
@@ -154,10 +156,25 @@ def train_detector(cfg, work_dir: str, resume_from: str | None = None,
         if isinstance(thres, str):
             adathres_file = thres
 
+    eval_fn = None
+    evaluation = dict(cfg.get("evaluation", {}) or {})
+    if "val" in data_cfg and evaluation:
+        val_ds = build_dataset({**dict(data_cfg["val"]), "test_mode": True},
+                               device, rng, pyrng)
+        tp = test_pipeline_params(dict(data_cfg["val"]).get("pipeline"))
+        test_cfg = dict(cfg.model.get("test_cfg", {}) or {})
+
+        def eval_fn(state):
+            return single_device_test(
+                detector, state.teacher_params, val_ds, test_cfg=test_cfg,
+                canvas_hw=canvas, img_scale=tp["img_scale"],
+                img_norm=tp["img_norm"], device=device)
+
     runner = SemiRunner(
         train_step, state, data_loader, work_dir, max_epochs=max_epochs,
         log_interval=dict(cfg.get("log_config", {}) or {}).get("interval", 10),
         refresher=refresher, adathres_file=adathres_file,
+        eval_fn=eval_fn, eval_interval=evaluation.get("interval", 1),
         checkpoint_interval=dict(
             cfg.get("checkpoint_config", {}) or {}).get("interval", 1),
         ema_step_decay=list(ema_cfg.get("step_decay") or []),

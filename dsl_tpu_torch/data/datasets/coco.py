@@ -1,8 +1,10 @@
-"""COCO dataset (one annotation file), the reading half.
+"""COCO dataset (one annotation file).
 
 Counterpart of ``dsl_tpu/data/datasets/coco.py``: category ids remapped to
 contiguous labels, xywh -> xyxy, ``iscrowd`` -> ignore boxes, empty and
-small images filtered. COCO-protocol evaluation is not ported yet.
+small images filtered; detections exported as COCO json and evaluated by
+the COCO protocol (``core/eval/coco_eval.py``) for ``bbox``. ``segm``
+needs instance masks, which are not ported, and raises.
 """
 
 from __future__ import annotations
@@ -93,6 +95,41 @@ class CocoDataset(CustomDataset):
         self.img_ids = [self.data_infos[i]["id"] for i in valid]
         return valid
 
-    def evaluate(self, results, metric="bbox", **kwargs):
-        raise NotImplementedError(
-            "COCO-protocol evaluation is not ported to dsl_tpu_torch yet")
+    def results2json_bbox(self, results):
+        """``results``: per image (dets (N, 5), labels (N,)) host arrays.
+        Returns COCO-format detection dicts (xywh)."""
+        out = []
+        for idx, (dets, labels) in enumerate(results):
+            img_id = self.data_infos[idx]["id"]
+            for det, label in zip(dets, labels):
+                x1, y1, x2, y2, score = det
+                out.append(dict(
+                    image_id=img_id,
+                    bbox=[float(x1), float(y1), float(x2 - x1),
+                          float(y2 - y1)],
+                    score=float(score),
+                    category_id=int(self.cat_ids[int(label)])))
+        return out
+
+    def evaluate(self, results, metric="bbox", verbose: bool = True):
+        """COCO-protocol mAP: ``bbox_mAP``, ``bbox_mAP_50``, ``_75``,
+        ``_s``, ``_m``, ``_l``."""
+        from dsl_tpu_torch.core.eval.coco_eval import COCOEval
+
+        metrics = [metric] if isinstance(metric, str) else list(metric)
+        out = {}
+        for m in metrics:
+            if m != "bbox":
+                raise NotImplementedError(
+                    f"metric {m!r}: only 'bbox' is ported (instance masks "
+                    f"are not)")
+            dt = self.results2json_bbox([r[:2] for r in results])
+            ev = COCOEval(self.coco, dt, iou_type=m,
+                          img_ids=[d["id"] for d in self.data_infos],
+                          cat_ids=self.cat_ids)
+            stats = ev.evaluate()
+            if verbose:
+                ev.summarize()
+            for k in ("mAP", "mAP_50", "mAP_75", "mAP_s", "mAP_m", "mAP_l"):
+                out[f"{m}_{k}"] = stats[k]
+        return out

@@ -5,13 +5,15 @@ data_infos``, ``get_ann_info``, min-size and empty-GT filtering,
 aspect-ratio group flags (w/h > 1), and ``prepare_train_img`` /
 ``prepare_test_img`` through the pipeline. The pipeline runs on ``device``
 (images are decoded and transformed there) and draws from ``rng``, an
-``np.random.RandomState`` (the JAX package draws from the global
-``np.random``).
+``np.random.RandomState``, and ``pyrng``, a ``random.Random`` (the JAX
+package draws from the global ``np.random`` and Python's global
+``random``).
 """
 
 from __future__ import annotations
 
 import os.path as osp
+import random
 
 import numpy as np
 
@@ -27,7 +29,7 @@ class CustomDataset:
     def __init__(self, ann_file, pipeline, classes=None, data_root=None,
                  img_prefix="", test_mode=False, filter_empty_gt=True,
                  device="cuda", rng: np.random.RandomState | None = None,
-                 **kwargs):
+                 pyrng: random.Random | None = None, **kwargs):
         self.ann_file = ann_file
         self.data_root = data_root
         self.img_prefix = img_prefix
@@ -35,6 +37,7 @@ class CustomDataset:
         self.filter_empty_gt = filter_empty_gt
         self.device = resolve_device(device)
         self.rng = rng if rng is not None else np.random.RandomState(0)
+        self.pyrng = pyrng if pyrng is not None else random.Random(0)
         if classes is not None:
             self.CLASSES = tuple(classes)
         if self.data_root is not None:
@@ -83,11 +86,11 @@ class CustomDataset:
     def prepare_train_img(self, idx):
         results = dict(img_info=self.data_infos[idx],
                        ann_info=self.get_ann_info(idx))
-        return self.pipeline(self.pre_pipeline(results), self.rng)
+        return self.pipeline(self.pre_pipeline(results), self.rng, self.pyrng)
 
     def prepare_test_img(self, idx):
         results = dict(img_info=self.data_infos[idx])
-        return self.pipeline(self.pre_pipeline(results), self.rng)
+        return self.pipeline(self.pre_pipeline(results), self.rng, self.pyrng)
 
     def __getitem__(self, idx):
         if self.test_mode:

@@ -1,10 +1,11 @@
 """Pipeline composition and the test pipeline's parameters.
 
 Counterpart of ``dsl_tpu/data/pipelines/compose.py``. Every transform is
-called as ``t(results, rng)``: ``rng`` is the ``np.random.RandomState``
-that random transforms draw from, in the JAX package's call order (which
-draws from the global ``np.random``). A transform type the port does not
-have raises ``NotImplementedError`` naming it.
+called as ``t(results, rng, pyrng)``: ``rng`` is the
+``np.random.RandomState`` and ``pyrng`` the ``random.Random`` that random
+transforms draw from, in the JAX package's call order (which draws from
+the global ``np.random`` and Python's global ``random``). A transform type
+the port does not have raises ``NotImplementedError`` naming it.
 """
 
 from __future__ import annotations
@@ -27,9 +28,9 @@ class Compose:
             else:
                 raise TypeError(f"transform must be dict or callable: {t}")
 
-    def __call__(self, results, rng):
+    def __call__(self, results, rng, pyrng=None):
         for t in self.transforms:
-            results = t(results, rng)
+            results = t(results, rng, pyrng)
             if results is None:
                 return None
         return results

@@ -26,7 +26,7 @@ class LoadImageFromFile:
                 f"is ported")
         self.to_float32 = to_float32
 
-    def __call__(self, results, rng):
+    def __call__(self, results, rng, pyrng=None):
         if results.get("img_prefix") is not None:
             filename = osp.join(results["img_prefix"],
                                 results["img_info"]["filename"])
@@ -56,7 +56,7 @@ class LoadAnnotations:
         self.with_bbox = with_bbox
         self.with_label = with_label
 
-    def __call__(self, results, rng):
+    def __call__(self, results, rng, pyrng=None):
         ann = results["ann_info"]
         if self.with_bbox:
             results["gt_bboxes"] = ann["bboxes"].astype(np.float32).copy()

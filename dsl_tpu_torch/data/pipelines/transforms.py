@@ -2,11 +2,13 @@
 
 Counterpart of the part of ``dsl_tpu/data/pipelines/transforms.py`` the
 flagship config runs: ``Resize`` (a list of scales, ``multiscale_mode``
-'value' or 'range', ``keep_ratio``), ``RandomFlip``, ``Normalize``,
-``Pad`` (``size_divisor``) and ``MultiScaleFlipAug``. ``results["img"]`` is
-an (H, W, 3) tensor on its device; boxes are host numpy arrays, transformed
-as the JAX package does. Random draws come from the ``rng`` argument in the
-JAX package's order of ``np.random`` calls.
+'value' or 'range', ``keep_ratio``), ``PatchShuffle``, ``RandomFlip``,
+``Normalize``, ``Pad`` (``size_divisor``) and ``MultiScaleFlipAug``.
+``results["img"]`` is an (H, W, 3) tensor on its device; boxes are host
+numpy arrays, transformed as the JAX package does. Random draws come from
+the ``rng`` argument (an ``np.random.RandomState``) in the JAX package's
+order of ``np.random`` calls, and from ``pyrng`` (a ``random.Random``) where
+the JAX package calls Python's ``random``.
 
 Resize is bilinear with ``align_corners=False``; a uint8 image is rounded
 back to uint8 levels. ``cv2.resize`` works in fixed point, so a pixel may
@@ -19,6 +21,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from dsl_tpu_torch.data.image_io import read_image
 from dsl_tpu_torch.data.pipelines.compose import Compose
 from dsl_tpu_torch.registry import PIPELINES
 
@@ -39,6 +42,15 @@ def resize_image(img: torch.Tensor, new_h: int, new_w: int) -> torch.Tensor:
     if img.dtype == torch.uint8:
         out = out.round().clamp(0, 255).to(torch.uint8)
     return out.contiguous()
+
+
+def read_resized(path, img_scale, device) -> tuple[torch.Tensor, list, list]:
+    """An image file read onto ``device`` and resized keeping its ratio to
+    ``img_scale``: (uint8 image, [nh, nw], scale factor [w, h, w, h])."""
+    img = read_image(path, device)
+    h, w = img.shape[:2]
+    nh, nw = keep_ratio_size(h, w, img_scale)
+    return resize_image(img, nh, nw), [nh, nw], [nw / w, nh / h, nw / w, nh / h]
 
 
 @PIPELINES.register
@@ -69,7 +81,7 @@ class Resize:
         short_edge = rng.randint(min(shorts), max(shorts) + 1)
         return (long_edge, short_edge), None
 
-    def __call__(self, results, rng):
+    def __call__(self, results, rng, pyrng=None):
         if results.get("scale") is not None:
             scale, scale_idx = tuple(results["scale"]), results.get("scale_idx")
         else:
@@ -103,12 +115,92 @@ class Resize:
 
 
 @PIPELINES.register
+class PatchShuffle:
+    """DSL strong augmentation: cut the image at a random fraction of its
+    width ('flip') or height ('flop'), swap the two pieces (a roll on the
+    device), and move the boxes, splitting those across the seam. The
+    boxes' remapping is the JAX package's host code, including its test of
+    a box against the seam, which also compares the other axis with the
+    full height (width), so a box reaching the last row ('flip') or column
+    ('flop') is split into a moved box and an inverted one."""
+
+    def __init__(self, ratio=0.5, ranges=(0.2, 0.8), mode=("flip", "flop")):
+        self.ratio = ratio
+        self.ranges = list(ranges)
+        self.mode = list(mode)
+
+    def __call__(self, results, rng, pyrng):
+        if rng.rand() > self.ratio:
+            results["PS"] = False
+            results["PS_place"] = None
+            results["PS_mode"] = None
+            return results
+        img = results["img"]
+        h, w = img.shape[:2]
+        place = (rng.rand() * abs(self.ranges[1] - self.ranges[0])
+                 + self.ranges[0])
+        mode = pyrng.choice(self.mode)
+        results["PS"], results["PS_place"], results["PS_mode"] = (
+            True, place, mode)
+        if mode == "flip":
+            crop_w, crop_h = min(int(round(w * place)), w), h
+            if crop_w in (0, w):
+                return results
+            img = torch.roll(img, -crop_w, 1)
+        else:  # 'flop'
+            crop_h, crop_w = min(int(round(h * place)), h), w
+            if crop_h in (0, h):
+                return results
+            img = torch.roll(img, -crop_h, 0)
+        results["img"] = img
+
+        for key in results.get("bbox_fields", []):
+            boxes = results[key]
+            if len(boxes) == 0:
+                continue
+            new_boxes, new_labels = [], []
+            labels = results.get("gt_labels") if key == "gt_bboxes" else None
+            for i, (x1, y1, x2, y2) in enumerate(boxes):
+                # box entirely on one side of the seam?
+                whole = ((x1 - crop_w + 1) * (x2 - crop_w + 1) >= 0
+                         and (y1 - crop_h + 1) * (y2 - crop_h + 1) >= 0)
+                if whole:
+                    if mode == "flip":
+                        if x1 - crop_w + 1 < 0:      # left piece -> right
+                            x1, x2 = x1 + w - crop_w, x2 + w - crop_w
+                        elif x2 - crop_w + 1 > 0:    # right piece -> left
+                            x1, x2 = x1 - crop_w, x2 - crop_w
+                    else:
+                        if y1 - crop_h + 1 < 0:
+                            y1, y2 = y1 + h - crop_h, y2 + h - crop_h
+                        elif y2 - crop_h + 1 > 0:
+                            y1, y2 = y1 - crop_h, y2 - crop_h
+                    new_boxes.append([x1, y1, x2, y2])
+                    if labels is not None:
+                        new_labels.append(labels[i])
+                else:
+                    # box across the seam: split into two boxes
+                    if mode == "flip":
+                        new_boxes.append([x1 + w - crop_w, y1, w - 1, y2])
+                        new_boxes.append([0, y1, x2 - crop_w, y2])
+                    else:
+                        new_boxes.append([x1, y1 + h - crop_h, x2, h - 1])
+                        new_boxes.append([x1, 0, x2, y2 - crop_h])
+                    if labels is not None:
+                        new_labels.extend([labels[i], labels[i]])
+            results[key] = np.asarray(new_boxes, np.float32).reshape(-1, 4)
+            if labels is not None:
+                results["gt_labels"] = np.asarray(new_labels, np.int64)
+        return results
+
+
+@PIPELINES.register
 class RandomFlip:
     def __init__(self, flip_ratio=None, direction="horizontal"):
         self.flip_ratio = flip_ratio
         self.direction = direction
 
-    def __call__(self, results, rng):
+    def __call__(self, results, rng, pyrng=None):
         if "flip" not in results:
             flip = self.flip_ratio is not None and rng.rand() < self.flip_ratio
             results["flip"] = flip
@@ -137,7 +229,7 @@ class Normalize:
         self.std = np.asarray(std, np.float32)
         self.to_rgb = to_rgb
 
-    def __call__(self, results, rng):
+    def __call__(self, results, rng, pyrng=None):
         img = results["img"].float()
         if self.to_rgb:
             img = img.flip(-1)
@@ -158,7 +250,7 @@ class Pad:
         self.size_divisor = size_divisor
         self.pad_val = pad_val
 
-    def __call__(self, results, rng):
+    def __call__(self, results, rng, pyrng=None):
         img = results["img"]
         h, w = img.shape[:2]
         if self.size is not None:
@@ -190,7 +282,7 @@ class MultiScaleFlipAug:
         self.flip = flip
         self.flip_direction = flip_direction
 
-    def __call__(self, results, rng):
+    def __call__(self, results, rng, pyrng=None):
         aug_results = []
         for scale in self.img_scale:
             for f in ([False, True] if self.flip else [False]):
@@ -200,5 +292,5 @@ class MultiScaleFlipAug:
                 r["scale_idx"] = None
                 r["flip"] = f
                 r["flip_direction"] = self.flip_direction if f else None
-                aug_results.append(self.transforms(r, rng))
+                aug_results.append(self.transforms(r, rng, pyrng))
         return {key: [r[key] for r in aug_results] for key in aug_results[0]}

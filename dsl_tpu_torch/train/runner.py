@@ -63,6 +63,7 @@ class SemiRunner:
                  log_interval: int = 10, refresher=None,
                  adathres_file: str | None = None,
                  adathres_settings: dict | None = None,
+                 eval_fn: Callable | None = None, eval_interval: int = 1,
                  checkpoint_interval: int = 1,
                  ema_step_decay: list[int] | None = None,
                  ema_decay_ratio: float = 0.1, logger=None):
@@ -75,6 +76,8 @@ class SemiRunner:
         self.refresher = refresher
         self.adathres_file = adathres_file
         self.adathres_settings = adathres_settings
+        self.eval_fn = eval_fn
+        self.eval_interval = eval_interval
         self.checkpoint_interval = checkpoint_interval
         self.ema_step_decay = ema_step_decay or []
         self.ema_decay_ratio = ema_decay_ratio
@@ -96,6 +99,8 @@ class SemiRunner:
                 self.refresher.after_train_epoch(
                     self.state, self.epoch, self.adathres_file,
                     self.adathres_settings)
+            if self.eval_fn and (self.epoch + 1) % self.eval_interval == 0:
+                self.evaluate()
             self.epoch += 1
         self.logger.info("Training done.")
 
@@ -158,6 +163,14 @@ class SemiRunner:
                                     iter=it + 1, **{
                                         k: round(v, 5) for k, v in avg.items()}))
                     + "\n")
+
+    def evaluate(self) -> dict:
+        metrics = self.eval_fn(self.state)
+        self.logger.info("eval epoch %d: %s", self.epoch + 1, metrics)
+        with open(self.json_log_path, "a", encoding="utf-8") as f:
+            f.write(json.dumps(dict(mode="val", epoch=self.epoch + 1,
+                                    **metrics)) + "\n")
+        return metrics
 
     def save_checkpoint(self, name: str | None = None):
         """``epoch_N.pth`` in the work dir and a ``latest`` link to it."""

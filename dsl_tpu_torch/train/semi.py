@@ -40,11 +40,10 @@ import numpy as np
 import torch
 
 from dsl_tpu_torch.data.formatting import select_canvas
-from dsl_tpu_torch.data.image_io import read_image
-from dsl_tpu_torch.data.pipelines.transforms import keep_ratio_size, resize_image
+from dsl_tpu_torch.data.pipelines.transforms import read_resized
 from dsl_tpu_torch.models.detectors.single_stage import detector_predict
 from dsl_tpu_torch.train.label_store import LabelStore, compute_adathres
-from dsl_tpu_torch.utils.device import resolve_device
+from dsl_tpu_torch.utils.device import resolve_device, to_device
 
 
 class PseudoLabelRefresher:
@@ -104,12 +103,8 @@ class PseudoLabelRefresher:
         """(resized uint8 image, img_shape [nh, nw], scale_factor) on the
         device."""
         path = osp.join(self.image_root, filename)
-        img = read_image(path, self.device)
         self.uploaded_bytes += osp.getsize(path)
-        h, w = img.shape[:2]
-        nh, nw = keep_ratio_size(h, w, self.img_scale)
-        sf = [nw / w, nh / h, nw / w, nh / h]
-        return resize_image(img, nh, nw), [nh, nw], sf
+        return read_resized(path, self.img_scale, self.device)
 
     def _canvas(self, imgs: list[torch.Tensor], canvas_hw) -> torch.Tensor:
         """(B, H, W, 3) uint8: each image top-left on a zero canvas, BGR->RGB
@@ -123,15 +118,6 @@ class PseudoLabelRefresher:
             out[i, :nh, :nw] = content[:nh, :nw]
         return out
 
-    def _upload(self, rows) -> torch.Tensor:
-        """Host rows -> an f32 tensor on the device; on the card through
-        pinned memory without a wait (a copy from pageable memory would
-        wait for the stream, which is queued behind the train step)."""
-        t = torch.tensor(rows, dtype=torch.float32)
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t
-
     def _predict_chunk(self, params: dict, chunk: list) -> list:
         """Predict one chunk of (name, img, shape, sf); returns
         [(variant, dets, labels, valid)] on the device."""
@@ -143,7 +129,9 @@ class PseudoLabelRefresher:
             # flip the resized content before padding, as the JAX package
             variants.append([c[1].flip(1) for c in chunk])
         pad = [chunk[-1]] * (bs - len(chunk)) if len(chunk) < bs else []
-        shapes, sfs = (self._upload([c[i] for c in chunk + pad]) for i in (2, 3))
+        shapes, sfs = (to_device(torch.tensor([c[i] for c in chunk + pad],
+                                              dtype=torch.float32), self.device)
+                       for i in (2, 3))
         out = []
         for vi, imgs in enumerate(variants):
             u8 = self._canvas(imgs + imgs[-1:] * len(pad), canvas_hw)

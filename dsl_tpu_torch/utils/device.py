@@ -13,3 +13,12 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
         raise RuntimeError("CUDA is not available; pass device='cpu' to run "
                            "on the CPU")
     return device
+
+
+def to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A host tensor on ``device``: to a card through pinned memory and
+    without a wait (a copy from pageable memory would wait for the stream,
+    which may be queued behind a train step)."""
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t

@@ -10,9 +10,13 @@ makes from COCO, from a few JPEG files copied under new names:
   unlabel_prepared_annos/<name>.jpg.json
                                       initial labels of the unlabeled ones
   mmdet_category_info.json            cat2id / id2cat, background last
+  valid_images/full/<name>.jpg, val.json
+                                      with ``n_val``: a val set, its GT
+                                      in the COCO file
 
 Each label file holds 1-5 seeded boxes with COCO tags and no scores
-(``imageName/targetNum/rects/tags/masks``), as the converter writes them.
+(``imageName/targetNum/rects/tags/masks``), as the converter writes them;
+each val image 1-5 seeded COCO annotations.
 :func:`semi_config` points a config's ``data`` block at such a directory.
 """
 
@@ -47,7 +51,8 @@ def _write_label(path: Path, name: str, rects: list, tags: list):
 
 
 def make_semicoco_dir(root, sources: list[tuple[str, int, int]],
-                      n_labeled: int, n_unlabeled: int, seed: int = 0) -> dict:
+                      n_labeled: int, n_unlabeled: int, seed: int = 0,
+                      n_val: int = 0) -> dict:
     """``sources`` are (jpeg path, height, width); image i of each split is
     a copy of source ``i % len(sources)``. Returns the paths by role."""
     root = Path(root)
@@ -82,15 +87,45 @@ def make_semicoco_dir(root, sources: list[tuple[str, int, int]],
         with open(lists[split], "w", encoding="utf-8") as f:
             json.dump(dict(images=images, categories=categories,
                            annotations=[]), f)
-    return dict(root=str(root), images=str(img_dir), labeled=str(lists["labeled"]),
-                unlabeled=str(lists["unlabeled"]), label_store=str(lab_dir),
-                unlabel_store=str(unl_dir), category_info=str(info),
-                adathres=str(root / "adathres.json"))
+    paths = dict(root=str(root), images=str(img_dir),
+                 labeled=str(lists["labeled"]),
+                 unlabeled=str(lists["unlabeled"]), label_store=str(lab_dir),
+                 unlabel_store=str(unl_dir), category_info=str(info),
+                 adathres=str(root / "adathres.json"))
+    if n_val:
+        paths.update(_make_val(root, sources, n_val, categories, rng))
+    return paths
+
+
+def _make_val(root: Path, sources, n_val: int, categories: list,
+              rng: np.random.RandomState) -> dict:
+    """``n_val`` copies of the sources under ``valid_images/full/`` and a
+    COCO file with 1-5 seeded annotations each."""
+    val_dir = root / "valid_images" / "full"
+    val_dir.mkdir(parents=True, exist_ok=True)
+    images, annotations = [], []
+    for i in range(n_val):
+        src, h, w = sources[i % len(sources)]
+        name = f"val_{i:03d}.jpg"
+        shutil.copyfile(src, val_dir / name)
+        images.append(dict(id=i + 1, file_name=name, width=w, height=h))
+        for x1, y1, x2, y2 in _boxes(rng, h, w, rng.randint(1, 6)):
+            annotations.append(dict(
+                id=len(annotations) + 1, image_id=i + 1,
+                category_id=int(rng.randint(1, len(categories) + 1)),
+                bbox=[x1, y1, x2 - x1, y2 - y1], area=(x2 - x1) * (y2 - y1),
+                iscrowd=0))
+    val = root / "val.json"
+    with open(val, "w", encoding="utf-8") as f:
+        json.dump(dict(images=images, categories=categories,
+                       annotations=annotations), f)
+    return dict(val=str(val), val_images=str(val_dir))
 
 
 def semi_config(cfg: dict, paths: dict) -> dict:
     """A copy of ``cfg`` (a plain dict) whose ``data.train``,
-    ``data.unlabel_train`` and ``data.unlabel_pred`` read ``paths`` (as
+    ``data.unlabel_train``, ``data.unlabel_pred`` (and ``data.val`` and
+    ``data.test`` where the directory has a val set) read ``paths`` (as
     :func:`make_semicoco_dir` returns them); ``unlabel_train.thres`` becomes
     the directory's ``adathres.json`` where it names a file."""
     cfg = copy.deepcopy(cfg)
@@ -106,4 +141,9 @@ def semi_config(cfg: dict, paths: dict) -> dict:
         image_root_path=paths["images"], image_list_file=paths["unlabeled"],
         anno_root_path=paths["unlabel_store"],
         category_info_path=paths["category_info"])
+    if "val" in paths:
+        for key in ("val", "test"):
+            if key in data:
+                data[key].update(ann_file=paths["val"],
+                                 img_prefix=paths["val_images"])
     return cfg

@@ -10,7 +10,11 @@
   package) bring in no ``jax``, ``flax`` or ``dsl_tpu`` module, checked in
   a fresh interpreter and by an AST scan of the package and
   ``chip_smoke.py``; the weight bridge (``utils``) loads no module of the
-  train layer.
+  train layer;
+- no module of the port loads Pillow or OpenCV (the card's machine has
+  neither): the strong augmentations and the evaluation are torch and
+  numpy code, and only the CPU decode route of ``data/image_io.py`` reads
+  with OpenCV, inside the function.
 """
 
 import ast
@@ -31,6 +35,7 @@ from dsl_tpu_torch.utils.jax_bridge import flax_to_state_dict, state_dict_to_fla
 torch.set_num_threads(2)
 
 REPO = Path(__file__).resolve().parent.parent
+HOST_IMAGE_LIBS = {"PIL", "cv2"}
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "dsl_tpu")
 
 
@@ -114,13 +119,16 @@ def test_import_brings_in_no_jax():
     files = sorted((REPO / "dsl_tpu_torch").rglob("*.py"))
     assert len(names) + 1 == len(files) > 40     # the root package aside
     for module in ("data.image_io", "data.loader", "train.semi",
-                   "train.runner", "apis.train", "utils.checkpoint"):
+                   "train.runner", "apis.train", "utils.checkpoint",
+                   "data.pipelines.image_ops", "data.pipelines.strong_aug",
+                   "apis.test", "core.eval.coco_eval"):
         assert f"dsl_tpu_torch.{module}" in names
     # the weight bridge is a leaf below the train layer
     assert not [m for m in utils if m.startswith("dsl_tpu_torch.train")]
     assert any(m.startswith("dsl_tpu_torch") for m in added)
     bad = [m for m in added if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
+    assert not [m for m in added if m.split(".")[0] in HOST_IMAGE_LIBS]
 
 
 def _imported_roots(path: Path):
@@ -140,3 +148,5 @@ def test_no_jax_import_in_the_port_sources():
     for f in files:
         bad = [m for m in _imported_roots(f) if m in FORBIDDEN]
         assert not bad, (f, bad)
+        libs = [m for m in _imported_roots(f) if m in HOST_IMAGE_LIBS]
+        assert not libs or f.name == "image_io.py", (f, libs)

@@ -28,8 +28,13 @@ dependencies:
   preprocesses it as it does the committed decode, within that tolerance;
 - a pseudo-label refresh on the refresher's side stream gives the NMS keeps
   and detections of the same refresh on the main stream;
-- ``train_detector`` refuses to start without CUDA (this one runs
-  everywhere).
+- every image op of the strong augmentations, and ``PatchShuffle``,
+  ``RandomAugmentBBox`` (every ``aug_type``), ``RandomAugmentBBox_Fast``
+  and ``UBAug`` from the same seeds, give on the card images bit-identical
+  to the CPU's (which the CPU tests hold against Pillow, OpenCV and the
+  JAX package) and equal boxes, without a host sync;
+- ``train_detector`` and ``single_device_test`` refuse to start without
+  CUDA (these run everywhere).
 """
 
 import numpy as np
@@ -298,3 +303,92 @@ def test_train_detector_raises_without_cuda(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_detector(Config(dict(model=U.TINY_CFG)), str(tmp_path))
+
+
+def test_single_device_test_raises_without_cuda(monkeypatch):
+    from dsl_tpu_torch.apis import single_device_test
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        single_device_test(build_detector(dict(U.TINY_CFG)), None, [])
+
+
+def _op_cases():
+    from dsl_tpu_torch.data.pipelines import image_ops as ops
+    from dsl_tpu_torch.data.pipelines import strong_aug as sa
+
+    cases = {"blend": lambda x: ops.blend(x.flip(0), x, 1.37),
+             "autocontrast": ops.autocontrast, "equalize": ops.equalize,
+             "solarize": lambda x: ops.solarize(x, 128),
+             "posterize": lambda x: ops.posterize(x, 3),
+             "hsv": ops.rgb_to_hsv, "hsv_to_rgb": ops.hsv_to_rgb,
+             "hue": lambda x: ops.shift_hue(x, -20),
+             "gray_cv": ops.rgb_to_gray_cv, "L": ops.to_l}
+    for name in ("color", "contrast", "brightness", "sharpness"):
+        cases[name] = (lambda f: lambda x: f(x, 0.46))(getattr(ops, name))
+    for sigma in (0.3, 1.7):
+        cases[f"blur_{sigma}"] = (lambda s: lambda x: ops.gaussian_blur(x, s))(sigma)
+    for kind, strength in (("tx", 0.07), ("ty", -0.09), ("rotate", 23.0),
+                           ("shear", -17.0)):
+        cases[f"warp_{kind}"] = (lambda k, st: lambda x: ops.warp_affine(
+            x, sa._affine_matrix(k, *x.shape[:2], st)))(kind, strength)
+    return cases
+
+
+OP_CASES = sorted(_op_cases())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", OP_CASES)
+def test_image_op_on_the_card_matches_the_cpu(card, name):
+    op = _op_cases()[name]
+    img = torch.from_numpy(load_decodes()["coco_640x427"][:301, :413].copy())
+    on_card = img.to(card)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = op(on_card)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(got.cpu(), op(img))
+
+
+STRONG = [dict(type="PatchShuffle", ratio=0.5, ranges=[0.0, 1.0],
+               mode=["flip", "flop"]), dict(type="UBAug")] + [
+    dict(type=t, aug_type=a) for t in ("RandomAugmentBBox",
+                                       "RandomAugmentBBox_Fast")
+    for a in ("strong", "strong++", "color", "affine", "cutout", "color_only",
+              "except_affine")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg", STRONG, ids=[
+    "-".join(str(v) for v in c.values() if v not in (0.5,)) [:40] for c in STRONG])
+def test_strong_transform_on_the_card_matches_the_cpu(card, cfg):
+    import random
+
+    from dsl_tpu_torch.registry import PIPELINES, build_from_cfg
+
+    t = build_from_cfg(dict(cfg), PIPELINES)
+    decodes = load_decodes()
+    for seed in range(8):
+        img = decodes[sorted(FIXTURES)[seed % len(FIXTURES)]]
+        rng = np.random.RandomState(seed)
+        x1, y1 = rng.uniform(0, 400, 5), rng.uniform(0, 300, 5)
+        boxes = np.stack([x1, y1, x1 + rng.uniform(8, 200, 5),
+                          y1 + rng.uniform(8, 150, 5)], 1).astype(np.float32)
+        out = []
+        for device in (card, "cpu"):
+            results = dict(img=torch.from_numpy(img.copy()).to(device),
+                           gt_bboxes=boxes[:3].copy(),
+                           gt_bboxes_ignore=boxes[3:].copy(),
+                           gt_labels=np.arange(3), img_fields=["img"],
+                           bbox_fields=["gt_bboxes", "gt_bboxes_ignore"])
+            torch.cuda.set_sync_debug_mode("error" if device == card else 0)
+            try:
+                out.append(t(results, np.random.RandomState(seed),
+                             random.Random(seed)))
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        assert torch.equal(out[0]["img"].cpu(), out[1]["img"])
+        for key in ("gt_bboxes", "gt_bboxes_ignore", "gt_labels"):
+            np.testing.assert_array_equal(out[0][key], out[1][key])

@@ -15,7 +15,7 @@ same call order. Tolerances:
   ``utils/random_batch.to_torch`` makes them, GT, masks, source weights and
   ``si_pair`` exact, image values within 1 level over the normalization's
   std (1 / 57.12) plus 1e-5;
-- a transform the port lacks (the strong augmentations) raises
+- a transform the port lacks (``MinIoURandomCrop``) raises
   ``NotImplementedError`` naming it.
 """
 
@@ -263,9 +263,8 @@ def test_one_source_loader_batches_equal_jax(semicoco):
 
 
 def test_compose_refuses_an_unported_transform():
-    with pytest.raises(NotImplementedError, match="RandomAugmentBBox_Fast"):
-        Compose(PIPELINE[:3] + [dict(type="RandomAugmentBBox_Fast",
-                                     aug_type="affine")])
+    with pytest.raises(NotImplementedError, match="MinIoURandomCrop"):
+        Compose(PIPELINE[:3] + [dict(type="MinIoURandomCrop")])
 
 
 def test_multiscale_flip_aug_matches_jax():

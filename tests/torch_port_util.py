@@ -4,9 +4,8 @@ The JAX flagship and the port are built from the same config dict (the one
 ``__graft_entry__._flagship_detector`` builds); variables come from
 ``jax.eval_shape`` plus the port's seeded numpy fill (no flax init forward),
 and reach the port through the weight bridge. The semi loop's helpers at
-the end (the flagship config as the port runs it today, label-file
-comparison) are read by ``chip_smoke.py`` too, so this module imports JAX
-only inside the functions that build the JAX side.
+the end (label-file comparison) are read by ``chip_smoke.py`` too, so this
+module imports JAX only inside the functions that build the JAX side.
 """
 
 from __future__ import annotations
@@ -169,14 +168,16 @@ def tree_of(path) -> dict[str, bytes]:
             for name in sorted(os.listdir(path))}
 
 
-# the flagship's strong augmentations, not ported yet
+# the flagship's strong augmentations
 STRONG_AUGMENTATIONS = ("PatchShuffle", "RandomAugmentBBox_Fast", "UBAug")
 
 
 def cut_flagship(cfg: dict, max_epochs: int, start_point: int) -> dict:
-    """A copy of the flagship config as the port runs it today: without the
-    strong augmentations and ``evaluation``, ``max_epochs`` epochs, the
-    refresh from epoch ``start_point``."""
+    """A copy of the flagship config without the strong augmentations and
+    ``evaluation``, ``max_epochs`` epochs, the refresh from epoch
+    ``start_point``: the semi tests' config, whose JAX side (the ``slow``
+    run of both packages' ``train_detector``) would otherwise also compile
+    its evaluation."""
     cfg = copy.deepcopy(cfg)
     for key in ("train", "unlabel_train"):
         cfg["data"][key]["pipeline"] = [
