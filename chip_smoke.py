@@ -47,6 +47,9 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    counts are read. Losses and ``grad_norm`` must be finite, ``step`` 23,
    the frozen parameters bit-identical to their start, the teacher after
    the first step equal to ``ema_update`` of its start and the student;
+   cuDNN held to its deterministic algorithms (as ``train_detector``
+   holds it), a second f32 run from the same seeded state must repeat the
+   first bit for bit (every step's losses, every parameter after step 23);
    the first bf16 step's losses and ``grad_norm`` (si-soft aside) must part
    from the first f32 step's by more than 1e-5 and at most 2e-2 relative
    (bf16 ran, and near f32); the steps must launch the NMS kernel 0 times
@@ -62,11 +65,22 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    images, peak device memory, one ``torch.profiler`` trace of a step
    (device busy, idle share, the 10 largest kernels) and a split of one
    step by CUDA events into forward, targets + loss, backward, clip + SGD
-   and EMA.
+   and EMA; then what determinism costs: 8-step medians with
+   ``cudnn.deterministic`` on and off, in turns.
 
 8. decode: nvJPEG (``data/image_io.read_image`` on the card) on each JPEG
    fixture of ``tests/torch_port_data/`` against its committed OpenCV
-   decode, within ``DECODE_*``, and its time per image.
+   decode, within ``DECODE_*``, and its time per image; copies of the
+   colour fixtures tagged here with EXIF orientations 3, 6 and 8 (both
+   byte orders) against the committed decode turned as OpenCV turns it
+   (shape equal, within ``DECODE_*``); the probe ``image_io.readable``
+   refuses a copy cut inside its header, an empty file and a missing path
+   and passes the fixtures, and its host time per file over
+   ``PROBE_FILES`` names linked to the fixtures, split into the header's
+   read and walk and ``nvjpegGetImageInfo``. Then ``resize_linear_u8`` on the card against
+   the CPU, bit for bit, on the fixtures at the train scales of the
+   flagship and the baseline, with its time per image beside the bilinear
+   resize it replaced.
 9. strong augmentations at full size: the four fixtures (their committed
    OpenCV decodes, on the card) resized by the flagship's ``Resize`` to
    its two scales, with seeded boxes. ``PatchShuffle``,
@@ -83,11 +97,16 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    refresh from epoch 1; ``preload`` 6, ``refresh_batch`` 8 as written),
    over a synthetic semicoco directory of copies of the fixtures (8
    labeled, 16 unlabeled, 12 val images with COCO GT), with seeded
-   weights, B=5 per step. With every kernel count at 0 before it, read
-   after: losses finite; NMS launched once per refresh chunk and per
-   evaluation batch, never in a train step; evaluation after each epoch on
-   the teacher's parameters, ``bbox_mAP`` finite in [0, 1] in
-   ``train.log.json``; every unlabeled label file rewritten;
+   weights, B=5 per step; the unlabeled list also names a JPEG cut inside
+   its header, with an empty label file. With every kernel count at 0
+   before it, read after: losses finite; NMS launched once per refresh
+   chunk and per evaluation batch, never in a train step; evaluation
+   after each epoch on the teacher's parameters, ``bbox_mAP`` finite in
+   [0, 1] in ``train.log.json``; every readable unlabeled label file
+   rewritten and the cut file's unchanged; a full refresh over the
+   unlabeled set and the cut file skips it before cutting the list into
+   chunks (one NMS launch per chunk of readable files) and leaves its
+   label file as it was;
    ``adathres.json`` written; the second epoch's dataset read the
    rewritten files; ``resume_from`` the epoch-1 checkpoint restores the
    state bit for bit. Then, on the trained state: one chunk refreshed on
@@ -107,6 +126,32 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    directly on the same batches (boxes 1e-3 relative, scores 1e-4), img/s
    (host clock to a synchronize, median of 3); the val GT fed back as
    detections scores ``bbox_mAP`` 1.0 exactly.
+12. weights: with the counts at 0, the flagship saved by ``save_weights``
+   and served by ``init_detector(checkpoint=)``, the semi run's
+   ``epoch_2.pth`` served (its EMA teacher, against ``detector_predict``
+   with the checkpoint's ``teacher_params``), and an mmdet-layout ``.pth``
+   of the seeded weights (``state_dict`` with ``module.`` prefixes and a
+   ``meta``) loaded by ``load_from``'s loader to exactly its tensors and
+   served: each predict at B=8, 800x1344 bit-identical to the in-memory
+   model's, NMS once per predict.
+13. DSL's first step: ``python -m dsl_tpu_torch.tools.train`` on
+   ``configs/fcos_semi/r50_caffe_mslonger_tricks_0.Xdata.py`` (caffe
+   ResNet-50 FCOS at full width, 800x1344, no unlabeled set) in a
+   subprocess, overriding the schedule (2 epochs, evaluation after each,
+   a log line per step), the data paths (a synthetic semicoco directory of
+   8 labeled, 8 unlabeled and 12 val images) and the weights (a seeded
+   caffe ResNet-50 as the ``pretrained`` file in mmdet's layout, a seeded
+   neck and head as ``load_from``): losses finite, the student's
+   ``bbox_mAP`` finite in [0, 1] after each epoch, NMS once per evaluation
+   batch; ``python -m dsl_tpu_torch.tools.test ... --format-only --ema``
+   on the unlabeled split (NMS once per batch) writes the bbox json (the
+   EMA teacher's: 8 steps from seeded weights leave the student's scores
+   under ``score_thr``);
+   ``tools/generate_unlabel_annos_coco.py`` turns it into label files;
+   the port's ``SemiCOCODataset`` reads each one's boxes. The subprocesses
+   report their NMS launches. Then the baseline's step on its own
+   loader's batch, timed in this process (median of 20), its img/s and
+   the phase's wall time.
 
 f32 runs with TF32 off (``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32`` False): cuDNN convolutions would
@@ -121,6 +166,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -141,6 +187,7 @@ NMS_PASSES = {"mask": "nms_mask_kernel", "scan": "nms_scan_kernel"}
 NMS_TRACE_REPS = 100          # nms_keep calls in one profiler trace
 NMS_TRACE_TRIES = 3           # traces taken before a lossy one fails the run
 TRAIN_WARMUP, TRAIN_STEPS = 3, 20
+DET_COST_STEPS = 8            # steps timed per turn for the cost of determinism
 # the flagship's LR steps at epochs 20 and 26: with any real epoch length
 # the smoke's steps stay in the warm-up
 TRAIN_STEPS_PER_EPOCH = 1000
@@ -629,9 +676,10 @@ def phase_train(cfg, variables, smi: str):
         f"{batch['gt_valid'].sum(1).tolist()}, ignore "
         f"{batch['ignore_valid'].sum(1).tolist()}, source weights "
         f"{batch['source_weight'].tolist()}")
-    runs, firsts = {}, {}
+    runs, firsts, trajectories = {}, {}, {}
     nms_keep.launches = 0
-    for tag, dtype in (("f32", None), ("bf16", torch.bfloat16)):
+    for tag, dtype in (("f32", None), ("bf16", torch.bfloat16),
+                       ("f32 again", None)):
         state, step = train_entry(cfg, variables, dtype, DEVICE)
         det = state.student
         frozen = {n: p.detach().clone() for n, p in det.named_parameters()
@@ -681,8 +729,16 @@ def phase_train(cfg, variables, smi: str):
             f"{ms:.2f} ms (min {times[0]:.2f}, max {times[-1]:.2f}, "
             f"{TRAIN_STEPS} steps), {4 / ms * 1e3:.2f} img/s (4 real "
             f"images), peak memory {peak:.2f} GiB  ({smi})")
+        trajectories[tag] = (
+            [{k: float(v) for k, v in m.items()} for m in metrics],
+            {n: p.detach().clone() for n, p in det.named_parameters()})
+        if tag == "f32 again":
+            del state, step, det
+            break
         runs[tag] = (state, step)
         firsts[tag] = first
+    check_deterministic(*trajectories["f32"], *trajectories["f32 again"])
+    del trajectories
     # bf16 ran: its first step parts from f32's (same state and batch) by
     # more than f32 rounding, and stays within the parity tests' bf16 limit.
     # si-soft is left out: before soft_warm_up it is a tiny mean square of
@@ -729,6 +785,27 @@ def phase_train(cfg, variables, smi: str):
     return {"nms_keep": nms_keep.launches}, worst, runs, batch
 
 
+def check_deterministic(metrics_a, params_a, metrics_b, params_b):
+    """Two f32 runs from one seeded state: every step's losses and
+    ``grad_norm``, and every parameter after the last step, bit-identical;
+    else the spread is printed and the run fails."""
+    import torch
+
+    steps = [i for i, (a, b) in enumerate(zip(metrics_a, metrics_b)) if a != b]
+    params = [n for n in params_a if not torch.equal(params_a[n], params_b[n])]
+    if steps or params:
+        spread = max(abs(metrics_a[-1][k] - metrics_b[-1][k])
+                     for k in metrics_a[-1])
+        raise AssertionError(
+            f"two f32 runs from one seed differ: at steps {steps[:5]} (of "
+            f"{len(metrics_a)}), last-step metrics up to {spread:.6g} apart, "
+            f"{len(params)} parameters differ after the last step")
+    log(f"[train] determinism: two f32 runs of {len(metrics_a)} steps from "
+        f"one seeded state: losses and grad_norm bit-identical at every "
+        f"step, all {len(params_a)} parameters bit-identical after step "
+        f"{len(metrics_a)} (cudnn.deterministic, no autotuning)")
+
+
 def phase_train_timing(runs, batch, smi: str):
     """Per precision: one profiler trace of a step, and a step split by
     CUDA events recorded where the step enqueues each part."""
@@ -762,6 +839,18 @@ def phase_train_timing(runs, batch, smi: str):
         log(f"[time] train step {tag} split (CUDA events): " + ", ".join(
             f"{k} {v:.2f}" for k, v in parts.items())
             + f" ms; sum {sum(parts.values()):.2f} ms  ({smi})")
+        # what determinism costs: the same step with cuDNN free to pick its
+        # (nondeterministic) algorithms, in turns with the deterministic one
+        medians = {}
+        for flag in (False, True, False, True):
+            torch.backends.cudnn.deterministic = flag
+            times = sorted(host_ms(lambda: step(state, batch),
+                                   reps=DET_COST_STEPS))
+            medians.setdefault(flag, []).append(times[len(times) // 2])
+        log(f"[time] train step {tag}, cost of determinism (median of "
+            f"{DET_COST_STEPS} steps, in turns): cudnn.deterministic "
+            f"{medians[True][0]:.2f} / {medians[True][1]:.2f} ms, free "
+            f"{medians[False][0]:.2f} / {medians[False][1]:.2f} ms  ({smi})")
 
 
 def banded_max_ratio(got: dict, want: dict, init: dict) -> tuple[float, float]:
@@ -819,6 +908,8 @@ SEMI_EPOCHS, SEMI_START = 2, 1
 OVERRIDES = {"runner.max_epochs": SEMI_EPOCHS,
              "data.unlabel_pred.start_point": SEMI_START}
 SEMI_TIMED_ITERS = 10
+EXIF_ORIENTATIONS = (3, 6, 8)
+SEMI_UNREADABLE = "unlabeled_header_cut.jpg"
 # nvJPEG against OpenCV's decodes of the fixtures: libjpeg-turbo's "fancy"
 # chroma upsampling and IDCT part from nvJPEG's at colour edges (measured
 # on the card: a mean of 0.7-0.9 levels, 0.6-1.5% of values off by more
@@ -878,7 +969,156 @@ def phase_decode(smi: str) -> dict:
             raise AssertionError(f"nvJPEG decode of {name} is outside the "
                                  f"tolerance: {mean}, {over4}, {worst}")
         out[name] = ms
+    phase_exif_and_probe(files, decodes)
+    phase_probe_timing(files, smi)
     return out
+
+
+PROBE_FILES, PROBE_INFO_CALLS = 10000, 2000
+
+
+def phase_probe_timing(files, smi: str):
+    """The refresher's probe over a long list, as it runs before the first
+    chunk: ``PROBE_FILES`` names hard-linked to the fixtures (each read from
+    the page cache), probed one after another on the host; then where the
+    time goes: the header's read and marker walk over the same names, and
+    ``nvjpegGetImageInfo`` on ``PROBE_INFO_CALLS`` of those prefixes and on
+    as many whole files (host clock)."""
+    import torch
+
+    from dsl_tpu_torch.data import image_io
+
+    dev = torch.device(DEVICE)
+    with tempfile.TemporaryDirectory(prefix="_smoke_probe_", dir=ROOT) as tmp:
+        names = []
+        for i in range(PROBE_FILES):
+            name = os.path.join(tmp, f"{i:06d}.jpg")
+            os.link(files[i % len(files)][1], name)
+            names.append(name)
+        image_io.readable(names[0], DEVICE)
+        t0 = time.perf_counter()
+        passed = sum(image_io.readable(n, DEVICE) for n in names)
+        seconds = time.perf_counter() - t0
+        prefixes = []
+        t0 = time.perf_counter()
+        for n in names:
+            with open(n, "rb") as f:
+                data = f.read(image_io.PROBE_FIRST_READ)
+            image_io.jpeg_header_end(data)
+            prefixes.append(data)
+        walk = time.perf_counter() - t0
+    if passed != PROBE_FILES:
+        raise AssertionError(f"probe: {passed} of {PROBE_FILES} passed")
+    wholes = [path.read_bytes() for _, path, _, _ in files]
+    info = {}
+    for label, bufs in (("prefix", prefixes),
+                        ("whole file", wholes * PROBE_INFO_CALLS)):
+        t0 = time.perf_counter()
+        for data in bufs[:PROBE_INFO_CALLS]:
+            image_io.jpeg_info(data, dev)
+        info[label] = (time.perf_counter() - t0) / PROBE_INFO_CALLS * 1e6
+    log(f"[decode] probe over {PROBE_FILES} files: {seconds:.3f} s, "
+        f"{seconds / PROBE_FILES * 1e6:.1f} us per file; of which the "
+        f"header's read and walk {walk / PROBE_FILES * 1e6:.1f} us, "
+        f"nvjpegGetImageInfo {info['prefix']:.1f} us on a "
+        f"{image_io.PROBE_FIRST_READ}-byte prefix ({info['whole file']:.1f} "
+        f"us on a whole fixture) (host clock, files in the page cache)  "
+        f"({smi})")
+
+
+def phase_exif_and_probe(files, decodes):
+    """EXIF-tagged copies of the colour fixtures, written here, decode on
+    the card to the committed OpenCV decode turned as OpenCV turns it; the
+    probe refuses files cut in the header, empty and missing, and passes
+    the fixtures."""
+    import torch
+
+    from dsl_tpu_torch.data.image_io import read_image, readable
+    from torch_port_make_fixtures import FIXTURES
+    from torch_port_util import (exif_segment, orient_like_cv2,
+                                 unreadable_files, with_exif)
+
+    with tempfile.TemporaryDirectory(prefix="_smoke_decode_", dir=ROOT) as tmp:
+        tmp = Path(tmp)
+        for name, path, h, w in files:
+            if FIXTURES[name][2]:          # grayscale
+                continue
+            for orientation in EXIF_ORIENTATIONS:
+                for order in ("II", "MM"):
+                    tagged = tmp / f"{name}_{orientation}_{order}.jpg"
+                    tagged.write_bytes(with_exif(
+                        path.read_bytes(), exif_segment(orientation, order)))
+                    got = read_image(tagged, DEVICE)
+                    want = torch.from_numpy(orient_like_cv2(
+                        decodes[name], orientation)).to(DEVICE)
+                    if got.shape != want.shape:
+                        raise AssertionError(
+                            f"EXIF {orientation} ({order}) on {name}: "
+                            f"{tuple(got.shape)}, OpenCV gives "
+                            f"{tuple(want.shape)}")
+                    mean, over4, worst = decode_stats(got, want)
+                    if (mean > DECODE_MEAN_LEVELS or over4 > DECODE_SHARE_OVER_4
+                            or worst > DECODE_MAX_LEVELS):
+                        raise AssertionError(
+                            f"EXIF {orientation} ({order}) on {name}: "
+                            f"{mean}, {over4}, {worst}")
+            log(f"[decode] {name} tagged with EXIF orientations "
+                f"{EXIF_ORIENTATIONS} (both byte orders): nvJPEG + the "
+                f"orientation on the card give OpenCV's shape "
+                f"{tuple(orient_like_cv2(decodes[name], 6).shape)} for 6 "
+                f"and 8, within the decode tolerance of the turned decode")
+        bad = unreadable_files(tmp, files[0][1].read_bytes())
+        taken = [n for n, p in bad.items() if readable(p, DEVICE)]
+        refused = [n for _, p, _, _ in files if not readable(p, DEVICE)]
+        if taken or refused:
+            raise AssertionError(f"probe: passed {taken}, refused {refused}")
+        log(f"[decode] probe on the card: refuses {sorted(bad)} (cut inside "
+            f"its header at 600 bytes, empty, SOI and garbage, missing), "
+            f"passes all {len(files)} fixtures")
+
+
+RESIZE_SCALES = ((1333, 640), (1333, 800))   # the train scales of both configs
+RESIZE_TIMED = 20
+
+
+def phase_resize(smi: str):
+    """``resize_linear_u8`` on the card against the CPU (which the CPU
+    tests hold to ``cv2.resize``) on the fixtures at the flagship's and the
+    baseline's scales, bit for bit; its time per image beside the bilinear
+    ``F.interpolate`` the port used before (rounded to uint8)."""
+    import torch
+    import torch.nn.functional as F
+
+    from dsl_tpu_torch.data.pipelines.image_ops import resize_linear_u8
+    from dsl_tpu_torch.data.pipelines.transforms import keep_ratio_size
+
+    def bilinear(img, nh, nw):
+        x = img.permute(2, 0, 1)[None].float()
+        out = F.interpolate(x, size=(nh, nw), mode="bilinear",
+                            align_corners=False)[0].permute(1, 2, 0)
+        return out.round().clamp(0, 255).to(torch.uint8).contiguous()
+
+    files, decodes = fixtures()
+    for scale in RESIZE_SCALES:
+        ms, old_ms = [], []
+        for name, _, h, w in files:
+            host = torch.from_numpy(decodes[name])
+            card = host.to(DEVICE)
+            nh, nw = keep_ratio_size(h, w, scale)
+            got = resize_linear_u8(card, nh, nw)
+            want = resize_linear_u8(host, nh, nw)
+            if not torch.equal(got.cpu(), want):
+                raise AssertionError(f"resize_linear_u8 of {name} to "
+                                     f"{nh}x{nw}: card != CPU")
+            for fn, acc in ((resize_linear_u8, ms), (bilinear, old_ms)):
+                times = sorted(host_ms(lambda: fn(card, nh, nw),
+                                       reps=RESIZE_TIMED))
+                acc.append(times[len(times) // 2])
+        log(f"[resize] resize_linear_u8 to scale {scale} ({len(files)} "
+            f"fixtures, 853-1199 x 640-800): card = CPU bit for bit; ms per "
+            f"image (median of {RESIZE_TIMED}) "
+            + ", ".join(f"{m:.3f}" for m in ms) + "; the bilinear before it "
+            + ", ".join(f"{m:.3f}" for m in old_ms) + f"  ({smi})")
 
 
 def semi_config_for(tmp: Path) -> tuple[dict, dict]:
@@ -891,6 +1131,7 @@ def semi_config_for(tmp: Path) -> tuple[dict, dict]:
     paths = synthetic_data.make_semicoco_dir(
         tmp / "data", [(str(p), h, w) for _, p, h, w in files],
         SEMI_LABELED, SEMI_UNLABELED, n_val=SEMI_VAL)
+    add_unreadable_unlabeled(paths, files[0][1])
     cfg = copy.deepcopy(Config.fromfile(str(CONFIG))._cfg_dict)
     for key, value in OVERRIDES.items():
         *parents, leaf = key.split(".")
@@ -899,6 +1140,30 @@ def semi_config_for(tmp: Path) -> tuple[dict, dict]:
             node = node[k]
         node[leaf] = value
     return synthetic_data.semi_config(cfg, paths), paths
+
+
+def add_unreadable_unlabeled(paths: dict, source: Path):
+    """A JPEG cut inside its header (``SEMI_UNREADABLE``, the first 600
+    bytes of ``source``) in the unlabeled image directory and list, with
+    the empty label file a bootstrap that found nothing in it writes. Its
+    empty label keeps it out of the training set (``SemiCOCODataset``
+    drops an image without boxes, as the JAX package does, whose loader
+    would raise on the file too); a refresh over it must skip it."""
+    import json as _json
+
+    data = source.read_bytes()
+    (Path(paths["images"]) / SEMI_UNREADABLE).write_bytes(data[:600])
+    with open(paths["unlabeled"], encoding="utf-8") as f:
+        listing = _json.load(f)
+    listing["images"].append(dict(
+        id=max(i["id"] for i in listing["images"]) + 1,
+        file_name=SEMI_UNREADABLE, width=640, height=480))
+    with open(paths["unlabeled"], "w", encoding="utf-8") as f:
+        _json.dump(listing, f)
+    with open(Path(paths["unlabel_store"]) / f"{SEMI_UNREADABLE}.json", "w",
+              encoding="utf-8") as f:
+        _json.dump(dict(imageName=f"full/{SEMI_UNREADABLE}", targetNum=0,
+                        rects=[], tags=[], masks=[]), f)
 
 
 @contextlib.contextmanager
@@ -1097,17 +1362,22 @@ def phase_semi(variables, smi: str, tmp: Path):
             + ", ".join(f"{k} {v[k]}" for k in v if k.startswith("bbox")))
     # every unlabeled label file rewritten by the refresher, adathres written
     after = tree_of(unl_store)
-    stale = [n for n in before if after[n] == before[n]
-             or "scores" not in _json.loads(after[n])]
-    if stale:
-        raise AssertionError(f"label files not rewritten: {stale}")
+    bad_label = f"{SEMI_UNREADABLE}.json"
+    stale = [n for n in before if n != bad_label and (
+        after[n] == before[n] or "scores" not in _json.loads(after[n]))]
+    if stale or after[bad_label] != before[bad_label]:
+        raise AssertionError(f"label files not rewritten: {stale}; the "
+                             f"unreadable file's changed: "
+                             f"{after[bad_label] != before[bad_label]}")
     with open(paths["adathres"], encoding="utf-8") as f:
         ada = _json.load(f)
     if not ada.get("thres"):
         raise AssertionError(f"adathres.json: {ada}")
     boxes = sum(_json.loads(v)["targetNum"] for v in after.values())
-    log(f"[semi] all {len(after)} unlabeled label files rewritten ({boxes} "
-        f"boxes); adathres.json: {len(ada['thres'])} classes, thresholds "
+    log(f"[semi] all {len(after) - 1} readable unlabeled label files "
+        f"rewritten ({boxes} boxes), {SEMI_UNREADABLE}'s (listed, cut inside "
+        f"its header, label empty) unchanged; adathres.json: "
+        f"{len(ada['thres'])} classes, thresholds "
         f"{sorted(round(v, 4) for v in ada['thres'].values())[:4]}...")
     # the second epoch's unlabeled dataset read the refreshed files
     late = [r for r in rec["reads"] if r[0] >= iters
@@ -1129,7 +1399,53 @@ def phase_semi(variables, smi: str, tmp: Path):
         f"{resumed.state.step}, opt_count, ema_ratio, ema_initialized "
         f"bit-identical to the state saved")
     del resumed
+    launches += refresh_skips_unreadable(runner, tmp, before)
     return runner, launches, cfg
+
+
+def refresh_skips_unreadable(runner, tmp: Path, before: dict) -> int:
+    """A full refresh of the unlabeled set and the unreadable file, into a
+    copy of the store as it was before training: the file is dropped before
+    the list is cut into chunks (one NMS launch per chunk of the readable
+    files), its label file stays as it was, every other one is rewritten.
+    Returns the NMS launches."""
+    import json as _json
+    import shutil
+
+    import torch
+
+    from dsl_tpu_torch.ops.nms import nms_keep
+    from dsl_tpu_torch.train.label_store import LabelStore
+    from torch_port_util import tree_of
+
+    ref = runner.refresher
+    root = tmp / "store_skip"
+    root.mkdir()
+    for name, data in before.items():
+        (root / name).write_bytes(data)
+    skip = copy.copy(ref)
+    skip.store = LabelStore(str(root), ref.store.id2cat, ref.store.cat2id)
+    names = [i["filename"] for i in ref.image_infos]
+    names.insert(len(names) // 2, SEMI_UNREADABLE)
+    start = nms_keep.launches
+    skip.refresh_images(runner.state, names)
+    torch.cuda.synchronize()
+    launches = nms_keep.launches - start
+    after = tree_of(root)
+    bad_label = f"{SEMI_UNREADABLE}.json"
+    chunks = -(-(len(names) - 1) // ref.refresh_batch)
+    stale = [n for n in after if n != bad_label
+             and "scores" not in _json.loads(after[n])]
+    if launches != chunks or stale or after[bad_label] != before[bad_label]:
+        raise AssertionError(f"refresh over an unreadable file: {launches} "
+                             f"NMS launches for {chunks} chunks, not "
+                             f"rewritten {stale}")
+    log(f"[semi] a full refresh of {len(names)} files, {SEMI_UNREADABLE} "
+        f"among them: skipped before chunking ({chunks} chunks of "
+        f"{ref.refresh_batch}, {launches} NMS launches), its label file "
+        f"unchanged, the other {len(after) - 1} rewritten")
+    shutil.rmtree(root)
+    return launches
 
 
 @contextlib.contextmanager
@@ -1408,15 +1724,16 @@ def strong_aug_inputs() -> list[dict]:
     import numpy as np
     import torch
 
-    from dsl_tpu_torch.data.pipelines.transforms import (keep_ratio_size,
-                                                         resize_image)
+    from dsl_tpu_torch.data.pipelines.image_ops import resize_linear_u8
+    from dsl_tpu_torch.data.pipelines.transforms import keep_ratio_size
 
     files, decodes = fixtures()
     out = []
     for scale in ((1333, 640), (1333, 800)):
         for i, (name, _, h, w) in enumerate(files):
             nh, nw = keep_ratio_size(h, w, scale)
-            img = resize_image(torch.from_numpy(decodes[name]).to(DEVICE), nh, nw)
+            img = resize_linear_u8(torch.from_numpy(decodes[name]).to(DEVICE),
+                                   nh, nw)
             rng = np.random.RandomState(i)
             x1, y1 = rng.uniform(0, nw * 0.7, 6), rng.uniform(0, nh * 0.7, 6)
             boxes = np.stack([x1, y1, x1 + rng.uniform(8, nw * 0.3, 6),
@@ -1624,6 +1941,275 @@ def phase_eval(runner, cfg: dict, smi: str) -> tuple[int, float]:
     return launches, keep_err
 
 
+# -- weights in, and DSL's first step (phases 12, 13) ------------------------
+
+def predict_equal(a, b) -> bool:
+    import torch
+
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def phase_weights(cfg, variables, runner, semi_cfg: dict, tmp: Path,
+                  smi: str) -> int:
+    """With the counts at 0: the flagship saved by ``save_weights`` and
+    served by ``init_detector(checkpoint=)``; the semi run's epoch-2
+    checkpoint served as its EMA teacher; an mmdet-layout ``.pth`` of the
+    seeded weights loaded by ``load_from``'s loader and served. Each
+    predict at B=8 bit-identical to the in-memory model's. Returns the
+    NMS launches."""
+    import torch
+
+    from dsl_tpu_torch.apis import init_detector
+    from dsl_tpu_torch.config import Config
+    from dsl_tpu_torch.models import build_detector, detector_predict
+    from dsl_tpu_torch.ops.nms import nms_keep
+    from dsl_tpu_torch.utils.checkpoint import save_weights
+    from dsl_tpu_torch.utils.jax_bridge import flax_to_state_dict
+    from dsl_tpu_torch.utils.torch_import import load_torch_detector
+
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    images = torch.randn((BATCH, 3, *CANVAS), generator=gen, device=DEVICE)
+    nms_keep.launches = 0
+    memory = init_detector(cfg, variables=variables, device=DEVICE).detector
+    want = detector_predict(memory, images, device=DEVICE)
+    path = tmp / "flagship_weights.pth"
+    save_weights(str(path), memory)
+    served = init_detector(cfg, checkpoint=str(path), device=DEVICE).detector
+    if not predict_equal(detector_predict(served, images, device=DEVICE),
+                         want):
+        raise AssertionError("a weights file served: dets differ")
+    log(f"[weights] save_weights -> init_detector(checkpoint=): dets at "
+        f"B={BATCH} bit-identical to the in-memory model's "
+        f"({path.stat().st_size / 2**20:.1f} MiB)")
+    del served
+
+    ckpt_path = tmp / "work" / "epoch_2.pth"
+    ckpt = torch.load(ckpt_path, map_location=DEVICE, weights_only=True)
+    teacher = detector_predict(runner.state.student, images, device=DEVICE,
+                               params=ckpt["teacher_params"])
+    served = init_detector(Config(semi_cfg), checkpoint=str(ckpt_path),
+                           device=DEVICE).detector
+    if not predict_equal(detector_predict(served, images, device=DEVICE),
+                         teacher):
+        raise AssertionError("the epoch-2 checkpoint served: dets differ "
+                             "from detector_predict with its teacher")
+    log(f"[weights] init_detector on the semi run's epoch_2.pth serves its EMA "
+        f"teacher: dets at B={BATCH} bit-identical to detector_predict with "
+        f"the checkpoint's teacher_params")
+    del served, ckpt
+
+    sd = flax_to_state_dict(variables)
+    mmdet = tmp / "flagship_mmdet.pth"
+    torch.save({"meta": {"epoch": 28}, "state_dict": {
+        f"module.{k}": v for k, v in sd.items()}}, mmdet)
+    det = build_detector(dict(cfg.model))
+    det.init_weights(torch.Generator().manual_seed(1))
+    missing, unexpected = load_torch_detector(str(mmdet), det)
+    bad = [k for k, v in det.state_dict().items() if not torch.equal(v, sd[k])]
+    if missing or unexpected or bad:
+        raise AssertionError(f"mmdet .pth as load_from: missing {missing[:3]}, "
+                             f"unexpected {unexpected[:3]}, differ {bad[:3]}")
+    served = init_detector(cfg, checkpoint=str(mmdet), device=DEVICE).detector
+    if not predict_equal(detector_predict(served, images, device=DEVICE),
+                         want):
+        raise AssertionError("an mmdet .pth served: dets differ")
+    torch.cuda.synchronize()
+    launches = nms_keep.launches
+    if launches != 5:
+        raise AssertionError(f"weights phase: {launches} NMS launches for 5 "
+                             f"predicts")
+    log(f"[weights] an mmdet-layout .pth of the seeded weights (state_dict "
+        f"with module. prefixes, meta): load_from's loader sets all "
+        f"{len(sd)} tensors to the file's; served, dets bit-identical; NMS "
+        f"launches {launches} (one per predict)  ({smi})")
+    return launches
+
+
+BASELINE_CONFIG = (ROOT / "configs" / "fcos_semi"
+                   / "r50_caffe_mslonger_tricks_0.Xdata.py")
+BASELINE_LABELED, BASELINE_UNLABELED, BASELINE_VAL = 8, 8, 12
+BASELINE_EPOCHS = 2
+BASELINE_TIMED = 20
+
+
+def run_module(module: str, args: list[str], timeout: int = 600) -> int:
+    """``python -m module args`` in a subprocess (``runpy`` with
+    ``run_name='__main__'``, as ``-m`` runs it), its output printed here;
+    returns the NMS launches it made."""
+    code = ("import runpy, sys\n"
+            "from dsl_tpu_torch.ops.nms import nms_keep\n"
+            f"sys.argv = {[module, *args]!r}\n"
+            f"runpy.run_module({module!r}, run_name='__main__', alter_sys=True)\n"
+            "print('NMS_LAUNCHES', nms_keep.launches)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, text=True,
+                          capture_output=True, timeout=timeout)
+    for line in proc.stdout.splitlines()[-6:]:
+        log(f"[baseline]   | {line[:160]}")
+    if proc.returncode != 0:
+        raise RuntimeError(f"python -m {module} exited {proc.returncode}:\n"
+                           f"{proc.stderr[-4000:]}")
+    return int(proc.stdout.split("NMS_LAUNCHES")[-1].split()[0])
+
+
+def phase_baseline(tmp: Path, smi: str) -> int:
+    """DSL's first step at full width: the baseline config trained by the
+    train CLI for 2 epochs (student evaluated after each), its unlabeled
+    split's detections written by the test CLI with ``--format-only``,
+    turned into label files by ``tools/generate_unlabel_annos_coco.py``,
+    read by the port's ``SemiCOCODataset``; then the baseline's step timed
+    in this process. Returns the NMS launches."""
+    import json as _json
+    import random
+
+    import numpy as np
+    import torch
+
+    from dsl_tpu_torch.apis import train_detector
+    from dsl_tpu_torch.apis.test import BATCH_SIZE
+    from dsl_tpu_torch.apis.train import build_dataset, deterministic_cudnn
+    from dsl_tpu_torch.config import Config
+    from dsl_tpu_torch.models import build_detector
+    from dsl_tpu_torch.utils import synthetic_data
+    from dsl_tpu_torch.utils.jax_bridge import flax_to_state_dict, state_dict_to_flax
+    from dsl_tpu_torch.utils.random_weights import fill_variables
+    from torch_port_util import usable_boxes
+
+    t_phase = time.perf_counter()
+    files, _ = fixtures()
+    paths = synthetic_data.make_semicoco_dir(
+        tmp / "baseline_data", [(str(p), h, w) for _, p, h, w in files],
+        BASELINE_LABELED, BASELINE_UNLABELED, n_val=BASELINE_VAL)
+    cfg = Config.fromfile(str(BASELINE_CONFIG))
+    # seeded weights: the caffe ResNet-50 as the pretrained backbone file
+    # (mmdet's layout), the neck and head (classes that score) as load_from
+    sd = flax_to_state_dict(fill_variables(state_dict_to_flax(
+        build_detector(dict(cfg.model)).state_dict())))
+    pretrained, load_from = tmp / "r50_caffe_seeded.pth", tmp / "neck_head.pth"
+    torch.save({k[len("backbone."):]: v for k, v in sd.items()
+                if k.startswith("backbone.")}, pretrained)
+    torch.save({"state_dict": {k: v for k, v in sd.items()
+                               if not k.startswith("backbone.")}}, load_from)
+    data = {"data.train.ann_file": paths["labeled"],
+            "data.train.ann_path": paths["label_store"],
+            "data.train.labelmapper": paths["category_info"],
+            "data.train.img_prefix": paths["images"],
+            "data.val.ann_file": paths["val"],
+            "data.val.img_prefix": paths["val_images"],
+            "data.test.ann_file": paths["val"],
+            "data.test.img_prefix": paths["val_images"]}
+    overrides = {"runner.max_epochs": BASELINE_EPOCHS, "evaluation.interval": 1,
+                 "log_config.interval": 1,
+                 "model.backbone.pretrained": str(pretrained),
+                 "load_from": str(load_from)}
+    options = [f"{k}={v}" for k, v in {**overrides, **data}.items()]
+    log(f"[baseline] {os.path.relpath(BASELINE_CONFIG, ROOT)}: caffe ResNet-50 "
+        f"FCOS at full width, overrides " + ", ".join(
+            f"{k} = {v}" for k, v in overrides.items()) + f", data paths -> "
+        f"a synthetic semicoco directory ({BASELINE_LABELED} labeled, "
+        f"{BASELINE_UNLABELED} unlabeled, {BASELINE_VAL} val)")
+
+    work = tmp / "baseline_work"
+    t0 = time.perf_counter()
+    train_launches = run_module("dsl_tpu_torch.tools.train", [
+        str(BASELINE_CONFIG), "--work-dir", str(work), "--device", DEVICE,
+        "--cfg-options", *options])
+    train_s = time.perf_counter() - t0
+    lines = [_json.loads(x) for x in (work / "train.log.json").read_text()
+             .splitlines()]
+    train = [x for x in lines if x["mode"] == "train"]
+    val = [x for x in lines if x["mode"] == "val"]
+    iters = BASELINE_LABELED // 2
+    n_batches = -(-BASELINE_VAL // BATCH_SIZE)
+    if (len(train) != BASELINE_EPOCHS * iters
+            or not all(np.isfinite(x["loss"]) for x in train)
+            or [v["epoch"] for v in val] != list(range(1, BASELINE_EPOCHS + 1))
+            or not all(np.isfinite(v["bbox_mAP"]) and 0 <= v["bbox_mAP"] <= 1
+                       for v in val)
+            or train_launches != BASELINE_EPOCHS * n_batches):
+        raise AssertionError(f"baseline training: {len(train)} logged "
+                             f"steps, evaluations {val}, NMS launches "
+                             f"{train_launches}")
+    log(f"[baseline] python -m dsl_tpu_torch.tools.train: {BASELINE_EPOCHS} "
+        f"epochs of {iters} iterations in {train_s:.1f} s (process start and "
+        f"set-up included); losses finite, last {train[-1]['loss']:.4f}; "
+        f"the student evaluated after each epoch: " + "; ".join(
+            f"epoch {v['epoch']} bbox_mAP {v['bbox_mAP']}" for v in val)
+        + f"; NMS launches {train_launches} ({n_batches} per evaluation)")
+
+    # the EMA teacher (--ema): 8 steps from seeded weights leave the
+    # student's scores under score_thr, the teacher keeps the seeded head
+    out = tmp / "unlabeled.bbox.json"
+    t0 = time.perf_counter()
+    test_launches = run_module("dsl_tpu_torch.tools.test", [
+        str(BASELINE_CONFIG), str(work / f"epoch_{BASELINE_EPOCHS}.pth"),
+        "--format-only", "--ema", "--out", str(out), "--device", DEVICE,
+        "--cfg-options", *options,
+        f"data.test.ann_file={paths['unlabeled']}",
+        f"data.test.img_prefix={paths['images']}"])
+    test_s = time.perf_counter() - t0
+    dets = _json.loads(out.read_text())
+    want_batches = -(-BASELINE_UNLABELED // BATCH_SIZE)
+    if not dets or test_launches != want_batches:
+        raise AssertionError(f"--format-only: {len(dets)} detections, "
+                             f"{test_launches} NMS launches")
+    log(f"[baseline] python -m dsl_tpu_torch.tools.test --format-only --ema on the "
+        f"{BASELINE_UNLABELED} unlabeled images: {len(dets)} detections in "
+        f"{out.name} ({test_s:.1f} s); NMS launches {test_launches} (one per "
+        f"batch of {BATCH_SIZE})")
+
+    store = tmp / "bootstrap_labels"
+    proc = subprocess.run(
+        [sys.executable, "tools/generate_unlabel_annos_coco.py", "--det-file",
+         str(out), "--cat-info", paths["category_info"], "--unlabeled-list",
+         paths["unlabeled"], "--out-dir", str(store)],
+        cwd=ROOT, capture_output=True, text=True, timeout=120, check=True)
+    log(f"[baseline] tools/generate_unlabel_annos_coco.py: "
+        f"{proc.stdout.strip()}")
+    ds = build_dataset(dict(
+        type="SemiCOCODataset", ann_file=paths["unlabeled"],
+        ann_path=str(store), labelmapper=paths["category_info"],
+        img_prefix=paths["images"],
+        pipeline=[dict(type="LoadImageFromFile"),
+                  dict(type="LoadAnnotations", with_bbox=True)]),
+        DEVICE, np.random.RandomState(0), random.Random(0))
+    counts = []
+    for i in range(len(ds)):
+        info = ds.data_infos[i]
+        label = _json.loads((store / f"{info['filename']}.json").read_text())
+        got = len(ds[i]["gt_bboxes"])
+        want = len(usable_boxes(label["rects"], info["height"],
+                                info["width"]))
+        if got != want or not got:
+            raise AssertionError(f"SemiCOCODataset read {got} boxes of the "
+                                 f"file's {want} usable ones")
+        counts.append((got, label["targetNum"]))
+    if not counts:
+        raise AssertionError("SemiCOCODataset kept no pseudo-labelled image")
+    log(f"[baseline] the port's SemiCOCODataset reads the pseudo-labels: "
+        f"{len(ds)} images, (boxes read, boxes in the file) {counts} (it "
+        f"drops a box under 1 px or outside the image, as the JAX package)")
+
+    # the baseline's step on its own loader's batch, in this process
+    cfg.merge_from_dict({**data, "runner.max_epochs": 0,
+                         "model.backbone.pretrained": str(pretrained),
+                         "load_from": str(load_from)})
+    runner = train_detector(cfg, str(tmp / "baseline_step"), device=DEVICE)
+    batch = next(iter(runner.data_loader))
+    batch.pop("meta", None)
+    n_img = batch["images"].shape[0]
+    with deterministic_cudnn():              # as the runner steps
+        times = sorted(host_ms(
+            lambda: runner.train_step(runner.state, batch),
+            reps=BASELINE_TIMED, warmup=3))
+    ms = times[len(times) // 2]
+    log(f"[time] baseline train step f32 B={n_img} at "
+        f"{tuple(batch['images'].shape[2:])}: median {ms:.2f} ms (min "
+        f"{times[0]:.2f}, max {times[-1]:.2f}, {BASELINE_TIMED} steps), "
+        f"{n_img / ms * 1e3:.2f} img/s; phase 13 wall "
+        f"{time.perf_counter() - t_phase:.1f} s  ({smi})")
+    return train_launches + test_launches
+
+
 def main() -> int:
     import torch
 
@@ -1638,6 +2224,8 @@ def main() -> int:
     case_err = phase_kernel_cases()
     from dsl_tpu_torch.config import Config
 
+    from dsl_tpu_torch.apis.train import deterministic_cudnn
+
     cfg = Config.fromfile(str(CONFIG))
     variables = seeded_variables(cfg)
     bundle, images, launches, path_err, calls = phase_main_path(cfg, variables)
@@ -1645,20 +2233,31 @@ def main() -> int:
     nms_times = phase_nms_timing(calls, smi)["predict_b8"]
     del bundle, images, calls
     torch.cuda.empty_cache()
-    train_launches, train_err, runs, batch = phase_train(cfg, variables, smi)
-    launches["nms_keep"] += train_launches["nms_keep"]
-    phase_train_timing(runs, batch, smi)
-    del runs
-    torch.cuda.empty_cache()
-    phase_train_card_vs_cpu(cfg, variables)
+    # as train_detector runs its steps: cuDNN's deterministic algorithms,
+    # no autotuning (phase 7 also times the step without them)
+    with deterministic_cudnn():
+        train_launches, train_err, runs, batch = phase_train(cfg, variables,
+                                                             smi)
+        launches["nms_keep"] += train_launches["nms_keep"]
+        phase_train_timing(runs, batch, smi)
+        del runs
+        torch.cuda.empty_cache()
+        phase_train_card_vs_cpu(cfg, variables)
     phase_decode(smi)
+    phase_resize(smi)
     phase_strong_aug(smi)
     with tempfile.TemporaryDirectory(prefix="_semi_smoke_", dir=ROOT) as tmp:
         runner, semi_launches, semi_cfg = phase_semi(variables, smi, Path(tmp))
-        semi_err = phase_semi_overlap_and_timing(runner, smi, Path(tmp))
+        with deterministic_cudnn():          # as train_detector iterates
+            semi_err = phase_semi_overlap_and_timing(runner, smi, Path(tmp))
         eval_launches, eval_err = phase_eval(runner, semi_cfg, smi)
+        weights_launches = phase_weights(cfg, variables, runner, semi_cfg,
+                                         Path(tmp), smi)
         del runner
-    launches["nms_keep"] += semi_launches + eval_launches
+        torch.cuda.empty_cache()
+        baseline_launches = phase_baseline(Path(tmp), smi)
+    launches["nms_keep"] += (semi_launches + eval_launches + weights_launches
+                             + baseline_launches)
     kernels = [dict(
         name="nms_keep", route="cuda",
         source="dsl_tpu_torch/csrc/nms_kernel.cu",

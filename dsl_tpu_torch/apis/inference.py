@@ -1,15 +1,16 @@
 """Single-image inference API.
 
 Counterpart of ``dsl_tpu/apis/inference.py``: ``init_detector`` builds the
-detector and returns a bundle; ``inference_detector(bundle, img)`` takes a
-path or a BGR uint8 ndarray and returns per-class box lists (the mmdet
-result format: a list of C arrays of shape (n_i, 5)).
+detector, loads a checkpoint into it and returns a bundle;
+``inference_detector(bundle, img)`` takes a path or a BGR uint8 ndarray and
+returns per-class box lists (the mmdet result format: a list of C arrays of
+shape (n_i, 5)).
 
 A path is read by ``data/image_io.read_image`` on the detector's device
 (nvJPEG on the card, ``cv2.imread`` on the CPU). Resize and normalize run in
-torch there (bilinear, ``align_corners=False``, rounded to uint8 levels as
-``cv2.resize`` does for uint8 images; then the BGR->RGB flip and mean/std),
-so the serving machine needs no OpenCV.
+torch there (``image_ops.resize_linear_u8``, bit for bit ``cv2.resize``;
+then the BGR->RGB flip and mean/std), so the serving machine needs no
+OpenCV.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
 """
@@ -23,8 +24,9 @@ import torch
 
 from dsl_tpu_torch.config import Config
 from dsl_tpu_torch.data.image_io import read_image
-from dsl_tpu_torch.data.pipelines.transforms import resize_image
+from dsl_tpu_torch.data.pipelines.image_ops import resize_linear_u8
 from dsl_tpu_torch.models import build_detector, detector_predict
+from dsl_tpu_torch.utils.checkpoint import load_weights
 from dsl_tpu_torch.utils.device import resolve_device
 from dsl_tpu_torch.utils.jax_bridge import flax_to_state_dict
 
@@ -42,27 +44,42 @@ class DetectorBundle:
         self.device = next(detector.parameters()).device
 
 
-def init_detector(config, variables: dict | None = None,
-                  device: str | torch.device = "cuda",
-                  canvas_hw=None) -> DetectorBundle:
-    """Build the detector of ``config`` (a path or a Config) on ``device``.
+def load_detector(model_cfg: dict, checkpoint: str | None = None,
+                  ema: bool = True, variables: dict | None = None):
+    """The detector of ``model_cfg`` on the CPU with ``checkpoint`` loaded
+    (``utils/checkpoint.load_weights``: a weights file, a
+    ``train_detector`` checkpoint's EMA teacher, or its student where
+    ``ema`` is False, or an mmdet-layout ``.pth``); without one, the
+    weights are ``variables`` (a flax ``{"params", "batch_stats"}`` tree of
+    numpy arrays, through the weight bridge) or the modules' random init
+    from seed 0. A checkpoint that does not load raises (the JAX package
+    keeps its random init). The backbone's ``pretrained`` file is not read:
+    the checkpoint holds the weights, as in mmdet's ``init_detector``."""
+    model = dict(model_cfg)
+    model["backbone"] = {**dict(model["backbone"]), "pretrained": None}
+    detector = build_detector(model)
+    if checkpoint:
+        load_weights(checkpoint, detector, ema=ema)
+    elif variables is not None:
+        detector.load_state_dict(flax_to_state_dict(variables))
+    else:
+        detector.init_weights(torch.Generator().manual_seed(0))
+    return detector
 
-    ``variables`` is a flax ``{"params", "batch_stats"}`` tree of numpy
-    arrays, loaded through the weight bridge; without it the weights are the
-    modules' random init from seed 0.
-    """
+
+def init_detector(config, checkpoint: str | None = None,
+                  device: str | torch.device = "cuda", canvas_hw=None,
+                  variables: dict | None = None) -> DetectorBundle:
+    """Build the detector of ``config`` (a path or a Config) with
+    ``checkpoint`` (or ``variables``) loaded, as :func:`load_detector`
+    does, on ``device``."""
     device = resolve_device(device)
     if isinstance(config, str):
         config = Config.fromfile(config)
     if canvas_hw is None:
         canvas_hw = tuple(config.get("canvas_hw", DEFAULT_CANVAS))
-    detector = build_detector(dict(config.model))
-    if variables is None:
-        detector.init_weights(torch.Generator().manual_seed(0))
-    else:
-        detector.load_state_dict(flax_to_state_dict(variables))
-    detector = detector.to(device).eval()
-    return DetectorBundle(detector, config, canvas_hw)
+    detector = load_detector(config.model, checkpoint, variables=variables)
+    return DetectorBundle(detector.to(device).eval(), config, canvas_hw)
 
 
 def preprocess(bundle: DetectorBundle, img):
@@ -74,7 +91,7 @@ def preprocess(bundle: DetectorBundle, img):
     nw, nh = int(w * factor + 0.5), int(h * factor + 0.5)
     img = torch.as_tensor(np.ascontiguousarray(img) if isinstance(
         img, np.ndarray) else img).to(bundle.device)
-    out = resize_image(img, nh, nw).permute(2, 0, 1)[None].float()
+    out = resize_linear_u8(img, nh, nw).permute(2, 0, 1)[None].float()
     mean = torch.tensor(IMG_MEAN, device=bundle.device)[None, :, None, None]
     std = torch.tensor(IMG_STD, device=bundle.device)[None, :, None, None]
     out = (out.flip(1) - mean) / std

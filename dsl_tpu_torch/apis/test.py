@@ -3,7 +3,7 @@
 Counterpart of ``dsl_tpu/apis/test.py::single_device_test`` for the
 single-stage detectors: each image is read onto the device
 (``data/image_io.read_image``, nvJPEG on the card), resized keeping its
-ratio to ``img_scale`` (the port's bilinear ``resize_image``), normalized
+ratio to ``img_scale`` (``resize_linear_u8``, exact to ``cv2.resize``), normalized
 and padded top-left onto the canvas ``formatting.select_canvas`` picks from
 the batch's resized images, as the JAX package does, so each image is
 predicted on the same canvas in both packages. Batches of ``BATCH_SIZE``

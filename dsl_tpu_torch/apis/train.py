@@ -1,29 +1,41 @@
 """train_detector: config -> datasets -> loaders -> train step -> runner.
 
-Counterpart of the FCOS semi branch of ``dsl_tpu/apis/train.py``:
-``build_detector`` -> ``frozen_backbone_mask`` -> ``build_optimizer_from_cfg``
-(``steps_per_epoch`` = the loader's length) -> ``create_train_state`` ->
-``make_train_step`` (bf16 when ``cfg.fp16``), the ``MultiDataLoader`` of
-``data.train`` and ``data.unlabel_train``, the pseudo-label refresher of
-``data.unlabel_pred`` with ``adathres_file`` from ``unlabel_train.thres``,
-the evaluation of ``data.val`` every ``evaluation.interval`` epochs on the
-EMA teacher's parameters (the refresher's snapshot: the state's teacher
-dict through ``detector_predict``, no second model), then
-:class:`SemiRunner`.
+Counterpart of ``dsl_tpu/apis/train.py``: ``build_detector`` -> the
+weights (the modules' init from ``seed``, a ``pretrained`` backbone file
+loaded by the backbone's ``init_weights``, then ``load_from``, both through
+``utils/torch_import.py``) -> ``frozen_backbone_mask`` ->
+``build_optimizer_from_cfg`` (``steps_per_epoch`` = the loader's length) ->
+``create_train_state`` (the EMA teacher, kept in both branches as the JAX
+package keeps it) -> ``make_train_step`` (bf16 when ``cfg.fp16``), then
+:class:`SemiRunner`. Two branches, as there:
 
-One device, CUDA unless the caller passes ``device="cpu"``. Not ported yet,
-and refused with ``NotImplementedError``: a ``pretrained`` backbone or
-``load_from`` file, Dynamic R-CNN, Seesaw and GHM losses, a training set
-without an unlabeled one. ``variables`` (a flax-layout tree, through the
-weight bridge) gives the initial weights; without it they are the modules'
-initialization from ``seed``. The pipelines draw from one
-``np.random.RandomState(seed)`` and one ``random.Random(seed)``, as the
-JAX package's draw from the global ``np.random`` and Python's ``random``
-after ``set_random_seed(seed)`` seeds both.
+- semi-supervised (the config has ``data.unlabel_train``): the
+  ``MultiDataLoader`` of ``data.train`` and ``data.unlabel_train``, the
+  pseudo-label refresher of ``data.unlabel_pred`` with ``adathres_file``
+  from ``unlabel_train.thres``, and the evaluation of ``data.val`` on the
+  EMA teacher's parameters (the state's teacher dict through
+  ``detector_predict``, no second model);
+- supervised (DSL's baseline, no ``unlabel_train``): the labeled loader
+  alone, no refresher, and the evaluation on the student.
+
+One device, CUDA unless the caller passes ``device="cpu"``. While the
+runner runs, cuDNN is held to its deterministic algorithms
+(:func:`deterministic_cudnn`), so one seed gives one model, as in the JAX
+package; its nondeterministic backward algorithms made the f32 step part
+run to run. The process's flags come back when ``train_detector`` returns.
+Not ported yet, and refused with ``NotImplementedError``: Dynamic R-CNN,
+Seesaw and GHM losses. A weight file that fails to load raises, where the
+JAX package warns and trains from its init. ``variables`` (a flax-layout
+tree, through the weight bridge) replaces the init and the ``pretrained``
+file. The pipelines draw from one ``np.random.RandomState(seed)`` and one
+``random.Random(seed)``, as the JAX package's draw from the global
+``np.random`` and Python's ``random`` after ``set_random_seed(seed)``
+seeds both.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os.path as osp
 import random
@@ -32,6 +44,7 @@ import numpy as np
 import torch
 
 from dsl_tpu_torch.apis.test import single_device_test
+from dsl_tpu_torch.data import datasets  # noqa: F401 (registers the datasets)
 from dsl_tpu_torch.data.formatting import DEFAULT_CANVAS
 from dsl_tpu_torch.data.loader import DetDataLoader, MultiDataLoader
 from dsl_tpu_torch.data.pipelines import test_pipeline_params
@@ -46,16 +59,13 @@ from dsl_tpu_torch.train.semi import PseudoLabelRefresher
 from dsl_tpu_torch.utils.device import resolve_device
 from dsl_tpu_torch.utils.jax_bridge import flax_to_state_dict
 from dsl_tpu_torch.utils.logger import get_root_logger
+from dsl_tpu_torch.utils.torch_import import load_torch_detector
 
 DEFAULT_NORM = dict(mean=(123.675, 116.28, 103.53),
                     std=(58.395, 57.12, 57.375), to_rgb=True)
 
 
 def _refuse_unported(cfg):
-    data = cfg.data
-    if cfg.model.get("backbone", {}).get("pretrained") or cfg.get("load_from"):
-        raise NotImplementedError("pretrained / load_from weights are not "
-                                  "ported yet; pass `variables`")
     if cfg.model.get("type") == "DynamicRCNN":
         raise NotImplementedError("Dynamic R-CNN is not ported yet")
     head = cfg.model.get("bbox_head", {}) or {}
@@ -63,14 +73,35 @@ def _refuse_unported(cfg):
         kind = dict(head.get(key, {}) or {}).get("type")
         if kind in ("SeesawLoss", "GHMC", "GHMR"):
             raise NotImplementedError(f"{kind} is not ported yet")
-    if "unlabel_train" not in data:
-        raise NotImplementedError("training without an unlabeled set is not "
-                                  "ported yet")
+
+
+def _check_num_classes(cfg, dataset, logger):
+    """NumClassCheckHook: warn where the head's ``num_classes`` is not the
+    dataset's number of classes."""
+    head_nc = cfg.model.get("bbox_head", {}).get("num_classes")
+    classes = getattr(dataset, "CLASSES", None)
+    if head_nc is not None and classes and len(classes) != head_nc:
+        logger.warning("num_classes mismatch: head has %d but dataset %s has "
+                       "%d classes", head_nc, type(dataset).__name__,
+                       len(classes))
 
 
 def build_dataset(cfg: dict, device, rng, pyrng):
     return build_from_cfg({**dict(cfg), "device": device, "rng": rng,
                            "pyrng": pyrng}, DATASETS)
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN held to its deterministic algorithms, with no autotuning, for
+    the block; the process's own flags come back after it."""
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
 
 
 def train_detector(cfg, work_dir: str, resume_from: str | None = None,
@@ -89,19 +120,29 @@ def train_detector(cfg, work_dir: str, resume_from: str | None = None,
         detector.init_weights(torch.Generator().manual_seed(seed))
     else:
         detector.load_state_dict(flax_to_state_dict(variables))
+    if cfg.get("load_from"):
+        load_torch_detector(cfg.load_from, detector)
 
     canvas = tuple(cfg.get("canvas_hw") or DEFAULT_CANVAS)
     data_cfg = cfg.data
     spg = data_cfg.get("samples_per_gpu", 2)
     train_ds = build_dataset(data_cfg["train"], device, rng, pyrng)
-    unlabel_ds = build_dataset(data_cfg["unlabel_train"], device, rng, pyrng)
-    ratio = data_cfg.get("batch_config", {}).get("ratio", [[1, 1]])[0]
-    data_loader = MultiDataLoader(
-        DetDataLoader(train_ds, spg, canvas_hw=canvas, seed=seed),
-        DetDataLoader(unlabel_ds, spg, canvas_hw=canvas, seed=seed + 1),
-        ratio=ratio,
-        unlabel_weight=cfg.model.get("bbox_head", {}).get("loss_weight", 1.0),
-        scale_invariant=bool(cfg.get("scale_invariant", False)))
+    _check_num_classes(cfg, train_ds, logger)
+    semi = "unlabel_train" in data_cfg
+    label_loader = DetDataLoader(train_ds, spg, canvas_hw=canvas, seed=seed)
+    if semi:
+        unlabel_ds = build_dataset(data_cfg["unlabel_train"], device, rng,
+                                   pyrng)
+        ratio = data_cfg.get("batch_config", {}).get("ratio", [[1, 1]])[0]
+        data_loader = MultiDataLoader(
+            label_loader,
+            DetDataLoader(unlabel_ds, spg, canvas_hw=canvas, seed=seed + 1),
+            ratio=ratio,
+            unlabel_weight=cfg.model.get("bbox_head", {}).get("loss_weight",
+                                                              1.0),
+            scale_invariant=bool(cfg.get("scale_invariant", False)))
+    else:
+        data_loader = label_loader
 
     runner_cfg = dict(cfg.get("runner", {}) or {})
     max_epochs = runner_cfg.get("max_epochs", 12)
@@ -126,7 +167,7 @@ def train_detector(cfg, work_dir: str, resume_from: str | None = None,
         compute_dtype=compute_dtype, frozen_mask=frozen, device=device)
 
     refresher, adathres_file = None, None
-    if "unlabel_pred" in data_cfg:
+    if semi and "unlabel_pred" in data_cfg:
         up = dict(data_cfg["unlabel_pred"])
         with open(up["category_info_path"], "r", encoding="utf-8") as f:
             cat_info = json.load(f)
@@ -165,10 +206,13 @@ def train_detector(cfg, work_dir: str, resume_from: str | None = None,
         test_cfg = dict(cfg.model.get("test_cfg", {}) or {})
 
         def eval_fn(state):
+            # the teacher where there is one to evaluate, else the student
+            # (None: the detector's own parameters)
             return single_device_test(
-                detector, state.teacher_params, val_ds, test_cfg=test_cfg,
-                canvas_hw=canvas, img_scale=tp["img_scale"],
-                img_norm=tp["img_norm"], device=device)
+                detector, state.teacher_params if semi else None, val_ds,
+                test_cfg=test_cfg, canvas_hw=canvas,
+                img_scale=tp["img_scale"], img_norm=tp["img_norm"],
+                device=device)
 
     runner = SemiRunner(
         train_step, state, data_loader, work_dir, max_epochs=max_epochs,
@@ -181,5 +225,6 @@ def train_detector(cfg, work_dir: str, resume_from: str | None = None,
         ema_decay_ratio=ema_cfg.get("decay_ratio", 0.1), logger=logger)
     if resume_from:
         runner.resume(resume_from)
-    runner.run()
+    with deterministic_cudnn():
+        runner.run()
     return runner

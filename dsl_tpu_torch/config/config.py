@@ -1,15 +1,20 @@
 """Python-dict configs with ``_base_`` inheritance.
 
 The port's own copy of the part of ``dsl_tpu/config/config.py`` that
-``Config.fromfile`` needs: configs are executable Python files whose
-module-level names become the config dict; a ``_base_`` entry (str or list)
-pulls in parent configs, deep-merged with the child winning; a dict value
-holding ``_delete_: True`` replaces the base value instead of merging.
+``Config.fromfile`` and the CLIs need: configs are executable Python files
+whose module-level names become the config dict; a ``_base_`` entry (str
+or list) pulls in parent configs, deep-merged with the child winning; a
+dict value holding ``_delete_: True`` replaces the base value instead of
+merging. ``merge_from_dict`` applies ``--cfg-options a.b.c=value``
+overrides (parsed by :class:`DictAction`), ``dump`` writes the config back
+as Python.
 """
 
 from __future__ import annotations
 
+import ast
 import copy
+import os
 import os.path as osp
 import sys
 import types
@@ -108,3 +113,105 @@ class Config:
 
     def get(self, name: str, default: Any = None) -> Any:
         return self._cfg_dict.get(name, default)
+
+    def to_dict(self) -> dict:
+        return _unwrap(self._cfg_dict)
+
+    def merge_from_dict(self, options: dict) -> None:
+        """Merge ``{"a.b.c": value}`` overrides into the config, as mmcv's
+        ``Config.merge_from_dict`` (``--cfg-options``) does."""
+        nested: dict = {}
+        for full_key, v in options.items():
+            d = nested
+            parts = full_key.split(".")
+            for k in parts[:-1]:
+                d = d.setdefault(k, {})
+            d[parts[-1]] = v
+        self._cfg_dict = ConfigDict.wrap(_merge_a_into_b(nested,
+                                                         self.to_dict()))
+
+    def dump(self, file: str | None = None) -> str | None:
+        """The config as Python (``name = value`` lines), written to
+        ``file`` when one is given, else returned."""
+        text = _format_dict(self.to_dict())
+        if file is None:
+            return text
+        os.makedirs(osp.dirname(osp.abspath(file)), exist_ok=True)
+        with open(file, "w", encoding="utf-8") as f:
+            f.write(text)
+        return None
+
+
+def _unwrap(value: Any) -> Any:
+    if isinstance(value, dict):
+        return {k: _unwrap(v) for k, v in value.items()}
+    if isinstance(value, (list, tuple)):
+        out = [_unwrap(v) for v in value]
+        return tuple(out) if isinstance(value, tuple) else out
+    return value
+
+
+def _format_dict(d: dict, indent: int = 0) -> str:
+    pad = " " * indent
+    lines = []
+    for k, v in d.items():
+        if isinstance(v, dict):
+            lines.append(f"{pad}{k} = dict(")
+            lines.append(_format_inner(v, indent + 4))
+            lines.append(f"{pad})")
+        else:
+            lines.append(f"{pad}{k} = {v!r}")
+    return "\n".join(lines) + "\n"
+
+
+def _format_inner(d: dict, indent: int) -> str:
+    pad = " " * indent
+    lines = []
+    for k, v in d.items():
+        if isinstance(v, dict):
+            lines.append(f"{pad}{k}=dict(")
+            lines.append(_format_inner(v, indent + 4))
+            lines.append(f"{pad}),")
+        else:
+            lines.append(f"{pad}{k}={v!r},")
+    return "\n".join(lines)
+
+
+def parse_cfg_option(value: str) -> Any:
+    """A ``--cfg-options`` value as a Python object: a literal where it
+    parses as one, true/false and none/null in any case, else the string."""
+    try:
+        return ast.literal_eval(value)
+    except (ValueError, SyntaxError):
+        if value.lower() in ("true", "false"):
+            return value.lower() == "true"
+        if value.lower() in ("none", "null"):
+            return None
+        return value
+
+
+class DictAction:
+    """argparse action: ``KEY=VALUE`` pairs into a dict (mmcv's
+    ``DictAction``), each value through :func:`parse_cfg_option`."""
+
+    def __init__(self, option_strings, dest, **kwargs):
+        self.option_strings = option_strings
+        self.dest = dest
+        self.nargs = "+"
+        self.const = None
+        self.default = kwargs.get("default")
+        self.type = None
+        self.choices = None
+        self.required = kwargs.get("required", False)
+        self.help = kwargs.get("help")
+        self.metavar = kwargs.get("metavar")
+
+    def __call__(self, parser, namespace, values, option_string=None):
+        options = getattr(namespace, self.dest, None) or {}
+        for kv in values:
+            key, _, val = kv.partition("=")
+            options[key] = parse_cfg_option(val)
+        setattr(namespace, self.dest, options)
+
+    def format_usage(self):
+        return "|".join(self.option_strings)

@@ -16,10 +16,13 @@ is the first channel, as there.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
 import torch
+
+from dsl_tpu_torch.utils.device import to_device
 
 
 def _c_float(x) -> float:
@@ -282,6 +285,64 @@ def rgb_to_gray_cv(img: torch.Tensor) -> torch.Tensor:
     x = img.to(torch.int32)
     return ((x[..., 0] * 9798 + x[..., 1] * 19235 + x[..., 2] * 3735 + 16384)
             >> 15).to(torch.uint8)
+
+
+# OpenCV's INTER_RESIZE_COEF_SCALE: linear resize weights in 11 bits
+RESIZE_COEF_SCALE = 2048
+
+
+@functools.lru_cache(maxsize=256)
+def _linear_taps(src: int, dst: int, horizontal: bool
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """OpenCV 5's uint8 ``INTER_LINEAR`` taps along one axis: (2, dst)
+    int64 source indices and (2, dst) int32 weights in 11-bit fixed point,
+    host tensors (cached per size pair; never written). The source position
+    is a C float, ``(d + 0.5) * scale - 0.5`` with ``scale`` in double,
+    split into its floor and fraction; a weight is the fraction (or one
+    less it) times 2048 in float, rounded half to even. Along x a position
+    before the first or past the last pixel takes that pixel with weight 1;
+    along y only the rows are clamped and the fraction stays, as OpenCV
+    does (at an upscale's first and last rows the two taps are one row with
+    split weights, which truncate otherwise than one weight of 2048)."""
+    scale = 1.0 / (dst / src)
+    f = ((np.arange(dst, dtype=np.float64) + 0.5) * scale - 0.5
+         ).astype(np.float32)
+    s = np.floor(f)
+    f = f - s
+    s = s.astype(np.int64)
+    if horizontal:
+        edge = (s < 0) | (s >= src - 1)
+        s = np.clip(s, 0, src - 1)
+        f[edge] = 0
+    w0 = np.rint((np.float32(1) - f) * np.float32(RESIZE_COEF_SCALE))
+    w1 = np.rint(f * np.float32(RESIZE_COEF_SCALE))
+    idx = np.stack([np.clip(s, 0, src - 1), np.clip(s + 1, 0, src - 1)])
+    return (torch.from_numpy(idx),
+            torch.from_numpy(np.stack([w0, w1]).astype(np.int32)))
+
+
+def resize_linear_u8(img: torch.Tensor, new_h: int, new_w: int) -> torch.Tensor:
+    """``cv2.resize(img, (new_w, new_h), interpolation=cv2.INTER_LINEAR)``
+    on a uint8 (H, W, C) tensor, as OpenCV 5 computes it: a horizontal pass
+    into int32 (``p0 * w0 + p1 * w1``), then a vertical pass
+    ``((w0 * (r0 >> 4)) >> 16) + ((w1 * (r1 >> 4)) >> 16) + 2 >> 2``
+    (its vector kernel's fixed point), clamped to [0, 255]. The taps are
+    built on the host and reach the card without a wait. At an exact half
+    it gives the 2x2 mean rounded, as OpenCV's INTER_AREA path there does."""
+    if img.dtype != torch.uint8:
+        raise TypeError(f"resize_linear_u8 takes uint8, not {img.dtype}")
+    h, w = img.shape[:2]
+    dev = img.device
+    xi, xw = (to_device(t, dev) for t in _linear_taps(w, new_w, True))
+    yi, yw = (to_device(t, dev) for t in _linear_taps(h, new_h, False))
+    x = img.to(torch.int32)
+    rows = (x.index_select(1, xi[0]) * xw[0][:, None]
+            + x.index_select(1, xi[1]) * xw[1][:, None])
+    r0 = rows.index_select(0, yi[0]) >> 4
+    r1 = rows.index_select(0, yi[1]) >> 4
+    out = ((((yw[0][:, None, None] * r0) >> 16)
+            + ((yw[1][:, None, None] * r1) >> 16) + 2) >> 2)
+    return out.clamp(0, 255).to(torch.uint8)
 
 
 def get_rotation_matrix_2d(center, angle: float, scale: float) -> np.ndarray:

@@ -10,19 +10,18 @@ the ``rng`` argument (an ``np.random.RandomState``) in the JAX package's
 order of ``np.random`` calls, and from ``pyrng`` (a ``random.Random``) where
 the JAX package calls Python's ``random``.
 
-Resize is bilinear with ``align_corners=False``; a uint8 image is rounded
-back to uint8 levels. ``cv2.resize`` works in fixed point, so a pixel may
-differ from the JAX package's by one level.
+Resize is ``image_ops.resize_linear_u8``, bit for bit ``cv2.resize``'s
+``INTER_LINEAR`` on uint8.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from dsl_tpu_torch.data.image_io import read_image
 from dsl_tpu_torch.data.pipelines.compose import Compose
+from dsl_tpu_torch.data.pipelines.image_ops import resize_linear_u8
 from dsl_tpu_torch.registry import PIPELINES
 
 
@@ -33,24 +32,13 @@ def keep_ratio_size(h: int, w: int, scale) -> tuple[int, int]:
     return int(h * factor + 0.5), int(w * factor + 0.5)
 
 
-def resize_image(img: torch.Tensor, new_h: int, new_w: int) -> torch.Tensor:
-    """(H, W, C) -> (new_h, new_w, C), bilinear, ``align_corners=False``;
-    uint8 stays uint8 (rounded, as ``cv2.resize`` rounds)."""
-    x = img.permute(2, 0, 1)[None].float()
-    out = F.interpolate(x, size=(new_h, new_w), mode="bilinear",
-                        align_corners=False)[0].permute(1, 2, 0)
-    if img.dtype == torch.uint8:
-        out = out.round().clamp(0, 255).to(torch.uint8)
-    return out.contiguous()
-
-
 def read_resized(path, img_scale, device) -> tuple[torch.Tensor, list, list]:
     """An image file read onto ``device`` and resized keeping its ratio to
     ``img_scale``: (uint8 image, [nh, nw], scale factor [w, h, w, h])."""
     img = read_image(path, device)
     h, w = img.shape[:2]
     nh, nw = keep_ratio_size(h, w, img_scale)
-    return resize_image(img, nh, nw), [nh, nw], [nw / w, nh / h, nw / w, nh / h]
+    return resize_linear_u8(img, nh, nw), [nh, nw], [nw / w, nh / h, nw / w, nh / h]
 
 
 @PIPELINES.register
@@ -92,7 +80,7 @@ class Resize:
             new_h, new_w = keep_ratio_size(h, w, scale)
         else:
             new_w, new_h = scale[0], scale[1]
-        out = resize_image(img, new_h, new_w)
+        out = resize_linear_u8(img, new_h, new_w)
         w_scale, h_scale = new_w / w, new_h / h
         results["img"] = out
         results["img_shape"] = tuple(out.shape)

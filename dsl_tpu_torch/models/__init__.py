@@ -1,5 +1,5 @@
 """Importing this package registers every ported model part."""
-from dsl_tpu_torch.models.backbones import RLAResNet  # noqa: F401
+from dsl_tpu_torch.models.backbones import ResNet, RLAResNet  # noqa: F401
 from dsl_tpu_torch.models.necks import FPN  # noqa: F401
 from dsl_tpu_torch.models.dense_heads import (  # noqa: F401
     FCOSHead, fcos_get_bboxes)

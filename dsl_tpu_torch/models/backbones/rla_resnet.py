@@ -13,7 +13,8 @@ Submodule names are the reference RLA checkpoint's (``stages.S.B.convK``,
 ``stage_bns.S.B``), the names ``dsl_tpu/utils/torch_import.py`` reads.
 
 ``frozen_stages`` sets ``requires_grad=False`` on the parameters that
-:func:`is_frozen` names.
+``layers.is_frozen`` names; ``pretrained`` is a checkpoint that
+:meth:`RLAResNet.init_weights` loads after the random init.
 """
 
 from __future__ import annotations
@@ -26,25 +27,8 @@ from torch import nn
 
 from dsl_tpu_torch.registry import BACKBONES
 from dsl_tpu_torch.models.layers import (
-    conv1x1, conv3x3, he_normal_, make_norm, max_pool_3x3_s2)
-
-
-def is_frozen(name: str, frozen_stages: int) -> bool:
-    """Whether the backbone parameter ``name`` is frozen, as
-    ``dsl_tpu/train/optim.py:45-79`` reads the reference's ``_freeze_stages``:
-    with ``frozen_stages >= 0`` the stem (``conv1``, ``bn1``); with
-    ``frozen_stages = k`` also stages ``0..k-1`` with their ``conv_outs``,
-    ``recurrent_convs`` and ``stage_bns``; and always ``stage_bns.3.2``, the
-    hidden-state BN after the last block, whose output nothing reads."""
-    parts = name.split(".")
-    if parts[:3] == ["stage_bns", "3", "2"]:
-        return True
-    if frozen_stages < 0:
-        return False
-    if parts[0] in ("conv1", "bn1"):
-        return True
-    return (parts[0] in ("stages", "conv_outs", "recurrent_convs", "stage_bns")
-            and int(parts[1]) < frozen_stages)
+    conv1x1, conv3x3, he_normal_, is_frozen, make_norm, max_pool_3x3_s2)
+from dsl_tpu_torch.utils.torch_import import load_torch_backbone
 
 
 class RLABottleneck(nn.Module):
@@ -96,9 +80,7 @@ class RLAResNet(nn.Module):
         # 3x3 whatever the style, and there is no classifier.
         if SE or ECA is not None:
             raise NotImplementedError("RLA-ResNet with SE/ECA is not ported yet")
-        if pretrained:
-            raise NotImplementedError("loading a pretrained RLA checkpoint is "
-                                      "not ported yet")
+        self.pretrained = pretrained
         self.rla_channel = rla_channel
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = make_norm(norm_cfg, 64)
@@ -130,9 +112,13 @@ class RLAResNet(nn.Module):
                 p.requires_grad_(False)
 
     def init_weights(self, generator: torch.Generator | None = None):
+        """He-normal convs, then the ``pretrained`` checkpoint (the RLA
+        ImageNet ``.pth.tar``) where one is set."""
         for m in self.modules():
             if isinstance(m, nn.Conv2d):
                 he_normal_(m.weight, generator)
+        if self.pretrained:
+            load_torch_backbone(self.pretrained, self)
 
     def forward(self, x: torch.Tensor):
         x = F.relu(self.bn1(self.conv1(x)))

@@ -131,3 +131,24 @@ def normal_init(module: nn.Module, std: float = 0.01, bias: float = 0.0,
 def bias_init_with_prob(prior_prob: float) -> float:
     """Focal-loss classifier bias: -log((1-p)/p)."""
     return float(-math.log((1 - prior_prob) / prior_prob))
+
+
+def is_frozen(name: str, frozen_stages: int) -> bool:
+    """Whether the backbone parameter ``name`` is frozen, as
+    ``dsl_tpu/train/optim.py:45-79`` reads the reference's ``_freeze_stages``:
+    with ``frozen_stages >= 0`` the stem (``conv1``, ``bn1``); with
+    ``frozen_stages = k`` also stages ``0..k-1``: an RLA-ResNet's with their
+    ``conv_outs``, ``recurrent_convs`` and ``stage_bns``, a ResNet's
+    ``layer1..layerk``; and always an RLA-ResNet's ``stage_bns.3.2``, the
+    hidden-state BN after the last block, whose output nothing reads."""
+    parts = name.split(".")
+    if parts[:3] == ["stage_bns", "3", "2"]:
+        return True
+    if frozen_stages < 0:
+        return False
+    if parts[0] in ("conv1", "bn1"):
+        return True
+    if parts[0].startswith("layer"):
+        return int(parts[0][len("layer"):]) <= frozen_stages
+    return (parts[0] in ("stages", "conv_outs", "recurrent_convs", "stage_bns")
+            and int(parts[1]) < frozen_stages)

@@ -1,0 +1,99 @@
+"""Evaluation and inference CLI of the port, argument for argument
+``tools/test.py``.
+
+    python -m dsl_tpu_torch.tools.test CONFIG [CHECKPOINT] [--eval bbox]
+        [--out results.json] [--format-only] [--ema]
+        [--cfg-options k=v ...] [--device cuda]
+
+Predicts every image of ``data.test`` (else ``data.val``) with the
+checkpoint's weights (``utils/checkpoint.load_weights``: a weights file, a
+``train_detector`` checkpoint's student, or its EMA teacher with ``--ema``,
+or an mmdet-layout ``.pth``; without a checkpoint, the random init from
+seed 0), then prints the COCO bbox metrics. ``--out`` or ``--format-only``
+writes the COCO-format detections (``<checkpoint>.bbox.json`` unless
+``--out`` names the file); ``--format-only`` computes no metric. That json
+is what ``tools/generate_unlabel_annos_coco.py`` turns into DSL's first
+pseudo-labels. ``--eval`` takes only ``bbox``. One process on one card:
+``--launcher`` takes only ``none``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os.path as osp
+import random
+
+import numpy as np
+
+from dsl_tpu_torch.config import Config
+from dsl_tpu_torch.config.config import DictAction
+from dsl_tpu_torch.tools.train import check_single_process
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description="Test a detector")
+    p.add_argument("config")
+    p.add_argument("checkpoint", nargs="?", default=None)
+    p.add_argument("--eval", nargs="+", default=["bbox"])
+    p.add_argument("--out", help="write the detections json here")
+    p.add_argument("--format-only", action="store_true")
+    p.add_argument("--ema", action="store_true",
+                   help="evaluate the EMA (teacher) weights")
+    p.add_argument("--cfg-options", nargs="+", action=DictAction)
+    p.add_argument("--launcher", default="none",
+                   help="multi-process launcher: none")
+    p.add_argument("--device", default="cuda",
+                   help="torch device (cuda, or cpu)")
+    return p.parse_args(argv)
+
+
+def main(argv=None):
+    """Run the CLI; returns (per-image results, metrics or None)."""
+    args = parse_args(argv)
+    check_single_process(args)
+    unported = [m for m in args.eval if m != "bbox"]
+    if unported:
+        raise NotImplementedError(f"--eval {' '.join(unported)}: only bbox "
+                                  f"is ported (instance masks are not)")
+    cfg = Config.fromfile(args.config)
+    if args.cfg_options:
+        cfg.merge_from_dict(args.cfg_options)
+
+    from dsl_tpu_torch.apis.inference import load_detector
+    from dsl_tpu_torch.apis.test import single_device_test
+    from dsl_tpu_torch.apis.train import build_dataset
+    from dsl_tpu_torch.data.formatting import DEFAULT_CANVAS
+    from dsl_tpu_torch.data.pipelines import test_pipeline_params
+    from dsl_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(args.device)
+    canvas = tuple(cfg.get("canvas_hw") or DEFAULT_CANVAS)
+    detector = load_detector(cfg.model, args.checkpoint, ema=args.ema)
+    detector.to(device).eval()
+
+    data_cfg = dict(cfg.data.get("test", cfg.data.get("val")))
+    ds = build_dataset({**data_cfg, "test_mode": True}, device,
+                       np.random.RandomState(0), random.Random(0))
+    tp = test_pipeline_params(data_cfg.get("pipeline"))
+    results = single_device_test(
+        detector, None, ds, test_cfg=dict(cfg.model.get("test_cfg", {}) or {}),
+        canvas_hw=canvas, img_scale=tp["img_scale"], img_norm=tp["img_norm"],
+        evaluate=False, device=device)
+
+    if args.out or args.format_only:
+        dt = ds.results2json_bbox(results)
+        out = args.out or (osp.splitext(args.checkpoint or "results")[0]
+                           + ".bbox.json")
+        with open(out, "w") as f:
+            json.dump(dt, f)
+        print(f"wrote {len(dt)} detections to {out}")
+    metrics = None
+    if not args.format_only:
+        metrics = ds.evaluate(results, metric=args.eval)
+        print(json.dumps({k: round(float(v), 4) for k, v in metrics.items()}))
+    return results, metrics
+
+
+if __name__ == "__main__":
+    main()

@@ -29,8 +29,7 @@ from typing import Callable, Sequence
 import torch
 from torch import nn
 
-from dsl_tpu_torch.models.backbones.rla_resnet import is_frozen
-from dsl_tpu_torch.models.layers import FrozenBatchNorm
+from dsl_tpu_torch.models.layers import FrozenBatchNorm, is_frozen
 
 NORM_TYPES = (FrozenBatchNorm, nn.GroupNorm)
 
@@ -52,7 +51,7 @@ def is_bias_param(module: nn.Module, name: str) -> bool:
 def frozen_backbone_mask(module: nn.Module, frozen_stages: int,
                          backbone_key: str = "backbone") -> dict[str, bool]:
     """Parameter name -> True where it must not be updated (an RLA-ResNet
-    backbone's ``frozen_stages``, see ``rla_resnet.is_frozen``)."""
+    backbone's ``frozen_stages``, see ``layers.is_frozen``)."""
     prefix = backbone_key + "."
     return {name: name.startswith(prefix)
             and is_frozen(name[len(prefix):], frozen_stages)

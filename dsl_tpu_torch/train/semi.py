@@ -13,11 +13,15 @@ same arguments and schedule:
 - ``eval_flip`` predicts the flipped image too and merges in the store's
   per-class NMS.
 
-A refresh reads each file onto the device (nvJPEG on the card), resizes it
-to ``img_scale`` there, pads it into ``select_canvas``'s canvas, pads the
-chunk to ``refresh_batch`` rows by repeating the last, normalizes on the
-device and runs ``detector_predict`` (NMS through the CUDA kernel) with the
-teacher's parameters.
+A refresh first drops the files ``cv2.imread`` could not read (missing,
+empty, or a JPEG header cut short: ``image_io.readable``), as the JAX
+package drops them before it cuts the list into chunks; their label files
+stay as they were. It reads each remaining file onto the device (nvJPEG on
+the card), resizes it to ``img_scale`` there, pads it into
+``select_canvas``'s canvas, pads the chunk to ``refresh_batch`` rows by
+repeating the last, normalizes on the device and runs
+``detector_predict`` (NMS through the CUDA kernel) with the teacher's
+parameters.
 
 On the card :meth:`dispatch_refresh` runs all of it on a side CUDA stream
 that first waits on an event recorded on the current stream, so the next
@@ -40,6 +44,7 @@ import numpy as np
 import torch
 
 from dsl_tpu_torch.data.formatting import select_canvas
+from dsl_tpu_torch.data.image_io import readable
 from dsl_tpu_torch.data.pipelines.transforms import read_resized
 from dsl_tpu_torch.models.detectors.single_stage import detector_predict
 from dsl_tpu_torch.train.label_store import LabelStore, compute_adathres
@@ -146,11 +151,14 @@ class PseudoLabelRefresher:
     def _predict_all(self, params: dict, filenames: list[str]) -> list:
         """All chunks of ``filenames``: [(names, [(variant, dets, labels,
         valid)])], results copied to the host (pinned, asynchronously on the
-        card). Each chunk's images are read onto the device just before its
-        predict and dropped after it, so the device holds one chunk of
-        images however many files there are."""
+        card), for the files :func:`readable` passes. Each chunk's images
+        are read onto the device just before its predict and dropped after
+        it, so the device holds one chunk of images however many files
+        there are."""
         pending = []
         cuda = self.device.type == "cuda"
+        filenames = [n for n in filenames
+                     if readable(osp.join(self.image_root, n), self.device)]
         for i in range(0, len(filenames), self.refresh_batch):
             names = filenames[i:i + self.refresh_batch]
             chunk = [(name, *self._load(name)) for name in names]

@@ -13,7 +13,9 @@ plain nested dicts. What changes on the way:
 - module names: flax's flat names (``layer2_0``, ``stage_bn1_0``,
   ``extra_conv0``, ``cls_gn3``, ``scale2``) <-> the mmdet/RLA checkpoint
   names the port's modules carry (``stages.1.0``, ``stage_bns.1.0``,
-  ``fpn_convs.3.conv``, ``cls_convs.3.gn``, ``scales.2``).
+  ``fpn_convs.3.conv``, ``cls_convs.3.gn``, ``scales.2``). A block
+  ``layerS_B`` is an RLA-ResNet's ``stages.{S-1}.B`` where the backbone has
+  the RLA hidden-state convs (``conv_out0``), else a ResNet's ``layerS.B``.
 
 ``dsl_tpu_torch.train.bridge`` carries a whole train state across on top of
 these two.
@@ -44,8 +46,13 @@ _TO_TORCH = [
     (r"\bscale(\d+)\b", lambda m, n: f"scales.{m[1]}"),
 ]
 
+# a ResNet's blocks, applied before _TO_TORCH where the backbone is no
+# RLA-ResNet
+_RESNET_TO_TORCH = [(r"\blayer(\d+)_(\d+)\b", lambda m, n: f"layer{m[1]}.{m[2]}")]
+
 _TO_FLAX = [
     (r"\bstages\.(\d+)\.(\d+)\b", lambda m, n: f"layer{int(m[1]) + 1}_{m[2]}"),
+    (r"\blayer(\d+)\.(\d+)\b", lambda m, n: f"layer{m[1]}_{m[2]}"),
     (r"\bdownsample\.0\b", lambda m, n: "downsample_conv"),
     (r"\bdownsample\.1\b", lambda m, n: "downsample_bn"),
     (r"\bconv_outs\.(\d+)\b", lambda m, n: f"conv_out{m[1]}"),
@@ -79,10 +86,12 @@ def flax_to_state_dict(variables: dict) -> dict[str, torch.Tensor]:
     """flax ``{"params", "batch_stats"}`` tree of arrays -> port state_dict."""
     params = variables["params"]
     n_lat = sum(1 for k in params.get("neck", {}) if k.startswith("lateral_conv"))
+    rla = "conv_out0" in params.get("backbone", {})
+    rules = _TO_TORCH if rla else _RESNET_TO_TORCH + _TO_TORCH
     sd: dict[str, torch.Tensor] = {}
     for collection in ("params", "batch_stats"):
         for path, arr in _leaves(variables.get(collection, {})):
-            module = _rename(".".join(path[:-1]), _TO_TORCH, n_lat)
+            module = _rename(".".join(path[:-1]), rules, n_lat)
             leaf = path[-1]
             arr = np.asarray(arr)
             if collection == "batch_stats":

@@ -123,24 +123,28 @@ def _make_val(root: Path, sources, n_val: int, categories: list,
 
 
 def semi_config(cfg: dict, paths: dict) -> dict:
-    """A copy of ``cfg`` (a plain dict) whose ``data.train``,
-    ``data.unlabel_train``, ``data.unlabel_pred`` (and ``data.val`` and
-    ``data.test`` where the directory has a val set) read ``paths`` (as
-    :func:`make_semicoco_dir` returns them); ``unlabel_train.thres`` becomes
-    the directory's ``adathres.json`` where it names a file."""
+    """A copy of ``cfg`` (a plain dict) whose ``data.train`` and, where the
+    config has them (a semi-supervised one), ``data.unlabel_train`` and
+    ``data.unlabel_pred`` (and ``data.val`` and ``data.test`` where the
+    directory has a val set) read ``paths`` (as :func:`make_semicoco_dir`
+    returns them); ``unlabel_train.thres`` becomes the directory's
+    ``adathres.json`` where it names a file."""
     cfg = copy.deepcopy(cfg)
     data = cfg["data"]
     common = dict(labelmapper=paths["category_info"], img_prefix=paths["images"])
     data["train"].update(ann_file=paths["labeled"],
                          ann_path=paths["label_store"], **common)
-    data["unlabel_train"].update(ann_file=paths["unlabeled"],
-                                 ann_path=paths["unlabel_store"], **common)
-    if isinstance(data["unlabel_train"].get("thres"), str):
-        data["unlabel_train"]["thres"] = paths["adathres"]
-    data["unlabel_pred"].update(
-        image_root_path=paths["images"], image_list_file=paths["unlabeled"],
-        anno_root_path=paths["unlabel_store"],
-        category_info_path=paths["category_info"])
+    if "unlabel_train" in data:
+        data["unlabel_train"].update(ann_file=paths["unlabeled"],
+                                     ann_path=paths["unlabel_store"], **common)
+        if isinstance(data["unlabel_train"].get("thres"), str):
+            data["unlabel_train"]["thres"] = paths["adathres"]
+    if "unlabel_pred" in data:
+        data["unlabel_pred"].update(
+            image_root_path=paths["images"],
+            image_list_file=paths["unlabeled"],
+            anno_root_path=paths["unlabel_store"],
+            category_info_path=paths["category_info"])
     if "val" in paths:
         for key in ("val", "test"):
             if key in data:

@@ -33,6 +33,17 @@ dependencies:
   and ``UBAug`` from the same seeds, give on the card images bit-identical
   to the CPU's (which the CPU tests hold against Pillow, OpenCV and the
   JAX package) and equal boxes, without a host sync;
+- ``resize_linear_u8`` on the card is bit-identical to the CPU (which the
+  CPU tests hold to ``cv2.resize``) on the fixtures at the train scales;
+- ``read_image`` on the card applies a fixture's EXIF orientation (1-8,
+  both byte orders) as OpenCV does: the committed decode turned by numpy,
+  within the decode tolerance; the probe ``readable`` refuses what
+  ``cv2.imread`` cannot read (a header cut short, empty, SOI and garbage,
+  missing) and passes the fixtures and a PNG (which then raises); a JPEG
+  cut inside its entropy-coded body, which OpenCV decodes with the rest
+  filled, passes the probe and nvJPEG decodes it too, its rows before the
+  cut within the decode tolerance (the fill after it is each decoder's
+  own);
 - ``train_detector`` and ``single_device_test`` refuse to start without
   CUDA (these run everywhere).
 """
@@ -238,7 +249,7 @@ def test_inference_detector_reads_a_path_on_the_card(card):
     name = "coco_640x480"
     variables = U.fill_variables(state_dict_to_flax(
         build_detector(U.TINY_CFG).state_dict()), seed=0)
-    bundle = init_detector(Config(dict(model=U.TINY_CFG)), variables,
+    bundle = init_detector(Config(dict(model=U.TINY_CFG)), variables=variables,
                            device=card, canvas_hw=(96, 128))
     path = OUT / f"{name}.jpg"
     result = inference_detector(bundle, str(path))
@@ -392,3 +403,72 @@ def test_strong_transform_on_the_card_matches_the_cpu(card, cfg):
         assert torch.equal(out[0]["img"].cpu(), out[1]["img"])
         for key in ("gt_bboxes", "gt_bboxes_ignore", "gt_labels"):
             np.testing.assert_array_equal(out[0][key], out[1][key])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(FIXTURES))
+def test_resize_linear_u8_on_the_card_equals_the_cpu(card, name):
+    from dsl_tpu_torch.data.pipelines.image_ops import resize_linear_u8
+    from dsl_tpu_torch.data.pipelines.transforms import keep_ratio_size
+
+    h, w, _ = FIXTURES[name]
+    host = torch.from_numpy(load_decodes()[name])
+    for scale in ((1333, 640), (1333, 800), (96, 64)):
+        nh, nw = keep_ratio_size(h, w, scale)
+        got = resize_linear_u8(host.to(card), nh, nw)
+        assert torch.equal(got.cpu(), resize_linear_u8(host, nh, nw)), scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", ["II", "MM"])
+@pytest.mark.parametrize("orientation", range(1, 9))
+def test_exif_orientation_on_the_card_route(card, orientation, order,
+                                            tmp_path):
+    from dsl_tpu_torch.data.image_io import read_image
+
+    name = "coco_500x375"
+    path = tmp_path / "tagged.jpg"
+    path.write_bytes(U.with_exif((OUT / f"{name}.jpg").read_bytes(),
+                                 U.exif_segment(orientation, order)))
+    got = read_image(path, card)
+    want = U.orient_like_cv2(load_decodes()[name], orientation)
+    assert tuple(got.shape) == want.shape and got.is_contiguous()
+    _decode_within_tolerance(got.cpu(), torch.from_numpy(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("first_read", [4096, 64])
+def test_probe_on_the_card_route(card, first_read, tmp_path, monkeypatch):
+    from dsl_tpu_torch.data import image_io
+    from dsl_tpu_torch.data.image_io import read_image, readable
+
+    # nvjpegGetImageInfo reads the header's prefix, first read as it is or
+    # cut to 64 bytes (the header read in doublings)
+    monkeypatch.setattr(image_io, "PROBE_FIRST_READ", first_read)
+    bad = U.unreadable_files(tmp_path, (OUT / "coco_640x480.jpg").read_bytes())
+    for name, path in bad.items():
+        assert not readable(path, card), name
+    for name in FIXTURES:
+        assert readable(OUT / f"{name}.jpg", card), name
+    png = tmp_path / "x.png"
+    png.write_bytes(U.png_bytes(8, 8))
+    assert readable(png, card)
+    with pytest.raises(ValueError, match="PNG is not JPEG"):
+        read_image(png, card)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(FIXTURES))
+def test_a_jpeg_cut_in_its_body_decodes_on_the_card(card, name, tmp_path):
+    from dsl_tpu_torch.data.image_io import read_image, readable
+
+    h, w, _ = FIXTURES[name]
+    data = (OUT / f"{name}.jpg").read_bytes()
+    path = tmp_path / "cut.jpg"
+    path.write_bytes(data[:int(len(data) * 0.9)])
+    assert readable(path, card)
+    got = read_image(path, card)
+    assert tuple(got.shape) == (h, w, 3)
+    rows = h // 2                     # intact at 90% of the bytes
+    _decode_within_tolerance(got[:rows].cpu(), torch.from_numpy(
+        load_decodes()[name][:rows]))

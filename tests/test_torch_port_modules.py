@@ -111,6 +111,56 @@ def test_group_norm_matches_jax():
                                rtol=1e-4, atol=1e-4)
 
 
+def _group_norm_input_grad(x: np.ndarray, dy: np.ndarray, scale, bias,
+                           dtype):
+    """(flax's, the port's) gradient of sum(GroupNorm(x) * dy) in x, NHWC,
+    computed in ``dtype``."""
+    with jax.enable_x64(dtype == np.float64):
+        params = {"params": {"scale": jnp.asarray(scale, dtype),
+                             "bias": jnp.asarray(bias, dtype)}}
+        want = np.asarray(jax.grad(lambda v: jnp.sum(
+            fnn.GroupNorm(num_groups=32, epsilon=1e-5).apply(params, v)
+            * jnp.asarray(dy, dtype)))(jnp.asarray(x, dtype)))
+    tdt = torch.float64 if dtype == np.float64 else torch.float32
+    gn = tlayers.make_norm(dict(type="GN", num_groups=32), x.shape[-1]).to(tdt)
+    gn.load_state_dict({"weight": torch.tensor(scale, dtype=tdt),
+                        "bias": torch.tensor(bias, dtype=tdt)})
+    xt = nchw(x).to(tdt).requires_grad_(True)
+    (gn(xt) * nchw(dy).to(tdt)).sum().backward()
+    return want, nhwc(xt.grad)
+
+
+@pytest.mark.parametrize("channels", [256, 64])
+def test_group_norm_grad_on_a_1x1_map(channels):
+    """GroupNorm's gradient in x on a 1x1 map (the stride-128 level of a
+    64x96 canvas), each framework in f32 against the f64 gradient, which
+    both give alike (1e-9). With the config's 8 channels per group (256)
+    both f32 gradients are within 1e-5 of the largest. With 2 per group
+    (the 64-wide tiny head) the output is d / sqrt(d^2 + eps) and its
+    gradient is negligible except where a group's variance nears eps; at
+    the two values the supervised baseline's fourth step gave there
+    (variance 1.96e-6 < eps = 1e-5, about 1e-7 of their squared mean) the
+    backward cancels (|x| 3.95 against |x - mean| 1.4e-3), and both
+    frameworks' f32 gradients part from the f64 one by more than 1e-3 of
+    the largest."""
+    rng = np.random.RandomState(5)
+    x = (rng.randn(1, 1, 1, channels) * 3 + 1).astype(np.float32)
+    if channels == 64:
+        x[0, 0, 0, 36:38] = [3.9486124515533447, 3.9458093643188477]
+    dy = rng.randn(*x.shape).astype(np.float32)
+    scale = rng.randn(channels).astype(np.float32)
+    bias = rng.randn(channels).astype(np.float32)
+    want64, got64 = _group_norm_input_grad(x, dy, scale, bias, np.float64)
+    np.testing.assert_allclose(got64, want64, rtol=1e-9, atol=1e-9)
+    want32, got32 = _group_norm_input_grad(x, dy, scale, bias, np.float32)
+    peak = np.abs(want64).max()
+    for err in (np.abs(got32 - want64).max(), np.abs(want32 - want64).max()):
+        if channels == 256:
+            assert err <= 1e-5 * peak
+        else:
+            assert err > 1e-3 * peak
+
+
 @pytest.mark.parametrize("k,stride,dilation", [(3, 2, 1), (1, 2, 1), (3, 1, 2)])
 def test_conv_padding_matches_jax(k, stride, dilation):
     rng = np.random.RandomState(3)

@@ -8,9 +8,10 @@
   full refresh) equals the JAX runner's on the same loaders, with both
   refreshers' device work replaced by a recorder;
 - one refresh of the JPEG fixtures from the same bridged teacher (the tiny
-  flagship): the JAX ``PseudoLabelRefresher.refresh_images`` and the port's
-  write the same tags and counts, boxes within 1 px (both truncate to
-  integers; the resize differs by up to 1 level), scores within 1e-3;
+  flagship) at a resize factor of 0.625: the JAX
+  ``PseudoLabelRefresher.refresh_images`` and the port's write the same
+  tags and counts, boxes within 1 px (both truncate to integers), scores
+  within 1e-3;
 - two epochs of ``train_detector`` on a synthetic semicoco directory: every
   unlabeled label file rewritten by the refresher, ``adathres.json``
   written, losses finite, the last checkpoint restored into a fresh state
@@ -198,19 +199,17 @@ def tiny():
 
 
 def test_one_refresh_matches_jax(tiny, tmp_path):
-    """The fixtures 640 px wide at img_scale (640, 480): the resize factor
-    is 1, so both resizes copy the decoded image and the two refreshers
-    predict on the same pixels (elsewhere cv2's fixed-point resize and the
-    port's part by 1 level, which moves the tiny random teacher's scores by
-    up to 5e-3 and reorders near-ties)."""
+    """The fixtures 640 px wide at img_scale (400, 300), a resize factor of
+    0.625: the port's resize is ``cv2.resize``'s bit for bit, so the two
+    refreshers predict on the same pixels."""
     det, variables = tiny
     files = sorted(n for n, (_, w, _) in FIXTURES.items() if w == 640)
     names = [f"{n}.jpg" for n in files]
     infos = [dict(filename=f"{n}.jpg", height=FIXTURES[n][0], width=640)
              for n in files]
     cat = json.load(open(_category_info(tmp_path)))
-    args = dict(test_cfg=U.TINY_CFG["test_cfg"], canvas_hw=(480, 640),
-                img_scale=(640, 480), refresh_batch=3)
+    args = dict(test_cfg=U.TINY_CFG["test_cfg"], canvas_hw=(320, 416),
+                img_scale=(400, 300), refresh_batch=3)
     stores = {}
     for tag, mod in (("jax", jax_store), ("port", label_store)):
         stores[tag] = mod.LabelStore(str(tmp_path / tag), cat["id2cat"],

@@ -209,3 +209,91 @@ def pair_labels(got: dict, want: dict, px: float = 1.0,
         else:
             unpaired += 1
     return unpaired + len(free), worst
+
+
+# -- JPEG files with an EXIF orientation, and unreadable ones ------------------
+
+def exif_segment(orientation: int, order: str = "II", value_type: int = 3,
+                 tiff_magic: bytes | None = None, n_entries: int = 1) -> bytes:
+    """An APP1 segment holding ``Exif\\0\\0`` and a TIFF IFD0 with one
+    Orientation (0x0112) entry of ``value_type`` (3: SHORT), in little
+    (``II``) or big (``MM``) endian. ``tiff_magic`` replaces the TIFF
+    header's first 4 bytes; ``n_entries`` is the entry count IFD0 claims."""
+    import struct
+
+    e = "<" if order == "II" else ">"
+    head = tiff_magic or (b"II*\x00" if order == "II" else b"MM\x00*")
+    value = (struct.pack(e + "H", orientation) + b"\x00\x00" if value_type == 3
+             else struct.pack(e + "I", orientation))
+    ifd = (struct.pack(e + "H", n_entries)
+           + struct.pack(e + "HHI", 0x0112, value_type, 1) + value
+           + struct.pack(e + "I", 0))
+    body = b"Exif\x00\x00" + head + struct.pack(e + "I", 8) + ifd
+    return b"\xff\xe1" + struct.pack(">H", len(body) + 2) + body
+
+
+def with_exif(data: bytes, segment: bytes) -> bytes:
+    """A JPEG's bytes with ``segment`` inserted right after its SOI."""
+    return data[:2] + segment + data[2:]
+
+
+def orient_like_cv2(img: np.ndarray, orientation: int) -> np.ndarray:
+    """What ``cv2.imread`` returns for a file decoded as ``img`` that
+    carries ``orientation``: numpy flips and transposes."""
+    if orientation >= 5:
+        img = img.transpose(1, 0, 2)
+    flips = {1: (), 2: (1,), 3: (0, 1), 4: (0,), 5: (), 6: (1,), 7: (0, 1),
+             8: (0,)}[orientation]
+    return np.ascontiguousarray(np.flip(img, flips) if flips else img)
+
+
+def unreadable_files(root: Path, source: bytes) -> dict[str, Path]:
+    """Files ``cv2.imread`` gives no image for, written into ``root`` (and
+    one name that is not there): empty, cut inside the header (its first
+    600 bytes), SOI followed by seeded bytes that hold no 0xFF."""
+    rng = np.random.RandomState(0)
+    files = {"empty": b"", "header_cut": source[:600],
+             "garbage": b"\xff\xd8\xff" + rng.randint(0, 255, 4000).astype(
+                 np.uint8).tobytes()}
+    out = {}
+    for name, data in files.items():
+        out[name] = root / f"{name}.jpg"
+        out[name].write_bytes(data)
+    out["missing"] = root / "missing.jpg"
+    return out
+
+
+# DSL's supervised baseline (configs/fcos_semi/r50_caffe_mslonger_tricks_0.
+# Xdata.py): a caffe-style ResNet-50, here with 16 stem and base channels
+# (stages of 64-512) under an FPN and head as narrow as the tiny flagship's
+TINY_BASELINE_CFG = copy.deepcopy(TINY_CFG)
+TINY_BASELINE_CFG["backbone"] = dict(
+    type="ResNet", depth=50, num_stages=4, out_indices=(0, 1, 2, 3),
+    frozen_stages=1, norm_eval=True, style="caffe", stem_channels=16,
+    base_channels=16)
+TINY_BASELINE_CFG["neck"]["in_channels"] = [64, 128, 256, 512]
+TINY_BASELINE_CFG["bbox_head"].update(loss_weight=1.0, soft_weight=0.0,
+                                      soft_warm_up=0)
+
+
+def png_bytes(h: int, w: int) -> bytes:
+    """A valid (h, w) black RGB PNG, written with the standard library (the
+    card's machine has no image library)."""
+    import struct
+    import zlib
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    rows = b"".join(b"\x00" + bytes(3 * w) for _ in range(h))
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows)) + chunk(b"IEND", b""))
+
+
+def usable_boxes(rects, h: int, w: int) -> list:
+    """The boxes of a label file a dataset keeps (``SemiCOCODataset``, as
+    the JAX package): at least 1 px on each side, overlapping the image."""
+    return [r for r in rects if r[2] - r[0] >= 1 and r[3] - r[1] >= 1
+            and min(r[2], w) > max(r[0], 0) and min(r[3], h) > max(r[1], 0)]
