@@ -77,7 +77,14 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    refuses a copy cut inside its header, an empty file and a missing path
    and passes the fixtures, and its host time per file over
    ``PROBE_FILES`` names linked to the fixtures, split into the header's
-   read and walk and ``nvjpegGetImageInfo``. Then ``resize_linear_u8`` on the card against
+   read and walk and ``nvjpegGetImageInfo``. JPEGs cut inside their
+   entropy-coded data (the committed cuts of a colour fixture and of one
+   with restart markers, which nvJPEG takes only as the completed stream)
+   decode on the card to OpenCV's gray fill from OpenCV's first gray row
+   (``tests/torch_port_data/cut_fill_rows.json``), their rows above the
+   band the data ends in equal to nvJPEG's decode of the whole file, with
+   the host scan's time per file; a progressive cut decodes with nothing
+   filled. Then ``resize_linear_u8`` on the card against
    the CPU, bit for bit, on the fixtures at the train scales of the
    flagship and the baseline, with its time per image beside the bilinear
    resize it replaced.
@@ -152,6 +159,31 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    report their NMS launches. Then the baseline's step on its own
    loader's batch, timed in this process (median of 20), its img/s and
    the phase's wall time.
+14. DSL's VOC workflow at full width (``configs/fcos_semi/voc/
+   RLA_r50_fcos_semi_voc.py``, 20 classes), the NMS count at 0 before each
+   step and read after it: ``make_voc_dir`` writes a VOC2007 directory (8
+   trainval, 12 test copies of the fixtures), the JAX-free
+   ``tools/voc_convert2_semivoc_json.py`` makes DSL's labeled store of it,
+   16 unlabeled copies get empty label files; the test CLI's
+   ``--format-only`` with the seeded weights on the unlabeled
+   ``SemiVOCDataset`` (NMS once per batch) and
+   ``tools/generate_unlabel_annos_voc.py`` write a label file with scores
+   for every unlabeled image; ``train_detector`` on the VOC config as
+   written (its pipelines, ``evaluation``, ``preload``), overrides
+   ``VOC_OVERRIDES`` and the data paths (its val and test blocks name no
+   pipeline, so they get the config's ``test_pipeline``): losses finite,
+   NMS once per refresh chunk and per evaluation batch, never in a step,
+   ``Voc2CocoDataset`` evaluating the teacher after each epoch (bbox mAP
+   printed) and the iteration's time; the test CLI on the epoch-2
+   checkpoint's teacher with ``--eval mAP`` on a ``VOCDataset`` under
+   ``VOC2007/`` (11-point AP) and ``--eval bbox`` on ``Voc2CocoDataset``;
+   ``tta_test`` (NMS once per batch and pass, keeps equal to the plain
+   version's) and ``tta_test_dense`` (no NMS kernel: its merge is host
+   numpy, as in the JAX package) on the teacher at ``TTA_SCALES`` with
+   flip; one image mirrored then resized on the card bit-identical to the
+   CPU, its predict card vs CPU banded (the top 20 detections paired,
+   boxes within 0.5 px, scores within 1e-3); img/s of a plain and a
+   flipped ``single_device_test`` and of both TTA paths.
 
 f32 runs with TF32 off (``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32`` False): cuDNN convolutions would
@@ -970,6 +1002,7 @@ def phase_decode(smi: str) -> dict:
                                  f"tolerance: {mean}, {over4}, {worst}")
         out[name] = ms
     phase_exif_and_probe(files, decodes)
+    phase_cut_jpeg(smi)
     phase_probe_timing(files, smi)
     return out
 
@@ -1075,6 +1108,62 @@ def phase_exif_and_probe(files, decodes):
         log(f"[decode] probe on the card: refuses {sorted(bad)} (cut inside "
             f"its header at 600 bytes, empty, SOI and garbage, missing), "
             f"passes all {len(files)} fixtures")
+
+
+def phase_cut_jpeg(smi: str):
+    """JPEGs cut inside their entropy-coded data (the committed cuts of a
+    colour fixture and of the restart-marker fixture): the probe passes
+    them, the card route decodes them (nvJPEG refuses the restart file cut
+    as it is and takes the completed stream), the rows from OpenCV's first
+    gray row (committed, and the host scan's) are 128 exactly, and the rows
+    above the band the data ends in are nvJPEG's decode of the whole file.
+    The host scan's time per file. A progressive cut decodes with nothing
+    filled; its distance from the whole file beside OpenCV's (committed)."""
+    import torch
+
+    from dsl_tpu_torch.data import jpeg_scan
+    from dsl_tpu_torch.data.image_io import decode_jpeg, read_image, readable
+    from torch_port_make_fixtures import OUT, PROGRESSIVE, RESTART
+
+    dev = torch.device(DEVICE)
+    committed = json.loads((OUT / "cut_fill_rows.json").read_text())
+    with tempfile.TemporaryDirectory(prefix="_smoke_cut_", dir=ROOT) as tmp:
+        path = Path(tmp) / "cut.jpg"
+        for name in ("coco_640x480", RESTART):
+            data = (OUT / f"{name}.jpg").read_bytes()
+            whole = decode_jpeg(data, dev)
+            for cut, gray in committed[name]:
+                path.write_bytes(data[:cut])
+                got = read_image(path, DEVICE)
+                k = jpeg_scan.truncated_imcu_row(data[:cut])
+                rows = max(0, 16 * k - 1)
+                if not (readable(path, DEVICE)
+                        and jpeg_scan.cut_fill_row(data[:cut]) == gray
+                        and got.shape == whole.shape
+                        and bool((got[gray:] == 128).all())
+                        and torch.equal(got[:rows], whole[:rows])):
+                    raise AssertionError(f"{name} cut at {cut} bytes: the "
+                                         f"card's decode is not OpenCV's fill")
+                times = sorted(host_ms(lambda: jpeg_scan.for_decoder(
+                    data[:cut]), reps=5, warmup=1))
+                log(f"[decode] {name} cut at {cut} of {len(data)} bytes: the "
+                    f"data ends in iMCU row {k}; rows {gray}-"
+                    f"{got.shape[0] - 1} = 128 as OpenCV fills them, rows "
+                    f"0-{rows - 1} = nvJPEG's whole-file decode; host scan "
+                    f"{times[2]:.2f} ms (median of 5)  ({smi})")
+        data = (OUT / f"{PROGRESSIVE}.jpg").read_bytes()
+        (cut, gray, cv2_mean), = committed[PROGRESSIVE]
+        path.write_bytes(data[:cut])
+        got = read_image(path, DEVICE)
+        whole = decode_jpeg(data, dev)
+        mean = float((got.int() - whole.int()).abs().float().mean())
+        if (got.shape != whole.shape or gray != got.shape[0]
+                or jpeg_scan.for_decoder(data[:cut])[1] is not None):
+            raise AssertionError("the progressive cut")
+        log(f"[decode] {PROGRESSIVE} cut at {cut} of {len(data)} bytes (a "
+            f"later scan): decodes, nothing filled; mean |cut - whole| "
+            f"{mean:.4f} levels on nvJPEG, {cv2_mean} on OpenCV (committed); "
+            f"neither has a gray row")
 
 
 RESIZE_SCALES = ((1333, 640), (1333, 800))   # the train scales of both configs
@@ -2032,10 +2121,11 @@ BASELINE_EPOCHS = 2
 BASELINE_TIMED = 20
 
 
-def run_module(module: str, args: list[str], timeout: int = 600) -> int:
+def run_module(module: str, args: list[str], timeout: int = 600,
+               tag: str = "baseline") -> tuple[int, list[str]]:
     """``python -m module args`` in a subprocess (``runpy`` with
-    ``run_name='__main__'``, as ``-m`` runs it), its output printed here;
-    returns the NMS launches it made."""
+    ``run_name='__main__'``, as ``-m`` runs it), its last lines printed
+    here; returns the NMS launches it made and its output's lines."""
     code = ("import runpy, sys\n"
             "from dsl_tpu_torch.ops.nms import nms_keep\n"
             f"sys.argv = {[module, *args]!r}\n"
@@ -2044,11 +2134,12 @@ def run_module(module: str, args: list[str], timeout: int = 600) -> int:
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, text=True,
                           capture_output=True, timeout=timeout)
     for line in proc.stdout.splitlines()[-6:]:
-        log(f"[baseline]   | {line[:160]}")
+        log(f"[{tag}]   | {line[:160]}")
     if proc.returncode != 0:
         raise RuntimeError(f"python -m {module} exited {proc.returncode}:\n"
                            f"{proc.stderr[-4000:]}")
-    return int(proc.stdout.split("NMS_LAUNCHES")[-1].split()[0])
+    return (int(proc.stdout.split("NMS_LAUNCHES")[-1].split()[0]),
+            proc.stdout.splitlines())
 
 
 def phase_baseline(tmp: Path, smi: str) -> int:
@@ -2110,7 +2201,7 @@ def phase_baseline(tmp: Path, smi: str) -> int:
 
     work = tmp / "baseline_work"
     t0 = time.perf_counter()
-    train_launches = run_module("dsl_tpu_torch.tools.train", [
+    train_launches, _ = run_module("dsl_tpu_torch.tools.train", [
         str(BASELINE_CONFIG), "--work-dir", str(work), "--device", DEVICE,
         "--cfg-options", *options])
     train_s = time.perf_counter() - t0
@@ -2140,7 +2231,7 @@ def phase_baseline(tmp: Path, smi: str) -> int:
     # student's scores under score_thr, the teacher keeps the seeded head
     out = tmp / "unlabeled.bbox.json"
     t0 = time.perf_counter()
-    test_launches = run_module("dsl_tpu_torch.tools.test", [
+    test_launches, _ = run_module("dsl_tpu_torch.tools.test", [
         str(BASELINE_CONFIG), str(work / f"epoch_{BASELINE_EPOCHS}.pth"),
         "--format-only", "--ema", "--out", str(out), "--device", DEVICE,
         "--cfg-options", *options,
@@ -2210,6 +2301,291 @@ def phase_baseline(tmp: Path, smi: str) -> int:
     return train_launches + test_launches
 
 
+# -- DSL's VOC protocol and test-time augmentation (phase 14) ----------------
+
+VOC_CONFIG = ROOT / "configs" / "fcos_semi" / "voc" / "RLA_r50_fcos_semi_voc.py"
+VOC_TRAINVAL, VOC_TEST, VOC_UNLABELED = 8, 12, 16
+# the VOC config's only overrides besides its data paths: its schedule
+VOC_OVERRIDES = {"runner.max_epochs": 2, "data.unlabel_pred.start_point": 1}
+TTA_SCALES = ((1333, 800),)
+
+
+def voc_cli_options(pipeline, **data) -> list[str]:
+    """``--cfg-options`` that point ``data.test`` at a dataset (the VOC
+    config's test block names no pipeline: it gets the config's own)."""
+    return [f"data.test.{k}={v}" for k, v in data.items()] + [
+        f"data.test.pipeline={pipeline!r}"]
+
+
+def dets_banded(got, want, top: int = 20) -> tuple[int, float, float]:
+    """The ``top`` highest-scoring detections of ``got`` (dets, labels) each
+    paired with one of ``want``'s of its label, boxes within 0.5 px and
+    scores within 1e-3; returns (pairs, worst box, worst score)."""
+    import numpy as np
+
+    gd, gl = got
+    wd, wl = want
+    free = list(range(len(wd)))
+    worst_box = worst_score = 0.0
+    order = np.argsort(-gd[:, 4], kind="stable")[:top]
+    for i in order:
+        match = [j for j in free if wl[j] == gl[i]
+                 and np.abs(wd[j, :4] - gd[i, :4]).max() <= 0.5
+                 and abs(wd[j, 4] - gd[i, 4]) <= 1e-3]
+        if not match:
+            raise AssertionError(f"card detection {gd[i]} (label {gl[i]}) "
+                                 f"has no CPU counterpart")
+        free.remove(match[0])
+        worst_box = max(worst_box, float(np.abs(wd[match[0], :4] - gd[i, :4]).max()))
+        worst_score = max(worst_score, float(abs(wd[match[0], 4] - gd[i, 4])))
+    return len(order), worst_box, worst_score
+
+
+def phase_voc(tmp: Path, smi: str) -> tuple[int, int]:
+    """DSL's VOC workflow at full width (20 classes): a synthetic VOC2007
+    directory, the converter, the pseudo-labels from the test CLI's
+    ``--format-only`` on the unlabeled ``SemiVOCDataset`` and
+    ``tools/generate_unlabel_annos_voc.py``, two epochs of
+    ``train_detector`` on the VOC config with ``Voc2CocoDataset``
+    evaluation, VOC 11-point mAP and COCO mAP through the test CLI, then
+    ``tta_test`` and ``tta_test_dense`` on the teacher. The NMS count is
+    set to 0 before each step and read after it. Returns the NMS launches
+    and the worst keep difference from the plain version."""
+    import random
+
+    import numpy as np
+    import torch
+
+    import dsl_tpu_torch.apis.test as test_api
+    from dsl_tpu_torch.apis import train_detector
+    from dsl_tpu_torch.apis.test import BATCH_SIZE, normalize_pad
+    from dsl_tpu_torch.apis.train import build_dataset
+    from dsl_tpu_torch.config import Config
+    from dsl_tpu_torch.data.image_io import read_image
+    from dsl_tpu_torch.data.pipelines import test_pipeline_params
+    from dsl_tpu_torch.data.pipelines.image_ops import resize_linear_u8
+    from dsl_tpu_torch.data.pipelines.transforms import keep_ratio_size
+    from dsl_tpu_torch.models import build_detector, detector_predict
+    from dsl_tpu_torch.ops.nms import nms_keep, nms_keep_reference
+    from dsl_tpu_torch.utils import synthetic_data
+    from dsl_tpu_torch.utils.checkpoint import save_weights
+    from dsl_tpu_torch.utils.jax_bridge import flax_to_state_dict
+    from torch_port_util import tree_of
+
+    t_phase = time.perf_counter()
+    files, _ = fixtures()
+    sources = [(str(p), h, w) for _, p, h, w in files]
+    root = tmp / "semivoc"
+    launches = 0
+
+    # 1. data: VOC2007 -> the converter -> DSL's layout, plus the unlabeled
+    voc = synthetic_data.make_voc_dir(root, sources, VOC_TRAINVAL, VOC_TEST)
+    proc = subprocess.run(
+        [sys.executable, "tools/voc_convert2_semivoc_json.py", "--voc-root",
+         voc["voc_root"], "--split", voc["trainval"], "--output", str(root)],
+        cwd=ROOT, capture_output=True, text=True, timeout=120, check=True)
+    paths = synthetic_data.make_semivoc_unlabeled(root, sources, VOC_UNLABELED,
+                                                  initial_labels=False)
+    cfg = synthetic_data.voc_semi_config(
+        Config.fromfile(str(VOC_CONFIG)).to_dict(), paths)
+    for key, value in VOC_OVERRIDES.items():
+        *parents, leaf = key.split(".")
+        node = cfg
+        for k in parents:
+            node = node[k]
+        node[leaf] = value
+    log(f"[voc] {os.path.relpath(VOC_CONFIG, ROOT)}: overrides "
+        + ", ".join(f"{k} = {v}" for k, v in VOC_OVERRIDES.items())
+        + f", data paths; a synthetic VOC2007 directory ({VOC_TRAINVAL} "
+        f"trainval, {VOC_TEST} test images, copies of the fixtures); "
+        f"tools/voc_convert2_semivoc_json.py: {proc.stdout.strip()}; "
+        f"{VOC_UNLABELED} unlabeled copies with empty label files")
+
+    # 2. pseudo-labels: --format-only on the unlabeled SemiVOCDataset
+    variables = seeded_variables(Config(cfg))
+    seeded = build_detector(dict(Config(cfg).model))
+    seeded.load_state_dict(flax_to_state_dict(variables))
+    weights = tmp / "voc_seeded.pth"
+    save_weights(str(weights), seeded)
+    del seeded
+    out = tmp / "unlabeled_voc.bbox.json"
+    fmt_launches, _ = run_module("dsl_tpu_torch.tools.test", [
+        str(VOC_CONFIG), str(weights), "--format-only", "--out", str(out),
+        "--device", DEVICE, "--cfg-options", *voc_cli_options(
+            cfg["test_pipeline"], type="SemiVOCDataset",
+            ann_file=paths["unlabeled"], ann_path=paths["unlabel_store"],
+            labelmapper=paths["category_info"],
+            img_prefix=paths["unlabel_images"])], tag="voc")
+    n_unl_batches = -(-VOC_UNLABELED // BATCH_SIZE)
+    dets = json.loads(out.read_text())
+    proc = subprocess.run(
+        [sys.executable, "tools/generate_unlabel_annos_voc.py", "--det-file",
+         str(out), "--image-list", paths["unlabeled"], "--out-dir",
+         paths["unlabel_store"]], cwd=ROOT, capture_output=True, text=True,
+        timeout=120, check=True)
+    store = tree_of(paths["unlabel_store"])
+    names = Path(paths["unlabeled"]).read_text().split()
+    labels = {n: json.loads(store[f"{n}.json"]) for n in names}
+    if (fmt_launches != n_unl_batches or not dets
+            or sorted(store) != sorted(f"{n}.json" for n in names)
+            or not all("scores" in v and v["targetNum"] for v in labels.values())
+            or {d["image_id"] for d in dets} != set(range(VOC_UNLABELED))):
+        raise AssertionError(f"pseudo-labels: {fmt_launches} NMS launches, "
+                             f"{len(dets)} detections, store {sorted(store)[:3]}")
+    launches += fmt_launches
+    log(f"[voc] python -m dsl_tpu_torch.tools.test --format-only on the "
+        f"unlabeled SemiVOCDataset: {len(dets)} detections (image ids 0-"
+        f"{VOC_UNLABELED - 1}, the list's), NMS launches {fmt_launches} (one "
+        f"per batch); tools/generate_unlabel_annos_voc.py: "
+        f"{proc.stdout.strip()}; every unlabeled image named, "
+        f"{sum(v['targetNum'] for v in labels.values())} boxes")
+
+    # 3. the semi loop on the VOC config
+    nms_keep.launches = 0
+    t0 = time.perf_counter()
+    with counting_semi_loop() as rec:
+        runner = train_detector(Config(cfg), str(tmp / "voc_work"), seed=0,
+                                device=DEVICE, variables=variables)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    semi_launches = nms_keep.launches
+    iters = len(runner.data_loader)
+    epochs = VOC_OVERRIDES["runner.max_epochs"]
+    n_val_batches = -(-VOC_TEST // BATCH_SIZE)
+    hist = runner.log_buffer.history
+    logged = [json.loads(x) for x in (tmp / "voc_work" / "train.log.json")
+              .read_text().splitlines() if '"mode": "val"' in x]
+    if (len(rec["step_launches"]) != epochs * iters or any(rec["step_launches"])
+            or any(n != 1 for n in rec["chunk_launches"])
+            or not rec["chunk_launches"]
+            or [e["epoch"] for e in rec["evals"]] != list(range(1, epochs + 1))
+            or any(e["launches"] != n_val_batches or not e["on_teacher"]
+                   for e in rec["evals"])
+            or semi_launches != len(rec["chunk_launches"]) + epochs * n_val_batches
+            or not all(np.isfinite(float(x)) for k, v in hist.items()
+                       if k.startswith("loss") for x in v)
+            or [v["epoch"] for v in logged] != list(range(1, epochs + 1))
+            or not all(0.0 <= v["bbox_mAP"] <= 1.0 for v in logged)):
+        raise AssertionError(f"VOC semi loop: steps {rec['step_launches']}, "
+                             f"chunks {rec['chunk_launches']}, evaluations "
+                             f"{rec['evals']}, logged {logged}")
+    refreshed = tree_of(paths["unlabel_store"])
+    tags = {t for v in refreshed.values() for t in json.loads(v)["tags"]}
+    it_ms = sorted(hist["time"][iters:])
+    launches += semi_launches
+    log(f"[voc] train_detector on the VOC config: {epochs} epochs of {iters} "
+        f"iterations (SemiVOCDataset labeled and unlabeled, B=5) in "
+        f"{wall:.1f} s; NMS launches {semi_launches}: "
+        f"{len(rec['chunk_launches'])} refresh chunks of {rec['chunk_sizes']} "
+        f"images, {epochs * n_val_batches} in {epochs} evaluations, 0 in "
+        f"{len(rec['step_launches'])} train steps; losses finite, last "
+        f"{float(hist['loss'][-1]):.4f}; refreshed tags {sorted(tags)[:6]}...")
+    for v in logged:
+        log(f"[voc] Voc2CocoDataset evaluation of the teacher after epoch "
+            f"{v['epoch']}: " + ", ".join(f"{k} {v[k]}" for k in v
+                                          if k.startswith("bbox")))
+    log(f"[time] VOC semi iteration, epoch 2 (the runner's host clock per "
+        f"iteration, loader and refresh included): median "
+        f"{it_ms[len(it_ms) // 2] * 1e3:.2f} ms, min {it_ms[0] * 1e3:.2f}, "
+        f"max {it_ms[-1] * 1e3:.2f}  ({smi})")
+
+    # 4. VOC mAP (11 points: the prefix names VOC2007) and COCO mAP, CLI
+    ckpt = str(tmp / "voc_work" / f"epoch_{epochs}.pth")
+    metrics = {}
+    for metric, kind in (("mAP", "VOCDataset"), ("bbox", "Voc2CocoDataset")):
+        n, lines = run_module("dsl_tpu_torch.tools.test", [
+            str(VOC_CONFIG), ckpt, "--ema", "--eval", metric, "--device",
+            DEVICE, "--cfg-options", *voc_cli_options(
+                cfg["test_pipeline"], type=kind, ann_file=voc["test"],
+                img_prefix=voc["voc_root"])], tag="voc")
+        metrics[metric] = json.loads(next(x for x in lines if x.startswith("{")))
+        if n != n_val_batches:
+            raise AssertionError(f"--eval {metric}: {n} NMS launches")
+        launches += n
+    if (set(metrics["mAP"]) != {"mAP", "AP50"}
+            or not 0 <= metrics["mAP"]["mAP"] <= 1
+            or not 0 <= metrics["bbox"]["bbox_mAP"] <= 1):
+        raise AssertionError(f"CLI metrics {metrics}")
+    log(f"[voc] python -m dsl_tpu_torch.tools.test --ema --eval mAP on a "
+        f"VOCDataset under VOC2007/ (11-point AP): {metrics['mAP']}; --eval "
+        f"bbox on Voc2CocoDataset: {metrics['bbox']}; NMS launches "
+        f"{n_val_batches} each")
+
+    # 5. test-time augmentation on the teacher
+    val = build_dataset({**cfg["data"]["val"], "test_mode": True}, DEVICE,
+                        np.random.RandomState(0), random.Random(0))
+    tp = test_pipeline_params(cfg["data"]["val"]["pipeline"])
+    det, params = runner.refresher.detector, runner.state.teacher_params
+    args = dict(test_cfg=dict(cfg["model"]["test_cfg"]), canvas_hw=CANVAS,
+                img_norm=tp["img_norm"], img_scales=TTA_SCALES, flip=True,
+                device=DEVICE)
+    passes = 2 * len(TTA_SCALES)
+    counts, tta_metrics, keep_err = {}, {}, 0
+    for name in ("tta_test", "tta_test_dense"):
+        nms_keep.launches = 0
+        with recording_nms() as calls:
+            tta_metrics[name] = getattr(test_api, name)(det, params, val, **args)
+            torch.cuda.synchronize()
+        counts[name] = nms_keep.launches
+        for boxes, valid, thr, keep in calls:
+            want = nms_keep_reference(boxes, valid, thr)
+            keep_err = max(keep_err, int((keep.int() - want.int()).abs().max()))
+            if not torch.equal(keep, want):
+                raise AssertionError(f"{name}: NMS keeps differ from the "
+                                     f"plain version")
+    if counts != {"tta_test": passes * n_val_batches, "tta_test_dense": 0}:
+        raise AssertionError(f"TTA NMS launches {counts}")
+    launches += counts["tta_test"]
+    log(f"[voc] tta_test and tta_test_dense on the teacher over {VOC_TEST} "
+        f"images, scales {TTA_SCALES}, flip: NMS launches {counts} (one per "
+        f"batch and pass; the dense merge is host numpy), keeps = the plain "
+        f"version's; tta_test {tta_metrics['tta_test']}; tta_test_dense "
+        f"{tta_metrics['tta_test_dense']}")
+
+    # one image's flipped predict, card against the CPU
+    path = test_api._path(val, 0)
+    img = read_image(path, DEVICE)
+    nh, nw = keep_ratio_size(*img.shape[:2], TTA_SCALES[0])
+    flipped = resize_linear_u8(img.flip(1), nh, nw)
+    if not torch.equal(flipped.cpu(), resize_linear_u8(img.cpu().flip(1), nh, nw)):
+        raise AssertionError("flip-then-resize: the card differs from the CPU")
+    shapes = torch.tensor([[nh, nw]], dtype=torch.float32)
+    sfs = torch.tensor([[nw / img.shape[1], nh / img.shape[0]] * 2])
+    canvas = normalize_pad([flipped], CANVAS, tp["img_norm"])
+    card = [t[0].cpu().numpy() for t in detector_predict(
+        det, canvas, img_shapes=shapes.to(DEVICE), scale_factors=sfs.to(DEVICE),
+        test_cfg=args["test_cfg"], device=DEVICE, params=params)]
+    cpu_det = copy.deepcopy(det).cpu()
+    cpu = [t[0].numpy() for t in detector_predict(
+        cpu_det, canvas.cpu(), img_shapes=shapes, scale_factors=sfs,
+        test_cfg=args["test_cfg"], device="cpu",
+        params={k: v.cpu() for k, v in params.items()})]
+    pairs, worst_box, worst_score = dets_banded(
+        (card[0][card[2]], card[1][card[2]]), (cpu[0][cpu[2]], cpu[1][cpu[2]]))
+    log(f"[voc] one image flipped then resized on the card: bit-identical "
+        f"to the CPU's; its predict on the teacher, card vs CPU: the top "
+        f"{pairs} detections paired (boxes within {worst_box:.2e} px, scores "
+        f"{worst_score:.2e}; bands 0.5 px, 1e-3)")
+
+    for name, fn in (("single_device_test", None),
+                     ("single_device_test(flip=True)", None),
+                     ("tta_test", test_api.tta_test),
+                     ("tta_test_dense", test_api.tta_test_dense)):
+        if fn is None:
+            flip = "flip" in name
+            times = host_ms(lambda: test_api.single_device_test(
+                det, params, val, test_cfg=args["test_cfg"], canvas_hw=CANVAS,
+                img_scale=TTA_SCALES[0], img_norm=tp["img_norm"],
+                evaluate=False, flip=flip, device=DEVICE), reps=1, warmup=1)
+        else:
+            times = host_ms(lambda: fn(det, params, val, evaluate=False, **args),
+                            reps=1, warmup=0)
+        log(f"[time] {name} over {VOC_TEST} images at {TTA_SCALES[0]}: "
+            f"{times[0]:.1f} ms, {VOC_TEST / times[0] * 1e3:.1f} img/s  ({smi})")
+    log(f"[voc] phase 14 wall {time.perf_counter() - t_phase:.1f} s")
+    return launches, keep_err
+
+
 def main() -> int:
     import torch
 
@@ -2256,15 +2632,16 @@ def main() -> int:
         del runner
         torch.cuda.empty_cache()
         baseline_launches = phase_baseline(Path(tmp), smi)
+        voc_launches, voc_err = phase_voc(Path(tmp), smi)
     launches["nms_keep"] += (semi_launches + eval_launches + weights_launches
-                             + baseline_launches)
+                             + baseline_launches + voc_launches)
     kernels = [dict(
         name="nms_keep", route="cuda",
         source="dsl_tpu_torch/csrc/nms_kernel.cu",
         replaces="dsl_tpu/ops/nms_pallas.py:34",
         launches=launches["nms_keep"],
         max_abs_err=float(max(case_err, path_err, train_err, semi_err,
-                              eval_err)),
+                              eval_err, voc_err)),
         ms=nms_times["ms"], plain_ms=nms_times["plain_ms"],
         bound_ms=nms_times["bound_ms"], bound_by=nms_times["bound_by"],
         library_ms=None)]

@@ -1,7 +1,8 @@
-"""Dataset-wide inference and its COCO evaluation (boxes).
+"""Dataset-wide inference, its evaluation, and test-time augmentation.
 
-Counterpart of ``dsl_tpu/apis/test.py::single_device_test`` for the
-single-stage detectors: each image is read onto the device
+Counterpart of ``dsl_tpu/apis/test.py`` (``single_device_test``,
+``tta_test``, ``tta_test_dense``, ``merge_aug_detections``) for the
+single-stage detectors. In ``single_device_test`` each image is read onto the device
 (``data/image_io.read_image``, nvJPEG on the card), resized keeping its
 ratio to ``img_scale`` (``resize_linear_u8``, exact to ``cv2.resize``), normalized
 and padded top-left onto the canvas ``formatting.select_canvas`` picks from
@@ -10,8 +11,16 @@ predicted on the same canvas in both packages. Batches of ``BATCH_SIZE``
 go through ``detector_predict`` (NMS through the CUDA kernel); the JAX
 package pads the last batch to a fixed shape, the port predicts its real
 rows only (FCOS predicts each image on its own). The results stay on the
-device until the last batch is queued. Instance masks (Mask R-CNN,
-YOLACT) are not ported and raise.
+device until the last batch is queued. ``flip`` mirrors each decoded
+image before its resize, and the detections stay in the mirrored frame.
+Instance masks (Mask R-CNN, YOLACT) are not ported and raise.
+
+The test-time augmentations run one pass per (scale, flip) and merge on
+the host in numpy, as the JAX package does (with the port's copy of its
+greedy NMS, ``train/label_store.numpy_nms``): :func:`tta_test` merges each
+pass's detections per class; :func:`tta_test_dense`, the reference's
+dense-head merge, gathers each pass's raw ``nms_pre`` candidates (no NMS
+kernel) and runs one multiclass NMS with the centerness factors.
 """
 
 from __future__ import annotations
@@ -24,6 +33,7 @@ import torch
 from dsl_tpu_torch.data.formatting import DEFAULT_CANVAS, select_canvas
 from dsl_tpu_torch.data.pipelines.transforms import read_resized
 from dsl_tpu_torch.models.detectors.single_stage import detector_predict
+from dsl_tpu_torch.train.label_store import numpy_nms
 from dsl_tpu_torch.utils.device import resolve_device, to_device
 
 DEFAULT_NORM = dict(mean=(123.675, 116.28, 103.53),
@@ -53,33 +63,46 @@ def normalize_pad(imgs: list[torch.Tensor], canvas_hw, img_norm) -> torch.Tensor
     return out.permute(0, 3, 1, 2).contiguous()
 
 
-def single_device_test(detector, params, dataset, test_cfg=None,
-                       canvas_hw=DEFAULT_CANVAS, img_scale=(1333, 800),
-                       img_norm=None, return_results: bool = False,
-                       evaluate: bool = True,
-                       device: str | torch.device = "cuda"):
-    """Predict every image of ``dataset``; returns its COCO bbox metrics
-    (and/or the per-image ``(dets (N, 5), labels (N,))`` host arrays).
-    ``params`` (name -> tensor, e.g. the EMA teacher's) replaces the
-    detector's parameters, as in ``detector_predict``; None keeps them."""
-    det_name = type(detector).__name__
-    if det_name in ("MaskRCNN", "MaskScoringRCNN", "YOLACT"):
-        raise NotImplementedError(f"single_device_test: {det_name} predicts "
-                                  f"instance masks, which are not ported yet")
-    device = resolve_device(device)
-    norm = img_norm or DEFAULT_NORM
-    outs = []
+def _batches(dataset, img_scale, canvas_hw, norm, device, flip: bool):
+    """Per batch of ``BATCH_SIZE``: (indices, the resized images' preps
+    (image, [nh, nw], scale factor), normalized canvas (B, 3, H, W),
+    img_shapes (B, 2), scale_factors (B, 4) on the device)."""
     for start in range(0, len(dataset), BATCH_SIZE):
-        preps = [read_resized(_path(dataset, i), img_scale, device)
-                 for i in range(start, min(start + BATCH_SIZE, len(dataset)))]
+        idxs = list(range(start, min(start + BATCH_SIZE, len(dataset))))
+        preps = [read_resized(_path(dataset, i), img_scale, device, flip=flip)
+                 for i in idxs]
         canvas = select_canvas([p[0].shape[:2] for p in preps], canvas_hw)
         images = normalize_pad([p[0] for p in preps], canvas, norm)
         shapes, sfs = (to_device(torch.tensor([p[k] for p in preps],
                                               dtype=torch.float32), device)
                        for k in (1, 2))
-        outs.append(detector_predict(
-            detector, images, img_shapes=shapes, scale_factors=sfs,
-            test_cfg=test_cfg, device=device, params=params))
+        yield idxs, preps, images, shapes, sfs
+
+
+def single_device_test(detector, params, dataset, test_cfg=None,
+                       canvas_hw=DEFAULT_CANVAS, img_scale=(1333, 800),
+                       img_norm=None, return_results: bool = False,
+                       evaluate: bool = True, flip: bool = False,
+                       boxes_only: bool = False,
+                       device: str | torch.device = "cuda"):
+    """Predict every image of ``dataset``; returns its bbox metrics
+    (and/or the per-image ``(dets (N, 5), labels (N,))`` host arrays).
+    ``params`` (name -> tensor, e.g. the EMA teacher's) replaces the
+    detector's parameters, as in ``detector_predict``; None keeps them.
+    ``flip`` predicts each image mirrored (boxes in the mirrored frame);
+    ``boxes_only`` lets a mask detector through for its boxes, as in JAX
+    (none is ported)."""
+    det_name = type(detector).__name__
+    if det_name in ("MaskRCNN", "MaskScoringRCNN", "YOLACT") and not boxes_only:
+        raise NotImplementedError(f"single_device_test: {det_name} predicts "
+                                  f"instance masks, which are not ported yet")
+    device = resolve_device(device)
+    norm = img_norm or DEFAULT_NORM
+    outs = [detector_predict(detector, images, img_shapes=shapes,
+                             scale_factors=sfs, test_cfg=test_cfg,
+                             device=device, params=params)
+            for _, _, images, shapes, sfs in _batches(
+                dataset, img_scale, canvas_hw, norm, device, flip)]
     results = []
     for dets, labels, valid in outs:
         dets, labels, valid = (t.cpu().numpy() for t in (dets, labels, valid))
@@ -92,3 +115,126 @@ def single_device_test(detector, params, dataset, test_cfg=None,
     if return_results:
         return metrics, results
     return metrics
+
+
+def _multiclass_nms_np(boxes, scores, factors, score_thr, iou_threshold,
+                       max_per_img):
+    """mmdet's ``multiclass_nms`` on the host: candidates are the raw scores
+    above ``score_thr``; ``factors`` (P,) or None multiply after the
+    threshold; greedy NMS with each class offset by ``(max + 1) * class``;
+    the first ``max_per_img`` kept. boxes (P, 4), scores (P, C).
+
+    The offset keeps classes apart, so the greedy pass runs class by class
+    on the offset boxes, each stopping at ``max_per_img`` keeps (no later
+    one of its class can reach the first ``max_per_img``), and the keeps
+    are merged in the global score order (stable): the JAX package's
+    result, at a fraction of one pass over every candidate."""
+    cand = scores > score_thr
+    ranked = scores * factors[:, None] if factors is not None else scores
+    pi, ci = np.nonzero(cand)
+    if len(pi) == 0:
+        return np.zeros((0, 5), np.float32), np.zeros((0,), np.int64)
+    bx = boxes[pi]
+    sc = ranked[pi, ci].astype(np.float32)
+    shifted = bx + (bx.max() + 1.0) * ci[:, None].astype(np.float32)
+    keep = np.sort(np.concatenate([
+        idx[numpy_nms(shifted[idx], sc[idx], iou_threshold,
+                      max_keep=max_per_img)]
+        for idx in (np.flatnonzero(ci == c) for c in np.unique(ci))]))
+    keep = keep[np.argsort(-sc[keep], kind="mergesort")][:max_per_img]
+    return (np.concatenate([bx[keep], sc[keep, None]], axis=1),
+            ci[keep].astype(np.int64))
+
+
+def merge_aug_detections(per_aug, iou_threshold: float = 0.5,
+                         max_per_img: int = 100):
+    """One image's detections across augmentations, each already in the
+    original frame: concatenated, greedy NMS per class, the highest
+    ``max_per_img`` by score."""
+    dets = np.concatenate([r[0] for r in per_aug], axis=0)
+    labels = np.concatenate([r[1] for r in per_aug], axis=0)
+    if len(dets) == 0:
+        return dets, labels
+    keep = np.concatenate([
+        idx[numpy_nms(dets[idx, :4], dets[idx, 4], iou_threshold)]
+        for idx in (np.where(labels == c)[0] for c in np.unique(labels))])
+    order = keep[np.argsort(-dets[keep, 4])][:max_per_img]
+    return dets[order], labels[order]
+
+
+def _passes(img_scales, flip: bool):
+    return [(scale, flipped) for scale in img_scales
+            for flipped in ((False, True) if flip else (False,))]
+
+
+def tta_test(detector, params, dataset, test_cfg=None,
+             img_scales=((1333, 800),), flip: bool = True,
+             canvas_hw=DEFAULT_CANVAS, img_norm=None,
+             iou_threshold: float = 0.5, max_per_img: int = 100,
+             evaluate: bool = True, device: str | torch.device = "cuda"):
+    """Multi-scale and flip test-time augmentation: one
+    :func:`single_device_test` pass per (scale, flip), a flipped pass's
+    boxes mirrored back with the original image width, then
+    :func:`merge_aug_detections` per image. Returns the bbox metrics, or
+    the merged per-image results with ``evaluate=False``."""
+    aug_results = []
+    for scale, flipped in _passes(img_scales, flip):
+        res = single_device_test(
+            detector, params, dataset, test_cfg=test_cfg, canvas_hw=canvas_hw,
+            img_scale=scale, img_norm=img_norm, evaluate=False, flip=flipped,
+            boxes_only=True, device=device)
+        if flipped:
+            for i, (dets, _) in enumerate(res):
+                w = dataset.data_infos[i]["width"]
+                dets[:, 0], dets[:, 2] = w - dets[:, 2], w - dets[:, 0]
+        aug_results.append(res)
+    merged = [merge_aug_detections([aug[i] for aug in aug_results],
+                                   iou_threshold=iou_threshold,
+                                   max_per_img=max_per_img)
+              for i in range(len(dataset))]
+    if not evaluate:
+        return merged
+    return dataset.evaluate(merged, metric="bbox", verbose=False)
+
+
+def tta_test_dense(detector, params, dataset, test_cfg=None,
+                   img_scales=((1333, 800),), flip: bool = True,
+                   canvas_hw=DEFAULT_CANVAS, img_norm=None,
+                   evaluate: bool = True, device: str | torch.device = "cuda"):
+    """The reference's dense-head test-time augmentation
+    (``aug_test_bboxes`` with ``merge_aug_bboxes``): each (scale, flip)
+    pass gives its raw ``nms_pre`` candidates per image
+    (``detector_predict(with_nms=False)``: no NMS kernel), mirrored back
+    in the resized frame with that image's resized width, then divided by
+    its scale factor; the candidates of all passes go through one
+    :func:`_multiclass_nms_np` with the centerness factors. FCOS-family
+    heads only."""
+    head = type(detector.bbox_head).__name__
+    if head not in ("FCOSHead", "NASFCOSHead"):
+        raise NotImplementedError(f"tta_test_dense: {head}: FCOS-family "
+                                  f"heads only")
+    device = resolve_device(device)
+    norm = img_norm or DEFAULT_NORM
+    tc = dict(test_cfg or detector.test_cfg or {})
+    cand = [[] for _ in range(len(dataset))]
+    for scale, flipped in _passes(img_scales, flip):
+        for idxs, preps, images, shapes, _ in _batches(
+                dataset, scale, canvas_hw, norm, device, flipped):
+            boxes, scores, cent = (t.cpu().numpy() for t in detector_predict(
+                detector, images, img_shapes=shapes, test_cfg=tc,
+                device=device, params=params, with_nms=False))
+            for bi, i in enumerate(idxs):
+                bx = boxes[bi].copy()
+                if flipped:
+                    iw = np.float32(preps[bi][1][1])
+                    bx[:, 0], bx[:, 2] = iw - bx[:, 2], iw - bx[:, 0]
+                bx /= np.asarray(preps[bi][2], np.float32)
+                cand[i].append((bx, scores[bi], cent[bi]))
+    merged = [_multiclass_nms_np(
+        np.concatenate([c[0] for c in cs]), np.concatenate([c[1] for c in cs]),
+        np.concatenate([c[2] for c in cs]), tc.get("score_thr", 0.05),
+        dict(tc.get("nms", {}) or {}).get("iou_threshold", 0.6),
+        tc.get("max_per_img", 100)) for cs in cand]
+    if not evaluate:
+        return merged
+    return dataset.evaluate(merged, metric="bbox", verbose=False)

@@ -19,6 +19,18 @@ by the device and by nothing else:
 :func:`readable` tells, without decoding, whether ``cv2.imread`` would give
 an image, so a caller can skip a file as the JAX package skips one that
 ``cv2.imread`` cannot read.
+
+A JPEG cut inside its entropy-coded data decodes on both routes. libjpeg
+(behind ``cv2.imread``) leaves every MCU after the one the data ends in
+at zero coefficients, so the rest of the image is gray (128); nvJPEG
+fills it its own way, and refuses one with restart markers. The card
+route finds where the data ends with a Huffman walk on the host
+(``jpeg_scan``), hands nvJPEG the stream completed with zero MCUs, and
+sets OpenCV's gray rows itself.
+
+:func:`image_size` reads an image's size from its header alone, in the
+two ways the JAX datasets read it (PIL's stored size, or OpenCV's decoded
+shape with the EXIF orientation applied).
 """
 
 from __future__ import annotations
@@ -30,6 +42,7 @@ import struct
 import numpy as np
 import torch
 
+from dsl_tpu_torch.data.jpeg_scan import for_decoder, frame_size
 from dsl_tpu_torch.ops import build
 
 # leading bytes of formats a reader may hand us, for the error message
@@ -70,8 +83,11 @@ def read_image(path, device: str | torch.device = "cuda") -> torch.Tensor:
         raise ValueError(f"read_image: no route for device {device}")
     with open(path, "rb") as f:
         data = f.read()
-    return apply_orientation(decode_jpeg(data, device, path),
-                             exif_orientation(data))
+    stream, fill = for_decoder(data)
+    img = decode_jpeg(stream, device, path)
+    if fill is not None:
+        img[fill:] = 128
+    return apply_orientation(img, exif_orientation(data))
 
 
 def jpeg_header_end(data: bytes) -> int | None:
@@ -143,24 +159,68 @@ def readable(path, device: str | torch.device = "cuda") -> bool:
     path = os.fspath(path)
     if not os.path.isfile(path):
         return False
-    with open(path, "rb") as f:
-        data = f.read(PROBE_FIRST_READ)
-        if not data:
-            return False
-        if not data.startswith(_JPEG[:2]):
-            if device.type == "cpu":
-                import cv2
+    data = _read_header(path)
+    if not data:
+        return False
+    if not data.startswith(_JPEG[:2]):
+        if device.type == "cpu":
+            import cv2
 
-                return cv2.imread(path, cv2.IMREAD_COLOR) is not None
-            return True
-        while jpeg_header_end(data) is None:
-            more = f.read(len(data))
-            if not more:
-                return False
-            data += more
+            return cv2.imread(path, cv2.IMREAD_COLOR) is not None
+        return True
+    if jpeg_header_end(data) is None:
+        return False
     if device.type == "cuda":
         return jpeg_info(data, device)[0] == 0
     return True
+
+
+def _read_header(path: str) -> bytes:
+    """The first bytes of a file: ``PROBE_FIRST_READ``, doubled while a
+    JPEG's header (:func:`jpeg_header_end`) runs on, up to the whole file."""
+    with open(path, "rb") as f:
+        data = f.read(PROBE_FIRST_READ)
+        while data.startswith(_JPEG) and jpeg_header_end(data) is None:
+            more = f.read(len(data))
+            if not more:
+                break
+            data += more
+    return data
+
+
+def image_size(path, oriented: bool) -> tuple[int, int]:
+    """(width, height) of an image file from its header alone, as the JAX
+    datasets read it without decoding:
+
+    - ``oriented=False``: PIL's ``Image.open(path).size``
+      (``dsl_tpu/data/datasets/semivoc.py``), the size as stored, the EXIF
+      orientation not applied;
+    - ``oriented=True``: the shape of ``cv2.imread(path)``
+      (``dsl_tpu/data/datasets/voc.py``), the EXIF orientation applied (5 to
+      8 swap width and height); a file ``cv2.imread`` cannot read (a JPEG
+      header cut short, :func:`jpeg_header_end`) gives (0, 0).
+
+    A missing file gives (0, 0) both ways, as both datasets skip it. JPEG
+    (its frame header) and PNG (its IHDR) only; another format raises
+    ValueError naming it, as does a JPEG header cut short with
+    ``oriented=False`` (PIL cannot open it)."""
+    path = os.fspath(path)
+    if not os.path.isfile(path):
+        return 0, 0
+    data = _read_header(path)
+    if data.startswith(b"\x89PNG\r\n\x1a\n") and data[12:16] == b"IHDR":
+        return struct.unpack_from(">II", data, 16)
+    if not data.startswith(_JPEG):
+        raise ValueError(f"{path}: {_format_of(data)}; the size is read from "
+                         f"JPEG and PNG headers only")
+    if jpeg_header_end(data) is None:
+        if oriented:
+            return 0, 0
+        raise ValueError(f"{path}: a JPEG whose header is cut short")
+    h, w = frame_size(data)
+    if oriented and exif_orientation(data) >= 5:
+        return h, w
+    return w, h
 
 
 def exif_orientation(data: bytes) -> int:

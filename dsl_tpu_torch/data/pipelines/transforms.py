@@ -32,10 +32,15 @@ def keep_ratio_size(h: int, w: int, scale) -> tuple[int, int]:
     return int(h * factor + 0.5), int(w * factor + 0.5)
 
 
-def read_resized(path, img_scale, device) -> tuple[torch.Tensor, list, list]:
+def read_resized(path, img_scale, device, flip: bool = False
+                 ) -> tuple[torch.Tensor, list, list]:
     """An image file read onto ``device`` and resized keeping its ratio to
-    ``img_scale``: (uint8 image, [nh, nw], scale factor [w, h, w, h])."""
+    ``img_scale``: (uint8 image, [nh, nw], scale factor [w, h, w, h]).
+    ``flip`` mirrors the decoded image before the resize, as the JAX
+    package's test-time flip does (``img[:, ::-1]``, then ``cv2.resize``)."""
     img = read_image(path, device)
+    if flip:
+        img = img.flip(1)
     h, w = img.shape[:2]
     nh, nw = keep_ratio_size(h, w, img_scale)
     return resize_linear_u8(img, nh, nw), [nh, nw], [nw / w, nh / h, nw / w, nh / h]

@@ -118,7 +118,7 @@ def detector_predict(detector: nn.Module, images: torch.Tensor,
                      scale_factors: torch.Tensor | None = None,
                      test_cfg: dict | None = None, compute_dtype=None,
                      device: str | torch.device = "cuda",
-                     params: dict | None = None):
+                     params: dict | None = None, with_nms: bool = True):
     """Inference forward + decode + NMS for a batch.
 
     images (B, 3, H, W) on the detector's device; img_shapes (B, 2) and
@@ -128,7 +128,10 @@ def detector_predict(detector: nn.Module, images: torch.Tensor,
     f32 before decode. ``params`` (name -> tensor) replaces the detector's
     parameters, e.g. with the EMA teacher's. ``device`` must be where the
     detector and the images lie: CUDA by default, the CPU only when asked
-    for. Returns dets (B, max_per_img, 5), labels, valid.
+    for. Returns dets (B, max_per_img, 5), labels, valid; with
+    ``with_nms=False`` the decode's candidates instead, as
+    ``fcos_get_bboxes`` gives them (boxes, scores, centerness), and the NMS
+    kernel is not launched.
     """
     device = resolve_device(device)
     param_dev = next(detector.parameters()).device
@@ -151,4 +154,4 @@ def detector_predict(detector: nn.Module, images: torch.Tensor,
         scale_factors=scale_factors, nms_pre=tc.get("nms_pre", 1000),
         score_thr=tc.get("score_thr", 0.05),
         iou_threshold=nms_cfg.get("iou_threshold", 0.6),
-        max_per_img=tc.get("max_per_img", 100))
+        max_per_img=tc.get("max_per_img", 100), with_nms=with_nms)

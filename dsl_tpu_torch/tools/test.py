@@ -9,12 +9,18 @@ Predicts every image of ``data.test`` (else ``data.val``) with the
 checkpoint's weights (``utils/checkpoint.load_weights``: a weights file, a
 ``train_detector`` checkpoint's student, or its EMA teacher with ``--ema``,
 or an mmdet-layout ``.pth``; without a checkpoint, the random init from
-seed 0), then prints the COCO bbox metrics. ``--out`` or ``--format-only``
-writes the COCO-format detections (``<checkpoint>.bbox.json`` unless
-``--out`` names the file); ``--format-only`` computes no metric. That json
-is what ``tools/generate_unlabel_annos_coco.py`` turns into DSL's first
-pseudo-labels. ``--eval`` takes only ``bbox``. One process on one card:
-``--launcher`` takes only ``none``.
+seed 0), then prints the dataset's metrics: COCO bbox mAP for a
+``CocoDataset`` or ``Voc2CocoDataset``, VOC mAP for a ``VOCDataset``. As in
+the JAX CLI, box results are evaluated with ``metric="bbox"`` whatever
+``--eval`` names (``mAP`` or ``bbox``): the dataset decides the protocol;
+``segm`` and ``proposal`` (instance masks, an RPN) are not ported and
+raise. ``--out``
+or ``--format-only`` writes the COCO-format detections
+(``<checkpoint>.bbox.json`` unless ``--out`` names the file);
+``--format-only`` computes no metric. That json is what
+``tools/generate_unlabel_annos_coco.py`` (or ``_voc.py``, from a
+``SemiVOCDataset``'s list ids) turns into DSL's first pseudo-labels. One
+process on one card: ``--launcher`` takes only ``none``.
 """
 
 from __future__ import annotations
@@ -52,10 +58,11 @@ def main(argv=None):
     """Run the CLI; returns (per-image results, metrics or None)."""
     args = parse_args(argv)
     check_single_process(args)
-    unported = [m for m in args.eval if m != "bbox"]
+    unported = [m for m in args.eval if m not in ("bbox", "mAP")]
     if unported:
         raise NotImplementedError(f"--eval {' '.join(unported)}: only bbox "
-                                  f"is ported (instance masks are not)")
+                                  f"and mAP are ported (instance masks and "
+                                  f"proposals are not)")
     cfg = Config.fromfile(args.config)
     if args.cfg_options:
         cfg.merge_from_dict(args.cfg_options)
@@ -90,7 +97,7 @@ def main(argv=None):
         print(f"wrote {len(dt)} detections to {out}")
     metrics = None
     if not args.format_only:
-        metrics = ds.evaluate(results, metric=args.eval)
+        metrics = ds.evaluate(results, metric="bbox")
         print(json.dumps({k: round(float(v), 4) for k, v in metrics.items()}))
     return results, metrics
 

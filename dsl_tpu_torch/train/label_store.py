@@ -32,30 +32,36 @@ import numpy as np
 
 
 def numpy_nms(boxes: np.ndarray, scores: np.ndarray, iou_threshold: float,
-              score_threshold: float = 0.0) -> np.ndarray:
-    """Greedy hard NMS on the host; kept indices in score order."""
+              score_threshold: float = 0.0,
+              max_keep: int | None = None) -> np.ndarray:
+    """Greedy hard NMS on the host; kept indices in score order, the first
+    ``max_keep`` of them where it is given (the greedy pass stops there).
+    Each kept box is tested against the boxes after it that are still
+    alive, with the IoU the JAX package's loop computes for that pair."""
     if len(boxes) == 0:
         return np.zeros((0,), np.int64)
     keep_mask = scores >= score_threshold
     idx_map = np.where(keep_mask)[0]
-    boxes, scores = boxes[keep_mask], scores[keep_mask]
-    order = np.argsort(-scores, kind="mergesort")
+    order = np.argsort(-scores[keep_mask], kind="mergesort")
+    b = boxes[keep_mask][order]
+    areas = (b[:, 2] - b[:, 0]) * (b[:, 3] - b[:, 1])
+    alive = np.ones(len(b), bool)
     keep = []
-    suppressed = np.zeros(len(boxes), bool)
-    areas = (boxes[:, 2] - boxes[:, 0]) * (boxes[:, 3] - boxes[:, 1])
-    for i in order:
-        if suppressed[i]:
+    for pos in range(len(b)):
+        if not alive[pos]:
             continue
-        keep.append(i)
-        x1 = np.maximum(boxes[i, 0], boxes[:, 0])
-        y1 = np.maximum(boxes[i, 1], boxes[:, 1])
-        x2 = np.minimum(boxes[i, 2], boxes[:, 2])
-        y2 = np.minimum(boxes[i, 3], boxes[:, 3])
+        keep.append(pos)
+        if len(keep) == max_keep:
+            break
+        rest = pos + 1 + np.flatnonzero(alive[pos + 1:])
+        x1 = np.maximum(b[pos, 0], b[rest, 0])
+        y1 = np.maximum(b[pos, 1], b[rest, 1])
+        x2 = np.minimum(b[pos, 2], b[rest, 2])
+        y2 = np.minimum(b[pos, 3], b[rest, 3])
         inter = np.clip(x2 - x1, 0, None) * np.clip(y2 - y1, 0, None)
-        iou = inter / np.maximum(areas[i] + areas - inter, 1e-10)
-        suppressed |= iou > iou_threshold
-        suppressed[i] = False
-    return idx_map[np.asarray(keep, np.int64)]
+        iou = inter / np.maximum(areas[pos] + areas[rest] - inter, 1e-10)
+        alive[rest[iou > iou_threshold]] = False
+    return idx_map[order[np.asarray(keep, np.int64)]]
 
 
 class LabelStore:

@@ -1,5 +1,5 @@
-"""A synthetic semicoco directory, for smoke runs and parity tests (no
-dataset ships with the repo).
+"""Synthetic semicoco and VOC directories, for smoke runs and parity tests
+(no dataset ships with the repo).
 
 :func:`make_semicoco_dir` lays out what ``tools/coco_convert2_semicoco_json.py``
 makes from COCO, from a few JPEG files copied under new names:
@@ -18,6 +18,15 @@ Each label file holds 1-5 seeded boxes with COCO tags and no scores
 (``imageName/targetNum/rects/tags/masks``), as the converter writes them;
 each val image 1-5 seeded COCO annotations.
 :func:`semi_config` points a config's ``data`` block at such a directory.
+
+:func:`make_voc_dir` lays out a PASCAL VOC2007 directory (``JPEGImages/``,
+``Annotations/<id>.xml`` with ``<size>``, ``difficult`` flags and names
+outside the 20 classes, ``ImageSets/Main/{trainval,test}.txt``);
+``tools/voc_convert2_semivoc_json.py`` turns its trainval split into the
+labeled store DSL's VOC config reads (``images/full``,
+``prepared_annos/Industry/...``, ``mmdet_category_info.json``), and
+:func:`make_semivoc_unlabeled` adds the unlabeled split beside it.
+:func:`voc_semi_config` points the VOC config's ``data`` block there.
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ from pathlib import Path
 import numpy as np
 
 from dsl_tpu_torch.data.datasets.coco import COCO_CLASSES
+from dsl_tpu_torch.data.datasets.voc import VOC_CLASSES
 
 BACKGROUND = "background"
 
@@ -150,4 +160,127 @@ def semi_config(cfg: dict, paths: dict) -> dict:
             if key in data:
                 data[key].update(ann_file=paths["val"],
                                  img_prefix=paths["val_images"])
+    return cfg
+
+
+VOC_DATA_ROOT = "data/semivoc/"   # the VOC config's data_root
+VOC_UNLISTED = "unicorn"          # an object name outside VOC_CLASSES
+
+
+def _voc_xml(img_id: str, h: int, w: int, objects: list) -> str:
+    objs = "".join(
+        f"<object><name>{name}</name><pose>Unspecified</pose>"
+        f"<truncated>0</truncated><difficult>{difficult}</difficult>"
+        f"<bndbox><xmin>{x1}</xmin><ymin>{y1}</ymin><xmax>{x2}</xmax>"
+        f"<ymax>{y2}</ymax></bndbox></object>"
+        for name, difficult, (x1, y1, x2, y2) in objects)
+    return (f"<annotation><folder>VOC2007</folder><filename>{img_id}.jpg"
+            f"</filename><size><width>{w}</width><height>{h}</height>"
+            f"<depth>3</depth></size><segmented>0</segmented>{objs}"
+            f"</annotation>")
+
+
+def make_voc_dir(root, sources: list[tuple[str, int, int]], n_trainval: int,
+                 n_test: int, seed: int = 0) -> dict:
+    """A VOC2007 directory ``root/VOC2007`` of ``n_trainval + n_test``
+    copies of ``sources`` ((jpeg path, height, width), image i a copy of
+    source ``i % len(sources)``), ids ``000000`` on: each XML has the
+    image's ``<size>`` and 1-5 seeded objects of VOC classes, a fifth of
+    them ``difficult``, and now and then one named ``VOC_UNLISTED``. The
+    first ``n_trainval`` ids are the trainval split, the rest the test
+    split. Returns the paths by role."""
+    voc = Path(root) / "VOC2007"
+    rng = np.random.RandomState(seed)
+    dirs = {k: voc / k for k in ("JPEGImages", "Annotations", "ImageSets/Main")}
+    for d in dirs.values():
+        d.mkdir(parents=True, exist_ok=True)
+    ids = [f"{i:06d}" for i in range(n_trainval + n_test)]
+    for i, img_id in enumerate(ids):
+        src, h, w = sources[i % len(sources)]
+        shutil.copyfile(src, dirs["JPEGImages"] / f"{img_id}.jpg")
+        n = rng.randint(1, 6)
+        objects = [(VOC_CLASSES[rng.randint(len(VOC_CLASSES))],
+                    int(rng.rand() < 0.2), [int(v) for v in box])
+                   for box in _boxes(rng, h, w, n)]
+        if rng.rand() < 0.3:
+            objects.append((VOC_UNLISTED, 0, [int(v) for v in
+                                              _boxes(rng, h, w, 1)[0]]))
+        (dirs["Annotations"] / f"{img_id}.xml").write_text(
+            _voc_xml(img_id, h, w, objects))
+    splits = {}
+    for split, part in (("trainval", ids[:n_trainval]), ("test", ids[n_trainval:])):
+        splits[split] = dirs["ImageSets/Main"] / f"{split}.txt"
+        splits[split].write_text("\n".join(part) + "\n")
+    return dict(voc_root=str(voc), images=str(dirs["JPEGImages"]),
+                trainval=str(splits["trainval"]), test=str(splits["test"]))
+
+
+def make_semivoc_unlabeled(root, sources: list[tuple[str, int, int]],
+                           n_unlabeled: int, seed: int = 0,
+                           initial_labels: bool = True) -> dict:
+    """The unlabeled split of DSL's VOC layout under ``root``, beside what
+    ``tools/voc_convert2_semivoc_json.py --output root`` writes:
+    ``unlabel_images/full/`` (copies of ``sources``), its list
+    ``unlabel_prepared_annos/Industry/train_list.txt`` and a label file per
+    image under ``.../annotations/full/``, with 1-5 seeded VOC boxes and no
+    scores (``initial_labels``) or none (what a bootstrap that found
+    nothing writes). Returns the paths of both splits by role, as
+    :func:`voc_semi_config` reads them."""
+    root = Path(root)
+    rng = np.random.RandomState(seed)
+    img_dir = root / "unlabel_images" / "full"
+    ann_dir = root / "unlabel_prepared_annos" / "Industry" / "annotations" / "full"
+    for d in (img_dir, ann_dir):
+        d.mkdir(parents=True, exist_ok=True)
+    names = []
+    for i in range(n_unlabeled):
+        src, h, w = sources[i % len(sources)]
+        name = f"unlabeled_{i:03d}.jpg"
+        shutil.copyfile(src, img_dir / name)
+        rects, tags = [], []
+        if initial_labels:
+            n = rng.randint(1, 6)
+            rects = _boxes(rng, h, w, n)
+            tags = [VOC_CLASSES[k] for k in rng.randint(0, len(VOC_CLASSES), n)]
+        _write_label(ann_dir / f"{name}.json", name, rects, tags)
+        names.append(name)
+    unlabeled = ann_dir.parent.parent / "train_list.txt"
+    unlabeled.write_text("\n".join(names) + "\n")
+    labeled = root / "prepared_annos" / "Industry"
+    return dict(root=str(root), images=str(root / "images" / "full"),
+                labeled=str(labeled / "train_list.txt"),
+                label_store=str(labeled / "annotations" / "full"),
+                unlabel_images=str(img_dir), unlabeled=str(unlabeled),
+                unlabel_store=str(ann_dir),
+                category_info=str(root / "mmdet_category_info.json"),
+                adathres=str(root / "adathres.json"),
+                val=str(root / "VOC2007" / "ImageSets" / "Main" / "test.txt"),
+                val_images=str(root / "VOC2007"))
+
+
+def voc_semi_config(cfg: dict, paths: dict) -> dict:
+    """A copy of the VOC config ``cfg`` (a plain dict) whose ``data`` paths
+    name ``paths`` (as :func:`make_semivoc_unlabeled` returns them): every
+    path under the config's ``data_root`` moves under ``paths["root"]``,
+    and ``unlabel_train.thres`` becomes the directory's ``adathres.json``.
+    The config's ``val`` and
+    ``test`` blocks replace their base's (``_delete_``) and name no
+    pipeline, so neither package can build them as written: they get the
+    config's own ``test_pipeline``."""
+    cfg = copy.deepcopy(cfg)
+    root = paths["root"].rstrip("/") + "/"
+
+    def moved(node):
+        if isinstance(node, dict):
+            return {k: moved(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [moved(v) for v in node]
+        if isinstance(node, str) and node.startswith(VOC_DATA_ROOT):
+            return root + node[len(VOC_DATA_ROOT):]
+        return node
+
+    data = cfg["data"] = moved(cfg["data"])
+    data["unlabel_train"]["thres"] = paths["adathres"]
+    for key in ("val", "test"):
+        data[key].setdefault("pipeline", copy.deepcopy(cfg["test_pipeline"]))
     return cfg

@@ -40,13 +40,20 @@ dependencies:
   within the decode tolerance; the probe ``readable`` refuses what
   ``cv2.imread`` cannot read (a header cut short, empty, SOI and garbage,
   missing) and passes the fixtures and a PNG (which then raises); a JPEG
-  cut inside its entropy-coded body, which OpenCV decodes with the rest
-  filled, passes the probe and nvJPEG decodes it too, its rows before the
-  cut within the decode tolerance (the fill after it is each decoder's
-  own);
+  cut inside its entropy-coded body (a fixture, and one with restart
+  markers, which nvJPEG takes only completed) passes the probe and
+  decodes to OpenCV's gray fill from OpenCV's first gray row, its rows
+  above the band the data ends in as nvJPEG decodes the whole file; a
+  progressive cut decodes, nothing filled;
+- the test-time flip (mirror, then resize) on the card is bit-identical
+  to the CPU's on the same decode; the header size reader gives the
+  fixtures' sizes and an EXIF-rotated copy's stored and turned sizes
+  without PIL or OpenCV;
 - ``train_detector`` and ``single_device_test`` refuse to start without
   CUDA (these run everywhere).
 """
+
+import json
 
 import numpy as np
 import pytest
@@ -61,7 +68,8 @@ from dsl_tpu_torch.train import (
     make_eval_step, make_train_step)
 from dsl_tpu_torch.utils.jax_bridge import flax_to_state_dict, state_dict_to_flax
 from dsl_tpu_torch.utils.random_batch import to_torch
-from torch_port_make_fixtures import FIXTURES, OUT, load_decodes
+from torch_port_make_fixtures import (
+    FIXTURES, OUT, PROGRESSIVE, RESTART, load_decodes)
 
 CASES = nms_cases.cases() + [nms_cases.tiny_boxes()] + nms_cases.timing_cases()
 # nvJPEG vs OpenCV, per fixture: mean |diff| in levels, share of values off
@@ -458,17 +466,91 @@ def test_probe_on_the_card_route(card, first_read, tmp_path, monkeypatch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", sorted(FIXTURES))
+@pytest.mark.parametrize("name", sorted(FIXTURES) + [RESTART])
 def test_a_jpeg_cut_in_its_body_decodes_on_the_card(card, name, tmp_path):
-    from dsl_tpu_torch.data.image_io import read_image, readable
+    """At each committed cut: the probe passes the file, nvJPEG decodes it
+    (a file with restart markers through the completed stream, which it
+    takes where it refuses the cut one), the rows from OpenCV's first gray
+    row (committed, and the host scan's) are 128 exactly, and the rows
+    above the band the data ends in are nvJPEG's decode of the whole file,
+    and within the decode tolerance of OpenCV's."""
+    from dsl_tpu_torch.data import jpeg_scan
+    from dsl_tpu_torch.data.image_io import decode_jpeg, read_image, readable
 
-    h, w, _ = FIXTURES[name]
     data = (OUT / f"{name}.jpg").read_bytes()
+    whole = decode_jpeg(data, card).cpu()
+    h, w = whole.shape[:2]
+    band = 8 if name == "gray_640x480" else 16
     path = tmp_path / "cut.jpg"
-    path.write_bytes(data[:int(len(data) * 0.9)])
+    for cut, gray in json.loads((OUT / "cut_fill_rows.json").read_text())[name]:
+        path.write_bytes(data[:cut])
+        assert readable(path, card)
+        got = read_image(path, card).cpu()
+        assert tuple(got.shape) == (h, w, 3)
+        assert jpeg_scan.cut_fill_row(data[:cut]) == gray
+        assert (got[gray:] == 128).all(), cut
+        rows = max(0, jpeg_scan.truncated_imcu_row(data[:cut]) * band
+                   - (band == 16))
+        assert torch.equal(got[:rows], whole[:rows]), cut
+        if name in FIXTURES:
+            _decode_within_tolerance(got[:rows], torch.from_numpy(
+                load_decodes()[name][:rows]))
+
+
+@pytest.mark.cuda
+def test_a_progressive_cut_decodes_on_the_card(card, tmp_path):
+    """A progressive file cut in a later scan decodes on the card as the
+    JAX package reads it, with nothing filled: the decode is nvJPEG's own
+    (OpenCV's keeps the earlier scans' coefficients and has no gray row)."""
+    from dsl_tpu_torch.data import jpeg_scan
+    from dsl_tpu_torch.data.image_io import decode_jpeg, read_image, readable
+
+    data = (OUT / f"{PROGRESSIVE}.jpg").read_bytes()
+    (cut, gray, _), = json.loads(
+        (OUT / "cut_fill_rows.json").read_text())[PROGRESSIVE]
+    path = tmp_path / "cut.jpg"
+    path.write_bytes(data[:cut])
     assert readable(path, card)
     got = read_image(path, card)
-    assert tuple(got.shape) == (h, w, 3)
-    rows = h // 2                     # intact at 90% of the bytes
-    _decode_within_tolerance(got[:rows].cpu(), torch.from_numpy(
-        load_decodes()[name][:rows]))
+    assert got.shape == decode_jpeg(data, card).shape and gray == got.shape[0]
+    assert jpeg_scan.for_decoder(data[:cut]) == (data[:cut], None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(FIXTURES))
+def test_flip_then_resize_on_the_card_equals_the_cpu(card, name, tmp_path):
+    """The test-time flip (mirror the decode, then resize) on the card is
+    bit-identical to the CPU's on the same decode, at the test scale and the
+    train scales; ``read_resized(flip=True)`` on the card is that."""
+    from dsl_tpu_torch.data.image_io import read_image
+    from dsl_tpu_torch.data.pipelines.image_ops import resize_linear_u8
+    from dsl_tpu_torch.data.pipelines.transforms import (keep_ratio_size,
+                                                         read_resized)
+
+    path = OUT / f"{name}.jpg"
+    decoded = read_image(path, card)
+    for scale in ((1333, 800), (1333, 640), (96, 64)):
+        nh, nw = keep_ratio_size(*decoded.shape[:2], scale)
+        got = resize_linear_u8(decoded.flip(1), nh, nw)
+        assert torch.equal(got.cpu(), resize_linear_u8(decoded.cpu().flip(1),
+                                                       nh, nw)), scale
+        img, shape, sf = read_resized(path, scale, card, flip=True)
+        assert torch.equal(img, got) and shape == [nh, nw]
+
+
+@pytest.mark.cuda
+def test_image_size_on_the_card_route(card, tmp_path):
+    """The header size reader needs neither PIL nor OpenCV: the fixtures'
+    sizes, and an EXIF orientation 6 copy's stored size and turned size,
+    the second the shape ``read_image`` gives on the card."""
+    from dsl_tpu_torch.data.image_io import image_size, read_image
+
+    for name, (h, w, _) in FIXTURES.items():
+        assert image_size(OUT / f"{name}.jpg", oriented=False) == (w, h)
+    path = tmp_path / "rotated.jpg"
+    path.write_bytes(U.with_exif((OUT / "coco_640x427.jpg").read_bytes(),
+                                 U.exif_segment(6)))
+    assert image_size(path, oriented=False) == (640, 427)
+    assert image_size(path, oriented=True) == (427, 640)
+    assert tuple(read_image(path, card).shape[:2]) == (640, 427)
+    assert image_size(tmp_path / "missing.jpg", oriented=True) == (0, 0)

@@ -13,7 +13,15 @@
   where the segment is malformed, as OpenCV does;
 - ``PseudoLabelRefresher`` drops the files ``cv2.imread`` cannot read
   before it cuts the list into chunks, as the JAX refresher does: the same
-  chunks, and the same label files, the skipped ones untouched.
+  chunks, and the same label files, the skipped ones untouched;
+- a JPEG cut inside its entropy-coded data: ``jpeg_scan.cut_fill_row``
+  gives the first row of ``cv2.imread``'s gray fill exactly, for cuts
+  through the fixtures and copies written here with each chroma layout,
+  restart markers and gray content; the stream completed for nvJPEG
+  decodes (by OpenCV here) to the cut file's rows above the band the data
+  ends in and to gray from the fill row; a progressive cut is left to the
+  decoder (no row of OpenCV's turns gray); the committed fill rows the card
+  is held to are OpenCV's.
 """
 
 import json
@@ -27,12 +35,13 @@ import torch
 import torch_port_util as U
 from dsl_tpu.train import label_store as jax_store
 from dsl_tpu.train.semi import PseudoLabelRefresher as JaxRefresher
-from dsl_tpu_torch.data import image_io
+from dsl_tpu_torch.data import image_io, jpeg_scan
 from dsl_tpu_torch.data.pipelines.image_ops import resize_linear_u8
 from dsl_tpu_torch.data.pipelines.transforms import keep_ratio_size
 from dsl_tpu_torch.train import label_store
 from dsl_tpu_torch.train.semi import PseudoLabelRefresher
-from torch_port_make_fixtures import FIXTURES, OUT
+from torch_port_make_fixtures import (
+    FIXTURES, OUT, PROGRESSIVE, RESTART, cut_fill_rows, gray_from)
 
 torch.set_num_threads(2)
 
@@ -213,3 +222,127 @@ def test_refresh_skips_unreadable_files_as_jax(tmp_path):
             assert got == before[n], n
         else:
             assert json.loads(got)["targetNum"] == 0, n
+
+
+# the layouts written here from the second fixture's decode: each chroma
+# subsampling OpenCV writes, restart markers, and colour files of gray
+# content (their chroma is 128, so nothing bleeds into the band below)
+LAYOUTS = {f"sampling_{f}": [cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+                             getattr(cv2, f"IMWRITE_JPEG_SAMPLING_FACTOR_{f}")]
+           for f in ("411", "420", "422", "440", "444")}
+LAYOUTS.update(restart_2=[cv2.IMWRITE_JPEG_RST_INTERVAL, 2],
+               restart_7=[cv2.IMWRITE_JPEG_RST_INTERVAL, 7],
+               gray_content_420=[], gray_content_440=[
+                   cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+                   cv2.IMWRITE_JPEG_SAMPLING_FACTOR_440])
+CUTS = np.linspace(0.2, 0.95, 8)
+
+
+def _jpeg(layout: str) -> bytes:
+    if layout in FIXTURES:
+        return (OUT / f"{layout}.jpg").read_bytes()
+    img = cv2.imread(str(OUT / "coco_640x427.jpg"), cv2.IMREAD_COLOR)
+    if layout.startswith("gray_content"):
+        img = cv2.cvtColor(cv2.cvtColor(img, cv2.COLOR_BGR2GRAY),
+                           cv2.COLOR_GRAY2BGR)
+    ok, buf = cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_QUALITY, 90,
+                                         *LAYOUTS[layout]])
+    assert ok
+    return buf.tobytes()
+
+
+def _band(layout: str) -> int:
+    """The iMCU row's height: 16 where the chroma is subsampled vertically
+    (4:2:0, OpenCV's default, and 4:4:0), else 8."""
+    gray = layout == "gray_640x480"
+    return 16 if not gray and ("420" in layout or "440" in layout or not any(
+        f in layout for f in ("411", "422", "444"))) else 8
+
+
+def _cv2_cut(data: bytes, path) -> np.ndarray:
+    path.write_bytes(data)
+    img = cv2.imread(str(path), cv2.IMREAD_COLOR)
+    assert img is not None
+    return img
+
+
+def _cuts(data: bytes) -> list[int]:
+    """8 cuts from 20% to 95% of the file, and 1 and 3 bytes past the scan
+    header's component selectors (inside its spectral bytes)."""
+    end = image_io.jpeg_header_end(data)
+    return sorted({end + 1, end + 3} | {int(len(data) * f) for f in CUTS})
+
+
+@pytest.mark.parametrize("layout", sorted(FIXTURES) + sorted(LAYOUTS))
+def test_truncated_imcu_row_is_cv2s_fill(layout, tmp_path):
+    """For every cut, the scan's fill row is the first row from which
+    ``cv2.imread`` gives 128 in every channel to the bottom, one or two
+    rows below the band the data ends in; the whole file is not cut."""
+    data = _jpeg(layout)
+    assert jpeg_scan.cut_fill_row(data) is None
+    assert jpeg_scan.truncated_imcu_row(data) is None
+    seen = set()
+    for cut in _cuts(data):
+        img = _cv2_cut(data[:cut], tmp_path / "cut.jpg")
+        want = gray_from(img)
+        got = jpeg_scan.cut_fill_row(data[:cut])
+        assert (img.shape[0] if got is None else got) == want, cut
+        k = jpeg_scan.truncated_imcu_row(data[:cut])
+        if got is not None:
+            assert got - (k + 1) * _band(layout) in (0, 1), (cut, k, got)
+            seen.add(got - (k + 1) * _band(layout))
+    # the bleed row: only where the chroma is subsampled vertically and
+    # not gray (early cuts leave the band's chroma at 128 too)
+    if "gray_content" in layout or _band(layout) == 8:
+        assert seen == {0}
+    else:
+        assert 1 in seen
+
+
+@pytest.mark.parametrize("layout", ["coco_640x480", "gray_640x480",
+                                    "sampling_422", "restart_2", "restart_7"])
+def test_completed_stream_keeps_the_rows_before_the_cut(layout, tmp_path):
+    """The stream the card route hands nvJPEG is whole (ends in EOI), and
+    decoded by OpenCV it gives the cut file's decode in every row above the
+    band the data ends in (and its bleed row), and gray from the fill
+    row."""
+    data = _jpeg(layout)
+    for cut in _cuts(data):
+        stream, fill = jpeg_scan.for_decoder(data[:cut])
+        assert stream.endswith(b"\xff\xd9") and stream != data[:cut]
+        assert fill == jpeg_scan.cut_fill_row(data[:cut])
+        want = _cv2_cut(data[:cut], tmp_path / "cut.jpg")
+        got = _cv2_cut(stream, tmp_path / "whole.jpg")
+        k = jpeg_scan.truncated_imcu_row(data[:cut])
+        band = _band(layout)
+        keep = max(0, k * band - (band == 16))
+        np.testing.assert_array_equal(got[:keep], want[:keep], err_msg=str(cut))
+        if fill is not None:
+            assert (got[fill:] == 128).all(), cut
+    assert jpeg_scan.for_decoder(data) == (data, None)
+
+
+def test_progressive_cut_is_left_to_the_decoder(tmp_path):
+    """A progressive file cut in a later scan: OpenCV keeps the earlier
+    scans' coefficients, so no row turns gray, and the card route hands
+    nvJPEG the cut bytes as they are and fills nothing (its decode there is
+    its own; ROADMAP, open faults)."""
+    data = (OUT / f"{PROGRESSIVE}.jpg").read_bytes()
+    (cut, gray, _), = json.loads((OUT / "cut_fill_rows.json").read_text())[PROGRESSIVE]
+    img = _cv2_cut(data[:cut], tmp_path / "cut.jpg")
+    assert gray == gray_from(img) == img.shape[0]
+    assert jpeg_scan.for_decoder(data[:cut]) == (data[:cut], None)
+    assert jpeg_scan.truncated_imcu_row(data[:cut]) is None
+
+
+def test_committed_fill_rows_are_cv2s(tmp_path):
+    """The fill rows the card's test reads are OpenCV's, and the scan's."""
+    committed = json.loads((OUT / "cut_fill_rows.json").read_text())
+    assert cut_fill_rows(tmp_path) == committed
+    for name, rows in committed.items():
+        data = (OUT / f"{name}.jpg").read_bytes()
+        for cut, gray, *_ in rows:
+            got = jpeg_scan.cut_fill_row(data[:cut])
+            if name != PROGRESSIVE:
+                assert got == gray, (name, cut)
+    assert RESTART in committed

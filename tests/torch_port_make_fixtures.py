@@ -14,6 +14,16 @@ smooth content; :func:`load_decodes` sums them back and widens the
 grayscale one again. The machine with the card has no OpenCV, so its
 decoder is held against these committed decodes.
 
+For the cut-JPEG fill, ``tests/torch_port_data/cut_fill_rows.json`` holds a
+few integers per fixture: for each cut (bytes kept), the first row from
+which ``cv2.imread`` of the cut file gives 128 in every channel to the
+bottom. ``restart_640x427.jpg`` is the second fixture's decode written
+again with a restart marker every 3 MCUs (``IMWRITE_JPEG_RST_INTERVAL``),
+and ``progressive_640x427.jpg`` the same written progressive
+(``IMWRITE_JPEG_PROGRESSIVE``), with its cut's numbers in the same file
+(the first gray row and the mean |cut - whole| of OpenCV's decodes):
+OpenCV keeps the earlier scans' coefficients there, so no row turns gray.
+
 The content is smooth (low-frequency waves, gradients and a few soft
 discs), seeded, at COCO-like landscape sizes; one file is grayscale.
 """
@@ -33,6 +43,10 @@ FIXTURES = {
     "coco_500x375": (375, 500, False),
     "gray_640x480": (480, 640, True),
 }
+RESTART, PROGRESSIVE = "restart_640x427", "progressive_640x427"
+RESTART_INTERVAL = 3
+CUT_FRACTIONS = (0.3, 0.6, 0.9)        # of the file's bytes, cuts kept
+PROGRESSIVE_CUT = 0.5
 
 
 def smooth_image(rng: np.random.RandomState, h: int, w: int) -> np.ndarray:
@@ -65,8 +79,43 @@ def load_decodes() -> dict[str, np.ndarray]:
     return out
 
 
+def gray_from(img: np.ndarray) -> int:
+    """The first row from which ``img`` is 128 in every channel to the
+    bottom (its height where the last row is not)."""
+    gray = (img == 128).all(axis=tuple(range(1, img.ndim)))
+    row = len(gray)
+    while row and gray[row - 1]:
+        row -= 1
+    return row
+
+
+def cut_fill_rows(tmp: Path) -> dict:
+    """Per fixture, [cut, the first all-gray row of ``cv2.imread``] for each
+    of ``CUT_FRACTIONS``; for the progressive one, its cut's gray row and
+    the mean |cut - whole| of the two OpenCV decodes."""
+    import cv2
+
+    out, path = {}, tmp / "cut.jpg"
+    for name in list(FIXTURES) + [RESTART, PROGRESSIVE]:
+        data = (OUT / f"{name}.jpg").read_bytes()
+        whole = cv2.imread(str(OUT / f"{name}.jpg"), cv2.IMREAD_COLOR)
+        rows = []
+        for frac in ((PROGRESSIVE_CUT,) if name == PROGRESSIVE else CUT_FRACTIONS):
+            cut = int(len(data) * frac)
+            path.write_bytes(data[:cut])
+            img = cv2.imread(str(path), cv2.IMREAD_COLOR)
+            rows.append([cut, gray_from(img)])
+            if name == PROGRESSIVE:
+                rows[-1].append(round(float(np.abs(
+                    img.astype(np.int64) - whole).mean()), 4))
+        out[name] = rows
+    return out
+
+
 def main() -> None:
     import cv2
+    import json
+    import tempfile
 
     OUT.mkdir(parents=True, exist_ok=True)
     rng = np.random.RandomState(SEED)
@@ -89,6 +138,16 @@ def main() -> None:
             bgr = bgr[..., 0]
         decodes[name] = np.diff(bgr, axis=1, prepend=np.uint8(0))
         print(f"{path.name}: {path.stat().st_size} bytes, decode {bgr.shape}")
+    again = cv2.imread(str(OUT / "coco_640x427.jpg"), cv2.IMREAD_COLOR)
+    for name, param, value in (
+            (RESTART, cv2.IMWRITE_JPEG_RST_INTERVAL, RESTART_INTERVAL),
+            (PROGRESSIVE, cv2.IMWRITE_JPEG_PROGRESSIVE, 1)):
+        cv2.imwrite(str(OUT / f"{name}.jpg"), again,
+                    [cv2.IMWRITE_JPEG_QUALITY, 90, param, value])
+    with tempfile.TemporaryDirectory() as tmp:
+        rows = cut_fill_rows(Path(tmp))
+    (OUT / "cut_fill_rows.json").write_text(json.dumps(rows, indent=1) + "\n")
+    print(f"cut_fill_rows.json: {rows}")
     np.savez_compressed(OUT / "cv2_decodes.npz", **decodes)
     print(f"cv2_decodes.npz: {(OUT / 'cv2_decodes.npz').stat().st_size} bytes")
     for name, img in load_decodes().items():
