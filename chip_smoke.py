@@ -83,8 +83,14 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    decode on the card to OpenCV's gray fill from OpenCV's first gray row
    (``tests/torch_port_data/cut_fill_rows.json``), their rows above the
    band the data ends in equal to nvJPEG's decode of the whole file, with
-   the host scan's time per file; a progressive cut decodes with nothing
-   filled. Then ``resize_linear_u8`` on the card against
+   the host scan's time per file. The committed cuts of the progressive
+   fixture (one in its DC scan, one in a later scan) reach nvJPEG as the
+   baseline transcode of libjpeg's coefficients with its interblock
+   smoothing (``data/jpeg_coef.py``): its sha256 is the committed one (the
+   CPU tests hold OpenCV's decode of it equal to OpenCV's decode of the
+   cut file), nothing is filled, and the card's decode is within
+   ``DECODE_*`` of OpenCV's (committed 4x4 sums); the host transcode's
+   time per file. Then ``resize_linear_u8`` on the card against
    the CPU, bit for bit, on the fixtures at the train scales of the
    flagship and the baseline, with its time per image beside the bilinear
    resize it replaced.
@@ -184,6 +190,27 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    CPU, its predict card vs CPU banded (the top 20 detections paired,
    boxes within 0.5 px, scores within 1e-3); img/s of a plain and a
    flipped ``single_device_test`` and of both TTA paths.
+15. data parallelism across processes: phase 13's train CLI again under
+   ``python -m torch.distributed.run --standalone --nproc_per_node=1``
+   with ``--launcher pytorch`` (NCCL, one rank): its last checkpoint
+   bit-identical to phase 13's, and the test CLI under the same launcher
+   printing phase 13's ``bbox_mAP``. One flagship step at full width over
+   ``DIST_RANKS`` gloo ranks sharing the card (NCCL refuses two ranks on
+   one card), each on its shard of a seeded global batch (2 labeled, 2
+   unlabeled, the half-res copy, 800x1344), against one process stepping
+   the global batch (B=10) in a subprocess freed before the ranks start:
+   losses and ``grad_norm`` within ``DIST_STEP_REL``, updates banded as
+   phase 6, both ranks' parameters and teachers bit-identical; the step's
+   ms per rank, gloo-staged (not a measure of NCCL). The flagship's semi
+   loop (``train_detector``, phase 10's data and overrides, 1 epoch) over
+   the gloo ranks, then a refresh of every unlabeled image and an
+   evaluation of the teacher split over them: one model on both ranks,
+   every readable label file rewritten, the last refresh's files each
+   written once by the rank the chunk stride names and paired with one
+   process's refresh from the same teacher (tags and counts, boxes 1 px,
+   scores 1e-3), the split evaluation's detections paired with one
+   process's the same way and its metrics equal; the ranks' NMS launches
+   counted in each process and summed.
 
 f32 runs with TF32 off (``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32`` False): cuDNN convolutions would
@@ -1117,13 +1144,13 @@ def phase_cut_jpeg(smi: str):
     as it is and takes the completed stream), the rows from OpenCV's first
     gray row (committed, and the host scan's) are 128 exactly, and the rows
     above the band the data ends in are nvJPEG's decode of the whole file.
-    The host scan's time per file. A progressive cut decodes with nothing
-    filled; its distance from the whole file beside OpenCV's (committed)."""
+    The host scan's time per file. Then the progressive cuts
+    (:func:`phase_progressive_cut`)."""
     import torch
 
     from dsl_tpu_torch.data import jpeg_scan
     from dsl_tpu_torch.data.image_io import decode_jpeg, read_image, readable
-    from torch_port_make_fixtures import OUT, PROGRESSIVE, RESTART
+    from torch_port_make_fixtures import OUT, RESTART
 
     dev = torch.device(DEVICE)
     committed = json.loads((OUT / "cut_fill_rows.json").read_text())
@@ -1151,19 +1178,49 @@ def phase_cut_jpeg(smi: str):
                     f"{got.shape[0] - 1} = 128 as OpenCV fills them, rows "
                     f"0-{rows - 1} = nvJPEG's whole-file decode; host scan "
                     f"{times[2]:.2f} ms (median of 5)  ({smi})")
-        data = (OUT / f"{PROGRESSIVE}.jpg").read_bytes()
-        (cut, gray, cv2_mean), = committed[PROGRESSIVE]
+        phase_progressive_cut(path, smi)
+
+
+def phase_progressive_cut(path: Path, smi: str):
+    """The progressive fixture at its committed cuts (in the DC scan, in a
+    later scan): ``for_decoder`` hands nvJPEG the committed baseline
+    transcode (its sha256; the CPU tests hold OpenCV's decode of it equal
+    to OpenCV's decode of the cut file), fills nothing, and the card's
+    decode is within the decode tolerance of OpenCV's (the committed 4x4
+    sums); the host transcode's time per file."""
+    import hashlib
+
+    import numpy as np
+
+    from dsl_tpu_torch.data import jpeg_coef, jpeg_scan
+    from dsl_tpu_torch.data.image_io import read_image, readable
+    from torch_port_make_fixtures import OUT, PROGRESSIVE, block_sums
+
+    data = (OUT / f"{PROGRESSIVE}.jpg").read_bytes()
+    with np.load(OUT / "progressive_cut_means.npz") as committed_sums:
+        sums = dict(committed_sums)
+    for cut, sha in json.loads((OUT / "progressive_cuts.json").read_text()):
+        stream, fill = jpeg_scan.for_decoder(data[:cut])
+        if fill is not None or hashlib.sha256(stream).hexdigest() != sha:
+            raise AssertionError(f"{PROGRESSIVE} cut at {cut}: the transcode is "
+                                 f"not the committed one")
         path.write_bytes(data[:cut])
         got = read_image(path, DEVICE)
-        whole = decode_jpeg(data, dev)
-        mean = float((got.int() - whole.int()).abs().float().mean())
-        if (got.shape != whole.shape or gray != got.shape[0]
-                or jpeg_scan.for_decoder(data[:cut])[1] is not None):
-            raise AssertionError("the progressive cut")
-        log(f"[decode] {PROGRESSIVE} cut at {cut} of {len(data)} bytes (a "
-            f"later scan): decodes, nothing filled; mean |cut - whole| "
-            f"{mean:.4f} levels on nvJPEG, {cv2_mean} on OpenCV (committed); "
-            f"neither has a gray row")
+        d = np.abs(block_sums(got.cpu().numpy()).astype(np.int64)
+                   - sums[f"cut_{cut}"]) / 16.0
+        mean, over4, worst = float(d.mean()), float((d > 4).mean()), float(d.max())
+        times = sorted(host_ms(lambda: jpeg_coef.transcode(data[:cut]), reps=5,
+                               warmup=1))
+        log(f"[decode] {PROGRESSIVE} cut at {cut} of {len(data)} bytes: the "
+            f"baseline transcode ({len(stream)} bytes, sha256 committed) on "
+            f"nvJPEG vs OpenCV's decode of the cut file, 4x4 means: mean "
+            f"|diff| {mean:.3f} levels, {over4 * 100:.2f}% off by more than "
+            f"4, max {worst:.2f}; host transcode {times[2]:.1f} ms (median of "
+            f"5, min {times[0]:.1f})  ({smi})")
+        if (not readable(path, DEVICE) or mean > DECODE_MEAN_LEVELS
+                or over4 > DECODE_SHARE_OVER_4 or worst > DECODE_MAX_LEVELS):
+            raise AssertionError(f"{PROGRESSIVE} cut at {cut}: {mean}, "
+                                 f"{over4}, {worst}")
 
 
 RESIZE_SCALES = ((1333, 640), (1333, 800))   # the train scales of both configs
@@ -2122,17 +2179,29 @@ BASELINE_TIMED = 20
 
 
 def run_module(module: str, args: list[str], timeout: int = 600,
-               tag: str = "baseline") -> tuple[int, list[str]]:
+               tag: str = "baseline", launcher: list[str] | None = None
+               ) -> tuple[int, list[str]]:
     """``python -m module args`` in a subprocess (``runpy`` with
-    ``run_name='__main__'``, as ``-m`` runs it), its last lines printed
-    here; returns the NMS launches it made and its output's lines."""
+    ``run_name='__main__'``, as ``-m`` runs it), or under ``launcher``
+    (``torch.distributed.run``'s arguments: the module then runs in the
+    process it starts), its last lines printed here; returns the NMS
+    launches it made and its output's lines."""
     code = ("import runpy, sys\n"
+            f"sys.path.insert(0, {str(ROOT)!r})\n"
             "from dsl_tpu_torch.ops.nms import nms_keep\n"
             f"sys.argv = {[module, *args]!r}\n"
             f"runpy.run_module({module!r}, run_name='__main__', alter_sys=True)\n"
             "print('NMS_LAUNCHES', nms_keep.launches)\n")
-    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, text=True,
-                          capture_output=True, timeout=timeout)
+    with tempfile.TemporaryDirectory(prefix="_smoke_launch_", dir=ROOT) as tmp:
+        if launcher is None:
+            command = [sys.executable, "-c", code]
+        else:
+            script = Path(tmp) / "run.py"
+            script.write_text(code)
+            command = [sys.executable, "-m", "torch.distributed.run", *launcher,
+                       str(script)]
+        proc = subprocess.run(command, cwd=ROOT, text=True,
+                              capture_output=True, timeout=timeout)
     for line in proc.stdout.splitlines()[-6:]:
         log(f"[{tag}]   | {line[:160]}")
     if proc.returncode != 0:
@@ -2142,13 +2211,15 @@ def run_module(module: str, args: list[str], timeout: int = 600,
             proc.stdout.splitlines())
 
 
-def phase_baseline(tmp: Path, smi: str) -> int:
+def phase_baseline(tmp: Path, smi: str) -> tuple[int, dict]:
     """DSL's first step at full width: the baseline config trained by the
     train CLI for 2 epochs (student evaluated after each), its unlabeled
     split's detections written by the test CLI with ``--format-only``,
     turned into label files by ``tools/generate_unlabel_annos_coco.py``,
     read by the port's ``SemiCOCODataset``; then the baseline's step timed
-    in this process. Returns the NMS launches."""
+    in this process. Returns the NMS launches and what phase 15 reruns
+    under a launcher (the CLI's options, its work dir, the last
+    evaluation's ``bbox_mAP``, its step ms)."""
     import json as _json
     import random
 
@@ -2298,7 +2369,9 @@ def phase_baseline(tmp: Path, smi: str) -> int:
         f"{times[0]:.2f}, max {times[-1]:.2f}, {BASELINE_TIMED} steps), "
         f"{n_img / ms * 1e3:.2f} img/s; phase 13 wall "
         f"{time.perf_counter() - t_phase:.1f} s  ({smi})")
-    return train_launches + test_launches
+    return train_launches + test_launches, dict(
+        options=options, work=work, mAP=val[-1]["bbox_mAP"], step_ms=ms,
+        iter_times=[x["time"] for x in train])
 
 
 # -- DSL's VOC protocol and test-time augmentation (phase 14) ----------------
@@ -2586,6 +2659,280 @@ def phase_voc(tmp: Path, smi: str) -> tuple[int, int]:
     return launches, keep_err
 
 
+# -- data parallelism across processes (phase 15) -----------------------------
+
+DIST_RANKS = 2                # gloo ranks sharing the one card
+DIST_WIDTH = "full"           # the flagship at full width
+DIST_TIMED = 5                # timed steps per rank after two warm-ups
+DIST_THREADS = 4              # CPU threads per rank
+# two ranks against one process on the global batch: losses and grad_norm
+# (f32 sums over 10 images against two sums of 5)
+DIST_STEP_REL = 1e-5
+
+
+def _tree_diff(x, y, path: str = "") -> list[str]:
+    """Where two checkpoint trees differ: keys, counters, tensors bit for
+    bit (dtype, shape and values)."""
+    import torch
+
+    if isinstance(x, dict):
+        if not isinstance(y, dict) or set(x) != set(y):
+            return [f"{path} (keys)"]
+        return [d for k in x for d in _tree_diff(x[k], y[k], f"{path}.{k}")]
+    if isinstance(x, (list, tuple)):
+        if not isinstance(y, (list, tuple)) or len(x) != len(y):
+            return [f"{path} (length)"]
+        return [d for i, (a, b) in enumerate(zip(x, y))
+                for d in _tree_diff(a, b, f"{path}[{i}]")]
+    if torch.is_tensor(x):
+        same = (torch.is_tensor(y) and x.dtype == y.dtype and x.shape == y.shape
+                and torch.equal(x, y))
+        return [] if same else [path]
+    return [] if x == y else [path]
+
+
+def detection_pairs(got: list, want: list) -> tuple[int, int, float]:
+    """Per-image detections ``(dets (N, 5), labels)`` of one run against
+    another's, paired by ``torch_port_util.pair_labels`` (label, 1 px, 1e-3
+    in score): (detections in ``got``, unpaired, largest box difference of
+    a pair)."""
+    from torch_port_util import pair_labels
+
+    def as_file(dets, labels):
+        return dict(targetNum=len(dets), rects=dets[:, :4].tolist(),
+                    tags=labels.tolist(), scores=dets[:, 4].tolist())
+
+    n, unpaired, worst = 0, 0, 0.0
+    for (gd, gl), (wd, wl) in zip(got, want, strict=True):
+        u, w = pair_labels(as_file(gd, gl), as_file(wd, wl))
+        n, unpaired, worst = n + len(gd), unpaired + u, max(worst, w)
+    return n, unpaired, worst
+
+
+def phase_dist_nccl(tmp: Path, smi: str, baseline: dict) -> int:
+    """Phase 13's train CLI again under ``torch.distributed.run`` with one
+    rank (NCCL, ``--launcher pytorch``): its last checkpoint bit-identical
+    to phase 13's; the test CLI under the same launcher on that checkpoint
+    prints phase 13's last ``bbox_mAP``. Returns the NMS launches."""
+    import torch
+
+    launcher = ["--standalone", "--nproc_per_node=1"]
+    work = tmp / "baseline_work_nccl"
+    name = f"epoch_{BASELINE_EPOCHS}.pth"
+    t0 = time.perf_counter()
+    train_launches, _ = run_module("dsl_tpu_torch.tools.train", [
+        str(BASELINE_CONFIG), "--work-dir", str(work), "--device", DEVICE,
+        "--launcher", "pytorch", "--cfg-options", *baseline["options"]],
+        tag="dist", launcher=launcher)
+    train_s = time.perf_counter() - t0
+    diff = _tree_diff(*(torch.load(w / name, map_location="cpu",
+                                   weights_only=True)
+                        for w in (baseline["work"], work)))
+    if diff:
+        raise AssertionError(f"W=1 under torch.distributed.run: {name} differs "
+                             f"from --launcher none's at {diff[:5]}")
+    test_launches, lines = run_module("dsl_tpu_torch.tools.test", [
+        str(BASELINE_CONFIG), str(work / name), "--eval", "bbox", "--device",
+        DEVICE, "--launcher", "pytorch", "--cfg-options", *baseline["options"]],
+        tag="dist", launcher=launcher)
+    printed = json.loads(next(x for x in reversed(lines) if x.startswith("{")))
+    if printed["bbox_mAP"] != round(float(baseline["mAP"]), 4):
+        raise AssertionError(f"the test CLI under the launcher: bbox_mAP "
+                             f"{printed['bbox_mAP']}, phase 13 logged "
+                             f"{baseline['mAP']}")
+    lines = [json.loads(x) for x in (work / "train.log.json").read_text()
+             .splitlines()]
+    nccl = sorted(x["time"] for x in lines if x["mode"] == "train")
+    plain = sorted(baseline["iter_times"])
+    log(f"[dist] python -m torch.distributed.run --standalone "
+        f"--nproc_per_node=1 -m dsl_tpu_torch.tools.train (NCCL, "
+        f"--launcher pytorch), phase 13's config and overrides: {name} "
+        f"bit-identical to --launcher none's (every tensor and counter), "
+        f"{train_s:.1f} s; the test CLI under the launcher prints bbox_mAP "
+        f"{printed['bbox_mAP']} = phase 13's; iteration ms by the runner's "
+        f"host clock, median: {nccl[len(nccl) // 2] * 1e3:.2f} under the "
+        f"launcher, {plain[len(plain) // 2] * 1e3:.2f} without (phase 13's "
+        f"log; the step in process {baseline['step_ms']:.2f} ms); NMS launches "
+        f"{train_launches} + {test_launches}  ({smi})")
+    return train_launches + test_launches
+
+
+def phase_dist_step(tmp: Path, smi: str):
+    """One flagship step at full width over ``DIST_RANKS`` gloo ranks on
+    the card, each on its shard (2 labeled + 2 unlabeled + the half-res
+    copy at 800x1344) of the seeded global batch, against one process
+    stepping the global batch (B=10) in a subprocess, freed before the
+    ranks start: losses and ``grad_norm`` within ``DIST_STEP_REL``, the
+    updates banded as phase 6 bands them, both ranks' parameters and
+    teachers bit-identical; then each rank's step ms (gloo stages the
+    all-reduce through the host: not a measure of NCCL)."""
+    import torch
+
+    import torch_port_dist_worker as W
+
+    torch.cuda.empty_cache()
+    ref = tmp / "dist_reference.pt"
+    code = ("import sys, torch\n"
+            f"sys.path.insert(0, {str(ROOT / 'tests')!r})\n"
+            "torch.backends.cudnn.allow_tf32 = False\n"
+            "torch.backends.cuda.matmul.allow_tf32 = False\n"
+            "import torch_port_dist_worker as W\n"
+            f"torch.save(W.reference_step({DIST_WIDTH!r}, {DIST_RANKS}, {CANVAS!r}, "
+            f"{DEVICE!r}), {str(ref)!r})\n")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, text=True,
+                          capture_output=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"the one-process step exited {proc.returncode}:\n"
+                           f"{proc.stderr[-4000:]}")
+    ref_s = time.perf_counter() - t0
+    want = torch.load(ref, weights_only=False)
+    out = tmp / "dist_step"
+    out.mkdir()
+    t0 = time.perf_counter()
+    steps = [r["step"] for r in W.collect(W.spawn(
+        DIST_RANKS, out, DEVICE, [("step", dict(width=DIST_WIDTH, canvas=CANVAS,
+                                                timed=DIST_TIMED))],
+        threads=DIST_THREADS), DIST_RANKS, out)]
+    ranks_s = time.perf_counter() - t0
+    if (any(s["params_sha"] != steps[0]["params_sha"]
+            or s["teacher_sha"] != steps[0]["teacher_sha"]
+            or s["metrics"] != steps[0]["metrics"] for s in steps)):
+        raise AssertionError("the ranks' states or losses differ")
+    got = steps[0]["metrics"]
+    rel = {k: abs(got[k] - v) / max(abs(v), 1e-12)
+           for k, v in want["metrics"].items()}
+    worst, l2 = banded_max_ratio(steps[0]["after"], want["after"], want["before"])
+    log(f"[dist] one flagship step, {DIST_RANKS} gloo ranks on the card (B=5 "
+        f"each: 2 labeled, 2 unlabeled, the half-res copy, {CANVAS[0]}x"
+        f"{CANVAS[1]}) vs one "
+        f"process on the global batch (B=10, a subprocess, {ref_s:.1f} s): "
+        + ", ".join(f"{k} {got[k]:.6f}/{want['metrics'][k]:.6f}"
+                    for k in sorted(got))
+        + f"; worst relative {max(rel.values()):.2e} (limit {DIST_STEP_REL}); "
+        f"updates: worst banded ratio {worst:.3f} (limit 1), relative L2 "
+        f"{l2:.2e} (limit 1e-3); both ranks' parameters and teachers "
+        f"bit-identical; {ranks_s:.1f} s with process start")
+    log(f"[time] the same step per rank, gloo-staged all-reduce (through the "
+        f"host; not a measure of NCCL): median of {DIST_TIMED} "
+        + ", ".join(f"rank {r} {s['step_ms']:.2f} ms" for r, s in enumerate(steps))
+        + f"  ({smi})")
+    if max(rel.values()) > DIST_STEP_REL or worst > 1 or l2 > 1e-3:
+        raise AssertionError(f"two ranks vs one process: {rel}, {worst}, {l2}")
+
+
+def phase_dist_semi(tmp: Path, smi: str) -> int:
+    """The flagship's semi loop (``train_detector``) over ``DIST_RANKS``
+    gloo ranks on the card, one epoch on phase 10's data, then one refresh
+    of every unlabeled image from the final teacher on both ranks: both
+    ranks end with one model; every readable unlabeled label file is
+    rewritten (the cut one is not), and in the last refresh each once, by
+    the rank the chunk stride names; those files equal a one-process
+    refresh from the same teacher (``epoch_1.pth``'s; tags and counts, boxes
+    1 px, scores 1e-3); the teacher's evaluation split by batch over the
+    ranks gives one process's detections (paired the same way: each
+    process picks its own cuDNN algorithms) and metrics. Returns the
+    ranks' NMS launches (summed)."""
+    import shutil
+
+    import torch
+
+    import torch_port_dist_worker as W
+    from dsl_tpu_torch.apis import train_detector
+    from dsl_tpu_torch.apis.test import BATCH_SIZE
+    from dsl_tpu_torch.apis.train import deterministic_cudnn
+    from dsl_tpu_torch.config import Config
+    from torch_port_util import tree_of
+
+    torch.cuda.empty_cache()
+    root = tmp / "dist_semi"
+    root.mkdir()
+    cfg, paths = semi_config_for(root)
+    cfg["runner"]["max_epochs"] = 1
+    cfg["log_config"]["interval"] = 1
+    (root / "cfg.json").write_text(json.dumps(cfg))
+    store = Path(paths["unlabel_store"])
+    before = tree_of(store)
+    work = root / "work"
+    t0 = time.perf_counter()
+    res = [r["train"] for r in W.collect(W.spawn(
+        DIST_RANKS, root, DEVICE, [("train", dict(
+            cfg=str(root / "cfg.json"), work_dir=str(work),
+            refresh_after=True))], threads=DIST_THREADS), DIST_RANKS, root)]
+    wall = time.perf_counter() - t0
+    if any(r["student_sha"] != res[0]["student_sha"] or r["step"] != res[0]["step"]
+           for r in res):
+        raise AssertionError("the ranks end with different models")
+    after = tree_of(store)
+    cut = f"{SEMI_UNREADABLE}.json"
+    names = [n[:-len(".json")] for n in sorted(before) if n != cut]
+    if after[cut] != before[cut] or any(after[f"{n}.json"] == before[f"{n}.json"]
+                                        for n in names):
+        raise AssertionError("the unlabeled label files were not all rewritten")
+    with open(paths["unlabeled"], encoding="utf-8") as f:
+        listed = [i["file_name"] for i in json.load(f)["images"]
+                  if i["file_name"] != SEMI_UNREADABLE]
+    chunks = [listed[i:i + 8] for i in range(0, len(listed), 8)]
+    for r, got in enumerate(res):
+        want = [n for c, chunk in enumerate(chunks)
+                if (got["first_chunk"] + c) % DIST_RANKS == r for n in chunk]
+        if got["written"] != want:
+            raise AssertionError(f"rank {r} wrote {got['written']}, the stride "
+                                 f"names {want}")
+
+    # one process from the same teacher: its refresh into a copy of the
+    # store, and its evaluation
+    one = root / "one_store"
+    shutil.copytree(store, one)
+    one_cfg = copy.deepcopy(cfg)
+    one_cfg["data"]["unlabel_pred"]["anno_root_path"] = str(one)
+    one_cfg["runner"]["max_epochs"] = 0
+    runner = train_detector(Config(one_cfg), str(root / "one_work"),
+                            resume_from=str(work / "epoch_1.pth"), device=DEVICE)
+    runner.refresher._first_done = True      # the ranks' refresh was not the first
+    with deterministic_cudnn():
+        runner.refresher.refresh_images(runner.state, listed)
+        metrics, results = W.evaluate_teacher(Config(one_cfg), runner, DEVICE,
+                                              None)
+    n, unpaired, diff = refresh_store_pairs(store, one, listed)
+    ranks_metrics, ranks_results = res[0]["evaluation"]
+    n_dets, dets_unpaired, dets_diff = detection_pairs(ranks_results, results)
+    logged = [json.loads(x) for x in (work / "train.log.json").read_text()
+              .splitlines()]
+    val = [x for x in logged if x["mode"] == "val"]
+    iters = sorted(x["time"] for x in logged if x["mode"] == "train")
+    launches = sum(r["nms_launches"] for r in res)
+    log(f"[dist] train_detector on the flagship over {DIST_RANKS} gloo ranks "
+        f"on the card, 1 epoch of {len(iters)} iterations (B=5 per rank: "
+        f"each rank's shard of the global batch), {wall:.1f} s with process "
+        f"start: one model on both ranks (step {res[0]['step']}); every "
+        f"readable unlabeled label file rewritten, the cut one kept; the last "
+        f"refresh's files each written once, chunk c by rank c mod "
+        f"{DIST_RANKS} (" + "; ".join(f"rank {r}: {len(x['written'])} files"
+                                      for r, x in enumerate(res))
+        + f"); against one process from the same teacher: {n} boxes, "
+        f"{unpaired} unpaired, largest paired difference {diff:.2e}; the "
+        f"evaluation during training: bbox_mAP {val[-1]['bbox_mAP']}; the "
+        f"teacher's evaluation split by batch against one process's: "
+        f"{n_dets} detections, {dets_unpaired} unpaired, largest paired "
+        f"difference {dets_diff:.2e} (each process picks its own cuDNN "
+        f"algorithms), bbox_mAP {ranks_metrics['bbox_mAP']} vs "
+        f"{metrics['bbox_mAP']}; NMS launches per rank "
+        f"{[r['nms_launches'] for r in res]}, {launches} in all")
+    log(f"[time] the semi iteration over {DIST_RANKS} gloo ranks, gloo-staged "
+        f"(through the host; not a measure of NCCL), the runner's host clock: "
+        f"median {iters[len(iters) // 2] * 1e3:.2f} ms  ({smi})")
+    if unpaired or dets_unpaired or ranks_metrics != metrics:
+        raise AssertionError(f"two ranks vs one process: {unpaired} unpaired "
+                             f"label boxes, {dets_unpaired} unpaired "
+                             f"detections, metrics {ranks_metrics} vs {metrics}")
+    n_val_batches = -(-SEMI_VAL // BATCH_SIZE)
+    if launches < len(chunks) + 2 * n_val_batches or not all(
+            r["nms_launches"] for r in res):
+        raise AssertionError(f"NMS launches per rank {[r['nms_launches'] for r in res]}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2631,10 +2978,13 @@ def main() -> int:
                                          Path(tmp), smi)
         del runner
         torch.cuda.empty_cache()
-        baseline_launches = phase_baseline(Path(tmp), smi)
+        baseline_launches, baseline = phase_baseline(Path(tmp), smi)
         voc_launches, voc_err = phase_voc(Path(tmp), smi)
+        dist_launches = phase_dist_nccl(Path(tmp), smi, baseline)
+        phase_dist_step(Path(tmp), smi)
+        dist_launches += phase_dist_semi(Path(tmp), smi)
     launches["nms_keep"] += (semi_launches + eval_launches + weights_launches
-                             + baseline_launches + voc_launches)
+                             + baseline_launches + voc_launches + dist_launches)
     kernels = [dict(
         name="nms_keep", route="cuda",
         source="dsl_tpu_torch/csrc/nms_kernel.cu",

@@ -21,6 +21,13 @@ greedy NMS, ``train/label_store.numpy_nms``): :func:`tta_test` merges each
 pass's detections per class; :func:`tta_test_dense`, the reference's
 dense-head merge, gathers each pass's raw ``nms_pre`` candidates (no NMS
 kernel) and runs one multiclass NMS with the centerness factors.
+
+Data parallelism (``group``, a process group of ``W`` ranks): batch ``b``
+of the single process's batches is predicted by rank ``b mod W`` (each
+batch keeps its canvas), the per-image results are gathered in dataset
+order on every rank (``parallel.dist.all_gather_objects``), and rank 0
+evaluates: the metrics are the single process's, and the other ranks get
+None. The JAX package runs the whole test in one process over its mesh.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ import torch
 from dsl_tpu_torch.data.formatting import DEFAULT_CANVAS, select_canvas
 from dsl_tpu_torch.data.pipelines.transforms import read_resized
 from dsl_tpu_torch.models.detectors.single_stage import detector_predict
+from dsl_tpu_torch.parallel.dist import all_gather_objects
 from dsl_tpu_torch.train.label_store import numpy_nms
 from dsl_tpu_torch.utils.device import resolve_device, to_device
 
@@ -63,11 +71,30 @@ def normalize_pad(imgs: list[torch.Tensor], canvas_hw, img_norm) -> torch.Tensor
     return out.permute(0, 3, 1, 2).contiguous()
 
 
-def _batches(dataset, img_scale, canvas_hw, norm, device, flip: bool):
-    """Per batch of ``BATCH_SIZE``: (indices, the resized images' preps
-    (image, [nh, nw], scale factor), normalized canvas (B, 3, H, W),
-    img_shapes (B, 2), scale_factors (B, 4) on the device)."""
-    for start in range(0, len(dataset), BATCH_SIZE):
+def _rank_world(group) -> tuple[int, int]:
+    if group is None:
+        return 0, 1
+    return torch.distributed.get_rank(group), torch.distributed.get_world_size(group)
+
+
+def _gathered(own: dict, group, n: int) -> list:
+    """Per-image values in dataset order from every rank's ``{index:
+    value}``."""
+    if group is not None:
+        own = {i: v for part in all_gather_objects(own) for i, v in part.items()}
+    return [own[i] for i in range(n)]
+
+
+def _batches(dataset, img_scale, canvas_hw, norm, device, flip: bool,
+             group=None):
+    """Per batch of ``BATCH_SIZE`` (this rank's, under ``group``):
+    (indices, the resized images' preps (image, [nh, nw], scale factor),
+    normalized canvas (B, 3, H, W), img_shapes (B, 2), scale_factors (B, 4)
+    on the device)."""
+    rank, world = _rank_world(group)
+    for b, start in enumerate(range(0, len(dataset), BATCH_SIZE)):
+        if b % world != rank:
+            continue
         idxs = list(range(start, min(start + BATCH_SIZE, len(dataset))))
         preps = [read_resized(_path(dataset, i), img_scale, device, flip=flip)
                  for i in idxs]
@@ -84,9 +111,11 @@ def single_device_test(detector, params, dataset, test_cfg=None,
                        img_norm=None, return_results: bool = False,
                        evaluate: bool = True, flip: bool = False,
                        boxes_only: bool = False,
-                       device: str | torch.device = "cuda"):
+                       device: str | torch.device = "cuda", group=None):
     """Predict every image of ``dataset``; returns its bbox metrics
-    (and/or the per-image ``(dets (N, 5), labels (N,))`` host arrays).
+    (and/or the per-image ``(dets (N, 5), labels (N,))`` host arrays;
+    under ``group`` the metrics on rank 0, None on the others, and the
+    results of every image on every rank).
     ``params`` (name -> tensor, e.g. the EMA teacher's) replaces the
     detector's parameters, as in ``detector_predict``; None keeps them.
     ``flip`` predicts each image mirrored (boxes in the mirrored frame);
@@ -98,19 +127,22 @@ def single_device_test(detector, params, dataset, test_cfg=None,
                                   f"instance masks, which are not ported yet")
     device = resolve_device(device)
     norm = img_norm or DEFAULT_NORM
-    outs = [detector_predict(detector, images, img_shapes=shapes,
-                             scale_factors=sfs, test_cfg=test_cfg,
-                             device=device, params=params)
-            for _, _, images, shapes, sfs in _batches(
-                dataset, img_scale, canvas_hw, norm, device, flip)]
-    results = []
-    for dets, labels, valid in outs:
-        dets, labels, valid = (t.cpu().numpy() for t in (dets, labels, valid))
-        for bi in range(len(dets)):
-            results.append((dets[bi][valid[bi]].astype(np.float32),
-                            labels[bi][valid[bi]]))
+    outs = [(idxs, detector_predict(detector, images, img_shapes=shapes,
+                                    scale_factors=sfs, test_cfg=test_cfg,
+                                    device=device, params=params))
+            for idxs, _, images, shapes, sfs in _batches(
+                dataset, img_scale, canvas_hw, norm, device, flip, group)]
+    own = {}
+    for idxs, tensors in outs:
+        dets, labels, valid = (t.cpu().numpy() for t in tensors)
+        for bi, i in enumerate(idxs):
+            own[i] = (dets[bi][valid[bi]].astype(np.float32),
+                      labels[bi][valid[bi]])
+    results = _gathered(own, group, len(dataset))
     if not evaluate:
         return results
+    if _rank_world(group)[0] != 0:
+        return (None, results) if return_results else None
     metrics = dataset.evaluate(results, metric="bbox", verbose=False)
     if return_results:
         return metrics, results
@@ -171,18 +203,20 @@ def tta_test(detector, params, dataset, test_cfg=None,
              img_scales=((1333, 800),), flip: bool = True,
              canvas_hw=DEFAULT_CANVAS, img_norm=None,
              iou_threshold: float = 0.5, max_per_img: int = 100,
-             evaluate: bool = True, device: str | torch.device = "cuda"):
+             evaluate: bool = True, device: str | torch.device = "cuda",
+             group=None):
     """Multi-scale and flip test-time augmentation: one
     :func:`single_device_test` pass per (scale, flip), a flipped pass's
     boxes mirrored back with the original image width, then
     :func:`merge_aug_detections` per image. Returns the bbox metrics, or
-    the merged per-image results with ``evaluate=False``."""
+    the merged per-image results with ``evaluate=False`` (under ``group``
+    as :func:`single_device_test` returns them)."""
     aug_results = []
     for scale, flipped in _passes(img_scales, flip):
         res = single_device_test(
             detector, params, dataset, test_cfg=test_cfg, canvas_hw=canvas_hw,
             img_scale=scale, img_norm=img_norm, evaluate=False, flip=flipped,
-            boxes_only=True, device=device)
+            boxes_only=True, device=device, group=group)
         if flipped:
             for i, (dets, _) in enumerate(res):
                 w = dataset.data_infos[i]["width"]
@@ -194,21 +228,25 @@ def tta_test(detector, params, dataset, test_cfg=None,
               for i in range(len(dataset))]
     if not evaluate:
         return merged
+    if _rank_world(group)[0] != 0:
+        return None
     return dataset.evaluate(merged, metric="bbox", verbose=False)
 
 
 def tta_test_dense(detector, params, dataset, test_cfg=None,
                    img_scales=((1333, 800),), flip: bool = True,
                    canvas_hw=DEFAULT_CANVAS, img_norm=None,
-                   evaluate: bool = True, device: str | torch.device = "cuda"):
+                   evaluate: bool = True, device: str | torch.device = "cuda",
+                   group=None):
     """The reference's dense-head test-time augmentation
     (``aug_test_bboxes`` with ``merge_aug_bboxes``): each (scale, flip)
     pass gives its raw ``nms_pre`` candidates per image
     (``detector_predict(with_nms=False)``: no NMS kernel), mirrored back
     in the resized frame with that image's resized width, then divided by
     its scale factor; the candidates of all passes go through one
-    :func:`_multiclass_nms_np` with the centerness factors. FCOS-family
-    heads only."""
+    :func:`_multiclass_nms_np` with the centerness factors (under
+    ``group`` each rank merges its batches' images, then the merged results
+    are gathered). FCOS-family heads only."""
     head = type(detector.bbox_head).__name__
     if head not in ("FCOSHead", "NASFCOSHead"):
         raise NotImplementedError(f"tta_test_dense: {head}: FCOS-family "
@@ -216,10 +254,10 @@ def tta_test_dense(detector, params, dataset, test_cfg=None,
     device = resolve_device(device)
     norm = img_norm or DEFAULT_NORM
     tc = dict(test_cfg or detector.test_cfg or {})
-    cand = [[] for _ in range(len(dataset))]
+    cand = {}
     for scale, flipped in _passes(img_scales, flip):
         for idxs, preps, images, shapes, _ in _batches(
-                dataset, scale, canvas_hw, norm, device, flipped):
+                dataset, scale, canvas_hw, norm, device, flipped, group):
             boxes, scores, cent = (t.cpu().numpy() for t in detector_predict(
                 detector, images, img_shapes=shapes, test_cfg=tc,
                 device=device, params=params, with_nms=False))
@@ -229,12 +267,15 @@ def tta_test_dense(detector, params, dataset, test_cfg=None,
                     iw = np.float32(preps[bi][1][1])
                     bx[:, 0], bx[:, 2] = iw - bx[:, 2], iw - bx[:, 0]
                 bx /= np.asarray(preps[bi][2], np.float32)
-                cand[i].append((bx, scores[bi], cent[bi]))
-    merged = [_multiclass_nms_np(
+                cand.setdefault(i, []).append((bx, scores[bi], cent[bi]))
+    merged = _gathered({i: _multiclass_nms_np(
         np.concatenate([c[0] for c in cs]), np.concatenate([c[1] for c in cs]),
         np.concatenate([c[2] for c in cs]), tc.get("score_thr", 0.05),
         dict(tc.get("nms", {}) or {}).get("iou_threshold", 0.6),
-        tc.get("max_per_img", 100)) for cs in cand]
+        tc.get("max_per_img", 100)) for i, cs in cand.items()}, group,
+        len(dataset))
     if not evaluate:
         return merged
+    if _rank_world(group)[0] != 0:
+        return None
     return dataset.evaluate(merged, metric="bbox", verbose=False)

@@ -18,6 +18,20 @@ package keeps it) -> ``make_train_step`` (bf16 when ``cfg.fp16``), then
 - supervised (DSL's baseline, no ``unlabel_train``): the labeled loader
   alone, no refresher, and the evaluation on the student.
 
+Data parallelism: where a process group of ``W`` ranks is joined
+(``parallel.dist.init_dist``, as ``tools/train.py --launcher`` does), each
+rank trains on its card (the current one) with the JAX mesh's global-batch
+semantics: rank ``r`` loads shard ``r`` of each global batch (the semi
+branch's ``W`` shards of the per-GPU mix; the supervised branch's
+``samples_per_gpu`` split ``W`` ways, as the JAX package splits it), the
+parameters start as rank 0's (a broadcast), the step sums its loss
+normalizers and gradients over the ranks, the refresh and the evaluation
+are split by chunk and by batch, and rank 0 writes the logs and
+checkpoints. The pipelines' random draws are per rank: rank ``r > 0``
+draws from ``RandomState([seed, r])`` and ``Random(f"{seed}:{r}")``; rank 0
+from the seed itself, as one process does. With one rank (no group)
+nothing of this runs.
+
 One device, CUDA unless the caller passes ``device="cpu"``. While the
 runner runs, cuDNN is held to its deterministic algorithms
 (:func:`deterministic_cudnn`), so one seed gives one model, as in the JAX
@@ -37,6 +51,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import logging
 import os.path as osp
 import random
 
@@ -49,6 +64,8 @@ from dsl_tpu_torch.data.formatting import DEFAULT_CANVAS
 from dsl_tpu_torch.data.loader import DetDataLoader, MultiDataLoader
 from dsl_tpu_torch.data.pipelines import test_pipeline_params
 from dsl_tpu_torch.models import build_detector
+from dsl_tpu_torch.parallel import dist
+from dsl_tpu_torch.parallel.mesh import broadcast_state
 from dsl_tpu_torch.registry import DATASETS, build_from_cfg
 from dsl_tpu_torch.train import (
     build_optimizer_from_cfg, create_train_state, frozen_backbone_mask,
@@ -104,6 +121,14 @@ def deterministic_cudnn():
         cudnn.deterministic, cudnn.benchmark = saved
 
 
+def pipeline_generators(seed: int, rank: int = 0):
+    """The pipelines' ``np.random.RandomState`` and ``random.Random`` for
+    a rank: the seed's own at rank 0, ``(seed, rank)``'s elsewhere."""
+    if rank == 0:
+        return np.random.RandomState(seed), random.Random(seed)
+    return np.random.RandomState([seed, rank]), random.Random(f"{seed}:{rank}")
+
+
 def train_detector(cfg, work_dir: str, resume_from: str | None = None,
                    seed: int = 0, device: str | torch.device = "cuda",
                    variables: dict | None = None) -> SemiRunner:
@@ -111,8 +136,12 @@ def train_detector(cfg, work_dir: str, resume_from: str | None = None,
     epoch (its ``state`` holds the result)."""
     device = resolve_device(device)
     _refuse_unported(cfg)
-    logger = get_root_logger(log_file=osp.join(work_dir, "train.log"))
-    rng, pyrng = np.random.RandomState(seed), random.Random(seed)
+    group = dist.group()
+    rank, world = dist.get_rank(), dist.get_world_size()
+    shard = rank if group is not None else None
+    logger = (get_root_logger(log_file=osp.join(work_dir, "train.log"))
+              if rank == 0 else get_root_logger(log_level=logging.ERROR))
+    rng, pyrng = pipeline_generators(seed, rank)
     torch.manual_seed(seed)
 
     detector = build_detector(dict(cfg.model))
@@ -129,7 +158,9 @@ def train_detector(cfg, work_dir: str, resume_from: str | None = None,
     train_ds = build_dataset(data_cfg["train"], device, rng, pyrng)
     _check_num_classes(cfg, train_ds, logger)
     semi = "unlabel_train" in data_cfg
-    label_loader = DetDataLoader(train_ds, spg, canvas_hw=canvas, seed=seed)
+    label_loader = DetDataLoader(train_ds, spg, canvas_hw=canvas, seed=seed,
+                                 n_shards=1 if semi else world,
+                                 rank=None if semi else shard)
     if semi:
         unlabel_ds = build_dataset(data_cfg["unlabel_train"], device, rng,
                                    pyrng)
@@ -140,7 +171,8 @@ def train_detector(cfg, work_dir: str, resume_from: str | None = None,
             ratio=ratio,
             unlabel_weight=cfg.model.get("bbox_head", {}).get("loss_weight",
                                                               1.0),
-            scale_invariant=bool(cfg.get("scale_invariant", False)))
+            scale_invariant=bool(cfg.get("scale_invariant", False)),
+            n_shards=world, rank=shard)
     else:
         data_loader = label_loader
 
@@ -158,13 +190,16 @@ def train_detector(cfg, work_dir: str, resume_from: str | None = None,
     state = create_train_state(detector, tx,
                                ema_ratio=ema_cfg.get("ratio", 0.99),
                                device=device)
+    broadcast_state([*detector.parameters(), *detector.buffers(),
+                     *state.teacher_params.values()], group)
     compute_dtype = torch.bfloat16 if cfg.get("fp16") else None
     train_step = make_train_step(
         detector, tx,
         ema_interval=(ema_cfg.get("interval", 1)
                       if ema_cfg.get("mode", "iteration") == "iteration" else -1),
         ema_start_iter=ema_cfg.get("start_point", 1),
-        compute_dtype=compute_dtype, frozen_mask=frozen, device=device)
+        compute_dtype=compute_dtype, frozen_mask=frozen, device=device,
+        group=group)
 
     refresher, adathres_file = None, None
     if semi and "unlabel_pred" in data_cfg:
@@ -192,7 +227,7 @@ def train_detector(cfg, work_dir: str, resume_from: str | None = None,
             mode=ec.get("mode", "iteration"),
             interval=ec.get("interval", 1),
             start_point=up.get("start_point", 8),
-            preload=up.get("preload", 6), device=device)
+            preload=up.get("preload", 6), device=device, group=group)
         thres = data_cfg["unlabel_train"].get("thres")
         if isinstance(thres, str):
             adathres_file = thres
@@ -212,7 +247,7 @@ def train_detector(cfg, work_dir: str, resume_from: str | None = None,
                 detector, state.teacher_params if semi else None, val_ds,
                 test_cfg=test_cfg, canvas_hw=canvas,
                 img_scale=tp["img_scale"], img_norm=tp["img_norm"],
-                device=device)
+                device=device, group=group)
 
     runner = SemiRunner(
         train_step, state, data_loader, work_dir, max_epochs=max_epochs,
@@ -222,7 +257,8 @@ def train_detector(cfg, work_dir: str, resume_from: str | None = None,
         checkpoint_interval=dict(
             cfg.get("checkpoint_config", {}) or {}).get("interval", 1),
         ema_step_decay=list(ema_cfg.get("step_decay") or []),
-        ema_decay_ratio=ema_cfg.get("decay_ratio", 0.1), logger=logger)
+        ema_decay_ratio=ema_cfg.get("decay_ratio", 0.1), logger=logger,
+        group=group)
     if resume_from:
         runner.resume(resume_from)
     with deterministic_cudnn():

@@ -106,13 +106,28 @@ def half_res_copy(sample: dict) -> dict:
 
 
 def build_batch(samples: list[dict], source_weights=None,
-                scale_invariant: bool = False) -> dict:
+                scale_invariant: bool = False, n_shards: int = 1) -> dict:
     """Stack formatted samples on their device; with ``scale_invariant``
-    append the half-res copy of the last one and its ``si_pair``."""
+    append the half-res copy of the last one and its ``si_pair``. With
+    ``n_shards > 1`` the samples are that many contiguous shards of a
+    global batch (as the JAX package shards it over its mesh): each shard
+    gets the half-res copy of its own last sample after it, and ``si_pair``
+    holds one (full, half) index per shard."""
     sw = [1.0] * len(samples) if source_weights is None else list(source_weights)
+    full, half = [], []
     if scale_invariant:
-        samples = samples + [half_res_copy(samples[-1])]
-        sw = sw + [sw[-1]]
+        if len(samples) % n_shards:
+            raise ValueError(f"{len(samples)} samples do not split into "
+                             f"{n_shards} shards")
+        per = len(samples) // n_shards
+        grouped, grouped_sw = [], []
+        for s in range(n_shards):
+            shard, weights = samples[s * per:(s + 1) * per], sw[s * per:(s + 1) * per]
+            full.append(len(grouped) + per - 1)
+            half.append(len(grouped) + per)
+            grouped += shard + [half_res_copy(shard[-1])]
+            grouped_sw += weights + [weights[-1]]
+        samples, sw = grouped, grouped_sw
     device = samples[0]["images"].device
     batch = {"images": torch.stack([s["images"] for s in samples])}
     for k in samples[0]:
@@ -120,9 +135,8 @@ def build_batch(samples: list[dict], source_weights=None,
             batch[k] = torch.from_numpy(np.stack([s[k] for s in samples])).to(device)
     batch["source_weight"] = torch.tensor(sw, dtype=torch.float32, device=device)
     if scale_invariant:
-        n = len(samples)
         batch["si_pair"] = {
-            "full": torch.tensor([n - 2], dtype=torch.int64, device=device),
-            "half": torch.tensor([n - 1], dtype=torch.int64, device=device)}
+            "full": torch.tensor(full, dtype=torch.int64, device=device),
+            "half": torch.tensor(half, dtype=torch.int64, device=device)}
     batch["meta"] = [s.get("meta", {}) for s in samples]
     return batch

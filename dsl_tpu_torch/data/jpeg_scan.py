@@ -25,6 +25,11 @@ the image (a colour file of gray content). To tell, the walk keeps the DC
 predictions, and the chroma blocks of the band's last block row are
 decoded in full: dequantized, put through libjpeg's integer IDCT
 (``jidctint.c``, ``JDCT_ISLOW``) and upsampled as ``jdsample.c`` does.
+
+:func:`for_decoder` gives the card route a stream that ``cv2.imread``
+decodes exactly as it decodes the cut file: for a sequential file, the
+cut stream completed with the zero bits libjpeg reads and zero MCUs; for a
+progressive one, ``jpeg_coef``'s baseline transcode.
 """
 
 from __future__ import annotations
@@ -33,24 +38,13 @@ import struct
 
 import numpy as np
 
+from dsl_tpu_torch.data.jpeg_coef import (
+    _NATURAL, _ceil_div, _entropy_segments, _windows, transcode)
+
 _SOS, _EOI, _SOI = 0xDA, 0xD9, 0xD8
 _DHT, _DQT, _DRI = 0xC4, 0xDB, 0xDD
 _STANDALONE = {0x01} | set(range(0xD0, 0xD8))   # TEM, RST0-7: no length
 _SEQUENTIAL_HUFFMAN = (0xC0, 0xC1)
-# zero bytes after a segment: more than one MCU's bits (10 blocks of 64
-# codes of at most 27 bits), so an MCU that runs past the data reads zeros,
-# as libjpeg's bit reader does
-_ZERO_TAIL = b"\0" * 2304
-# zigzag index -> natural (row-major) index of a coefficient
-_NATURAL = np.array([
-    0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19, 26, 33,
-    40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28, 35, 42, 49, 56, 57, 50,
-    43, 36, 29, 22, 15, 23, 30, 37, 44, 51, 58, 59, 52, 45, 38, 31, 39, 46,
-    53, 60, 61, 54, 47, 55, 62, 63])
-
-
-def _ceil_div(a: int, b: int) -> int:
-    return -(-a // b)
 
 
 def _segments(data: bytes):
@@ -118,41 +112,6 @@ def _huffman_codes(counts: bytes, symbols: bytes) -> dict[int, str]:
             code += 1
         code <<= 1
     return out
-
-
-def _entropy_segments(data: bytes, pos: int) -> list[bytes]:
-    """The scan's entropy-coded bytes from ``pos``, unstuffed (``FF 00`` is
-    the data byte ``FF``) and split at restart markers; another marker, or
-    the end of the data, ends the scan. Fill bytes ``FF`` before a marker,
-    and a lone ``FF`` at the end, are dropped, as libjpeg drops them."""
-    segs, cur, n = [], bytearray(), len(data)
-    while True:
-        j = data.find(b"\xff", pos)
-        if j < 0:
-            cur += data[pos:]
-            break
-        cur += data[pos:j]
-        while j + 1 < n and data[j + 1] == 0xFF:
-            j += 1
-        if j + 1 >= n:
-            break
-        m = data[j + 1]
-        pos = j + 2
-        if m == 0:
-            cur.append(0xFF)
-        elif 0xD0 <= m <= 0xD7:
-            segs.append(bytes(cur))
-            cur = bytearray()
-        else:
-            break
-    segs.append(bytes(cur))
-    return segs
-
-
-def _windows(seg: bytes) -> list[int]:
-    """Per byte of the segment (zeros after it), the 32 bits from it on."""
-    a = np.frombuffer(seg + _ZERO_TAIL, np.uint8).astype(np.uint32)
-    return ((a[:-3] << 24) | (a[1:-2] << 16) | (a[2:-1] << 8) | a[3:]).tolist()
 
 
 def _magnitude(w: list[int], p: int, size: int) -> int:
@@ -245,8 +204,9 @@ class _Scan:
         """Step through up to ``count`` MCUs of one segment from bit ``p``
         with the DC predictions ``preds``: the first MCU whose bits run past
         the segment's end (libjpeg decodes it from zero bits), or None where
-        all of them fit; and the bit position and predictions at the start
-        of each MCU stepped through."""
+        all of them fit; the bit position and predictions at the start of
+        each MCU stepped through; and those after the last MCU stepped
+        through (the short one where there is one)."""
         w = _windows(seg)
         total = 8 * len(seg)
         starts = []
@@ -266,8 +226,8 @@ class _Scan:
                     p += e >> 16
                     k += e & 0xFF
             if p > total:
-                return m, starts
-        return None, starts
+                return m, starts, (p, preds)
+        return None, starts, (p, preds)
 
     def decode(self, seg: bytes, count: int, p: int, preds: list[int],
                keep) -> dict:
@@ -371,9 +331,15 @@ def _cut(data: bytes):
     first = (len(segs) - 1) * interval      # the earlier segments are whole
     if first >= total:
         return None
-    short, starts = scan.walk(segs[-1], min(interval, total - first), 0,
-                              [0] * len(scan.comps))
-    short = first + (interval if short is None else short)
+    short, starts, after = scan.walk(segs[-1], min(interval, total - first),
+                                     0, [0] * len(scan.comps))
+    if short is None:
+        # the data ends on a restart boundary: libjpeg decodes the next
+        # segment's first MCU from zero bits, its predictions reset
+        short, _, after = scan.walk(b"", 1, 0, [0] * len(scan.comps))
+        short = first + interval
+    else:
+        short += first
     if short >= total:
         return None
     k = (short // scan.mcus_x) // scan.rows_per_imcu
@@ -386,7 +352,7 @@ def _cut(data: bytes):
                                         k, short, bleeding):
         row += 1
     return (k, row if row < scan.height else None,
-            lambda: _completed(data, scan, segs, interval, first, starts, short))
+            lambda: _completed(scan, segs, interval, short, after))
 
 
 def _zero_mcus(scan, count: int, preds: list[int]) -> str | None:
@@ -416,28 +382,32 @@ def _packed(bits: str) -> bytes:
     return raw.replace(b"\xff", b"\xff\x00")
 
 
-def _completed(data, scan, segs, interval, first, starts, short) -> bytes | None:
+def _completed(scan, segs, interval, short, after) -> bytes | None:
     """A whole stream for a decoder that refuses a cut one (nvJPEG refuses
-    a cut file with restart markers): the entropy-coded bits up to the MCU
-    the data runs out in, kept as they are, then that MCU and every later
-    one as zero coefficients (:func:`_zero_mcus`), restart markers where
-    the interval puts them, and EOI. None where a table lacks a code."""
+    a cut file with restart markers) and that ``cv2.imread`` decodes as it
+    decodes the cut file: the entropy-coded bits up to the data's end, the
+    zero bits that finish the MCU the data runs out in (libjpeg decodes it
+    from them; ``after``: the bit position and DC predictions at its end),
+    every later MCU as zero coefficients (:func:`_zero_mcus`), restart
+    markers where the interval puts them, and EOI. None where a table
+    lacks a code."""
     total = scan.mcus_x * scan.mcus_y
     out = bytearray(scan.header)
     for i, seg in enumerate(segs[:-1]):
         out += seg.replace(b"\xff", b"\xff\x00") + bytes([0xFF, 0xD0 + i % 8])
-    last = len(segs) - 1
-    if short < first + interval:            # the data ends inside segs[-1]
-        p, preds = starts[short - first]
-        bits = format(int.from_bytes(segs[-1], "big"), f"0{8 * len(segs[-1])}b"
-                      )[:p] if p else ""
-        zeros = _zero_mcus(scan, min(first + interval, total) - short, list(preds))
-        if zeros is None:
-            return None
-        out += _packed(bits + zeros)
-    else:
-        out += segs[-1].replace(b"\xff", b"\xff\x00")
-    for seg in range(last + 1, _ceil_div(total, interval)):
+    held = short // interval              # the segment the short MCU is in
+    data = segs[-1] if held == len(segs) - 1 else b""
+    if held > len(segs) - 1:
+        out += segs[-1].replace(b"\xff", b"\xff\x00") + bytes(
+            [0xFF, 0xD0 + (held - 1) % 8])
+    end, preds = after
+    bits = format(int.from_bytes(data, "big"), f"0{8 * len(data)}b") if data else ""
+    zeros = _zero_mcus(scan, min((held + 1) * interval, total) - short - 1,
+                       list(preds))
+    if zeros is None:
+        return None
+    out += _packed(bits + "0" * (end - len(bits)) + zeros)
+    for seg in range(held + 1, _ceil_div(total, interval)):
         zeros = _zero_mcus(scan, min(interval, total - seg * interval),
                            [0] * len(scan.comps))
         if zeros is None:
@@ -510,9 +480,8 @@ def cut_fill_row(data: bytes) -> int | None:
     lower. Held against ``cv2.imread`` by
     ``tests/test_torch_port_image.py::test_truncated_imcu_row_is_cv2s_fill``.
 
-    Not covered, and None: progressive files (libjpeg keeps every
-    coefficient of the scans before the cut, so no row turns gray where
-    the cut is past the first scan), lossless or arithmetic-coded ones, a
+    Not covered, and None: progressive files (``jpeg_coef`` transcodes
+    those, with libjpeg's smoothing), lossless or arithmetic-coded ones, a
     sequential file of more than one scan, and a band whose own rows
     OpenCV decodes to 128 across the image above ``(k + 1) * band``."""
     cut = _cut(data)
@@ -521,13 +490,24 @@ def cut_fill_row(data: bytes) -> int | None:
 
 def for_decoder(data: bytes) -> tuple[bytes, int | None]:
     """What the card route hands nvJPEG, and the first row it then sets to
-    128 (:func:`cut_fill_row`): for a cut file this covers, the completed
-    stream (:func:`_completed`; nvJPEG refuses a cut file with restart
-    markers), whose rows before iMCU row ``k`` are the cut file's and whose
-    MCUs from the one the data runs out in are zero; else ``data`` as it
-    is and None. The rows of iMCU row ``k`` and the bleed row stay the
-    decoder's own: they part from OpenCV's, which decodes the short MCU
-    from zero bits."""
+    128; ``cv2.imread`` of the stream equals ``cv2.imread`` of ``data``:
+
+    - a progressive file cut inside its data: the baseline transcode of
+      the coefficients libjpeg's IDCT reads for it, interblock smoothing
+      included (``jpeg_coef.transcode``); no row is set, the coefficients
+      carry OpenCV's fill;
+    - a sequential file cut inside its scan (:func:`_cut`): the completed
+      stream (:func:`_completed`: the data's bits, the zero bits that end
+      the MCU the data runs out in, zero MCUs after it; nvJPEG refuses a
+      cut file with restart markers) and :func:`cut_fill_row`, from which
+      nvJPEG's own upsampling of the zero MCUs is overwritten with OpenCV's
+      gray;
+    - anything else (a whole file, a cut this does not cover: inside a
+      segment's header, arithmetic-coded, lossless, 12-bit, a sequential
+      file of several scans): ``data`` as it is and None."""
+    progressive = transcode(data)
+    if progressive is not None:
+        return progressive, None
     cut = _cut(data)
     if cut is None:
         return data, None

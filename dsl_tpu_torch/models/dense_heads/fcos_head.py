@@ -18,6 +18,7 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -28,6 +29,7 @@ from dsl_tpu_torch.core.nms import multiclass_nms
 from dsl_tpu_torch.core.points import MlvlPointGenerator
 from dsl_tpu_torch.core.targets import (
     INF, centerness_target, expand_point_metadata, fcos_targets, ignore_weight)
+from dsl_tpu_torch.parallel.mesh import all_reduce_sum
 from dsl_tpu_torch.models.layers import (
     GroupNorm, Scale, bias_init_with_prob, normal_init)
 
@@ -209,7 +211,7 @@ def _resolve_loss_cfgs(head: FCOSHead):
 
 
 def fcos_loss(head: FCOSHead, cls_scores, bbox_preds, centernesses,
-              batch: dict, cur_iter: int = 0) -> dict:
+              batch: dict, cur_iter: int = 0, group=None) -> dict:
     """Dense FCOS loss with the DSL extensions.
 
     Head outputs are the training-mode NHWC levels in f32. ``batch`` holds
@@ -219,9 +221,13 @@ def fcos_loss(head: FCOSHead, cls_scores, bbox_preds, centernesses,
     and si_pair ``dict(full=..., half=...)``, image indices of a full-res
     image and its half-res copy (keep them on the card: an index from the
     host is a copy that waits for it). ``cur_iter`` drives si-soft's
-    warm-up. The two normalizers (positive count, centerness sum) are this
-    batch's sums, as ``axis_name=None`` gives in JAX. Returns a dict of 0-d
-    loss tensors.
+    warm-up. The two normalizers (positive count, centerness sum) are sums
+    over the global batch: this batch's where ``group`` is None (one
+    process), else summed over the ranks of ``group`` (the sums XLA takes
+    over the JAX package's sharded batch). Each rank's losses are then its
+    share of the global batch's, and si-soft, the mean over all ranks'
+    pairs, takes this rank's pairs' mean over the ranks' count. Returns a
+    dict of 0-d loss tensors.
     """
     nc = head.num_classes
     cls_fn, bbox_fn, cent_fn = _resolve_loss_cfgs(head)
@@ -240,7 +246,7 @@ def fcos_loss(head: FCOSHead, cls_scores, bbox_preds, centernesses,
             batch["gt_labels"], batch["gt_valid"], **assign)  # (B, P), (B, P, 4)
         b, p = labels.shape
         pos_f = (labels < nc).float()
-        num_pos = torch.clamp_min(pos_f.sum(), 1.0)
+        num_pos = torch.clamp_min(all_reduce_sum(pos_f.sum(), group), 1.0)
         src_w = batch.get("source_weight")
         src_w_pt = (torch.ones((b, p), device=device) if src_w is None
                     else src_w[:, None].float().expand(b, p))
@@ -253,8 +259,8 @@ def fcos_loss(head: FCOSHead, cls_scores, bbox_preds, centernesses,
                 batch["ignore_valid"], **assign)
             cls_w = ignore_weight(labels, ig_labels, nc) * src_w_pt
         cent_targets = centerness_target(bbox_targets)          # (B, P)
-        centerness_denorm = torch.clamp_min((cent_targets * pos_f).sum(),
-                                            1e-6)
+        centerness_denorm = torch.clamp_min(
+            all_reduce_sum((cent_targets * pos_f).sum(), group), 1e-6)
         pts = points[None].expand(b, -1, -1)
         decoded_tgt = distance2bbox(pts, bbox_targets)
 
@@ -283,6 +289,8 @@ def fcos_loss(head: FCOSHead, cls_scores, bbox_preds, centernesses,
             loss_sisoft = loss_sisoft + ((a - bb) ** 2).mean()
         warm = (head.soft_weight if cur_iter > head.soft_warm_up
                 else head.soft_weight / 1000.0)
+        if group is not None:
+            loss_sisoft = loss_sisoft / dist.get_world_size(group)
         out["loss_sisoft"] = loss_sisoft * warm
     return out
 

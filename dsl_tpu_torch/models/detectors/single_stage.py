@@ -93,7 +93,7 @@ def _parse_losses(losses: dict):
 
 
 def detector_loss(detector: nn.Module, batch: dict, cur_iter: int = 0,
-                  compute_dtype=None, mark=None):
+                  compute_dtype=None, mark=None, group=None):
     """Training forward + loss of an FCOS detector.
 
     ``batch["images"]`` is (B, 3, H, W) on the detector's device; the other
@@ -101,7 +101,8 @@ def detector_loss(detector: nn.Module, batch: dict, cur_iter: int = 0,
     forward runs on bf16 copies of every variable (gradients reach the f32
     parameters through the casts); the head outputs and the losses are f32.
     ``mark(name)``, where given, is called once the forward is enqueued
-    (``"forward"``), for a timing split. Returns (total, log_vars).
+    (``"forward"``), for a timing split. ``group`` (a process group, None
+    for one process) is ``fcos_loss``'s. Returns (total, log_vars).
     """
     head = _fcos_head(detector)
     variables, images = to_compute(detector, batch["images"], compute_dtype)
@@ -109,7 +110,8 @@ def detector_loss(detector: nn.Module, batch: dict, cur_iter: int = 0,
                                              {"training": True}))
     if mark is not None:
         mark("forward")
-    return _parse_losses(fcos_loss(head, *outputs, batch, cur_iter=cur_iter))
+    return _parse_losses(fcos_loss(head, *outputs, batch, cur_iter=cur_iter,
+                                   group=group))
 
 
 @torch.no_grad()

@@ -19,8 +19,11 @@ or ``--format-only`` writes the COCO-format detections
 (``<checkpoint>.bbox.json`` unless ``--out`` names the file);
 ``--format-only`` computes no metric. That json is what
 ``tools/generate_unlabel_annos_coco.py`` (or ``_voc.py``, from a
-``SemiVOCDataset``'s list ids) turns into DSL's first pseudo-labels. One
-process on one card: ``--launcher`` takes only ``none``.
+``SemiVOCDataset``'s list ids) turns into DSL's first pseudo-labels.
+Without a launcher, one process on one card; under ``--launcher pytorch``
+(``dsl_tpu_torch/tools/dist_test.sh``) or ``slurm`` each rank predicts its
+share of the batches, and rank 0 writes the json and prints the metrics,
+which are the single process's.
 """
 
 from __future__ import annotations
@@ -34,7 +37,8 @@ import numpy as np
 
 from dsl_tpu_torch.config import Config
 from dsl_tpu_torch.config.config import DictAction
-from dsl_tpu_torch.tools.train import check_single_process
+from dsl_tpu_torch.parallel import dist
+from dsl_tpu_torch.tools.train import LAUNCHERS, start_processes
 
 
 def parse_args(argv=None):
@@ -47,8 +51,8 @@ def parse_args(argv=None):
     p.add_argument("--ema", action="store_true",
                    help="evaluate the EMA (teacher) weights")
     p.add_argument("--cfg-options", nargs="+", action=DictAction)
-    p.add_argument("--launcher", default="none",
-                   help="multi-process launcher: none")
+    p.add_argument("--launcher", choices=LAUNCHERS, default="none",
+                   help="multi-process launcher (as tools/train.py's)")
     p.add_argument("--device", default="cuda",
                    help="torch device (cuda, or cpu)")
     return p.parse_args(argv)
@@ -57,12 +61,12 @@ def parse_args(argv=None):
 def main(argv=None):
     """Run the CLI; returns (per-image results, metrics or None)."""
     args = parse_args(argv)
-    check_single_process(args)
     unported = [m for m in args.eval if m not in ("bbox", "mAP")]
     if unported:
         raise NotImplementedError(f"--eval {' '.join(unported)}: only bbox "
                                   f"and mAP are ported (instance masks and "
                                   f"proposals are not)")
+    device = start_processes(args)
     cfg = Config.fromfile(args.config)
     if args.cfg_options:
         cfg.merge_from_dict(args.cfg_options)
@@ -74,7 +78,7 @@ def main(argv=None):
     from dsl_tpu_torch.data.pipelines import test_pipeline_params
     from dsl_tpu_torch.utils.device import resolve_device
 
-    device = resolve_device(args.device)
+    device = resolve_device(device)
     canvas = tuple(cfg.get("canvas_hw") or DEFAULT_CANVAS)
     detector = load_detector(cfg.model, args.checkpoint, ema=args.ema)
     detector.to(device).eval()
@@ -86,7 +90,12 @@ def main(argv=None):
     results = single_device_test(
         detector, None, ds, test_cfg=dict(cfg.model.get("test_cfg", {}) or {}),
         canvas_hw=canvas, img_scale=tp["img_scale"], img_norm=tp["img_norm"],
-        evaluate=False, device=device)
+        evaluate=False, device=device, group=dist.group())
+    main_rank = dist.is_main_process()
+    if args.launcher != "none":
+        dist.destroy()
+    if not main_rank:
+        return results, None
 
     if args.out or args.format_only:
         dt = ds.results2json_bbox(results)

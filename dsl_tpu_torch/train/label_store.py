@@ -17,6 +17,10 @@ JSON; it writes the same bytes for the same detections):
   ``(avg/cum)^gamma2``, counting only boxes above the previous per-class
   threshold.
 
+Each file is written whole or not at all (a temporary file in the same
+directory, then ``os.replace``): under data parallelism one rank rewrites
+a label file that another rank's loader may read.
+
 :func:`numpy_nms` is greedy NMS in numpy, with the JAX package's semantics
 (IoU > thr suppresses, union floored at 1e-10). The JAX package may run the
 same loop in its C++ host library; the port has no copy of that library.
@@ -29,6 +33,15 @@ import os
 import os.path as osp
 
 import numpy as np
+
+
+def _write_json(path: str, obj) -> None:
+    """``json.dump(obj, indent=4, ensure_ascii=False)`` into ``path``
+    atomically: a reader sees the old file or the new one."""
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "w", encoding="utf-8") as f:
+        json.dump(obj, f, indent=4, ensure_ascii=False)
+    os.replace(tmp, path)
 
 
 def numpy_nms(boxes: np.ndarray, scores: np.ndarray, iou_threshold: float,
@@ -89,8 +102,7 @@ class LabelStore:
             tags=list(tags),
             masks=[[] for _ in rects],
             scores=[float(s) for s in scores])
-        with open(self.path(image_name), "w", encoding="utf-8") as f:
-            json.dump(data, f, indent=4, ensure_ascii=False)
+        _write_json(self.path(image_name), data)
 
     # -- the refresh write (detections -> store) ---------------------------
     def update(self, image_name: str, det_boxes: np.ndarray,
@@ -175,8 +187,7 @@ def compute_adathres(store: LabelStore, image_names: list[str],
 
     if not counts:
         result = dict(cat={}, id={}, thres={})
-        with open(out_file, "w", encoding="utf-8") as f:
-            json.dump(result, f, indent=4, ensure_ascii=False)
+        _write_json(out_file, result)
         return result
 
     avg = sum(counts.values()) / len(counts)
@@ -187,6 +198,5 @@ def compute_adathres(store: LabelStore, image_names: list[str],
         cat={t: weights[t] for t in sorted(weights)},
         id={int(store.cat2id[t]): w for t, w in weights.items()},
         thres=thres)
-    with open(out_file, "w", encoding="utf-8") as f:
-        json.dump(result, f, indent=4, ensure_ascii=False)
+    _write_json(out_file, result)
     return result

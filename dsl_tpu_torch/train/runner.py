@@ -10,6 +10,12 @@ order and the next's. Each epoch: a checkpoint, the refresher's epoch work
 Metrics stay tensors until a log line needs them, so no iteration waits on
 the card for its logging. ``train.log`` and ``train.log.json`` are written
 as the JAX package writes them.
+
+Under data parallelism (``group``) every rank runs the loop on its shard
+with the same schedule; rank 0 alone writes the logs and checkpoints. A
+barrier follows each refresh's ``complete()`` (a rank's next batch may read
+a label file another rank just wrote, and reads it where the single
+process would), each epoch's end, and an evaluation's start and end.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from dsl_tpu_torch.parallel.dist import barrier
 from dsl_tpu_torch.train.train_state import TrainState
 from dsl_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from dsl_tpu_torch.utils.logger import get_root_logger
@@ -66,7 +73,7 @@ class SemiRunner:
                  eval_fn: Callable | None = None, eval_interval: int = 1,
                  checkpoint_interval: int = 1,
                  ema_step_decay: list[int] | None = None,
-                 ema_decay_ratio: float = 0.1, logger=None):
+                 ema_decay_ratio: float = 0.1, logger=None, group=None):
         self.train_step = train_step
         self.state = state
         self.data_loader = data_loader
@@ -82,6 +89,7 @@ class SemiRunner:
         self.ema_step_decay = ema_step_decay or []
         self.ema_decay_ratio = ema_decay_ratio
         self.epoch = 0
+        self.main = group is None or torch.distributed.get_rank(group) == 0
         self.log_buffer = LogBuffer()
         os.makedirs(work_dir, exist_ok=True)
         self.logger = logger or get_root_logger(
@@ -101,6 +109,7 @@ class SemiRunner:
                     self.adathres_settings)
             if self.eval_fn and (self.epoch + 1) % self.eval_interval == 0:
                 self.evaluate()
+            barrier()
             self.epoch += 1
         self.logger.info("Training done.")
 
@@ -133,6 +142,7 @@ class SemiRunner:
             if upcoming is not None:
                 if pending_refresh is not None:
                     pending_refresh()
+                    barrier()
                 pending_refresh = self.refresher.dispatch_after_train_iter(
                     self.state, self.epoch, upcoming, it, consumed)
             self.log_buffer.update({
@@ -143,6 +153,7 @@ class SemiRunner:
             t_data = time.perf_counter()
         if pending_refresh is not None:
             pending_refresh()
+            barrier()
         self.log_buffer.to_host()
         if (self.epoch + 1) in self.ema_step_decay:
             # EMAOWNHook.step_decay: ratio -> max(1 - (1 - r) / decay, 0.01)
@@ -155,6 +166,8 @@ class SemiRunner:
 
     def _log(self, it: int):
         avg = self.log_buffer.average(self.log_interval)
+        if not self.main:
+            return
         msg = " ".join(f"{k}: {v:.4f}" for k, v in avg.items())
         self.logger.info("Epoch [%d][%d/%d] %s", self.epoch + 1, it + 1,
                          len(self.data_loader), msg)
@@ -164,8 +177,13 @@ class SemiRunner:
                                         k: round(v, 5) for k, v in avg.items()}))
                     + "\n")
 
-    def evaluate(self) -> dict:
+    def evaluate(self) -> dict | None:
+        """The eval function's metrics, logged (rank 0; None elsewhere)."""
+        barrier()
         metrics = self.eval_fn(self.state)
+        barrier()
+        if not self.main:
+            return None
         self.logger.info("eval epoch %d: %s", self.epoch + 1, metrics)
         with open(self.json_log_path, "a", encoding="utf-8") as f:
             f.write(json.dumps(dict(mode="val", epoch=self.epoch + 1,
@@ -173,7 +191,10 @@ class SemiRunner:
         return metrics
 
     def save_checkpoint(self, name: str | None = None):
-        """``epoch_N.pth`` in the work dir and a ``latest`` link to it."""
+        """``epoch_N.pth`` in the work dir and a ``latest`` link to it
+        (rank 0)."""
+        if not self.main:
+            return
         name = name or f"epoch_{self.epoch + 1}.pth"
         path = osp.join(self.work_dir, name)
         save_checkpoint(path, self.state, meta=dict(epoch=self.epoch + 1))

@@ -34,6 +34,17 @@ host by copies into pinned memory enqueued on the side stream, so
 ``complete()`` never waits on the train step. The JAX package's worker
 thread and jitted weight copy answer JAX's buffer donation and a remote
 link, and have no counterpart here.
+
+Data parallelism (``group``, a process group of ``W`` ranks): every rank
+cuts each refresh list into the single process's chunks of
+``refresh_batch`` (after the same ``readable`` filter), and chunk ``c``
+(counted over the epoch, so ranks take turns when an event refreshes one
+chunk) is predicted, NMS'd and written by rank ``c mod W`` alone, on its
+side stream; each chunk keeps the single process's canvas and padding (a
+split by image would change GroupNorm's statistics over the padded
+canvas), so the union of the ranks' files is a one-process refresh from
+the same teacher. ``adathres.json`` is computed by rank 0 between two
+barriers, after every rank's files are written.
 """
 
 from __future__ import annotations
@@ -42,11 +53,13 @@ import os.path as osp
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from dsl_tpu_torch.data.formatting import select_canvas
 from dsl_tpu_torch.data.image_io import readable
 from dsl_tpu_torch.data.pipelines.transforms import read_resized
 from dsl_tpu_torch.models.detectors.single_stage import detector_predict
+from dsl_tpu_torch.parallel.dist import barrier
 from dsl_tpu_torch.train.label_store import LabelStore, compute_adathres
 from dsl_tpu_torch.utils.device import resolve_device, to_device
 
@@ -64,7 +77,7 @@ class PseudoLabelRefresher:
                  interval: int = 1, start_point: int = 8, preload: int = 6,
                  refresh_batch: int = 8, compute_dtype=None,
                  refresh_per_iter: int | None = 1,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", group=None):
         self.detector = detector
         self.store = store
         self.image_root = image_root
@@ -90,6 +103,10 @@ class PseudoLabelRefresher:
         # iteration consumes
         self.refresh_per_iter = refresh_per_iter
         self.device = resolve_device(device)
+        self.rank = dist.get_rank(group) if group is not None else 0
+        self.world = dist.get_world_size(group) if group is not None else 1
+        # chunks cut so far in this epoch: chunk c goes to rank c mod world
+        self._chunks, self._epoch = 0, None
         # compressed bytes handed to the decoder
         self.uploaded_bytes = 0
         self._first_done = False
@@ -149,18 +166,22 @@ class PseudoLabelRefresher:
         return out
 
     def _predict_all(self, params: dict, filenames: list[str]) -> list:
-        """All chunks of ``filenames``: [(names, [(variant, dets, labels,
-        valid)])], results copied to the host (pinned, asynchronously on the
-        card), for the files :func:`readable` passes. Each chunk's images
-        are read onto the device just before its predict and dropped after
-        it, so the device holds one chunk of images however many files
-        there are."""
+        """This rank's chunks of ``filenames``: [(names, [(variant, dets,
+        labels, valid)])], results copied to the host (pinned,
+        asynchronously on the card), for the files :func:`readable`
+        passes. Each chunk's images are read onto the device just before its
+        predict and dropped after it, so the device holds one chunk of
+        images however many files there are."""
         pending = []
         cuda = self.device.type == "cuda"
         filenames = [n for n in filenames
                      if readable(osp.join(self.image_root, n), self.device)]
-        for i in range(0, len(filenames), self.refresh_batch):
-            names = filenames[i:i + self.refresh_batch]
+        chunks = [filenames[i:i + self.refresh_batch]
+                  for i in range(0, len(filenames), self.refresh_batch)]
+        first, self._chunks = self._chunks, self._chunks + len(chunks)
+        for c, names in enumerate(chunks):
+            if (first + c) % self.world != self.rank:
+                continue
             chunk = [(name, *self._load(name)) for name in names]
             results = []
             for vi, *tensors in self._predict_chunk(params, chunk):
@@ -252,6 +273,7 @@ class PseudoLabelRefresher:
                                   consumed_per_iter: int):
         """Iteration mode: dispatch the refresh of the images consumed
         ``preload`` iterations ahead; returns ``complete()`` or None."""
+        self._count_chunks_from(epoch)
         if self.mode != "iteration" or epoch + 1 < self.start_point:
             return None
         if self.interval <= 0 or (iter_in_epoch + 1) % self.interval != 0:
@@ -270,11 +292,21 @@ class PseudoLabelRefresher:
 
     def after_train_epoch(self, state, epoch: int, adathres_file: str | None,
                           adathres_settings: dict | None = None):
-        """Epoch mode: full refresh; both modes: recompute adathres."""
+        """Epoch mode: full refresh; both modes: recompute adathres (on
+        rank 0, once every rank's files are written)."""
+        self._count_chunks_from(epoch)
         if self.mode == "epoch" and epoch + 1 >= self.start_point:
             self.refresh_images(
                 state, [i["filename"] for i in self.image_infos])
         if adathres_file and epoch + 1 >= self.start_point:
-            compute_adathres(
-                self.store, [i["filename"] for i in self.image_infos],
-                adathres_file, **(adathres_settings or {}))
+            barrier()
+            if self.rank == 0:
+                compute_adathres(
+                    self.store, [i["filename"] for i in self.image_infos],
+                    adathres_file, **(adathres_settings or {}))
+            barrier()
+
+    def _count_chunks_from(self, epoch: int):
+        """Restart the chunk count at an epoch's first event."""
+        if epoch != self._epoch:
+            self._chunks, self._epoch = 0, epoch

@@ -6,8 +6,17 @@ parameters (frozen ones have ``requires_grad=False`` and get no gradient),
 mmcv's SGD, then the EMA teacher, gated by
 ``step + 1 >= ema_start_iter and (step + 1) % ema_interval == 0`` on the
 host-side step count. Metrics stay 0-d tensors on the device, so nothing in
-a step waits for the card. The jit and mesh wrappers of the JAX package
-have no counterpart yet.
+a step waits for the card.
+
+Data parallelism (the JAX package's step jitted over a mesh): with a
+process group, each rank steps its shard of the global batch. The loss's
+normalizers are summed over the ranks, so each rank's loss is its share of
+the global loss; after backward the gradients are summed over the ranks
+(``parallel.mesh.allreduce_grads``), so every rank clips the global
+``grad_norm`` and applies the same SGD and EMA update; the logged losses
+are summed over the ranks (the global batch's). The collectives are
+enqueued on the stream and add no host sync. With no group nothing of
+this runs.
 """
 
 from __future__ import annotations
@@ -19,6 +28,7 @@ from torch import nn
 
 from dsl_tpu_torch.models.detectors.single_stage import (
     detector_loss, detector_predict)
+from dsl_tpu_torch.parallel.mesh import all_reduce_sum, allreduce_grads
 from dsl_tpu_torch.train.train_state import TrainState, ema_update
 from dsl_tpu_torch.utils.device import resolve_device
 
@@ -34,7 +44,8 @@ def _check_device(state: TrainState, device: torch.device):
 def make_train_step(detector: nn.Module, tx, ema_interval: int = 1,
                     ema_start_iter: int = 0, compute_dtype=None,
                     frozen_mask: dict | None = None,
-                    device: str | torch.device = "cuda") -> Callable:
+                    device: str | torch.device = "cuda",
+                    group=None) -> Callable:
     """Build ``train_step(state, batch, mark=None) -> metrics``.
 
     ``tx`` is the ``MMCVSGD`` the state's optimizer was made from. The
@@ -49,9 +60,12 @@ def make_train_step(detector: nn.Module, tx, ema_interval: int = 1,
     tensors on the device. ``mark(name)``, where given, is called after each
     part of the step is enqueued: ``forward``, ``loss``, ``backward``,
     ``optimizer``, ``ema`` (a timing split can record a CUDA event there).
-    The device is CUDA unless the caller asks for the CPU.
+    The device is CUDA unless the caller asks for the CPU. ``group`` is the
+    process group of data-parallel ranks (module docstring), None for one
+    process.
     """
     device = resolve_device(device)
+    trainable = [p for p in detector.parameters() if p.requires_grad]
     if frozen_mask is not None:
         differ = [n for n, p in detector.named_parameters()
                   if frozen_mask.get(n, False) == p.requires_grad]
@@ -66,9 +80,15 @@ def make_train_step(detector: nn.Module, tx, ema_interval: int = 1,
         mark = mark or (lambda _: None)
         state.optimizer.zero_grad(set_to_none=True)
         loss, log_vars = detector_loss(detector, batch, cur_iter=state.step,
-                                       compute_dtype=compute_dtype, mark=mark)
+                                       compute_dtype=compute_dtype, mark=mark,
+                                       group=group)
         mark("loss")
         loss.backward()
+        if group is not None:
+            allreduce_grads(trainable, group)
+            names = list(log_vars)
+            log_vars = dict(zip(names, all_reduce_sum(
+                torch.stack([log_vars[k] for k in names]), group).unbind()))
         mark("backward")
         grad_norm = tx.update(state.optimizer, state.opt_count)
         state.opt_count += 1

@@ -9,7 +9,9 @@ restores them into a state built for the same detector and optimizer, bit
 for bit. A weights file (:func:`save_weights`) is a detector's plain state
 dict. :func:`load_weights` reads either, or an mmdet-layout ``.pth``, into
 a detector. The JAX package's orbax and npz checkpoints reach this layout
-through ``tools/jax_checkpoint_to_torch.py``.
+through ``tools/jax_checkpoint_to_torch.py``. Under data parallelism rank
+0 saves (``SemiRunner.save_checkpoint``) and every rank loads the same
+file onto its own card.
 """
 
 from __future__ import annotations

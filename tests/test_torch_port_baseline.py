@@ -20,8 +20,9 @@ semicoco directory of copies of the JPEG fixtures:
   with ``--device cpu``: train, then ``--format-only`` on the unlabeled
   split, ``tools/generate_unlabel_annos_coco.py`` on that json, and the
   port's ``SemiCOCODataset`` reading the label files it wrote; ``--eval``
-  on the val set, student and ``--ema``; a launcher or device count other
-  than one process on one card raises.
+  on the val set, student and ``--ema``; ``--launcher pytorch`` outside
+  ``torch.distributed.run`` (no ``RANK``) and ``--max-devices 2`` without a
+  launcher raise, naming what starts the processes.
 """
 
 import argparse
@@ -302,11 +303,17 @@ def test_cli_workflow_train_format_only_pseudo_labels(setup, tmp_path,
 
 @pytest.mark.parametrize("argv", [["--launcher", "pytorch"],
                                   ["--max-devices", "2"]])
-def test_cli_refuses_more_than_one_process_on_one_card(argv, setup):
-    with pytest.raises(NotImplementedError):
+def test_cli_refuses_more_than_one_process_on_one_card(argv, setup,
+                                                       monkeypatch):
+    """One process drives one card: more cards need a launcher's processes,
+    and a launcher's flag needs its environment."""
+    for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
+        monkeypatch.delenv(key, raising=False)
+    error = RuntimeError if argv[0] == "--launcher" else ValueError
+    with pytest.raises(error, match="torch.distributed.run"):
         train_cli.main([setup[2], "--device", "cpu", *argv])
     if argv[0] == "--launcher":
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(error, match="torch.distributed.run"):
             test_cli.main([setup[2], "--device", "cpu", *argv])
 
 

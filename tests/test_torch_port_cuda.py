@@ -43,8 +43,11 @@ dependencies:
   cut inside its entropy-coded body (a fixture, and one with restart
   markers, which nvJPEG takes only completed) passes the probe and
   decodes to OpenCV's gray fill from OpenCV's first gray row, its rows
-  above the band the data ends in as nvJPEG decodes the whole file; a
-  progressive cut decodes, nothing filled;
+  above the band the data ends in as nvJPEG decodes the whole file; the
+  committed cuts of the progressive fixture go to nvJPEG as the committed
+  baseline transcode (sha256), nothing filled, and decode within the
+  decode tolerance of OpenCV's decode of the cut file (its committed 4x4
+  means);
 - the test-time flip (mirror, then resize) on the card is bit-identical
   to the CPU's on the same decode; the header size reader gives the
   fixtures' sizes and an EXIF-rotated copy's stored and turned sizes
@@ -499,21 +502,30 @@ def test_a_jpeg_cut_in_its_body_decodes_on_the_card(card, name, tmp_path):
 
 @pytest.mark.cuda
 def test_a_progressive_cut_decodes_on_the_card(card, tmp_path):
-    """A progressive file cut in a later scan decodes on the card as the
-    JAX package reads it, with nothing filled: the decode is nvJPEG's own
-    (OpenCV's keeps the earlier scans' coefficients and has no gray row)."""
+    """The progressive fixture cut in its DC scan and in a later scan: the
+    card route hands nvJPEG the committed baseline transcode (which the CPU
+    tests hold to OpenCV's decode of the cut file, bit for bit), fills
+    nothing, and its decode's 4x4 means are within the decode tolerance of
+    OpenCV's (committed)."""
+    import hashlib
+
     from dsl_tpu_torch.data import jpeg_scan
-    from dsl_tpu_torch.data.image_io import decode_jpeg, read_image, readable
+    from dsl_tpu_torch.data.image_io import read_image, readable
+    from torch_port_make_fixtures import block_sums
 
     data = (OUT / f"{PROGRESSIVE}.jpg").read_bytes()
-    (cut, gray, _), = json.loads(
-        (OUT / "cut_fill_rows.json").read_text())[PROGRESSIVE]
     path = tmp_path / "cut.jpg"
-    path.write_bytes(data[:cut])
-    assert readable(path, card)
-    got = read_image(path, card)
-    assert got.shape == decode_jpeg(data, card).shape and gray == got.shape[0]
-    assert jpeg_scan.for_decoder(data[:cut]) == (data[:cut], None)
+    with np.load(OUT / "progressive_cut_means.npz") as sums:
+        for cut, sha in json.loads((OUT / "progressive_cuts.json").read_text()):
+            stream, fill = jpeg_scan.for_decoder(data[:cut])
+            assert fill is None
+            assert hashlib.sha256(stream).hexdigest() == sha
+            path.write_bytes(data[:cut])
+            assert readable(path, card)
+            got = block_sums(read_image(path, card).cpu().numpy())
+            d = np.abs(got.astype(np.int64) - sums[f"cut_{cut}"]) / 16.0
+            assert d.mean() <= DECODE_MEAN and d.max() <= DECODE_MAX, cut
+            assert (d > 4).mean() <= DECODE_SHARE_OVER_4, cut
 
 
 @pytest.mark.cuda

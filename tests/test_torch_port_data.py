@@ -5,7 +5,8 @@ the JAX package draws from the global ``np.random`` after
 ``np.random.seed(s)``, the port from ``np.random.RandomState(s)``, in the
 same call order. Tolerances:
 
-- sampler orders, dataset image lists, group flags and annotations
+- sampler orders (one process, and each rank of two), dataset image lists,
+  group flags and annotations
   (``get_ann_info``, with the fixed-pair and adathres ignore split): exact;
 - ``Resize``: pixels within 1 level (``cv2.resize`` works in fixed point,
   the port in float and rounds), boxes and scale factors 1e-4;
@@ -30,6 +31,7 @@ from dsl_tpu.data import datasets as jax_datasets  # noqa: F401 (registers)
 from dsl_tpu.data.loader import DetDataLoader as JaxLoader
 from dsl_tpu.data.loader import MultiDataLoader as JaxMulti
 from dsl_tpu.data.pipelines import transforms as jax_tf
+from dsl_tpu.data.samplers import DistributedGroupSampler as JaxDistributedSampler
 from dsl_tpu.data.samplers import GroupSampler as JaxSampler
 from dsl_tpu.registry import DATASETS as JAX_DATASETS
 from dsl_tpu.registry import build_from_cfg as jax_build
@@ -74,8 +76,14 @@ def test_sampler_orders_equal_jax(per_gpu):
         assert len(port) == len(ref)
         for epoch in range(3):
             assert list(port.set_epoch(epoch)) == list(ref.set_epoch(epoch))
-    with pytest.raises(NotImplementedError, match="more than one replica"):
-        DistributedGroupSampler(_Flags(flag), per_gpu, num_replicas=2)
+    # over two replicas: each rank's order is the JAX package's
+    for rank in range(2):
+        port = DistributedGroupSampler(_Flags(flag), per_gpu, num_replicas=2,
+                                       rank=rank, seed=5)
+        ref = JaxDistributedSampler(_Flags(flag), per_gpu, num_replicas=2,
+                                    rank=rank, seed=5)
+        assert len(port) == len(ref)
+        assert list(port.set_epoch(1)) == list(ref.set_epoch(1))
 
 
 @pytest.fixture(scope="module")

@@ -19,12 +19,22 @@
   through the fixtures and copies written here with each chroma layout,
   restart markers and gray content; the stream completed for nvJPEG
   decodes (by OpenCV here) to the cut file's rows above the band the data
-  ends in and to gray from the fill row; a progressive cut is left to the
-  decoder (no row of OpenCV's turns gray); the committed fill rows the card
-  is held to are OpenCV's.
+  ends in and to gray from the fill row, and in every row to the cut
+  file's decode; the committed fill rows the card is held to are OpenCV's;
+- a progressive JPEG cut anywhere in its scans: ``cv2.imread`` of the
+  baseline transcode ``jpeg_scan.for_decoder`` gives (``jpeg_coef``:
+  libjpeg's coefficients with its interblock smoothing) equals
+  ``cv2.imread`` of the cut file bit for bit, for files written here
+  (OpenCV at 4:2:0, 4:4:4 and grayscale, with restart markers, Pillow) and
+  the committed fixture, cut in the DC scan, at every scan boundary, in
+  each of the first three AC scans and inside a stuffed ``FF 00``; the
+  committed transcodes the card decodes are these.
 """
 
+import hashlib
+import io
 import json
+import struct
 import types
 
 import cv2
@@ -35,13 +45,14 @@ import torch
 import torch_port_util as U
 from dsl_tpu.train import label_store as jax_store
 from dsl_tpu.train.semi import PseudoLabelRefresher as JaxRefresher
-from dsl_tpu_torch.data import image_io, jpeg_scan
+from dsl_tpu_torch.data import image_io, jpeg_coef, jpeg_scan
 from dsl_tpu_torch.data.pipelines.image_ops import resize_linear_u8
 from dsl_tpu_torch.data.pipelines.transforms import keep_ratio_size
 from dsl_tpu_torch.train import label_store
 from dsl_tpu_torch.train.semi import PseudoLabelRefresher
 from torch_port_make_fixtures import (
-    FIXTURES, OUT, PROGRESSIVE, RESTART, cut_fill_rows, gray_from)
+    FIXTURES, OUT, PROGRESSIVE, RESTART, block_sums, cut_fill_rows, gray_from,
+    progressive_cuts, smooth_image)
 
 torch.set_num_threads(2)
 
@@ -291,6 +302,9 @@ def test_truncated_imcu_row_is_cv2s_fill(layout, tmp_path):
         if got is not None:
             assert got - (k + 1) * _band(layout) in (0, 1), (cut, k, got)
             seen.add(got - (k + 1) * _band(layout))
+        # the stream the card route decodes is the cut file's, every row
+        np.testing.assert_array_equal(_cv2_cut(jpeg_scan.for_decoder(
+            data[:cut])[0], tmp_path / "whole.jpg"), img, err_msg=str(cut))
     # the bleed row: only where the chroma is subsampled vertically and
     # not gray (early cuts leave the band's chroma at 128 too)
     if "gray_content" in layout or _band(layout) == 8:
@@ -322,17 +336,126 @@ def test_completed_stream_keeps_the_rows_before_the_cut(layout, tmp_path):
     assert jpeg_scan.for_decoder(data) == (data, None)
 
 
-def test_progressive_cut_is_left_to_the_decoder(tmp_path):
-    """A progressive file cut in a later scan: OpenCV keeps the earlier
-    scans' coefficients, so no row turns gray, and the card route hands
-    nvJPEG the cut bytes as they are and fills nothing (its decode there is
-    its own; ROADMAP, open faults)."""
-    data = (OUT / f"{PROGRESSIVE}.jpg").read_bytes()
-    (cut, gray, _), = json.loads((OUT / "cut_fill_rows.json").read_text())[PROGRESSIVE]
-    img = _cv2_cut(data[:cut], tmp_path / "cut.jpg")
-    assert gray == gray_from(img) == img.shape[0]
-    assert jpeg_scan.for_decoder(data[:cut]) == (data[:cut], None)
-    assert jpeg_scan.truncated_imcu_row(data[:cut]) is None
+# progressive files written here from seeds, small (the host decode is
+# pure Python): name -> (height, width, writer, options)
+PROGRESSIVE_FILES = {
+    "cv2_420": (72, 101, "cv2", [cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+                                 cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420]),
+    "cv2_444": (64, 90, "cv2", [cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+                                cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444]),
+    "cv2_gray": (96, 150, "cv2", []),
+    "cv2_restart": (64, 96, "cv2", [cv2.IMWRITE_JPEG_RST_INTERVAL, 2]),
+    "pillow": (70, 99, "pillow", []),
+}
+CUT_KINDS = ("dc_scan", "scan_boundaries", "ac_scans", "stuffed")
+
+
+def _progressive(name: str) -> bytes:
+    if name == PROGRESSIVE:
+        return (OUT / f"{name}.jpg").read_bytes()
+    import PIL.Image
+
+    h, w, writer, options = PROGRESSIVE_FILES[name]
+    img = smooth_image(np.random.RandomState(sorted(PROGRESSIVE_FILES).index(name)),
+                       h, w)
+    if name == "cv2_gray":
+        img = cv2.cvtColor(img, cv2.COLOR_BGR2GRAY)
+    if writer == "pillow":
+        buf = io.BytesIO()
+        PIL.Image.fromarray(img[..., ::-1]).save(buf, "JPEG", quality=85,
+                                                 progressive=True)
+        return buf.getvalue()
+    ok, buf = cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_QUALITY, 90,
+                                         cv2.IMWRITE_JPEG_PROGRESSIVE, 1, *options])
+    assert ok
+    return buf.tobytes()
+
+
+def _scans(data: bytes) -> list[tuple[int, int, int]]:
+    """(start of the SOS marker, start of the entropy-coded data, start of
+    the marker after it) of each scan."""
+    out, pos = [], 2
+    while data[pos + 1] != 0xD9:
+        length = struct.unpack_from(">H", data, pos + 2)[0]
+        if data[pos + 1] != 0xDA:
+            pos += 2 + length
+            continue
+        start = end = pos + 2 + length
+        while data[end] != 0xFF or data[end + 1] == 0 or 0xD0 <= data[end + 1] <= 0xD7:
+            end += 1
+        out.append((pos, start, end))
+        pos = end
+    return out
+
+
+def _progressive_cuts(data: bytes, kind: str) -> list[int]:
+    scans = _scans(data)
+    if kind == "dc_scan":
+        return [(scans[0][1] + scans[0][2]) // 2, scans[0][1] + 1]
+    if kind == "scan_boundaries":
+        # the SOS present with no entropy-coded byte, and the data ending
+        # just before the marker after a scan
+        return sorted({c for _, start, end in scans for c in (start, end)})
+    if kind == "ac_scans":
+        return [a + (b - a) * f // 3 for _, a, b in scans[1:4] for f in (1, 2)]
+    stuffed = [i for _, a, b in scans for i in range(a, b - 1)
+               if data[i] == 0xFF and data[i + 1] == 0]
+    return [stuffed[0] + 1, stuffed[len(stuffed) // 2] + 1]
+
+
+@pytest.mark.parametrize("kind", CUT_KINDS)
+@pytest.mark.parametrize("name", sorted(PROGRESSIVE_FILES) + [PROGRESSIVE])
+def test_progressive_cut_is_cv2s(name, kind, tmp_path):
+    """``cv2.imread`` of the stream the card route hands nvJPEG for a cut
+    progressive file (a whole baseline JPEG, nothing filled) equals
+    ``cv2.imread`` of the cut file, bit for bit, every row."""
+    data = _progressive(name)
+    assert data[2:].find(b"\xff\xc2") >= 0
+    cuts = _progressive_cuts(data, kind)
+    assert cuts
+    for cut in cuts:
+        stream, fill = jpeg_scan.for_decoder(data[:cut])
+        assert fill is None and stream.endswith(b"\xff\xd9"), cut
+        assert stream.find(b"\xff\xc0") >= 0, cut          # baseline
+        np.testing.assert_array_equal(
+            _cv2_cut(stream, tmp_path / "whole.jpg"),
+            _cv2_cut(data[:cut], tmp_path / "cut.jpg"), err_msg=str(cut))
+
+
+def test_progressive_smoothing_fills_what_a_cut_lacks(tmp_path):
+    """Cut in the DC scan, OpenCV's decode is not flat within a block: the
+    transcode carries AC coefficients libjpeg estimated (its interblock
+    smoothing), not only the received ones; a whole file is handed on as
+    it is, and so is one cut inside a segment's header (not covered)."""
+    data = _progressive(PROGRESSIVE)
+    cut = _progressive_cuts(data, "dc_scan")[0]
+    img = _cv2_cut(jpeg_scan.for_decoder(data[:cut])[0], tmp_path / "t.jpg")
+    blocks = img[:424].reshape(53, 8, 80, 8, 3).astype(int)
+    spread = blocks.max(axis=(1, 3)) - blocks.min(axis=(1, 3))
+    assert (spread > 0).mean() > 0.5
+    assert jpeg_coef.transcode(data) is None
+    assert jpeg_scan.for_decoder(data) == (data, None)
+    inside = _scans(data)[1][0] + 6          # inside the second SOS header
+    assert jpeg_scan.for_decoder(data[:inside]) == (data[:inside], None)
+
+
+def test_committed_progressive_cuts_are_cv2s(tmp_path):
+    """The transcodes the card decodes (their sha256) and OpenCV's decodes
+    of the cut files (4x4 sums) are committed as the fixture maker writes
+    them, and OpenCV decodes each transcode as the cut file."""
+    committed = json.loads((OUT / "progressive_cuts.json").read_text())
+    rows, sums = progressive_cuts(tmp_path)
+    assert rows == committed
+    with np.load(OUT / "progressive_cut_means.npz") as f:
+        assert sorted(f) == sorted(sums)
+        for key in f:
+            np.testing.assert_array_equal(f[key], sums[key])
+    data = _progressive(PROGRESSIVE)
+    for cut, sha in committed:
+        stream, _ = jpeg_scan.for_decoder(data[:cut])
+        assert hashlib.sha256(stream).hexdigest() == sha
+        np.testing.assert_array_equal(
+            block_sums(_cv2_cut(stream, tmp_path / "t.jpg")), sums[f"cut_{cut}"])
 
 
 def test_committed_fill_rows_are_cv2s(tmp_path):

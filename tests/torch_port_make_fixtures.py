@@ -24,6 +24,15 @@ and ``progressive_640x427.jpg`` the same written progressive
 (the first gray row and the mean |cut - whole| of OpenCV's decodes):
 OpenCV keeps the earlier scans' coefficients there, so no row turns gray.
 
+For the card's check of a cut progressive file,
+``tests/torch_port_data/progressive_cuts.json`` holds, for each of
+``PROGRESSIVE_CUTS`` (one cut in the DC scan, one in a later scan), the
+bytes kept and the sha256 of the stream ``jpeg_scan.for_decoder`` hands
+nvJPEG (the baseline transcode), and ``progressive_cut_means.npz`` the
+4x4-pixel sums (uint16) of ``cv2.imread`` of each cut file. The CPU tests
+hold ``cv2.imread`` of that stream equal to ``cv2.imread`` of the cut
+file; the card holds nvJPEG's decode of it to the sums.
+
 The content is smooth (low-frequency waves, gradients and a few soft
 discs), seeded, at COCO-like landscape sizes; one file is grayscale.
 """
@@ -47,6 +56,7 @@ RESTART, PROGRESSIVE = "restart_640x427", "progressive_640x427"
 RESTART_INTERVAL = 3
 CUT_FRACTIONS = (0.3, 0.6, 0.9)        # of the file's bytes, cuts kept
 PROGRESSIVE_CUT = 0.5
+PROGRESSIVE_CUTS = (0.12, 0.5)         # in the DC scan, in the fourth scan
 
 
 def smooth_image(rng: np.random.RandomState, h: int, w: int) -> np.ndarray:
@@ -112,10 +122,52 @@ def cut_fill_rows(tmp: Path) -> dict:
     return out
 
 
+def block_sums(img: np.ndarray) -> np.ndarray:
+    """(H // 4, W // 4, C) uint16: the sum of each 4x4 block of pixels (the
+    last rows and columns short of a block dropped)."""
+    h, w = img.shape[0] // 4 * 4, img.shape[1] // 4 * 4
+    return img[:h, :w].reshape(h // 4, 4, w // 4, 4, -1).astype(
+        np.uint16).sum(axis=(1, 3), dtype=np.uint16)
+
+
+def progressive_cuts(tmp: Path) -> tuple[list, dict]:
+    """[cut, sha256 of ``for_decoder``'s stream] for each of
+    ``PROGRESSIVE_CUTS``, and the 4x4 sums of ``cv2.imread`` of each cut
+    file, keyed ``cut_<bytes>``."""
+    import cv2
+    import hashlib
+
+    from dsl_tpu_torch.data.jpeg_scan import for_decoder
+
+    data = (OUT / f"{PROGRESSIVE}.jpg").read_bytes()
+    rows, sums, path = [], {}, tmp / "cut.jpg"
+    for frac in PROGRESSIVE_CUTS:
+        cut = int(len(data) * frac)
+        rows.append([cut, hashlib.sha256(for_decoder(data[:cut])[0]).hexdigest()])
+        path.write_bytes(data[:cut])
+        sums[f"cut_{cut}"] = block_sums(cv2.imread(str(path), cv2.IMREAD_COLOR))
+    return rows, sums
+
+
+def write_progressive_cuts() -> None:
+    import json
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        rows, sums = progressive_cuts(Path(tmp))
+    (OUT / "progressive_cuts.json").write_text(json.dumps(rows, indent=1) + "\n")
+    np.savez_compressed(OUT / "progressive_cut_means.npz", **sums)
+    print(f"progressive_cuts.json: {rows}; progressive_cut_means.npz: "
+          f"{(OUT / 'progressive_cut_means.npz').stat().st_size} bytes")
+
+
 def main() -> None:
     import cv2
     import json
+    import sys
     import tempfile
+
+    sys.path.insert(0, str(OUT.parents[1]))      # the port, for for_decoder
 
     OUT.mkdir(parents=True, exist_ok=True)
     rng = np.random.RandomState(SEED)
@@ -148,6 +200,7 @@ def main() -> None:
         rows = cut_fill_rows(Path(tmp))
     (OUT / "cut_fill_rows.json").write_text(json.dumps(rows, indent=1) + "\n")
     print(f"cut_fill_rows.json: {rows}")
+    write_progressive_cuts()
     np.savez_compressed(OUT / "cv2_decodes.npz", **decodes)
     print(f"cv2_decodes.npz: {(OUT / 'cv2_decodes.npz').stat().st_size} bytes")
     for name, img in load_decodes().items():
