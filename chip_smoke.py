@@ -9,9 +9,9 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
 
 1. device: CUDA is required; the card's name and power limit are printed as
    ``nvidia-smi`` reports them.
-2. build: every source of ``csrc/`` (the NMS kernel and the nvJPEG
-   decode shim) is compiled with ``nvcc`` for sm_90a, one ``nvcc`` each,
-   all started together.
+2. build: every source of ``csrc/`` (the NMS kernel, the nvJPEG decode
+   shim and the PNG row unfilter, host C++) is compiled with ``nvcc`` for
+   sm_90a, one ``nvcc`` each, all started together.
 3. kernels vs plain versions: ``nms_keep`` against ``nms_keep_reference``
    on the card, bit-identical keeps on every edge case of
    ``dsl_tpu_torch.ops.nms_cases`` and on its card-only ``timing_cases()``
@@ -211,6 +211,32 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    scores 1e-3), the split evaluation's detections paired with one
    process's the same way and its metrics equal; the ranks' NMS launches
    counted in each process and summed.
+16. PNG and DSL's remaining surface, the NMS count at 0 before each
+   part and read after it: each committed PNG fixture and a PNG copy of
+   each JPEG fixture read on the card route (the host C unfilter of
+   ``csrc/png_unfilter.cpp``, one pinned upload, the colour rules on the
+   card) equal to the CPU route, the C unfilter equal to the numpy
+   version, decode ms per PNG (median of ``PNG_TIMED``) beside its host
+   part. ``FCOSMultiHead`` at full width (the flagship's RLA-ResNet-50
+   and ``MH_HEADS`` FPN + FCOS head pairs, seeded): ``multi_head_predict``
+   at B=8 (dets finite, the NMS keeps of its three launches equal to the
+   plain version's, head outputs card vs CPU within 1e-3, img/s), then
+   ``MH_TRAIN_STEPS`` of ``multi_head_loss``, backward and ``MMCVAdamW``
+   at B=5 on phase 6's batch (losses finite, both heads' keys, step ms),
+   one step card vs CPU (losses, ``grad_norm``, gradients banded; the
+   AdamW update from equal gradients within ``MH_ADAM_REL``). The 15 new
+   transforms (``NEW_TRANSFORMS``) at the flagship's scales, as phase 9
+   measures the strong augmentations. ``train_detector`` on the flagship
+   at RLA depth ``CFG_LAYERS`` for 1 epoch with AdamW, ``ZeroIgnore`` and
+   an ``AutoAugment`` of geometric policies in the train pipelines, the
+   labeled set in a ``RepeatDataset``, on phase 10's data half of which
+   are PNG copies and one PNG without its IEND chunk: losses finite, NMS
+   once per refresh chunk and evaluation batch, never in a step, the
+   teacher's ``bbox_mAP`` in [0, 1], every readable label file rewritten;
+   a synchronous refresh over the mixed list skips the cut PNG and keeps
+   the plain version's NMS keeps; then an SGD run under
+   ``momentum_config`` whose momentum at each update equals
+   ``MOMENTUM_EXPECTED`` (the JAX package's schedule).
 
 f32 runs with TF32 off (``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32`` False): cuDNN convolutions would
@@ -1288,27 +1314,31 @@ def semi_config_for(tmp: Path) -> tuple[dict, dict]:
     return synthetic_data.semi_config(cfg, paths), paths
 
 
-def add_unreadable_unlabeled(paths: dict, source: Path):
-    """A JPEG cut inside its header (``SEMI_UNREADABLE``, the first 600
-    bytes of ``source``) in the unlabeled image directory and list, with
-    the empty label file a bootstrap that found nothing in it writes. Its
-    empty label keeps it out of the training set (``SemiCOCODataset``
-    drops an image without boxes, as the JAX package does, whose loader
-    would raise on the file too); a refresh over it must skip it."""
+def add_unreadable_unlabeled(paths: dict, source: Path,
+                             name: str = SEMI_UNREADABLE,
+                             data: bytes | None = None):
+    """A JPEG cut inside its header (``name``, the first 600 bytes of
+    ``source``; or the bytes ``data``) in the unlabeled image directory and
+    list, with the empty label file a bootstrap that found nothing in it
+    writes. Its empty label keeps it out of the training set
+    (``SemiCOCODataset`` drops an image without boxes, as the JAX package
+    does, whose loader would raise on the file too); a refresh over it must
+    skip it."""
     import json as _json
 
-    data = source.read_bytes()
-    (Path(paths["images"]) / SEMI_UNREADABLE).write_bytes(data[:600])
+    if data is None:
+        data = source.read_bytes()[:600]
+    (Path(paths["images"]) / name).write_bytes(data)
     with open(paths["unlabeled"], encoding="utf-8") as f:
         listing = _json.load(f)
     listing["images"].append(dict(
         id=max(i["id"] for i in listing["images"]) + 1,
-        file_name=SEMI_UNREADABLE, width=640, height=480))
+        file_name=name, width=640, height=480))
     with open(paths["unlabeled"], "w", encoding="utf-8") as f:
         _json.dump(listing, f)
-    with open(Path(paths["unlabel_store"]) / f"{SEMI_UNREADABLE}.json", "w",
+    with open(Path(paths["unlabel_store"]) / f"{name}.json", "w",
               encoding="utf-8") as f:
-        _json.dump(dict(imageName=f"full/{SEMI_UNREADABLE}", targetNum=0,
+        _json.dump(dict(imageName=f"full/{name}", targetNum=0,
                         rects=[], tags=[], masks=[]), f)
 
 
@@ -1909,12 +1939,6 @@ def phase_strong_aug(smi: str) -> dict:
     """Each strong augmentation on the card and on the CPU from the same
     seeds (bit-identical images, equal boxes), then its time, kernels and
     host syncs per image on the card."""
-    import random
-    import warnings
-
-    import numpy as np
-    import torch
-
     from dsl_tpu_torch.registry import PIPELINES, build_from_cfg
 
     inputs = strong_aug_inputs()
@@ -1924,65 +1948,89 @@ def phase_strong_aug(smi: str) -> dict:
     out = {}
     for cfg in STRONG_TRANSFORMS:
         t = build_from_cfg(dict(cfg), PIPELINES)
-        label = ", ".join(f"{k}={v}" for k, v in cfg.items() if k != "type")
-        label = f"{cfg['type']}({label})"
-        moved = 0
-        for seed in range(STRONG_RUNS):
-            src = inputs[seed % len(inputs)]
-            card = t(_fresh(src), np.random.RandomState(seed),
-                     random.Random(seed))
-            cpu = t(_fresh(src, "cpu"), np.random.RandomState(seed),
-                    random.Random(seed))
-            got = card["img"].cpu()
-            if not torch.equal(got, cpu["img"]):
-                diff = (got.int() - cpu["img"].int()).abs()
-                raise AssertionError(
-                    f"{label}, seed {seed}: card and CPU images differ in "
-                    f"{int((diff > 0).sum())} values, max {int(diff.max())}")
-            for key in ("gt_bboxes", "gt_bboxes_ignore", "gt_labels"):
-                if not np.array_equal(card[key], cpu[key]):
-                    raise AssertionError(f"{label}, seed {seed}: {key} differ")
-            moved += not torch.equal(got, src["img"].cpu())
-
-        def one(i, t=t):
-            t(_fresh(inputs[i % len(inputs)]), np.random.RandomState(1000 + i),
-              random.Random(1000 + i))
-
-        times = []
-        for i in range(STRONG_TIMED):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            one(i)
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        times.sort()
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                for i in range(STRONG_TIMED):
-                    one(i)
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
-        syncs = [f"{Path(w.filename).name}:{w.lineno}" for w in caught
-                 if SYNC_WARNING in str(w.message)]
-        traced = device_ops(lambda: [one(i) for i in range(STRONG_TIMED)])
-        kernels = copies = None
-        if traced is not None:
-            kernels, copies = (n / STRONG_TIMED for n in traced)
         out[cfg["type"] + ("_" + cfg["aug_type"] if "aug_type" in cfg else "")] = (
-            times[len(times) // 2], kernels, len(syncs) / STRONG_TIMED)
-        log(f"[strong] {label}: card = CPU bit for bit on {STRONG_RUNS} seeded "
-            f"runs ({moved} changed the image), boxes and labels equal; "
-            f"{times[len(times) // 2]:.3f} ms per image (median of "
-            f"{STRONG_TIMED}, min {times[0]:.3f}, max {times[-1]:.3f}); "
-            + (f"{kernels:.1f} kernels and {copies:.2f} copies or sets per "
-               f"image" if kernels is not None
-               else "kernels not measured (the profiler saw no device event)")
-            + f"; {len(syncs) / STRONG_TIMED:.2f} host syncs per image  ({smi})")
-        if syncs:
-            raise AssertionError(f"{label}: host syncs {syncs[:5]}")
+            transform_on_card(t, cfg, inputs, "[strong]", smi))
     return out
+
+
+def transform_on_card(t, cfg: dict, inputs: list, tag: str, smi: str):
+    """A transform on the card and on the CPU from ``STRONG_RUNS`` seeds
+    (bit-identical images, equal boxes and labels, a ``None`` from both
+    alike), then its time (median of ``STRONG_TIMED`` images, each to a
+    synchronize), kernels from one trace and host syncs per image (torch's
+    sync debug mode); fails on a difference or a sync. Returns (ms,
+    kernels, syncs per image)."""
+    import random
+    import warnings
+
+    import numpy as np
+    import torch
+
+    label = ", ".join(f"{k}={v}" for k, v in cfg.items() if k != "type")
+    label = f"{cfg['type']}({label})"
+    moved = 0
+    for seed in range(STRONG_RUNS):
+        src = inputs[seed % len(inputs)]
+        card = t(_fresh(src), np.random.RandomState(seed),
+                 random.Random(seed))
+        cpu = t(_fresh(src, "cpu"), np.random.RandomState(seed),
+                random.Random(seed))
+        if (card is None) != (cpu is None):
+            raise AssertionError(f"{label}, seed {seed}: None on one side")
+        if card is None:
+            continue
+        got = card["img"].cpu()
+        if got.shape != cpu["img"].shape or not torch.equal(got, cpu["img"]):
+            diff = (got.double() - cpu["img"].double()).abs() if (
+                got.shape == cpu["img"].shape) else None
+            raise AssertionError(
+                f"{label}, seed {seed}: card and CPU images differ"
+                + (f" in {int((diff > 0).sum())} values, max {float(diff.max())}"
+                   if diff is not None else f": {tuple(got.shape)} vs "
+                   f"{tuple(cpu['img'].shape)}"))
+        for key in ("gt_bboxes", "gt_bboxes_ignore", "gt_labels"):
+            if not np.array_equal(card[key], cpu[key]):
+                raise AssertionError(f"{label}, seed {seed}: {key} differ")
+        moved += got.shape != src["img"].shape or not torch.equal(
+            got, src["img"].cpu())
+
+    def one(i, t=t):
+        t(_fresh(inputs[i % len(inputs)]), np.random.RandomState(1000 + i),
+          random.Random(1000 + i))
+
+    times = []
+    for i in range(STRONG_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one(i)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    times.sort()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for i in range(STRONG_TIMED):
+                one(i)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [f"{Path(w.filename).name}:{w.lineno}" for w in caught
+             if SYNC_WARNING in str(w.message)]
+    traced = device_ops(lambda: [one(i) for i in range(STRONG_TIMED)])
+    kernels = copies = None
+    if traced is not None:
+        kernels, copies = (n / STRONG_TIMED for n in traced)
+    log(f"{tag} {label}: card = CPU bit for bit on {STRONG_RUNS} seeded "
+        f"runs ({moved} changed the image), boxes and labels equal; "
+        f"{times[len(times) // 2]:.3f} ms per image (median of "
+        f"{STRONG_TIMED}, min {times[0]:.3f}, max {times[-1]:.3f}); "
+        + (f"{kernels:.1f} kernels and {copies:.2f} copies or sets per "
+           f"image" if kernels is not None
+           else "kernels not measured (the profiler saw no device event)")
+        + f"; {len(syncs) / STRONG_TIMED:.2f} host syncs per image  ({smi})")
+    if syncs:
+        raise AssertionError(f"{label}: host syncs {syncs[:5]}")
+    return times[len(times) // 2], kernels, len(syncs) / STRONG_TIMED
 
 
 def phase_eval(runner, cfg: dict, smi: str) -> tuple[int, float]:
@@ -2933,6 +2981,526 @@ def phase_dist_semi(tmp: Path, smi: str) -> int:
     return launches
 
 
+# -- PNG, the multi-head detector, the new transforms and the config paths
+#    (phase 16) ----------------------------------------------------
+
+PNG_TIMED = 20                # decodes timed per PNG fixture
+MH_HEADS = 2                  # (neck, head) pairs of the co-training model
+MH_TIMED, MH_WARMUP = 20, 3   # multi-head predicts timed after warm-ups
+MH_TRAIN_STEPS = 3            # multi-head AdamW steps at B=5
+MH_OPTIMIZER = dict(type="AdamW", lr=1e-4, weight_decay=0.05)
+MH_ADAM_REL = 1e-6            # AdamW from equal gradients, card vs CPU
+CFG_LAYERS = [1, 1, 1, 1]     # the config-path runs' RLA depth (of [3,4,6,3])
+CFG_OPTIMIZER = dict(type="AdamW", lr=1e-4, weight_decay=0.05)
+GEOMETRIC_POLICIES = [
+    [dict(type="Shear", level=4, prob=0.6)],
+    [dict(type="Rotate", level=3, prob=0.6)],
+    [dict(type="Translate", level=3, prob=0.6, img_fill_val=(104, 116, 124))],
+]
+NEW_TRANSFORMS = (            # ZeroIgnore, the extra and the geometric ones
+    dict(type="ZeroIgnore", ratio=0.5),
+    dict(type="RandomCrop", crop_size=(600, 800)),
+    dict(type="MinIoURandomCrop"),
+    dict(type="Expand", mean=(123.675, 116.28, 103.53), ratio_range=(1, 4),
+         prob=0.5),
+    dict(type="PhotoMetricDistortion"),
+    dict(type="CutOut", n_holes=(1, 5), cutout_ratio=[(0.05, 0.05), (0.1, 0.1)]),
+    dict(type="RandomShift", shift_ratio=0.5, max_shift_px=32),
+    dict(type="AutoAugment", policies=GEOMETRIC_POLICIES + [
+        [dict(type="ColorTransform", level=6, prob=0.8),
+         dict(type="EqualizeTransform", prob=0.5)]]),
+    dict(type="Shear", level=5, prob=1.0),
+    dict(type="Rotate", level=5, prob=1.0),
+    dict(type="Translate", level=5, prob=1.0),
+    dict(type="ColorTransform", level=3, prob=1.0),
+    dict(type="EqualizeTransform", prob=1.0),
+    dict(type="BrightnessTransform", level=7, prob=1.0),
+    dict(type="ContrastTransform", level=8, prob=1.0),
+)
+# momentum_config of the SGD config-path run: mmcv's cyclic momentum over
+# its 8 updates (1 epoch of 8 iterations) from the flagship's momentum 0.9;
+# MOMENTUM_EXPECTED is the JAX package's build_momentum_schedule at updates
+# 0-7, computed there (tests/test_torch_port_optim.py holds the two equal)
+MOMENTUM_CONFIG = dict(policy="cyclic", target_ratio=(0.85 / 0.95, 1.0),
+                       step_ratio_up=0.4, anneal_strategy="cos")
+MOMENTUM_BASE, MOMENTUM_ITERS = 0.9, 8
+MOMENTUM_EXPECTED = (0.8999999761581421, 0.8789480328559875, 0.8345044255256653,
+                     0.8061733245849609, 0.8116092681884766, 0.8345044851303101,
+                     0.8648914098739624, 0.8902114629745483)
+MOMENTUM_REL = 1e-6           # JAX's f32 schedule against the port's f64
+PNG_CUT = "unlabeled_no_iend.png"
+
+
+def png_copies(tmp: Path) -> list[tuple[str, int, int]]:
+    """PNG copies of the JPEG fixtures' committed decodes (RGB 8-bit, the
+    filters cycled), written with the standard library into ``tmp``: (path,
+    height, width)."""
+    from torch_port_make_fixtures import encode_png
+
+    files, decodes = fixtures()
+    out = []
+    for name, _, h, w in files:
+        path = tmp / f"{name}.png"
+        path.write_bytes(encode_png(decodes[name][..., ::-1], 2, 8))
+        out.append((str(path), h, w))
+    return out
+
+
+def phase_png(tmp: Path, smi: str) -> dict:
+    """Each committed PNG fixture on the card route equal to the CPU route
+    (which the CPU tests hold to ``cv2.imread``), the host C unfilter equal
+    to the numpy version on each, and the decode's time per PNG (median of
+    ``PNG_TIMED``, the host part alone beside it)."""
+    import numpy as np
+    import torch
+
+    from dsl_tpu_torch.data import png
+    from dsl_tpu_torch.data.image_io import read_image, readable
+    from torch_port_make_fixtures import OUT, PNG_FIXTURES
+
+    paths = [OUT / f"{n}.png" for n in PNG_FIXTURES]
+    paths += [Path(p) for p, _, _ in png_copies(tmp)]
+    out = {}
+    for path in paths:
+        data = path.read_bytes()
+        image = png.parse(data)
+        if not np.array_equal(png.unfilter_host(image),
+                              png.unfilter_reference(image)):
+            raise AssertionError(f"{path.name}: the C unfilter differs from "
+                                 f"the numpy version")
+        got = read_image(path, DEVICE)
+        if got.device.type != torch.device(DEVICE).type or not readable(path, DEVICE):
+            raise AssertionError(f"{path.name}: not read on {DEVICE}")
+        if not torch.equal(got.cpu(), read_image(path, "cpu")):
+            raise AssertionError(f"{path.name}: card and CPU routes differ")
+        whole = sorted(host_ms(lambda: png.decode(data, DEVICE), PNG_TIMED))
+        host = []
+        for _ in range(PNG_TIMED):
+            t0 = time.perf_counter()
+            png.unfilter_host(png.parse(data))
+            host.append((time.perf_counter() - t0) * 1e3)
+        host.sort()
+        out[path.name] = (whole[PNG_TIMED // 2], host[PNG_TIMED // 2])
+        log(f"[png] {path.name} ({len(data)} bytes, {image.width}x"
+            f"{image.height}, colour type {image.color_type}, depth "
+            f"{image.bit_depth}, {'Adam7' if len(image.passes) > 1 else 'plain'}): "
+            f"card = CPU route, C unfilter = numpy; decode "
+            f"{whole[PNG_TIMED // 2]:.3f} ms (median of {PNG_TIMED}, min "
+            f"{whole[0]:.3f}), of which host (parse, inflate, unfilter) "
+            f"{host[PNG_TIMED // 2]:.3f} ms  ({smi})")
+    return out
+
+
+def multi_head_cfg(cfg) -> dict:
+    """The flagship's model as DSL's co-training detector: its backbone,
+    ``MH_HEADS`` copies of its neck and head."""
+    model = copy.deepcopy(dict(cfg.model))
+    return dict(type="FCOSMultiHead", backbone=model["backbone"],
+                necks=[model["neck"]] * MH_HEADS,
+                bbox_heads=[model["bbox_head"]] * MH_HEADS,
+                test_cfg=model["test_cfg"])
+
+
+def phase_multihead(cfg, smi: str) -> tuple[int, int]:
+    """The co-training detector at full width: ``multi_head_predict`` at
+    B=8 (NMS keeps of each launch, 2 heads and the merge, equal to the
+    plain version's; head outputs card vs CPU; img/s), then
+    ``MH_TRAIN_STEPS`` of ``multi_head_loss``, backward and ``MMCVAdamW``
+    at B=5, one step card vs CPU. Returns (NMS launches, worst keep
+    error)."""
+    import numpy as np
+    import torch
+
+    from dsl_tpu_torch.models import build_detector
+    from dsl_tpu_torch.models.detectors.multi_head import (
+        multi_head_loss, multi_head_predict)
+    from dsl_tpu_torch.ops.nms import nms_keep, nms_keep_reference
+    from dsl_tpu_torch.train import build_optimizer_from_cfg
+    from dsl_tpu_torch.utils.jax_bridge import flax_to_state_dict, state_dict_to_flax
+    from dsl_tpu_torch.utils.precision import outputs_to_f32
+    from dsl_tpu_torch.utils.random_weights import fill_variables
+
+    mh = multi_head_cfg(cfg)
+    det = build_detector(copy.deepcopy(mh))
+    variables = fill_variables(state_dict_to_flax(det.state_dict()))
+    det.load_state_dict(flax_to_state_dict(variables))
+    det.eval().to(DEVICE)
+    n_params = sum(p.numel() for p in det.parameters())
+    log(f"[multihead] FCOSMultiHead: the flagship's RLA-ResNet-50 and "
+        f"{MH_HEADS} x (FPN 256, 4-conv GN FCOS head 256, 80 classes), "
+        f"{n_params / 1e6:.2f} M parameters, seeded; B={BATCH} at "
+        f"{CANVAS[0]}x{CANVAS[1]}, f32")
+    gen = torch.Generator(device=DEVICE).manual_seed(9)
+    images = torch.randn((BATCH, 3, *CANVAS), generator=gen, device=DEVICE)
+    nms_keep.launches = 0
+    with recording_nms() as calls:
+        dets, labels, valid = multi_head_predict(det, images, device=DEVICE)
+        torch.cuda.synchronize()
+    launches = nms_keep.launches
+    tc = mh["test_cfg"]
+    if launches != MH_HEADS + 1 or len(calls) != MH_HEADS + 1:
+        raise AssertionError(f"multi-head predict: {launches} NMS launches")
+    if (tuple(dets.shape) != (BATCH, tc["max_per_img"], 5)
+            or not bool(torch.isfinite(dets).all())):
+        raise AssertionError(f"multi-head dets {tuple(dets.shape)} not finite")
+    worst = 0
+    for boxes, vmask, thr, keep in calls:
+        want = nms_keep_reference(boxes, vmask, thr)
+        worst = max(worst, int((keep.int() - want.int()).abs().max()))
+        if not torch.equal(keep, want):
+            raise AssertionError(f"multi-head NMS keeps differ from the plain "
+                                 f"version at {tuple(boxes.shape)}")
+    launches = nms_keep.launches
+    log(f"[multihead] multi_head_predict: dets {tuple(dets.shape)} finite, "
+        f"valid per image {valid.sum(1).tolist()}; {launches} NMS launches "
+        f"(inputs {[tuple(c[0].shape) for c in calls]}), keeps bit-identical "
+        f"to the plain version")
+    small = images[:1, :, :128, :192]
+    with torch.no_grad():
+        gpu = outputs_to_f32(det(small))
+        cpu = copy.deepcopy(det).cpu()(small.cpu())
+    worst_rel = max(
+        float((g.cpu() - c).abs().max() / c.abs().max().clamp_min(1.0))
+        for g_head, c_head in zip(gpu, cpu)
+        for g_kind, c_kind in zip(g_head, c_head)
+        for g, c in zip(g_kind, c_kind))
+    log(f"[multihead] head outputs of both heads, card vs CPU at 1x128x192: "
+        f"worst |diff| / max|ref| = {worst_rel:.3e} (limit 1e-3)")
+    if worst_rel > 1e-3:
+        raise AssertionError(f"multi-head card and CPU disagree: {worst_rel}")
+    times = sorted(host_ms(lambda: multi_head_predict(det, images, device=DEVICE),
+                           MH_TIMED, warmup=MH_WARMUP))
+    ms = times[MH_TIMED // 2]
+    log(f"[multihead] predict B={BATCH}: {ms:.2f} ms (median of {MH_TIMED} "
+        f"after {MH_WARMUP} warm-ups, min {times[0]:.2f}), "
+        f"{BATCH / ms * 1e3:.1f} img/s  ({smi})")
+    del images, dets
+    torch.cuda.empty_cache()
+
+    # training: loss, backward, AdamW, composed here (no train step of its own)
+    det.train()
+    tx, _ = build_optimizer_from_cfg(MH_OPTIMIZER, dict(cfg.optimizer_config),
+                                     dict(cfg.lr_config),
+                                     steps_per_epoch=TRAIN_STEPS_PER_EPOCH)
+    opt = tx.init(det)
+    batch = train_batch(cfg, TRAIN_SEED, CANVAS, 2, 2, (16, 600), DEVICE)
+    nms_keep.launches = 0
+    step_ms, logged = [], []
+    for count in range(MH_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        loss, log_vars = multi_head_loss(det, batch, cur_iter=count)
+        loss.backward()
+        norm = tx.update(opt, count)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        logged.append({**{k: float(v) for k, v in log_vars.items()},
+                       "grad_norm": float(norm)})
+    if nms_keep.launches:
+        raise AssertionError(f"{nms_keep.launches} NMS launches in training")
+    keys = set(logged[-1])
+    want_keys = {"loss_cls", "loss_cls_h1", "loss_bbox", "loss_bbox_h1",
+                 "loss_centerness", "loss_centerness_h1"}
+    bad = [k for r in logged for k, v in r.items() if not np.isfinite(v)]
+    if bad or not want_keys <= keys:
+        raise AssertionError(f"multi-head losses: not finite {bad}, keys {keys}")
+    log(f"[multihead] {MH_TRAIN_STEPS} steps of multi_head_loss + backward + "
+        f"MMCVAdamW ({MH_OPTIMIZER}) at B=5, {CANVAS[0]}x{CANVAS[1]}: losses "
+        f"finite, both heads' keys; last step " + ", ".join(
+            f"{k} {v:.4f}" for k, v in sorted(logged[-1].items()))
+        + f"; step {step_ms[-1]:.1f} ms (steps {[round(t, 1) for t in step_ms]})"
+        f"  ({smi})")
+    del det, opt, batch
+    torch.cuda.empty_cache()
+    multihead_card_vs_cpu(cfg, mh, variables)
+    return launches, worst
+
+
+def multihead_card_vs_cpu(cfg, mh: dict, variables):
+    """One multi-head AdamW step at 128x192, full width, card vs CPU: the
+    losses within 1e-4 and ``grad_norm`` within 1e-3 relative, the
+    gradients banded as phase 6 bands its updates; then the AdamW update
+    from the CPU's gradients on both devices, every parameter within
+    ``MH_ADAM_REL`` of its largest magnitude (Adam divides by the
+    gradient's own scale, so its first update is about lr times the
+    gradient's sign, which two devices' roundings can flip where a
+    gradient is near zero: the update itself is held on equal inputs)."""
+    import torch
+
+    from dsl_tpu_torch.models import build_detector
+    from dsl_tpu_torch.models.detectors.multi_head import multi_head_loss
+    from dsl_tpu_torch.train import build_optimizer_from_cfg
+    from dsl_tpu_torch.utils.jax_bridge import flax_to_state_dict
+
+    res = {}
+    for device in (DEVICE, "cpu"):
+        det = build_detector(copy.deepcopy(mh))
+        det.load_state_dict(flax_to_state_dict(variables))
+        det.to(device).train()
+        batch = train_batch(cfg, TRAIN_SEED + 1, (128, 192), 1, 0, (8, 100),
+                            device)
+        loss, log_vars = multi_head_loss(det, batch)
+        loss.backward()
+        grads = {n: p.grad.detach().cpu().clone()
+                 for n, p in det.named_parameters() if p.requires_grad}
+        norm = float(torch.stack([g.double().square().sum()
+                                  for g in grads.values()]).sum().sqrt())
+        res[device] = ({k: float(v) for k, v in log_vars.items()}, norm, grads)
+    (m_card, n_card, g_card), (m_cpu, n_cpu, g_cpu) = res[DEVICE], res["cpu"]
+    for k, v in m_cpu.items():
+        if abs(m_card[k] - v) / max(abs(v), 1e-12) > 1e-4:
+            raise AssertionError(f"multi-head card vs CPU {k}: {m_card[k]} vs {v}")
+    if abs(n_card - n_cpu) / n_cpu > 1e-3:
+        raise AssertionError(f"multi-head grad_norm {n_card} vs {n_cpu}")
+    zeros = {n: torch.zeros_like(g) for n, g in g_cpu.items()}
+    worst, l2 = banded_max_ratio(g_card, g_cpu, zeros)
+    if worst > 1 or l2 > 1e-3:
+        raise AssertionError(f"multi-head gradients card vs CPU: banded "
+                             f"{worst}, L2 {l2}")
+    tx, _ = build_optimizer_from_cfg(MH_OPTIMIZER, dict(cfg.optimizer_config),
+                                     dict(cfg.lr_config),
+                                     steps_per_epoch=TRAIN_STEPS_PER_EPOCH)
+    after = {}
+    for device in (DEVICE, "cpu"):
+        det = build_detector(copy.deepcopy(mh))
+        det.load_state_dict(flax_to_state_dict(variables))
+        det.to(device)
+        opt = tx.init(det)
+        for n, p in det.named_parameters():
+            if p.requires_grad:
+                p.grad = g_cpu[n].to(device)
+        tx.update(opt, 0)
+        after[device] = {n: p.detach().cpu() for n, p in det.named_parameters()}
+    adam_rel = max(float((after[DEVICE][n] - w).abs().max()
+                         / w.abs().max().clamp_min(1e-12))
+                   for n, w in after["cpu"].items())
+    log(f"[multihead] card vs CPU, one step at 1x128x192: " + ", ".join(
+        f"{k} {m_card[k]:.6f}/{m_cpu[k]:.6f}" for k in sorted(m_cpu))
+        + f", grad_norm {n_card:.6f}/{n_cpu:.6f}; gradients: worst banded "
+        f"ratio {worst:.3f} (limit 1), relative L2 {l2:.2e} (limit 1e-3); "
+        f"AdamW from equal gradients: worst |diff| / max|param| "
+        f"{adam_rel:.2e} (limit {MH_ADAM_REL:g})")
+    if adam_rel > MH_ADAM_REL:
+        raise AssertionError(f"AdamW card vs CPU: {adam_rel}")
+
+
+def phase_new_transforms(smi: str) -> dict:
+    """The 15 transforms of ``NEW_TRANSFORMS`` on the card and on the CPU
+    (as phase 9 the strong augmentations): bit-identical images, equal
+    boxes, time, kernels and host syncs per image."""
+    from dsl_tpu_torch.registry import PIPELINES, build_from_cfg
+
+    inputs = strong_aug_inputs()
+    for r in inputs:
+        # GT boxes in the left part, ignore boxes in the right, so that
+        # ZeroIgnore finds ignore boxes that overlap no GT box
+        w = r["img"].shape[1]
+        r["gt_bboxes"][:, 0::2] *= 0.45
+        r["gt_bboxes_ignore"][:, 0::2] = 0.55 * w + 0.45 * r[
+            "gt_bboxes_ignore"][:, 0::2]
+        r["img_shape"] = tuple(r["img"].shape)
+    out = {}
+    for cfg in NEW_TRANSFORMS:
+        t = build_from_cfg(copy.deepcopy(cfg), PIPELINES)
+        out[cfg["type"]] = transform_on_card(t, cfg, inputs, "[transforms]", smi)
+    return out
+
+
+def config_path_cfg(tmp: Path, sources: list, optimizer: dict,
+                    momentum: dict | None) -> tuple[dict, dict]:
+    """The flagship on a synthetic semicoco directory of ``sources`` (JPEG
+    fixtures and their PNG copies) with the newly ported config paths: RLA
+    depth ``CFG_LAYERS``, 1 epoch, ``optimizer`` (and ``momentum_config``),
+    ``ZeroIgnore`` and an ``AutoAugment`` of ``GEOMETRIC_POLICIES`` in the
+    train pipelines, the labeled set in a ``RepeatDataset``; and a PNG
+    without its IEND chunk in the unlabeled list (empty label, as phase 10's
+    cut JPEG)."""
+    from dsl_tpu_torch.config import Config
+    from dsl_tpu_torch.utils import synthetic_data
+
+    paths = synthetic_data.make_semicoco_dir(
+        tmp / "data", sources, SEMI_LABELED, SEMI_UNLABELED, n_val=SEMI_VAL)
+    add_unreadable_unlabeled(paths, Path(sources[-1][0]), name=PNG_CUT,
+                             data=Path(sources[-1][0]).read_bytes()[:-12])
+    cfg = copy.deepcopy(Config.fromfile(str(CONFIG))._cfg_dict)
+    cfg["model"]["backbone"]["layers"] = list(CFG_LAYERS)
+    cfg["runner"]["max_epochs"] = 1
+    cfg["data"]["unlabel_pred"]["start_point"] = 1
+    cfg["optimizer"] = dict(optimizer)
+    if momentum:
+        cfg["momentum_config"] = dict(momentum)
+    cfg = synthetic_data.semi_config(cfg, paths)
+    data = cfg["data"]
+    auto = dict(type="AutoAugment", policies=GEOMETRIC_POLICIES)
+    for key, extra in (("train", [auto]),
+                       ("unlabel_train", [dict(type="ZeroIgnore", ratio=0.5),
+                                          auto])):
+        pipe = data[key]["pipeline"]
+        at = [t["type"] for t in pipe].index("RandomFlip") + 1
+        data[key]["pipeline"] = pipe[:at] + copy.deepcopy(extra) + pipe[at:]
+    data["train"] = dict(type="RepeatDataset", times=2, dataset=data["train"])
+    return cfg, paths
+
+
+def phase_config_paths(tmp: Path, smi: str) -> tuple[int, int]:
+    """``train_detector`` through the newly ported config paths on JPEG and
+    PNG files, then a refresh over the mixed unlabeled list and the cut
+    PNG, then one SGD run under ``momentum_config``. Returns (NMS launches,
+    worst keep error)."""
+    import json as _json
+
+    import numpy as np
+    import torch
+
+    from dsl_tpu_torch.apis import train_detector
+    from dsl_tpu_torch.apis.test import BATCH_SIZE
+    from dsl_tpu_torch.config import Config
+    from dsl_tpu_torch.ops.nms import nms_keep
+    from torch_port_util import tree_of
+
+    files, _ = fixtures()
+    sources = [(str(p), h, w) for _, p, h, w in files] + png_copies(tmp)
+    cfg, paths = config_path_cfg(tmp / "adamw", sources, CFG_OPTIMIZER, None)
+    unl_store = Path(paths["unlabel_store"])
+    before = tree_of(unl_store)
+    log(f"[config] the flagship at RLA depth {CFG_LAYERS}, 1 epoch, "
+        f"optimizer {CFG_OPTIMIZER}, ZeroIgnore and AutoAugment("
+        f"{[p[0]['type'] for p in GEOMETRIC_POLICIES]}) in the train "
+        f"pipelines, the labeled set in RepeatDataset(times=2); "
+        f"{SEMI_LABELED} labeled, {SEMI_UNLABELED} unlabeled (+ "
+        f"{PNG_CUT}) and {SEMI_VAL} val images, half JPEG fixtures, half "
+        f"their PNG copies")
+    nms_keep.launches = 0
+    with counting_semi_loop() as rec:
+        runner = train_detector(Config(cfg), str(tmp / "adamw" / "work"),
+                                seed=0, device=DEVICE)
+        torch.cuda.synchronize()
+    launches = nms_keep.launches
+    if type(runner.state.optimizer).__name__ != "AdamWState":
+        raise AssertionError(f"optimizer {type(runner.state.optimizer)}")
+    hist = runner.log_buffer.history
+    bad = [k for k, v in hist.items() if k.startswith("loss") or k == "grad_norm"
+           if not all(bool(np.isfinite(float(x))) for x in v)]
+    n_batches = -(-SEMI_VAL // BATCH_SIZE)
+    eval_launches = sum(e["launches"] for e in rec["evals"])
+    logged = [_json.loads(x) for x in (tmp / "adamw" / "work" / "train.log.json")
+              .read_text().splitlines() if '"mode": "val"' in x]
+    if (bad or any(rec["step_launches"]) or not rec["chunk_launches"]
+            or any(n != 1 for n in rec["chunk_launches"])
+            or any(e["launches"] != n_batches for e in rec["evals"])
+            or launches != len(rec["chunk_launches"]) + eval_launches
+            or not rec["evals"] or not all(e["on_teacher"] for e in rec["evals"])
+            or len(logged) != 1 or not 0.0 <= logged[0]["bbox_mAP"] <= 1.0):
+        raise AssertionError(f"config paths: not finite {bad}; NMS steps "
+                             f"{rec['step_launches']}, chunks "
+                             f"{rec['chunk_launches']}, evaluations "
+                             f"{rec['evals']}; logged {logged}")
+    after = tree_of(unl_store)
+    stale = [n for n in before if n != f"{PNG_CUT}.json" and (
+        after[n] == before[n] or "scores" not in _json.loads(after[n]))]
+    if stale or after[f"{PNG_CUT}.json"] != before[f"{PNG_CUT}.json"]:
+        raise AssertionError(f"label files not rewritten: {stale}")
+    log(f"[config] train_detector: {len(rec['step_launches'])} steps, losses "
+        f"finite (last " + ", ".join(f"{k} {float(v[-1]):.4f}"
+                                     for k, v in hist.items()
+                                     if k.startswith("loss")) + "); NMS "
+        f"{launches}: 0 in steps, {len(rec['chunk_launches'])} in refresh "
+        f"chunks, {eval_launches} in the teacher's evaluation ({n_batches} "
+        f"batches); bbox_mAP {logged[0]['bbox_mAP']}; every readable "
+        f"unlabeled label file rewritten ({len(after) - 1}, PNG and JPEG), "
+        f"{PNG_CUT}'s unchanged")
+    worst = png_refresh(runner, tmp / "adamw", before)
+    launches += png_refresh.launches
+    del runner
+    torch.cuda.empty_cache()
+
+    cfg, _ = config_path_cfg(tmp / "momentum", sources,
+                             dict(type="SGD", lr=0.01, momentum=MOMENTUM_BASE,
+                                  weight_decay=1e-4), MOMENTUM_CONFIG)
+    cfg.pop("evaluation")
+    cfg["data"]["unlabel_pred"]["start_point"] = 2      # no refresh
+    seen = []
+    import dsl_tpu_torch.train.optim as optim_mod
+
+    real_update = optim_mod.MMCVSGD.update
+
+    def update(self, optimizer, count):
+        norm = real_update(self, optimizer, count)
+        seen.append(optimizer.param_groups[0]["momentum"])
+        return norm
+
+    optim_mod.MMCVSGD.update = update
+    try:
+        train_detector(Config(cfg), str(tmp / "momentum" / "work"), seed=0,
+                       device=DEVICE)
+    finally:
+        optim_mod.MMCVSGD.update = real_update
+    rel = (max(abs(a - b) / b for a, b in zip(seen, MOMENTUM_EXPECTED))
+           if len(seen) == len(MOMENTUM_EXPECTED) else float("inf"))
+    log(f"[config] SGD with momentum_config {MOMENTUM_CONFIG}: momentum at "
+        f"updates 0-{len(seen) - 1} {[round(m, 6) for m in seen]}; the JAX "
+        f"schedule's {[round(m, 6) for m in MOMENTUM_EXPECTED]}: worst "
+        f"relative {rel:.2e} (limit {MOMENTUM_REL:g})")
+    if rel > MOMENTUM_REL:
+        raise AssertionError(f"momentum schedule: {seen}")
+    return launches, worst
+
+
+def png_refresh(runner, tmp: Path, before: dict) -> int:
+    """A synchronous refresh of every unlabeled image (JPEG and PNG) and
+    the cut PNG into a copy of the store as it was before training: the cut
+    file is dropped before chunking, its label file stays, every other is
+    rewritten, and each chunk's NMS keeps equal the plain version's. Sets
+    ``png_refresh.launches``; returns the worst keep error."""
+    import json as _json
+
+    import torch
+
+    from dsl_tpu_torch.ops.nms import nms_keep, nms_keep_reference
+    from dsl_tpu_torch.train.label_store import LabelStore
+    from torch_port_util import tree_of
+
+    ref = runner.refresher
+    root = tmp / "store_png"
+    root.mkdir()
+    for name, data in before.items():
+        (root / name).write_bytes(data)
+    skip = copy.copy(ref)
+    skip.store = LabelStore(str(root), ref.store.id2cat, ref.store.cat2id)
+    names = [i["filename"] for i in ref.image_infos]
+    names.insert(len(names) // 2, PNG_CUT)
+    start = nms_keep.launches
+    with recording_nms() as calls:
+        skip.refresh_images(runner.state, names)
+        torch.cuda.synchronize()
+    png_refresh.launches = nms_keep.launches - start
+    worst = 0
+    for boxes, vmask, thr, keep in calls:
+        want = nms_keep_reference(boxes, vmask, thr)
+        worst = max(worst, int((keep.int() - want.int()).abs().max()))
+    after = tree_of(root)
+    chunks = -(-(len(names) - 1) // ref.refresh_batch)
+    stale = [n for n in after if n != f"{PNG_CUT}.json"
+             and "scores" not in _json.loads(after[n])]
+    if (png_refresh.launches != chunks or worst or stale
+            or after[f"{PNG_CUT}.json"] != before[f"{PNG_CUT}.json"]):
+        raise AssertionError(f"PNG refresh: {png_refresh.launches} NMS launches "
+                             f"for {chunks} chunks, keep error {worst}, not "
+                             f"rewritten {stale}")
+    pngs = sum(n.endswith(".png") for n in names) - 1
+    log(f"[png] a synchronous refresh of {len(names)} files ({pngs} PNG, "
+        f"{len(names) - 1 - pngs} JPEG, and {PNG_CUT}, which lacks its IEND "
+        f"chunk): the cut file skipped before chunking, its label file "
+        f"unchanged, the other {len(after) - 1} rewritten; {chunks} chunks, "
+        f"{png_refresh.launches} NMS launches, keeps bit-identical to the "
+        f"plain version")
+    return worst
+
+
+png_refresh.launches = 0
+
+
 def main() -> int:
     import torch
 
@@ -2983,15 +3551,22 @@ def main() -> int:
         dist_launches = phase_dist_nccl(Path(tmp), smi, baseline)
         phase_dist_step(Path(tmp), smi)
         dist_launches += phase_dist_semi(Path(tmp), smi)
+        t16 = time.perf_counter()
+        phase_png(Path(tmp), smi)
+        mh_launches, mh_err = phase_multihead(cfg, smi)
+        phase_new_transforms(smi)
+        cfg_launches, cfg_err = phase_config_paths(Path(tmp), smi)
+        log(f"[phase 16] {time.perf_counter() - t16:.1f} s")
     launches["nms_keep"] += (semi_launches + eval_launches + weights_launches
-                             + baseline_launches + voc_launches + dist_launches)
+                             + baseline_launches + voc_launches + dist_launches
+                             + mh_launches + cfg_launches)
     kernels = [dict(
         name="nms_keep", route="cuda",
         source="dsl_tpu_torch/csrc/nms_kernel.cu",
         replaces="dsl_tpu/ops/nms_pallas.py:34",
         launches=launches["nms_keep"],
         max_abs_err=float(max(case_err, path_err, train_err, semi_err,
-                              eval_err, voc_err)),
+                              eval_err, voc_err, mh_err, cfg_err)),
         ms=nms_times["ms"], plain_ms=nms_times["plain_ms"],
         bound_ms=nms_times["bound_ms"], bound_by=nms_times["bound_by"],
         library_ms=None)]

@@ -16,6 +16,12 @@ by the device and by nothing else:
   package reads. A grayscale file gives three equal channels on both
   routes.
 
+A PNG takes neither: both routes read it with ``data/png.py`` (zlib and
+the row filters on the host, the colour rules on the tensor's device), bit
+for bit ``cv2.imread``'s image; the card route unfilters with the host C
+function and uploads once. Other formats OpenCV reads (BMP, TIFF, WebP)
+raise on the card route, naming the format.
+
 :func:`readable` tells, without decoding, whether ``cv2.imread`` would give
 an image, so a caller can skip a file as the JAX package skips one that
 ``cv2.imread`` cannot read.
@@ -42,6 +48,7 @@ import struct
 import numpy as np
 import torch
 
+from dsl_tpu_torch.data import png
 from dsl_tpu_torch.data.jpeg_scan import for_decoder, frame_size
 from dsl_tpu_torch.ops import build
 
@@ -72,6 +79,13 @@ def read_image(path, device: str | torch.device = "cuda") -> torch.Tensor:
     """An image file -> (H, W, 3) uint8 BGR on ``device``."""
     device = torch.device(device)
     path = os.fspath(path)
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"read_image: no route for device {device}")
+    if os.path.isfile(path):
+        with open(path, "rb") as f:
+            if f.read(len(png.SIGNATURE)) == png.SIGNATURE:
+                f.seek(0)
+                return png.decode(f.read(), device)
     if device.type == "cpu":
         import cv2
 
@@ -79,8 +93,6 @@ def read_image(path, device: str | torch.device = "cuda") -> torch.Tensor:
         if img is None:
             raise FileNotFoundError(f"cannot read image {path}")
         return torch.from_numpy(img)
-    if device.type != "cuda":
-        raise ValueError(f"read_image: no route for device {device}")
     with open(path, "rb") as f:
         data = f.read()
     stream, fill = for_decoder(data)
@@ -150,10 +162,13 @@ def readable(path, device: str | torch.device = "cuda") -> bool:
     """Whether ``cv2.imread(path, IMREAD_COLOR)`` gives an image, judged
     without decoding: the file exists and is not empty, and a file that
     begins with the JPEG SOI marker passes :func:`jpeg_header_end` (and, on
-    the card, ``nvjpegGetImageInfo`` reads its header). Only the header is
-    read: ``PROBE_FIRST_READ`` bytes, doubled until the first scan's header
-    is in or the file ends. A file of another format is left to the reader:
-    on the CPU ``cv2.imread`` answers; on the card it counts as readable, so
+    the card, ``nvjpegGetImageInfo`` reads its header). Only a JPEG's header
+    is read: ``PROBE_FIRST_READ`` bytes, doubled until the first scan's
+    header is in or the file ends. A PNG is read whole and passes
+    ``png.readable`` on both routes (every chunk to IEND, the critical
+    chunks' CRCs, the image data inflated): libpng refuses a PNG cut
+    anywhere. A file of another format is left to the reader: on the CPU
+    ``cv2.imread`` answers; on the card it counts as readable, so
     :func:`read_image` raises naming it."""
     device = torch.device(device)
     path = os.fspath(path)
@@ -162,6 +177,9 @@ def readable(path, device: str | torch.device = "cuda") -> bool:
     data = _read_header(path)
     if not data:
         return False
+    if data.startswith(png.SIGNATURE):
+        with open(path, "rb") as f:
+            return png.readable(f.read())
     if not data.startswith(_JPEG[:2]):
         if device.type == "cpu":
             import cv2
@@ -279,7 +297,7 @@ def decode_jpeg(data: bytes, device: torch.device, name: str = "<bytes>"
     """nvJPEG decode of a JPEG bitstream on ``device``'s current stream."""
     if not data.startswith(_JPEG):
         raise ValueError(f"{name}: {_format_of(data)} is not JPEG; the CUDA "
-                         f"route decodes JPEG only")
+                         f"route decodes JPEG and PNG only")
     err, h, w, c = jpeg_info(data, device)
     if err != 0:
         raise RuntimeError(f"{name}: nvjpegGetImageInfo failed ({err})")

@@ -416,12 +416,13 @@ def warp_source_coords(m_inv: np.ndarray, h: int, w: int, device
     return out[0], out[1]
 
 
-def warp_affine(img: torch.Tensor, m, cval: int = 125) -> torch.Tensor:
+def warp_affine(img: torch.Tensor, m, cval=125) -> torch.Tensor:
     """``cv2.warpAffine(img, m, (w, h), INTER_LINEAR, BORDER_CONSTANT,
-    (cval,) * 3)``: the inverse map in double, source coordinates in float
+    cval)``: the inverse map in double, source coordinates in float
     (:func:`warp_source_coords`), bilinear in float as ``fma(a, p01 - p00,
     p00)`` along x then along y, rounded half to even; taps outside the
-    image take ``cval``."""
+    image take ``cval``, one level for every channel or one per channel
+    (OpenCV's ``borderValue`` scalar, saturated to uchar)."""
     h, w = img.shape[:2]
     sx, sy = warp_source_coords(invert_affine(m), h, w, img.device)
     x0f, y0f = torch.floor(sx), torch.floor(sy)
@@ -431,11 +432,18 @@ def warp_affine(img: torch.Tensor, m, cval: int = 125) -> torch.Tensor:
     x0 = x0f.clamp(-2 * w - 2, 2 * w + 2).to(torch.int64)
     y0 = y0f.clamp(-2 * h - 2, 2 * h + 2).to(torch.int64)
     src = img.to(torch.float32)
+    fill = ([float(min(max(round(c), 0), 255)) for c in cval]
+            if isinstance(cval, (tuple, list)) else [float(cval)])
+    if len(set(fill)) == 1:
+        fill = fill[:1]
 
     def tap(yy, xx):
         inside = ((yy >= 0) & (yy < h) & (xx >= 0) & (xx < w))[..., None]
         v = src[yy.clamp(0, h - 1), xx.clamp(0, w - 1)]
-        return torch.where(inside, v, float(cval))
+        if len(fill) == 1:
+            return torch.where(inside, v, fill[0])
+        return torch.stack([torch.where(inside[..., 0], v[..., c], fill[c])
+                            for c in range(v.shape[-1])], -1)
 
     def lerp(p, q, t):
         return _fma_f32(t, q - p, p)
@@ -443,3 +451,109 @@ def warp_affine(img: torch.Tensor, m, cval: int = 125) -> torch.Tensor:
     v0 = lerp(tap(y0, x0), tap(y0, x0 + 1), a)
     v1 = lerp(tap(y0 + 1, x0), tap(y0 + 1, x0 + 1), a)
     return torch.round(lerp(v0, v1, b)).clamp(0, 255).to(torch.uint8)
+
+
+# -- OpenCV: HSV on uint8, grayscale, addWeighted --------------------------
+
+HSV_SHIFT = 12
+
+
+@functools.lru_cache(maxsize=1)
+def _hsv_tables() -> tuple[torch.Tensor, torch.Tensor]:
+    """OpenCV's ``sdiv_table`` and ``hdiv_table180`` (``RGB2HSV_b``): int32
+    host tensors, ``saturate_cast<int>`` (round half to even) of
+    ``(255 << 12) / i`` and ``(180 << 12) / (6 i)``, 0 at ``i = 0``."""
+    i = np.arange(1, 256, dtype=np.float64)
+    sdiv, hdiv = np.zeros(256, np.int32), np.zeros(256, np.int32)
+    sdiv[1:] = np.rint((255 << HSV_SHIFT) / i)
+    hdiv[1:] = np.rint((180 << HSV_SHIFT) / (6.0 * i))
+    return torch.from_numpy(sdiv), torch.from_numpy(hdiv)
+
+
+def bgr_to_hsv_cv(img: torch.Tensor) -> torch.Tensor:
+    """``cv2.cvtColor(img, cv2.COLOR_BGR2HSV)`` on uint8: OpenCV's integer
+    path, H in [0, 180), S and V in [0, 255]."""
+    sdiv, hdiv = (to_device(t, img.device) for t in _hsv_tables())
+    x = img.to(torch.int32)
+    b, g, r = x[..., 0], x[..., 1], x[..., 2]
+    v = torch.maximum(torch.maximum(b, g), r)
+    diff = v - torch.minimum(torch.minimum(b, g), r)
+    half = 1 << (HSV_SHIFT - 1)
+    s = (diff * sdiv[v] + half) >> HSV_SHIFT
+    h = torch.where(v == r, g - b,
+                    torch.where(v == g, b - r + 2 * diff, r - g + 4 * diff))
+    h = (h * hdiv[diff] + half) >> HSV_SHIFT
+    h = torch.where(h < 0, h + 180, h)
+    return torch.stack([h, s, v], -1).to(torch.uint8)
+
+
+# OpenCV 5's HSV2BGR on uint8 converts each row in vector blocks of 32
+# pixels, then the pixels past the last block in scalar code.
+HSV2BGR_BLOCK = 32
+# per sector, the table entries that give B, G and R (OpenCV's sector_data)
+_HSV_SECTORS = torch.tensor([[1, 3, 0], [1, 0, 2], [3, 0, 1], [0, 2, 1],
+                             [0, 1, 3], [2, 1, 0]])
+
+
+def hsv_to_bgr_cv(hsv: torch.Tensor) -> torch.Tensor:
+    """``cv2.cvtColor(hsv, cv2.COLOR_HSV2BGR)`` on uint8: H in 2-degree
+    steps (``hscale = 6 / 180``), S and V scaled by ``1 / 255`` in float,
+    OpenCV 5's float ``HSV2RGB`` (sector and fraction from ``h * hscale``,
+    the four table values ``v``, ``v (1 - s)``, ``v fma(-s, f, 1)``,
+    ``v fma(-s, 1 - f, 1)``, its AVX2 build's contractions), then the
+    product with 255 to uchar: truncated in each row's vector blocks of
+    ``HSV2BGR_BLOCK`` pixels, rounded half to even in the scalar tail past
+    them (measured: each of the 2^24 triples, H past 179 too, equals
+    ``cv2.cvtColor``'s in rows of 4096 and of 16 pixels, and rows of every
+    width from 1 to 80 agree)."""
+    x = hsv.to(torch.float32)
+    h = x[..., 0] * _c_float(6.0 / 180.0)
+    s = x[..., 1] * _c_float(1.0 / 255.0)
+    v = x[..., 2] * _c_float(1.0 / 255.0)
+    h = torch.where(h >= 6, h - 6, h)
+    sector = torch.floor(h)
+    f = h - sector
+    one = torch.ones_like(s)
+    tab = torch.stack([v, v * (1 - s), v * _fma_f32(-s, f, one),
+                       v * _fma_f32(-s, 1 - f, one)], -1)
+    order = to_device(_HSV_SECTORS, hsv.device)
+    idx = order[sector.to(torch.int64).clamp(0, 5)]
+    bgr = tab.gather(-1, idx)
+    bgr = torch.where((s == 0)[..., None], v[..., None].expand_as(bgr), bgr)
+    x = bgr * 255.0
+    w = hsv.shape[-2]
+    blocked = torch.arange(w, device=hsv.device) < w // HSV2BGR_BLOCK * HSV2BGR_BLOCK
+    x = torch.where(blocked[:, None], torch.trunc(x), torch.round(x))
+    return x.clamp(0, 255).to(torch.uint8)
+
+
+def bgr_to_gray_cv(img: torch.Tensor) -> torch.Tensor:
+    """``cv2.cvtColor(img, cv2.COLOR_BGR2GRAY)`` on uint8 (OpenCV 5's 15-bit
+    fixed point, as :func:`rgb_to_gray_cv` with the channels reversed)."""
+    return rgb_to_gray_cv(img.flip(-1))
+
+
+# AVX2 float32 vectors: 8 lanes. cv2.addWeighted runs an array of at least
+# one vector as vectors (the last one overlapping the one before it), a
+# shorter one in scalar code.
+ADD_WEIGHTED_LANES = 8
+
+
+def add_weighted(a: torch.Tensor, alpha: float, b: torch.Tensor, beta: float,
+                 gamma: float = 0.0) -> torch.Tensor:
+    """``cv2.addWeighted(a, alpha, b, beta, gamma)`` on float32 arrays, as
+    OpenCV 5's AVX2 build computes it: the three scalars rounded to float;
+    ``fma(a, alpha, fma(b, beta, gamma))`` (its ``v_muladd`` pair) where the
+    array holds at least ``ADD_WEIGHTED_LANES`` values, else the scalar
+    code's contraction ``fma(a, alpha, b * beta) + gamma``."""
+    al, be, ga = _c_float(alpha), _c_float(beta), _c_float(gamma)
+    a, b = a.to(torch.float32), b.to(torch.float32)
+    if a.numel() >= ADD_WEIGHTED_LANES:
+        return _fma_f32(a, al, _fma_f32(b, be, torch.full_like(b, ga)))
+    return _fma_f32(a, al, b * be) + ga
+
+
+def saturate_trunc_u8(x: torch.Tensor) -> torch.Tensor:
+    """numpy's ``np.clip(x, 0, 255).astype(np.uint8)`` of a float array:
+    clamped, then truncated."""
+    return x.clamp(0, 255).to(torch.uint8)

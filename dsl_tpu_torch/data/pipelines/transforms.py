@@ -3,7 +3,8 @@
 Counterpart of the part of ``dsl_tpu/data/pipelines/transforms.py`` the
 flagship config runs: ``Resize`` (a list of scales, ``multiscale_mode``
 'value' or 'range', ``keep_ratio``), ``PatchShuffle``, ``RandomFlip``,
-``Normalize``, ``Pad`` (``size_divisor``) and ``MultiScaleFlipAug``.
+``Normalize``, ``Pad`` (``size_divisor``) and ``MultiScaleFlipAug``, and
+DSL's ``ZeroIgnore``.
 ``results["img"]`` is an (H, W, 3) tensor on its device; boxes are host
 numpy arrays, transformed as the JAX package does. Random draws come from
 the ``rng`` argument (an ``np.random.RandomState``) in the JAX package's
@@ -23,6 +24,7 @@ from dsl_tpu_torch.data.image_io import read_image
 from dsl_tpu_torch.data.pipelines.compose import Compose
 from dsl_tpu_torch.data.pipelines.image_ops import resize_linear_u8
 from dsl_tpu_torch.registry import PIPELINES
+from dsl_tpu_torch.utils.device import to_device
 
 
 def keep_ratio_size(h: int, w: int, scale) -> tuple[int, int]:
@@ -184,6 +186,47 @@ class PatchShuffle:
             results[key] = np.asarray(new_boxes, np.float32).reshape(-1, 4)
             if labels is not None:
                 results["gt_labels"] = np.asarray(new_labels, np.int64)
+        return results
+
+
+@PIPELINES.register
+class ZeroIgnore:
+    """DSL's blank of the ignore regions of pseudo-labels: each ignore box
+    that overlaps no GT box (the JAX package's inclusive test,
+    ``ix2 - ix1 >= 0 and iy2 - iy1 >= 0``) is filled with ``fill_in`` with
+    probability ``ratio``. One ``rng.rand()`` per ignore box, drawn before
+    its overlap test, as there. The rectangles (numpy slices of the
+    truncated corners, as the JAX package cuts them) form a host mask that
+    reaches the device with the fill through pinned memory; the blank is one
+    ``torch.where``, with no host sync."""
+
+    def __init__(self, ratio=0.5, fill_in=(0, 0, 0)):
+        self.ratio = ratio
+        self.fill_in = fill_in
+
+    def __call__(self, results, rng, pyrng=None):
+        ig = results.get("gt_bboxes_ignore")
+        if ig is None or len(ig) == 0:
+            return results
+        gt = results.get("gt_bboxes", np.zeros((0, 4), np.float32))
+        img = results["img"]
+        mask = None
+        for i in range(len(ig)):
+            if rng.rand() <= self.ratio:
+                x1, y1, x2, y2 = ig[i]
+                overlaps = any(
+                    min(x2, g[2]) - max(x1, g[0]) >= 0
+                    and min(y2, g[3]) - max(y1, g[1]) >= 0 for g in gt)
+                if not overlaps:
+                    if mask is None:
+                        mask = np.zeros(img.shape[:2], bool)
+                    mask[int(y1):int(y2), int(x1):int(x2)] = True
+        if mask is not None:
+            fill = torch.tensor(self.fill_in, dtype=img.dtype).expand(
+                img.shape[2])
+            results["img"] = torch.where(
+                to_device(torch.from_numpy(mask), img.device)[..., None],
+                to_device(fill.contiguous(), img.device), img)
         return results
 
 

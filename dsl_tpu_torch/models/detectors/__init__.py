@@ -1,2 +1,5 @@
 from dsl_tpu_torch.models.detectors.single_stage import (  # noqa: F401
     FCOS, SingleStageDetector, build_detector, detector_predict)
+from dsl_tpu_torch.models.detectors.multi_head import (  # noqa: F401
+    FCOSMultiHead, SingleStageMultiHeadDetector, build_multi_head_detector,
+    multi_head_loss, multi_head_predict)

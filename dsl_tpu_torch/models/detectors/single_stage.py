@@ -2,9 +2,10 @@
 
 Counterpart of the single-stage branch of
 ``dsl_tpu/models/detectors/single_stage.py``: ``SingleStageDetector`` /
-``FCOS`` (backbone -> neck -> head), ``build_detector`` for single-stage
-configs, and the FCOS branches of ``detector_loss`` and ``detector_predict``.
-Other detector families and heads are not ported yet and raise.
+``FCOS`` (backbone -> neck -> head), ``build_detector`` (which hands a
+multi-head config to ``multi_head.py``), and the FCOS branches of
+``detector_loss`` and ``detector_predict``. Other detector families and
+heads are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -55,11 +56,19 @@ class FCOS(SingleStageDetector):
 
 
 def build_detector(cfg: dict) -> nn.Module:
-    """Build a single-stage detector from a model config dict (FCOS reads
-    no ``train_cfg``: its assignment options are the head's)."""
+    """Build a detector from a model config dict: a config with ``necks``
+    or ``bbox_heads`` (and no ``rpn_head``) is DSL's co-training
+    multi-head detector (``multi_head.build_multi_head_detector``), as in
+    the JAX package; else a single-stage one (FCOS reads no ``train_cfg``:
+    its assignment options are the head's)."""
     cfg = dict(cfg)
-    if "rpn_head" in cfg or "bbox_heads" in cfg or "necks" in cfg:
-        raise NotImplementedError("only single-stage detectors are ported yet")
+    if "rpn_head" in cfg:
+        raise NotImplementedError("two-stage detectors are not ported yet")
+    if "bbox_heads" in cfg or "necks" in cfg:
+        from dsl_tpu_torch.models.detectors.multi_head import (
+            build_multi_head_detector)
+
+        return build_multi_head_detector(cfg)
     det_type = cfg.pop("type")
     det_cls = MODELS.get(det_type)
     if det_cls is None:
@@ -75,7 +84,11 @@ def build_detector(cfg: dict) -> nn.Module:
 
 
 def _fcos_head(detector: nn.Module) -> FCOSHead:
-    head = detector.bbox_head
+    head = getattr(detector, "bbox_head", None)
+    if head is None:
+        raise NotImplementedError(
+            f"{type(detector).__name__}: a multi-head detector has its own "
+            f"loss and predict (models/detectors/multi_head.py)")
     if not isinstance(head, FCOSHead):
         raise NotImplementedError(
             f"{type(head).__name__} is not ported yet: only FCOSHead")
@@ -114,6 +127,20 @@ def detector_loss(detector: nn.Module, batch: dict, cur_iter: int = 0,
                                    group=group))
 
 
+def check_predict_device(detector: nn.Module, images: torch.Tensor,
+                         device: torch.device):
+    """Raise unless the detector and the images lie on ``device``."""
+    param_dev = next(detector.parameters()).device
+    for what, dev in (("detector", param_dev), ("images", images.device)):
+        if dev.type != device.type or (
+                dev.type == "cuda" and device.index not in (None, dev.index)):
+            raise ValueError(f"predict(device={device}): the {what} "
+                             f"lie on {dev}")
+    if images.device != param_dev:
+        raise ValueError(f"predict: the detector lies on {param_dev}, "
+                         f"the images on {images.device}")
+
+
 @torch.no_grad()
 def detector_predict(detector: nn.Module, images: torch.Tensor,
                      img_shapes: torch.Tensor | None = None,
@@ -136,15 +163,7 @@ def detector_predict(detector: nn.Module, images: torch.Tensor,
     kernel is not launched.
     """
     device = resolve_device(device)
-    param_dev = next(detector.parameters()).device
-    for what, dev in (("detector", param_dev), ("images", images.device)):
-        if dev.type != device.type or (
-                dev.type == "cuda" and device.index not in (None, dev.index)):
-            raise ValueError(f"detector_predict(device={device}): the {what} "
-                             f"lie on {dev}")
-    if images.device != param_dev:
-        raise ValueError(f"detector_predict: the detector lies on {param_dev}, "
-                         f"the images on {images.device}")
+    check_predict_device(detector, images, device)
     head = _fcos_head(detector)
     tc = dict(test_cfg or detector.test_cfg or {})
     nms_cfg = dict(tc.get("nms", {}) or {})

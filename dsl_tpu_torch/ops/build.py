@@ -1,10 +1,12 @@
-"""Build the port's CUDA sources into shared libraries with a plain C
-interface, loaded with ``ctypes``.
+"""Build the port's CUDA and host C++ sources into shared libraries with a
+plain C interface, loaded with ``ctypes``.
 
-Each ``csrc/<name>.cu`` becomes ``_build/lib<name>-<hash>.so`` (the hash is
-of the source and the flags, so an edited source is rebuilt), compiled with
-``nvcc`` for ``sm_90a`` at first use; nothing here runs at import time.
-:func:`build_all` starts one ``nvcc`` per source, all at once.
+Each ``csrc/<name>.cu`` (a kernel) or ``csrc/<name>.cpp`` (host code, such
+as the PNG unfilter) becomes ``_build/lib<name>-<hash>.so`` (the hash is of
+the source and the flags, so an edited source is rebuilt), compiled with
+``nvcc`` (for ``sm_90a``; a ``.cpp`` goes to its host compiler) at first
+use; nothing here runs at import time. :func:`build_all` starts one
+``nvcc`` per source, all at once.
 """
 
 from __future__ import annotations
@@ -27,7 +29,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # libraries a source links against, beyond the CUDA runtime
 LINK_FLAGS = {"nvjpeg_decode": ("-lnvjpeg",)}
-SOURCES = tuple(sorted(p.stem for p in CSRC_DIR.glob("*.cu")))
+SOURCES = tuple(sorted(p.stem for p in (*CSRC_DIR.glob("*.cu"),
+                                        *CSRC_DIR.glob("*.cpp"))))
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -48,14 +51,19 @@ def _flags(name: str) -> tuple[str, ...]:
     return NVCC_FLAGS + LINK_FLAGS.get(name, ())
 
 
+def _source(name: str) -> Path:
+    cu = CSRC_DIR / f"{name}.cu"
+    return cu if cu.exists() else CSRC_DIR / f"{name}.cpp"
+
+
 def _target(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
+    src = _source(name)
     digest = hashlib.sha256(src.read_bytes() + " ".join(_flags(name)).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def build_all(names=SOURCES, verbose: bool = False) -> dict[str, Path]:
-    """Compile every ``csrc/<name>.cu`` of ``names`` that is not built yet,
+    """Compile every ``csrc/<name>.{cu,cpp}`` of ``names`` that is not built yet,
     one ``nvcc`` each, all started together; return name -> library path.
 
     With ``verbose`` the compiler prints the kernels' registers and shared
@@ -69,7 +77,7 @@ def build_all(names=SOURCES, verbose: bool = False) -> dict[str, Path]:
     for name, target in todo.items():
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc, *_flags(name), *(["-Xptxas", "-v"] if verbose else []),
-               "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+               "-o", str(tmp), str(_source(name))]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp)
@@ -88,12 +96,12 @@ def build_all(names=SOURCES, verbose: bool = False) -> dict[str, Path]:
 
 
 def build(name: str, verbose: bool = False) -> Path:
-    """Compile ``csrc/<name>.cu`` unless it is built already; return the path."""
+    """Compile ``csrc/<name>.{cu,cpp}`` unless it is built already; return the path."""
     return build_all((name,), verbose)[name]
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built at first use."""
+    """The loaded library for ``csrc/<name>.{cu,cpp}``, built at first use."""
     lib = _loaded.get(name)
     if lib is None:
         lib = ctypes.CDLL(str(build(name)))

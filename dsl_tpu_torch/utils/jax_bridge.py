@@ -13,7 +13,10 @@ plain nested dicts. What changes on the way:
 - module names: flax's flat names (``layer2_0``, ``stage_bn1_0``,
   ``extra_conv0``, ``cls_gn3``, ``scale2``) <-> the mmdet/RLA checkpoint
   names the port's modules carry (``stages.1.0``, ``stage_bns.1.0``,
-  ``fpn_convs.3.conv``, ``cls_convs.3.gn``, ``scales.2``). A block
+  ``fpn_convs.3.conv``, ``cls_convs.3.gn``, ``scales.2``); a multi-head
+  detector's ``necks_0`` and ``bbox_heads_1`` <-> ``necks.0`` and
+  ``bbox_heads.1`` (its necks are alike: the first one's laterals count
+  for all). A block
   ``layerS_B`` is an RLA-ResNet's ``stages.{S-1}.B`` where the backbone has
   the RLA hidden-state convs (``conv_out0``), else a ResNet's ``layerS.B``.
 
@@ -32,6 +35,7 @@ import torch
 # number of FPN laterals, where mmdet's fpn_convs list continues with the
 # extra convs.
 _TO_TORCH = [
+    (r"\b(necks|bbox_heads)_(\d+)\b", lambda m, n: f"{m[1]}.{m[2]}"),
     (r"\blayer(\d+)_(\d+)\b", lambda m, n: f"stages.{int(m[1]) - 1}.{m[2]}"),
     (r"\bdownsample_conv\b", lambda m, n: "downsample.0"),
     (r"\bdownsample_bn\b", lambda m, n: "downsample.1"),
@@ -51,6 +55,7 @@ _TO_TORCH = [
 _RESNET_TO_TORCH = [(r"\blayer(\d+)_(\d+)\b", lambda m, n: f"layer{m[1]}.{m[2]}")]
 
 _TO_FLAX = [
+    (r"\b(necks|bbox_heads)\.(\d+)\b", lambda m, n: f"{m[1]}_{m[2]}"),
     (r"\bstages\.(\d+)\.(\d+)\b", lambda m, n: f"layer{int(m[1]) + 1}_{m[2]}"),
     (r"\blayer(\d+)\.(\d+)\b", lambda m, n: f"layer{m[1]}_{m[2]}"),
     (r"\bdownsample\.0\b", lambda m, n: "downsample_conv"),
@@ -85,7 +90,8 @@ def _leaves(tree: dict, prefix: tuple = ()):
 def flax_to_state_dict(variables: dict) -> dict[str, torch.Tensor]:
     """flax ``{"params", "batch_stats"}`` tree of arrays -> port state_dict."""
     params = variables["params"]
-    n_lat = sum(1 for k in params.get("neck", {}) if k.startswith("lateral_conv"))
+    neck = params.get("neck", params.get("necks_0", {}))
+    n_lat = sum(1 for k in neck if k.startswith("lateral_conv"))
     rla = "conv_out0" in params.get("backbone", {})
     rules = _TO_TORCH if rla else _RESNET_TO_TORCH + _TO_TORCH
     sd: dict[str, torch.Tensor] = {}
@@ -112,7 +118,7 @@ def state_dict_to_flax(state_dict: dict) -> dict:
     """Port state_dict -> flax ``{"params", "batch_stats"}`` tree of numpy
     arrays (the inverse of :func:`flax_to_state_dict`)."""
     n_lat = len({m[1] for k in state_dict
-                 if (m := re.match(r"neck\.lateral_convs\.(\d+)\.", k))})
+                 if (m := re.match(r"necks?(?:\.0)?\.lateral_convs\.(\d+)\.", k))})
     out: dict = {"params": {}, "batch_stats": {}}
     for key, value in state_dict.items():
         module, name = key.rsplit(".", 1)

@@ -63,8 +63,9 @@ def _write_label(path: Path, name: str, rects: list, tags: list):
 def make_semicoco_dir(root, sources: list[tuple[str, int, int]],
                       n_labeled: int, n_unlabeled: int, seed: int = 0,
                       n_val: int = 0) -> dict:
-    """``sources`` are (jpeg path, height, width); image i of each split is
-    a copy of source ``i % len(sources)``. Returns the paths by role."""
+    """``sources`` are (image path, height, width); image i of each split
+    is a copy of source ``i % len(sources)``, named with the source's
+    suffix (``.jpg``, ``.png``). Returns the paths by role."""
     root = Path(root)
     rng = np.random.RandomState(seed)
     img_dir = root / "images" / "full"
@@ -86,7 +87,7 @@ def make_semicoco_dir(root, sources: list[tuple[str, int, int]],
         images = []
         for i in range(count):
             src, h, w = sources[i % len(sources)]
-            name = f"{split}_{i:03d}.jpg"
+            name = f"{split}_{i:03d}{Path(src).suffix}"
             shutil.copyfile(src, img_dir / name)
             images.append(dict(id=i + 1, file_name=name, width=w, height=h))
             n = rng.randint(1, 6)
@@ -116,7 +117,7 @@ def _make_val(root: Path, sources, n_val: int, categories: list,
     images, annotations = [], []
     for i in range(n_val):
         src, h, w = sources[i % len(sources)]
-        name = f"val_{i:03d}.jpg"
+        name = f"val_{i:03d}{Path(src).suffix}"
         shutil.copyfile(src, val_dir / name)
         images.append(dict(id=i + 1, file_name=name, width=w, height=h))
         for x1, y1, x2, y2 in _boxes(rng, h, w, rng.randint(1, 6)):

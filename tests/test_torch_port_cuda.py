@@ -21,7 +21,8 @@ dependencies:
 - nvJPEG decodes each JPEG fixture within the stated tolerance of its
   committed OpenCV decode (``DECODE_*`` below: libjpeg-turbo's chroma
   upsampling and IDCT part from nvJPEG's by a few levels at colour edges),
-  and a file that is not JPEG raises on the CUDA route, naming its format;
+  and a file that is neither JPEG nor PNG raises on the CUDA route, naming
+  its format (a damaged PNG raises ``PngError``);
   decodes enqueued on a stream that is still busy (as the loader's and the
   refresh's are, behind a train step) equal decodes on an idle one;
 - ``inference_detector`` takes a path on the card (nvJPEG, no OpenCV) and
@@ -39,7 +40,8 @@ dependencies:
   both byte orders) as OpenCV does: the committed decode turned by numpy,
   within the decode tolerance; the probe ``readable`` refuses what
   ``cv2.imread`` cannot read (a header cut short, empty, SOI and garbage,
-  missing) and passes the fixtures and a PNG (which then raises); a JPEG
+  missing) and passes the fixtures and a PNG (which then decodes; the
+  same PNG without its IEND chunk does not pass); a JPEG
   cut inside its entropy-coded body (a fixture, and one with restart
   markers, which nvJPEG takes only completed) passes the probe and
   decodes to OpenCV's gray fill from OpenCV's first gray row, its rows
@@ -52,6 +54,12 @@ dependencies:
   to the CPU's on the same decode; the header size reader gives the
   fixtures' sizes and an EXIF-rotated copy's stored and turned sizes
   without PIL or OpenCV;
+- each committed PNG fixture decodes on the card route (the host C
+  unfilter, one upload, the colour rules on the card) to the CPU route's
+  tensor (which the CPU tests hold to ``cv2.imread``), and the C unfilter
+  gives the numpy plain version's bytes; ``Rotate`` and
+  ``PhotoMetricDistortion`` from the same seeds give on the card the CPU's
+  images and boxes, without a host sync;
 - ``train_detector`` and ``single_device_test`` refuse to start without
   CUDA (these run everywhere).
 """
@@ -72,7 +80,7 @@ from dsl_tpu_torch.train import (
 from dsl_tpu_torch.utils.jax_bridge import flax_to_state_dict, state_dict_to_flax
 from dsl_tpu_torch.utils.random_batch import to_torch
 from torch_port_make_fixtures import (
-    FIXTURES, OUT, PROGRESSIVE, RESTART, load_decodes)
+    FIXTURES, OUT, PNG_FIXTURES, PROGRESSIVE, RESTART, load_decodes)
 
 CASES = nms_cases.cases() + [nms_cases.tiny_boxes()] + nms_cases.timing_cases()
 # nvJPEG vs OpenCV, per fixture: mean |diff| in levels, share of values off
@@ -240,9 +248,11 @@ def test_decodes_queued_behind_work_equal_decodes_on_an_idle_stream(card):
 def test_non_jpeg_raises_on_the_cuda_route(card, tmp_path):
     from dsl_tpu_torch.data.image_io import read_image
 
+    from dsl_tpu_torch.data.png import PngError
+
     png = tmp_path / "x.png"
     png.write_bytes(b"\x89PNG\r\n\x1a\n" + bytes(64))
-    with pytest.raises(ValueError, match="PNG is not JPEG"):
+    with pytest.raises(PngError):
         read_image(png, card)
     bmp = tmp_path / "x.bmp"
     bmp.write_bytes(b"BM" + bytes(64))
@@ -464,8 +474,10 @@ def test_probe_on_the_card_route(card, first_read, tmp_path, monkeypatch):
     png = tmp_path / "x.png"
     png.write_bytes(U.png_bytes(8, 8))
     assert readable(png, card)
-    with pytest.raises(ValueError, match="PNG is not JPEG"):
-        read_image(png, card)
+    assert torch.equal(read_image(png, card).cpu(), torch.zeros(8, 8, 3,
+                                                               dtype=torch.uint8))
+    png.write_bytes(U.png_bytes(8, 8)[:-12])
+    assert not readable(png, card)
 
 
 @pytest.mark.cuda
@@ -566,3 +578,45 @@ def test_image_size_on_the_card_route(card, tmp_path):
     assert image_size(path, oriented=True) == (427, 640)
     assert tuple(read_image(path, card).shape[:2]) == (640, 427)
     assert image_size(tmp_path / "missing.jpg", oriented=True) == (0, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", PNG_FIXTURES)
+def test_png_decodes_on_the_card_as_on_the_cpu(card, name):
+    from dsl_tpu_torch.data import png
+    from dsl_tpu_torch.data.image_io import read_image, readable
+
+    path = OUT / f"{name}.png"
+    image = png.parse(path.read_bytes())
+    np.testing.assert_array_equal(png.unfilter_host(image),
+                                  png.unfilter_reference(image))
+    assert readable(path, card)
+    got = read_image(path, card)
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu(), read_image(path, "cpu"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg", [
+    dict(type="Rotate", level=7, prob=1.0, img_fill_val=(3, 90, 200)),
+    dict(type="PhotoMetricDistortion")], ids=["Rotate", "PhotoMetric"])
+def test_new_transform_on_the_card_matches_the_cpu(card, cfg):
+    from dsl_tpu_torch.registry import PIPELINES, build_from_cfg
+
+    img = torch.from_numpy(load_decodes()["coco_640x427"])
+    boxes = np.asarray([[10, 20, 200, 300], [300, 100, 600, 400]], np.float32)
+    t = build_from_cfg(dict(cfg), PIPELINES)
+    for seed in range(4):
+        out = {}
+        for dev in (card, "cpu"):
+            r = dict(img=img.to(dev), img_shape=tuple(img.shape),
+                     gt_bboxes=boxes.copy(), gt_labels=np.arange(2),
+                     bbox_fields=["gt_bboxes"])
+            torch.cuda.set_sync_debug_mode("error" if dev == card else 0)
+            try:
+                out[dev] = t(r, np.random.RandomState(seed))
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        assert torch.equal(out[card]["img"].cpu(), out["cpu"]["img"])
+        np.testing.assert_array_equal(out[card]["gt_bboxes"],
+                                      out["cpu"]["gt_bboxes"])

@@ -16,8 +16,15 @@ same call order. Tolerances:
   ``utils/random_batch.to_torch`` makes them, GT, masks, source weights and
   ``si_pair`` exact, image values within 1 level over the normalization's
   std (1 / 57.12) plus 1e-5;
-- a transform the port lacks (``MinIoURandomCrop``) raises
-  ``NotImplementedError`` naming it.
+- a transform the port lacks (``Albu``) raises ``NotImplementedError``
+  naming it;
+- ``ZeroIgnore`` on 16 seeds (ignore boxes that overlap a GT box or not,
+  some past the image's edge): images bit-identical, both generators left
+  in the same state;
+- the dataset wrappers, built from ``type=`` configs by
+  ``apis/train.build_dataset``, against JAX's classes over the same
+  datasets: lengths, group flags, ``CLASSES``, every index's annotations,
+  ``ClassBalancedDataset``'s repeat factors and indices: exact.
 """
 
 import copy
@@ -270,8 +277,8 @@ def test_one_source_loader_batches_equal_jax(semicoco):
 
 
 def test_compose_refuses_an_unported_transform():
-    with pytest.raises(NotImplementedError, match="MinIoURandomCrop"):
-        Compose(PIPELINE[:3] + [dict(type="MinIoURandomCrop")])
+    with pytest.raises(NotImplementedError, match="Albu"):
+        Compose(PIPELINE[:3] + [dict(type="Albu", transforms=[])])
 
 
 def test_multiscale_flip_aug_matches_jax():
@@ -288,3 +295,80 @@ def test_multiscale_flip_aug_matches_jax():
     assert float(np.abs(port["img"][0].numpy() - ref["img"][0]).max()) <= LEVEL
     np.testing.assert_allclose(port["gt_bboxes"][0], ref["gt_bboxes"][0],
                                atol=1e-4)
+
+
+def _ignore_results(seed: int):
+    """A decode with 3 GT boxes in its left half and 6 ignore boxes
+    anywhere, some reaching past the image's edges."""
+    name = sorted(FIXTURES)[seed % len(FIXTURES)]
+    img = load_decodes()[name]
+    h, w = img.shape[:2]
+    rng = np.random.RandomState(100 + seed)
+
+    def boxes(n, x_hi):
+        x1, y1 = rng.uniform(-20, x_hi, n), rng.uniform(-20, h, n)
+        return np.stack([x1, y1, x1 + rng.uniform(2, w / 3, n),
+                         y1 + rng.uniform(2, h / 3, n)], 1).astype(np.float32)
+
+    return dict(img=img, gt_bboxes=boxes(3, w / 2), gt_labels=np.arange(3),
+                gt_bboxes_ignore=boxes(6, w),
+                bbox_fields=["gt_bboxes", "gt_bboxes_ignore"])
+
+
+@pytest.mark.parametrize("seed", range(16))
+def test_zero_ignore_matches_jax(seed):
+    fill = (0, 0, 0) if seed % 2 else (7, 128, 255)
+    port, ref = _both(_ignore_results(seed))
+    np.random.seed(seed)
+    ref = jax_tf.ZeroIgnore(ratio=0.6, fill_in=fill)(ref)
+    rng = np.random.RandomState(seed)
+    port = tf.ZeroIgnore(ratio=0.6, fill_in=fill)(port, rng)
+    np.testing.assert_array_equal(port["img"].numpy(), ref["img"])
+    assert rng.rand() == np.random.rand()
+    np.testing.assert_array_equal(port["gt_bboxes_ignore"],
+                                  ref["gt_bboxes_ignore"])
+
+
+def _same_dataset(port, ref):
+    assert len(port) == len(ref)
+    assert tuple(port.CLASSES) == tuple(ref.CLASSES)
+    np.testing.assert_array_equal(port.flag, ref.flag)
+    assert port.flag.dtype == ref.flag.dtype
+    for i in range(len(ref)):
+        got, want = port.get_ann_info(i), ref.get_ann_info(i)
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=f"{i} {k}")
+
+
+def test_dataset_wrappers_equal_jax(semicoco):
+    from dsl_tpu.data.datasets import wrappers as jax_wrappers
+    from dsl_tpu_torch.apis.train import build_dataset
+
+    lab, unl = (_dataset_cfg(semicoco, s, [0.1, 0.4])
+                for s in ("labeled", "unlabeled"))
+    ref_lab, ref_unl = (jax_build(copy.deepcopy(c), JAX_DATASETS)
+                        for c in (lab, unl))
+    rng, pyrng = np.random.RandomState(0), None
+
+    def port(cfg):
+        return build_dataset(cfg, "cpu", rng, pyrng)
+
+    got = port(dict(type="RepeatDataset", times=3, dataset=lab))
+    _same_dataset(got, jax_wrappers.RepeatDataset(ref_lab, 3))
+    assert got.dataset.device.type == "cpu" and got.dataset.rng is rng
+
+    got = port(dict(type="ConcatDataset", datasets=[lab, unl]))
+    want = jax_wrappers.ConcatDataset([ref_lab, ref_unl])
+    _same_dataset(got, want)
+    assert got.cumulative_sizes == want.cumulative_sizes
+    assert [got._locate(i) for i in range(len(want))] == [
+        want._locate(i) for i in range(len(want))]
+
+    for thr in (0.3, 0.9):
+        got = port(dict(type="ClassBalancedDataset", oversample_thr=thr,
+                        dataset=unl))
+        want = jax_wrappers.ClassBalancedDataset(ref_unl, thr)
+        _same_dataset(got, want)
+        assert got.indices == want.indices
+        assert got.repeat_factors == want._repeat_factors(ref_unl, thr)
+    assert len(got) > len(ref_unl)

@@ -15,6 +15,14 @@
   ``make_optimizer``, the clip inactive and active:
   parameters within 1e-6 relative (atol 1e-8), ``grad_norm`` within 1e-5 of
   its f64 value (an f32 sum of squares over every gradient).
+- AdamW (with ``custom_keys`` lr multipliers, the clip active), Adam (its
+  weight decay 0 by default) and SGD under ``momentum_config`` (cosine and
+  linear anneal) over 50 updates on seeded gradients against
+  ``make_adamw`` / ``make_optimizer`` with ``build_momentum_schedule``:
+  every parameter tensor within 1e-6 of its largest magnitude after every
+  10 updates; the
+  momentum schedule within 1e-6 relative at every step; Adam or AdamW with
+  ``momentum_config`` raises in both packages.
 """
 
 import copy
@@ -187,3 +195,130 @@ def test_sgd_update_matches_jax(tiny, grad_scale):
                                    err_msg=jax.tree_util.keystr(path))
     np.testing.assert_array_equal(got["conv_centerness"]["kernel"],
                                   params["conv_centerness"]["kernel"])
+
+
+def _run_both(tiny, optimizer, optimizer_config, lr_config, steps,
+              momentum_config=None, total_epochs=None):
+    """``steps`` updates of the tiny head from seeded gradients in both
+    packages (``conv_centerness`` frozen); yields (update, port params,
+    JAX params) after every 10."""
+    rng = np.random.RandomState(11)
+    params = tiny["params"]["bbox_head"]
+    jfrozen = jax.tree_util.tree_map_with_path(
+        lambda path, _: path[0].key == "conv_centerness", params)
+    kw = dict(steps_per_epoch=10, total_epochs=total_epochs,
+              momentum_config=momentum_config)
+    jtx, _ = j_build_optimizer(params, optimizer, optimizer_config, lr_config,
+                               frozen_mask=jfrozen, **kw)
+    jstate, jparams = jtx.init(params), params
+    jupdate = jax.jit(jtx.update)
+
+    det = build_detector(U.TINY_CFG)
+    det.load_state_dict(flax_to_state_dict(tiny))
+    head = det.bbox_head
+    head.conv_centerness.requires_grad_(False)
+    tx, _ = build_optimizer_from_cfg(optimizer, optimizer_config, lr_config,
+                                     **kw)
+    opt = tx.init(head)
+    for count in range(steps):
+        g = jax.tree_util.tree_map(
+            lambda x, fz: np.asarray(rng.randn(*x.shape) * 0.05 * (not fz),
+                                     np.float32), params, jfrozen)
+        updates, jstate = jupdate(g, jstate, jparams)
+        jparams = jax.tree_util.tree_map(lambda p, u: p + u, jparams, updates)
+        sd = flax_to_state_dict({"params": {"bbox_head": g}})
+        for name, p in head.named_parameters():
+            p.grad = sd["bbox_head." + name].clone()
+        tx.update(opt, count)
+        if (count + 1) % 10 == 0:
+            yield count, state_dict_to_flax(det.state_dict())["params"][
+                "bbox_head"], jparams
+
+
+def _assert_close(got, want, msg):
+    """Each leaf within 1e-6 of its largest magnitude: over 50 updates the
+    f32 roundings (JAX's schedules in f32, the port's in f64) leave a few
+    ulps on elements that pass near zero."""
+    for (path, g), (_, w) in zip(jax.tree_util.tree_leaves_with_path(got),
+                                 jax.tree_util.tree_leaves_with_path(want)):
+        w = np.asarray(w)
+        err = float(np.abs(g - w).max())
+        assert err <= 1e-6 * float(np.abs(w).max()), (
+            f"{msg} {jax.tree_util.keystr(path)}: {err}")
+
+
+ADAM_CASES = {
+    "adamw": dict(type="AdamW", lr=2e-3, weight_decay=0.05,
+                  paramwise_cfg=dict(custom_keys={
+                      "conv_cls": dict(lr_mult=0.1),
+                      "conv_reg": dict(lr_mult=0.5)})),
+    "adam": dict(type="Adam", lr=1e-3, betas=(0.8, 0.99), eps=1e-6),
+}
+
+
+@pytest.mark.parametrize("name", list(ADAM_CASES))
+def test_adam_updates_match_jax(tiny, name):
+    lr = dict(policy="step", warmup="linear", warmup_iters=5,
+              warmup_ratio=0.1, step=[3])
+    clip = dict(grad_clip=dict(max_norm=0.5))
+    moved = 0
+    for count, got, want in _run_both(tiny, ADAM_CASES[name], clip, lr, 50):
+        _assert_close(got, want, f"{name} update {count}")
+        moved = max(moved, float(np.abs(got["conv_cls"]["kernel"]
+                                        - tiny["params"]["bbox_head"][
+                                            "conv_cls"]["kernel"]).max()))
+    assert moved > 1e-4
+    np.testing.assert_array_equal(
+        got["conv_centerness"]["kernel"],
+        tiny["params"]["bbox_head"]["conv_centerness"]["kernel"])
+
+
+@pytest.mark.parametrize("anneal", ["cos", "linear"])
+def test_momentum_config_matches_jax(tiny, anneal):
+    from dsl_tpu.train.optim import build_momentum_schedule as j_momentum
+    from dsl_tpu_torch.train import build_momentum_schedule
+
+    kw = dict(target_ratio=(0.85 / 0.95, 1.0), step_ratio_up=0.4,
+              total_iters=50, anneal_strategy=anneal)
+    got, want = build_momentum_schedule(0.95, **kw), j_momentum(0.95, **kw)
+    np.testing.assert_allclose([got(s) for s in range(60)],
+                               [float(want(s)) for s in range(60)], rtol=1e-6)
+    assert min(got(s) for s in range(50)) < 0.86
+    mc = dict(policy="cyclic", target_ratio=(0.85 / 0.95, 1.0),
+              step_ratio_up=0.4, anneal_strategy=anneal)
+    sgd = dict(U.OPTIMIZER, momentum=0.95)
+    lr = dict(U.LR_CONFIG, warmup_iters=3)
+    for count, got_p, want_p in _run_both(tiny, sgd, U.OPTIMIZER_CONFIG, lr,
+                                          50, momentum_config=mc,
+                                          total_epochs=5):
+        _assert_close(got_p, want_p, f"momentum {anneal} update {count}")
+
+
+@pytest.mark.parametrize("kind", ["Adam", "AdamW"])
+def test_adam_with_momentum_config_raises(tiny, kind):
+    mc = dict(policy="cyclic")
+    with pytest.raises(NotImplementedError, match="momentum_config"):
+        build_optimizer_from_cfg(dict(type=kind, lr=1e-3), None, None,
+                                 total_epochs=2, momentum_config=mc)
+    with pytest.raises(NotImplementedError, match="momentum_config"):
+        j_build_optimizer(tiny["params"], dict(type=kind, lr=1e-3), None,
+                          None, total_epochs=2, momentum_config=mc)
+
+
+def test_chip_smoke_momentum_values_are_jax():
+    """The momentum values ``chip_smoke.py`` phase 16 holds the card's SGD
+    run to are the JAX package's schedule for that run, exactly."""
+    import sys
+    from pathlib import Path
+
+    from dsl_tpu.train.optim import build_momentum_schedule as j_momentum
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+
+    mc = dict(chip_smoke.MOMENTUM_CONFIG)
+    mc.pop("policy")
+    want = j_momentum(chip_smoke.MOMENTUM_BASE, policy="cyclic",
+                      total_iters=chip_smoke.MOMENTUM_ITERS, **mc)
+    assert chip_smoke.MOMENTUM_EXPECTED == tuple(
+        float(want(s)) for s in range(chip_smoke.MOMENTUM_ITERS))

@@ -161,6 +161,143 @@ def write_progressive_cuts() -> None:
           f"{(OUT / 'progressive_cut_means.npz').stat().st_size} bytes")
 
 
+# PNG fixtures: name -> what it is. Each is written from a fixture's
+# committed decode, cut to a small size; ``cv2.imwrite`` writes the types it
+# can, :func:`encode_png` the rest (palette, gray with alpha, low-bit gray,
+# tRNS, Adam7, every filter type).
+PNG_SIZE = (72, 104)              # (h, w) of the crop each PNG is made from
+PNG_FIXTURES = ("png_rgb8", "png_rgb16", "png_rgba8", "png_gray8",
+                "png_gray16", "png_bilevel", "png_palette4_trns",
+                "png_gray_alpha_adam7", "png_rgb8_adam7_filters",
+                "png_gray2")
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+         (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def _paeth(a, b, c):
+    pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+    return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+
+
+def _filter_rows(raw: np.ndarray, bpp: int, filters) -> bytes:
+    """PNG-filter rows of bytes (h, rowbytes): row ``y`` with type
+    ``filters(y)``; each type is a function of the unfiltered bytes only."""
+    out = []
+    prior = np.zeros(raw.shape[1], np.int32)
+    for y, row in enumerate(raw.astype(np.int32)):
+        left = np.concatenate([np.zeros(bpp, np.int32), row[:-bpp]])[:len(row)]
+        upleft = np.concatenate([np.zeros(bpp, np.int32), prior[:-bpp]])[:len(row)]
+        ftype = filters(y)
+        pred = (0, left, prior, (left + prior) >> 1,
+                _paeth(left, prior, upleft))[ftype]
+        out.append(bytes([ftype]) + ((row - pred) & 255).astype(np.uint8).tobytes())
+        prior = row
+    return b"".join(out)
+
+
+def _pack(samples: np.ndarray, depth: int) -> np.ndarray:
+    """(h, w, c) samples -> (h, rowbytes) bytes at ``depth`` bits."""
+    h = samples.shape[0]
+    flat = samples.reshape(h, -1)
+    if depth == 16:
+        return flat.astype(">u2").view(np.uint8).reshape(h, -1)
+    if depth == 8:
+        return flat.astype(np.uint8)
+    per = 8 // depth
+    pad = (-flat.shape[1]) % per
+    flat = np.concatenate([flat, np.zeros((h, pad), flat.dtype)], 1)
+    groups = flat.reshape(h, -1, per).astype(np.uint8)
+    shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+    return np.bitwise_or.reduce(groups << shifts, axis=2).astype(np.uint8)
+
+
+def png_chunk(kind: bytes, body: bytes) -> bytes:
+    import struct
+    import zlib
+
+    return (struct.pack(">I", len(body)) + kind + body
+            + struct.pack(">I", zlib.crc32(kind + body)))
+
+
+def encode_png(samples: np.ndarray, color_type: int, depth: int,
+               interlace: bool = False, filters=None, palette=None,
+               trns: bytes | None = None, idat_parts: int = 1) -> bytes:
+    """A PNG of ``samples`` (h, w, channels of the colour type), written
+    with the standard library: ``filters(y)`` gives each row's filter type
+    (row index within its pass; by default y % 5, every type), ``palette``
+    (n, 3) RGB, ``trns`` the tRNS chunk's body, the zlib stream split over
+    ``idat_parts`` IDAT chunks. ``cv2.imwrite`` writes no interlaced,
+    palette or low-bit gray file."""
+    import struct
+    import zlib
+
+    filters = filters or (lambda y: y % 5)
+    h, w = samples.shape[:2]
+    bpp = max(1, samples.shape[2] * depth // 8)
+    passes = ADAM7 if interlace else ((0, 0, 1, 1),)
+    stream = b""
+    for x0, y0, dx, dy in passes:
+        sub = samples[y0::dy, x0::dx]
+        if sub.size:
+            stream += _filter_rows(_pack(sub, depth), bpp, filters)
+    z = zlib.compress(stream, 9)
+    cuts = np.linspace(0, len(z), idat_parts + 1).astype(int)
+    out = b"\x89PNG\r\n\x1a\n" + png_chunk(b"IHDR", struct.pack(
+        ">IIBBBBB", w, h, depth, color_type, 0, 0, int(interlace)))
+    if palette is not None:
+        out += png_chunk(b"PLTE", np.asarray(palette, np.uint8).tobytes())
+    if trns is not None:
+        out += png_chunk(b"tRNS", trns)
+    for a, b in zip(cuts[:-1], cuts[1:]):
+        out += png_chunk(b"IDAT", z[a:b])
+    return out + png_chunk(b"IEND", b"")
+
+
+def png_fixture_bytes(decodes: dict) -> dict[str, bytes]:
+    """The PNG fixtures' bytes, from the committed decodes (the colour ones
+    and the gray one cut to ``PNG_SIZE``)."""
+    import cv2
+
+    h, w = PNG_SIZE
+    bgr = decodes["coco_640x480"][100:100 + h, 200:200 + w]
+    gray = decodes["gray_640x480"][200:200 + h, 100:100 + w, 0]
+    rng = np.random.RandomState(SEED)
+    alpha = rng.randint(0, 256, (h, w), np.uint8)
+    wide = bgr.astype(np.uint16) * 257 + rng.randint(0, 256, bgr.shape).astype(np.uint16)
+
+    def imwrite(img, params=()):
+        ok, buf = cv2.imencode(".png", img, list(params))
+        if not ok:
+            raise RuntimeError("cv2.imencode failed")
+        return buf.tobytes()
+
+    rgb = bgr[..., ::-1]
+    palette = rng.randint(0, 256, (12, 3))            # 12 of 16 entries
+    index = (gray.astype(np.int64) * 17 // 256)[..., None]   # 0-16: some past 12
+    return {
+        "png_rgb8": imwrite(bgr),
+        "png_rgb16": imwrite(wide),
+        "png_rgba8": imwrite(np.dstack([bgr, alpha])),
+        "png_gray8": imwrite(gray),
+        "png_gray16": imwrite(gray.astype(np.uint16) * 257 + alpha),
+        "png_bilevel": imwrite(gray, [cv2.IMWRITE_PNG_BILEVEL, 1]),
+        "png_palette4_trns": encode_png(np.minimum(index, 15), 3, 4,
+                                        palette=palette, trns=bytes(range(0, 240, 20))),
+        "png_gray_alpha_adam7": encode_png(np.dstack([gray, alpha]), 4, 8,
+                                           interlace=True),
+        "png_rgb8_adam7_filters": encode_png(rgb, 2, 8, interlace=True,
+                                             idat_parts=3),
+        "png_gray2": encode_png((gray >> 6)[..., None], 0, 2),
+    }
+
+
+def write_png_fixtures() -> None:
+    """Write ``tests/torch_port_data/<name>.png`` for ``PNG_FIXTURES``."""
+    for name, data in png_fixture_bytes(load_decodes()).items():
+        (OUT / f"{name}.png").write_bytes(data)
+        print(f"{name}.png: {len(data)} bytes")
+
+
 def main() -> None:
     import cv2
     import json
@@ -207,6 +344,7 @@ def main() -> None:
         want = cv2.imread(str(OUT / f"{name}.jpg"), cv2.IMREAD_COLOR)
         if not np.array_equal(img, want):
             raise RuntimeError(f"{name}: the stored decode does not read back")
+    write_png_fixtures()
 
 
 if __name__ == "__main__":
