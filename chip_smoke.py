@@ -237,6 +237,29 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    the plain version's NMS keeps; then an SGD run under
    ``momentum_config`` whose momentum at each update equals
    ``MOMENTUM_EXPECTED`` (the JAX package's schedule).
+17. the anchor-based detectors at full width (ResNet-50 pytorch style,
+   FPN 256, 800x1344), the NMS count at 0 before each part and read after
+   it: Faster R-CNN (``configs/faster_rcnn/faster_rcnn_r50_fpn_1x_coco.py``)
+   and RetinaNet (``configs/retinanet/retinanet_r50_fpn_1x_coco.py``) with
+   seeded weights (the classifiers shaped so that the RoI head's NMS sees
+   2000 candidates over ``score_thr``; ``phase_anchor_predict`` says how),
+   built by ``init_detector``: ``detector_predict`` at B=8, Faster R-CNN
+   in f32 and RetinaNet in f32 and bf16: dets finite (8, 100, 5) with
+   detections in every image, 2 NMS launches per Faster R-CNN predict (the
+   RPN's at N = 4819, the RoI head's at N = 2000) and 1 per RetinaNet
+   predict, every recorded input's keeps equal to the plain version's,
+   head outputs card vs CPU within 1e-3, img/s; the NMS kernel timed on the
+   three inputs as in phase 5 (the kernels line's ``paths``). Then the
+   train entry point on each at B=2 (f32, cuDNN deterministic): losses
+   finite with every key, 1 NMS launch per Faster R-CNN step and 0 per
+   RetinaNet step, step ms (median of 10 after 3 warm-ups); RoIAlign
+   forward and backward ms at the step's shapes beside their bound; one
+   step card vs CPU at 2x128x192 (losses 1e-4, ``grad_norm`` 1e-3,
+   updates banded); two Faster R-CNN runs of 4 steps bit-identical. Then
+   ``train_detector`` on ``configs/pascal_voc/faster_rcnn_r50_fpn_1x_voc0712.py``
+   over phase 14's VOC2007 directory for one epoch and the test CLI's
+   ``--eval mAP``: losses finite, ``mAP`` in [0, 1], 1 NMS launch per step
+   and 2 per predicted batch.
 
 f32 runs with TF32 off (``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32`` False): cuDNN convolutions would
@@ -672,7 +695,6 @@ def phase_nms_timing(calls, smi: str) -> dict:
     import torch
 
     from dsl_tpu_torch.ops import nms_cases
-    from dsl_tpu_torch.ops.nms import nms_keep, nms_keep_reference
 
     predict = next(c for c in calls if c[0].shape[0] == BATCH)
     request = next(c for c in calls if c[0].shape[0] == 1)
@@ -681,23 +703,31 @@ def phase_nms_timing(calls, smi: str) -> dict:
         if name in ("dense_b8", "sparse_b8"):
             inputs.append((name, torch.from_numpy(boxes).to(DEVICE),
                            torch.from_numpy(valid).to(DEVICE), thr))
-    out = {}
-    for name, boxes, valid, thr in inputs:
-        keep = nms_keep_reference(boxes, valid, thr)
-        passes = nms_pass_ms(boxes, valid, thr)
-        device = sum(passes.values())
-        wrapper = cuda_ms(lambda: nms_keep(boxes, valid, thr), reps=100, warmup=5)
-        plain = cuda_ms(lambda: nms_keep_reference(boxes, valid, thr), reps=5)
-        bound, bound_by = kernel_bound_ms(boxes, valid, keep)
-        split = ", ".join(f"{p} {ms:.4f}" for p, ms in passes.items())
-        log(f"[time] nms_keep {name} B={boxes.shape[0]} N={boxes.shape[1]} "
-            f"kept {int(keep.sum())}: device {device:.4f} ms ({split}), "
-            f"wrapper {wrapper:.4f} ms, plain {plain:.4f} ms, bound "
-            f"{bound:.6f} ms ({bound_by}), {device / bound:.1f}x the bound"
-            f"  ({smi})")
-        out[name] = dict(ms=device, wrapper_ms=wrapper, plain_ms=plain,
-                         bound_ms=bound, bound_by=bound_by, **passes)
-    return out
+    return {name: nms_input_timing(name, boxes, valid, thr, smi)
+            for name, boxes, valid, thr in inputs}
+
+
+def nms_input_timing(name: str, boxes, valid, thr, smi: str) -> dict:
+    """The NMS kernel on one input: each pass's device time and their sum
+    per call (profiler), the wrapper's time (CUDA events around 100 calls
+    of nms_keep, host work included), the plain version's time and the
+    bound."""
+    from dsl_tpu_torch.ops.nms import nms_keep, nms_keep_reference
+
+    keep = nms_keep_reference(boxes, valid, thr)
+    passes = nms_pass_ms(boxes, valid, thr)
+    device = sum(passes.values())
+    wrapper = cuda_ms(lambda: nms_keep(boxes, valid, thr), reps=100, warmup=5)
+    plain = cuda_ms(lambda: nms_keep_reference(boxes, valid, thr), reps=5)
+    bound, bound_by = kernel_bound_ms(boxes, valid, keep)
+    split = ", ".join(f"{p} {ms:.4f}" for p, ms in passes.items())
+    log(f"[time] nms_keep {name} B={boxes.shape[0]} N={boxes.shape[1]} "
+        f"kept {int(keep.sum())}: device {device:.4f} ms ({split}), "
+        f"wrapper {wrapper:.4f} ms, plain {plain:.4f} ms, bound "
+        f"{bound:.6f} ms ({bound_by}), {device / bound:.1f}x the bound"
+        f"  ({smi})")
+    return dict(ms=device, wrapper_ms=wrapper, plain_ms=plain,
+                bound_ms=bound, bound_by=bound_by, **passes)
 
 
 def train_batch(cfg, seed: int, canvas, n_labeled: int, n_unlabeled: int,
@@ -735,10 +765,12 @@ def train_entry(cfg, variables, dtype, device):
     tx, _ = build_optimizer_from_cfg(
         dict(cfg.optimizer), dict(cfg.optimizer_config), dict(cfg.lr_config),
         steps_per_epoch=TRAIN_STEPS_PER_EPOCH)
-    ema = dict(cfg.ema_config)
-    state = create_train_state(det, tx, ema_ratio=ema["ratio"], device=device)
-    step = make_train_step(det, tx, ema_interval=ema["interval"],
-                           ema_start_iter=ema["start_point"],
+    # train_detector's defaults where the config has no ema_config
+    ema = dict(cfg.get("ema_config") or {})
+    state = create_train_state(det, tx, ema_ratio=ema.get("ratio", 0.99),
+                               device=device)
+    step = make_train_step(det, tx, ema_interval=ema.get("interval", 1),
+                           ema_start_iter=ema.get("start_point", 1),
                            compute_dtype=dtype, frozen_mask=frozen,
                            device=device)
     return state, step
@@ -3500,6 +3532,466 @@ def png_refresh(runner, tmp: Path, before: dict) -> int:
 
 png_refresh.launches = 0
 
+# -- the anchor-based detectors (phase 17) ----------------------------------
+
+FASTER_RCNN_CONFIG = ROOT / "configs" / "faster_rcnn" / "faster_rcnn_r50_fpn_1x_coco.py"
+RETINANET_CONFIG = ROOT / "configs" / "retinanet" / "retinanet_r50_fpn_1x_coco.py"
+FASTER_RCNN_VOC_CONFIG = (ROOT / "configs" / "pascal_voc"
+                          / "faster_rcnn_r50_fpn_1x_voc0712.py")
+RPN_NMS_N = 4819              # 1000 candidates from each of P2-P5, 819 from P6
+ROI_NMS_N = 2000              # multiclass_nms's pre_nms_top
+ANCHOR_TIMED = 20             # predicts timed per detector and dtype
+ANCHOR_TRAIN_B = 2            # the configs' samples_per_gpu
+ANCHOR_WARMUP, ANCHOR_STEPS = 3, 10   # train steps: warm-ups, then timed
+ANCHOR_DET_STEPS = 4          # Faster R-CNN steps per determinism run
+ANCHOR_SMALL = (128, 192)     # the card-vs-CPU inputs
+ROI_TIMED = 20                # RoIAlign forward / backward calls timed
+VOC17_EPOCHS = 1
+
+
+def _flat_tensors(tree) -> list:
+    if isinstance(tree, (tuple, list)):
+        return [t for x in tree for t in _flat_tensors(x)]
+    return [tree]
+
+
+def card_vs_cpu_outputs(det, inputs, **kw) -> float:
+    """The worst |card - CPU| / max(max |CPU|, 1) over every tensor of
+    ``det(inputs, **kw)``, the CPU run on a copy of the detector."""
+    import torch
+
+    with torch.no_grad():
+        gpu = _flat_tensors(det(inputs, **kw))
+        cpu = _flat_tensors(copy.deepcopy(det).cpu()(inputs.cpu(), **kw))
+    return max(float((g.float().cpu() - c).abs().max()
+                     / c.abs().max().clamp_min(1.0)) for g, c in zip(gpu, cpu))
+
+
+def phase_anchor_predict(smi: str):
+    """Faster R-CNN and RetinaNet R50-FPN predict at full width, counted.
+
+    Each from its COCO config, with seeded numpy weights through the weight
+    bridge (``random_weights.fill_variables``: the RoI head's ``fc_cls``
+    with 8 live classes at logits in [1, 2], the background at 0 and the
+    rest at -8, so each proposal puts about 1/9 on each live class, above
+    ``score_thr`` 0.05; RetinaNet's ``retina_cls`` with 8 live classes as
+    FCOS's classifier; the regressors small, so boxes stay near their
+    anchors and proposals; ``score_thr`` is the config's), built by
+    ``init_detector``. With the NMS count at 0, ``detector_predict`` on
+    B=8 at 800x1344: Faster R-CNN in f32, RetinaNet in f32 and bf16. Dets
+    finite (8, 100, 5) with detections in every image; exactly 2 NMS
+    launches per Faster R-CNN predict (the RPN's at N = 4819, the RoI
+    head's at N = 2000) and 1 per RetinaNet predict (N = 2000); every
+    recorded input's keeps equal the plain version's; each image's RoI
+    NMS input holds 2000 candidates over ``score_thr`` (so it runs at its
+    full N); head outputs (the FPN levels, the RPN's and the RoI head's on
+    seeded RoI features; RetinaNet's) card vs CPU within 1e-3 of the
+    largest magnitude at 1x128x192; predict ms (median of 20) and img/s.
+    Returns the launches, the worst keep difference, and the recorded
+    (path, B, N, launches) and NMS inputs per path."""
+    import numpy as np
+    import torch
+
+    from dsl_tpu_torch.apis import init_detector
+    from dsl_tpu_torch.config import Config
+    from dsl_tpu_torch.models import detector_predict
+    from dsl_tpu_torch.ops.nms import nms_keep, nms_keep_reference
+
+    gen = torch.Generator(device=DEVICE).manual_seed(17)
+    images = torch.randn((BATCH, 3, *CANVAS), generator=gen, device=DEVICE)
+    launches, worst, paths, inputs = 0, 0, [], {}
+    plan = ((FASTER_RCNN_CONFIG, (None,), ("rpn", "rcnn")),
+            (RETINANET_CONFIG, (None, torch.bfloat16), ("retina",)))
+    for path, dtypes, names in plan:
+        cfg = Config.fromfile(str(path))
+        tc = dict(cfg.model.test_cfg)
+        max_per_img = dict(tc.get("rcnn", tc))["max_per_img"]
+        bundle = init_detector(cfg, variables=seeded_variables(cfg),
+                               device=DEVICE)
+        det = bundle.detector
+        kind = type(det).__name__
+        log(f"[anchor] {path.relative_to(ROOT)}: {kind}, "
+            f"{sum(p.numel() for p in det.parameters()) / 1e6:.2f} M "
+            f"parameters, B={BATCH} at {CANVAS[0]}x{CANVAS[1]}")
+        for dtype in dtypes:
+            tag = f"{kind} {'bf16' if dtype else 'f32'}"
+            nms_keep.launches = 0
+            with recording_nms() as calls:
+                dets, labels, valid = detector_predict(
+                    det, images, compute_dtype=dtype, device=DEVICE)
+                torch.cuda.synchronize()
+            n = nms_keep.launches
+            launches += n
+            want_n = [RPN_NMS_N, ROI_NMS_N] if kind == "FasterRCNN" else [ROI_NMS_N]
+            got_shapes = [tuple(c[0].shape[:2]) for c in calls]
+            if n != len(want_n) or got_shapes != [(BATCH, k) for k in want_n]:
+                raise AssertionError(f"{tag}: {n} NMS launches at {got_shapes}, "
+                                     f"expected one each at N = {want_n}")
+            if tuple(dets.shape) != (BATCH, max_per_img, 5):
+                raise AssertionError(f"{tag}: dets {tuple(dets.shape)}")
+            if not bool(torch.isfinite(dets).all()):
+                raise AssertionError(f"{tag}: dets are not finite")
+            per_img = valid.sum(1).tolist()
+            if min(per_img) == 0:
+                raise AssertionError(f"{tag}: an image has no detection: {per_img}")
+            for name, (boxes, v, thr, keep) in zip(names, calls):
+                want = nms_keep_reference(boxes, v, thr)
+                torch.cuda.synchronize()
+                worst = max(worst, int((keep.int() - want.int()).abs().max()))
+                if not torch.equal(keep, want):
+                    raise AssertionError(f"{tag} {name} NMS keeps differ from "
+                                         f"the plain version")
+                log(f"[anchor] {tag} {name} NMS input {tuple(boxes.shape)} "
+                    f"thr {thr}: {int(v.sum())} valid, {int(keep.sum())} kept "
+                    f"— bit-identical to the plain version")
+                if dtype is None:
+                    inputs[name] = (boxes, v, thr)
+                    paths.append(dict(path=name, B=BATCH, N=int(boxes.shape[1]),
+                                      launches=1))
+            roi_valid = calls[-1][1].sum(1).tolist()
+            if min(roi_valid) < ROI_NMS_N:
+                raise AssertionError(f"{tag}: fewer than {ROI_NMS_N} candidates "
+                                     f"over score_thr: {roi_valid}")
+            log(f"[anchor] {tag}: dets {tuple(dets.shape)} finite, valid per "
+                f"image {per_img}, labels seen "
+                f"{sorted(set(labels[valid].tolist()))[:10]}, NMS launches {n}")
+
+            def predict():
+                return detector_predict(det, images, compute_dtype=dtype,
+                                        device=DEVICE)
+
+            torch.cuda.reset_peak_memory_stats()
+            times = sorted(host_ms(predict, reps=ANCHOR_TIMED))
+            ms = times[len(times) // 2]
+            log(f"[time] {tag} predict B={BATCH} {CANVAS[0]}x{CANVAS[1]}: median "
+                f"{ms:.2f} ms/batch (min {times[0]:.2f}, max {times[-1]:.2f}, "
+                f"{ANCHOR_TIMED} reps), {BATCH / ms * 1e3:.1f} img/s, peak "
+                f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
+                f"  ({smi})")
+        small = images[:1, :, :ANCHOR_SMALL[0], :ANCHOR_SMALL[1]]
+        rel = card_vs_cpu_outputs(det, small)
+        if kind == "FasterRCNN":
+            head = det.bbox_head
+            rf = torch.from_numpy(np.random.RandomState(17).randn(
+                64, head.in_channels, head.roi_size, head.roi_size).astype(
+                    np.float32)).to(DEVICE)
+            rel = max(rel, card_vs_cpu_outputs(det, rf, stage="roi"))
+        log(f"[anchor] {kind} f32 head outputs, card vs CPU at "
+            f"1x{ANCHOR_SMALL[0]}x{ANCHOR_SMALL[1]}: worst |diff| / max|ref| = "
+            f"{rel:.3e}")
+        if rel > 1e-3:
+            raise AssertionError(f"{kind}: card and CPU disagree: {rel}")
+        del bundle, det
+        torch.cuda.empty_cache()
+    return launches, worst, paths, inputs
+
+
+def anchor_batch(seed: int, canvas, b: int, num_classes: int, device):
+    """A seeded batch of ``b`` labeled images with 1-20 GT boxes each (K=100,
+    sides 16-600 px, integer corners), ``img_shapes`` the canvas."""
+    import numpy as np
+
+    from dsl_tpu_torch.utils.random_batch import semi_batch, to_torch
+
+    rng = np.random.RandomState(seed)
+    side = (16, 600) if canvas[0] >= 600 else (8, 100)
+    raw = semi_batch(seed, canvas, n_gt=list(rng.randint(1, 21, b)),
+                     n_ignore=[0] * b, n_labeled=b, side=side,
+                     num_classes=num_classes)
+    out = {k: raw[k][:b] for k in ("images", "gt_bboxes", "gt_labels",
+                                   "gt_valid")}
+    out["img_shapes"] = np.tile(np.asarray(canvas, np.float32), (b, 1))
+    return to_torch(out, device)
+
+
+@contextlib.contextmanager
+def host_sampler_draws():
+    """The two-stage samplers' draws made on the CPU and moved to the
+    device, so that a step on the card and one on the CPU sample alike."""
+    from dsl_tpu_torch.models.detectors import two_stage
+
+    real = two_stage.sampler_draws
+
+    def on_host(cur_iter, b, a, n, device):
+        return {k: v.to(device) for k, v in
+                real(cur_iter, b, a, n, "cpu").items()}
+
+    two_stage.sampler_draws = on_host
+    try:
+        yield
+    finally:
+        two_stage.sampler_draws = real
+
+
+def roi_align_timing(state, batch, smi: str) -> dict:
+    """RoIAlign forward and backward at the Faster R-CNN step's shapes: the
+    RoIs a step samples (2 x 512) from P2-P5 of the batch, timed by CUDA
+    events (the backward on a kept graph), beside the bound: the bytes
+    the function must move (forward: each feature row its samples touch,
+    read once, and the output written once; backward: the output gradient
+    read once and the whole table's gradient written once) over the card's
+    memory rate, against its multiply-adds over the f32 rate."""
+    import torch
+
+    from dsl_tpu_torch.models.detectors import two_stage
+    from dsl_tpu_torch.models.dense_heads.rpn_head import rpn_proposals
+    from dsl_tpu_torch.models.roi_heads import standard_roi_head as roi
+    from dsl_tpu_torch.ops.roi_align import roi_align_rows, sample_taps
+
+    det = state.student
+    head = det.bbox_head
+    with torch.no_grad():
+        feats, (scores, deltas) = det(batch["images"])
+        props, _, pvalid = rpn_proposals(
+            det.rpn_head, scores, deltas, img_shapes=batch["img_shapes"],
+            nms_pre=two_stage.TRAIN_PROPOSALS,
+            num_proposals=two_stage.TRAIN_PROPOSALS)
+        draws = two_stage.sampler_draws(
+            0, ANCHOR_TRAIN_B, sum(s[0].numel() for s in scores),
+            two_stage.TRAIN_PROPOSALS + batch["gt_bboxes"].shape[1], DEVICE)
+        samples = roi.sample_batch_rois(props, pvalid, batch, draws["rcnn"],
+                                        head.num_classes,
+                                        **two_stage.parse_rcnn_train_cfg(None))
+    rois = roi.flat_rois(samples["rois"])
+    valid = samples["valid"].reshape(-1)
+    levels = [f.detach().clone().requires_grad_(True)
+              for f in feats[:len(det.strides)]]
+    table, base, height, width, scale = roi.level_table(levels, rois,
+                                                        det.strides)
+    args = (rois[:, 1:5], base, height, width, scale)
+
+    def forward():
+        return roi_align_rows(table, *args, valid)
+
+    fwd = cuda_ms(lambda: forward(), reps=ROI_TIMED)
+    out = forward()
+    cot = torch.randn_like(out)
+    bwd = cuda_ms(lambda: torch.autograd.grad(out, table, cot,
+                                              retain_graph=True),
+                  reps=ROI_TIMED)
+    idx, _ = sample_taps(*args)
+    n, c = out.shape[0], out.shape[-1]
+    touched = int(torch.unique(idx[:, valid]).numel())
+    out_bytes = out.numel() * 4
+    fwd_bytes = touched * c * 4 + out_bytes
+    bwd_bytes = out_bytes + table.numel() * 4
+    macs = idx.shape[0] * out.numel()          # one multiply-add per tap
+    result = {}
+    for tag, ms, nbytes in (("forward", fwd, fwd_bytes),
+                            ("backward", bwd, bwd_bytes)):
+        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+        t_ops = 2 * macs / H100_F32_FLOP_PER_S * 1e3
+        bound, by = (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+        result[tag] = dict(ms=ms, bound_ms=bound, bound_by=by)
+        log(f"[time] RoIAlign {tag} at the step's shapes ({n} RoIs, "
+            f"{int(valid.sum())} valid, C={c}, 7x7, 2x2 samples; table "
+            f"{table.shape[0]} rows, {touched} touched): {ms:.4f} ms, bound "
+            f"{bound:.4f} ms ({by}: {nbytes} bytes, {2 * macs} ops), "
+            f"{ms / bound:.1f}x the bound  ({smi})")
+    return result
+
+
+def anchor_step_runs(cfg, variables, batch, steps: int):
+    """``steps`` f32 steps of the train entry point from the seeded state:
+    each step's metrics (floats), each step's ms (host clock to a
+    synchronize), the state."""
+    import torch
+
+    state, step = train_entry(cfg, variables, None, DEVICE)
+    metrics, times = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        m = step(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        metrics.append({k: float(v) for k, v in m.items()})
+    return metrics, times, state
+
+
+def phase_anchor_train(smi: str):
+    """Faster R-CNN and RetinaNet train steps at full width, f32, cuDNN
+    deterministic (the caller holds it). The train entry point
+    (``train_entry``: the config's SGD, clip and schedule) on a seeded batch
+    of the configs' B=2 at 800x1344; with the NMS count at 0,
+    ``ANCHOR_WARMUP`` + ``ANCHOR_STEPS`` steps: losses finite with every
+    loss key, 1 NMS launch per Faster R-CNN step (its training proposals)
+    and 0 per RetinaNet step; step ms (median of the timed ones), img/s,
+    peak memory; then RoIAlign forward and backward at the step's shapes
+    (:func:`roi_align_timing`); one step card vs CPU on a 2x128x192 batch
+    (losses within 1e-4, ``grad_norm`` within 1e-3, updates banded as in
+    phase 6; the samplers' draws made on the host for both); and two
+    Faster R-CNN runs of ``ANCHOR_DET_STEPS`` steps from one seeded state,
+    bit-identical (every loss, every parameter). Returns the NMS launches
+    and the RoIAlign times."""
+    import numpy as np
+    import torch
+
+    from dsl_tpu_torch.config import Config
+    from dsl_tpu_torch.ops.nms import nms_keep
+
+    launches, roi_times = 0, None
+    keys = {"FasterRCNN": {"loss_rpn_cls", "loss_rpn_bbox", "loss_cls",
+                           "loss_bbox", "acc", "loss", "grad_norm"},
+            "RetinaNet": {"loss_cls", "loss_bbox", "loss", "grad_norm"}}
+    for path in (FASTER_RCNN_CONFIG, RETINANET_CONFIG):
+        cfg = Config.fromfile(str(path))
+        variables = seeded_variables(cfg)
+        nc = cfg.model.bbox_head.num_classes
+        batch = anchor_batch(TRAIN_SEED, CANVAS, ANCHOR_TRAIN_B, nc, DEVICE)
+        torch.cuda.reset_peak_memory_stats()
+        nms_keep.launches = 0
+        metrics, times, state = anchor_step_runs(
+            cfg, variables, batch, ANCHOR_WARMUP + ANCHOR_STEPS)
+        n = nms_keep.launches
+        launches += n
+        kind = type(state.student).__name__
+        per_step = 1 if kind == "FasterRCNN" else 0
+        if n != per_step * len(metrics):
+            raise AssertionError(f"{kind} steps: {n} NMS launches over "
+                                 f"{len(metrics)} steps, expected {per_step} each")
+        for i, m in enumerate(metrics):
+            if set(m) != keys[kind] or not all(np.isfinite(v) for v in m.values()):
+                raise AssertionError(f"{kind} step {i}: {m}")
+        timed = sorted(times[ANCHOR_WARMUP:])
+        ms = timed[len(timed) // 2]
+        log(f"[train] {kind} f32 B={ANCHOR_TRAIN_B} {CANVAS[0]}x{CANVAS[1]}: "
+            f"first step " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                       sorted(metrics[0].items()))
+            + f"; last " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                     sorted(metrics[-1].items()))
+            + f"; NMS launches {n}")
+        log(f"[time] {kind} train step f32 B={ANCHOR_TRAIN_B}: median {ms:.2f} "
+            f"ms (min {timed[0]:.2f}, max {timed[-1]:.2f}, {ANCHOR_STEPS} after "
+            f"{ANCHOR_WARMUP} warm-ups), {ANCHOR_TRAIN_B / ms * 1e3:.2f} img/s, "
+            f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
+            f"  ({smi})")
+        if kind == "FasterRCNN":
+            roi_times = roi_align_timing(state, batch, smi)
+        del state
+        torch.cuda.empty_cache()
+
+        # one step, card vs CPU, on a small batch with the same draws
+        results = {}
+        with host_sampler_draws():
+            for device in (DEVICE, "cpu"):
+                st, step = train_entry(cfg, variables, None, device)
+                init = {k: p.detach().cpu().clone()
+                        for k, p in st.student.named_parameters()}
+                m = step(st, anchor_batch(TRAIN_SEED + 1, ANCHOR_SMALL,
+                                          ANCHOR_TRAIN_B, nc, device))
+                results[device] = ({k: float(v) for k, v in m.items()},
+                                   {k: p.detach().cpu() for k, p in
+                                    st.student.named_parameters()})
+        (m_card, p_card), (m_cpu, p_cpu) = results[DEVICE], results["cpu"]
+        for k, v in m_cpu.items():
+            rel = abs(m_card[k] - v) / max(abs(v), 1e-12)
+            if rel > (1e-3 if k == "grad_norm" else 1e-4):
+                raise AssertionError(f"{kind} card vs CPU {k}: {m_card[k]} vs {v}")
+        worst, l2 = banded_max_ratio(p_card, p_cpu, init)
+        log(f"[train] {kind} card vs CPU, one f32 step at {ANCHOR_TRAIN_B}x"
+            f"{ANCHOR_SMALL[0]}x{ANCHOR_SMALL[1]}: " + ", ".join(
+                f"{k} {m_card[k]:.6f}/{m_cpu[k]:.6f}" for k in sorted(m_cpu))
+            + f"; updates: worst banded ratio {worst:.3f} (limit 1), relative "
+            f"L2 {l2:.2e} (limit 1e-3)")
+        if worst > 1 or l2 > 1e-3:
+            raise AssertionError(f"{kind} card vs CPU updates: banded ratio "
+                                 f"{worst}, L2 {l2}")
+        if kind == "FasterRCNN":
+            nms_keep.launches = 0
+            runs = []
+            for _ in range(2):
+                m, _, st = anchor_step_runs(cfg, variables, batch,
+                                            ANCHOR_DET_STEPS)
+                runs += [m, {k: p.detach().clone() for k, p in
+                             st.student.named_parameters()}]
+                del st
+            launches += nms_keep.launches
+            check_deterministic(*runs)
+            del runs
+        torch.cuda.empty_cache()
+    return launches, roi_times
+
+
+def voc_dir(tmp: Path) -> dict:
+    """Phase 14's synthetic VOC2007 directory (made again, from the same
+    seed, where phase 14 has not run in this process)."""
+    from dsl_tpu_torch.utils import synthetic_data
+
+    voc = tmp / "semivoc" / "VOC2007"
+    main = voc / "ImageSets" / "Main"
+    if not (main / "test.txt").exists():
+        files, _ = fixtures()
+        return synthetic_data.make_voc_dir(
+            tmp / "semivoc", [(str(p), h, w) for _, p, h, w in files],
+            VOC_TRAINVAL, VOC_TEST)
+    return dict(voc_root=str(voc), images=str(voc / "JPEGImages"),
+                trainval=str(main / "trainval.txt"), test=str(main / "test.txt"))
+
+
+def phase_anchor_voc(tmp: Path, smi: str) -> int:
+    """The VOC workflow with Faster R-CNN at full width: ``train_detector``
+    on ``configs/pascal_voc/faster_rcnn_r50_fpn_1x_voc0712.py`` (its data
+    blocks name no pipeline: ``voc_detector_config`` gives them the
+    config's train and test pipelines and phase 14's VOC2007 directory),
+    ``VOC17_EPOCHS`` epoch of its trainval split at B=2 with seeded
+    weights, and the evaluation after it on the test split; then the test
+    CLI on the checkpoint with ``--eval mAP`` in a subprocess. The NMS
+    count is at 0 before each and read after: 1 launch per step (its
+    training proposals) and 2 per predicted batch. Losses finite, ``mAP``
+    in [0, 1]. Returns the NMS launches."""
+    import math
+
+    import torch
+
+    from dsl_tpu_torch.apis import train_detector
+    from dsl_tpu_torch.apis.test import BATCH_SIZE
+    from dsl_tpu_torch.config import Config
+    from dsl_tpu_torch.ops.nms import nms_keep
+    from dsl_tpu_torch.utils.synthetic_data import voc_detector_config
+
+    t0 = time.perf_counter()
+    voc = voc_dir(tmp)
+    cfg = voc_detector_config(
+        Config.fromfile(str(FASTER_RCNN_VOC_CONFIG)).to_dict(), voc)
+    cfg["runner"]["max_epochs"] = VOC17_EPOCHS
+    cfg["log_config"] = dict(interval=1)
+    work = tmp / "voc17"
+    cfg_path = tmp / "faster_rcnn_voc17.py"
+    Config(cfg).dump(str(cfg_path))
+    n_test = len(Path(voc["test"]).read_text().split())
+    batches = math.ceil(n_test / BATCH_SIZE)
+    nms_keep.launches = 0
+    train_detector(Config(cfg), str(work), device=DEVICE,
+                   variables=seeded_variables(Config(cfg)))
+    torch.cuda.synchronize()
+    launches = nms_keep.launches
+    lines = [json.loads(x) for x in
+             (work / "train.log.json").read_text().splitlines()]
+    steps = [x for x in lines if x.get("mode") == "train"]
+    val = [x for x in lines if x.get("mode") == "val"]
+    if not steps or not all(math.isfinite(x["loss"]) for x in steps):
+        raise AssertionError(f"VOC Faster R-CNN losses: {steps}")
+    if len(val) != VOC17_EPOCHS or not 0.0 <= val[-1]["mAP"] <= 1.0:
+        raise AssertionError(f"VOC Faster R-CNN evaluation: {val}")
+    if launches != len(steps) + 2 * batches * VOC17_EPOCHS:
+        raise AssertionError(f"train_detector made {launches} NMS launches, "
+                             f"expected 1 per step and 2 per evaluation batch")
+    log(f"[voc17] {FASTER_RCNN_VOC_CONFIG.relative_to(ROOT)}: "
+        f"{len(steps)} steps, losses finite (last " + ", ".join(
+            f"{k} {steps[-1][k]:.4f}" for k in ("loss_rpn_cls", "loss_rpn_bbox",
+                                                "loss_cls", "loss_bbox", "loss"))
+        + f"), VOC mAP after the epoch {val[-1]['mAP']:.4f}, NMS launches "
+        f"{launches}")
+    child, out = run_module("dsl_tpu_torch.tools.test",
+                            [str(cfg_path), str(work / f"epoch_{VOC17_EPOCHS}.pth"),
+                             "--eval", "mAP"], tag="voc17")
+    metrics = json.loads(next(x for x in reversed(out) if x.startswith("{")))
+    if not 0.0 <= metrics["mAP"] <= 1.0 or child != 2 * batches:
+        raise AssertionError(f"test CLI: {metrics}, {child} NMS launches")
+    log(f"[voc17] test CLI --eval mAP: {metrics}, NMS launches {child}; "
+        f"phase part {time.perf_counter() - t0:.1f} s")
+    return launches + child
+
 
 def main() -> int:
     import torch
@@ -3557,19 +4049,35 @@ def main() -> int:
         phase_new_transforms(smi)
         cfg_launches, cfg_err = phase_config_paths(Path(tmp), smi)
         log(f"[phase 16] {time.perf_counter() - t16:.1f} s")
+        t17 = time.perf_counter()
+        anchor_launches, anchor_err, anchor_paths, anchor_inputs = (
+            phase_anchor_predict(smi))
+        for entry in anchor_paths:
+            entry.update(nms_input_timing(f"{entry['path']}_b{entry['B']}",
+                                          *anchor_inputs[entry["path"]], smi))
+        del anchor_inputs
+        with deterministic_cudnn():          # as train_detector steps
+            train17_launches, _ = phase_anchor_train(smi)
+        voc17_launches = phase_anchor_voc(Path(tmp), smi)
+        log(f"[phase 17] {time.perf_counter() - t17:.1f} s")
     launches["nms_keep"] += (semi_launches + eval_launches + weights_launches
                              + baseline_launches + voc_launches + dist_launches
-                             + mh_launches + cfg_launches)
+                             + mh_launches + cfg_launches + anchor_launches
+                             + train17_launches + voc17_launches)
     kernels = [dict(
         name="nms_keep", route="cuda",
         source="dsl_tpu_torch/csrc/nms_kernel.cu",
         replaces="dsl_tpu/ops/nms_pallas.py:34",
         launches=launches["nms_keep"],
         max_abs_err=float(max(case_err, path_err, train_err, semi_err,
-                              eval_err, voc_err, mh_err, cfg_err)),
+                              eval_err, voc_err, mh_err, cfg_err, anchor_err)),
         ms=nms_times["ms"], plain_ms=nms_times["plain_ms"],
         bound_ms=nms_times["bound_ms"], bound_by=nms_times["bound_by"],
-        library_ms=None)]
+        library_ms=None,
+        # the anchor-based detectors' inputs (phase 17), each timed alike
+        paths=[{k: v for k, v in e.items() if k in (
+            "path", "B", "N", "launches", "ms", "plain_ms", "bound_ms",
+            "bound_by")} for e in anchor_paths])]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

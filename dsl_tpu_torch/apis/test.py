@@ -2,7 +2,8 @@
 
 Counterpart of ``dsl_tpu/apis/test.py`` (``single_device_test``,
 ``tta_test``, ``tta_test_dense``, ``merge_aug_detections``) for the
-single-stage detectors. In ``single_device_test`` each image is read onto the device
+ported detectors (FCOS, RetinaNet, Faster R-CNN; ``tta_test_dense`` is
+FCOS's). In ``single_device_test`` each image is read onto the device
 (``data/image_io.read_image``, nvJPEG on the card), resized keeping its
 ratio to ``img_scale`` (``resize_linear_u8``, exact to ``cv2.resize``), normalized
 and padded top-left onto the canvas ``formatting.select_canvas`` picks from

@@ -37,8 +37,11 @@ runner runs, cuDNN is held to its deterministic algorithms
 (:func:`deterministic_cudnn`), so one seed gives one model, as in the JAX
 package; its nondeterministic backward algorithms made the f32 step part
 run to run. The process's flags come back when ``train_detector`` returns.
-Not ported yet, and refused with ``NotImplementedError``: Dynamic R-CNN,
-Seesaw and GHM losses. A weight file that fails to load raises, where the
+Not ported yet, and refused with ``NotImplementedError``: Dynamic R-CNN
+and the other two-stage variants (``build_detector`` names them), Seesaw
+and GHM losses, and for a two-stage detector (Faster R-CNN) ``fp16`` (its
+loss runs in f32, as in the JAX package, which ignores the dtype there)
+and data parallelism. A weight file that fails to load raises, where the
 JAX package warns and trains from its init. ``variables`` (a flax-layout
 tree, through the weight bridge) replaces the init and the ``pretrained``
 file. The pipelines draw from one ``np.random.RandomState(seed)`` and one
@@ -64,6 +67,7 @@ from dsl_tpu_torch.data.formatting import DEFAULT_CANVAS
 from dsl_tpu_torch.data.loader import DetDataLoader, MultiDataLoader
 from dsl_tpu_torch.data.pipelines import test_pipeline_params
 from dsl_tpu_torch.models import build_detector
+from dsl_tpu_torch.models.detectors.two_stage import check_two_stage
 from dsl_tpu_torch.parallel import dist
 from dsl_tpu_torch.parallel.mesh import broadcast_state
 from dsl_tpu_torch.registry import DATASETS, build_from_cfg
@@ -82,9 +86,11 @@ DEFAULT_NORM = dict(mean=(123.675, 116.28, 103.53),
                     std=(58.395, 57.12, 57.375), to_rgb=True)
 
 
-def _refuse_unported(cfg):
+def _refuse_unported(cfg, group=None):
     if cfg.model.get("type") == "DynamicRCNN":
         raise NotImplementedError("Dynamic R-CNN is not ported yet")
+    if "rpn_head" in cfg.model:
+        check_two_stage(torch.bfloat16 if cfg.get("fp16") else None, group)
     head = cfg.model.get("bbox_head", {}) or {}
     for key in ("loss_cls", "loss_bbox"):
         kind = dict(head.get(key, {}) or {}).get("type")
@@ -135,8 +141,8 @@ def train_detector(cfg, work_dir: str, resume_from: str | None = None,
     """Train the config's detector; returns the runner after its last
     epoch (its ``state`` holds the result)."""
     device = resolve_device(device)
-    _refuse_unported(cfg)
     group = dist.group()
+    _refuse_unported(cfg, group)
     rank, world = dist.get_rank(), dist.get_world_size()
     shard = rank if group is not None else None
     logger = (get_root_logger(log_file=osp.join(work_dir, "train.log"))

@@ -1,8 +1,9 @@
-"""Functional losses of the FCOS head, in torch.
+"""Functional losses of the FCOS, RPN, RoI and RetinaNet heads, in torch.
 
-Counterpart of the part of ``dsl_tpu/core/losses.py`` that the DSL FCOS loss
-uses: ``weight_reduce_loss``, ``sigmoid_focal_loss``, ``binary_cross_entropy``,
-``giou_loss`` and ``iou_loss``. They follow mmdet's contract: an optional
+Counterpart of the part of ``dsl_tpu/core/losses.py`` that the ported
+heads use: ``weight_reduce_loss``, ``sigmoid_focal_loss``,
+``binary_cross_entropy``, ``giou_loss``, ``iou_loss``, ``cross_entropy``,
+``smooth_l1_loss`` and ``l1_loss``. They follow mmdet's contract: an optional
 elementwise ``weight``, a ``reduction`` in {'none', 'mean', 'sum'}, and an
 ``avg_factor`` that replaces the denominator of 'mean'. Everything is dense
 over fixed shapes, with masking by weight, so a point of weight 0 still
@@ -102,3 +103,32 @@ def giou_loss(pred: torch.Tensor, target: torch.Tensor,
     """1 - GIoU on decoded boxes."""
     return weight_reduce_loss(1.0 - _iou_for_loss(pred, target, "giou", eps),
                               weight, reduction, avg_factor)
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                  weight: torch.Tensor | None = None,
+                  reduction: str = "mean", avg_factor=None):
+    """Softmax cross-entropy over the last axis, integer targets."""
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, targets[..., None].to(torch.int64))[..., 0]
+    return weight_reduce_loss(nll, weight, reduction, avg_factor)
+
+
+def _abs(x: torch.Tensor) -> torch.Tensor:
+    """|x| with ``jnp.abs``'s gradient of 1 at 0."""
+    return torch.where(x >= 0, x, -x)
+
+
+def smooth_l1_loss(pred: torch.Tensor, target: torch.Tensor, beta: float = 1.0,
+                   weight: torch.Tensor | None = None,
+                   reduction: str = "mean", avg_factor=None):
+    diff = _abs(pred - target)
+    loss = torch.where(diff < beta, 0.5 * diff * diff / beta, diff - 0.5 * beta)
+    return weight_reduce_loss(loss, weight, reduction, avg_factor)
+
+
+def l1_loss(pred: torch.Tensor, target: torch.Tensor,
+            weight: torch.Tensor | None = None,
+            reduction: str = "mean", avg_factor=None):
+    return weight_reduce_loss(_abs(pred - target), weight, reduction,
+                              avg_factor)

@@ -103,15 +103,14 @@ def multiclass_nms(multi_bboxes: torch.Tensor, multi_scores: torch.Tensor,
     the ``pre_nms_top`` best candidates go through class-offset NMS and the
     top ``max_per_img`` survive.
 
-    multi_bboxes (B, P, 4) class-agnostic boxes, multi_scores (B, P, C),
-    valid optional (B, P), score_factors optional (B, P).
+    multi_bboxes (B, P, 4) class-agnostic boxes or (B, P, C, 4) per-class
+    boxes (the RoI head's), multi_scores (B, P, C), valid optional (B, P),
+    score_factors optional (B, P).
     Returns dets (B, max_per_img, 5), labels (B, max_per_img), out_valid.
     """
     if nms_type != "nms":
         raise NotImplementedError(
             f"nms_type={nms_type!r}: only hard NMS is ported so far")
-    if multi_bboxes.dim() != 3:
-        raise NotImplementedError("per-class boxes (B, P, C, 4) are not ported")
     bsz, p, c = multi_scores.shape
     if valid is None:
         valid = torch.ones((bsz, p), dtype=torch.bool, device=multi_scores.device)
@@ -123,7 +122,10 @@ def multiclass_nms(multi_bboxes: torch.Tensor, multi_scores: torch.Tensor,
     top_scores, flat_idx = _sort_desc(flat, min(pre_nms_top, p * c))
     point_idx = flat_idx // c
     cls_idx = flat_idx % c
-    cand_boxes = _gather_rows(multi_bboxes, point_idx)
+    if multi_bboxes.dim() == 4:
+        cand_boxes = _gather_rows(multi_bboxes.reshape(bsz, p * c, 4), flat_idx)
+    else:
+        cand_boxes = _gather_rows(multi_bboxes, point_idx)
     cand_valid = top_scores > NEG_INF / 2
     dets, _, out_valid, out_labels = batched_nms(
         cand_boxes, top_scores, cls_idx, iou_threshold, max_per_img, cand_valid)

@@ -2,6 +2,8 @@
 from dsl_tpu_torch.models.backbones import ResNet, RLAResNet  # noqa: F401
 from dsl_tpu_torch.models.necks import FPN  # noqa: F401
 from dsl_tpu_torch.models.dense_heads import (  # noqa: F401
-    FCOSHead, fcos_get_bboxes)
+    FCOSHead, RPNHead, RetinaHead, fcos_get_bboxes)
+from dsl_tpu_torch.models.roi_heads import Shared2FCBBoxHead  # noqa: F401
 from dsl_tpu_torch.models.detectors import (  # noqa: F401
-    FCOS, SingleStageDetector, build_detector, detector_predict)
+    FCOS, FasterRCNN, RetinaNet, SingleStageDetector, TwoStageDetector,
+    build_detector, detector_predict)

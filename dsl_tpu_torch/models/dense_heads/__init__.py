@@ -1,2 +1,6 @@
 from dsl_tpu_torch.models.dense_heads.fcos_head import (  # noqa: F401
     FCOSHead, fcos_get_bboxes)
+from dsl_tpu_torch.models.dense_heads.retina_head import (  # noqa: F401
+    RetinaHead, retina_get_bboxes, retina_loss)
+from dsl_tpu_torch.models.dense_heads.rpn_head import (  # noqa: F401
+    RPNHead, rpn_loss, rpn_proposals)

@@ -1,11 +1,15 @@
-"""Single-stage detector (FCOS), build_detector, its loss and its predict.
+"""Single-stage detectors (FCOS, RetinaNet), build_detector, and the
+detectors' loss and predict entry points.
 
-Counterpart of the single-stage branch of
-``dsl_tpu/models/detectors/single_stage.py``: ``SingleStageDetector`` /
-``FCOS`` (backbone -> neck -> head), ``build_detector`` (which hands a
-multi-head config to ``multi_head.py``), and the FCOS branches of
-``detector_loss`` and ``detector_predict``. Other detector families and
-heads are not ported yet and raise.
+Counterpart of ``dsl_tpu/models/detectors/single_stage.py``:
+``SingleStageDetector`` / ``FCOS`` / ``RetinaNet`` (backbone -> neck ->
+head), ``build_detector`` (which hands a config with an ``rpn_head`` to
+``two_stage.build_two_stage_detector`` and a multi-head config to
+``multi_head.py``, as the JAX package does), and ``detector_loss`` /
+``detector_predict``, which route a two-stage detector to
+``two_stage_loss`` / ``two_stage_predict`` and a ``RetinaHead`` to
+``retina_loss`` / ``retina_get_bboxes``. Other detector families and heads
+are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -19,6 +23,11 @@ from torch.func import functional_call
 from dsl_tpu_torch.registry import DETECTORS, MODELS, build_from_cfg
 from dsl_tpu_torch.models.dense_heads.fcos_head import (
     FCOSHead, fcos_get_bboxes, fcos_loss)
+from dsl_tpu_torch.models.dense_heads.retina_head import (
+    RetinaHead, retina_get_bboxes, retina_loss)
+from dsl_tpu_torch.models.detectors.two_stage import (
+    TwoStageDetector, build_two_stage_detector, check_two_stage,
+    two_stage_loss, two_stage_predict)
 from dsl_tpu_torch.utils.device import resolve_device
 from dsl_tpu_torch.utils.precision import outputs_to_f32, to_compute
 
@@ -55,15 +64,21 @@ class FCOS(SingleStageDetector):
     """FCOS = SingleStageDetector with an FCOSHead."""
 
 
+@DETECTORS.register
+class RetinaNet(SingleStageDetector):
+    """RetinaNet = SingleStageDetector with a RetinaHead."""
+
+
 def build_detector(cfg: dict) -> nn.Module:
-    """Build a detector from a model config dict: a config with ``necks``
-    or ``bbox_heads`` (and no ``rpn_head``) is DSL's co-training
-    multi-head detector (``multi_head.build_multi_head_detector``), as in
-    the JAX package; else a single-stage one (FCOS reads no ``train_cfg``:
-    its assignment options are the head's)."""
+    """Build a detector from a model config dict: a config with an
+    ``rpn_head`` is a two-stage detector (``build_two_stage_detector``), one
+    with ``necks`` or ``bbox_heads`` DSL's co-training multi-head detector
+    (``multi_head.build_multi_head_detector``), as in the JAX package; else
+    a single-stage one (FCOS and RetinaNet read no ``train_cfg``: their
+    assignment options are the head's, as in the JAX package)."""
     cfg = dict(cfg)
     if "rpn_head" in cfg:
-        raise NotImplementedError("two-stage detectors are not ported yet")
+        return build_two_stage_detector(cfg)
     if "bbox_heads" in cfg or "necks" in cfg:
         from dsl_tpu_torch.models.detectors.multi_head import (
             build_multi_head_detector)
@@ -83,15 +98,16 @@ def build_detector(cfg: dict) -> nn.Module:
                    test_cfg=cfg.get("test_cfg"))
 
 
-def _fcos_head(detector: nn.Module) -> FCOSHead:
+def _dense_head(detector: nn.Module) -> nn.Module:
     head = getattr(detector, "bbox_head", None)
     if head is None:
         raise NotImplementedError(
             f"{type(detector).__name__}: a multi-head detector has its own "
             f"loss and predict (models/detectors/multi_head.py)")
-    if not isinstance(head, FCOSHead):
+    if not isinstance(head, (FCOSHead, RetinaHead)):
         raise NotImplementedError(
-            f"{type(head).__name__} is not ported yet: only FCOSHead")
+            f"{type(head).__name__} is not ported yet: only FCOSHead and "
+            f"RetinaHead")
     return head
 
 
@@ -107,22 +123,31 @@ def _parse_losses(losses: dict):
 
 def detector_loss(detector: nn.Module, batch: dict, cur_iter: int = 0,
                   compute_dtype=None, mark=None, group=None):
-    """Training forward + loss of an FCOS detector.
+    """Training forward + loss of an FCOS, RetinaNet or Faster R-CNN
+    detector.
 
     ``batch["images"]`` is (B, 3, H, W) on the detector's device; the other
-    keys are ``fcos_loss``'s. With ``compute_dtype=torch.bfloat16`` the
-    forward runs on bf16 copies of every variable (gradients reach the f32
-    parameters through the casts); the head outputs and the losses are f32.
-    ``mark(name)``, where given, is called once the forward is enqueued
-    (``"forward"``), for a timing split. ``group`` (a process group, None
-    for one process) is ``fcos_loss``'s. Returns (total, log_vars).
+    keys are the head's loss's. With ``compute_dtype=torch.bfloat16`` the
+    forward of a single-stage detector runs on bf16 copies of every
+    variable (gradients reach the f32 parameters through the casts); the
+    head outputs and the losses are f32. A two-stage detector runs
+    ``two_stage_loss`` (in f32; a bf16 compute dtype or a process group
+    raises), its samplers' draws seeded by ``cur_iter``. ``mark(name)``,
+    where given, is called once the forward is enqueued (``"forward"``),
+    for a timing split. ``group`` (a process group, None for one process)
+    is the single-stage loss's. Returns (total, log_vars).
     """
-    head = _fcos_head(detector)
+    if isinstance(detector, TwoStageDetector):
+        check_two_stage(compute_dtype, group)
+        return two_stage_loss(detector, batch, cur_iter=cur_iter, mark=mark)
+    head = _dense_head(detector)
     variables, images = to_compute(detector, batch["images"], compute_dtype)
     outputs = outputs_to_f32(functional_call(detector, variables, (images,),
                                              {"training": True}))
     if mark is not None:
         mark("forward")
+    if isinstance(head, RetinaHead):
+        return _parse_losses(retina_loss(head, *outputs, batch, group=group))
     return _parse_losses(fcos_loss(head, *outputs, batch, cur_iter=cur_iter,
                                    group=group))
 
@@ -158,17 +183,39 @@ def detector_predict(detector: nn.Module, images: torch.Tensor,
     parameters, e.g. with the EMA teacher's. ``device`` must be where the
     detector and the images lie: CUDA by default, the CPU only when asked
     for. Returns dets (B, max_per_img, 5), labels, valid; with
-    ``with_nms=False`` the decode's candidates instead, as
+    ``with_nms=False`` (FCOS only) the decode's candidates instead, as
     ``fcos_get_bboxes`` gives them (boxes, scores, centerness), and the NMS
-    kernel is not launched.
+    kernel is not launched. A two-stage detector runs
+    ``two_stage_predict`` (f32 only: a bf16 compute dtype raises), a
+    ``RetinaHead`` ``retina_get_bboxes``.
     """
     device = resolve_device(device)
     check_predict_device(detector, images, device)
-    head = _fcos_head(detector)
+    if isinstance(detector, TwoStageDetector):
+        check_two_stage(compute_dtype)
+        if not with_nms:
+            raise NotImplementedError("detector_predict(with_nms=False) "
+                                      "gives a dense head's candidates")
+        return two_stage_predict(
+            detector, images, img_shapes=img_shapes,
+            scale_factors=scale_factors, test_cfg=test_cfg,
+            variables=None if params is None else to_compute(
+                detector, images, None, params)[0])
+    head = _dense_head(detector)
     tc = dict(test_cfg or detector.test_cfg or {})
     nms_cfg = dict(tc.get("nms", {}) or {})
     variables, images = to_compute(detector, images, compute_dtype, params)
     outputs = outputs_to_f32(functional_call(detector, variables, (images,)))
+    if isinstance(head, RetinaHead):
+        if not with_nms:
+            raise NotImplementedError("detector_predict(with_nms=False) is "
+                                      "FCOS's: RetinaNet's is not ported yet")
+        return retina_get_bboxes(
+            head, *outputs, img_shapes=img_shapes,
+            scale_factors=scale_factors, nms_pre=tc.get("nms_pre", 1000),
+            score_thr=tc.get("score_thr", 0.05),
+            iou_threshold=nms_cfg.get("iou_threshold", 0.6),
+            max_per_img=tc.get("max_per_img", 100))
     cls_scores, bbox_preds, centernesses = outputs
     return fcos_get_bboxes(
         head, cls_scores, bbox_preds, centernesses, img_shapes=img_shapes,

@@ -1,10 +1,19 @@
 """Feature Pyramid Network, NCHW.
 
-Counterpart of ``dsl_tpu/models/necks/fpn.py`` in the form the DSL configs
-use: ``start_level=1``, ``add_extra_convs='on_output'``,
-``relu_before_extra_convs=True``, no norm, nearest top-down upsample. P3-P5
-come from lateral + top-down fusion, P6/P7 from stride-2 3x3 convs on P5's
-output with a relu before the second. Other forms raise.
+Counterpart of ``dsl_tpu/models/necks/fpn.py`` without a norm, with the
+nearest top-down upsample: the levels from ``start_level`` to the last
+come from lateral + top-down fusion, then ``num_outs`` minus those extra
+levels:
+
+- ``add_extra_convs=False`` (Faster R-CNN): each a max-pool of the level
+  before with kernel 1 and stride 2 (the input's even rows and columns);
+- ``'on_input'`` (or ``True``; RetinaNet): stride-2 3x3 convs, the first
+  reading the last backbone level used;
+- ``'on_output'`` (FCOS): the same, the first reading the last output;
+
+with a relu before every extra conv but the first where
+``relu_before_extra_convs``. ``'on_lateral'``, a norm, a conv type and
+another ``end_level`` raise.
 
 Submodule names are mmdet's: ``lateral_convs.i.conv`` and ``fpn_convs.i.conv``,
 the extra convs continuing the ``fpn_convs`` numbering.
@@ -53,10 +62,14 @@ class FPN(nn.Module):
                  norm_cfg: dict | None = None,
                  upsample_cfg: dict | None = None):
         super().__init__()
-        if add_extra_convs != "on_output" or end_level != -1:
+        if add_extra_convs is True:
+            add_extra_convs = "on_input"
+        if add_extra_convs not in (False, "on_input", "on_output") \
+                or end_level != -1:
             raise NotImplementedError(
                 f"FPN add_extra_convs={add_extra_convs!r}, end_level="
-                f"{end_level}: only 'on_output' to the last level is ported")
+                f"{end_level}: only False, 'on_input' and 'on_output' to the "
+                f"last level are ported")
         if norm_cfg is not None or conv_cfg is not None:
             raise NotImplementedError("FPN with norm/conv_cfg is not ported yet")
         if (upsample_cfg or {}).get("mode", "nearest") != "nearest":
@@ -64,6 +77,8 @@ class FPN(nn.Module):
         self.in_channels = list(in_channels)
         self.start_level = start_level
         self.relu_before_extra_convs = relu_before_extra_convs
+        self.add_extra_convs = add_extra_convs
+        self.num_outs = num_outs
         used = self.in_channels[start_level:]
 
         def conv(cin, k, stride):
@@ -72,7 +87,10 @@ class FPN(nn.Module):
 
         self.lateral_convs = nn.ModuleList(conv(c, 1, 1) for c in used)
         convs = [conv(out_channels, 3, 1) for _ in used]
-        convs += [conv(out_channels, 3, 2) for _ in range(num_outs - len(used))]
+        if add_extra_convs:
+            first = used[-1] if add_extra_convs == "on_input" else out_channels
+            convs += [conv(first if i == 0 else out_channels, 3, 2)
+                      for i in range(num_outs - len(used))]
         self.fpn_convs = nn.ModuleList(convs)
 
     def init_weights(self, generator: torch.Generator | None = None):
@@ -92,7 +110,11 @@ class FPN(nn.Module):
             laterals[i - 1] = laterals[i - 1] + _upsample_nearest_2x(
                 laterals[i], laterals[i - 1].shape[2:])
         outs = [self.fpn_convs[i](laterals[i]) for i in range(n_used)]
-        src = outs[-1]
+        if not self.add_extra_convs:
+            while len(outs) < self.num_outs:
+                outs.append(F.max_pool2d(outs[-1], 1, stride=2))
+            return tuple(outs)
+        src = used[-1] if self.add_extra_convs == "on_input" else outs[-1]
         for i, extra in enumerate(self.fpn_convs[n_used:]):
             if i > 0 and self.relu_before_extra_convs:
                 src = F.relu(src)

@@ -10,10 +10,18 @@ plain nested dicts. What changes on the way:
 - FrozenBN: ``params/scale,bias`` + ``batch_stats/mean,var`` <->
   ``weight, bias, running_mean, running_var``; GroupNorm ``scale,bias`` <->
   ``weight, bias``; the per-level ``Scale`` keeps its scalar ``scale``;
+- Dense kernels (in, out) <-> ``nn.Linear`` weights (out, in). The RoI
+  head's ``shared_fc0`` reads RoI features flattened (h, w, c) in the JAX
+  package (NHWC) and (c, h, w) in the port (NCHW, mmdet's order): its
+  input rows are permuted on the way, so a JAX checkpoint computes the
+  same function here and an mmdet checkpoint's ``shared_fcs.0`` loads as
+  it is;
 - module names: flax's flat names (``layer2_0``, ``stage_bn1_0``,
-  ``extra_conv0``, ``cls_gn3``, ``scale2``) <-> the mmdet/RLA checkpoint
-  names the port's modules carry (``stages.1.0``, ``stage_bns.1.0``,
-  ``fpn_convs.3.conv``, ``cls_convs.3.gn``, ``scales.2``); a multi-head
+  ``extra_conv0``, ``cls_gn3``, ``scale2``, ``shared_fc1``) <-> the
+  mmdet/RLA checkpoint names the port's modules carry (``stages.1.0``,
+  ``stage_bns.1.0``, ``fpn_convs.3.conv``, ``cls_convs.3.gn``,
+  ``scales.2``, ``shared_fcs.1``); a two-stage detector's top-level
+  ``bbox_head`` <-> ``roi_head.bbox_head``; a multi-head
   detector's ``necks_0`` and ``bbox_heads_1`` <-> ``necks.0`` and
   ``bbox_heads.1`` (its necks are alike: the first one's laterals count
   for all). A block
@@ -48,6 +56,7 @@ _TO_TORCH = [
     (r"\b(cls|reg)_conv(\d+)\b", lambda m, n: f"{m[1]}_convs.{m[2]}.conv"),
     (r"\b(cls|reg)_gn(\d+)\b", lambda m, n: f"{m[1]}_convs.{m[2]}.gn"),
     (r"\bscale(\d+)\b", lambda m, n: f"scales.{m[1]}"),
+    (r"\bshared_fc(\d+)\b", lambda m, n: f"shared_fcs.{m[1]}"),
 ]
 
 # a ResNet's blocks, applied before _TO_TORCH where the backbone is no
@@ -70,7 +79,24 @@ _TO_FLAX = [
     (r"\b(cls|reg)_convs\.(\d+)\.conv\b", lambda m, n: f"{m[1]}_conv{m[2]}"),
     (r"\b(cls|reg)_convs\.(\d+)\.gn\b", lambda m, n: f"{m[1]}_gn{m[2]}"),
     (r"\bscales\.(\d+)\b", lambda m, n: f"scale{m[1]}"),
+    (r"\bshared_fcs\.(\d+)\b", lambda m, n: f"shared_fc{m[1]}"),
+    (r"^roi_head\.bbox_head\b", lambda m, n: "bbox_head"),
 ]
+
+ROI_FC = "roi_head.bbox_head.shared_fcs.0"
+
+
+def _roi_rows(n_in: int, channels: int, to_chw: bool) -> np.ndarray:
+    """The permutation of ``shared_fc0``'s n_in = channels * s * s input
+    rows from the JAX package's (h, w, c) order to the port's (c, h, w)
+    (or back)."""
+    s = int(round((n_in // channels) ** 0.5))
+    if channels * s * s != n_in:
+        raise ValueError(f"shared_fc0 has {n_in} inputs, not {channels} "
+                         f"channels times a square RoI")
+    hwc = np.arange(n_in).reshape(s, s, channels)
+    chw = hwc.transpose(2, 0, 1).reshape(-1)
+    return chw if to_chw else np.argsort(chw)
 
 
 def _rename(path: str, rules, n_lat: int) -> str:
@@ -94,6 +120,8 @@ def flax_to_state_dict(variables: dict) -> dict[str, torch.Tensor]:
     n_lat = sum(1 for k in neck if k.startswith("lateral_conv"))
     rla = "conv_out0" in params.get("backbone", {})
     rules = _TO_TORCH if rla else _RESNET_TO_TORCH + _TO_TORCH
+    if "rpn_head" in params:
+        rules = [(r"^bbox_head\b", lambda m, n: "roi_head.bbox_head")] + rules
     sd: dict[str, torch.Tensor] = {}
     for collection in ("params", "batch_stats"):
         for path, arr in _leaves(variables.get(collection, {})):
@@ -102,6 +130,12 @@ def flax_to_state_dict(variables: dict) -> dict[str, torch.Tensor]:
             arr = np.asarray(arr)
             if collection == "batch_stats":
                 name = {"mean": "running_mean", "var": "running_var"}[leaf]
+            elif leaf == "kernel" and arr.ndim == 2:
+                name = "weight"
+                if module == ROI_FC:
+                    arr = arr[_roi_rows(arr.shape[0], _roi_channels(params),
+                                        to_chw=True)]
+                arr = arr.T
             elif leaf == "kernel":
                 name = "weight"
                 arr = np.transpose(arr, (3, 2, 0, 1))
@@ -112,6 +146,11 @@ def flax_to_state_dict(variables: dict) -> dict[str, torch.Tensor]:
             # np.array, not ascontiguousarray, which makes 0-d arrays 1-d
             sd[f"{module}.{name}"] = torch.from_numpy(np.array(arr, np.float32))
     return sd
+
+
+def _roi_channels(params: dict) -> int:
+    """The RoI features' channels: the FPN's output width."""
+    return int(np.asarray(params["neck"]["fpn_conv0"]["kernel"]).shape[-1])
 
 
 def state_dict_to_flax(state_dict: dict) -> dict:
@@ -130,6 +169,11 @@ def state_dict_to_flax(state_dict: dict) -> dict:
             collection, leaf = "batch_stats", name[len("running_"):]
         elif name == "weight" and arr.ndim == 4:
             leaf, arr = "kernel", np.transpose(arr, (2, 3, 1, 0))
+        elif name == "weight" and arr.ndim == 2:
+            leaf, arr = "kernel", arr.T
+            if module == ROI_FC:
+                channels = state_dict["neck.fpn_convs.0.conv.weight"].shape[0]
+                arr = arr[_roi_rows(arr.shape[0], channels, to_chw=False)]
         elif name == "weight":
             leaf = "scale"
         else:

@@ -16,7 +16,19 @@ parity tests (no pretrained checkpoint ships with the repo).
 - the box regressor: a small kernel and biases in [1.5, 3], so boxes span
   a few strides and neighbouring points' boxes overlap past the NMS
   threshold, as real detections do (random relu'd distances would give
-  thin boxes that suppress nothing).
+  thin boxes that suppress nothing);
+- RetinaNet's classifier (``retina_cls``, A x C channels, class = channel
+  mod C) as FCOS's, and its regressor (``retina_reg``) small, so boxes
+  stay near their anchors, which overlap as real detections do;
+- the RPN's regressor (``rpn_reg``) small, so proposals stay near their
+  anchors; its objectness keeps the plain fill (logits of order 1);
+- the RoI head's classifier (``fc_cls``, C + 1 outputs, background last):
+  a small kernel, ``LIVE_CLASSES`` classes at logits in [1, 2], the
+  background at 0 and the rest at -8, so each proposal's softmax puts
+  about 1/9 on each live class, above ``score_thr`` 0.05 (8 (proposal,
+  class) candidates per proposal, so the RoI NMS sees its full 2000);
+  its regressor (``fc_reg``) small, so class boxes stay near the
+  proposals.
 """
 
 from __future__ import annotations
@@ -29,6 +41,10 @@ LIVE_CLASSES = 8
 
 def fill_variables(shapes: dict, seed: int = 0) -> dict:
     rng = np.random.RandomState(seed)
+    head = shapes.get("params", {}).get("bbox_head", {})
+    # RetinaNet's anchors per position: its regressor has 4 outputs each
+    retina_anchors = (head["retina_reg"]["bias"].shape[0] // 4
+                      if "retina_reg" in head else 1)
 
     def fill(path, leaf):
         name = path[-1]
@@ -42,6 +58,21 @@ def fill_variables(shapes: dict, seed: int = 0) -> dict:
             v = rng.randn(*shape) * 0.3 / np.sqrt(np.prod(shape[:-1]))
         elif path[-2:] == ("conv_reg", "bias"):
             v = rng.uniform(1.5, 3.0, shape)
+        elif path[-2:] == ("retina_cls", "bias"):
+            live = np.arange(shape[0]) % (shape[0] // retina_anchors) < LIVE_CLASSES
+            v = np.where(live, rng.uniform(-1.5, 1.0, shape), -8.0)
+        elif path[-2:] == ("fc_cls", "bias"):
+            classes = np.arange(shape[0])
+            v = np.where(classes < LIVE_CLASSES, rng.uniform(1.0, 2.0, shape),
+                         np.where(classes == shape[0] - 1, 0.0, -8.0))
+        elif path[-1] == "kernel" and path[-2] in ("retina_cls", "fc_cls"):
+            v = rng.randn(*shape) * 0.02 / np.sqrt(np.prod(shape[:-1]))
+        elif path[-1] == "kernel" and path[-2] in ("retina_reg", "rpn_reg",
+                                                   "fc_reg"):
+            v = rng.randn(*shape) * 0.1 / np.sqrt(np.prod(shape[:-1]))
+        elif path[-1] == "bias" and path[-2] in ("retina_reg", "rpn_reg",
+                                                 "fc_reg"):
+            v = 0.05 * rng.randn(*shape)
         elif name == "kernel":
             v = rng.randn(*shape) / np.sqrt(np.prod(shape[:-1]))
         elif name == "var":

@@ -27,6 +27,13 @@ labeled store DSL's VOC config reads (``images/full``,
 ``prepared_annos/Industry/...``, ``mmdet_category_info.json``), and
 :func:`make_semivoc_unlabeled` adds the unlabeled split beside it.
 :func:`voc_semi_config` points the VOC config's ``data`` block there.
+
+``TINY_FASTER_RCNN`` and ``TINY_RETINANET`` are the anchor-based detectors
+of ``configs/pascal_voc/`` cut to a size the CPU tests run in seconds
+(ResNet-18, FPN and heads 32 wide, 20 VOC classes; the inputs 64x96);
+:func:`voc_detector_config` points one of those VOC configs (whose data
+blocks name no pipeline) at a :func:`make_voc_dir` directory with the
+config's own train and test pipelines.
 """
 
 from __future__ import annotations
@@ -284,4 +291,47 @@ def voc_semi_config(cfg: dict, paths: dict) -> dict:
     data["unlabel_train"]["thres"] = paths["adathres"]
     for key in ("val", "test"):
         data[key].setdefault("pipeline", copy.deepcopy(cfg["test_pipeline"]))
+    return cfg
+
+
+_TINY_BACKBONE = dict(type="ResNet", depth=18, out_indices=(0, 1, 2, 3),
+                      frozen_stages=1, style="pytorch")
+_TINY_TEST_CFG = dict(rcnn=dict(score_thr=0.05, nms=dict(iou_threshold=0.5),
+                                max_per_img=100))
+TINY_FASTER_RCNN = dict(
+    type="FasterRCNN", backbone=_TINY_BACKBONE,
+    neck=dict(type="FPN", in_channels=[64, 128, 256, 512], out_channels=32,
+              start_level=0, num_outs=5),
+    rpn_head=dict(type="RPNHead", in_channels=32, feat_channels=32,
+                  strides=[4, 8, 16, 32, 64]),
+    bbox_head=dict(type="Shared2FCBBoxHead", num_classes=20, in_channels=32,
+                   roi_size=7, fc_channels=64),
+    test_cfg=_TINY_TEST_CFG)
+TINY_RETINANET = dict(
+    type="RetinaNet", backbone=_TINY_BACKBONE,
+    neck=dict(type="FPN", in_channels=[64, 128, 256, 512], out_channels=32,
+              start_level=1, add_extra_convs="on_input", num_outs=5),
+    bbox_head=dict(type="RetinaHead", num_classes=20, in_channels=32,
+                   feat_channels=32, stacked_convs=2,
+                   strides=[8, 16, 32, 64, 128]),
+    test_cfg=dict(nms_pre=1000, score_thr=0.05,
+                  nms=dict(type="nms", iou_threshold=0.5), max_per_img=100))
+
+
+def voc_detector_config(cfg: dict, voc: dict) -> dict:
+    """A copy of a ``configs/pascal_voc/`` detector config (a plain dict)
+    whose ``data.train`` / ``val`` / ``test`` read the VOC2007 directory
+    ``voc`` (as :func:`make_voc_dir` returns it): train on its trainval
+    split with the config's ``train_pipeline``, val and test on its test
+    split with its ``test_pipeline`` (the config's blocks replace their
+    base's and name no pipeline)."""
+    cfg = copy.deepcopy(cfg)
+    prefix = voc["voc_root"].rstrip("/") + "/"
+    data = cfg["data"]
+    for key, split, pipeline in (("train", "trainval", "train_pipeline"),
+                                 ("val", "test", "test_pipeline"),
+                                 ("test", "test", "test_pipeline")):
+        data[key] = dict(type="VOCDataset", ann_file=voc[split],
+                         img_prefix=prefix,
+                         pipeline=copy.deepcopy(cfg[pipeline]))
     return cfg

@@ -620,3 +620,59 @@ def test_new_transform_on_the_card_matches_the_cpu(card, cfg):
         assert torch.equal(out[card]["img"].cpu(), out["cpu"]["img"])
         np.testing.assert_array_equal(out[card]["gt_bboxes"],
                                       out["cpu"]["gt_bboxes"])
+
+
+def _rpn_nms_input(seed: int, b: int = 8, n: int = 4819):
+    """Boxes as the RPN hands them to the kernel at 800x1344: five levels'
+    candidates (1000 each, 819 from P6), each level shifted apart by
+    ``level * (max + 1)``, sorted by descending score."""
+    rng = np.random.RandomState(seed)
+    per = [1000, 1000, 1000, 1000, n - 4000]
+    xy = rng.uniform(0, 1300, (b, n, 2))
+    wh = np.concatenate([rng.uniform(8, 32 * 2 ** i, (b, k, 2))
+                         for i, k in enumerate(per)], 1)
+    boxes = np.concatenate([xy, xy + wh], -1).astype(np.float32)
+    lvl = np.concatenate([np.full(k, i, np.float32) for i, k in enumerate(per)])
+    boxes += (lvl * (boxes.max() + 1))[None, :, None]
+    order = np.argsort(-rng.rand(b, n), axis=1, kind="stable")
+    return (np.take_along_axis(boxes, order[..., None], 1),
+            rng.rand(b, n) > 0.02)
+
+
+@pytest.mark.cuda
+def test_nms_kernel_at_the_rpn_size(card):
+    boxes, valid = _rpn_nms_input(0)
+    b, v = torch.from_numpy(boxes).to(card), torch.from_numpy(valid).to(card)
+    got = nms_keep(b, v, 0.7)
+    want = nms_keep_reference(b, v, 0.7)
+    assert tuple(got.shape) == (8, 4819)
+    assert torch.equal(got, want), int((got != want).sum())
+
+
+def _roi_case(seed: int, n: int = 256):
+    from dsl_tpu_torch.ops.roi_align import roi_align
+
+    rng = np.random.RandomState(seed)
+    feats = torch.from_numpy(rng.randn(2, 16, 50, 84).astype(np.float32))
+    xy = rng.uniform(-20, 330, (n, 2))
+    wh = np.exp(rng.uniform(0, 5.5, (n, 2)))
+    rois = np.concatenate([rng.randint(0, 2, (n, 1)), xy, xy + wh], 1)
+    valid = torch.from_numpy(rng.rand(n) > 0.1)
+    cot = torch.from_numpy(rng.randn(n, 16, 7, 7).astype(np.float32))
+    return roi_align, feats, torch.from_numpy(rois.astype(np.float32)), valid, cot
+
+
+@pytest.mark.cuda
+def test_roi_align_on_the_card_matches_the_cpu_and_repeats(card):
+    roi_align, feats, rois, valid, cot = _roi_case(1)
+    out = {}
+    for dev, tag in ((card, "a"), (card, "b"), ("cpu", "cpu")):
+        f = feats.to(dev).requires_grad_(True)
+        y = roi_align(f, rois.to(dev), (7, 7), 0.25, 2, True, valid.to(dev))
+        (y * cot.to(dev)).sum().backward()
+        out[tag] = (y.detach().cpu(), f.grad.cpu())
+    # two backward passes on the card: the same bits (the sorted index_put_)
+    assert torch.equal(out["a"][0], out["b"][0])
+    assert torch.equal(out["a"][1], out["b"][1])
+    for got, want in zip(out["a"], out["cpu"]):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
