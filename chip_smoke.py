@@ -260,6 +260,34 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    over phase 14's VOC2007 directory for one epoch and the test CLI's
    ``--eval mAP``: losses finite, ``mAP`` in [0, 1], 1 NMS launch per step
    and 2 per predicted batch.
+18. SSD, the standalone RPN, Fast R-CNN and the Faster R-CNN variants at
+   full width, the NMS count at 0 before each part and read after it.
+   SSD300 on VOC (``configs/pascal_voc/ssd300_voc0712.py``: SSD-VGG16,
+   8096 anchors at 300x300, as the JAX package's floor-mode pools give
+   them) with seeded weights, built by ``init_detector``:
+   ``detector_predict`` at B=8 in f32, dets finite (8, 200, 5) (the
+   config's ``max_per_img``) with detections in every image, 1 NMS launch
+   at N = 2000 whose keeps equal the plain version's, head outputs card vs
+   CPU within 1e-3 at 1x300x300, img/s; SSD512 predicts once. One SGD step
+   at the config's B=2 card vs CPU (losses 1e-4, ``grad_norm`` 1e-3,
+   updates banded as phase 6) and step ms; ``train_detector`` for one
+   epoch of phase 14's VOC2007 trainval split through SSD's float train
+   pipeline (``PhotoMetricDistortion`` -> ``Expand`` ->
+   ``MinIoURandomCrop`` -> ``Resize(keep_ratio=False)`` on the float image
+   -> ``RandomFlip`` -> ``Normalize``, the repo's SSD-300 protocol in
+   ``configs/_base_/datasets/wider_face.py``), then the test CLI's
+   ``--eval mAP`` in [0, 1]; the float resize card vs CPU bit for bit on
+   the fixture decodes. The standalone RPN (``configs/rpn/
+   rpn_r50_fpn_1x_coco.py``): proposals at B=8 on 800x1344 (1 launch at N
+   = 4819), ``eval_recalls`` of them against seeded GT in [0, 1], and its
+   loss with ``allowed_border`` 0 in one step. Fast R-CNN
+   (``configs/fast_rcnn/fast_rcnn_r50_fpn_1x_coco.py``) on those
+   proposals through ``LoadProposals``: dets finite, 1 launch at N = 2000.
+   The ResNeXt-101 64x4d, gn+ws, GIoU and caffe DC5 Faster R-CNN configs:
+   one predict at B=8 (2 launches, keeps equal) and one step at B=2 each,
+   finite. Predict ms and img/s and step ms for each path; the NMS kernel
+   timed on the SSD, RPN and Fast R-CNN inputs (the kernels line's
+   ``paths``).
 
 f32 runs with TF32 off (``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32`` False): cuDNN convolutions would
@@ -761,7 +789,8 @@ def train_entry(cfg, variables, dtype, device):
 
     det = build_detector(dict(cfg.model))
     det.load_state_dict(flax_to_state_dict(variables))
-    frozen = frozen_backbone_mask(det, cfg.model.backbone.frozen_stages)
+    frozen = frozen_backbone_mask(
+        det, dict(cfg.model.backbone).get("frozen_stages", -1))
     tx, _ = build_optimizer_from_cfg(
         dict(cfg.optimizer), dict(cfg.optimizer_config), dict(cfg.lr_config),
         steps_per_epoch=TRAIN_STEPS_PER_EPOCH)
@@ -3993,6 +4022,421 @@ def phase_anchor_voc(tmp: Path, smi: str) -> int:
     return launches + child
 
 
+SSD_VOC_CONFIG = ROOT / "configs" / "pascal_voc" / "ssd300_voc0712.py"
+SSD512_VOC_CONFIG = ROOT / "configs" / "pascal_voc" / "ssd512_voc0712.py"
+SSD_DATA_CONFIG = ROOT / "configs" / "_base_" / "datasets" / "wider_face.py"
+RPN_CONFIG = ROOT / "configs" / "rpn" / "rpn_r50_fpn_1x_coco.py"
+FAST_RCNN_CONFIG = ROOT / "configs" / "fast_rcnn" / "fast_rcnn_r50_fpn_1x_coco.py"
+VARIANT_CONFIGS = tuple(ROOT / "configs" / p for p in (
+    "faster_rcnn/faster_rcnn_x101_64x4d_fpn_1x_coco.py",
+    "gn+ws/faster_rcnn_r50_fpn_gn_ws-all_1x_coco.py",
+    "faster_rcnn/faster_rcnn_r50_fpn_giou_1x_coco.py",
+    "faster_rcnn/faster_rcnn_r50_caffe_dc5_1x_coco.py"))
+SSD_CANVAS = (300, 300)
+SSD_NMS_N = 2000              # multiclass_nms's pre_nms_top
+DC5_RPN_NMS_N = 1000          # one level: its nms_pre
+P18_TIMED = 10                # predicts timed per path (median)
+P18_STEPS = 3                 # steps timed per path, after one warm-up
+SSD_EPOCHS = 1
+# the standalone RPN configs' train_cfg (mmdet's rpn_r50_fpn.py); the
+# repo's file inherits Faster R-CNN's model, which sets none
+RPN_TRAIN_CFG = dict(rpn=dict(allowed_border=0))
+
+
+def predict_counted(tag: str, fn, want_n: list, shape: tuple):
+    """``fn()`` (a predict) with the NMS count at 0 and every input
+    recorded: the launches must be one per entry of ``want_n`` at (B, N),
+    the dets finite of ``shape`` with a detection in every image, each
+    recorded input's keeps equal to the plain version's. Returns (dets,
+    valid, the recorded calls, the worst keep difference)."""
+    import torch
+
+    from dsl_tpu_torch.ops.nms import nms_keep, nms_keep_reference
+
+    nms_keep.launches = 0
+    with recording_nms() as calls:
+        dets, _, valid = fn()
+        torch.cuda.synchronize()
+    got = [tuple(c[0].shape[:2]) for c in calls]
+    if nms_keep.launches != len(want_n) or got != [(shape[0], n) for n in want_n]:
+        raise AssertionError(f"{tag}: {nms_keep.launches} NMS launches at {got}, "
+                             f"expected one each at N = {want_n}")
+    if tuple(dets.shape) != shape or not bool(torch.isfinite(dets).all()):
+        raise AssertionError(f"{tag}: dets {tuple(dets.shape)}, finite "
+                             f"{bool(torch.isfinite(dets).all())}")
+    per_img = valid.sum(1).tolist()
+    if min(per_img) == 0:
+        raise AssertionError(f"{tag}: an image has no detection: {per_img}")
+    worst = 0
+    for boxes, v, thr, keep in calls:
+        want = nms_keep_reference(boxes, v, thr)
+        worst = max(worst, int((keep.int() - want.int()).abs().max()))
+        if not torch.equal(keep, want):
+            raise AssertionError(f"{tag}: NMS keeps differ from the plain "
+                                 f"version at {tuple(boxes.shape)}")
+    log(f"[p18] {tag}: dets {tuple(dets.shape)} finite, valid per image "
+        f"{per_img}, NMS launches {len(calls)} at {got}, keeps bit-identical "
+        f"to the plain version")
+    return dets, valid, calls, worst
+
+
+def time_predict(tag: str, fn, b: int, smi: str) -> float:
+    """Median ms of ``P18_TIMED`` calls of ``fn`` (host clock to a
+    synchronize), logged with img/s."""
+    times = sorted(host_ms(fn, reps=P18_TIMED))
+    ms = times[len(times) // 2]
+    log(f"[time] {tag} predict B={b}: median {ms:.2f} ms/batch (min "
+        f"{times[0]:.2f}, max {times[-1]:.2f}, {P18_TIMED} reps), "
+        f"{b / ms * 1e3:.1f} img/s  ({smi})")
+    return ms
+
+
+def time_steps(tag: str, cfg, variables, batch, smi: str) -> dict:
+    """One warm-up and ``P18_STEPS`` timed f32 steps of the train entry
+    point from the seeded weights: losses finite; the median step ms
+    logged. Returns the last step's metrics."""
+    import math
+
+    metrics, times, state = anchor_step_runs(cfg, variables, batch,
+                                             1 + P18_STEPS)
+    for m in metrics:
+        if not all(math.isfinite(v) for v in m.values()):
+            raise AssertionError(f"{tag} step: {m}")
+    timed = sorted(times[1:])
+    ms = timed[len(timed) // 2]
+    b = batch["images"].shape[0]
+    log(f"[time] {tag} train step f32 B={b}: median {ms:.2f} ms (min "
+        f"{timed[0]:.2f}, max {timed[-1]:.2f}, {P18_STEPS} after a warm-up), "
+        f"{b / ms * 1e3:.2f} img/s; last step " + ", ".join(
+            f"{k} {v:.4f}" for k, v in sorted(metrics[-1].items()))
+        + f"  ({smi})")
+    del state
+    return metrics[-1]
+
+
+def step_card_vs_cpu(tag: str, cfg, variables, canvas, b: int, nc: int):
+    """One f32 step of the train entry point on a seeded batch, on the
+    card and on the CPU (the samplers' draws made on the host): losses
+    within 1e-4, ``grad_norm`` within 1e-3 relative, updates banded as in
+    phase 6."""
+    results = {}
+    with host_sampler_draws():
+        for device in (DEVICE, "cpu"):
+            st, step = train_entry(cfg, variables, None, device)
+            init = {k: p.detach().cpu().clone()
+                    for k, p in st.student.named_parameters()}
+            m = step(st, anchor_batch(TRAIN_SEED + 1, canvas, b, nc, device))
+            results[device] = ({k: float(v) for k, v in m.items()},
+                               {k: p.detach().cpu() for k, p in
+                                st.student.named_parameters()})
+    (m_card, p_card), (m_cpu, p_cpu) = results[DEVICE], results["cpu"]
+    for k, v in m_cpu.items():
+        rel = abs(m_card[k] - v) / max(abs(v), 1e-12)
+        if rel > (1e-3 if k == "grad_norm" else 1e-4):
+            raise AssertionError(f"{tag} card vs CPU {k}: {m_card[k]} vs {v}")
+    worst, l2 = banded_max_ratio(p_card, p_cpu, init)
+    log(f"[p18] {tag} card vs CPU, one f32 step at {b}x{canvas[0]}x"
+        f"{canvas[1]}: " + ", ".join(f"{k} {m_card[k]:.6f}/{m_cpu[k]:.6f}"
+                                     for k in sorted(m_cpu))
+        + f"; updates: worst banded ratio {worst:.3f} (limit 1), relative "
+        f"L2 {l2:.2e} (limit 1e-3)")
+    if worst > 1 or l2 > 1e-3:
+        raise AssertionError(f"{tag} card vs CPU updates: banded ratio "
+                             f"{worst}, L2 {l2}")
+
+
+def phase_ssd(tmp: Path, smi: str):
+    """SSD300 and SSD512 on VOC (the docstring's phase 18, first part).
+    Returns the NMS launches, the worst keep difference and the recorded
+    (path, input) of the B=8 predict."""
+    import numpy as np
+    import torch
+
+    from dsl_tpu_torch.apis import init_detector
+    from dsl_tpu_torch.apis.train import deterministic_cudnn
+    from dsl_tpu_torch.config import Config
+    from dsl_tpu_torch.data.pipelines.image_ops import resize_linear_f32
+    from dsl_tpu_torch.models import detector_predict
+
+    launches, worst = 0, 0
+    cfg = Config.fromfile(str(SSD_VOC_CONFIG))
+    variables = seeded_variables(cfg)
+    bundle = init_detector(cfg, variables=variables, device=DEVICE)
+    det = bundle.detector
+    nc = cfg.model.bbox_head.num_classes
+    max_per_img = cfg.model.test_cfg.max_per_img
+    gen = torch.Generator(device=DEVICE).manual_seed(18)
+    images = torch.randn((BATCH, 3, *SSD_CANVAS), generator=gen, device=DEVICE)
+    shapes = torch.tensor([SSD_CANVAS] * BATCH, dtype=torch.float32,
+                          device=DEVICE)
+    levels = [tuple(c.shape[1:3]) for c in det(images[:1])[0]]
+    n_anchors = sum(h * w * det.bbox_head.anchors.num_base_anchors_level(i)
+                    for i, (h, w) in enumerate(levels))
+    log(f"[p18] {SSD_VOC_CONFIG.relative_to(ROOT)}: SSD, "
+        f"{sum(p.numel() for p in det.parameters()) / 1e6:.2f} M parameters, "
+        f"levels {levels}, {n_anchors} anchors, B={BATCH} at "
+        f"{SSD_CANVAS[0]}x{SSD_CANVAS[1]}")
+
+    def predict():
+        return detector_predict(det, images, img_shapes=shapes, device=DEVICE)
+
+    _, _, calls, w = predict_counted("SSD300 f32", predict, [SSD_NMS_N],
+                                     (BATCH, max_per_img, 5))
+    launches, worst = launches + 1, max(worst, w)
+    ssd_input = calls[0][:3]
+    ms = time_predict("SSD300 f32", predict, BATCH, smi)
+    rel = card_vs_cpu_outputs(det, images[:1])
+    log(f"[p18] SSD300 f32 head outputs, card vs CPU at 1x300x300: worst "
+        f"|diff| / max|ref| = {rel:.3e}")
+    if rel > 1e-3:
+        raise AssertionError(f"SSD300: card and CPU disagree: {rel}")
+    del bundle, det
+    torch.cuda.empty_cache()
+
+    cfg512 = Config.fromfile(str(SSD512_VOC_CONFIG))
+    det512 = init_detector(cfg512, variables=seeded_variables(cfg512),
+                           device=DEVICE).detector
+    im512 = torch.randn((BATCH, 3, 512, 512), generator=gen, device=DEVICE)
+    _, _, _, w = predict_counted(
+        "SSD512 f32", lambda: detector_predict(det512, im512, device=DEVICE),
+        [SSD_NMS_N], (BATCH, cfg512.model.test_cfg.max_per_img, 5))
+    launches, worst = launches + 1, max(worst, w)
+    del det512, im512
+    torch.cuda.empty_cache()
+
+    with deterministic_cudnn():
+        b = cfg.data.samples_per_gpu
+        step_card_vs_cpu("SSD300", cfg, variables, SSD_CANVAS, b, nc)
+        from dsl_tpu_torch.ops.nms import nms_keep
+
+        nms_keep.launches = 0
+        time_steps("SSD300", cfg, variables,
+                   anchor_batch(TRAIN_SEED, SSD_CANVAS, b, nc, DEVICE), smi)
+        if nms_keep.launches:
+            raise AssertionError(f"SSD steps launched NMS {nms_keep.launches} "
+                                 f"times")
+        torch.cuda.empty_cache()
+        launches += phase_ssd_voc(tmp, cfg, variables)
+
+    # the float resize, card vs CPU, bit for bit
+    files, _ = fixtures()
+    for _, path, h, w_ in files[:2]:
+        from dsl_tpu_torch.data.image_io import read_image
+
+        img = read_image(str(path), DEVICE).float()
+        for dst in ((300, 300), (512, 512), (h * 3 // 2, w_ // 3)):
+            got = resize_linear_f32(img, *dst)
+            want = resize_linear_f32(img.cpu(), *dst)
+            if not torch.equal(got.cpu(), want):
+                raise AssertionError(f"float resize {path.name} -> {dst}: card "
+                                     f"and CPU differ")
+    resize_ms = cuda_ms(lambda: resize_linear_f32(img, 300, 300), reps=20)
+    log(f"[p18] float resize card vs CPU bit-identical on 2 decodes x 3 "
+        f"sizes; {tuple(img.shape)} -> 300x300: {resize_ms:.4f} ms  ({smi})")
+    return launches, worst, [dict(path="ssd", B=BATCH, N=SSD_NMS_N,
+                                  launches=1, predict_ms=ms)], {"ssd": ssd_input}
+
+
+def phase_ssd_voc(tmp: Path, cfg, variables) -> int:
+    """``train_detector`` on the SSD300 VOC config for ``SSD_EPOCHS`` over
+    phase 14's VOC2007 directory through SSD's float train pipeline, then
+    the test CLI's ``--eval mAP``; the NMS launches: none per step, one per
+    predicted batch."""
+    import math
+
+    import torch
+
+    from dsl_tpu_torch.apis import train_detector
+    from dsl_tpu_torch.apis.test import BATCH_SIZE
+    from dsl_tpu_torch.config import Config
+    from dsl_tpu_torch.ops.nms import nms_keep
+    from dsl_tpu_torch.utils.synthetic_data import (
+        ssd_pipeline, voc_detector_config)
+
+    t0 = time.perf_counter()
+    voc = voc_dir(tmp)
+    data = Config.fromfile(str(SSD_DATA_CONFIG))
+    raw = cfg.to_dict()
+    raw["train_pipeline"] = ssd_pipeline(data.get("train_pipeline"))
+    raw["test_pipeline"] = ([dict(type="LoadImageFromFile")]
+                            + copy.deepcopy(data.get("test_pipeline")))
+    raw["canvas_hw"] = list(SSD_CANVAS)
+    raw = voc_detector_config(raw, voc)
+    raw["runner"]["max_epochs"] = SSD_EPOCHS
+    raw["evaluation"] = dict(interval=1, metric="mAP")
+    raw["log_config"] = dict(interval=1)
+    work = tmp / "ssd18"
+    cfg_path = tmp / "ssd300_voc18.py"
+    Config(raw).dump(str(cfg_path))
+    n_test = len(Path(voc["test"]).read_text().split())
+    batches = math.ceil(n_test / BATCH_SIZE)
+    nms_keep.launches = 0
+    train_detector(Config(raw), str(work), device=DEVICE, variables=variables)
+    torch.cuda.synchronize()
+    launches = nms_keep.launches
+    lines = [json.loads(x) for x in
+             (work / "train.log.json").read_text().splitlines()]
+    steps = [x for x in lines if x.get("mode") == "train"]
+    val = [x for x in lines if x.get("mode") == "val"]
+    if not steps or not all(math.isfinite(x["loss"]) for x in steps):
+        raise AssertionError(f"VOC SSD losses: {steps}")
+    if len(val) != SSD_EPOCHS or not 0.0 <= val[-1]["mAP"] <= 1.0:
+        raise AssertionError(f"VOC SSD evaluation: {val}")
+    if launches != batches * SSD_EPOCHS:
+        raise AssertionError(f"train_detector made {launches} NMS launches, "
+                             f"expected 1 per evaluation batch")
+    log(f"[p18] SSD300 train_detector on VOC through the float pipeline: "
+        f"{len(steps)} steps, losses finite (last " + ", ".join(
+            f"{k} {steps[-1][k]:.4f}" for k in ("loss_cls", "loss_bbox",
+                                                "loss"))
+        + f"), VOC mAP {val[-1]['mAP']:.4f}, NMS launches {launches}")
+    child, out = run_module("dsl_tpu_torch.tools.test",
+                            [str(cfg_path), str(work / f"epoch_{SSD_EPOCHS}.pth"),
+                             "--eval", "mAP"], tag="ssd18")
+    metrics = json.loads(next(x for x in reversed(out) if x.startswith("{")))
+    if not 0.0 <= metrics["mAP"] <= 1.0 or child != batches:
+        raise AssertionError(f"test CLI: {metrics}, {child} NMS launches")
+    log(f"[p18] SSD300 test CLI --eval mAP: {metrics}, NMS launches {child}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return launches + child
+
+
+def phase_rpn_fast(smi: str):
+    """The standalone RPN and Fast R-CNN on its proposals (the docstring's
+    phase 18). Returns the NMS launches, the worst keep difference and the
+    recorded (path, input) pairs."""
+    import numpy as np
+    import torch
+
+    from dsl_tpu_torch.apis import init_detector
+    from dsl_tpu_torch.apis.train import deterministic_cudnn
+    from dsl_tpu_torch.config import Config
+    from dsl_tpu_torch.core.eval.mean_ap import eval_recalls
+    from dsl_tpu_torch.data.pipelines import Compose
+    from dsl_tpu_torch.models import detector_predict
+    from dsl_tpu_torch.models.detectors.two_stage import fast_rcnn_predict
+    from dsl_tpu_torch.ops.nms import nms_keep
+
+    gen = torch.Generator(device=DEVICE).manual_seed(19)
+    images = torch.randn((BATCH, 3, *CANVAS), generator=gen, device=DEVICE)
+    shapes = torch.tensor([CANVAS] * BATCH, dtype=torch.float32, device=DEVICE)
+    cfg = Config.fromfile(str(RPN_CONFIG))
+    cfg.model["train_cfg"] = copy.deepcopy(RPN_TRAIN_CFG)
+    variables = seeded_variables(cfg)
+    det = init_detector(cfg, variables=variables, device=DEVICE).detector
+    log(f"[p18] {RPN_CONFIG.relative_to(ROOT)}: RPN, "
+        f"{sum(p.numel() for p in det.parameters()) / 1e6:.2f} M parameters")
+
+    def rpn_predict():
+        return detector_predict(det, images, img_shapes=shapes, device=DEVICE)
+
+    props, pvalid, calls, worst = predict_counted(
+        "RPN f32", rpn_predict, [RPN_NMS_N], (BATCH, 1000, 5))
+    inputs = {"rpn_only": calls[0][:3]}
+    rpn_ms = time_predict("RPN f32", rpn_predict, BATCH, smi)
+    gt = anchor_batch(TRAIN_SEED + 3, CANVAS, BATCH, 80, "cpu")
+    gts = [gt["gt_bboxes"][i][gt["gt_valid"][i]].numpy() for i in range(BATCH)]
+    props_np = [props[i][pvalid[i]].cpu().numpy() for i in range(BATCH)]
+    recalls = eval_recalls(gts, props_np, proposal_nums=(100, 300, 1000),
+                           iou_thrs=(0.5,))
+    if not (np.isfinite(recalls).all() and (recalls >= 0).all()
+            and (recalls <= 1).all()):
+        raise AssertionError(f"RPN recalls: {recalls}")
+    log(f"[p18] RPN eval_recalls at IoU 0.5 over {sum(len(g) for g in gts)} "
+        f"seeded GT boxes, top 100/300/1000: {recalls[:, 0].tolist()}")
+    with deterministic_cudnn():
+        nms_keep.launches = 0
+        m = time_steps("RPN (allowed_border 0)", cfg, variables,
+                       anchor_batch(TRAIN_SEED, CANVAS, ANCHOR_TRAIN_B, 80,
+                                    DEVICE), smi)
+        if nms_keep.launches or set(m) != {"loss_rpn_cls", "loss_rpn_bbox",
+                                           "loss", "grad_norm"}:
+            raise AssertionError(f"RPN steps: {m}, {nms_keep.launches} NMS")
+    del det
+    torch.cuda.empty_cache()
+
+    fcfg = Config.fromfile(str(FAST_RCNN_CONFIG))
+    fast = init_detector(fcfg, variables=seeded_variables(fcfg),
+                         device=DEVICE).detector
+    # the proposals through LoadProposals, as a Fast R-CNN test pipeline
+    # reads them, then padded to a batch
+    load = Compose([dict(type="LoadProposals", num_max_proposals=1000)])
+    rows = [load(dict(proposals=props_np[i]), np.random.RandomState(0))[
+        "proposals"] for i in range(BATCH)]
+    p_max = max(len(r) for r in rows)
+    fprops = torch.zeros((BATCH, p_max, 4), device=DEVICE)
+    fvalid = torch.zeros((BATCH, p_max), dtype=torch.bool, device=DEVICE)
+    for i, r in enumerate(rows):
+        fprops[i, :len(r)] = torch.from_numpy(r).to(DEVICE)
+        fvalid[i, :len(r)] = True
+
+    def fast_predict():
+        return fast_rcnn_predict(fast, images, fprops, fvalid,
+                                 img_shapes=shapes)
+
+    _, _, calls, w = predict_counted(
+        "Fast R-CNN f32", fast_predict, [ROI_NMS_N],
+        (BATCH, fcfg.model.test_cfg.rcnn.max_per_img, 5))
+    inputs["fast_rcnn"] = calls[0][:3]
+    fast_ms = time_predict("Fast R-CNN f32", fast_predict, BATCH, smi)
+    del fast
+    torch.cuda.empty_cache()
+    paths = [dict(path="rpn_only", B=BATCH, N=RPN_NMS_N, launches=1,
+                  predict_ms=rpn_ms),
+             dict(path="fast_rcnn", B=BATCH, N=ROI_NMS_N, launches=1,
+                  predict_ms=fast_ms)]
+    return 2, max(worst, w), paths, inputs
+
+
+def phase_variants(smi: str):
+    """The four Faster R-CNN variants (``VARIANT_CONFIGS``): one counted
+    predict at B=8 and timed steps at B=2 each. Returns the NMS launches
+    and the worst keep difference."""
+    import torch
+
+    from dsl_tpu_torch.apis import init_detector
+    from dsl_tpu_torch.apis.train import deterministic_cudnn
+    from dsl_tpu_torch.config import Config
+    from dsl_tpu_torch.models import detector_predict
+    from dsl_tpu_torch.ops.nms import nms_keep
+
+    gen = torch.Generator(device=DEVICE).manual_seed(20)
+    images = torch.randn((BATCH, 3, *CANVAS), generator=gen, device=DEVICE)
+    launches, worst = 0, 0
+    for path in VARIANT_CONFIGS:
+        cfg = Config.fromfile(str(path))
+        variables = seeded_variables(cfg)
+        det = init_detector(cfg, variables=variables, device=DEVICE).detector
+        tag = path.stem
+        log(f"[p18] {path.relative_to(ROOT)}: {type(det).__name__}, "
+            f"{sum(p.numel() for p in det.parameters()) / 1e6:.2f} M "
+            f"parameters")
+        rpn_n = DC5_RPN_NMS_N if len(det.rpn_head.strides) == 1 else RPN_NMS_N
+
+        def predict():
+            return detector_predict(det, images, device=DEVICE)
+
+        _, _, _, w = predict_counted(
+            tag, predict, [rpn_n, ROI_NMS_N],
+            (BATCH, cfg.model.test_cfg.rcnn.max_per_img, 5))
+        launches, worst = launches + 2, max(worst, w)
+        time_predict(tag, predict, BATCH, smi)
+        del det
+        torch.cuda.empty_cache()
+        with deterministic_cudnn():
+            nms_keep.launches = 0
+            time_steps(tag, cfg, variables,
+                       anchor_batch(TRAIN_SEED, CANVAS, ANCHOR_TRAIN_B,
+                                    cfg.model.bbox_head.num_classes, DEVICE),
+                       smi)
+            if nms_keep.launches != 1 + P18_STEPS:
+                raise AssertionError(f"{tag} steps: {nms_keep.launches} NMS "
+                                     f"launches, expected 1 per step")
+            launches += nms_keep.launches
+        torch.cuda.empty_cache()
+    return launches, worst
+
+
 def main() -> int:
     import torch
 
@@ -4060,24 +4504,37 @@ def main() -> int:
             train17_launches, _ = phase_anchor_train(smi)
         voc17_launches = phase_anchor_voc(Path(tmp), smi)
         log(f"[phase 17] {time.perf_counter() - t17:.1f} s")
+        t18 = time.perf_counter()
+        ssd_launches, ssd_err, p18_paths, p18_inputs = phase_ssd(Path(tmp), smi)
+        rpn_launches, rpn_err, rpn_paths, rpn_inputs = phase_rpn_fast(smi)
+        variant_launches, variant_err = phase_variants(smi)
+        p18_paths += rpn_paths
+        p18_inputs.update(rpn_inputs)
+        for entry in p18_paths:
+            entry.update(nms_input_timing(f"{entry['path']}_b{entry['B']}",
+                                          *p18_inputs[entry["path"]], smi))
+        del p18_inputs, rpn_inputs
+        log(f"[phase 18] {time.perf_counter() - t18:.1f} s")
     launches["nms_keep"] += (semi_launches + eval_launches + weights_launches
                              + baseline_launches + voc_launches + dist_launches
                              + mh_launches + cfg_launches + anchor_launches
-                             + train17_launches + voc17_launches)
+                             + train17_launches + voc17_launches
+                             + ssd_launches + rpn_launches + variant_launches)
     kernels = [dict(
         name="nms_keep", route="cuda",
         source="dsl_tpu_torch/csrc/nms_kernel.cu",
         replaces="dsl_tpu/ops/nms_pallas.py:34",
         launches=launches["nms_keep"],
         max_abs_err=float(max(case_err, path_err, train_err, semi_err,
-                              eval_err, voc_err, mh_err, cfg_err, anchor_err)),
+                              eval_err, voc_err, mh_err, cfg_err, anchor_err,
+                              ssd_err, rpn_err, variant_err)),
         ms=nms_times["ms"], plain_ms=nms_times["plain_ms"],
         bound_ms=nms_times["bound_ms"], bound_by=nms_times["bound_by"],
         library_ms=None,
-        # the anchor-based detectors' inputs (phase 17), each timed alike
+        # the anchor-based detectors' inputs (phases 17-18), each timed alike
         paths=[{k: v for k, v in e.items() if k in (
             "path", "B", "N", "launches", "ms", "plain_ms", "bound_ms",
-            "bound_by")} for e in anchor_paths])]
+            "bound_by")} for e in anchor_paths + p18_paths])]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

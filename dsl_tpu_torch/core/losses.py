@@ -2,8 +2,8 @@
 
 Counterpart of the part of ``dsl_tpu/core/losses.py`` that the ported
 heads use: ``weight_reduce_loss``, ``sigmoid_focal_loss``,
-``binary_cross_entropy``, ``giou_loss``, ``iou_loss``, ``cross_entropy``,
-``smooth_l1_loss`` and ``l1_loss``. They follow mmdet's contract: an optional
+``binary_cross_entropy``, ``giou_loss``, ``iou_loss``,
+``bounded_iou_loss``, ``cross_entropy``, ``smooth_l1_loss`` and ``l1_loss``. They follow mmdet's contract: an optional
 elementwise ``weight``, a ``reduction`` in {'none', 'mean', 'sum'}, and an
 ``avg_factor`` that replaces the denominator of 'mean'. Everything is dense
 over fixed shapes, with masking by weight, so a point of weight 0 still
@@ -103,6 +103,35 @@ def giou_loss(pred: torch.Tensor, target: torch.Tensor,
     """1 - GIoU on decoded boxes."""
     return weight_reduce_loss(1.0 - _iou_for_loss(pred, target, "giou", eps),
                               weight, reduction, avg_factor)
+
+
+def bounded_iou_loss(pred: torch.Tensor, target: torch.Tensor,
+                     beta: float = 0.2, eps: float = 1e-3,
+                     weight: torch.Tensor | None = None,
+                     reduction: str = "mean", avg_factor=None):
+    """Bounded IoU loss on decoded boxes: per box the 4-vector [dx, dy, dw,
+    dh] of bounded IoU terms through a smooth-L1 envelope; no gradient
+    reaches ``target``."""
+    pcx = (pred[..., 0] + pred[..., 2]) * 0.5
+    pcy = (pred[..., 1] + pred[..., 3]) * 0.5
+    pw = pred[..., 2] - pred[..., 0]
+    ph = pred[..., 3] - pred[..., 1]
+    t = target.detach()
+    tcx = (t[..., 0] + t[..., 2]) * 0.5
+    tcy = (t[..., 1] + t[..., 3]) * 0.5
+    tw = t[..., 2] - t[..., 0]
+    th = t[..., 3] - t[..., 1]
+    dx = _abs(tcx - pcx)
+    dy = _abs(tcy - pcy)
+    zero = pred.new_zeros(())
+    loss_dx = 1 - torch.maximum((tw - 2 * dx) / (tw + 2 * dx + eps), zero)
+    loss_dy = 1 - torch.maximum((th - 2 * dy) / (th + 2 * dy + eps), zero)
+    loss_dw = 1 - torch.minimum(tw / (pw + eps), pw / (tw + eps))
+    loss_dh = 1 - torch.minimum(th / (ph + eps), ph / (th + eps))
+    comb = torch.stack([loss_dx, loss_dy, loss_dw, loss_dh], dim=-1)
+    loss = torch.where(comb < beta, 0.5 * comb * comb / beta,
+                       comb - 0.5 * beta)
+    return weight_reduce_loss(loss, weight, reduction, avg_factor)
 
 
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,

@@ -1,4 +1,5 @@
-"""Pillow- and OpenCV-exact image operations on uint8 (H, W, 3) tensors.
+"""Pillow- and OpenCV-exact image operations on (H, W, 3) tensors (uint8,
+and float32 where the JAX package hands OpenCV a float image).
 
 The JAX package's strong augmentations (``dsl_tpu/data/pipelines/
 strong_aug.py``) call Pillow and OpenCV on the host. These are the same
@@ -343,6 +344,52 @@ def resize_linear_u8(img: torch.Tensor, new_h: int, new_w: int) -> torch.Tensor:
     out = ((((yw[0][:, None, None] * r0) >> 16)
             + ((yw[1][:, None, None] * r1) >> 16) + 2) >> 2)
     return out.clamp(0, 255).to(torch.uint8)
+
+
+@functools.lru_cache(maxsize=256)
+def _linear_taps_f32(src: int, dst: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """float ``INTER_LINEAR`` taps along one axis, as OpenCV 5's IPP path
+    takes them: the source position ``(d + 0.5) * (src / dst) - 0.5`` in
+    double, its floor and its fraction rounded to float; a position before
+    the first or past the last pixel takes that pixel (fraction 0). (2, dst)
+    int64 indices and (dst,) float32 fractions, host tensors (cached; never
+    written)."""
+    c = (np.arange(dst, dtype=np.float64) + 0.5) * (src / dst) - 0.5
+    s = np.floor(c).astype(np.int64)
+    f = (c - s).astype(np.float32)
+    f[(s < 0) | (s >= src - 1)] = 0
+    idx = np.stack([np.clip(s, 0, src - 1), np.clip(s + 1, 0, src - 1)])
+    return torch.from_numpy(idx), torch.from_numpy(f)
+
+
+# the largest upscale along an axis at which the float resize is held bit
+# for bit to OpenCV's (past it, IPP computes the columns and rows more than
+# four pixels beyond the outer source centres another way)
+RESIZE_F32_EXACT_UPSCALE = 8
+
+
+def resize_linear_f32(img: torch.Tensor, new_h: int, new_w: int
+                      ) -> torch.Tensor:
+    """``cv2.resize(img, (new_w, new_h), interpolation=cv2.INTER_LINEAR)``
+    on a float32 (H, W, C) tensor, as OpenCV 5.0 computes it with IPP
+    (``cv2.ipp.useIPP()`` True, as installed): a horizontal pass
+    ``fma(fx, p1 - p0, p0)`` on the two source rows, then a vertical pass
+    ``fma(fy, r1 - r0, r0)``, each a float FMA rounded once. Bit for bit
+    OpenCV's up to an upscale of ``RESIZE_F32_EXACT_UPSCALE`` per axis; past
+    it the outermost columns and rows part from it by a few ulps
+    (``tests/test_torch_port_ssd.py``)."""
+    if img.dtype != torch.float32:
+        raise TypeError(f"resize_linear_f32 takes float32, not {img.dtype}")
+    h, w = img.shape[:2]
+    dev = img.device
+    xi, fx = (to_device(t, dev) for t in _linear_taps_f32(w, new_w))
+    yi, fy = (to_device(t, dev) for t in _linear_taps_f32(h, new_h))
+    p0 = img.index_select(1, xi[0])
+    p1 = img.index_select(1, xi[1])
+    rows = _fma_f32(fx[:, None], p1 - p0, p0)
+    r0 = rows.index_select(0, yi[0])
+    r1 = rows.index_select(0, yi[1])
+    return _fma_f32(fy[:, None, None], r1 - r0, r0)
 
 
 def get_rotation_matrix_2d(center, angle: float, scale: float) -> np.ndarray:

@@ -1,7 +1,7 @@
 """Image and annotation loading transforms.
 
 Counterpart of ``dsl_tpu/data/pipelines/loading.py`` (``LoadImageFromFile``,
-``LoadAnnotations``) for box detection. The image is read by
+``LoadAnnotations``, ``LoadProposals``) for box detection. The image is read by
 ``data/image_io.read_image`` onto ``results["device"]`` (nvJPEG on the card,
 ``cv2.imread`` on the CPU): ``results["img"]`` is an (H, W, 3) uint8 BGR
 tensor there. Boxes and labels stay host numpy arrays.
@@ -67,4 +67,30 @@ class LoadAnnotations:
             results["bbox_fields"] = ["gt_bboxes", "gt_bboxes_ignore"]
         if self.with_label:
             results["gt_labels"] = ann["labels"].astype(np.int64).copy()
+        return results
+
+
+@PIPELINES.register
+class LoadProposals:
+    """Proposals handed in as ``results["proposals"]`` ((n, 4) or (n, 5),
+    a score column dropped), cut to ``num_max_proposals`` (one zero box
+    where none is left), registered as a bbox field so that the geometric
+    transforms carry them, as the JAX transform does."""
+
+    def __init__(self, num_max_proposals: int | None = None):
+        self.num_max_proposals = num_max_proposals
+
+    def __call__(self, results, rng=None, pyrng=None):
+        proposals = np.asarray(results["proposals"], np.float32)
+        if proposals.ndim != 2 or proposals.shape[1] not in (4, 5):
+            raise AssertionError(
+                "proposals should have shapes (n, 4) or (n, 5), "
+                f"but found {proposals.shape}")
+        proposals = proposals[:, :4]
+        if self.num_max_proposals is not None:
+            proposals = proposals[:self.num_max_proposals]
+        if len(proposals) == 0:
+            proposals = np.asarray([[0, 0, 0, 0]], np.float32)
+        results["proposals"] = proposals
+        results.setdefault("bbox_fields", []).append("proposals")
         return results

@@ -11,8 +11,10 @@ the ``rng`` argument (an ``np.random.RandomState``) in the JAX package's
 order of ``np.random`` calls, and from ``pyrng`` (a ``random.Random``) where
 the JAX package calls Python's ``random``.
 
-Resize is ``image_ops.resize_linear_u8``, bit for bit ``cv2.resize``'s
-``INTER_LINEAR`` on uint8.
+Resize is ``image_ops.resize_linear_u8``, or ``resize_linear_f32`` on the
+float32 image of a ``to_float32`` load or ``PhotoMetricDistortion``: bit
+for bit ``cv2.resize``'s ``INTER_LINEAR`` on uint8, and on float32 up to
+an 8x upscale.
 """
 
 from __future__ import annotations
@@ -22,7 +24,8 @@ import torch
 
 from dsl_tpu_torch.data.image_io import read_image
 from dsl_tpu_torch.data.pipelines.compose import Compose
-from dsl_tpu_torch.data.pipelines.image_ops import resize_linear_u8
+from dsl_tpu_torch.data.pipelines.image_ops import (
+    resize_linear_f32, resize_linear_u8)
 from dsl_tpu_torch.registry import PIPELINES
 from dsl_tpu_torch.utils.device import to_device
 
@@ -87,7 +90,9 @@ class Resize:
             new_h, new_w = keep_ratio_size(h, w, scale)
         else:
             new_w, new_h = scale[0], scale[1]
-        out = resize_linear_u8(img, new_h, new_w)
+        resize = (resize_linear_f32 if img.dtype == torch.float32
+                  else resize_linear_u8)
+        out = resize(img, new_h, new_w)
         w_scale, h_scale = new_w / w, new_h / h
         results["img"] = out
         results["img_shape"] = tuple(out.shape)

@@ -1,2 +1,4 @@
-from dsl_tpu_torch.models.backbones.resnet import ResNet  # noqa: F401
+from dsl_tpu_torch.models.backbones.resnet import (  # noqa: F401
+    ResNet, ResNetV1d, ResNeXt)
 from dsl_tpu_torch.models.backbones.rla_resnet import RLAResNet  # noqa: F401
+from dsl_tpu_torch.models.backbones.ssd_vgg import SSDVGG  # noqa: F401

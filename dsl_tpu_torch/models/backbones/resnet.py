@@ -15,9 +15,15 @@ torchvision checkpoint loads by name (``utils/torch_import.py``).
 ``frozen_stages`` sets ``requires_grad=False`` on the stem and the first
 ``frozen_stages`` stages (``layers.is_frozen``); ``pretrained`` is a
 checkpoint that :meth:`ResNet.init_weights` loads after the random init.
-ResNet-V1d (``deep_stem``, ``avg_down``), ResNeXt (``groups``,
-``base_width``), deformable convs (``dcn``) and ``plugins`` are not ported
-yet and raise.
+
+ResNeXt (``groups``, ``base_width``: a bottleneck's 3x3 is grouped and
+``int(planes * base_width / 64) * groups`` wide) and ResNet-V1d
+(``deep_stem``: three 3x3 convs, mmdet's ``stem.{0,1,3,4,6,7}``;
+``avg_down``: the shortcut's stride taken by a floor-mode average pool
+before ``downsample.{0,1}``, as the JAX package pools) are ported, as
+is ``conv_cfg=dict(type='ConvWS')`` on every conv. As in the JAX package,
+``frozen_stages`` does not freeze a deep stem. Deformable convs (``dcn``)
+and ``plugins`` are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -29,7 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from dsl_tpu_torch.models.layers import (
-    conv1x1, conv3x3, he_normal_, is_frozen, make_conv, make_norm,
+    conv1x1, conv3x3, he_normal_, is_frozen, is_ws, make_conv, make_norm,
     max_pool_3x3_s2)
 from dsl_tpu_torch.registry import BACKBONES
 from dsl_tpu_torch.utils.torch_import import load_torch_backbone
@@ -43,8 +49,25 @@ ARCH_SETTINGS = {
 }
 
 
-def _downsample(inplanes: int, out: int, stride: int, norm_cfg) -> nn.Module:
-    return nn.Sequential(conv1x1(inplanes, out, stride),
+class _AvgDown(nn.Sequential):
+    """V1d's shortcut: the average pool takes the stride (floor mode, as
+    the JAX package's VALID pool), then the 1x1 conv at stride 1 and the
+    norm (``downsample.{0,1}``, the names of the plain shortcut)."""
+
+    def __init__(self, stride: int, conv: nn.Module, norm: nn.Module):
+        super().__init__(conv, norm)
+        self.stride = stride
+
+    def forward(self, x):
+        return super().forward(F.avg_pool2d(x, self.stride, self.stride))
+
+
+def _downsample(inplanes: int, out: int, stride: int, norm_cfg,
+                conv_cfg=None, avg_down: bool = False) -> nn.Module:
+    if avg_down and stride != 1:
+        return _AvgDown(stride, conv1x1(inplanes, out, 1, conv_cfg=conv_cfg),
+                        make_norm(norm_cfg, out))
+    return nn.Sequential(conv1x1(inplanes, out, stride, conv_cfg=conv_cfg),
                          make_norm(norm_cfg, out))
 
 
@@ -53,14 +76,16 @@ class BasicBlock(nn.Module):
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
                  dilation: int = 1, norm_cfg: dict | None = None,
-                 zero_init_residual: bool = True):
+                 zero_init_residual: bool = True, conv_cfg: dict | None = None,
+                 avg_down: bool = False):
         super().__init__()
         # as the JAX package builds it: the dilation on the second conv only
-        self.conv1 = conv3x3(inplanes, planes, stride)
+        self.conv1 = conv3x3(inplanes, planes, stride, conv_cfg=conv_cfg)
         self.bn1 = make_norm(norm_cfg, planes)
-        self.conv2 = conv3x3(planes, planes, 1, dilation)
+        self.conv2 = conv3x3(planes, planes, 1, dilation, conv_cfg=conv_cfg)
         self.bn2 = make_norm(norm_cfg, planes, zero_init=zero_init_residual)
-        self.downsample = (_downsample(inplanes, planes, stride, norm_cfg)
+        self.downsample = (_downsample(inplanes, planes, stride, norm_cfg,
+                                       conv_cfg, avg_down)
                            if stride != 1 or inplanes != planes else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -76,17 +101,22 @@ class Bottleneck(nn.Module):
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
                  dilation: int = 1, style: str = "pytorch",
                  norm_cfg: dict | None = None,
-                 zero_init_residual: bool = True):
+                 zero_init_residual: bool = True, groups: int = 1,
+                 base_width: int = 64, conv_cfg: dict | None = None,
+                 avg_down: bool = False):
         super().__init__()
         out = planes * self.expansion
+        width = int(planes * (base_width / 64.0)) * groups
         s1, s2 = (stride, 1) if style == "caffe" else (1, stride)
-        self.conv1 = conv1x1(inplanes, planes, s1)
-        self.bn1 = make_norm(norm_cfg, planes)
-        self.conv2 = make_conv(None, planes, planes, 3, s2, dilation)
-        self.bn2 = make_norm(norm_cfg, planes)
-        self.conv3 = conv1x1(planes, out)
+        self.conv1 = conv1x1(inplanes, width, s1, conv_cfg=conv_cfg)
+        self.bn1 = make_norm(norm_cfg, width)
+        self.conv2 = make_conv(conv_cfg, width, width, 3, s2, dilation,
+                               groups=groups)
+        self.bn2 = make_norm(norm_cfg, width)
+        self.conv3 = conv1x1(width, out, conv_cfg=conv_cfg)
         self.bn3 = make_norm(norm_cfg, out, zero_init=zero_init_residual)
-        self.downsample = (_downsample(inplanes, out, stride, norm_cfg)
+        self.downsample = (_downsample(inplanes, out, stride, norm_cfg,
+                                       conv_cfg, avg_down)
                            if stride != 1 or inplanes != out else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -114,11 +144,9 @@ class ResNet(nn.Module):
                  deep_stem: bool = False, avg_down: bool = False):
         super().__init__()
         # norm_eval is accepted for config parity: BN is FrozenBatchNorm
-        unported = {"deep_stem": deep_stem, "avg_down": avg_down,
-                    "groups": groups != 1, "base_width": base_width != 64,
-                    "dcn": dcn is not None, "plugins": bool(plugins),
-                    "conv_cfg": conv_cfg is not None}
-        for name, used in unported.items():
+        for name, used in (("dcn", dcn is not None),
+                           ("plugins", bool(plugins)),
+                           ("conv_cfg", bool(conv_cfg) and not is_ws(conv_cfg))):
             if used:
                 raise NotImplementedError(f"ResNet({name}=...) is not ported "
                                           f"yet")
@@ -127,8 +155,18 @@ class ResNet(nn.Module):
         kind, stage_blocks = ARCH_SETTINGS[depth]
         self.out_indices = tuple(out_indices)
         self.pretrained = pretrained
-        self.conv1 = make_conv(None, 3, stem_channels, 7, stride=2)
-        self.bn1 = make_norm(norm_cfg, stem_channels)
+        if deep_stem:
+            half = stem_channels // 2
+            layers = []
+            for cin, cout, stride in ((3, half, 2), (half, half, 1),
+                                      (half, stem_channels, 1)):
+                layers += [make_conv(conv_cfg, cin, cout, 3, stride),
+                           make_norm(norm_cfg, cout), nn.ReLU()]
+            self.stem = nn.Sequential(*layers)
+        else:
+            self.conv1 = make_conv(conv_cfg, 3, stem_channels, 7, stride=2)
+            self.bn1 = make_norm(norm_cfg, stem_channels)
+        self.deep_stem = deep_stem
         inplanes = stem_channels
         self.stage_names = []
         for i in range(num_stages):
@@ -138,10 +176,12 @@ class ResNet(nn.Module):
                 stride = strides[i] if j == 0 else 1
                 if kind == "bottleneck":
                     block = Bottleneck(inplanes, planes, stride, dilations[i],
-                                       style, norm_cfg, zero_init_residual)
+                                       style, norm_cfg, zero_init_residual,
+                                       groups, base_width, conv_cfg, avg_down)
                 else:
                     block = BasicBlock(inplanes, planes, stride, dilations[i],
-                                       norm_cfg, zero_init_residual)
+                                       norm_cfg, zero_init_residual, conv_cfg,
+                                       avg_down)
                 blocks.append(block)
                 inplanes = planes * block.expansion
             name = f"layer{i + 1}"
@@ -161,7 +201,10 @@ class ResNet(nn.Module):
             load_torch_backbone(self.pretrained, self)
 
     def forward(self, x: torch.Tensor):
-        x = F.relu(self.bn1(self.conv1(x)))
+        if self.deep_stem:
+            x = self.stem(x)
+        else:
+            x = F.relu(self.bn1(self.conv1(x)))
         x = max_pool_3x3_s2(x)
         outs = []
         for i, name in enumerate(self.stage_names):
@@ -169,3 +212,21 @@ class ResNet(nn.Module):
             if i in self.out_indices:
                 outs.append(x)
         return tuple(outs)
+
+
+@BACKBONES.register(name="ResNetV1d")
+class ResNetV1d(ResNet):
+    """ResNet-V1d: the deep 3x3 stem and average-pool shortcuts."""
+
+    def __init__(self, **kwargs):
+        kwargs.setdefault("deep_stem", True)
+        kwargs.setdefault("avg_down", True)
+        super().__init__(**kwargs)
+
+
+@BACKBONES.register(name="ResNeXt")
+class ResNeXt(ResNet):
+    """ResNeXt: grouped, widened bottlenecks (32x4d by default)."""
+
+    def __init__(self, groups: int = 32, base_width: int = 4, **kwargs):
+        super().__init__(groups=groups, base_width=base_width, **kwargs)

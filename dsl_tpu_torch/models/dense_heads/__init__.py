@@ -4,3 +4,5 @@ from dsl_tpu_torch.models.dense_heads.retina_head import (  # noqa: F401
     RetinaHead, retina_get_bboxes, retina_loss)
 from dsl_tpu_torch.models.dense_heads.rpn_head import (  # noqa: F401
     RPNHead, rpn_loss, rpn_proposals)
+from dsl_tpu_torch.models.dense_heads.ssd_head import (  # noqa: F401
+    SSDHead, ssd_get_bboxes, ssd_loss)

@@ -7,12 +7,14 @@ convs with relu per branch, no norm (mmdet's names ``cls_convs.i.conv``,
 logits and box deltas returned NHWC per level (the JAX package's layout);
 the loss assigns by MaxIoU (0.5 / 0.4, ``min_pos_iou`` 0, low-quality
 match), sigmoid focal loss (gamma 2, alpha 0.25) over the non-ignored
-anchors and L1 on the positives' encoded targets, both over the positive
-count (summed over the ranks of a process group); the decode takes each
+anchors and L1 (or SmoothL1 with its ``beta``, the V1.x configs') on the
+positives' encoded targets, both over the positive count (summed over the
+ranks of a process group; as in the JAX loss, ``loss_weight`` is not
+read); the decode takes each
 level's ``nms_pre`` best anchors by their best class score, decodes, clips
 and rescales them, then ``multiclass_nms`` (one launch of the NMS kernel
-for the batch). ``RetinaSepBNHead`` and the GHM, Balanced L1 and SmoothL1
-losses the JAX function also takes are not ported yet and raise.
+for the batch). ``RetinaSepBNHead`` and the GHM and Balanced L1 losses
+the JAX function also takes are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -64,7 +66,7 @@ class RetinaHead(nn.Module):
         if cls_type != "FocalLoss":
             raise NotImplementedError(f"RetinaHead loss_cls {cls_type} is not "
                                       f"ported yet")
-        if bbox_type != "L1Loss":
+        if bbox_type not in ("L1Loss", "SmoothL1Loss"):
             raise NotImplementedError(f"RetinaHead loss_bbox {bbox_type} is "
                                       f"not ported yet")
         resolve_delta_coder(bbox_coder)
@@ -145,9 +147,15 @@ def retina_loss(head: RetinaHead, cls_scores, bbox_preds, batch: dict,
     enc, _, means, stds = resolve_delta_coder(
         head.bbox_coder, head.target_means, head.target_stds)
     deltas = enc(anchors[None], gt, means, stds)
-    loss_bbox = L.l1_loss(flat_reg, deltas,
-                          weight=pos.to(torch.float32)[..., None],
-                          avg_factor=num_pos)
+    bbox_cfg = dict(head.loss_bbox or {})
+    posw = pos.to(torch.float32)[..., None]
+    if bbox_cfg.get("type", "L1Loss") == "SmoothL1Loss":
+        loss_bbox = L.smooth_l1_loss(flat_reg, deltas,
+                                     beta=float(bbox_cfg.get("beta", 1.0)),
+                                     weight=posw, avg_factor=num_pos)
+    else:
+        loss_bbox = L.l1_loss(flat_reg, deltas, weight=posw,
+                              avg_factor=num_pos)
     return dict(loss_cls=loss_cls, loss_bbox=loss_bbox)
 
 

@@ -5,8 +5,11 @@ relu and 1x1 objectness / delta predictors shared over the FPN levels
 (mmdet's names ``rpn_conv``, ``rpn_cls``, ``rpn_reg``; outputs NHWC per
 level, the JAX package's layout, so that loss and decode flatten
 (y, x, anchor) as it does); ``rpn_loss`` (MaxIoU 0.7 / 0.3 with
-``min_pos_iou`` 0.3 and the low-quality match, a random subsample of 256
-anchors at 1:1, BCE and L1 both over the sampled count); ``rpn_proposals``
+``min_pos_iou`` 0.3 and the low-quality match, the anchors outside an
+image by more than ``allowed_border`` left out where that is >= 0 (the
+standalone RPN configs' 0), a random subsample of 256 anchors at 1:1, BCE
+and L1 (or SmoothL1, the cascade configs') both over the sampled count);
+``rpn_proposals``
 (per level the ``nms_pre`` best by score, decode and clip, the
 ``min_bbox_size`` filter, one NMS over the levels with each level's boxes
 shifted apart, ``num_proposals`` padded outputs). The NMS of the whole
@@ -29,7 +32,7 @@ from torch import nn
 from dsl_tpu_torch.registry import HEADS
 from dsl_tpu_torch.core import losses as L
 from dsl_tpu_torch.core.anchors import anchor_generator_from_cfg
-from dsl_tpu_torch.core.assigners import max_iou_assign
+from dsl_tpu_torch.core.assigners import anchor_inside_flags, max_iou_assign
 from dsl_tpu_torch.core.boxes import clip_to_shapes, resolve_delta_coder
 from dsl_tpu_torch.core.nms import _gather_rows, nms
 from dsl_tpu_torch.models.layers import normal_init
@@ -119,11 +122,20 @@ def subsample_anchors(uniform: torch.Tensor, is_pos: torch.Tensor,
 
 
 def _check_rpn_bbox_loss(cfg):
-    """The RPN's ``loss_bbox``: L1 (the default and the Faster R-CNN
-    config's); another type (the cascade family's SmoothL1) raises."""
-    t = dict(cfg or {}).get("type", "L1Loss")
-    if t != "L1Loss":
-        raise NotImplementedError(f"RPN loss_bbox {t} is not ported yet")
+    """The RPN's ``loss_bbox`` -> fn(pred, target, weight, avg_factor): L1
+    (the default and the Faster R-CNN config's) or SmoothL1(beta) (the
+    cascade configs'); another type raises."""
+    cfg = dict(cfg or {})
+    t = cfg.get("type", "L1Loss")
+    lw = float(cfg.get("loss_weight", 1.0))
+    if t == "L1Loss":
+        return lambda p, tg, w, af: lw * L.l1_loss(p, tg, weight=w,
+                                                  avg_factor=af)
+    if t == "SmoothL1Loss":
+        beta = float(cfg.get("beta", 1.0))
+        return lambda p, tg, w, af: lw * L.smooth_l1_loss(
+            p, tg, beta=beta, weight=w, avg_factor=af)
+    raise NotImplementedError(f"RPN loss_bbox {t} is not ported yet")
 
 
 def _featmap_sizes(per_level) -> list[tuple[int, int]]:
@@ -134,18 +146,19 @@ def rpn_loss(head: RPNHead, scores, deltas, batch: dict, uniform: torch.Tensor,
              train_cfg: dict | None = None) -> dict:
     """RPN training loss with the reference ``train_cfg.rpn`` semantics:
     MaxIoU assignment (``min_pos_iou`` 0.3, low-quality match), the random
-    subsample, and BCE and L1 both averaged by the sampled count.
-    ``uniform`` (B, A): the subsample's draws. An ``allowed_border`` >= 0
-    (the standalone RPN configs' anchor filter) is not ported yet and
-    raises."""
+    subsample, and BCE and the box loss both averaged by the sampled
+    count. ``uniform`` (B, A): the subsample's draws. With an
+    ``allowed_border`` >= 0 and ``img_shapes`` in the batch, the anchors
+    outside their image by more than it take no part (as the JAX loss)."""
     tc = dict(train_cfg or {})
-    if float(tc.get("allowed_border", -1)) >= 0:
-        raise NotImplementedError("train_cfg.rpn.allowed_border >= 0 is not "
-                                  "ported yet")
+    border = float(tc.get("allowed_border", -1))
     asn = dict(tc.get("assigner", {}) or {})
     smp = dict(tc.get("sampler", {}) or {})
     anchors = head.anchors.flat_anchors(_featmap_sizes(scores),
                                         scores[0].device)
+    inside = None
+    if border >= 0 and batch.get("img_shapes") is not None:
+        inside = anchor_inside_flags(anchors, batch["img_shapes"], border)
     labels, assigned, weights, _ = max_iou_assign(
         anchors, batch["gt_bboxes"], torch.zeros_like(batch["gt_labels"]),
         batch["gt_valid"],
@@ -153,7 +166,7 @@ def rpn_loss(head: RPNHead, scores, deltas, batch: dict, uniform: torch.Tensor,
         neg_iou_thr=float(asn.get("neg_iou_thr", head.neg_iou_thr)),
         min_pos_iou=float(asn.get("min_pos_iou", 0.3)),
         match_low_quality=bool(asn.get("match_low_quality", True)),
-        num_classes=1)
+        num_classes=1, inside=inside)
     b = labels.shape[0]
     flat_score = torch.cat([s.reshape(b, -1) for s in scores], dim=1)
     flat_delta = torch.cat([d.reshape(b, -1, 4) for d in deltas], dim=1)
@@ -172,9 +185,8 @@ def rpn_loss(head: RPNHead, scores, deltas, batch: dict, uniform: torch.Tensor,
     enc, _, means, stds = resolve_delta_coder(
         head.bbox_coder, head.target_means, head.target_stds)
     tgt = enc(anchors[None], gt, means, stds)
-    loss_reg = float(dict(head.loss_bbox or {}).get("loss_weight", 1.0)) \
-        * L.l1_loss(flat_delta, tgt, weight=pos_f[..., None],
-                    avg_factor=num_total)
+    loss_reg = _check_rpn_bbox_loss(head.loss_bbox)(
+        flat_delta, tgt, pos_f[..., None], num_total)
     return dict(loss_rpn_cls=loss_cls, loss_rpn_bbox=loss_reg)
 
 

@@ -1,8 +1,9 @@
 from dsl_tpu_torch.models.detectors.single_stage import (  # noqa: F401
-    FCOS, RetinaNet, SingleStageDetector, build_detector, detector_loss,
+    FCOS, SSD, RetinaNet, SingleStageDetector, build_detector, detector_loss,
     detector_predict)
 from dsl_tpu_torch.models.detectors.two_stage import (  # noqa: F401
-    FasterRCNN, TwoStageDetector, two_stage_loss, two_stage_predict)
+    RPN, FasterRCNN, FastRCNN, TwoStageDetector, fast_rcnn_predict,
+    rpn_only_loss, rpn_only_predict, two_stage_loss, two_stage_predict)
 from dsl_tpu_torch.models.detectors.multi_head import (  # noqa: F401
     FCOSMultiHead, SingleStageMultiHeadDetector, build_multi_head_detector,
     multi_head_loss, multi_head_predict)

@@ -1,15 +1,20 @@
-"""Single-stage detectors (FCOS, RetinaNet), build_detector, and the
+"""Single-stage detectors (FCOS, RetinaNet, SSD), build_detector, and the
 detectors' loss and predict entry points.
 
 Counterpart of ``dsl_tpu/models/detectors/single_stage.py``:
-``SingleStageDetector`` / ``FCOS`` / ``RetinaNet`` (backbone -> neck ->
-head), ``build_detector`` (which hands a config with an ``rpn_head`` to
+``SingleStageDetector`` / ``FCOS`` / ``RetinaNet`` / ``SSD`` (backbone ->
+neck, where there is one -> head), ``build_detector`` (which hands a
+config with an ``rpn_head`` or of type ``FastRCNN`` to
 ``two_stage.build_two_stage_detector`` and a multi-head config to
 ``multi_head.py``, as the JAX package does), and ``detector_loss`` /
 ``detector_predict``, which route a two-stage detector to
-``two_stage_loss`` / ``two_stage_predict`` and a ``RetinaHead`` to
-``retina_loss`` / ``retina_get_bboxes``. Other detector families and heads
-are not ported yet and raise.
+``two_stage_loss`` / ``two_stage_predict``, the standalone ``RPN`` to
+``rpn_only_loss`` / ``rpn_only_predict``, a ``RetinaHead`` to
+``retina_loss`` / ``retina_get_bboxes`` and an ``SSDHead`` to
+``ssd_loss`` / ``ssd_get_bboxes``. ``FastRCNN`` predicts on proposals
+passed in (``two_stage.fast_rcnn_predict``), and has no loss, as in the
+JAX package. Other detector families and heads are not ported yet and
+raise.
 """
 
 from __future__ import annotations
@@ -25,9 +30,12 @@ from dsl_tpu_torch.models.dense_heads.fcos_head import (
     FCOSHead, fcos_get_bboxes, fcos_loss)
 from dsl_tpu_torch.models.dense_heads.retina_head import (
     RetinaHead, retina_get_bboxes, retina_loss)
+from dsl_tpu_torch.models.dense_heads.ssd_head import (
+    SSDHead, ssd_get_bboxes, ssd_loss)
 from dsl_tpu_torch.models.detectors.two_stage import (
-    TwoStageDetector, build_two_stage_detector, check_two_stage,
-    two_stage_loss, two_stage_predict)
+    RPN, FastRCNN, TwoStageDetector, build_two_stage_detector,
+    check_two_stage, rpn_only_loss, rpn_only_predict, two_stage_loss,
+    two_stage_predict)
 from dsl_tpu_torch.utils.device import resolve_device
 from dsl_tpu_torch.utils.precision import outputs_to_f32, to_compute
 
@@ -69,6 +77,11 @@ class RetinaNet(SingleStageDetector):
     """RetinaNet = SingleStageDetector with a RetinaHead."""
 
 
+@DETECTORS.register
+class SSD(SingleStageDetector):
+    """SSD = SingleStageDetector with an SSDHead (no neck in SSD300/512)."""
+
+
 def build_detector(cfg: dict) -> nn.Module:
     """Build a detector from a model config dict: a config with an
     ``rpn_head`` is a two-stage detector (``build_two_stage_detector``), one
@@ -104,10 +117,10 @@ def _dense_head(detector: nn.Module) -> nn.Module:
         raise NotImplementedError(
             f"{type(detector).__name__}: a multi-head detector has its own "
             f"loss and predict (models/detectors/multi_head.py)")
-    if not isinstance(head, (FCOSHead, RetinaHead)):
+    if not isinstance(head, (FCOSHead, RetinaHead, SSDHead)):
         raise NotImplementedError(
-            f"{type(head).__name__} is not ported yet: only FCOSHead and "
-            f"RetinaHead")
+            f"{type(head).__name__} is not ported yet: only FCOSHead, "
+            f"RetinaHead and SSDHead")
     return head
 
 
@@ -123,8 +136,9 @@ def _parse_losses(losses: dict):
 
 def detector_loss(detector: nn.Module, batch: dict, cur_iter: int = 0,
                   compute_dtype=None, mark=None, group=None):
-    """Training forward + loss of an FCOS, RetinaNet or Faster R-CNN
-    detector.
+    """Training forward + loss of an FCOS, RetinaNet, SSD, Faster R-CNN or
+    standalone RPN detector (a Fast R-CNN has no loss, as in the JAX
+    package, and raises).
 
     ``batch["images"]`` is (B, 3, H, W) on the detector's device; the other
     keys are the head's loss's. With ``compute_dtype=torch.bfloat16`` the
@@ -135,11 +149,16 @@ def detector_loss(detector: nn.Module, batch: dict, cur_iter: int = 0,
     raises), its samplers' draws seeded by ``cur_iter``. ``mark(name)``,
     where given, is called once the forward is enqueued (``"forward"``),
     for a timing split. ``group`` (a process group, None for one process)
-    is the single-stage loss's. Returns (total, log_vars).
+    is the single-stage loss's. The standalone RPN runs ``rpn_only_loss``
+    under the two-stage path's refusals. Returns (total, log_vars).
     """
-    if isinstance(detector, TwoStageDetector):
+    if isinstance(detector, FastRCNN):
+        raise NotImplementedError(
+            "FastRCNN has no training loss: the JAX package has none")
+    if isinstance(detector, (TwoStageDetector, RPN)):
         check_two_stage(compute_dtype, group)
-        return two_stage_loss(detector, batch, cur_iter=cur_iter, mark=mark)
+        loss = rpn_only_loss if isinstance(detector, RPN) else two_stage_loss
+        return loss(detector, batch, cur_iter=cur_iter, mark=mark)
     head = _dense_head(detector)
     variables, images = to_compute(detector, batch["images"], compute_dtype)
     outputs = outputs_to_f32(functional_call(detector, variables, (images,),
@@ -148,6 +167,8 @@ def detector_loss(detector: nn.Module, batch: dict, cur_iter: int = 0,
         mark("forward")
     if isinstance(head, RetinaHead):
         return _parse_losses(retina_loss(head, *outputs, batch, group=group))
+    if isinstance(head, SSDHead):
+        return _parse_losses(ssd_loss(head, *outputs, batch, group=group))
     return _parse_losses(fcos_loss(head, *outputs, batch, cur_iter=cur_iter,
                                    group=group))
 
@@ -186,11 +207,24 @@ def detector_predict(detector: nn.Module, images: torch.Tensor,
     ``with_nms=False`` (FCOS only) the decode's candidates instead, as
     ``fcos_get_bboxes`` gives them (boxes, scores, centerness), and the NMS
     kernel is not launched. A two-stage detector runs
-    ``two_stage_predict`` (f32 only: a bf16 compute dtype raises), a
-    ``RetinaHead`` ``retina_get_bboxes``.
+    ``two_stage_predict`` (f32 only: a bf16 compute dtype raises), the
+    standalone RPN ``rpn_only_predict`` (its proposals are the detections,
+    all of label 0), a ``RetinaHead`` ``retina_get_bboxes`` and an
+    ``SSDHead`` ``ssd_get_bboxes``. A Fast R-CNN needs its proposals:
+    ``two_stage.fast_rcnn_predict``.
     """
     device = resolve_device(device)
     check_predict_device(detector, images, device)
+    if isinstance(detector, FastRCNN):
+        raise NotImplementedError("FastRCNN predicts on proposals passed in: "
+                                  "two_stage.fast_rcnn_predict")
+    if isinstance(detector, RPN):
+        check_two_stage(compute_dtype)
+        if not with_nms or params is not None:
+            raise NotImplementedError("the standalone RPN's predict takes "
+                                      "neither with_nms=False nor params")
+        return rpn_only_predict(detector, images, img_shapes=img_shapes,
+                                scale_factors=scale_factors)
     if isinstance(detector, TwoStageDetector):
         check_two_stage(compute_dtype)
         if not with_nms:
@@ -206,11 +240,14 @@ def detector_predict(detector: nn.Module, images: torch.Tensor,
     nms_cfg = dict(tc.get("nms", {}) or {})
     variables, images = to_compute(detector, images, compute_dtype, params)
     outputs = outputs_to_f32(functional_call(detector, variables, (images,)))
-    if isinstance(head, RetinaHead):
+    if isinstance(head, (RetinaHead, SSDHead)):
         if not with_nms:
-            raise NotImplementedError("detector_predict(with_nms=False) is "
-                                      "FCOS's: RetinaNet's is not ported yet")
-        return retina_get_bboxes(
+            raise NotImplementedError(
+                f"detector_predict(with_nms=False) is FCOS's: "
+                f"{type(head).__name__}'s is not ported yet")
+        decode = retina_get_bboxes if isinstance(head, RetinaHead) \
+            else ssd_get_bboxes
+        return decode(
             head, *outputs, img_shapes=img_shapes,
             scale_factors=scale_factors, nms_pre=tc.get("nms_pre", 1000),
             score_thr=tc.get("score_thr", 0.05),

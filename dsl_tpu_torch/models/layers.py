@@ -1,7 +1,7 @@
 """Shared building blocks: convs, norms, scale.
 
-Counterpart of the parts of ``dsl_tpu/models/layers.py`` that the FCOS-RLA
-flagship uses. Tensors are NCHW. Convolutions take explicit padding
+Counterpart of the parts of ``dsl_tpu/models/layers.py`` that the ported
+detectors use (``WSConv`` is mmcv's ``ConvWS2d``). Tensors are NCHW. Convolutions take explicit padding
 ``p = d*(k-1)//2`` (none for 1x1), which is what the JAX package passes to
 ``nn.Conv``, so the two frameworks pad alike at every stride.
 """
@@ -81,29 +81,55 @@ class Scale(nn.Module):
         return x * self.scale
 
 
+class WSConv(nn.Conv2d):
+    """Weight-standardised convolution (mmcv ``ConvWS2d``, the JAX
+    package's ``WSConv``): each output channel's kernel is standardised
+    over (Cin/groups, kh, kw) before the convolution, with the unbiased
+    std taken as ``sqrt(var + 1e-12)`` (so its gradient stays finite where
+    a kernel has no spread) and ``eps`` 1e-5 added to it."""
+
+    eps = 1e-5
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.weight
+        flat = w.reshape(w.shape[0], -1)
+        n = flat.shape[1]
+        mean = flat.mean(dim=1, keepdim=True)
+        var = (flat - mean).square().mean(dim=1, keepdim=True) \
+            * (n / max(n - 1, 1))
+        std = torch.sqrt(var + 1e-12)
+        w = ((flat - mean) / (std + self.eps)).reshape(w.shape)
+        return self._conv_forward(x, w.to(x.dtype), self.bias)
+
+
+def is_ws(conv_cfg: dict | None) -> bool:
+    return bool(conv_cfg) and conv_cfg.get("type") in ("ConvWS", "ConvWS2d")
+
+
 def make_conv(conv_cfg: dict | None, in_channels: int, out_channels: int,
               kernel_size: int, stride: int = 1, dilation: int = 1,
-              use_bias: bool = False) -> nn.Conv2d:
-    """``nn.Conv2d`` with the JAX package's explicit padding. Conv types
-    other than the plain one (weight-standardised 'ConvWS') are not ported
-    yet and raise."""
-    if conv_cfg:
-        raise NotImplementedError(
-            f"conv type {conv_cfg.get('type')!r} is not ported yet")
+              use_bias: bool = False, groups: int = 1) -> nn.Conv2d:
+    """``nn.Conv2d`` with the JAX package's explicit padding, or
+    :class:`WSConv` for ``conv_cfg=dict(type='ConvWS')``; another conv
+    type raises (as mmcv's ``build_conv_layer`` does)."""
+    if conv_cfg and not is_ws(conv_cfg):
+        raise ValueError(f"unknown conv type {conv_cfg.get('type')!r}")
     p = dilation * (kernel_size - 1) // 2
-    return nn.Conv2d(in_channels, out_channels, kernel_size, stride=stride,
-                     padding=p, dilation=dilation, bias=use_bias)
+    cls = WSConv if is_ws(conv_cfg) else nn.Conv2d
+    return cls(in_channels, out_channels, kernel_size, stride=stride,
+               padding=p, dilation=dilation, groups=groups, bias=use_bias)
 
 
 def conv3x3(in_channels: int, out_channels: int, stride: int = 1,
-            dilation: int = 1, use_bias: bool = False) -> nn.Conv2d:
-    return make_conv(None, in_channels, out_channels, 3, stride, dilation,
+            dilation: int = 1, use_bias: bool = False,
+            conv_cfg: dict | None = None) -> nn.Conv2d:
+    return make_conv(conv_cfg, in_channels, out_channels, 3, stride, dilation,
                      use_bias)
 
 
 def conv1x1(in_channels: int, out_channels: int, stride: int = 1,
-            use_bias: bool = False) -> nn.Conv2d:
-    return make_conv(None, in_channels, out_channels, 1, stride,
+            use_bias: bool = False, conv_cfg: dict | None = None) -> nn.Conv2d:
+    return make_conv(conv_cfg, in_channels, out_channels, 1, stride,
                      use_bias=use_bias)
 
 
@@ -113,7 +139,8 @@ def max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
 
 
 def he_normal_(weight: torch.Tensor, generator: torch.Generator | None = None):
-    """flax ``he_normal``: truncated normal, variance 2/fan_in."""
+    """flax ``he_normal``: truncated normal, variance 2/fan_in (a grouped
+    conv's fan-in is its group's)."""
     fan_in = weight[0].numel()
     # flax truncates at 2 std and rescales so the variance stays 2/fan_in
     std = math.sqrt(2.0 / fan_in) / 0.87962566103423978

@@ -12,11 +12,16 @@ levels:
 - ``'on_output'`` (FCOS): the same, the first reading the last output;
 
 with a relu before every extra conv but the first where
-``relu_before_extra_convs``. ``'on_lateral'``, a norm, a conv type and
-another ``end_level`` raise.
+``relu_before_extra_convs``. ``conv_cfg=dict(type='ConvWS')`` makes every
+conv weight-standardised, and ``norm_cfg=dict(type='GN')`` puts a
+GroupNorm after each output and extra conv (and after the laterals where
+``no_norm_on_lateral`` is False), those convs then without a bias, as in
+the JAX package (the gn+ws configs). ``'on_lateral'``, another norm type
+and another ``end_level`` raise.
 
-Submodule names are mmdet's: ``lateral_convs.i.conv`` and ``fpn_convs.i.conv``,
-the extra convs continuing the ``fpn_convs`` numbering.
+Submodule names are mmdet's: ``lateral_convs.i.conv`` and ``fpn_convs.i.conv``
+(``.gn`` beside them), the extra convs continuing the ``fpn_convs``
+numbering.
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from dsl_tpu_torch.registry import NECKS
-from dsl_tpu_torch.models.layers import make_conv
+from dsl_tpu_torch.models.layers import make_conv, make_norm
 
 
 def _upsample_nearest_2x(x: torch.Tensor, target_hw) -> torch.Tensor:
@@ -40,15 +45,17 @@ def _upsample_nearest_2x(x: torch.Tensor, target_hw) -> torch.Tensor:
 
 
 class _ConvModule(nn.Module):
-    """mmcv ``ConvModule`` with no norm and no activation: keeps the
-    ``.conv`` level of mmdet's parameter names."""
+    """mmcv ``ConvModule`` with no activation and an optional GroupNorm:
+    keeps the ``.conv`` / ``.gn`` level of mmdet's parameter names."""
 
-    def __init__(self, conv: nn.Conv2d):
+    def __init__(self, conv: nn.Conv2d, gn: nn.Module | None = None):
         super().__init__()
         self.conv = conv
+        self.gn = gn
 
     def forward(self, x):
-        return self.conv(x)
+        x = self.conv(x)
+        return x if self.gn is None else self.gn(x)
 
 
 @NECKS.register
@@ -70,8 +77,9 @@ class FPN(nn.Module):
                 f"FPN add_extra_convs={add_extra_convs!r}, end_level="
                 f"{end_level}: only False, 'on_input' and 'on_output' to the "
                 f"last level are ported")
-        if norm_cfg is not None or conv_cfg is not None:
-            raise NotImplementedError("FPN with norm/conv_cfg is not ported yet")
+        if norm_cfg is not None and norm_cfg.get("type") != "GN":
+            raise NotImplementedError(f"FPN norm {norm_cfg.get('type')} is "
+                                      f"not ported yet: only GN")
         if (upsample_cfg or {}).get("mode", "nearest") != "nearest":
             raise NotImplementedError("only nearest FPN upsampling is ported")
         self.in_channels = list(in_channels)
@@ -81,11 +89,15 @@ class FPN(nn.Module):
         self.num_outs = num_outs
         used = self.in_channels[start_level:]
 
-        def conv(cin, k, stride):
-            return _ConvModule(make_conv(None, cin, out_channels, k, stride,
-                                         use_bias=True))
+        def conv(cin, k, stride, norm=True):
+            norm = norm and norm_cfg is not None
+            return _ConvModule(
+                make_conv(conv_cfg, cin, out_channels, k, stride,
+                          use_bias=norm_cfg is None),
+                make_norm(norm_cfg, out_channels) if norm else None)
 
-        self.lateral_convs = nn.ModuleList(conv(c, 1, 1) for c in used)
+        self.lateral_convs = nn.ModuleList(
+            conv(c, 1, 1, norm=not no_norm_on_lateral) for c in used)
         convs = [conv(out_channels, 3, 1) for _ in used]
         if add_extra_convs:
             first = used[-1] if add_extra_convs == "on_input" else out_channels
@@ -97,7 +109,8 @@ class FPN(nn.Module):
         for m in self.modules():
             if isinstance(m, nn.Conv2d):
                 nn.init.xavier_uniform_(m.weight, generator=generator)
-                nn.init.zeros_(m.bias)
+                if m.bias is not None:
+                    nn.init.zeros_(m.bias)
 
     def forward(self, inputs):
         if len(inputs) != len(self.in_channels):

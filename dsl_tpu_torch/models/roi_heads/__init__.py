@@ -1,2 +1,3 @@
 from dsl_tpu_torch.models.roi_heads.standard_roi_head import (  # noqa: F401
-    Shared2FCBBoxHead, extract_roi_feats, roi_head_loss, roi_head_predict)
+    Shared2FCBBoxHead, Shared4Conv1FCBBoxHead, extract_roi_feats,
+    roi_head_loss, roi_head_predict)

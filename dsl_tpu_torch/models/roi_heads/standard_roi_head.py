@@ -1,4 +1,5 @@
-"""Standard RoI head (``Shared2FCBBoxHead``) for the two-stage detector.
+"""Standard RoI head (``Shared2FCBBoxHead``, ``Shared4Conv1FCBBoxHead``)
+for the two-stage detectors.
 
 Counterpart of ``dsl_tpu/models/roi_heads/standard_roi_head.py`` in the
 form Faster R-CNN runs it:
@@ -8,6 +9,9 @@ form Faster R-CNN runs it:
   ``fc_cls``, ``fc_reg``). It reads NCHW RoI features flattened
   (c, h, w), mmdet's order; the JAX package flattens NHWC (h, w, c), and
   the weight bridge permutes ``shared_fc0``'s input rows;
+- ``Shared4Conv1FCBBoxHead`` (the gn+ws configs'): four shared 3x3 convs
+  (``conv_cfg`` ConvWS, ``norm_cfg`` GN, no bias under a norm; mmdet's
+  ``shared_convs.i.conv`` / ``.gn``) with relu, then one shared FC;
 - ``map_rois_to_levels`` (``floor(log2(sqrt(area) / 56 + 1e-6))`` clipped
   to the first 4 levels) and ``extract_roi_feats``, which gathers each RoI
   from its own level in one pass over a row table of the levels
@@ -21,16 +25,18 @@ form Faster R-CNN runs it:
   (B, P+K), so a test can hand it the JAX package's;
 - ``roi_head_loss`` / ``rcnn_bbox_loss``: softmax CE over the valid
   samples and L1 (or SmoothL1) on the positives' class deltas, both over
-  the valid count, and ``acc``;
+  the valid count, and ``acc``; with ``reg_decoded_bbox`` or an IoU-family
+  loss (IoU, GIoU, BoundedIoU) the loss compares the decoded boxes with
+  the GT boxes instead;
 - ``roi_head_predict`` / ``rcnn_decode_nms``: softmax, the per-class
   decode from the proposals, clip, rescale, and ``multiclass_nms`` with
   per-class boxes (one launch of the NMS kernel for the batch).
 
 Variants the JAX module also holds raise ``NotImplementedError`` naming
 themselves: the class-agnostic and the cls-only heads (Cascade, Grid),
-generic and deformable RoI extraction, Seesaw and the IoU-family or
-Balanced L1 losses, decoded-box regression, OHEM and the
-instance-balanced / IoU-balanced samplers, soft-NMS.
+generic and deformable RoI extraction, Seesaw, Balanced L1, MSE and the
+DIoU / CIoU losses, OHEM and the instance-balanced / IoU-balanced
+samplers, soft-NMS.
 """
 
 from __future__ import annotations
@@ -46,32 +52,33 @@ from dsl_tpu_torch.core import losses as L
 from dsl_tpu_torch.core.assigners import max_iou_assign_single
 from dsl_tpu_torch.core.boxes import clip_to_shapes, resolve_delta_coder
 from dsl_tpu_torch.core.nms import _gather_rows, multiclass_nms
+from dsl_tpu_torch.models.layers import he_normal_, make_conv, make_norm
 from dsl_tpu_torch.ops.roi_align import roi_align_rows
 
 
-@HEADS.register
-class Shared2FCBBoxHead(nn.Module):
-    def __init__(self, num_classes: int = 80, in_channels: int = 256,
-                 roi_size: int = 7, fc_channels: int = 1024,
-                 target_means: Sequence[float] = (0.0, 0.0, 0.0, 0.0),
-                 target_stds: Sequence[float] = (0.1, 0.1, 0.2, 0.2),
-                 with_reg: bool = True, reg_class_agnostic: bool = False,
-                 roi_extractor: str = "single", loss_cls: dict | None = None,
-                 loss_bbox: dict | None = None, reg_decoded_bbox: bool = False,
-                 bbox_coder: dict | None = None, roi_aligned: bool = True):
+class _BBoxHead(nn.Module):
+    """What the two bbox heads share: the options, ``fc_cls`` / ``fc_reg``
+    on ``fc_channels`` features and mmdet's init of the FCs."""
+
+    def __init__(self, num_classes: int, in_channels: int, roi_size: int,
+                 fc_channels: int, target_means: Sequence[float],
+                 target_stds: Sequence[float], with_reg: bool,
+                 reg_class_agnostic: bool, roi_extractor: str,
+                 loss_cls: dict | None, loss_bbox: dict | None,
+                 reg_decoded_bbox: bool, bbox_coder: dict | None,
+                 roi_aligned: bool):
         super().__init__()
         for flag, what in ((not with_reg, "with_reg=False (Grid R-CNN)"),
                            (reg_class_agnostic,
                             "reg_class_agnostic=True (Cascade R-CNN)"),
                            (roi_extractor != "single",
                             f"roi_extractor={roi_extractor!r}"),
-                           (reg_decoded_bbox, "reg_decoded_bbox=True"),
                            (dict(loss_cls or {}).get("type", "CrossEntropyLoss")
                             != "CrossEntropyLoss",
                             f"loss_cls {dict(loss_cls or {}).get('type')}")):
             if flag:
                 raise NotImplementedError(
-                    f"Shared2FCBBoxHead {what} is not ported yet")
+                    f"{type(self).__name__} {what} is not ported yet")
         resolve_rcnn_bbox_loss(loss_bbox)           # an unported loss raises
         resolve_delta_coder(bbox_coder)
         self.num_classes = num_classes
@@ -81,11 +88,9 @@ class Shared2FCBBoxHead(nn.Module):
         self.target_stds = tuple(target_stds)
         self.loss_cls = loss_cls
         self.loss_bbox = loss_bbox
+        self.reg_decoded_bbox = reg_decoded_bbox
         self.bbox_coder = bbox_coder
         self.roi_aligned = roi_aligned
-        self.shared_fcs = nn.ModuleList([
-            nn.Linear(in_channels * roi_size * roi_size, fc_channels),
-            nn.Linear(fc_channels, fc_channels)])
         self.fc_cls = nn.Linear(fc_channels, num_classes + 1)
         self.fc_reg = nn.Linear(fc_channels, num_classes * 4)
 
@@ -99,12 +104,91 @@ class Shared2FCBBoxHead(nn.Module):
             nn.init.normal_(fc.weight, 0.0, std, generator=generator)
             nn.init.zeros_(fc.bias)
 
-    def forward(self, roi_feats: torch.Tensor):
-        """roi_feats (N, C, s, s) -> (cls_logits (N, C+1), deltas (N, 4C))."""
-        x = roi_feats.reshape(roi_feats.shape[0], -1)
+    def _fcs(self, x: torch.Tensor):
+        x = x.reshape(x.shape[0], -1)
         for fc in self.shared_fcs:
             x = F.relu(fc(x))
         return self.fc_cls(x), self.fc_reg(x)
+
+
+@HEADS.register
+class Shared2FCBBoxHead(_BBoxHead):
+    def __init__(self, num_classes: int = 80, in_channels: int = 256,
+                 roi_size: int = 7, fc_channels: int = 1024,
+                 target_means: Sequence[float] = (0.0, 0.0, 0.0, 0.0),
+                 target_stds: Sequence[float] = (0.1, 0.1, 0.2, 0.2),
+                 with_reg: bool = True, reg_class_agnostic: bool = False,
+                 roi_extractor: str = "single", loss_cls: dict | None = None,
+                 loss_bbox: dict | None = None, reg_decoded_bbox: bool = False,
+                 bbox_coder: dict | None = None, roi_aligned: bool = True):
+        super().__init__(num_classes, in_channels, roi_size, fc_channels,
+                         target_means, target_stds, with_reg,
+                         reg_class_agnostic, roi_extractor, loss_cls,
+                         loss_bbox, reg_decoded_bbox, bbox_coder, roi_aligned)
+        self.shared_fcs = nn.ModuleList([
+            nn.Linear(in_channels * roi_size * roi_size, fc_channels),
+            nn.Linear(fc_channels, fc_channels)])
+
+    def forward(self, roi_feats: torch.Tensor):
+        """roi_feats (N, C, s, s) -> (cls_logits (N, C+1), deltas (N, 4C))."""
+        return self._fcs(roi_feats)
+
+
+class _SharedConv(nn.Module):
+    """mmcv ``ConvModule``: conv, optional norm (``gn``), relu."""
+
+    def __init__(self, conv: nn.Conv2d, gn: nn.Module | None):
+        super().__init__()
+        self.conv = conv
+        self.gn = gn
+
+    def forward(self, x):
+        x = self.conv(x)
+        return F.relu(x if self.gn is None else self.gn(x))
+
+
+@HEADS.register
+class Shared4Conv1FCBBoxHead(_BBoxHead):
+    def __init__(self, num_classes: int = 80, in_channels: int = 256,
+                 roi_size: int = 7, conv_out_channels: int = 256,
+                 fc_channels: int = 1024,
+                 target_means: Sequence[float] = (0.0, 0.0, 0.0, 0.0),
+                 target_stds: Sequence[float] = (0.1, 0.1, 0.2, 0.2),
+                 with_reg: bool = True, reg_class_agnostic: bool = False,
+                 roi_extractor: str = "single", loss_cls: dict | None = None,
+                 loss_bbox: dict | None = None, reg_decoded_bbox: bool = False,
+                 bbox_coder: dict | None = None, roi_aligned: bool = True,
+                 conv_cfg: dict | None = None, norm_cfg: dict | None = None):
+        super().__init__(num_classes, in_channels, roi_size, fc_channels,
+                         target_means, target_stds, with_reg,
+                         reg_class_agnostic, roi_extractor, loss_cls,
+                         loss_bbox, reg_decoded_bbox, bbox_coder, roi_aligned)
+        if norm_cfg is not None and norm_cfg.get("type") != "GN":
+            raise NotImplementedError(
+                f"Shared4Conv1FCBBoxHead norm {norm_cfg.get('type')} is not "
+                f"ported yet: only GN")
+        chans = [in_channels] + [conv_out_channels] * 4
+        self.shared_convs = nn.ModuleList(
+            _SharedConv(make_conv(conv_cfg, chans[i], chans[i + 1], 3,
+                                  use_bias=norm_cfg is None),
+                        None if norm_cfg is None
+                        else make_norm(norm_cfg, chans[i + 1]))
+            for i in range(4))
+        self.shared_fcs = nn.ModuleList([
+            nn.Linear(conv_out_channels * roi_size * roi_size, fc_channels)])
+
+    def init_weights(self, generator: torch.Generator | None = None):
+        super().init_weights(generator)
+        for m in self.shared_convs.modules():
+            if isinstance(m, nn.Conv2d):
+                he_normal_(m.weight, generator)
+
+    def forward(self, roi_feats: torch.Tensor):
+        """roi_feats (N, C, s, s) -> (cls_logits (N, C+1), deltas (N, 4C))."""
+        x = roi_feats
+        for conv in self.shared_convs:
+            x = conv(x)
+        return self._fcs(x)
 
 
 def map_rois_to_levels(rois: torch.Tensor, num_levels: int,
@@ -166,19 +250,29 @@ def extract_roi_feats(feats: Sequence[torch.Tensor], rois: torch.Tensor,
 
 
 def resolve_rcnn_bbox_loss(cfg):
-    """The bbox head's ``loss_bbox`` config -> fn(pred, target, pos_weight,
-    avg_factor) on deltas: L1 (the default, as every reference two-stage
-    config) or SmoothL1(beta); the others raise."""
+    """The bbox head's ``loss_bbox`` config -> ``(fn, decoded)``, ``fn(pred,
+    target, pos_weight, avg_factor)``: L1 (the default, as every reference
+    two-stage config) or SmoothL1(beta) on deltas; IoU, GIoU and
+    BoundedIoU(beta) on decoded boxes (``decoded`` True); the others
+    raise."""
     cfg = dict(cfg or {})
     t = cfg.get("type", "L1Loss")
     lw = float(cfg.get("loss_weight", 1.0))
     if t == "L1Loss":
-        return lambda p, tg, w, af: lw * L.l1_loss(p, tg, weight=w[:, None],
-                                                  avg_factor=af)
+        return (lambda p, tg, w, af: lw * L.l1_loss(
+            p, tg, weight=w[:, None], avg_factor=af)), False
     if t == "SmoothL1Loss":
         beta = float(cfg.get("beta", 1.0))
-        return lambda p, tg, w, af: lw * L.smooth_l1_loss(
-            p, tg, beta=beta, weight=w[:, None], avg_factor=af)
+        return (lambda p, tg, w, af: lw * L.smooth_l1_loss(
+            p, tg, beta=beta, weight=w[:, None], avg_factor=af)), False
+    if t in ("IoULoss", "GIoULoss"):
+        fn = L.iou_loss if t == "IoULoss" else L.giou_loss
+        return (lambda p, tg, w, af: lw * fn(p, tg, weight=w,
+                                             avg_factor=af)), True
+    if t == "BoundedIoULoss":
+        beta = float(cfg.get("beta", 0.2))
+        return (lambda p, tg, w, af: lw * L.bounded_iou_loss(
+            p, tg, beta=beta, weight=w[:, None], avg_factor=af)), True
     raise NotImplementedError(f"rcnn loss_bbox {t} is not ported yet")
 
 
@@ -270,7 +364,9 @@ def select_reg_deltas(bbox_head, reg: torch.Tensor, labels: torch.Tensor):
 def rcnn_bbox_loss(bbox_head, cls_logits, reg, samples: dict, batch: dict):
     """The bbox head's losses on the sampled RoIs: CE over C+1 averaged by
     the valid samples; the positives' class deltas against the encoded GT
-    (L1 by default), also over the valid count; and ``acc``."""
+    (L1 by default; with ``reg_decoded_bbox`` or an IoU-family loss their
+    decoded boxes against the GT boxes), also over the valid count; and
+    ``acc``."""
     labels = samples["labels"].reshape(-1)
     valid_f = samples["valid"].reshape(-1).to(torch.float32)
     pos_f = samples["is_pos"].reshape(-1).to(torch.float32)
@@ -280,11 +376,17 @@ def rcnn_bbox_loss(bbox_head, cls_logits, reg, samples: dict, batch: dict):
                                     avg_factor=num_valid)
     gt = _gather_rows(batch["gt_bboxes"],
                       samples["assigned"].clamp_min(0)).reshape(-1, 4)
-    enc, _, means, stds = resolve_delta_coder(
+    enc, dec, means, stds = resolve_delta_coder(
         bbox_head.bbox_coder, bbox_head.target_means, bbox_head.target_stds)
-    tgt = enc(samples["rois"].reshape(-1, 4), gt, means, stds)
-    loss_reg = resolve_rcnn_bbox_loss(bbox_head.loss_bbox)(
-        select_reg_deltas(bbox_head, reg, labels), tgt, pos_f, num_valid)
+    loss_fn, decoded = resolve_rcnn_bbox_loss(bbox_head.loss_bbox)
+    rois = samples["rois"].reshape(-1, 4)
+    reg_sel = select_reg_deltas(bbox_head, reg, labels)
+    if decoded or bbox_head.reg_decoded_bbox:
+        loss_reg = loss_fn(dec(rois, reg_sel, means, stds), gt, pos_f,
+                           num_valid)
+    else:
+        loss_reg = loss_fn(reg_sel, enc(rois, gt, means, stds), pos_f,
+                           num_valid)
     acc = ((cls_logits.argmax(-1) == labels).to(torch.float32)
            * valid_f).sum() / num_valid
     return dict(loss_cls=loss_cls, acc=acc, loss_bbox=loss_reg)

@@ -20,8 +20,13 @@ plain nested dicts. What changes on the way:
   ``extra_conv0``, ``cls_gn3``, ``scale2``, ``shared_fc1``) <-> the
   mmdet/RLA checkpoint names the port's modules carry (``stages.1.0``,
   ``stage_bns.1.0``, ``fpn_convs.3.conv``, ``cls_convs.3.gn``,
-  ``scales.2``, ``shared_fcs.1``); a two-stage detector's top-level
-  ``bbox_head`` <-> ``roi_head.bbox_head``; a multi-head
+  ``scales.2``, ``shared_fcs.1``), and for the variants
+  (``stem_conv1`` / ``stem_bn1`` of a deep stem <-> ``stem.3`` /
+  ``stem.4``; ``fpn_norm2`` <-> ``fpn_convs.2.gn``; ``shared_conv3`` /
+  ``shared_norm3`` <-> ``shared_convs.3.conv`` / ``.gn``; SSD's modules
+  keep the JAX package's names, ``l2_norm`` its ``weight``); a two-stage
+  or Fast R-CNN detector's top-level ``bbox_head`` <->
+  ``roi_head.bbox_head``; a multi-head
   detector's ``necks_0`` and ``bbox_heads_1`` <-> ``necks.0`` and
   ``bbox_heads.1`` (its necks are alike: the first one's laterals count
   for all). A block
@@ -57,6 +62,13 @@ _TO_TORCH = [
     (r"\b(cls|reg)_gn(\d+)\b", lambda m, n: f"{m[1]}_convs.{m[2]}.gn"),
     (r"\bscale(\d+)\b", lambda m, n: f"scales.{m[1]}"),
     (r"\bshared_fc(\d+)\b", lambda m, n: f"shared_fcs.{m[1]}"),
+    (r"\bshared_conv(\d+)\b", lambda m, n: f"shared_convs.{m[1]}.conv"),
+    (r"\bshared_norm(\d+)\b", lambda m, n: f"shared_convs.{m[1]}.gn"),
+    (r"\bstem_conv(\d+)\b", lambda m, n: f"stem.{3 * int(m[1])}"),
+    (r"\bstem_bn(\d+)\b", lambda m, n: f"stem.{3 * int(m[1]) + 1}"),
+    (r"\blateral_norm(\d+)\b", lambda m, n: f"lateral_convs.{m[1]}.gn"),
+    (r"\bfpn_norm(\d+)\b", lambda m, n: f"fpn_convs.{m[1]}.gn"),
+    (r"\bextra_norm(\d+)\b", lambda m, n: f"fpn_convs.{n + int(m[1])}.gn"),
 ]
 
 # a ResNet's blocks, applied before _TO_TORCH where the backbone is no
@@ -80,6 +92,15 @@ _TO_FLAX = [
     (r"\b(cls|reg)_convs\.(\d+)\.gn\b", lambda m, n: f"{m[1]}_gn{m[2]}"),
     (r"\bscales\.(\d+)\b", lambda m, n: f"scale{m[1]}"),
     (r"\bshared_fcs\.(\d+)\b", lambda m, n: f"shared_fc{m[1]}"),
+    (r"\bshared_convs\.(\d+)\.conv\b", lambda m, n: f"shared_conv{m[1]}"),
+    (r"\bshared_convs\.(\d+)\.gn\b", lambda m, n: f"shared_norm{m[1]}"),
+    (r"\bstem\.(\d+)\b",
+     lambda m, n: (f"stem_conv{int(m[1]) // 3}" if int(m[1]) % 3 == 0
+                   else f"stem_bn{int(m[1]) // 3}")),
+    (r"\blateral_convs\.(\d+)\.gn\b", lambda m, n: f"lateral_norm{m[1]}"),
+    (r"\bfpn_convs\.(\d+)\.gn\b",
+     lambda m, n: (f"fpn_norm{m[1]}" if int(m[1]) < n
+                   else f"extra_norm{int(m[1]) - n}")),
     (r"^roi_head\.bbox_head\b", lambda m, n: "bbox_head"),
 ]
 
@@ -120,7 +141,8 @@ def flax_to_state_dict(variables: dict) -> dict[str, torch.Tensor]:
     n_lat = sum(1 for k in neck if k.startswith("lateral_conv"))
     rla = "conv_out0" in params.get("backbone", {})
     rules = _TO_TORCH if rla else _RESNET_TO_TORCH + _TO_TORCH
-    if "rpn_head" in params:
+    if "fc_cls" in params.get("bbox_head", {}):
+        # a two-stage or Fast R-CNN detector's RoI head
         rules = [(r"^bbox_head\b", lambda m, n: "roi_head.bbox_head")] + rules
     sd: dict[str, torch.Tensor] = {}
     for collection in ("params", "batch_stats"):
@@ -149,8 +171,25 @@ def flax_to_state_dict(variables: dict) -> dict[str, torch.Tensor]:
 
 
 def _roi_channels(params: dict) -> int:
-    """The RoI features' channels: the FPN's output width."""
-    return int(np.asarray(params["neck"]["fpn_conv0"]["kernel"]).shape[-1])
+    """The channels of the features ``shared_fc0`` reads: the last shared
+    conv's where the head has convs, else the RoI features' (the FPN's
+    output width, or the single level's, which the RPN reads)."""
+    head = params["bbox_head"]
+    if "shared_conv3" in head:
+        return int(np.asarray(head["shared_conv3"]["kernel"]).shape[-1])
+    if "fpn_conv0" in params.get("neck", {}):
+        return int(np.asarray(params["neck"]["fpn_conv0"]["kernel"]).shape[-1])
+    return int(np.asarray(params["rpn_head"]["rpn_conv"]["kernel"]).shape[-2])
+
+
+def _roi_channels_torch(state_dict: dict) -> int:
+    """:func:`_roi_channels` on the port's names."""
+    for key, dim in (("roi_head.bbox_head.shared_convs.3.conv.weight", 0),
+                     ("neck.fpn_convs.0.conv.weight", 0),
+                     ("rpn_head.rpn_conv.weight", 1)):
+        if key in state_dict:
+            return int(state_dict[key].shape[dim])
+    raise KeyError("no layer gives the RoI head's input channels")
 
 
 def state_dict_to_flax(state_dict: dict) -> dict:
@@ -172,9 +211,10 @@ def state_dict_to_flax(state_dict: dict) -> dict:
         elif name == "weight" and arr.ndim == 2:
             leaf, arr = "kernel", arr.T
             if module == ROI_FC:
-                channels = state_dict["neck.fpn_convs.0.conv.weight"].shape[0]
-                arr = arr[_roi_rows(arr.shape[0], channels, to_chw=False)]
-        elif name == "weight":
+                arr = arr[_roi_rows(arr.shape[0],
+                                    _roi_channels_torch(state_dict),
+                                    to_chw=False)]
+        elif name == "weight" and not module.endswith("l2_norm"):
             leaf = "scale"
         else:
             leaf = name

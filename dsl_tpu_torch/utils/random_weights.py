@@ -28,7 +28,12 @@ parity tests (no pretrained checkpoint ships with the repo).
   about 1/9 on each live class, above ``score_thr`` 0.05 (8 (proposal,
   class) candidates per proposal, so the RoI NMS sees its full 2000);
   its regressor (``fc_reg``) small, so class boxes stay near the
-  proposals.
+  proposals;
+- SSD's per-level classifiers (``cls_conv{l}``, A x (C + 1) channels, the
+  background last in each anchor's block) as the RoI head's, so each
+  anchor's softmax puts about 1/9 on each live class, above SSD's
+  ``score_thr`` 0.02; its regressors (``reg_conv{l}``) small, so boxes stay
+  near their anchors.
 """
 
 from __future__ import annotations
@@ -45,11 +50,31 @@ def fill_variables(shapes: dict, seed: int = 0) -> dict:
     # RetinaNet's anchors per position: its regressor has 4 outputs each
     retina_anchors = (head["retina_reg"]["bias"].shape[0] // 4
                       if "retina_reg" in head else 1)
+    # SSD's head: per-level predictors and no tower (FCOS's and RetinaNet's
+    # cls_conv{i} are towers beside their conv_cls / retina_cls)
+    ssd = ("cls_conv0" in head and "conv_cls" not in head
+           and "retina_cls" not in head)
+
+    def ssd_pred(path):
+        return (ssd and len(path) >= 3 and path[-3] == "bbox_head"
+                and path[-2][:8] in ("cls_conv", "reg_conv"))
 
     def fill(path, leaf):
         name = path[-1]
         shape = tuple(leaf.shape)
-        if path[-2:] == ("conv_cls", "kernel"):
+        if ssd_pred(path) and path[-2].startswith("cls") and name == "bias":
+            anchors = head[path[-2].replace("cls", "reg")]["bias"].shape[0] // 4
+            per_anchor = shape[0] // anchors            # C + 1
+            classes = np.arange(shape[0]) % per_anchor
+            background = per_anchor - 1
+            v = np.where(classes < LIVE_CLASSES, rng.uniform(1.0, 2.0, shape),
+                         np.where(classes == background, 0.0, -8.0))
+        elif ssd_pred(path) and name == "kernel":
+            gain = 0.02 if path[-2].startswith("cls") else 0.1
+            v = rng.randn(*shape) * gain / np.sqrt(np.prod(shape[:-1]))
+        elif ssd_pred(path) and name == "bias":
+            v = 0.05 * rng.randn(*shape)
+        elif path[-2:] == ("conv_cls", "kernel"):
             v = rng.randn(*shape) * 0.02 / np.sqrt(np.prod(shape[:-1]))
         elif path[-2:] == ("conv_cls", "bias"):
             live = np.arange(shape[0]) < LIVE_CLASSES

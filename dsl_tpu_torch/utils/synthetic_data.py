@@ -31,6 +31,11 @@ labeled store DSL's VOC config reads (``images/full``,
 ``TINY_FASTER_RCNN`` and ``TINY_RETINANET`` are the anchor-based detectors
 of ``configs/pascal_voc/`` cut to a size the CPU tests run in seconds
 (ResNet-18, FPN and heads 32 wide, 20 VOC classes; the inputs 64x96);
+``TINY_RPN`` and ``TINY_FAST_RCNN`` its two halves (the RPN with the
+standalone configs' ``allowed_border`` 0), ``TINY_RESNEXT_RCNN`` and
+``TINY_GN_WS_RCNN`` its ResNeXt and gn+ws variants, ``TINY_SSD`` SSD's
+neck, head, anchor ladder and loss on a ResNet-18 (SSD's VGG-16 has no
+narrow form; the inputs 128x128);
 :func:`voc_detector_config` points one of those VOC configs (whose data
 blocks name no pipeline) at a :func:`make_voc_dir` directory with the
 config's own train and test pipelines.
@@ -316,6 +321,58 @@ TINY_RETINANET = dict(
                    strides=[8, 16, 32, 64, 128]),
     test_cfg=dict(nms_pre=1000, score_thr=0.05,
                   nms=dict(type="nms", iou_threshold=0.5), max_per_img=100))
+
+
+TINY_RPN = dict(
+    TINY_FASTER_RCNN, type="RPN", bbox_head=None,
+    train_cfg=dict(rpn=dict(allowed_border=0)))
+TINY_FAST_RCNN = dict(TINY_FASTER_RCNN, type="FastRCNN", rpn_head=None)
+TINY_RESNEXT_RCNN = dict(
+    TINY_FASTER_RCNN,
+    backbone=dict(type="ResNeXt", depth=50, groups=4, base_width=4,
+                  stem_channels=16, base_channels=16, frozen_stages=1),
+    neck=dict(TINY_FASTER_RCNN["neck"], in_channels=[64, 128, 256, 512]))
+_WS, _GN = dict(type="ConvWS"), dict(type="GN", num_groups=8)
+TINY_GN_WS_RCNN = dict(
+    TINY_FASTER_RCNN,
+    backbone=dict(_TINY_BACKBONE, conv_cfg=_WS, norm_cfg=_GN),
+    neck=dict(TINY_FASTER_RCNN["neck"], conv_cfg=_WS, norm_cfg=_GN),
+    bbox_head=dict(type="Shared4Conv1FCBBoxHead", num_classes=20,
+                   in_channels=32, roi_size=7, conv_out_channels=32,
+                   fc_channels=64, conv_cfg=_WS, norm_cfg=_GN))
+TINY_SSD = dict(
+    type="SSD",
+    backbone=dict(type="ResNet", depth=18, out_indices=(2, 3),
+                  frozen_stages=1, style="pytorch"),
+    neck=dict(type="SSDNeck", in_channels=(256, 512),
+              out_channels=(256, 512, 64, 64), level_strides=(2, 2),
+              level_paddings=(1, 1), l2_norm_scale=20),
+    bbox_head=dict(
+        type="SSDHead", num_classes=20, in_channels=(256, 512, 64, 64),
+        strides=(16, 32, 64, 128),
+        anchor_generator=dict(
+            type="SSDAnchorGenerator", strides=(16, 32, 64, 128),
+            ratios=([2], [2, 3], [2, 3], [2]), min_sizes=(19, 38, 70, 102),
+            max_sizes=(38, 70, 102, 134)),
+        bbox_coder=dict(type="DeltaXYWHBBoxCoder",
+                        target_means=[0.0, 0.0, 0.0, 0.0],
+                        target_stds=[0.1, 0.1, 0.2, 0.2])),
+    test_cfg=dict(nms_pre=1000, score_thr=0.02,
+                  nms=dict(type="nms", iou_threshold=0.45), max_per_img=200))
+
+
+def ssd_pipeline(pipeline: list) -> list:
+    """A copy of an SSD pipeline (``configs/_base_/datasets/wider_face.py``'s
+    is the repo's SSD-300 protocol) that both packages build: mmdet's
+    ``Expand(to_rgb=True)`` fills with the mean given in RGB order reversed
+    to the image's BGR, and neither package's ``Expand`` takes ``to_rgb``,
+    so the mean is reversed here and the key dropped."""
+    out = copy.deepcopy(list(pipeline))
+    for step in out:
+        if step.get("type") == "Expand" and "to_rgb" in step:
+            if step.pop("to_rgb"):
+                step["mean"] = list(step["mean"])[::-1]
+    return out
 
 
 def voc_detector_config(cfg: dict, voc: dict) -> dict:

@@ -60,6 +60,12 @@ dependencies:
   gives the numpy plain version's bytes; ``Rotate`` and
   ``PhotoMetricDistortion`` from the same seeds give on the card the CPU's
   images and boxes, without a host sync;
+- ``resize_linear_f32`` (SSD's float resize) on the card is bit-identical
+  to the CPU (which the CPU tests hold to ``cv2.resize``) on the fixtures
+  as float at SSD's sizes and an upscale; the tiny SSD's predict on the
+  card launches the NMS kernel once, and its head outputs and dets agree
+  with the CPU's (within 1e-4 of the largest magnitude; valid equal, the
+  dets with their labels compared as sets per image);
 - ``train_detector`` and ``single_device_test`` refuse to start without
   CUDA (these run everywhere).
 """
@@ -676,3 +682,57 @@ def test_roi_align_on_the_card_matches_the_cpu_and_repeats(card):
     assert torch.equal(out["a"][1], out["b"][1])
     for got, want in zip(out["a"], out["cpu"]):
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(FIXTURES))
+def test_resize_linear_f32_on_the_card_equals_the_cpu(card, name):
+    from dsl_tpu_torch.data.pipelines.image_ops import resize_linear_f32
+
+    h, w, _ = FIXTURES[name]
+    host = torch.from_numpy(load_decodes()[name].astype(np.float32))
+    for nh, nw in ((300, 300), (512, 512), (h * 2, w * 3 // 2)):
+        got = resize_linear_f32(host.to(card), nh, nw)
+        assert torch.equal(got.cpu(), resize_linear_f32(host, nh, nw)), (nh, nw)
+
+
+@pytest.mark.cuda
+def test_tiny_ssd_predict_on_the_card_matches_the_cpu(card):
+    import copy
+
+    from dsl_tpu_torch.models import detector_predict
+    from dsl_tpu_torch.utils.synthetic_data import TINY_SSD
+
+    det = build_detector(copy.deepcopy(TINY_SSD))
+    shapes = state_dict_to_flax(det.state_dict())
+    from dsl_tpu_torch.utils.random_weights import fill_variables
+
+    det.load_state_dict(flax_to_state_dict(fill_variables(shapes)))
+    det.eval()
+    x = torch.from_numpy(np.random.RandomState(4).randn(
+        2, 3, 128, 128).astype(np.float32))
+    outs, launches = {}, {}
+    for dev in (card, "cpu"):
+        d = copy.deepcopy(det).to(dev)
+        with torch.no_grad():
+            heads = d(x.to(dev))
+        before = nms_keep.launches
+        dets = detector_predict(d, x.to(dev), device=dev)
+        launches[str(dev)] = nms_keep.launches - before
+        outs[str(dev)] = [t.cpu() for t in (*heads[0], *heads[1], *dets)]
+    assert launches["cuda"] == 1 and launches["cpu"] == 0
+    got, want = outs["cuda"], outs["cpu"]
+    for g, w in zip(got[:-3], want[:-3]):
+        torch.testing.assert_close(g, w, rtol=0,
+                                   atol=1e-4 * max(1.0, float(w.abs().max())))
+    # the detections as sets per image (candidates whose scores differ by
+    # the two devices' rounding may swap in NMS order)
+    assert torch.equal(got[-1], want[-1]) and int(got[-1].sum()) > 100
+    for i in range(x.shape[0]):
+        rows = []
+        for d, lab, v in (got[-3:], want[-3:]):
+            d, lab = d[i][v[i]].numpy(), lab[i][v[i]].numpy()
+            order = np.lexsort((np.round(d[:, 1], 1), np.round(d[:, 0], 1), lab))
+            rows.append((d[order], lab[order]))
+        np.testing.assert_array_equal(rows[0][1], rows[1][1])
+        np.testing.assert_allclose(rows[0][0], rows[1][0], rtol=1e-5, atol=1e-4)

@@ -138,8 +138,7 @@ def test_unported_variants_raise():
             (dict(type="RetinaSepBNHead"), "RetinaSepBNHead"),
             (dict(loss_cls=dict(type="GHMC")), "GHMC"),
             (dict(loss_bbox=dict(type="BalancedL1Loss")), "BalancedL1Loss"),
-            (dict(anchor_generator=dict(type="SSDAnchorGenerator")),
-             "SSDAnchorGenerator")):
+            (dict(loss_bbox=dict(type="GIoULoss")), "GIoULoss")):
         cfg = copy.deepcopy(TINY_RETINANET)
         cfg["bbox_head"].update(change)
         with pytest.raises((NotImplementedError, KeyError), match=match):

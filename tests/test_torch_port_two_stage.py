@@ -142,8 +142,15 @@ def test_anchors_match_jax(cfg, defaults):
 
 
 def test_ssd_anchors_raise():
-    with pytest.raises(NotImplementedError, match="SSDAnchorGenerator"):
+    # SSD's generator is ported (tests/test_torch_port_ssd.py); as in the
+    # JAX package it needs its per-level ratios, and has no single count
+    with pytest.raises(KeyError, match="ratios"):
         anchors.anchor_generator_from_cfg(dict(type="SSDAnchorGenerator"))
+    gen = anchors.anchor_generator_from_cfg(dict(
+        type="SSDAnchorGenerator", strides=[8, 16, 32, 64, 100, 300],
+        ratios=[[2], [2, 3], [2, 3], [2, 3], [2], [2]]))
+    with pytest.raises(AttributeError, match="num_base_anchors_level"):
+        gen.num_base_anchors  # noqa: B018
 
 
 @pytest.mark.parametrize("legacy", [False, True], ids=["stock", "legacy"])
@@ -529,10 +536,10 @@ def test_unported_two_stage_variants_raise():
             (dict(bbox_head=dict(TINY_FASTER_RCNN["bbox_head"],
                                  reg_class_agnostic=True)), "reg_class_agnostic"),
             (dict(bbox_head=dict(TINY_FASTER_RCNN["bbox_head"],
-                                 loss_bbox=dict(type="GIoULoss"))), "GIoULoss"),
+                                 loss_bbox=dict(type="CIoULoss"))), "CIoULoss"),
             (dict(bbox_head=dict(TINY_FASTER_RCNN["bbox_head"],
-                                 type="Shared4Conv1FCBBoxHead")),
-             "Shared4Conv1FCBBoxHead"),
+                                 type="DoubleConvFCBBoxHead")),
+             "DoubleConvFCBBoxHead"),
             (dict(rpn_head=dict(type="GARPNHead")), "GARPNHead")):
         with pytest.raises(NotImplementedError, match=match):
             build_detector({**copy.deepcopy(TINY_FASTER_RCNN), **change})

@@ -110,10 +110,14 @@ def test_resnet50_matches_jax(style):
 
 
 @pytest.mark.parametrize("option", [
-    dict(deep_stem=True), dict(avg_down=True), dict(groups=32),
-    dict(base_width=4), dict(dcn=dict(type="DCNv2")),
+    dict(dcn=dict(type="DCN")), dict(dcn=dict(type="DCNv2", deform_groups=4)),
+    dict(plugins=[dict(cfg=dict(type="GeneralizedAttention"),
+                       position="after_conv2")]),
+    dict(conv_cfg=dict(type="DCNv2")), dict(dcn=dict(type="DCNv2")),
     dict(plugins=[dict(cfg=dict(type="ContextBlock"))])])
 def test_resnet_refuses_unported_options(option):
+    # (V1d's deep_stem / avg_down and ResNeXt's groups / base_width are
+    # ported: tests/test_torch_port_variants.py)
     with pytest.raises(NotImplementedError, match=next(iter(option))):
         ResNet(depth=50, **option)
 
