@@ -288,6 +288,33 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    finite. Predict ms and img/s and step ms for each path; the NMS kernel
    timed on the SSD, RPN and Fast R-CNN inputs (the kernels line's
    ``paths``).
+19. Mask R-CNN and the C4 pair at full width, the NMS count at 0 before
+   each part and read after it. ``configs/mask_rcnn/mask_rcnn_r50_fpn_1x_coco.py``
+   uncut (ResNet-50, FPN 256, RPN, ``Shared2FCBBoxHead`` 1024,
+   ``FCNMaskHead`` 4x256, 28x28 logits, 80 classes) with seeded weights:
+   ``mask_rcnn_predict`` at B=8, 800x1344, f32: 2 NMS launches (N = 4819
+   and 2000) whose keeps equal the plain version's, dets finite (8, 100, 5)
+   with detections in every image, the (8, 100, 28, 28) probabilities in
+   [0, 1], the median of 10 predicts, the paste and RLE of one image's
+   masks (ms per image), the mask head's logits card vs CPU within 1e-3.
+   The train entry point at B=2 on seeded polygons' ``gt_mask_crops``
+   (cuDNN deterministic): ``loss_mask`` finite, 1 NMS launch per step, the
+   median of 3 steps after a warm-up; one step card vs CPU at 2x128x192
+   (losses 1e-4, ``grad_norm`` 1e-3, updates banded); two runs of 3 steps
+   bit-identical. The train pipeline of
+   ``mask_rcnn_r50_caffe_fpn_mstrain_1x_coco.py`` (masks loaded, six
+   scales, flip, pad, 112x112 crops) card vs CPU bit for bit on 16 seeds
+   over a synthetic COCO instance set (polygons, RLE, crowd RLE, none);
+   that config through ``train_detector`` for one epoch (4 steps) with
+   ``bbox`` and ``segm`` evaluation and the test CLI's ``--eval bbox
+   segm``: ``bbox_mAP`` and ``segm_mAP`` in [0, 1], 1 NMS launch per step
+   and 2 per predicted batch; the val GT fed back with its masks scores
+   ``segm_mAP`` 1.0; ``tta_test`` then ``tta_test_masks`` on the val images
+   (masks the images' size, keeps equal). ``FasterRCNNC4`` and
+   ``MaskRCNNC4`` on their caffe C4 configs: a counted predict at B=2 (N =
+   1000 and 2000) and timed steps at B=2 (``loss_mask`` for the mask one).
+   The NMS kernel timed on the Mask R-CNN's RoI input (the kernels line's
+   ``paths``).
 
 f32 runs with TF32 off (``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32`` False): cuDNN convolutions would
@@ -4034,7 +4061,7 @@ VARIANT_CONFIGS = tuple(ROOT / "configs" / p for p in (
     "faster_rcnn/faster_rcnn_r50_caffe_dc5_1x_coco.py"))
 SSD_CANVAS = (300, 300)
 SSD_NMS_N = 2000              # multiclass_nms's pre_nms_top
-DC5_RPN_NMS_N = 1000          # one level: its nms_pre
+ONE_LEVEL_RPN_NMS_N = 1000    # one level (DC5, C4): its nms_pre
 P18_TIMED = 10                # predicts timed per path (median)
 P18_STEPS = 3                 # steps timed per path, after one warm-up
 SSD_EPOCHS = 1
@@ -4114,18 +4141,21 @@ def time_steps(tag: str, cfg, variables, batch, smi: str) -> dict:
     return metrics[-1]
 
 
-def step_card_vs_cpu(tag: str, cfg, variables, canvas, b: int, nc: int):
-    """One f32 step of the train entry point on a seeded batch, on the
-    card and on the CPU (the samplers' draws made on the host): losses
-    within 1e-4, ``grad_norm`` within 1e-3 relative, updates banded as in
-    phase 6."""
+def step_card_vs_cpu(tag: str, cfg, variables, canvas, b: int, nc: int,
+                     make_batch=None):
+    """One f32 step of the train entry point on a seeded batch
+    (``make_batch(device)``, else :func:`anchor_batch`), on the card and on
+    the CPU (the samplers' draws made on the host): losses within 1e-4,
+    ``grad_norm`` within 1e-3 relative, updates banded as in phase 6."""
+    make_batch = make_batch or (lambda device: anchor_batch(
+        TRAIN_SEED + 1, canvas, b, nc, device))
     results = {}
     with host_sampler_draws():
         for device in (DEVICE, "cpu"):
             st, step = train_entry(cfg, variables, None, device)
             init = {k: p.detach().cpu().clone()
                     for k, p in st.student.named_parameters()}
-            m = step(st, anchor_batch(TRAIN_SEED + 1, canvas, b, nc, device))
+            m = step(st, make_batch(device))
             results[device] = ({k: float(v) for k, v in m.items()},
                                {k: p.detach().cpu() for k, p in
                                 st.student.named_parameters()})
@@ -4388,52 +4418,442 @@ def phase_rpn_fast(smi: str):
     return 2, max(worst, w), paths, inputs
 
 
-def phase_variants(smi: str):
-    """The four Faster R-CNN variants (``VARIANT_CONFIGS``): one counted
-    predict at B=8 and timed steps at B=2 each. Returns the NMS launches
-    and the worst keep difference."""
+def phase_variants(smi: str, configs=VARIANT_CONFIGS, b: int = BATCH,
+                   seed: int = 20, phase: str = "p18"):
+    """Two-stage variants (``VARIANT_CONFIGS`` by default), uncut, seeded:
+    one counted predict at B=``b`` (2 NMS launches: the RPN's at N =
+    ``RPN_NMS_N``, or ``ONE_LEVEL_RPN_NMS_N`` on one level, the RoI head's
+    at N = ``ROI_NMS_N``; keeps equal; a detector with a mask head predicts
+    through ``mask_rcnn_predict``, its probabilities in [0, 1]), timed,
+    then timed steps at B=2 (on a :func:`mask_batch` and with ``loss_mask``
+    finite where there is a mask head; 1 NMS launch per step). Returns the
+    NMS launches and the worst keep difference."""
+    import numpy as np
     import torch
 
     from dsl_tpu_torch.apis import init_detector
     from dsl_tpu_torch.apis.train import deterministic_cudnn
     from dsl_tpu_torch.config import Config
     from dsl_tpu_torch.models import detector_predict
+    from dsl_tpu_torch.models.detectors.two_stage import mask_rcnn_predict
     from dsl_tpu_torch.ops.nms import nms_keep
 
-    gen = torch.Generator(device=DEVICE).manual_seed(20)
-    images = torch.randn((BATCH, 3, *CANVAS), generator=gen, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    images = torch.randn((b, 3, *CANVAS), generator=gen, device=DEVICE)
     launches, worst = 0, 0
-    for path in VARIANT_CONFIGS:
+    for path in configs:
         cfg = Config.fromfile(str(path))
         variables = seeded_variables(cfg)
         det = init_detector(cfg, variables=variables, device=DEVICE).detector
         tag = path.stem
-        log(f"[p18] {path.relative_to(ROOT)}: {type(det).__name__}, "
+        masks = getattr(det, "mask_head", None) is not None
+        log(f"[{phase}] {path.relative_to(ROOT)}: {type(det).__name__}, "
             f"{sum(p.numel() for p in det.parameters()) / 1e6:.2f} M "
             f"parameters")
-        rpn_n = DC5_RPN_NMS_N if len(det.rpn_head.strides) == 1 else RPN_NMS_N
+        rpn_n = (ONE_LEVEL_RPN_NMS_N if len(det.rpn_head.strides) == 1
+                 else RPN_NMS_N)
 
         def predict():
-            return detector_predict(det, images, device=DEVICE)
+            if not masks:
+                return detector_predict(det, images, device=DEVICE)
+            out = mask_rcnn_predict(det, images)
+            if not bool(((out[3] >= 0) & (out[3] <= 1)).all()):
+                raise AssertionError(f"{tag}: mask probabilities")
+            return out[:3]
 
         _, _, _, w = predict_counted(
             tag, predict, [rpn_n, ROI_NMS_N],
-            (BATCH, cfg.model.test_cfg.rcnn.max_per_img, 5))
+            (b, cfg.model.test_cfg.rcnn.max_per_img, 5))
         launches, worst = launches + 2, max(worst, w)
-        time_predict(tag, predict, BATCH, smi)
+        time_predict(tag, predict, b, smi)
         del det
         torch.cuda.empty_cache()
+        batch = (mask_batch if masks else anchor_batch)(
+            TRAIN_SEED, CANVAS, ANCHOR_TRAIN_B,
+            cfg.model.bbox_head.num_classes, DEVICE)
         with deterministic_cudnn():
             nms_keep.launches = 0
-            time_steps(tag, cfg, variables,
-                       anchor_batch(TRAIN_SEED, CANVAS, ANCHOR_TRAIN_B,
-                                    cfg.model.bbox_head.num_classes, DEVICE),
-                       smi)
+            m = time_steps(tag, cfg, variables, batch, smi)
+            if masks and not np.isfinite(m.get("loss_mask", np.nan)):
+                raise AssertionError(f"{tag} step: {m}")
             if nms_keep.launches != 1 + P18_STEPS:
                 raise AssertionError(f"{tag} steps: {nms_keep.launches} NMS "
                                      f"launches, expected 1 per step")
             launches += nms_keep.launches
+        del batch
         torch.cuda.empty_cache()
+    return launches, worst
+
+
+MASK_RCNN_CONFIG = ROOT / "configs" / "mask_rcnn" / "mask_rcnn_r50_fpn_1x_coco.py"
+MASK_MSTRAIN_CONFIG = (ROOT / "configs" / "mask_rcnn"
+                       / "mask_rcnn_r50_caffe_fpn_mstrain_1x_coco.py")
+C4_CONFIGS = (ROOT / "configs" / "faster_rcnn" / "faster_rcnn_r50_caffe_c4_1x_coco.py",
+              ROOT / "configs" / "mask_rcnn" / "mask_rcnn_r50_caffe_c4_1x_coco.py")
+C4_B = 2                      # the C4 predicts' batch
+MASK_TRAIN_IMAGES = 8         # one epoch of 4 steps at the config's B=2
+MASK_VAL_IMAGES = 4
+MASK_PIPE_SEEDS = 16          # the mask pipeline card vs CPU
+MASK_PASTE_REPS = 5           # pastes timed (median)
+
+
+def mask_batch(seed: int, canvas, b: int, num_classes: int, device):
+    """:func:`anchor_batch` with instance masks: a seeded star-shaped
+    polygon in each GT box, rasterised at the canvas on ``device``, then
+    the batch's ``gt_mask_crops`` and ``gt_mask_areas`` as the data layer
+    makes them (``formatting.mask_crops``)."""
+    import numpy as np
+    import torch
+
+    from dsl_tpu_torch.core.masks import BitmapMasks, rasterize_polygons
+    from dsl_tpu_torch.data.formatting import mask_crops
+
+    batch = anchor_batch(seed, canvas, b, num_classes, device)
+    rng = np.random.RandomState(seed)
+    gtb = batch["gt_bboxes"].cpu().numpy()
+    valid = batch["gt_valid"].cpu().numpy()
+    crops, areas = [], []
+    for i in range(b):
+        masks = []
+        for x1, y1, x2, y2 in gtb[i][valid[i]]:
+            n = 10
+            ang = (np.arange(n) + rng.uniform(0, 0.8, n)) * (2 * np.pi / n)
+            rad = rng.uniform(0.5, 1.0, n)
+            pts = np.stack([(x1 + x2) / 2 + (x2 - x1) / 2 * rad * np.cos(ang),
+                            (y1 + y2) / 2 + (y2 - y1) / 2 * rad * np.sin(ang)],
+                           1)
+            masks.append(rasterize_polygons([pts.reshape(-1)], *canvas,
+                                            device))
+        out = mask_crops(BitmapMasks(masks, *canvas, device), gtb[i],
+                         gtb.shape[1], torch.device(device))
+        crops.append(out["gt_mask_crops"])
+        areas.append(out["gt_mask_areas"])
+    batch["gt_mask_crops"] = torch.stack(crops)
+    batch["gt_mask_areas"] = torch.stack(areas)
+    return batch
+
+
+def coco_instance(tmp: Path) -> dict:
+    """The synthetic COCO instance set of phase 19 (the JPEG fixtures'
+    copies; polygons, RLE, crowd RLE, instances without a segmentation)."""
+    from dsl_tpu_torch.utils.synthetic_data import make_coco_instance_dir
+
+    files, _ = fixtures()
+    return make_coco_instance_dir(
+        tmp / "coco19", [(str(p), h, w) for _, p, h, w in files],
+        MASK_TRAIN_IMAGES, MASK_VAL_IMAGES, seed=19)
+
+
+def _mask_dataset(coco: dict, split: str, device, pipeline=()):
+    import numpy as np
+    import random
+
+    from dsl_tpu_torch.registry import DATASETS, build_from_cfg
+
+    return build_from_cfg(dict(
+        type="CocoDataset", ann_file=coco[split],
+        img_prefix=coco[f"{split}_images"], pipeline=list(pipeline),
+        test_mode=True, device=device, rng=np.random.RandomState(0),
+        pyrng=random.Random(0)), DATASETS)
+
+
+def phase_mask_predict(smi: str):
+    """Mask R-CNN R50-FPN (``MASK_RCNN_CONFIG``, uncut, seeded weights)
+    predict at B=8, 800x1344, f32: counted (2 NMS launches, keeps equal to
+    the plain version's, dets finite with detections in every image), the
+    28x28 probabilities finite in [0, 1], the median of ``P18_TIMED``
+    predicts, the paste and RLE of one image's masks (ms per image), the
+    mask head's logits card vs CPU within 1e-3. Returns
+    the NMS launches of the counted predict, the worst keep difference,
+    the path entry and the recorded RoI NMS input."""
+    import torch
+
+    from dsl_tpu_torch.apis import init_detector
+    from dsl_tpu_torch.apis.test import pasted_rles
+    from dsl_tpu_torch.config import Config
+    from dsl_tpu_torch.models.detectors.two_stage import mask_rcnn_predict
+    from dsl_tpu_torch.models.roi_heads.mask_head import paste_masks
+
+    cfg = Config.fromfile(str(MASK_RCNN_CONFIG))
+    det = init_detector(cfg, variables=seeded_variables(cfg),
+                        device=DEVICE).detector
+    log(f"[p19] {MASK_RCNN_CONFIG.relative_to(ROOT)}: "
+        f"{type(det).__name__}, "
+        f"{sum(p.numel() for p in det.parameters()) / 1e6:.2f} M parameters, "
+        f"B={BATCH} at {CANVAS[0]}x{CANVAS[1]}")
+    gen = torch.Generator(device=DEVICE).manual_seed(21)
+    images = torch.randn((BATCH, 3, *CANVAS), generator=gen, device=DEVICE)
+    shapes = torch.tensor([CANVAS] * BATCH, dtype=torch.float32, device=DEVICE)
+    out = {}
+
+    def predict():
+        out["all"] = mask_rcnn_predict(det, images, img_shapes=shapes)
+        return out["all"][:3]
+
+    dets, valid, calls, worst = predict_counted(
+        "Mask R-CNN f32", predict, [RPN_NMS_N, ROI_NMS_N],
+        (BATCH, cfg.model.test_cfg.rcnn.max_per_img, 5))
+    probs = out["all"][3]
+    if (tuple(probs.shape) != (BATCH, 100, 28, 28)
+            or not bool(((probs >= 0) & (probs <= 1)).all())):
+        raise AssertionError(f"mask probabilities {tuple(probs.shape)}")
+    ms = time_predict("Mask R-CNN f32", predict, BATCH, smi)
+    keep = valid[0]
+    dets0 = dets[0][keep].cpu().numpy()
+    info = dict(height=CANVAS[0], width=CANVAS[1])
+    times = sorted(host_ms(lambda: pasted_rles(probs[0][keep], dets0, info),
+                           reps=MASK_PASTE_REPS))
+    paste = sorted(host_ms(lambda: paste_masks(
+        probs[0][keep], dets0, *CANVAS), reps=MASK_PASTE_REPS))
+    pasted = paste_masks(probs[0][keep], dets0, *CANVAS)
+    copy_ms = sorted(host_ms(lambda: pasted.cpu(), reps=MASK_PASTE_REPS))
+    rles = pasted_rles(probs[0][keep], dets0, info)
+    if len(rles) != int(keep.sum()) or any(
+            r["size"] != list(CANVAS) for r in rles):
+        raise AssertionError("pasted masks are not the image's size")
+    med = lambda x: x[len(x) // 2]  # noqa: E731
+    log(f"[time] Mask R-CNN paste + RLE of one image's {len(rles)} masks at "
+        f"{CANVAS[0]}x{CANVAS[1]}: median {med(times):.2f} ms (min "
+        f"{times[0]:.2f}, {MASK_PASTE_REPS} reps); of which the paste on the "
+        f"card {med(paste):.2f} ms, the copy out {med(copy_ms):.2f} ms, the "
+        f"host RLE the rest  ({smi})")
+    roi = torch.randn((16, det.mask_head.in_channels, 14, 14), generator=gen,
+                      device=DEVICE)
+    rel = card_vs_cpu_outputs(det, roi, stage="mask")
+    log(f"[p19] mask head logits card vs CPU on 16 RoIs: worst |diff| / "
+        f"max|ref| = {rel:.3e}")
+    if rel > 1e-3:
+        raise AssertionError(f"mask head: card and CPU disagree: {rel}")
+    del det, out, probs, pasted
+    torch.cuda.empty_cache()
+    return 2, worst, dict(path="mask_rcnn", B=BATCH, N=ROI_NMS_N, launches=2,
+                          predict_ms=ms), calls[1][:3]
+
+
+def phase_mask_train(smi: str) -> int:
+    """The Mask R-CNN train entry point at the config's B=2, 800x1344, f32,
+    cuDNN deterministic (the caller holds it), on a batch with
+    ``gt_mask_crops`` of seeded polygons: ``loss_mask`` finite beside every
+    Faster R-CNN loss, 1 NMS launch per step, the median of ``P18_STEPS``
+    steps after a warm-up; one step card vs CPU at 2x128x192 (losses 1e-4,
+    ``grad_norm`` 1e-3, updates banded; 1 NMS launch, the card's); two runs
+    of 3 steps from one seeded state bit-identical. Returns the NMS
+    launches, each part's counted from 0."""
+    import numpy as np
+
+    from dsl_tpu_torch.config import Config
+    from dsl_tpu_torch.ops.nms import nms_keep
+
+    cfg = Config.fromfile(str(MASK_RCNN_CONFIG))
+    variables = seeded_variables(cfg)
+    nc = cfg.model.bbox_head.num_classes
+    batch = mask_batch(TRAIN_SEED, CANVAS, ANCHOR_TRAIN_B, nc, DEVICE)
+    nms_keep.launches = 0
+    m = time_steps("Mask R-CNN", cfg, variables, batch, smi)
+    if "loss_mask" not in m or not np.isfinite(m["loss_mask"]):
+        raise AssertionError(f"Mask R-CNN step: {m}")
+    if nms_keep.launches != 1 + P18_STEPS:
+        raise AssertionError(f"Mask R-CNN steps: {nms_keep.launches} NMS "
+                             f"launches, expected 1 per step")
+    launches = nms_keep.launches
+    small = mask_batch(TRAIN_SEED + 1, ANCHOR_SMALL, ANCHOR_TRAIN_B, nc, "cpu")
+    nms_keep.launches = 0
+    step_card_vs_cpu("Mask R-CNN", cfg, variables, ANCHOR_SMALL,
+                     ANCHOR_TRAIN_B, nc, make_batch=lambda device: {
+                         k: v.to(device) if hasattr(v, "to") else v
+                         for k, v in small.items()})
+    # the card step's RPN; the CPU step takes the plain version
+    if nms_keep.launches != 1:
+        raise AssertionError(f"Mask R-CNN card vs CPU step: "
+                             f"{nms_keep.launches} NMS launches, expected 1")
+    launches += nms_keep.launches
+    nms_keep.launches = 0
+    runs = []
+    for _ in range(2):
+        m, _, st = anchor_step_runs(cfg, variables, batch, P18_STEPS)
+        runs += [m, {k: p.detach().clone() for k, p in
+                     st.student.named_parameters()}]
+        del st
+    launches += nms_keep.launches
+    check_deterministic(*runs)
+    return launches
+
+
+def phase_mask_pipeline(coco: dict, smi: str):
+    """``MASK_MSTRAIN_CONFIG``'s train pipeline (masks loaded, ``Resize`` of
+    six scales, ``RandomFlip``, ``Pad``) on the COCO instance set, on the
+    card and on the CPU with one seed each, ``MASK_PIPE_SEEDS`` seeds:
+    masks, boxes, ``gt_mask_crops`` and ``gt_mask_areas`` equal bit for bit
+    (the CPU is held to OpenCV and the JAX package by the CPU tests); ms
+    per sample on the card, decode included."""
+    import numpy as np
+    import torch
+
+    from dsl_tpu_torch.config import Config
+    from dsl_tpu_torch.data.formatting import (
+        DEFAULT_CANVAS, format_sample, select_canvas)
+    from dsl_tpu_torch.data.pipelines import Compose
+
+    pipeline = Config.fromfile(str(MASK_MSTRAIN_CONFIG)).data.train.pipeline
+    sets = {d: _mask_dataset(coco, "train", d) for d in (DEVICE, "cpu")}
+    card_ms = []
+    for seed in range(MASK_PIPE_SEEDS):
+        got = {}
+        for device, ds in sets.items():
+            i = seed % len(ds)
+            results = dict(img_info=dict(ds.data_infos[i]),
+                           ann_info=ds.get_ann_info(i),
+                           img_prefix=ds.img_prefix, bbox_fields=[],
+                           mask_fields=[], device=device)
+            t0 = time.perf_counter()
+            r = Compose(copy.deepcopy(list(pipeline)))(
+                results, np.random.RandomState(seed))
+            f = format_sample(r, canvas_hw=select_canvas(
+                [r["img"].shape[:2]], DEFAULT_CANVAS))
+            if device == DEVICE:
+                torch.cuda.synchronize()
+                card_ms.append((time.perf_counter() - t0) * 1e3)
+            got[device] = (r, f)
+        # the images differ by the decoders (nvJPEG and OpenCV, phase 8);
+        # the masks' path reads only the annotations and the draws
+        (rc, fc), (rh, fh) = got[DEVICE], got["cpu"]
+        for what, a, b in (
+                ("masks", rc["gt_masks"].masks, rh["gt_masks"].masks),
+                ("crops", fc["gt_mask_crops"], fh["gt_mask_crops"]),
+                ("areas", fc["gt_mask_areas"], fh["gt_mask_areas"])):
+            if not torch.equal(a.cpu(), b):
+                raise AssertionError(f"mask pipeline seed {seed}: {what} "
+                                     f"differ card vs CPU")
+        if not np.array_equal(rc["gt_bboxes"], rh["gt_bboxes"]):
+            raise AssertionError(f"mask pipeline seed {seed}: boxes differ")
+    card_ms.sort()
+    log(f"[p19] mask train pipeline card vs CPU bit-identical on "
+        f"{MASK_PIPE_SEEDS} seeds (masks, boxes, 112x112 crops, areas); "
+        f"card ms per sample median {card_ms[len(card_ms) // 2]:.2f} "
+        f"(min {card_ms[0]:.2f}, max {card_ms[-1]:.2f})  ({smi})")
+
+
+def phase_mask_workflow(tmp: Path, coco: dict, smi: str) -> tuple[int, int]:
+    """``train_detector`` on ``MASK_MSTRAIN_CONFIG`` (masks through its
+    pipeline) for one epoch of the COCO instance set (4 steps at B=2),
+    its evaluation with ``bbox`` and ``segm``, then the test CLI's ``--eval
+    bbox segm`` in a subprocess; the val GT fed back as detections, masks
+    included, scores ``segm_mAP`` 1.0; ``tta_test`` then ``tta_test_masks``
+    on the val images: masks the images' size, keeps equal to the plain
+    version's. Returns the NMS launches and the worst keep difference."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from dsl_tpu_torch.apis import init_detector, train_detector
+    from dsl_tpu_torch.apis.test import BATCH_SIZE, tta_test, tta_test_masks
+    from dsl_tpu_torch.config import Config
+    from dsl_tpu_torch.core.masks import encode_rle, rasterize_polygons
+    from dsl_tpu_torch.ops.nms import nms_keep, nms_keep_reference
+    from dsl_tpu_torch.utils.synthetic_data import coco_instance_config
+
+    t0 = time.perf_counter()
+    raw = coco_instance_config(
+        Config.fromfile(str(MASK_MSTRAIN_CONFIG)).to_dict(), coco)
+    raw["runner"]["max_epochs"] = 1
+    raw["log_config"] = dict(interval=1)
+    raw["evaluation"] = dict(interval=1, metric=["bbox", "segm"])
+    work = tmp / "mask19"
+    cfg_path = tmp / "mask19.py"
+    Config(raw).dump(str(cfg_path))
+    variables = seeded_variables(Config(raw))
+    batches = math.ceil(MASK_VAL_IMAGES / BATCH_SIZE)
+    nms_keep.launches = 0
+    train_detector(Config(raw), str(work), device=DEVICE, variables=variables)
+    torch.cuda.synchronize()
+    launches = nms_keep.launches
+    lines = [json.loads(x) for x in
+             (work / "train.log.json").read_text().splitlines()]
+    steps = [x for x in lines if x.get("mode") == "train"]
+    val = [x for x in lines if x.get("mode") == "val"]
+    if not steps or not all(math.isfinite(x["loss_mask"]) for x in steps):
+        raise AssertionError(f"Mask R-CNN train_detector losses: {steps}")
+    if (len(val) != 1 or not 0.0 <= val[-1]["bbox_mAP"] <= 1.0
+            or not 0.0 <= val[-1]["segm_mAP"] <= 1.0):
+        raise AssertionError(f"Mask R-CNN evaluation: {val}")
+    if launches != len(steps) + 2 * batches:
+        raise AssertionError(f"train_detector made {launches} NMS launches, "
+                             f"expected 1 per step and 2 per evaluation batch")
+    log(f"[p19] {MASK_MSTRAIN_CONFIG.relative_to(ROOT)} train_detector: "
+        f"{len(steps)} steps, losses finite (last " + ", ".join(
+            f"{k} {steps[-1][k]:.4f}" for k in ("loss_cls", "loss_bbox",
+                                                "loss_mask", "loss"))
+        + f"), bbox_mAP {val[-1]['bbox_mAP']:.4f}, segm_mAP "
+        f"{val[-1]['segm_mAP']:.4f}, NMS launches {launches}")
+    child, out = run_module("dsl_tpu_torch.tools.test",
+                            [str(cfg_path), str(work / "epoch_1.pth"),
+                             "--eval", "bbox", "segm"], tag="mask19")
+    metrics = json.loads(next(x for x in reversed(out) if x.startswith("{")))
+    if (not 0.0 <= metrics["bbox_mAP"] <= 1.0
+            or not 0.0 <= metrics["segm_mAP"] <= 1.0 or child != 2 * batches):
+        raise AssertionError(f"test CLI: {metrics}, {child} NMS launches")
+    log(f"[p19] test CLI --eval bbox segm: bbox_mAP {metrics['bbox_mAP']}, "
+        f"segm_mAP {metrics['segm_mAP']}, NMS launches {child}")
+    launches += child
+
+    # the val GT fed back as detections, masks included
+    test_pipeline = Config(raw).data.test.pipeline
+    ds = _mask_dataset(coco, "val", DEVICE, test_pipeline)
+    gt = json.loads(Path(coco["val"]).read_text())
+    results = []
+    for info in ds.data_infos:
+        anns = [a for a in gt["annotations"]
+                if a["image_id"] == info["id"] and not a["iscrowd"]]
+        dets = np.asarray([[a["bbox"][0], a["bbox"][1],
+                            a["bbox"][0] + a["bbox"][2],
+                            a["bbox"][1] + a["bbox"][3], 1.0] for a in anns],
+                          np.float32)
+        labels = np.asarray([ds.cat2label[a["category_id"]] for a in anns])
+        rles = [a["segmentation"] if isinstance(a["segmentation"], dict)
+                else encode_rle(rasterize_polygons(
+                    a["segmentation"], info["height"], info["width"]).numpy())
+                for a in anns]
+        results.append((dets, labels, rles))
+    fed = ds.evaluate(results, metric=["bbox", "segm"], verbose=False)
+    if fed["segm_mAP"] != 1.0 or fed["bbox_mAP"] != 1.0:
+        raise AssertionError(f"the val GT fed back: {fed}")
+    log(f"[p19] the val GT fed back as detections, masks included: "
+        f"bbox_mAP {fed['bbox_mAP']}, segm_mAP {fed['segm_mAP']}")
+
+    # test-time augmentation, boxes then masks
+    det = init_detector(Config(raw), variables=variables, device=DEVICE).detector
+    worst = 0
+    t1 = time.perf_counter()
+    with recording_nms() as calls:
+        merged = tta_test(det, None, ds, img_scales=TTA_SCALES, flip=True,
+                          evaluate=False, device=DEVICE)
+        torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    masks = tta_test_masks(det, None, ds, merged, img_scales=TTA_SCALES,
+                           flip=True, device=DEVICE)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    for boxes, v, thr, keep in calls:
+        want = nms_keep_reference(boxes, v, thr)
+        worst = max(worst, int((keep.int() - want.int()).abs().max()))
+        if not torch.equal(keep, want):
+            raise AssertionError("tta_test: NMS keeps differ from the plain "
+                                 "version")
+    for info, (d, _, rles), (md, _) in zip(ds.data_infos, masks, merged):
+        if len(rles) != min(len(md), 100) or any(
+                r["size"] != [info["height"], info["width"]] for r in rles):
+            raise AssertionError("tta_test_masks: masks not the images' size")
+    launches += len(calls)
+    n = len(ds)
+    log(f"[time] tta_test then tta_test_masks on {n} images at "
+        f"{TTA_SCALES}, flip: {n / (t2 - t1):.1f} / {n / (t3 - t2):.1f} img/s, "
+        f"{sum(len(m[2]) for m in masks)} masks the images' size, "
+        f"{len(calls)} NMS launches, keeps equal to the plain version's  "
+        f"({smi})")
+    log(f"[p19] workflow part {time.perf_counter() - t0:.1f} s")
+    del det
+    torch.cuda.empty_cache()
     return launches, worst
 
 
@@ -4515,11 +4935,27 @@ def main() -> int:
                                           *p18_inputs[entry["path"]], smi))
         del p18_inputs, rpn_inputs
         log(f"[phase 18] {time.perf_counter() - t18:.1f} s")
+        t19 = time.perf_counter()
+        mask_launches, mask_err, mask_path, mask_input = phase_mask_predict(
+            smi)
+        with deterministic_cudnn():          # as train_detector steps
+            mask_launches += phase_mask_train(smi)
+        coco = coco_instance(Path(tmp))
+        phase_mask_pipeline(coco, smi)
+        flow_launches, flow_err = phase_mask_workflow(Path(tmp), coco, smi)
+        c4_launches, c4_err = phase_variants(smi, C4_CONFIGS, C4_B,
+                                                seed=22, phase="p19")
+        mask_launches += flow_launches + c4_launches
+        mask_path.update(nms_input_timing("mask_rcnn_b8", *mask_input, smi))
+        p18_paths.append(mask_path)
+        del mask_input
+        log(f"[phase 19] {time.perf_counter() - t19:.1f} s")
     launches["nms_keep"] += (semi_launches + eval_launches + weights_launches
                              + baseline_launches + voc_launches + dist_launches
                              + mh_launches + cfg_launches + anchor_launches
                              + train17_launches + voc17_launches
-                             + ssd_launches + rpn_launches + variant_launches)
+                             + ssd_launches + rpn_launches + variant_launches
+                             + mask_launches)
     kernels = [dict(
         name="nms_keep", route="cuda",
         source="dsl_tpu_torch/csrc/nms_kernel.cu",
@@ -4527,11 +4963,12 @@ def main() -> int:
         launches=launches["nms_keep"],
         max_abs_err=float(max(case_err, path_err, train_err, semi_err,
                               eval_err, voc_err, mh_err, cfg_err, anchor_err,
-                              ssd_err, rpn_err, variant_err)),
+                              ssd_err, rpn_err, variant_err, mask_err,
+                              flow_err, c4_err)),
         ms=nms_times["ms"], plain_ms=nms_times["plain_ms"],
         bound_ms=nms_times["bound_ms"], bound_by=nms_times["bound_by"],
         library_ms=None,
-        # the anchor-based detectors' inputs (phases 17-18), each timed alike
+        # the anchor-based detectors' inputs (phases 17-19), each timed alike
         paths=[{k: v for k, v in e.items() if k in (
             "path", "B", "N", "launches", "ms", "plain_ms", "bound_ms",
             "bound_by")} for e in anchor_paths + p18_paths])]

@@ -14,7 +14,18 @@ package pads the last batch to a fixed shape, the port predicts its real
 rows only (FCOS predicts each image on its own). The results stay on the
 device until the last batch is queued. ``flip`` mirrors each decoded
 image before its resize, and the detections stay in the mirrored frame.
-Instance masks (Mask R-CNN, YOLACT) are not ported and raise.
+A Mask R-CNN (``MaskRCNN``, as the JAX package names it: the C4 form is
+tested for its boxes, as there) predicts through
+``two_stage.mask_rcnn_predict``; after the last batch is queued, each
+image's 28x28 probabilities are pasted at its boxes in the original size on
+the device (``mask_head.paste_masks``), copied out and encoded as
+uncompressed RLEs (``core/masks.encode_rle``) one image at a time, so no
+image's full-size masks outlive its encoding: its result is (dets, labels,
+RLEs), which ``CocoDataset.evaluate`` reads for ``segm`` (the JAX package
+keeps the (N, H, W) arrays). :func:`tta_test_masks` re-runs the mask head
+per (scale, flip) at :func:`tta_test`'s merged boxes, in batches of 4 as
+the JAX function does, averages the unflipped probabilities and pastes
+them likewise.
 
 The test-time augmentations run one pass per (scale, flip) and merge on
 the host in numpy, as the JAX package does (with the port's copy of its
@@ -38,6 +49,7 @@ import os.path as osp
 import numpy as np
 import torch
 
+from dsl_tpu_torch.core.masks import encode_rle
 from dsl_tpu_torch.data.formatting import DEFAULT_CANVAS, select_canvas
 from dsl_tpu_torch.data.pipelines.transforms import read_resized
 from dsl_tpu_torch.models.detectors.single_stage import detector_predict
@@ -48,6 +60,10 @@ from dsl_tpu_torch.utils.device import resolve_device, to_device
 DEFAULT_NORM = dict(mean=(123.675, 116.28, 103.53),
                     std=(58.395, 57.12, 57.375), to_rgb=True)
 BATCH_SIZE = 8                # images per predict, as the JAX package's
+MASK_TTA_BATCH = 4            # tta_test_masks' batch_size in the JAX package
+# the detectors whose test results carry masks: the JAX package's list less
+# Mask Scoring R-CNN and YOLACT, which are not ported
+MASK_RESULTS = ("MaskRCNN",)
 
 
 def _path(dataset, idx: int) -> str:
@@ -87,16 +103,16 @@ def _gathered(own: dict, group, n: int) -> list:
 
 
 def _batches(dataset, img_scale, canvas_hw, norm, device, flip: bool,
-             group=None):
-    """Per batch of ``BATCH_SIZE`` (this rank's, under ``group``):
+             group=None, batch_size: int = BATCH_SIZE):
+    """Per batch of ``batch_size`` (this rank's, under ``group``):
     (indices, the resized images' preps (image, [nh, nw], scale factor),
     normalized canvas (B, 3, H, W), img_shapes (B, 2), scale_factors (B, 4)
     on the device)."""
     rank, world = _rank_world(group)
-    for b, start in enumerate(range(0, len(dataset), BATCH_SIZE)):
+    for b, start in enumerate(range(0, len(dataset), batch_size)):
         if b % world != rank:
             continue
-        idxs = list(range(start, min(start + BATCH_SIZE, len(dataset))))
+        idxs = list(range(start, min(start + batch_size, len(dataset))))
         preps = [read_resized(_path(dataset, i), img_scale, device, flip=flip)
                  for i in idxs]
         canvas = select_canvas([p[0].shape[:2] for p in preps], canvas_hw)
@@ -113,41 +129,67 @@ def single_device_test(detector, params, dataset, test_cfg=None,
                        evaluate: bool = True, flip: bool = False,
                        boxes_only: bool = False,
                        device: str | torch.device = "cuda", group=None):
-    """Predict every image of ``dataset``; returns its bbox metrics
-    (and/or the per-image ``(dets (N, 5), labels (N,))`` host arrays;
-    under ``group`` the metrics on rank 0, None on the others, and the
-    results of every image on every rank).
+    """Predict every image of ``dataset``; returns its bbox metrics (and
+    segm for a Mask R-CNN), and/or the per-image ``(dets (N, 5), labels
+    (N,))`` host arrays (a Mask R-CNN's with the masks' RLEs third); under
+    ``group`` the metrics on rank 0, None on the others, and the results of
+    every image on every rank.
     ``params`` (name -> tensor, e.g. the EMA teacher's) replaces the
     detector's parameters, as in ``detector_predict``; None keeps them.
     ``flip`` predicts each image mirrored (boxes in the mirrored frame);
-    ``boxes_only`` lets a mask detector through for its boxes, as in JAX
-    (none is ported)."""
+    ``boxes_only`` gives a mask detector's boxes alone, as in JAX."""
     det_name = type(detector).__name__
-    if det_name in ("MaskRCNN", "MaskScoringRCNN", "YOLACT") and not boxes_only:
-        raise NotImplementedError(f"single_device_test: {det_name} predicts "
-                                  f"instance masks, which are not ported yet")
+    with_masks = det_name in MASK_RESULTS and not boxes_only
     device = resolve_device(device)
     norm = img_norm or DEFAULT_NORM
-    outs = [(idxs, detector_predict(detector, images, img_shapes=shapes,
+    if with_masks:
+        from dsl_tpu_torch.models.detectors.two_stage import mask_rcnn_predict
+        from dsl_tpu_torch.utils.precision import to_compute
+
+        def predict(images, shapes, sfs):
+            return mask_rcnn_predict(
+                detector, images, img_shapes=shapes, scale_factors=sfs,
+                test_cfg=test_cfg, variables=None if params is None
+                else to_compute(detector, images, None, params)[0])
+    else:
+        def predict(images, shapes, sfs):
+            return detector_predict(detector, images, img_shapes=shapes,
                                     scale_factors=sfs, test_cfg=test_cfg,
-                                    device=device, params=params))
+                                    device=device, params=params)
+    outs = [(idxs, predict(images, shapes, sfs))
             for idxs, _, images, shapes, sfs in _batches(
                 dataset, img_scale, canvas_hw, norm, device, flip, group)]
     own = {}
     for idxs, tensors in outs:
-        dets, labels, valid = (t.cpu().numpy() for t in tensors)
+        dets, labels, valid = (t.cpu().numpy() for t in tensors[:3])
         for bi, i in enumerate(idxs):
-            own[i] = (dets[bi][valid[bi]].astype(np.float32),
-                      labels[bi][valid[bi]])
+            keep = valid[bi]
+            own[i] = (dets[bi][keep].astype(np.float32), labels[bi][keep])
+            if with_masks:
+                own[i] += (pasted_rles(tensors[3][bi][tensors[2][bi]],
+                                       own[i][0], dataset.data_infos[i]),)
+    del outs
     results = _gathered(own, group, len(dataset))
     if not evaluate:
         return results
     if _rank_world(group)[0] != 0:
         return (None, results) if return_results else None
-    metrics = dataset.evaluate(results, metric="bbox", verbose=False)
+    metrics = dataset.evaluate(
+        results, metric=["bbox", "segm"] if with_masks else "bbox",
+        verbose=False)
     if return_results:
         return metrics, results
     return metrics
+
+
+def pasted_rles(probs: torch.Tensor, dets: np.ndarray, info: dict) -> list:
+    """One image's (N, S, S) mask probabilities pasted at its (N, 5) host
+    dets in the original ``info["height"]`` x ``info["width"]`` on their
+    device, copied out and encoded: N uncompressed RLEs."""
+    from dsl_tpu_torch.models.roi_heads.mask_head import paste_masks
+
+    masks = paste_masks(probs, dets, info["height"], info["width"])
+    return [encode_rle(m) for m in masks.cpu().numpy()]
 
 
 def _multiclass_nms_np(boxes, scores, factors, score_thr, iou_threshold,
@@ -280,3 +322,71 @@ def tta_test_dense(detector, params, dataset, test_cfg=None,
     if _rank_world(group)[0] != 0:
         return None
     return dataset.evaluate(merged, metric="bbox", verbose=False)
+
+
+def tta_test_masks(detector, params, dataset, merged,
+                   img_scales=((1333, 800),), flip: bool = True,
+                   canvas_hw=DEFAULT_CANVAS, img_norm=None,
+                   max_per_img: int = 100,
+                   device: str | torch.device = "cuda"):
+    """Mask test-time augmentation (mmdet's ``aug_test_mask`` /
+    ``merge_aug_masks``): per (scale, flip) pass, in batches of
+    ``MASK_TTA_BATCH``, the mask head at the same merged boxes (original
+    frame, scaled to the pass's and mirrored where flipped), the
+    probabilities of each box's label unflipped and summed on the device;
+    their mean is pasted at the boxes in the original size.
+
+    ``merged``: per image (dets, labels) from :func:`tta_test`
+    (``evaluate=False``), at most ``max_per_img`` each used. Returns per
+    image (dets, labels, RLEs)."""
+    from dsl_tpu_torch.models.detectors.two_stage import (
+        _caller, class_probs, mask_logits_for_boxes)
+    from dsl_tpu_torch.utils.precision import to_compute
+
+    device = resolve_device(device)
+    norm = img_norm or DEFAULT_NORM
+    n_img, nmax = len(dataset), max_per_img
+    boxes0 = np.zeros((n_img, nmax, 4), np.float32)
+    labels0 = np.zeros((n_img, nmax), np.int64)
+    valid0 = np.zeros((n_img, nmax), bool)
+    for i, (d, lab) in enumerate(merged):
+        m = min(len(d), nmax)
+        boxes0[i, :m] = d[:m, :4]
+        labels0[i, :m] = lab[:m]
+        valid0[i, :m] = True
+    acc, n_aug = [None] * n_img, 0
+    for scale, flipped in _passes(img_scales, flip):
+        n_aug += 1
+        for idxs, preps, images, _, _ in _batches(
+                dataset, scale, canvas_hw, norm, device, flipped,
+                batch_size=MASK_TTA_BATCH):
+            sfs = np.stack([np.asarray(p[2], np.float32) for p in preps])
+            bx = boxes0[idxs] * sfs[:, None, :]            # the input's frame
+            if flipped:
+                ws = np.asarray([p[1][1] for p in preps], np.float32)
+                bx[:, :, 0], bx[:, :, 2] = (ws[:, None] - bx[:, :, 2],
+                                            ws[:, None] - bx[:, :, 0])
+            call = _caller(detector, None if params is None else to_compute(
+                detector, images, None, params)[0])
+            with torch.no_grad():
+                feats = call(images)[0]
+                logits = mask_logits_for_boxes(
+                    detector, feats, to_device(torch.from_numpy(bx), device),
+                    to_device(torch.from_numpy(valid0[idxs]), device), call)
+                probs = class_probs(
+                    logits, to_device(torch.from_numpy(labels0[idxs]), device),
+                    detector.mask_head.num_classes)
+            s = probs.shape[-1]
+            probs = probs.reshape(len(idxs), nmax, s, s)
+            if flipped:
+                probs = probs.flip(-1)
+            for j, i in enumerate(idxs):
+                acc[i] = probs[j] if acc[i] is None else acc[i] + probs[j]
+    results = []
+    for i, (d, lab) in enumerate(merged):
+        m = min(len(d), nmax)
+        # a division by a device tensor, as numpy's (not a reciprocal)
+        avg = acc[i][:m] / acc[i].new_full((), float(max(n_aug, 1)))
+        results.append((d[:m], lab[:m],
+                        pasted_rles(avg, d[:m], dataset.data_infos[i])))
+    return results

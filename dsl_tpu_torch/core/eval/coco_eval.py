@@ -1,8 +1,7 @@
-"""COCO-protocol bbox evaluation, pure numpy.
+"""COCO-protocol bbox and segm evaluation, pure numpy.
 
-Counterpart of ``dsl_tpu/core/eval/coco_eval.py`` for ``iou_type="bbox"``
-(mask evaluation needs the mask path, which is not ported: ``"segm"``
-raises). The protocol, as pycocotools computes it:
+Counterpart of ``dsl_tpu/core/eval/coco_eval.py``. The protocol, as
+pycocotools computes it:
 
 - 10 IoU thresholds 0.50:0.05:0.95, 101 recall points 0:0.01:1
 - area ranges all/small/medium/large, maxDets 100 (plus AR@1/10)
@@ -12,11 +11,17 @@ raises). The protocol, as pycocotools computes it:
   detections matched to ignore GTs or outside the area range are ignored
 - AP = 101-point interpolated precision averaged over recall/classes/IoUs
   (classes with no GT excluded)
+- ``segm``: the IoU of masks (``core/masks.mask_iou``; a detection's
+  ``segmentation`` is an uncompressed RLE, a GT's an RLE or polygons
+  rasterised at the image's size), a detection's area its RLE's
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from dsl_tpu_torch.core.masks import (
+    decode_rle, mask_iou, rasterize_polygons, rle_area)
 
 IOU_THRS = np.round(np.arange(0.5, 1.0, 0.05), 2)          # 10
 REC_THRS = np.round(np.linspace(0.0, 1.0, 101), 2)          # 101
@@ -60,11 +65,7 @@ class COCOEval:
     def __init__(self, coco_gt, detections, iou_type: str = "bbox",
                  img_ids=None, cat_ids=None, max_dets=(1, 10, 100),
                  iou_thrs=None):
-        if iou_type == "segm":
-            raise NotImplementedError(
-                "segm evaluation needs instance masks, which are not ported "
-                "to dsl_tpu_torch yet")
-        assert iou_type == "bbox"
+        assert iou_type in ("bbox", "segm")
         self.iou_type = iou_type
         # custom thresholds (e.g. [0.1] for coco_error_analysis); the
         # protocol default is the 0.50:0.95 ladder
@@ -110,7 +111,11 @@ class COCOEval:
         g_order = np.argsort(g_ignore, kind="mergesort")
         g_boxes, g_crowd, g_ignore = (g_boxes[g_order], g_crowd[g_order],
                                       g_ignore[g_order])
-        ious = _iou_xywh(d_boxes, g_boxes, g_crowd)
+        if self.iou_type == "segm":
+            gts_sorted = [gts[i] for i in g_order]
+            ious = self._segm_iou(img_id, dts, gts_sorted, g_crowd)
+        else:
+            ious = _iou_xywh(d_boxes, g_boxes, g_crowd)
 
         T = len(self.iou_thrs)
         D, G = len(dts), len(gts)
@@ -137,11 +142,34 @@ class COCOEval:
                 dt_m[ti, di] = best_g
                 gt_m[ti, best_g] = di
         # unmatched dts outside the area range are ignored
-        d_area = d_boxes[:, 2] * d_boxes[:, 3]
+        if self.iou_type == "segm":
+            d_area = np.asarray(
+                [rle_area(d["segmentation"])
+                 if isinstance(d["segmentation"], dict)
+                 else d["bbox"][2] * d["bbox"][3] for d in dts], float)
+        else:
+            d_area = d_boxes[:, 2] * d_boxes[:, 3]
         out_of_rng = (d_area < area_rng[0]) | (d_area > area_rng[1])
         dt_ig = dt_ig | ((dt_m == -1) & out_of_rng[None, :])
         return dict(dt_matches=dt_m, dt_ignore=dt_ig, dt_scores=d_scores,
                     gt_ignore=g_ignore, num_gt=int((~g_ignore).sum()))
+
+    def _segm_iou(self, img_id, dts, gts, g_crowd):
+        """Mask IoU: a detection's ``segmentation`` is an uncompressed RLE;
+        a GT's polygons or an RLE, rasterised at the image's size."""
+        info = self.gt.imgs[img_id]
+        h, w = info["height"], info["width"]
+
+        def to_mask(seg):
+            if isinstance(seg, dict):
+                return decode_rle(seg)
+            return rasterize_polygons(seg, h, w).numpy()
+
+        d_masks = np.stack([to_mask(d["segmentation"]) for d in dts]) \
+            if dts else np.zeros((0, h, w), np.uint8)
+        g_masks = np.stack([to_mask(g["segmentation"]) for g in gts]) \
+            if gts else np.zeros((0, h, w), np.uint8)
+        return mask_iou(d_masks, g_masks, g_crowd)
 
     # -- accumulate --------------------------------------------------------
     def evaluate(self):

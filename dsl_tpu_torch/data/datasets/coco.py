@@ -2,15 +2,20 @@
 
 Counterpart of ``dsl_tpu/data/datasets/coco.py``: category ids remapped to
 contiguous labels, xywh -> xyxy, ``iscrowd`` -> ignore boxes, empty and
-small images filtered; detections exported as COCO json and evaluated by
-the COCO protocol (``core/eval/coco_eval.py``) for ``bbox``. ``segm``
-needs instance masks, which are not ported, and raises.
+small images filtered, each kept annotation's ``segmentation`` kept as its
+mask; detections exported as COCO json and evaluated by the COCO protocol
+(``core/eval/coco_eval.py``) for ``bbox`` and ``segm``. A mask result is
+(dets, labels, masks), each mask an (H, W) binary array at the original
+size (encoded here, ``core/masks.encode_rle``) or already its
+uncompressed RLE (what ``apis/test.py`` gives, having encoded each batch's
+masks before the next).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from dsl_tpu_torch.core.masks import encode_rle
 from dsl_tpu_torch.data.coco_api import COCO
 from dsl_tpu_torch.data.datasets.custom import CustomDataset
 from dsl_tpu_torch.registry import DATASETS
@@ -111,19 +116,39 @@ class CocoDataset(CustomDataset):
                     category_id=int(self.cat_ids[int(label)])))
         return out
 
+    def results2json_segm(self, results):
+        """``results``: per image (dets (N, 5), labels (N,), masks: (N, H, W)
+        binary at the original size, or N uncompressed RLEs). Returns COCO
+        segm dicts with an uncompressed-RLE ``segmentation``."""
+        out = []
+        for idx, (dets, labels, masks) in enumerate(results):
+            img_id = self.data_infos[idx]["id"]
+            for det, label, mask in zip(dets, labels, masks):
+                x1, y1, x2, y2, score = det
+                out.append(dict(
+                    image_id=img_id,
+                    bbox=[float(x1), float(y1), float(x2 - x1),
+                          float(y2 - y1)],
+                    score=float(score),
+                    category_id=int(self.cat_ids[int(label)]),
+                    segmentation=(mask if isinstance(mask, dict)
+                                  else encode_rle(np.asarray(mask)))))
+        return out
+
     def evaluate(self, results, metric="bbox", verbose: bool = True):
-        """COCO-protocol mAP: ``bbox_mAP``, ``bbox_mAP_50``, ``_75``,
-        ``_s``, ``_m``, ``_l``."""
+        """COCO-protocol mAP for each of ``metric`` ("bbox", "segm"):
+        ``{m}_mAP``, ``{m}_mAP_50``, ``_75``, ``_s``, ``_m``, ``_l``; segm
+        reads the results' masks."""
         from dsl_tpu_torch.core.eval.coco_eval import COCOEval
 
         metrics = [metric] if isinstance(metric, str) else list(metric)
         out = {}
         for m in metrics:
-            if m != "bbox":
-                raise NotImplementedError(
-                    f"metric {m!r}: only 'bbox' is ported (instance masks "
-                    f"are not)")
-            dt = self.results2json_bbox([r[:2] for r in results])
+            if m not in ("bbox", "segm"):
+                raise NotImplementedError(f"metric {m!r}: only 'bbox' and "
+                                          f"'segm' are ported")
+            dt = (self.results2json_segm(results) if m == "segm"
+                  else self.results2json_bbox([r[:2] for r in results]))
             ev = COCOEval(self.coco, dt, iou_type=m,
                           img_ids=[d["id"] for d in self.data_infos],
                           cat_ids=self.cat_ids)

@@ -12,6 +12,16 @@ square) and its GT is K-padded with validity masks. The batch is what
   source_weight (B,) f32        si_pair {full, half} int64 indices
   meta          list of dicts (host)
 
+and, where the sample has instance masks (``results["gt_masks"]``), as the
+JAX package adds them:
+
+  gt_mask_crops (B, K, 112, 112) uint8: each GT's mask cropped to its box
+                (floor/ceil, at least a pixel) and resized by OpenCV's
+                float ``INTER_LINEAR`` (``mask_head.gt_mask_crop``), >= 0.5
+  gt_mask_areas (B, K) f32: each GT's full mask area
+
+built on the images' device.
+
 The scale-invariant copy (the reference's
 ``semi_epoch_based_runner.py:186-204``) is taken, as in the JAX package,
 from the formatted sample: the whole normalized canvas halved bilinearly
@@ -62,9 +72,7 @@ def format_sample(results: dict, canvas_hw=DEFAULT_CANVAS,
                   max_gt: int = DEFAULT_MAX_GT,
                   max_ignore: int = DEFAULT_MAX_IGNORE) -> dict:
     """One pipeline output -> the canvas (3, H, W) f32 on the image's device
-    and K-padded host arrays. Boxes only: instance masks raise."""
-    if "gt_masks" in results:
-        raise NotImplementedError("mask targets are not ported yet")
+    and K-padded host arrays (the mask crops and areas on the device)."""
     img = results["img"]
     ch, cw = canvas_hw
     h, w = img.shape[:2]
@@ -78,13 +86,36 @@ def format_sample(results: dict, canvas_hw=DEFAULT_CANVAS,
     ig_b, _, ig_v = _pad_boxes(
         results.get("gt_bboxes_ignore", np.zeros((0, 4))), None, max_ignore)
     sf = np.asarray(results.get("scale_factor", np.ones(4)), np.float32)
-    return dict(
+    out = dict(
         images=canvas,
         gt_bboxes=gt_b, gt_labels=gt_l, gt_valid=gt_v,
         ignore_bboxes=ig_b, ignore_valid=ig_v,
         img_shapes=np.asarray([h, w], np.float32),
         scale_factors=sf.reshape(4),
         meta=results.get("img_metas", {}))
+    if "gt_masks" in results:
+        out.update(mask_crops(results["gt_masks"], gt_b, max_gt, img.device))
+    return out
+
+
+def mask_crops(masks, gt_b: np.ndarray, max_gt: int, device) -> dict:
+    """``gt_mask_crops`` (K, M, M) uint8 and ``gt_mask_areas`` (K,) f32 on
+    ``device`` for the first ``max_gt`` masks (polygons rasterised first),
+    each cropped to its padded box ``gt_b``."""
+    from dsl_tpu_torch.models.roi_heads.mask_head import (
+        GT_MASK_CROP_SIZE, gt_mask_crop)
+
+    if hasattr(masks, "to_bitmap"):
+        masks = masks.to_bitmap(device)
+    m = GT_MASK_CROP_SIZE
+    crops = torch.zeros((max_gt, m, m), dtype=torch.uint8, device=device)
+    areas = torch.zeros((max_gt,), dtype=torch.float32, device=device)
+    n = min(len(masks), max_gt)
+    for i in range(n):
+        crops[i] = gt_mask_crop(masks.masks[i], gt_b[i], m) >= 0.5
+    if n:
+        areas[:n] = masks.masks[:n].sum((1, 2)).to(torch.float32)
+    return dict(gt_mask_crops=crops, gt_mask_areas=areas)
 
 
 def half_res_copy(sample: dict) -> dict:
@@ -131,7 +162,11 @@ def build_batch(samples: list[dict], source_weights=None,
     device = samples[0]["images"].device
     batch = {"images": torch.stack([s["images"] for s in samples])}
     for k in samples[0]:
-        if k not in ("images", "meta"):
+        if k in ("images", "meta"):
+            continue
+        if torch.is_tensor(samples[0][k]):       # the mask crops and areas
+            batch[k] = torch.stack([s[k] for s in samples])
+        else:
             batch[k] = torch.from_numpy(np.stack([s[k] for s in samples])).to(device)
     batch["source_weight"] = torch.tensor(sw, dtype=torch.float32, device=device)
     if scale_invariant:

@@ -130,8 +130,8 @@ def _refuse_masks(results, what: str):
     for key in ("mask_fields", "seg_fields"):
         if results.get(key):
             raise NotImplementedError(
-                f"{what}: {key} {results[key]} are not ported (masks and "
-                f"segmentation maps are not in the port)")
+                f"{what}: {key} {results[key]} are not ported for this "
+                f"transform yet")
 
 
 def _bbox_fields(results):

@@ -347,6 +347,27 @@ def resize_linear_u8(img: torch.Tensor, new_h: int, new_w: int) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=256)
+def _nearest_taps(src: int, dst: int) -> torch.Tensor:
+    """``INTER_NEAREST`` source indices along one axis, as OpenCV 5.0's
+    ``resizeNN`` takes them: ``min(floor(d * (1 / (dst / src))), src - 1)``
+    in double. (dst,) int64, a host tensor (cached; never written)."""
+    inv = 1.0 / (dst / src)
+    idx = np.floor(np.arange(dst, dtype=np.float64) * inv).astype(np.int64)
+    return torch.from_numpy(np.minimum(idx, src - 1))
+
+
+def resize_nearest(img: torch.Tensor, new_h: int, new_w: int) -> torch.Tensor:
+    """``cv2.resize(img, (new_w, new_h), interpolation=cv2.INTER_NEAREST)``
+    on the last two axes of ``img`` (..., H, W), any dtype: two gathers of
+    host-built indices, so bit for bit OpenCV's on either device."""
+    h, w = img.shape[-2:]
+    dev = img.device
+    rows = to_device(_nearest_taps(h, new_h), dev)
+    cols = to_device(_nearest_taps(w, new_w), dev)
+    return img.index_select(-2, rows).index_select(-1, cols)
+
+
+@functools.lru_cache(maxsize=256)
 def _linear_taps_f32(src: int, dst: int) -> tuple[torch.Tensor, torch.Tensor]:
     """float ``INTER_LINEAR`` taps along one axis, as OpenCV 5's IPP path
     takes them: the source position ``(d + 0.5) * (src / dst) - 0.5`` in

@@ -1,10 +1,15 @@
 """Image and annotation loading transforms.
 
 Counterpart of ``dsl_tpu/data/pipelines/loading.py`` (``LoadImageFromFile``,
-``LoadAnnotations``, ``LoadProposals``) for box detection. The image is read by
+``LoadAnnotations``, ``LoadProposals``). The image is read by
 ``data/image_io.read_image`` onto ``results["device"]`` (nvJPEG on the card,
 ``cv2.imread`` on the CPU): ``results["img"]`` is an (H, W, 3) uint8 BGR
-tensor there. Boxes and labels stay host numpy arrays.
+tensor there. Boxes and labels stay host numpy arrays. Instance masks
+(``with_mask``) are ``core/masks.BitmapMasks`` on the same device: an
+RLE is decoded on the host, a polygon list rasterised on the device, an
+entry of None is an empty mask; with ``poly2mask=False`` and only
+polygons they stay ``PolygonMasks``, as the JAX package keeps them.
+Semantic segmentation (``with_seg``) is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -12,9 +17,13 @@ from __future__ import annotations
 import os.path as osp
 
 import numpy as np
+import torch
 
+from dsl_tpu_torch.core.masks import (
+    BitmapMasks, PolygonMasks, decode_rle, rasterize_polygons)
 from dsl_tpu_torch.data.image_io import read_image
 from dsl_tpu_torch.registry import PIPELINES
+from dsl_tpu_torch.utils.device import to_device
 
 
 @PIPELINES.register
@@ -49,12 +58,13 @@ class LoadAnnotations:
     def __init__(self, with_bbox: bool = True, with_label: bool = True,
                  with_mask: bool = False, with_seg: bool = False,
                  poly2mask: bool = True):
-        if with_mask or with_seg:
+        if with_seg:
             raise NotImplementedError(
-                "LoadAnnotations: masks and semantic segmentation are not "
-                "ported yet")
+                "LoadAnnotations: semantic segmentation is not ported yet")
         self.with_bbox = with_bbox
         self.with_label = with_label
+        self.with_mask = with_mask
+        self.poly2mask = poly2mask
 
     def __call__(self, results, rng, pyrng=None):
         ann = results["ann_info"]
@@ -67,7 +77,30 @@ class LoadAnnotations:
             results["bbox_fields"] = ["gt_bboxes", "gt_bboxes_ignore"]
         if self.with_label:
             results["gt_labels"] = ann["labels"].astype(np.int64).copy()
+        if self.with_mask:
+            results["gt_masks"] = self._load_masks(results, ann)
+            results["mask_fields"] = ["gt_masks"]
         return results
+
+    def _load_masks(self, results, ann):
+        """The annotation's masks at the image's size, by the JAX package's
+        rule for when polygons stay polygons."""
+        h = results["img_info"]["height"]
+        w = results["img_info"]["width"]
+        device = torch.device(results["device"])
+        polys, bitmaps = [], []
+        for m in ann.get("masks", []):
+            if m is None:                  # a box-only annotation
+                m = []
+            if isinstance(m, dict):        # uncompressed RLE
+                bitmaps.append(to_device(torch.from_numpy(decode_rle(m)),
+                                         device))
+            else:                          # a list of flat polygons
+                polys.append([np.asarray(p, np.float64) for p in m])
+                bitmaps.append(rasterize_polygons(m, h, w, device))
+        if self.poly2mask or not polys or len(bitmaps) != len(polys):
+            return BitmapMasks(bitmaps, h, w, device)
+        return PolygonMasks(polys, h, w)
 
 
 @PIPELINES.register

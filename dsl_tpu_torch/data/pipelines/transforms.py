@@ -14,7 +14,11 @@ the JAX package calls Python's ``random``.
 Resize is ``image_ops.resize_linear_u8``, or ``resize_linear_f32`` on the
 float32 image of a ``to_float32`` load or ``PhotoMetricDistortion``: bit
 for bit ``cv2.resize``'s ``INTER_LINEAR`` on uint8, and on float32 up to
-an 8x upscale.
+an 8x upscale. ``Resize``, ``RandomFlip`` and ``Pad`` carry the instance
+masks of ``results["mask_fields"]`` as the JAX transforms do (nearest
+resize, flip, zero pad of ``core/masks.BitmapMasks``); a ``PolygonMasks``
+has no ``resize`` and no ``pad`` in either package, so ``Resize`` and
+``Pad`` fail on it.
 """
 
 from __future__ import annotations
@@ -111,6 +115,8 @@ class Resize:
                 boxes[:, 0::2] = np.clip(boxes[:, 0::2], 0, new_w)
                 boxes[:, 1::2] = np.clip(boxes[:, 1::2], 0, new_h)
             results[key] = boxes
+        for key in results.get("mask_fields", []):
+            results[key] = results[key].resize((new_h, new_w))
         return results
 
 
@@ -260,6 +266,8 @@ class RandomFlip:
                     else:
                         b[:, 1], b[:, 3] = h - old[:, 3], h - old[:, 1]
                 results[key] = b
+            for key in results.get("mask_fields", []):
+                results[key] = results[key].flip(results["flip_direction"])
         return results
 
 
@@ -302,6 +310,8 @@ class Pad:
         out = img.new_full((th, tw, *img.shape[2:]), self.pad_val)
         out[:h, :w] = img
         results["img"] = out
+        for key in results.get("mask_fields", []):
+            results[key] = results[key].pad((th, tw))
         results["pad_shape"] = tuple(out.shape)
         results["pad_fixed_size"] = self.size
         results["pad_size_divisor"] = self.size_divisor

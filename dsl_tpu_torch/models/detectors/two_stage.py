@@ -1,11 +1,21 @@
-"""Two-stage detectors (Faster R-CNN) and their halves (RPN, Fast R-CNN).
+"""Two-stage detectors (Faster and Mask R-CNN, FPN and C4) and the halves
+(RPN, Fast R-CNN).
 
-Counterpart of the Faster R-CNN branches of
+Counterpart of the Faster and Mask R-CNN branches of
 ``dsl_tpu/models/detectors/two_stage.py``: ``TwoStageDetector`` /
 ``FasterRCNN`` (backbone -> FPN P2-P6 -> RPN; the RoI head's bbox head on
 RoIAlign features of P2-P5; or one level through ``IdentityNeck``, the
-DC5 configs), ``build_two_stage_detector``, ``parse_rcnn_train_cfg``,
-``two_stage_loss`` and ``two_stage_predict``; the standalone ``RPN``
+DC5 configs), ``MaskRCNN`` (an ``FCNMaskHead`` at ``roi_head.mask_head``
+on 14x14 RoIAlign features of the same levels), ``FasterRCNNC4`` and
+``MaskRCNNC4`` (one C4 level at stride 16, 14x14 RoIs through the res5
+``ResLayerSharedHead`` at ``roi_head.shared_head`` before the bbox head
+and before the mask head), ``build_two_stage_detector``,
+``parse_rcnn_train_cfg``, ``two_stage_loss`` (with the mask branch on the
+positives of the same samples where the batch has ``gt_mask_crops``: a
+mask config whose pipeline loads no masks trains without ``loss_mask``,
+as in the JAX package), ``two_stage_predict``, ``mask_logits_for_boxes``
+and ``mask_rcnn_predict`` (the boxes and each detection's 28x28
+probabilities of its class); the standalone ``RPN``
 (``rpn_only_loss``, ``rpn_only_predict``: the proposals are the
 detections) and ``FastRCNN`` (``fast_rcnn_predict`` on proposals passed
 in; the JAX package has no Fast R-CNN loss, and neither has the port).
@@ -39,42 +49,52 @@ from torch.func import functional_call
 from dsl_tpu_torch.registry import DETECTORS, MODELS, build_from_cfg
 from dsl_tpu_torch.models.dense_heads.rpn_head import (
     RPNHead, rpn_loss, rpn_proposals)
+from dsl_tpu_torch.models.roi_heads.mask_head import (
+    mask_head_loss, mask_targets_from_crops, select_positive_rois)
 from dsl_tpu_torch.models.roi_heads.standard_roi_head import (
-    Shared2FCBBoxHead, roi_head_loss, roi_head_predict, sample_batch_rois)
+    Shared2FCBBoxHead, extract_roi_feats, flat_rois, roi_head_loss,
+    roi_head_predict, sample_batch_rois)
 
 # the JAX package's two-stage detectors and parts not ported yet
 UNPORTED_DETECTORS = (
-    "MaskRCNN", "FasterRCNNC4", "MaskRCNNC4", "DynamicRCNN", "PISAFasterRCNN",
-    "PISAMaskRCNN", "DetectoRS", "DoubleHeadRCNN", "PointRend", "GridRCNN",
-    "MaskScoringRCNN", "TridentFasterRCNN", "CascadeRCNN", "HTC",
-    "HybridTaskCascade", "SCNet", "SparseRCNN")
-UNPORTED_PARTS = ("mask_head", "mask_iou_head", "grid_head", "point_head",
-                  "shared_head", "roi_pool_pack", "bbox_heads")
+    "DynamicRCNN", "PISAFasterRCNN", "PISAMaskRCNN", "DetectoRS",
+    "DoubleHeadRCNN", "PointRend", "GridRCNN", "MaskScoringRCNN",
+    "TridentFasterRCNN", "CascadeRCNN", "HTC", "HybridTaskCascade", "SCNet",
+    "SparseRCNN")
+UNPORTED_PARTS = ("mask_iou_head", "grid_head", "point_head",
+                  "roi_pool_pack", "bbox_heads")
 TRAIN_PROPOSALS = 512          # two_stage_loss's num_proposals in JAX
 TEST_PROPOSALS = 1000          # two_stage_predict's
 SAMPLER_SEED = 97              # the draws' generator: this * 2**32 + iteration
-BBOX_HEADS = ("Shared2FCBBoxHead", "Shared4Conv1FCBBoxHead")
+BBOX_HEADS = ("Shared2FCBBoxHead", "Shared4Conv1FCBBoxHead", "BBoxHeadAvgPool")
 FAST_RCNN_STRIDES = (4, 8, 16, 32)   # fast_rcnn_predict's RoI levels in JAX
 
 
 class StandardRoIHead(nn.Module):
-    """Holds the bbox head under mmdet's ``roi_head.bbox_head`` name."""
+    """Holds the bbox head, and the mask head and the shared head where
+    there are, under mmdet's names (``roi_head.bbox_head``,
+    ``roi_head.mask_head``, ``roi_head.shared_head``)."""
 
-    def __init__(self, bbox_head: nn.Module):
+    def __init__(self, bbox_head: nn.Module, mask_head: nn.Module | None = None,
+                 shared_head: nn.Module | None = None):
         super().__init__()
         self.bbox_head = bbox_head
+        self.mask_head = mask_head
+        self.shared_head = shared_head
 
 
 @DETECTORS.register
 class TwoStageDetector(nn.Module):
     def __init__(self, backbone: nn.Module, neck: nn.Module,
                  rpn_head: RPNHead, bbox_head: Shared2FCBBoxHead,
-                 train_cfg: Any = None, test_cfg: Any = None):
+                 train_cfg: Any = None, test_cfg: Any = None,
+                 mask_head: nn.Module | None = None,
+                 shared_head: nn.Module | None = None):
         super().__init__()
         self.backbone = backbone
         self.neck = neck
         self.rpn_head = rpn_head
-        self.roi_head = StandardRoIHead(bbox_head)
+        self.roi_head = StandardRoIHead(bbox_head, mask_head, shared_head)
         self.train_cfg = train_cfg
         self.test_cfg = test_cfg
 
@@ -83,25 +103,43 @@ class TwoStageDetector(nn.Module):
         return self.roi_head.bbox_head
 
     @property
+    def mask_head(self) -> nn.Module | None:
+        return self.roi_head.mask_head
+
+    @property
+    def shared_head(self) -> nn.Module | None:
+        return self.roi_head.shared_head
+
+    @property
     def strides(self) -> tuple:
         """The RoI levels' strides (the RPN's first four)."""
         return tuple(self.rpn_head.strides)[:4]
 
     def init_weights(self, generator: torch.Generator | None = None):
-        for part in (self.backbone, self.neck, self.rpn_head, self.bbox_head):
-            part.init_weights(generator)
+        for part in (self.backbone, self.neck, self.rpn_head, self.bbox_head,
+                     self.mask_head, self.shared_head):
+            if part is not None:
+                part.init_weights(generator)
 
     def extract_feat(self, images: torch.Tensor):
         return self.neck(self.backbone(images))
+
+    def _shared(self, roi_feats: torch.Tensor) -> torch.Tensor:
+        return (roi_feats if self.shared_head is None
+                else self.shared_head(roi_feats))
 
     def forward(self, inputs: torch.Tensor, training: bool = False,
                 stage: str = "rpn"):
         """``stage="rpn"``: images NCHW -> (FPN levels, (RPN scores, RPN
         deltas)); ``stage="roi"``: RoI features (N, C, s, s) -> the bbox
-        head's (cls_logits, deltas). One forward for both, so that
-        ``functional_call`` can run either with other parameters."""
+        head's (cls_logits, deltas); ``stage="mask"``: RoI features -> the
+        mask head's logits (N, classes, S, S). The shared head, where there
+        is one, runs before either head. One forward for all, so that
+        ``functional_call`` can run each with other parameters."""
         if stage == "roi":
-            return self.bbox_head(inputs)
+            return self.bbox_head(self._shared(inputs))
+        if stage == "mask":
+            return self.mask_head(self._shared(inputs))
         feats = self.extract_feat(inputs)
         return feats, self.rpn_head(feats, training=training)
 
@@ -109,6 +147,28 @@ class TwoStageDetector(nn.Module):
 @DETECTORS.register
 class FasterRCNN(TwoStageDetector):
     """Faster R-CNN (``mmdet/models/detectors/faster_rcnn.py``)."""
+
+
+@DETECTORS.register
+class MaskRCNN(TwoStageDetector):
+    """Mask R-CNN (``mmdet/models/detectors/mask_rcnn.py``): Faster R-CNN
+    and an FCN mask head on the RoI features."""
+
+
+@DETECTORS.register
+class FasterRCNNC4(TwoStageDetector):
+    """Faster R-CNN C4: one C4 level (stride 16), 14x14 RoIAlign, the res5
+    shared head per RoI, the average-pool bbox head."""
+
+
+@DETECTORS.register
+class MaskRCNNC4(FasterRCNNC4):
+    """Mask R-CNN C4: the mask head reads the shared head's features of the
+    positive RoIs (and of the detections)."""
+
+
+MASK_DETECTORS = ("MaskRCNN", "MaskRCNNC4")
+C4_DETECTORS = ("FasterRCNNC4", "MaskRCNNC4")
 
 
 @DETECTORS.register
@@ -192,6 +252,10 @@ def build_two_stage_detector(cfg: dict) -> nn.Module:
         _check_head(cfg, "rpn_head", ("RPNHead",))
     if det_type != "RPN":
         _check_head(cfg, "bbox_head", BBOX_HEADS)
+    for key, allowed in (("mask_head", ("FCNMaskHead",)),
+                         ("shared_head", ("ResLayerSharedHead",))):
+        if cfg.get(key) is not None:
+            _check_head(cfg, key, allowed)
     det_cls = MODELS.get(det_type)
     if det_cls is None:
         raise KeyError(f"unknown detector type {det_type}")
@@ -201,8 +265,22 @@ def build_two_stage_detector(cfg: dict) -> nn.Module:
                  test_cfg=cfg.pop("test_cfg", None))
     if det_type != "FastRCNN":
         parts["rpn_head"] = build_from_cfg(dict(cfg.pop("rpn_head")), MODELS)
+    for key, types in (("mask_head", MASK_DETECTORS),
+                       ("shared_head", C4_DETECTORS)):
+        if (cfg.get(key) is not None) != (det_type in types):
+            raise TypeError(f"{det_type} with {key}={cfg.get(key)!r}: the "
+                            f"{key} is {' and '.join(types)}'s")
+    if cfg.get("shared_head") is not None:
+        parts["shared_head"] = build_from_cfg(
+            dict(cfg.pop("shared_head"),
+                 in_channels=dict(cfg["bbox_head"])["in_channels"]), MODELS)
     if det_type != "RPN":
-        parts["bbox_head"] = build_from_cfg(dict(cfg.pop("bbox_head")), MODELS)
+        bbox_cfg = dict(cfg.pop("bbox_head"))
+        if "shared_head" in parts:
+            bbox_cfg["fc_in_channels"] = parts["shared_head"].out_channels
+        parts["bbox_head"] = build_from_cfg(bbox_cfg, MODELS)
+    if cfg.get("mask_head") is not None:
+        parts["mask_head"] = build_from_cfg(dict(cfg.pop("mask_head")), MODELS)
     return det_cls(**parts)
 
 
@@ -277,9 +355,38 @@ def two_stage_loss(detector: TwoStageDetector, batch: dict, cur_iter: int = 0,
     head = detector.bbox_head
     samples = sample_batch_rois(proposals, prop_valid, batch, draws["rcnn"],
                                 head.num_classes, **rcnn_kw)
-    losses.update(roi_head_loss(head, head, feats, samples, batch,
-                                detector.strides))
+    losses.update(roi_head_loss(head, lambda rf: detector(rf, stage="roi"),
+                                feats, samples, batch, detector.strides))
+    if detector.mask_head is not None and "gt_mask_crops" in batch:
+        losses["loss_mask"] = mask_branch_loss(detector, feats, samples, batch,
+                                               rcnn_kw["num_samples"])
     return _parse_losses(losses)
+
+
+def mask_branch_loss(detector: TwoStageDetector, feats, samples: dict,
+                     batch: dict, num_samples: int) -> torch.Tensor:
+    """``loss_mask`` on the positives of the RoI head's samples: the first
+    ``num_samples // 4`` RoIs of each image with the positives first, their
+    14x14 features (through the shared head where there is one), the mask
+    head, the targets from ``batch["gt_mask_crops"]`` at the logits' size,
+    and the per-class BCE over the positives."""
+    mh = detector.mask_head
+    b = samples["rois"].shape[0]
+    max_pos = max(1, num_samples // 4)
+    rois, labels, assigned, is_pos = select_positive_rois(
+        samples["rois"], samples["labels"], samples["assigned"],
+        samples["is_pos"], max_pos)
+    pos = is_pos.reshape(-1)
+    roi_feats = extract_roi_feats(feats, flat_rois(rois), pos,
+                                  detector.strides, mh.roi_size)
+    logits = detector(roi_feats, stage="mask")
+    batch_idx = torch.arange(b, device=rois.device)[:, None].expand(b, max_pos)
+    targets = mask_targets_from_crops(
+        batch["gt_mask_crops"], batch["gt_bboxes"], rois.reshape(-1, 4),
+        batch_idx.reshape(-1), assigned.reshape(-1),
+        mask_size=logits.shape[-1])
+    return mask_head_loss(logits, targets, labels.reshape(-1),
+                          pos.to(torch.float32), mh.num_classes)
 
 
 @torch.no_grad()
@@ -292,11 +399,23 @@ def two_stage_predict(detector: TwoStageDetector, images: torch.Tensor,
     (name -> tensor: parameters and buffers) replace the detector's own
     where given. Two launches of the NMS kernel: the RPN's and the RoI
     head's."""
+    return _boxes(detector, _caller(detector, variables), images, img_shapes,
+                  scale_factors, test_cfg)[1:]
+
+
+def _caller(detector: TwoStageDetector, variables: dict | None):
+    """The detector's forward, or a functional call of it with
+    ``variables`` (name -> tensor) in place of its own."""
     def call(*args, **kw):
         if variables is None:
             return detector(*args, **kw)
         return functional_call(detector, variables, args, kw)
+    return call
 
+
+def _boxes(detector, call, images, img_shapes, scale_factors, test_cfg):
+    """The features, then the RPN's proposals and the RoI head's dets,
+    labels and valid: two launches of the NMS kernel."""
     tc = dict(test_cfg or detector.test_cfg or {})
     rcnn = dict(tc.get("rcnn", {}) or {})
     nms_cfg = dict(rcnn.get("nms", {}) or {})
@@ -304,13 +423,62 @@ def two_stage_predict(detector: TwoStageDetector, images: torch.Tensor,
     proposals, _, prop_valid = rpn_proposals(
         detector.rpn_head, scores, deltas, img_shapes=img_shapes,
         nms_pre=TEST_PROPOSALS, num_proposals=TEST_PROPOSALS)
-    return roi_head_predict(
+    return (feats, *roi_head_predict(
         detector.bbox_head, lambda rf: call(rf, stage="roi"), feats,
         proposals, prop_valid, img_shapes=img_shapes,
         scale_factors=scale_factors, strides=detector.strides,
         score_thr=rcnn.get("score_thr", 0.05),
         iou_threshold=nms_cfg.get("iou_threshold", 0.5),
-        max_per_img=rcnn.get("max_per_img", 100), nms_cfg=nms_cfg)
+        max_per_img=rcnn.get("max_per_img", 100), nms_cfg=nms_cfg))
+
+
+def mask_logits_for_boxes(detector: TwoStageDetector, feats, boxes_in,
+                          valid, call=None) -> torch.Tensor:
+    """The mask head's logits (B*N, classes, S, S) at boxes (B, N, 4) in
+    the input image's frame, valid (B, N): the mask half of mmdet's
+    ``simple_test_mask``, and what mask TTA runs per augmentation at the
+    merged boxes. ``call`` is the detector's forward (or a functional call
+    of it)."""
+    call = call or detector
+    roi_feats = extract_roi_feats(feats, flat_rois(boxes_in), valid.reshape(-1),
+                                  detector.strides, detector.mask_head.roi_size)
+    return call(roi_feats, stage="mask")
+
+
+def class_probs(logits: torch.Tensor, labels: torch.Tensor,
+                num_classes: int) -> torch.Tensor:
+    """The sigmoid of each RoI's logits (N, C, S, S) at its label (N,)."""
+    s = logits.shape[-1]
+    cls = labels.reshape(-1).clamp(0, num_classes - 1)
+    return torch.sigmoid(torch.gather(
+        logits, 1, cls[:, None, None, None].expand(-1, 1, s, s))[:, 0])
+
+
+@torch.no_grad()
+def mask_rcnn_predict(detector: TwoStageDetector, images: torch.Tensor,
+                      img_shapes=None, scale_factors=None,
+                      test_cfg: dict | None = None,
+                      variables: dict | None = None):
+    """:func:`two_stage_predict`'s boxes, then the mask head at the
+    detections (scaled back to the input's frame): dets (B, N, 5) in the
+    original frame, labels, valid and each detection's probabilities of
+    its class, (B, N, S, S). The host pastes them at the boxes
+    (``mask_head.paste_masks``). Two launches of the NMS kernel."""
+    from dsl_tpu_torch.models.detectors.single_stage import (
+        check_predict_device)
+
+    check_predict_device(detector, images, images.device)
+    call = _caller(detector, variables)
+    feats, dets, labels, valid = _boxes(detector, call, images, img_shapes,
+                                        scale_factors, test_cfg)
+    b, n = dets.shape[:2]
+    boxes_in = dets[..., :4]
+    if scale_factors is not None:
+        boxes_in = boxes_in * scale_factors[:, None, :]
+    logits = mask_logits_for_boxes(detector, feats, boxes_in, valid, call)
+    probs = class_probs(logits, labels, detector.mask_head.num_classes)
+    s = probs.shape[-1]
+    return dets, labels, valid, probs.reshape(b, n, s, s)
 
 
 def rpn_only_loss(detector: RPN, batch: dict, cur_iter: int = 0, mark=None):

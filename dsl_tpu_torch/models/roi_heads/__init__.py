@@ -1,3 +1,6 @@
 from dsl_tpu_torch.models.roi_heads.standard_roi_head import (  # noqa: F401
     Shared2FCBBoxHead, Shared4Conv1FCBBoxHead, extract_roi_feats,
     roi_head_loss, roi_head_predict)
+from dsl_tpu_torch.models.roi_heads.mask_head import FCNMaskHead  # noqa: F401
+from dsl_tpu_torch.models.roi_heads.shared_heads import (  # noqa: F401
+    BBoxHeadAvgPool, ResLayerSharedHead)

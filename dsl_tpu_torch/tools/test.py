@@ -1,7 +1,7 @@
 """Evaluation and inference CLI of the port, argument for argument
 ``tools/test.py``.
 
-    python -m dsl_tpu_torch.tools.test CONFIG [CHECKPOINT] [--eval bbox]
+    python -m dsl_tpu_torch.tools.test CONFIG [CHECKPOINT] [--eval bbox [segm]]
         [--out results.json] [--format-only] [--ema]
         [--cfg-options k=v ...] [--device cuda]
 
@@ -13,10 +13,13 @@ seed 0), then prints the dataset's metrics: COCO bbox mAP for a
 ``CocoDataset`` or ``Voc2CocoDataset``, VOC mAP for a ``VOCDataset``. As in
 the JAX CLI, box results are evaluated with ``metric="bbox"`` whatever
 ``--eval`` names (``mAP`` or ``bbox``): the dataset decides the protocol;
-``segm`` and ``proposal`` (instance masks, an RPN) are not ported and
-raise. ``--out``
+a Mask R-CNN's results (with masks) with the metrics ``--eval`` names
+(``bbox segm``). ``segm`` for a detector that gives no masks raises (the
+JAX CLI evaluates its boxes alone), and ``proposal`` (an RPN's recall) is
+not ported and raises. ``--out``
 or ``--format-only`` writes the COCO-format detections
-(``<checkpoint>.bbox.json`` unless ``--out`` names the file);
+(``<checkpoint>.bbox.json`` unless ``--out`` names the file, and with
+``--eval segm`` the masks' ``.segm.json`` beside it);
 ``--format-only`` computes no metric. That json is what
 ``tools/generate_unlabel_annos_coco.py`` (or ``_voc.py``, from a
 ``SemiVOCDataset``'s list ids) turns into DSL's first pseudo-labels.
@@ -61,15 +64,20 @@ def parse_args(argv=None):
 def main(argv=None):
     """Run the CLI; returns (per-image results, metrics or None)."""
     args = parse_args(argv)
-    unported = [m for m in args.eval if m not in ("bbox", "mAP")]
+    unported = [m for m in args.eval if m not in ("bbox", "mAP", "segm")]
     if unported:
-        raise NotImplementedError(f"--eval {' '.join(unported)}: only bbox "
-                                  f"and mAP are ported (instance masks and "
-                                  f"proposals are not)")
+        raise NotImplementedError(f"--eval {' '.join(unported)}: only bbox, "
+                                  f"mAP and segm are ported (proposals are "
+                                  f"not)")
     device = start_processes(args)
     cfg = Config.fromfile(args.config)
     if args.cfg_options:
         cfg.merge_from_dict(args.cfg_options)
+    from dsl_tpu_torch.apis.test import MASK_RESULTS
+
+    if "segm" in args.eval and cfg.model.get("type") not in MASK_RESULTS:
+        raise NotImplementedError(f"--eval segm: {cfg.model.get('type')} "
+                                  f"gives no masks")
 
     from dsl_tpu_torch.apis.inference import load_detector
     from dsl_tpu_torch.apis.test import single_device_test
@@ -97,16 +105,22 @@ def main(argv=None):
     if not main_rank:
         return results, None
 
+    masks = len(results[0]) > 2
     if args.out or args.format_only:
-        dt = ds.results2json_bbox(results)
+        dt = ds.results2json_bbox([r[:2] for r in results])
         out = args.out or (osp.splitext(args.checkpoint or "results")[0]
                            + ".bbox.json")
         with open(out, "w") as f:
             json.dump(dt, f)
         print(f"wrote {len(dt)} detections to {out}")
+        if "segm" in args.eval and masks:
+            sout = out.replace(".bbox.json", ".segm.json")
+            with open(sout, "w") as f:
+                json.dump(ds.results2json_segm(results), f)
+            print(f"wrote segm results to {sout}")
     metrics = None
     if not args.format_only:
-        metrics = ds.evaluate(results, metric="bbox")
+        metrics = ds.evaluate(results, metric=args.eval if masks else "bbox")
         print(json.dumps({k: round(float(v), 4) for k, v in metrics.items()}))
     return results, metrics
 

@@ -16,6 +16,11 @@ plain nested dicts. What changes on the way:
   input rows are permuted on the way, so a JAX checkpoint computes the
   same function here and an mmdet checkpoint's ``shared_fcs.0`` loads as
   it is;
+- the mask head's ``upsample``: flax's ``ConvTranspose`` kernel (kh, kw,
+  in, out) without ``transpose_kernel`` gives ``out[2i + a] = x[i]
+  k[1 - a]``, torch's ``ConvTranspose2d`` weight (in, out, kh, kw) gives
+  ``out[2i + a] = x[i] w[a]``: the kernel is flipped in both spatial axes
+  on the way;
 - module names: flax's flat names (``layer2_0``, ``stage_bn1_0``,
   ``extra_conv0``, ``cls_gn3``, ``scale2``, ``shared_fc1``) <-> the
   mmdet/RLA checkpoint names the port's modules carry (``stages.1.0``,
@@ -26,7 +31,11 @@ plain nested dicts. What changes on the way:
   ``shared_norm3`` <-> ``shared_convs.3.conv`` / ``.gn``; SSD's modules
   keep the JAX package's names, ``l2_norm`` its ``weight``); a two-stage
   or Fast R-CNN detector's top-level ``bbox_head`` <->
-  ``roi_head.bbox_head``; a multi-head
+  ``roi_head.bbox_head``, a Mask R-CNN's ``mask_head.conv{i}``,
+  ``upsample`` and ``conv_logits`` <-> ``roi_head.mask_head.convs.{i}.conv``,
+  ``.upsample`` and ``.conv_logits``, a C4 detector's
+  ``shared_head.block{i}`` <-> ``roi_head.shared_head.layer{S+1}.{i}``
+  (S the stage, from the blocks' width); a multi-head
   detector's ``necks_0`` and ``bbox_heads_1`` <-> ``necks.0`` and
   ``bbox_heads.1`` (its necks are alike: the first one's laterals count
   for all). A block
@@ -105,6 +114,33 @@ _TO_FLAX = [
 ]
 
 ROI_FC = "roi_head.bbox_head.shared_fcs.0"
+MASK_UPSAMPLE = "roi_head.mask_head.upsample"
+_ROI_PARTS_TO_FLAX = [
+    (r"^roi_head\.mask_head\.convs\.(\d+)\.conv\b",
+     lambda m, n: f"mask_head.conv{m[1]}"),
+    (r"^roi_head\.mask_head\b", lambda m, n: "mask_head"),
+    (r"^roi_head\.shared_head\.layer\d+\.(\d+)\b",
+     lambda m, n: f"shared_head.block{m[1]}"),
+]
+
+
+def _roi_parts_to_torch(params: dict) -> list:
+    """The renames of a two-stage detector's top-level RoI parts."""
+    rules = []
+    if "fc_cls" in params.get("bbox_head", {}):
+        # a two-stage or Fast R-CNN detector's RoI head
+        rules.append((r"^bbox_head\b", lambda m, n: "roi_head.bbox_head"))
+    if "mask_head" in params:
+        rules += [(r"^mask_head\.conv(\d+)\b",
+                   lambda m, n: f"roi_head.mask_head.convs.{m[1]}.conv"),
+                  (r"^mask_head\b", lambda m, n: "roi_head.mask_head")]
+    if "shared_head" in params:
+        width = np.asarray(params["shared_head"]["block0"]["conv1"]["kernel"]
+                           ).shape[-1]
+        layer = int(np.log2(width // 64)) + 1
+        rules.append((r"^shared_head\.block(\d+)\b",
+                      lambda m, n: f"roi_head.shared_head.layer{layer}.{m[1]}"))
+    return rules
 
 
 def _roi_rows(n_in: int, channels: int, to_chw: bool) -> np.ndarray:
@@ -140,10 +176,8 @@ def flax_to_state_dict(variables: dict) -> dict[str, torch.Tensor]:
     neck = params.get("neck", params.get("necks_0", {}))
     n_lat = sum(1 for k in neck if k.startswith("lateral_conv"))
     rla = "conv_out0" in params.get("backbone", {})
-    rules = _TO_TORCH if rla else _RESNET_TO_TORCH + _TO_TORCH
-    if "fc_cls" in params.get("bbox_head", {}):
-        # a two-stage or Fast R-CNN detector's RoI head
-        rules = [(r"^bbox_head\b", lambda m, n: "roi_head.bbox_head")] + rules
+    rules = _roi_parts_to_torch(params) + (
+        _TO_TORCH if rla else _RESNET_TO_TORCH + _TO_TORCH)
     sd: dict[str, torch.Tensor] = {}
     for collection in ("params", "batch_stats"):
         for path, arr in _leaves(variables.get(collection, {})):
@@ -158,6 +192,9 @@ def flax_to_state_dict(variables: dict) -> dict[str, torch.Tensor]:
                     arr = arr[_roi_rows(arr.shape[0], _roi_channels(params),
                                         to_chw=True)]
                 arr = arr.T
+            elif leaf == "kernel" and module == MASK_UPSAMPLE:
+                name = "weight"
+                arr = np.transpose(arr, (2, 3, 0, 1))[:, :, ::-1, ::-1]
             elif leaf == "kernel":
                 name = "weight"
                 arr = np.transpose(arr, (3, 2, 0, 1))
@@ -206,6 +243,9 @@ def state_dict_to_flax(state_dict: dict) -> dict:
         collection = "params"
         if name in ("running_mean", "running_var"):
             collection, leaf = "batch_stats", name[len("running_"):]
+        elif name == "weight" and module == MASK_UPSAMPLE:
+            leaf, arr = "kernel", np.transpose(arr[:, :, ::-1, ::-1],
+                                               (2, 3, 0, 1))
         elif name == "weight" and arr.ndim == 4:
             leaf, arr = "kernel", np.transpose(arr, (2, 3, 1, 0))
         elif name == "weight" and arr.ndim == 2:
@@ -219,7 +259,8 @@ def state_dict_to_flax(state_dict: dict) -> dict:
         else:
             leaf = name
         d = out[collection]
-        for part in _rename(module, _TO_FLAX, n_lat).split("."):
+        for part in _rename(module, _ROI_PARTS_TO_FLAX + _TO_FLAX,
+                            n_lat).split("."):
             d = d.setdefault(part, {})
         d[leaf] = np.array(arr)
     return out

@@ -38,7 +38,14 @@ neck, head, anchor ladder and loss on a ResNet-18 (SSD's VGG-16 has no
 narrow form; the inputs 128x128);
 :func:`voc_detector_config` points one of those VOC configs (whose data
 blocks name no pipeline) at a :func:`make_voc_dir` directory with the
-config's own train and test pipelines.
+config's own train and test pipelines. ``TINY_MASK_RCNN`` is
+``TINY_FASTER_RCNN`` with a 2-conv, 32-channel ``FCNMaskHead``.
+
+:func:`make_coco_instance_dir` writes a COCO instance set (``train.json``,
+``val.json`` and the images beside them) whose annotations carry every
+``segmentation`` form: polygons (one or two per instance), uncompressed
+RLE, an ``iscrowd`` RLE, and, in the train split, none at all;
+:func:`coco_instance_config` points a COCO config's ``data`` block there.
 """
 
 from __future__ import annotations
@@ -340,6 +347,11 @@ TINY_GN_WS_RCNN = dict(
     bbox_head=dict(type="Shared4Conv1FCBBoxHead", num_classes=20,
                    in_channels=32, roi_size=7, conv_out_channels=32,
                    fc_channels=64, conv_cfg=_WS, norm_cfg=_GN))
+TINY_MASK_RCNN = dict(
+    TINY_FASTER_RCNN, type="MaskRCNN",
+    mask_head=dict(type="FCNMaskHead", num_classes=20, in_channels=32,
+                   conv_out_channels=32, num_convs=2, roi_size=14),
+    test_cfg=dict(rcnn=dict(_TINY_TEST_CFG["rcnn"], mask_thr_binary=0.5)))
 TINY_SSD = dict(
     type="SSD",
     backbone=dict(type="ResNet", depth=18, out_indices=(2, 3),
@@ -391,4 +403,93 @@ def voc_detector_config(cfg: dict, voc: dict) -> dict:
         data[key] = dict(type="VOCDataset", ann_file=voc[split],
                          img_prefix=prefix,
                          pipeline=copy.deepcopy(cfg[pipeline]))
+    return cfg
+
+
+# the segmentation forms of a synthetic instance, in turn
+SEGM_KINDS = ("polygon", "polygons", "rle", "crowd", "polygon", "none")
+
+
+def _instance(rng: np.random.RandomState, h: int, w: int, kind: str) -> dict:
+    """One seeded COCO annotation (no ids) of ``kind`` (``SEGM_KINDS``): a
+    star-shaped polygon in a random box (two for "polygons"; its mask as an
+    uncompressed RLE for "rle" and "crowd"); bbox and area from the mask."""
+    from dsl_tpu_torch.core.masks import encode_rle, rasterize_polygons
+
+    x1, y1, x2, y2 = _boxes(rng, h, w, 1)[0]
+    polys = []
+    for _ in range(2 if kind == "polygons" else 1):
+        n = rng.randint(5, 13)
+        # gaps under pi: the polygon holds its centre
+        ang = (np.arange(n) + rng.uniform(0, 0.8, n)) * (2 * np.pi / n)
+        rad = rng.uniform(0.4, 1.0, n)
+        cx = rng.uniform(x1, x2) if polys else (x1 + x2) / 2
+        cy = rng.uniform(y1, y2) if polys else (y1 + y2) / 2
+        pts = np.stack([cx + (x2 - x1) / 2 * rad * np.cos(ang),
+                        cy + (y2 - y1) / 2 * rad * np.sin(ang)], 1)
+        pts[:, 0] = np.clip(pts[:, 0], 0, w)
+        pts[:, 1] = np.clip(pts[:, 1], 0, h)
+        polys.append(np.round(pts, 2).reshape(-1).tolist())
+    mask = rasterize_polygons(polys, h, w).numpy()
+    ys, xs = np.nonzero(mask)
+    bx1, by1, bx2, by2 = (float(xs.min()), float(ys.min()),
+                          float(xs.max() + 1), float(ys.max() + 1))
+    ann = dict(bbox=[bx1, by1, bx2 - bx1, by2 - by1], area=float(mask.sum()),
+               iscrowd=int(kind == "crowd"))
+    if kind in ("rle", "crowd"):
+        ann["segmentation"] = encode_rle(mask)
+    elif kind != "none":
+        ann["segmentation"] = polys
+    return ann
+
+
+def _coco_split(root: Path, split: str, sources, count: int, categories,
+                rng: np.random.RandomState, kinds) -> str:
+    img_dir = root / split
+    img_dir.mkdir(parents=True, exist_ok=True)
+    images, annotations = [], []
+    for i in range(count):
+        src, h, w = sources[i % len(sources)]
+        name = f"{split}_{i:03d}{Path(src).suffix}"
+        shutil.copyfile(src, img_dir / name)
+        images.append(dict(id=i + 1, file_name=name, width=w, height=h))
+        for j in range(rng.randint(2, 6)):
+            ann = _instance(rng, h, w, kinds[(i + j) % len(kinds)])
+            ann.update(id=len(annotations) + 1, image_id=i + 1,
+                       category_id=int(rng.randint(1, len(categories) + 1)))
+            annotations.append(ann)
+    path = root / f"{split}.json"
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump(dict(images=images, categories=categories,
+                       annotations=annotations), f)
+    return str(path)
+
+
+def make_coco_instance_dir(root, sources: list[tuple[str, int, int]],
+                           n_train: int, n_val: int, seed: int = 0) -> dict:
+    """A COCO instance set of copies of ``sources`` ((image path, height,
+    width)), 2-5 seeded instances per image, 80 COCO categories:
+    ``train/``, ``train.json``, ``val/``, ``val.json`` (the val split has
+    no instance without a segmentation: the segm protocol reads each GT's).
+    Returns the paths."""
+    root = Path(root)
+    rng = np.random.RandomState(seed)
+    categories = [dict(id=i + 1, name=c) for i, c in enumerate(COCO_CLASSES)]
+    train = _coco_split(root, "train", sources, n_train, categories, rng,
+                        SEGM_KINDS)
+    val = _coco_split(root, "val", sources, n_val, categories, rng,
+                      SEGM_KINDS[:-1])
+    return dict(train=train, train_images=str(root / "train") + "/",
+                val=val, val_images=str(root / "val") + "/")
+
+
+def coco_instance_config(cfg: dict, paths: dict) -> dict:
+    """A copy of a COCO config (a plain dict) whose ``data.train`` reads
+    :func:`make_coco_instance_dir`'s train split and ``val`` / ``test`` its
+    val split, each with its own pipeline as the config writes it."""
+    cfg = copy.deepcopy(cfg)
+    data = cfg["data"]
+    for key, split in (("train", "train"), ("val", "val"), ("test", "val")):
+        data[key].update(type="CocoDataset", ann_file=paths[split],
+                         img_prefix=paths[f"{split}_images"])
     return cfg

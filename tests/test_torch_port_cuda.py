@@ -66,6 +66,11 @@ dependencies:
   card launches the NMS kernel once, and its head outputs and dets agree
   with the CPU's (within 1e-4 of the largest magnitude; valid equal, the
   dets with their labels compared as sets per image);
+- the mask path's ops on the card (polygon rasterisation, the nearest
+  resize, a GT crop, the paste) are bit-identical to the CPU's, the mask
+  targets equal but at ties at 0.5; the tiny Mask R-CNN's mask logits on
+  the card agree with the CPU's (1e-4 of the largest magnitude) and its
+  predict launches the NMS kernel twice;
 - ``train_detector`` and ``single_device_test`` refuse to start without
   CUDA (these run everywhere).
 """
@@ -736,3 +741,76 @@ def test_tiny_ssd_predict_on_the_card_matches_the_cpu(card):
             rows.append((d[order], lab[order]))
         np.testing.assert_array_equal(rows[0][1], rows[1][1])
         np.testing.assert_allclose(rows[0][0], rows[1][0], rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_mask_ops_on_the_card_equal_the_cpu(card):
+    """The mask path's host-exact ops on the card: polygon rasterisation,
+    the nearest resize, a GT crop, the targets' RoIAlign and the paste give
+    the CPU's values (which the CPU tests hold to the JAX package and
+    OpenCV)."""
+    from dsl_tpu_torch.core.masks import rasterize_polygons
+    from dsl_tpu_torch.data.pipelines.image_ops import resize_nearest
+    from dsl_tpu_torch.models.roi_heads.mask_head import (
+        gt_mask_crop, mask_targets_from_crops, paste_masks)
+
+    rng = np.random.RandomState(0)
+    polys = [rng.uniform(-5, 600, 24).tolist(), rng.uniform(0, 400, 10).tolist()]
+    host = rasterize_polygons(polys, 427, 640)
+    assert torch.equal(rasterize_polygons(polys, 427, 640, card).cpu(), host)
+    assert torch.equal(resize_nearest(host.to(card), 800, 1199).cpu(),
+                       resize_nearest(host, 800, 1199))
+    box = np.asarray([30.5, 17.2, 51.9, 30.1], np.float32)
+    assert torch.equal(gt_mask_crop(host.to(card), box).cpu(),
+                       gt_mask_crop(host, box))
+    crops = torch.from_numpy((rng.rand(2, 3, 112, 112) < 0.5).astype(np.uint8))
+    gtb = torch.from_numpy(rng.uniform(0, 60, (2, 3, 4)).astype(np.float32))
+    gtb[..., 2:] += gtb[..., :2] + 5
+    rois = torch.from_numpy(rng.uniform(0, 90, (12, 4)).astype(np.float32))
+    rois[:, 2:] += rois[:, :2]
+    bidx = torch.arange(12) % 2
+    assigned = torch.arange(12) % 3
+    args = (crops, gtb, rois, bidx, assigned)
+    want = mask_targets_from_crops(*args)
+    got = mask_targets_from_crops(*(a.to(card) for a in args)).cpu()
+    assert int((got != want).sum()) <= 4      # ties at 0.5 only
+    probs = torch.rand((6, 28, 28), generator=torch.Generator().manual_seed(1))
+    boxes = np.asarray([[5, 6, 300, 200], [0, 0, 20, 9], [100, 50, 140, 400],
+                        [600, 400, 640, 427], [-4, -3, 70, 90],
+                        [10, 10, 11, 11]], np.float32)
+    assert torch.equal(paste_masks(probs.to(card), boxes, 427, 640).cpu(),
+                       paste_masks(probs, boxes, 427, 640))
+
+
+@pytest.mark.cuda
+def test_tiny_mask_rcnn_predict_on_the_card_matches_the_cpu(card):
+    import copy
+
+    from dsl_tpu_torch.models import build_detector
+    from dsl_tpu_torch.models.detectors.two_stage import mask_rcnn_predict
+    from dsl_tpu_torch.ops.nms import nms_keep
+    from dsl_tpu_torch.utils.jax_bridge import (
+        flax_to_state_dict, state_dict_to_flax)
+    from dsl_tpu_torch.utils.random_weights import fill_variables
+    from dsl_tpu_torch.utils.synthetic_data import TINY_MASK_RCNN
+
+    det = build_detector(copy.deepcopy(TINY_MASK_RCNN))
+    det.load_state_dict(flax_to_state_dict(fill_variables(
+        state_dict_to_flax(det.state_dict()))))
+    det.eval()
+    x = torch.from_numpy(np.random.RandomState(5).randn(
+        2, 3, 64, 96).astype(np.float32))
+    rois = torch.from_numpy(np.random.RandomState(6).randn(
+        7, 32, 14, 14).astype(np.float32))
+    outs, launches = {}, {}
+    for dev in (card, "cpu"):
+        d = copy.deepcopy(det).to(dev)
+        with torch.no_grad():
+            outs[str(dev)] = d(rois.to(dev), stage="mask").cpu()
+        before = nms_keep.launches
+        mask_rcnn_predict(d, x.to(dev))
+        launches[str(dev)] = nms_keep.launches - before
+    assert launches["cuda"] == 2 and launches["cpu"] == 0
+    want = outs["cpu"]
+    torch.testing.assert_close(outs["cuda"], want, rtol=0,
+                               atol=1e-4 * max(1.0, float(want.abs().max())))

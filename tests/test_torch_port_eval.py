@@ -2,7 +2,8 @@
 
 - ``COCOEval`` on identical detection lists (noisy copies of the GT, false
   positives, a crowd box): every statistic equal to the JAX package's;
-  ``segm`` raises, naming masks;
+  ``segm`` (ported with the mask path, ``tests/test_torch_port_masks.py``)
+  refuses a detection without a ``segmentation``, as the JAX package does;
 - the GT of a val set fed back as detections scores ``bbox_mAP`` 1.0;
 - ``single_device_test`` on the tiny flagship (``U.TINY_CFG``), 10 val
   images of 64x96 stored losslessly, so both packages' resizes copy the
@@ -119,9 +120,16 @@ def test_coco_eval_matches_jax(tmp_path, seed):
 
 
 def test_coco_eval_refuses_segm(tmp_path):
+    """segm evaluation of a box-only detection raises in both packages,
+    naming the missing ``segmentation``."""
     gt = _gt_file(tmp_path / "gt.json", 1, (64, 96), 0)
-    with pytest.raises(NotImplementedError, match="masks"):
-        COCOEval(COCO(str(gt)), [], iou_type="segm")
+    dets = [dict(image_id=1, category_id=1, bbox=[1.0, 2.0, 10.0, 12.0],
+                 score=0.9)]
+    for ev in (COCOEval(COCO(str(gt)), copy.deepcopy(dets), iou_type="segm"),
+               JaxCOCOEval(JaxCOCO(str(gt)), copy.deepcopy(dets),
+                           iou_type="segm")):
+        with pytest.raises(KeyError, match="segmentation"):
+            ev.evaluate()
 
 
 def _val_dataset(ann_file, img_prefix, port: bool):

@@ -530,9 +530,9 @@ def test_the_configs_build(config, kind, params):
 
 def test_unported_two_stage_variants_raise():
     for change, match in (
-            (dict(type="MaskRCNN"), "MaskRCNN"),
+            (dict(type="MaskScoringRCNN"), "MaskScoringRCNN"),
             (dict(type="GridRCNN"), "GridRCNN"),
-            (dict(mask_head=dict(type="FCNMaskHead")), "mask_head"),
+            (dict(mask_iou_head=dict(type="MaskIoUHead")), "mask_iou_head"),
             (dict(bbox_head=dict(TINY_FASTER_RCNN["bbox_head"],
                                  reg_class_agnostic=True)), "reg_class_agnostic"),
             (dict(bbox_head=dict(TINY_FASTER_RCNN["bbox_head"],
