@@ -65,7 +65,7 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    images, peak device memory, one ``torch.profiler`` trace of a step
    (device busy, idle share, the 10 largest kernels) and a split of one
    step by CUDA events into forward, targets + loss, backward, clip + SGD
-   and EMA; then what determinism costs: 8-step medians with
+   and EMA; then what determinism costs: 4-step medians with
    ``cudnn.deterministic`` on and off, in turns.
 
 8. decode: nvJPEG (``data/image_io.read_image`` on the card) on each JPEG
@@ -295,7 +295,7 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    ``mask_rcnn_predict`` at B=8, 800x1344, f32: 2 NMS launches (N = 4819
    and 2000) whose keeps equal the plain version's, dets finite (8, 100, 5)
    with detections in every image, the (8, 100, 28, 28) probabilities in
-   [0, 1], the median of 10 predicts, the paste and RLE of one image's
+   [0, 1], the median of 5 predicts, the paste and RLE of one image's
    masks (ms per image), the mask head's logits card vs CPU within 1e-3.
    The train entry point at B=2 on seeded polygons' ``gt_mask_crops``
    (cuDNN deterministic): ``loss_mask`` finite, 1 NMS launch per step, the
@@ -314,6 +314,37 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    ``MaskRCNNC4`` on their caffe C4 configs: a counted predict at B=2 (N =
    1000 and 2000) and timed steps at B=2 (``loss_mask`` for the mask one).
    The NMS kernel timed on the Mask R-CNN's RoI input (the kernels line's
+   ``paths``).
+20. Cascade R-CNN, Cascade Mask R-CNN and Mask Scoring R-CNN at full
+   width, the NMS count at 0 before each part and read after it, through
+   ``phase_variants``: ``configs/cascade_rcnn/cascade_rcnn_r50_fpn_1x_coco.py``,
+   ``cascade_mask_rcnn_r50_fpn_1x_coco.py`` (three class-agnostic
+   ``Shared2FCBBoxHead`` stages, the mask head shared over them) and
+   ``configs/ms_rcnn/ms_rcnn_r50_fpn_1x_coco.py`` (Mask R-CNN and a
+   ``MaskIoUHead``) uncut with seeded weights (every stage's classifier
+   seeded as phase 17's, so the RoI NMS sees its full N): one counted
+   predict at B=8, 800x1344, f32 (2 NMS launches, N = 4819 and 2000, keeps
+   equal to the plain version's, dets finite (8, 100, 5) with detections in
+   every image; the cascades give boxes only, as in the JAX package, Mask
+   Scoring R-CNN also its (8, 100, 28, 28) probabilities in [0, 1]), the
+   median of 5 predicts and img/s, then one more predict's peak memory and
+   its ``torch.profiler`` trace, with RoIAlign's share of the kernels'
+   time and the idle share (``roi_align_share``: retaken where the trace
+   lost records); each stage's outputs card vs CPU within 1e-3
+   (``cascade_probe``); the train entry point at B=2 on seeded polygons'
+   crops (cuDNN deterministic): every stage's ``loss_cls``, ``loss_bbox``
+   and ``loss_mask`` and Mask Scoring's ``loss_mask_iou`` finite, 1 NMS
+   launch per step, the median of 3 steps after a warm-up, their peak
+   memory and one more step's trace as the predict's; for the two with
+   masks one step card vs CPU at 2x128x192 (as phase 17 bands it, both
+   legs on one leg's mask targets, every target pixel that differs
+   between the legs a tie of their RoIs' rounding) and two runs of 3
+   steps bit-identical. Then
+   ``cascade_mask_rcnn_r50_fpn_mstrain_3x_coco.py`` (its pipeline loads
+   masks) through ``train_detector`` for one epoch of phase 19's COCO
+   instance set and the test CLI's ``--eval bbox``: ``bbox_mAP`` in
+   [0, 1], 1 NMS launch per step and 2 per predicted batch. The NMS kernel
+   timed on the cascade's RoI input (``cascade_b8`` in the kernels line's
    ``paths``).
 
 f32 runs with TF32 off (``torch.backends.cudnn.allow_tf32`` and
@@ -350,7 +381,7 @@ NMS_PASSES = {"mask": "nms_mask_kernel", "scan": "nms_scan_kernel"}
 NMS_TRACE_REPS = 100          # nms_keep calls in one profiler trace
 NMS_TRACE_TRIES = 3           # traces taken before a lossy one fails the run
 TRAIN_WARMUP, TRAIN_STEPS = 3, 20
-DET_COST_STEPS = 8            # steps timed per turn for the cost of determinism
+DET_COST_STEPS = 4            # steps timed per turn for the cost of determinism
 # the flagship's LR steps at epochs 20 and 26: with any real epoch length
 # the smoke's steps stay in the warm-up
 TRAIN_STEPS_PER_EPOCH = 1000
@@ -405,13 +436,18 @@ def device_busy(fn) -> tuple[float, float, int, list] | None:
     ten kernels that take the most time, or None where the profiler saw no
     device event."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    events = prof.events()
+    return events_busy(prof.events())
+
+
+def events_busy(events) -> tuple[float, float, int, list] | None:
+    """:func:`device_busy` of a trace's events."""
+    from torch.autograd import DeviceType
+
     spans = sorted((e.time_range.start, e.time_range.end) for e in events
                    if e.device_type == DeviceType.CUDA)
     if not spans:
@@ -3074,7 +3110,7 @@ def phase_dist_semi(tmp: Path, smi: str) -> int:
 
 PNG_TIMED = 20                # decodes timed per PNG fixture
 MH_HEADS = 2                  # (neck, head) pairs of the co-training model
-MH_TIMED, MH_WARMUP = 20, 3   # multi-head predicts timed after warm-ups
+MH_TIMED, MH_WARMUP = 10, 3   # multi-head predicts timed after warm-ups
 MH_TRAIN_STEPS = 3            # multi-head AdamW steps at B=5
 MH_OPTIMIZER = dict(type="AdamW", lr=1e-4, weight_decay=0.05)
 MH_ADAM_REL = 1e-6            # AdamW from equal gradients, card vs CPU
@@ -3596,7 +3632,7 @@ FASTER_RCNN_VOC_CONFIG = (ROOT / "configs" / "pascal_voc"
                           / "faster_rcnn_r50_fpn_1x_voc0712.py")
 RPN_NMS_N = 4819              # 1000 candidates from each of P2-P5, 819 from P6
 ROI_NMS_N = 2000              # multiclass_nms's pre_nms_top
-ANCHOR_TIMED = 20             # predicts timed per detector and dtype
+ANCHOR_TIMED = 10             # predicts timed per detector and dtype
 ANCHOR_TRAIN_B = 2            # the configs' samples_per_gpu
 ANCHOR_WARMUP, ANCHOR_STEPS = 3, 10   # train steps: warm-ups, then timed
 ANCHOR_DET_STEPS = 4          # Faster R-CNN steps per determinism run
@@ -3613,12 +3649,14 @@ def _flat_tensors(tree) -> list:
 
 def card_vs_cpu_outputs(det, inputs, **kw) -> float:
     """The worst |card - CPU| / max(max |CPU|, 1) over every tensor of
-    ``det(inputs, **kw)``, the CPU run on a copy of the detector."""
+    ``det(inputs, **kw)``, the CPU run on a copy of the detector (tensor
+    keywords copied to the CPU too)."""
     import torch
 
+    cpu_kw = {k: v.cpu() if torch.is_tensor(v) else v for k, v in kw.items()}
     with torch.no_grad():
         gpu = _flat_tensors(det(inputs, **kw))
-        cpu = _flat_tensors(copy.deepcopy(det).cpu()(inputs.cpu(), **kw))
+        cpu = _flat_tensors(copy.deepcopy(det).cpu()(inputs.cpu(), **cpu_kw))
     return max(float((g.float().cpu() - c).abs().max()
                      / c.abs().max().clamp_min(1.0)) for g, c in zip(gpu, cpu))
 
@@ -3642,7 +3680,7 @@ def phase_anchor_predict(smi: str):
     NMS input holds 2000 candidates over ``score_thr`` (so it runs at its
     full N); head outputs (the FPN levels, the RPN's and the RoI head's on
     seeded RoI features; RetinaNet's) card vs CPU within 1e-3 of the
-    largest magnitude at 1x128x192; predict ms (median of 20) and img/s.
+    largest magnitude at 1x128x192; predict ms (median of 10) and img/s.
     Returns the launches, the worst keep difference, and the recorded
     (path, B, N, launches) and NMS inputs per path."""
     import numpy as np
@@ -3768,9 +3806,10 @@ def host_sampler_draws():
 
     real = two_stage.sampler_draws
 
-    def on_host(cur_iter, b, a, n, device):
-        return {k: v.to(device) for k, v in
-                real(cur_iter, b, a, n, "cpu").items()}
+    def on_host(cur_iter, b, a, n, device, stages=1):
+        draws = real(cur_iter, b, a, n, "cpu", stages=stages)
+        return dict(rpn=draws["rpn"].to(device),
+                    rcnn=tuple(x.to(device) for x in draws["rcnn"]))
 
     two_stage.sampler_draws = on_host
     try:
@@ -3805,7 +3844,7 @@ def roi_align_timing(state, batch, smi: str) -> dict:
         draws = two_stage.sampler_draws(
             0, ANCHOR_TRAIN_B, sum(s[0].numel() for s in scores),
             two_stage.TRAIN_PROPOSALS + batch["gt_bboxes"].shape[1], DEVICE)
-        samples = roi.sample_batch_rois(props, pvalid, batch, draws["rcnn"],
+        samples = roi.sample_batch_rois(props, pvalid, batch, draws["rcnn"][0],
                                         head.num_classes,
                                         **two_stage.parse_rcnn_train_cfg(None))
     rois = roi.flat_rois(samples["rois"])
@@ -3850,7 +3889,7 @@ def roi_align_timing(state, batch, smi: str) -> dict:
 def anchor_step_runs(cfg, variables, batch, steps: int):
     """``steps`` f32 steps of the train entry point from the seeded state:
     each step's metrics (floats), each step's ms (host clock to a
-    synchronize), the state."""
+    synchronize), the state and the step."""
     import torch
 
     state, step = train_entry(cfg, variables, None, DEVICE)
@@ -3861,7 +3900,7 @@ def anchor_step_runs(cfg, variables, batch, steps: int):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         metrics.append({k: float(v) for k, v in m.items()})
-    return metrics, times, state
+    return metrics, times, state, step
 
 
 def phase_anchor_train(smi: str):
@@ -3896,7 +3935,7 @@ def phase_anchor_train(smi: str):
         batch = anchor_batch(TRAIN_SEED, CANVAS, ANCHOR_TRAIN_B, nc, DEVICE)
         torch.cuda.reset_peak_memory_stats()
         nms_keep.launches = 0
-        metrics, times, state = anchor_step_runs(
+        metrics, times, state, _ = anchor_step_runs(
             cfg, variables, batch, ANCHOR_WARMUP + ANCHOR_STEPS)
         n = nms_keep.launches
         launches += n
@@ -3956,7 +3995,7 @@ def phase_anchor_train(smi: str):
             nms_keep.launches = 0
             runs = []
             for _ in range(2):
-                m, _, st = anchor_step_runs(cfg, variables, batch,
+                m, _, st, _ = anchor_step_runs(cfg, variables, batch,
                                             ANCHOR_DET_STEPS)
                 runs += [m, {k: p.detach().clone() for k, p in
                              st.student.named_parameters()}]
@@ -4062,7 +4101,7 @@ VARIANT_CONFIGS = tuple(ROOT / "configs" / p for p in (
 SSD_CANVAS = (300, 300)
 SSD_NMS_N = 2000              # multiclass_nms's pre_nms_top
 ONE_LEVEL_RPN_NMS_N = 1000    # one level (DC5, C4): its nms_pre
-P18_TIMED = 10                # predicts timed per path (median)
+P18_TIMED = 5                 # predicts timed per path (median)
 P18_STEPS = 3                 # steps timed per path, after one warm-up
 SSD_EPOCHS = 1
 # the standalone RPN configs' train_cfg (mmdet's rpn_r50_fpn.py); the
@@ -4107,25 +4146,43 @@ def predict_counted(tag: str, fn, want_n: list, shape: tuple):
     return dets, valid, calls, worst
 
 
-def time_predict(tag: str, fn, b: int, smi: str) -> float:
+def time_predict(tag: str, fn, b: int, smi: str, trace: bool = False) -> float:
     """Median ms of ``P18_TIMED`` calls of ``fn`` (host clock to a
-    synchronize), logged with img/s."""
+    synchronize), logged with img/s. With ``trace``, one more call's peak
+    memory and its :func:`roi_align_share` are logged too."""
+    import torch
+
     times = sorted(host_ms(fn, reps=P18_TIMED))
     ms = times[len(times) // 2]
     log(f"[time] {tag} predict B={b}: median {ms:.2f} ms/batch (min "
         f"{times[0]:.2f}, max {times[-1]:.2f}, {P18_TIMED} reps), "
         f"{b / ms * 1e3:.1f} img/s  ({smi})")
+    if trace:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        log(f"[time] {tag} predict B={b}: peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  ({smi})")
+        roi_align_share(f"{tag} predict B={b}", fn, smi)
     return ms
 
 
-def time_steps(tag: str, cfg, variables, batch, smi: str) -> dict:
+def time_steps(tag: str, cfg, variables, batch, smi: str,
+               trace: bool = False) -> tuple[dict, int]:
     """One warm-up and ``P18_STEPS`` timed f32 steps of the train entry
     point from the seeded weights: losses finite; the median step ms
-    logged. Returns the last step's metrics."""
+    logged. With ``trace``, the peak memory over those steps and the
+    :func:`roi_align_share` of further steps are logged too. Returns the
+    last timed step's metrics and the number of steps taken."""
     import math
 
-    metrics, times, state = anchor_step_runs(cfg, variables, batch,
-                                             1 + P18_STEPS)
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    metrics, times, state, step = anchor_step_runs(cfg, variables, batch,
+                                                   1 + P18_STEPS)
     for m in metrics:
         if not all(math.isfinite(v) for v in m.values()):
             raise AssertionError(f"{tag} step: {m}")
@@ -4137,8 +4194,14 @@ def time_steps(tag: str, cfg, variables, batch, smi: str) -> dict:
         f"{b / ms * 1e3:.2f} img/s; last step " + ", ".join(
             f"{k} {v:.4f}" for k, v in sorted(metrics[-1].items()))
         + f"  ({smi})")
-    del state
-    return metrics[-1]
+    steps = len(metrics)
+    if trace:
+        log(f"[time] {tag} train step f32 B={b}: peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  ({smi})")
+        steps += roi_align_share(f"{tag} train step B={b}",
+                                 lambda: step(state, batch), smi)["calls"]
+    del state, step
+    return metrics[-1], steps
 
 
 def step_card_vs_cpu(tag: str, cfg, variables, canvas, b: int, nc: int,
@@ -4376,9 +4439,9 @@ def phase_rpn_fast(smi: str):
         f"seeded GT boxes, top 100/300/1000: {recalls[:, 0].tolist()}")
     with deterministic_cudnn():
         nms_keep.launches = 0
-        m = time_steps("RPN (allowed_border 0)", cfg, variables,
-                       anchor_batch(TRAIN_SEED, CANVAS, ANCHOR_TRAIN_B, 80,
-                                    DEVICE), smi)
+        m, _ = time_steps("RPN (allowed_border 0)", cfg, variables,
+                          anchor_batch(TRAIN_SEED, CANVAS, ANCHOR_TRAIN_B, 80,
+                                       DEVICE), smi)
         if nms_keep.launches or set(m) != {"loss_rpn_cls", "loss_rpn_bbox",
                                            "loss", "grad_norm"}:
             raise AssertionError(f"RPN steps: {m}, {nms_keep.launches} NMS")
@@ -4418,16 +4481,38 @@ def phase_rpn_fast(smi: str):
     return 2, max(worst, w), paths, inputs
 
 
+def expected_loss_keys(det) -> set:
+    """The loss keys a two-stage detector's step gives on a batch with
+    masks: the RPN's, the RoI head's (each cascade stage's, ``s{i}.``),
+    ``loss_mask`` where there is a mask head (per stage in a cascade) and
+    ``loss_mask_iou`` where there is a mask IoU head."""
+    roi = ["loss_cls", "loss_bbox"]
+    if getattr(det, "mask_head", None) is not None:
+        roi.append("loss_mask")
+    heads = getattr(det, "bbox_heads", None)
+    keys = ({f"s{i}.{k}" for i in range(len(heads)) for k in roi}
+            if heads is not None else set(roi))
+    if getattr(det, "mask_iou_head", None) is not None:
+        keys.add("loss_mask_iou")
+    return keys | {"loss_rpn_cls", "loss_rpn_bbox"}
+
+
 def phase_variants(smi: str, configs=VARIANT_CONFIGS, b: int = BATCH,
-                   seed: int = 20, phase: str = "p18"):
+                   seed: int = 20, phase: str = "p18", probe=None,
+                   trace: bool = False):
     """Two-stage variants (``VARIANT_CONFIGS`` by default), uncut, seeded:
     one counted predict at B=``b`` (2 NMS launches: the RPN's at N =
     ``RPN_NMS_N``, or ``ONE_LEVEL_RPN_NMS_N`` on one level, the RoI head's
-    at N = ``ROI_NMS_N``; keeps equal; a detector with a mask head predicts
-    through ``mask_rcnn_predict``, its probabilities in [0, 1]), timed,
-    then timed steps at B=2 (on a :func:`mask_batch` and with ``loss_mask``
-    finite where there is a mask head; 1 NMS launch per step). Returns the
-    NMS launches and the worst keep difference."""
+    at N = ``ROI_NMS_N``; keeps equal; a two-stage detector with a mask
+    head predicts through ``mask_rcnn_predict``, its probabilities in
+    [0, 1], a cascade its boxes), timed, then timed steps at B=2 (on a :func:`mask_batch` where
+    there is a mask head; every key of :func:`expected_loss_keys`, finite;
+    1 NMS launch per step). With ``trace``, the timed predict and steps
+    also log their peak memory and :func:`roi_align_share`.
+    ``probe(tag, cfg, variables, det, images)``, where given, runs after
+    the timed predict and returns the NMS launches it made. Returns the NMS
+    launches, the worst keep difference, and per config its path entry
+    (tag, B, N, launches, predict ms) and its recorded RoI NMS input."""
     import numpy as np
     import torch
 
@@ -4435,18 +4520,21 @@ def phase_variants(smi: str, configs=VARIANT_CONFIGS, b: int = BATCH,
     from dsl_tpu_torch.apis.train import deterministic_cudnn
     from dsl_tpu_torch.config import Config
     from dsl_tpu_torch.models import detector_predict
-    from dsl_tpu_torch.models.detectors.two_stage import mask_rcnn_predict
+    from dsl_tpu_torch.models.detectors.cascade_rcnn import roi_bbox_head_cfg
+    from dsl_tpu_torch.models.detectors.two_stage import (
+        TwoStageDetector, mask_rcnn_predict)
     from dsl_tpu_torch.ops.nms import nms_keep
 
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
     images = torch.randn((b, 3, *CANVAS), generator=gen, device=DEVICE)
-    launches, worst = 0, 0
+    launches, worst, paths, inputs = 0, 0, [], {}
     for path in configs:
         cfg = Config.fromfile(str(path))
         variables = seeded_variables(cfg)
         det = init_detector(cfg, variables=variables, device=DEVICE).detector
         tag = path.stem
-        masks = getattr(det, "mask_head", None) is not None
+        masks = (isinstance(det, TwoStageDetector)
+                 and det.mask_head is not None)
         log(f"[{phase}] {path.relative_to(ROOT)}: {type(det).__name__}, "
             f"{sum(p.numel() for p in det.parameters()) / 1e6:.2f} M "
             f"parameters")
@@ -4457,32 +4545,44 @@ def phase_variants(smi: str, configs=VARIANT_CONFIGS, b: int = BATCH,
             if not masks:
                 return detector_predict(det, images, device=DEVICE)
             out = mask_rcnn_predict(det, images)
-            if not bool(((out[3] >= 0) & (out[3] <= 1)).all()):
-                raise AssertionError(f"{tag}: mask probabilities")
+            if (out[3].shape[:2] != out[0].shape[:2]
+                    or not bool(((out[3] >= 0) & (out[3] <= 1)).all())):
+                raise AssertionError(f"{tag}: mask probabilities "
+                                     f"{tuple(out[3].shape)}")
             return out[:3]
 
-        _, _, _, w = predict_counted(
+        _, _, calls, w = predict_counted(
             tag, predict, [rpn_n, ROI_NMS_N],
             (b, cfg.model.test_cfg.rcnn.max_per_img, 5))
         launches, worst = launches + 2, max(worst, w)
-        time_predict(tag, predict, b, smi)
+        inputs[tag] = calls[1][:3]
+        paths.append(dict(path=tag, B=b, N=ROI_NMS_N, launches=2,
+                          predict_ms=time_predict(tag, predict, b, smi,
+                                                  trace=trace)))
+        if probe is not None:
+            launches += probe(tag, cfg, variables, det, images)
+        with_masks = getattr(det, "mask_head", None) is not None
+        want_keys = expected_loss_keys(det)
         del det
         torch.cuda.empty_cache()
-        batch = (mask_batch if masks else anchor_batch)(
+        batch = (mask_batch if with_masks else anchor_batch)(
             TRAIN_SEED, CANVAS, ANCHOR_TRAIN_B,
-            cfg.model.bbox_head.num_classes, DEVICE)
+            roi_bbox_head_cfg(cfg.model)["num_classes"], DEVICE)
         with deterministic_cudnn():
             nms_keep.launches = 0
-            m = time_steps(tag, cfg, variables, batch, smi)
-            if masks and not np.isfinite(m.get("loss_mask", np.nan)):
-                raise AssertionError(f"{tag} step: {m}")
-            if nms_keep.launches != 1 + P18_STEPS:
+            m, steps = time_steps(tag, cfg, variables, batch, smi,
+                                  trace=trace)
+            if not want_keys <= set(m) or not all(
+                    np.isfinite(m[k]) for k in want_keys):
+                raise AssertionError(f"{tag} step: {m}, expected the keys "
+                                     f"{sorted(want_keys)}")
+            if nms_keep.launches != steps:
                 raise AssertionError(f"{tag} steps: {nms_keep.launches} NMS "
                                      f"launches, expected 1 per step")
             launches += nms_keep.launches
         del batch
         torch.cuda.empty_cache()
-    return launches, worst
+    return launches, worst, paths, inputs
 
 
 MASK_RCNN_CONFIG = ROOT / "configs" / "mask_rcnn" / "mask_rcnn_r50_fpn_1x_coco.py"
@@ -4649,7 +4749,7 @@ def phase_mask_train(smi: str) -> int:
     nc = cfg.model.bbox_head.num_classes
     batch = mask_batch(TRAIN_SEED, CANVAS, ANCHOR_TRAIN_B, nc, DEVICE)
     nms_keep.launches = 0
-    m = time_steps("Mask R-CNN", cfg, variables, batch, smi)
+    m, _ = time_steps("Mask R-CNN", cfg, variables, batch, smi)
     if "loss_mask" not in m or not np.isfinite(m["loss_mask"]):
         raise AssertionError(f"Mask R-CNN step: {m}")
     if nms_keep.launches != 1 + P18_STEPS:
@@ -4670,7 +4770,7 @@ def phase_mask_train(smi: str) -> int:
     nms_keep.launches = 0
     runs = []
     for _ in range(2):
-        m, _, st = anchor_step_runs(cfg, variables, batch, P18_STEPS)
+        m, _, st, _ = anchor_step_runs(cfg, variables, batch, P18_STEPS)
         runs += [m, {k: p.detach().clone() for k, p in
                      st.student.named_parameters()}]
         del st
@@ -4857,6 +4957,327 @@ def phase_mask_workflow(tmp: Path, coco: dict, smi: str) -> tuple[int, int]:
     return launches, worst
 
 
+CASCADE_CONFIGS = tuple(ROOT / "configs" / p for p in (
+    "cascade_rcnn/cascade_rcnn_r50_fpn_1x_coco.py",
+    "cascade_rcnn/cascade_mask_rcnn_r50_fpn_1x_coco.py",
+    "ms_rcnn/ms_rcnn_r50_fpn_1x_coco.py"))
+CASCADE_MSTRAIN_CONFIG = (ROOT / "configs" / "cascade_rcnn"
+                          / "cascade_mask_rcnn_r50_fpn_mstrain_3x_coco.py")
+ROI_RANGE = "roi_align"       # the profiler range around RoIAlign's calls
+TRACED_RANGE = "traced"       # the profiler range around the traced call
+TRACE_LOST = 0.01             # share of launches a trace may lack records of
+CASCADE_DET_STEPS = 3         # steps per determinism run
+
+
+@contextlib.contextmanager
+def roi_align_ranges():
+    """Every RoIAlign forward (``ops.roi_align.roi_align_rows``, as the RoI
+    heads, the refinement and the mask targets call it) and its backward
+    in a ``record_function`` range named ``ROI_RANGE``, for a trace."""
+    import torch
+
+    from dsl_tpu_torch.models.roi_heads import standard_roi_head
+    from dsl_tpu_torch.ops import roi_align
+
+    real_rows = roi_align.roi_align_rows
+    real_bwd = roi_align._GatherRows.backward
+
+    def rows(*args, **kw):
+        with torch.profiler.record_function(ROI_RANGE):
+            return real_rows(*args, **kw)
+
+    def backward(ctx, grad):
+        with torch.profiler.record_function(ROI_RANGE):
+            return real_bwd(ctx, grad)
+
+    roi_align.roi_align_rows = standard_roi_head.roi_align_rows = rows
+    roi_align._GatherRows.backward = staticmethod(backward)
+    try:
+        yield
+    finally:
+        roi_align.roi_align_rows = standard_roi_head.roi_align_rows = real_rows
+        roi_align._GatherRows.backward = staticmethod(real_bwd)
+
+
+def roi_align_share(tag: str, fn, smi: str) -> dict:
+    """One torch.profiler trace of ``fn()`` under :func:`roi_align_ranges`:
+    RoIAlign's device ms (the kernels its ranges launched), every kernel's
+    device ms, RoIAlign's share of them and the device's idle share of the
+    traced window (the call's range, first event to last), logged. A
+    trace's first launches can lack their kernel records (seen on the card:
+    1 to 3 early in a run, 56 late in the smoke, every trace alike), so
+    ``fn()`` runs once in the trace before the call's range and is left
+    out. The trace may drop records (seen on the card): one where more
+    than ``TRACE_LOST`` of the call's launches have no kernel record
+    (matched by correlation id), where one in a RoIAlign range has none or
+    where a RoIAlign range has no kernel is taken again, up to
+    ``NMS_TRACE_TRIES`` traces, and then fails the run; the launches
+    without a record are logged. Returns those numbers and ``calls``, the
+    calls of ``fn`` made."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    for tries in range(1, NMS_TRACE_TRIES + 1):
+        with roi_align_ranges(), profile(
+                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+            with record_function(TRACED_RANGE):
+                fn()
+                torch.cuda.synchronize()
+        every = prof.events()
+        t0 = next(e.time_range.start for e in every
+                  if e.name == TRACED_RANGE and e.device_type == DeviceType.CPU)
+        # the warm-up call's runtime calls; their kernels are told apart by
+        # correlation id, not by time (the device's clock, mapped onto the
+        # host's, can put the call's first kernels a little before t0)
+        before = {e.id for e in every if e.device_type == DeviceType.CPU
+                  and e.name.startswith("cu") and e.time_range.start < t0}
+        ran = {e.id for e in every if e.device_type == DeviceType.CUDA}
+        # the trace mirrors each range on the device's timeline: not a kernel
+        events = [e for e in every if e.name != TRACED_RANGE and (
+            e.id not in before and e.name != ROI_RANGE
+            if e.device_type == DeviceType.CUDA else e.time_range.start >= t0)]
+        launches = sorted((e for e in events if e.device_type == DeviceType.CPU
+                           and "LaunchKernel" in e.name),
+                          key=lambda e: e.time_range.start)
+        ranges = [e for e in events
+                  if e.name == ROI_RANGE and e.device_type == DeviceType.CPU]
+        where = [(i, e.name, getattr(e.cpu_parent, "name", None))
+                 for i, e in enumerate(launches) if e.id not in ran]
+        in_roi = sum(r.time_range.start <= launches[i].time_range.start
+                     <= r.time_range.end for i, _, _ in where for r in ranges)
+        empty = sum(e.device_time_total == 0 for e in ranges)
+        if (len(where) <= TRACE_LOST * len(launches) and not in_roi
+                and not empty and ranges):
+            break
+        log(f"[trace] {tag}: the profiler lost the records of {len(where)} "
+            f"of {len(launches)} kernel launches ({in_roi} in RoIAlign; "
+            f"launch index, call, op: {where[:2]} to {where[-1:]}); {empty} "
+            f"of {len(ranges)} RoIAlign ranges without a kernel")
+    else:
+        raise AssertionError(f"{tag}: {NMS_TRACE_TRIES} profiler traces each "
+                             f"lost records")
+    busy = events_busy(events)
+    kernel_ms = sum(e.time_range.elapsed_us() for e in events
+                    if e.device_type == DeviceType.CUDA) / 1e3
+    roi_ms = sum(e.device_time_total for e in ranges) / 1e3
+    idle = 1.0 - busy[0] / busy[1]
+    log(f"[trace] {tag}: {len(ranges)} RoIAlign ranges, RoIAlign "
+        f"{roi_ms:.3f} ms, {roi_ms / kernel_ms:.4f} of the kernels' time; "
+        f"kernels {kernel_ms:.3f} ms ({busy[2]} kernels, {len(launches)} "
+        f"launches, {len(where)} without a record: {where[:3]}), busy {busy[0]:.3f} of {busy[1]:.3f} ms, idle "
+        f"share {idle:.4f}; trace {tries} of {NMS_TRACE_TRIES}  ({smi})")
+    return dict(roi_ms=roi_ms, kernel_ms=kernel_ms, idle=idle,
+                calls=2 * tries)
+
+
+@contextlib.contextmanager
+def shared_mask_targets():
+    """One leg's mask targets handed to the other leg of a step card vs
+    CPU (``two_stage.mask_targets_from_crops``), keyed by the call's
+    samples (batch index and assigned GT): each leg's RoIs come from its
+    own RPN decode, 2.5e-4 px apart at 2x128x192, and a target pixel whose
+    value lies that near 0.5 flips, which moves ``loss_mask`` past 1e-4
+    (20 of 26656 pixels for Mask Scoring R-CNN on an H100). Every flip
+    must be such a tie, else the run fails: the leg's own RoIAlign value
+    within ``2 d m / s + 1e-6`` of 0.5, where ``d`` is the largest
+    coordinate difference of that RoI between the legs and ``m / s`` the
+    crop pixels per input pixel (``s`` the GT box's shorter side): a
+    bilinear sample of a crop in [0, 1] moves by at most its shift along x
+    plus its shift along y. Yields the flips of each handed-over call."""
+    import torch
+
+    from dsl_tpu_torch.models.detectors import two_stage
+    from dsl_tpu_torch.models.roi_heads import mask_head
+
+    real, real_align = two_stage.mask_targets_from_crops, mask_head.roi_align
+    first, flips = {}, []
+
+    def shared(mask_crops, gt_bboxes, rois, batch_idx, assigned_gt, **kw):
+        sampled = []
+
+        def align(*args, **akw):
+            sampled.append(real_align(*args, **akw)[:, 0])
+            return sampled[-1][:, None]
+
+        mask_head.roi_align = align
+        try:
+            own = real(mask_crops, gt_bboxes, rois, batch_idx, assigned_gt,
+                       **kw)
+        finally:
+            mask_head.roi_align = real_align
+        key = (batch_idx.cpu().numpy().tobytes(),
+               assigned_gt.cpu().numpy().tobytes())
+        if key not in first:
+            first[key] = own.cpu(), rois.cpu()
+            return own
+        want, want_rois = first[key]
+        flip = own.cpu() != want
+        flips.append(int(flip.sum()))
+        if flips[-1]:
+            b, k, m, _ = mask_crops.shape
+            gt = gt_bboxes.reshape(b * k, 4)[
+                batch_idx * k + assigned_gt.clamp(0, k - 1)].cpu()
+            side = torch.minimum(gt[:, 2] - gt[:, 0],
+                                 gt[:, 3] - gt[:, 1]).clamp_min(1.0)
+            d = (rois.cpu() - want_rois).abs().amax(1)
+            tie = (2 * d * m / side + 1e-6)[:, None, None].expand_as(flip)
+            gap = (sampled[0].cpu() - 0.5).abs()
+            if not bool((gap[flip] <= tie[flip]).all()):
+                raise AssertionError(
+                    f"{flips[-1]} mask target pixels flip between the legs, "
+                    f"not all ties: worst |value - 0.5| "
+                    f"{float(gap[flip].max()):.3e} against "
+                    f"{float(tie[flip].min()):.3e}")
+        return want.to(own.device)
+
+    two_stage.mask_targets_from_crops = shared
+    try:
+        yield flips
+    finally:
+        two_stage.mask_targets_from_crops = real
+
+
+def cascade_probe(smi: str):
+    """:func:`phase_variants`' probe for phase 20: on the predict's
+    detector, its stages' outputs card vs CPU within 1e-3 of the largest
+    magnitude (the levels and the RPN at 1x128x192, each stage's head on
+    64 seeded RoIs, the mask head's and the mask IoU head's on 16); where
+    there is a mask head, the train entry point at B=2 (cuDNN
+    deterministic): one step card vs CPU at 2x128x192 (losses 1e-4,
+    ``grad_norm`` 1e-3, updates banded; both legs on one leg's mask
+    targets, every flip a tie, :func:`shared_mask_targets`) and two runs of
+    ``CASCADE_DET_STEPS`` steps bit-identical. The NMS count is read after
+    them: 1 per step (the card's, in the card vs CPU step)."""
+    def probe(tag, cfg, variables, det, images) -> int:
+        import torch
+
+        from dsl_tpu_torch.apis.train import deterministic_cudnn
+        from dsl_tpu_torch.models.detectors.cascade_rcnn import (
+            roi_bbox_head_cfg)
+        from dsl_tpu_torch.ops.nms import nms_keep
+
+        gen = torch.Generator(device=DEVICE).manual_seed(24)
+        small = images[:1, :, :ANCHOR_SMALL[0], :ANCHOR_SMALL[1]]
+        rel = {"levels and RPN": card_vs_cpu_outputs(det, small)}
+        cascade = hasattr(det, "bbox_heads")
+        for i, head in enumerate(det.bbox_heads if cascade else [det.bbox_head]):
+            rf = torch.randn((64, head.in_channels, head.roi_size,
+                              head.roi_size), generator=gen, device=DEVICE)
+            rel[f"bbox head {i}"] = card_vs_cpu_outputs(
+                det, rf, stage="roi", **(dict(head=i) if cascade else {}))
+        mh = det.mask_head
+        if mh is not None:
+            mf = torch.randn((16, mh.in_channels, mh.roi_size, mh.roi_size),
+                             generator=gen, device=DEVICE)
+            rel["mask head"] = card_vs_cpu_outputs(det, mf, stage="mask")
+            if getattr(det, "mask_iou_head", None) is not None:
+                probs = torch.rand((16, 2 * mh.roi_size, 2 * mh.roi_size),
+                                   generator=gen, device=DEVICE)
+                rel["mask IoU head"] = card_vs_cpu_outputs(
+                    det, mf, stage="mask_iou", mask_pred=probs)
+        log(f"[p20] {tag} outputs card vs CPU, worst |diff| / max|ref|: "
+            + ", ".join(f"{k} {v:.3e}" for k, v in rel.items()))
+        if max(rel.values()) > 1e-3:
+            raise AssertionError(f"{tag}: card and CPU disagree: {rel}")
+        if mh is None:
+            return 0
+        nc = roi_bbox_head_cfg(cfg.model)["num_classes"]
+        small_batch = mask_batch(TRAIN_SEED + 1, ANCHOR_SMALL, ANCHOR_TRAIN_B,
+                                 nc, "cpu")
+        batch = mask_batch(TRAIN_SEED, CANVAS, ANCHOR_TRAIN_B, nc, DEVICE)
+        with deterministic_cudnn():
+            nms_keep.launches = 0
+            with shared_mask_targets() as flips:
+                step_card_vs_cpu(tag, cfg, variables, ANCHOR_SMALL,
+                                 ANCHOR_TRAIN_B, nc, make_batch=lambda device: {
+                                     k: v.to(device) if hasattr(v, "to") else v
+                                     for k, v in small_batch.items()})
+            log(f"[p20] {tag} card vs CPU step: the CPU's own mask targets "
+                f"differ from the card's in {flips} pixels per call, each a "
+                f"tie of its RoIs' rounding; both legs trained on the card's")
+            runs = []
+            for _ in range(2):
+                m, _, st, _ = anchor_step_runs(cfg, variables, batch,
+                                               CASCADE_DET_STEPS)
+                runs += [m, {k: p.detach().clone() for k, p in
+                             st.student.named_parameters()}]
+                del st
+            check_deterministic(*runs)
+        if nms_keep.launches != 1 + 2 * CASCADE_DET_STEPS:
+            raise AssertionError(f"{tag}: {nms_keep.launches} NMS launches in "
+                                 f"the card vs CPU step and two runs of "
+                                 f"{CASCADE_DET_STEPS} steps, expected "
+                                 f"{1 + 2 * CASCADE_DET_STEPS}")
+        del batch
+        torch.cuda.empty_cache()
+        return nms_keep.launches
+
+    return probe
+
+
+def phase_cascade_workflow(tmp: Path, coco: dict, smi: str) -> int:
+    """``train_detector`` on ``CASCADE_MSTRAIN_CONFIG`` (its pipeline loads
+    masks) for one epoch of phase 19's COCO instance set with ``bbox``
+    evaluation, then the test CLI's ``--eval bbox`` in a subprocess: every
+    stage's losses finite, ``bbox_mAP`` in [0, 1], 1 NMS launch per step
+    and 2 per predicted batch. Returns the NMS launches."""
+    import math
+
+    import torch
+
+    from dsl_tpu_torch.apis import train_detector
+    from dsl_tpu_torch.apis.test import BATCH_SIZE
+    from dsl_tpu_torch.config import Config
+    from dsl_tpu_torch.ops.nms import nms_keep
+    from dsl_tpu_torch.utils.synthetic_data import coco_instance_config
+
+    t0 = time.perf_counter()
+    raw = coco_instance_config(
+        Config.fromfile(str(CASCADE_MSTRAIN_CONFIG)).to_dict(), coco)
+    raw["runner"]["max_epochs"] = 1
+    raw["log_config"] = dict(interval=1)
+    raw["evaluation"] = dict(interval=1, metric="bbox")
+    work = tmp / "cascade20"
+    cfg_path = tmp / "cascade20.py"
+    Config(raw).dump(str(cfg_path))
+    batches = math.ceil(MASK_VAL_IMAGES / BATCH_SIZE)
+    nms_keep.launches = 0
+    train_detector(Config(raw), str(work), device=DEVICE,
+                   variables=seeded_variables(Config(raw)))
+    torch.cuda.synchronize()
+    launches = nms_keep.launches
+    lines = [json.loads(x) for x in
+             (work / "train.log.json").read_text().splitlines()]
+    steps = [x for x in lines if x.get("mode") == "train"]
+    val = [x for x in lines if x.get("mode") == "val"]
+    keys = [f"s{i}.{k}" for i in range(3)
+            for k in ("loss_cls", "loss_bbox", "loss_mask")]
+    if not steps or not all(math.isfinite(x[k]) for x in steps for k in keys):
+        raise AssertionError(f"Cascade Mask R-CNN train_detector losses: "
+                             f"{steps}")
+    if len(val) != 1 or not 0.0 <= val[-1]["bbox_mAP"] <= 1.0:
+        raise AssertionError(f"Cascade Mask R-CNN evaluation: {val}")
+    if launches != len(steps) + 2 * batches:
+        raise AssertionError(f"train_detector made {launches} NMS launches, "
+                             f"expected 1 per step and 2 per evaluation batch")
+    log(f"[p20] {CASCADE_MSTRAIN_CONFIG.relative_to(ROOT)} train_detector: "
+        f"{len(steps)} steps, losses finite (last " + ", ".join(
+            f"{k} {steps[-1][k]:.4f}" for k in keys + ["loss"])
+        + f"), bbox_mAP {val[-1]['bbox_mAP']:.4f}, NMS launches {launches}")
+    child, out = run_module("dsl_tpu_torch.tools.test",
+                            [str(cfg_path), str(work / "epoch_1.pth"),
+                             "--eval", "bbox"], tag="cascade20")
+    metrics = json.loads(next(x for x in reversed(out) if x.startswith("{")))
+    if not 0.0 <= metrics["bbox_mAP"] <= 1.0 or child != 2 * batches:
+        raise AssertionError(f"test CLI: {metrics}, {child} NMS launches")
+    log(f"[p20] test CLI --eval bbox: bbox_mAP {metrics['bbox_mAP']}, NMS "
+        f"launches {child}; workflow {time.perf_counter() - t0:.1f} s")
+    return launches + child
+
+
 def main() -> int:
     import torch
 
@@ -4927,7 +5348,7 @@ def main() -> int:
         t18 = time.perf_counter()
         ssd_launches, ssd_err, p18_paths, p18_inputs = phase_ssd(Path(tmp), smi)
         rpn_launches, rpn_err, rpn_paths, rpn_inputs = phase_rpn_fast(smi)
-        variant_launches, variant_err = phase_variants(smi)
+        variant_launches, variant_err, _, _ = phase_variants(smi)
         p18_paths += rpn_paths
         p18_inputs.update(rpn_inputs)
         for entry in p18_paths:
@@ -4943,19 +5364,30 @@ def main() -> int:
         coco = coco_instance(Path(tmp))
         phase_mask_pipeline(coco, smi)
         flow_launches, flow_err = phase_mask_workflow(Path(tmp), coco, smi)
-        c4_launches, c4_err = phase_variants(smi, C4_CONFIGS, C4_B,
-                                                seed=22, phase="p19")
+        c4_launches, c4_err, _, _ = phase_variants(smi, C4_CONFIGS, C4_B,
+                                                   seed=22, phase="p19")
         mask_launches += flow_launches + c4_launches
         mask_path.update(nms_input_timing("mask_rcnn_b8", *mask_input, smi))
         p18_paths.append(mask_path)
         del mask_input
         log(f"[phase 19] {time.perf_counter() - t19:.1f} s")
+        t20 = time.perf_counter()
+        cascade_launches, cascade_err, cascade_paths, cascade_inputs = (
+            phase_variants(smi, CASCADE_CONFIGS, BATCH, seed=23, phase="p20",
+                           probe=cascade_probe(smi), trace=True))
+        cascade_launches += phase_cascade_workflow(Path(tmp), coco, smi)
+        cascade_path = dict(cascade_paths[0], path="cascade")
+        cascade_path.update(nms_input_timing(
+            "cascade_b8", *cascade_inputs[CASCADE_CONFIGS[0].stem], smi))
+        p18_paths.append(cascade_path)
+        del cascade_inputs
+        log(f"[phase 20] {time.perf_counter() - t20:.1f} s")
     launches["nms_keep"] += (semi_launches + eval_launches + weights_launches
                              + baseline_launches + voc_launches + dist_launches
                              + mh_launches + cfg_launches + anchor_launches
                              + train17_launches + voc17_launches
                              + ssd_launches + rpn_launches + variant_launches
-                             + mask_launches)
+                             + mask_launches + cascade_launches)
     kernels = [dict(
         name="nms_keep", route="cuda",
         source="dsl_tpu_torch/csrc/nms_kernel.cu",
@@ -4964,11 +5396,11 @@ def main() -> int:
         max_abs_err=float(max(case_err, path_err, train_err, semi_err,
                               eval_err, voc_err, mh_err, cfg_err, anchor_err,
                               ssd_err, rpn_err, variant_err, mask_err,
-                              flow_err, c4_err)),
+                              flow_err, c4_err, cascade_err)),
         ms=nms_times["ms"], plain_ms=nms_times["plain_ms"],
         bound_ms=nms_times["bound_ms"], bound_by=nms_times["bound_by"],
         library_ms=None,
-        # the anchor-based detectors' inputs (phases 17-19), each timed alike
+        # the anchor-based detectors' inputs (phases 17-20), each timed alike
         paths=[{k: v for k, v in e.items() if k in (
             "path", "B", "N", "launches", "ms", "plain_ms", "bound_ms",
             "bound_by")} for e in anchor_paths + p18_paths])]

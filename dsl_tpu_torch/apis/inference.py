@@ -26,6 +26,7 @@ from dsl_tpu_torch.config import Config
 from dsl_tpu_torch.data.image_io import read_image
 from dsl_tpu_torch.data.pipelines.image_ops import resize_linear_u8
 from dsl_tpu_torch.models import build_detector, detector_predict
+from dsl_tpu_torch.models.detectors.cascade_rcnn import roi_bbox_head_cfg
 from dsl_tpu_torch.utils.checkpoint import load_weights
 from dsl_tpu_torch.utils.device import resolve_device
 from dsl_tpu_torch.utils.jax_bridge import flax_to_state_dict
@@ -104,7 +105,9 @@ def preprocess(bundle: DetectorBundle, img):
 
 
 def inference_detector(bundle: DetectorBundle, img):
-    """img: file path or BGR ndarray. Returns a list per class of (n, 5)."""
+    """img: file path or BGR ndarray. Returns a list per class of (n, 5)
+    (a cascade's classes are its last stage's; the JAX function reads a
+    ``bbox_head`` and raises on a cascade config)."""
     if isinstance(img, (str, os.PathLike)):
         img = read_image(img, bundle.device)
     canvas, shapes, sf = preprocess(bundle, img)
@@ -115,5 +118,5 @@ def inference_detector(bundle: DetectorBundle, img):
     keep = valid[0].cpu().numpy()
     dets = dets[0].cpu().numpy()[keep]
     labels = labels[0].cpu().numpy()[keep]
-    num_classes = bundle.cfg.model["bbox_head"]["num_classes"]
+    num_classes = roi_bbox_head_cfg(bundle.cfg.model)["num_classes"]
     return [dets[labels == c] for c in range(num_classes)]

@@ -2,8 +2,8 @@
 
 Counterpart of ``dsl_tpu/apis/test.py`` (``single_device_test``,
 ``tta_test``, ``tta_test_dense``, ``merge_aug_detections``) for the
-ported detectors (FCOS, RetinaNet, Faster R-CNN; ``tta_test_dense`` is
-FCOS's). In ``single_device_test`` each image is read onto the device
+ported detectors (FCOS, RetinaNet, SSD, the two-stage detectors and
+Cascade R-CNN; ``tta_test_dense`` is FCOS's). In ``single_device_test`` each image is read onto the device
 (``data/image_io.read_image``, nvJPEG on the card), resized keeping its
 ratio to ``img_scale`` (``resize_linear_u8``, exact to ``cv2.resize``), normalized
 and padded top-left onto the canvas ``formatting.select_canvas`` picks from
@@ -14,8 +14,9 @@ package pads the last batch to a fixed shape, the port predicts its real
 rows only (FCOS predicts each image on its own). The results stay on the
 device until the last batch is queued. ``flip`` mirrors each decoded
 image before its resize, and the detections stay in the mirrored frame.
-A Mask R-CNN (``MaskRCNN``, as the JAX package names it: the C4 form is
-tested for its boxes, as there) predicts through
+A Mask R-CNN (``MaskRCNN`` and ``MaskScoringRCNN``, as the JAX package
+names them: the C4 form and Cascade Mask R-CNN are tested for their boxes,
+as there) predicts through
 ``two_stage.mask_rcnn_predict``; after the last batch is queued, each
 image's 28x28 probabilities are pasted at its boxes in the original size on
 the device (``mask_head.paste_masks``), copied out and encoded as
@@ -62,8 +63,8 @@ DEFAULT_NORM = dict(mean=(123.675, 116.28, 103.53),
 BATCH_SIZE = 8                # images per predict, as the JAX package's
 MASK_TTA_BATCH = 4            # tta_test_masks' batch_size in the JAX package
 # the detectors whose test results carry masks: the JAX package's list less
-# Mask Scoring R-CNN and YOLACT, which are not ported
-MASK_RESULTS = ("MaskRCNN",)
+# YOLACT, which is not ported (a Cascade Mask R-CNN's are boxes, as in JAX)
+MASK_RESULTS = ("MaskRCNN", "MaskScoringRCNN")
 
 
 def _path(dataset, idx: int) -> str:

@@ -67,6 +67,7 @@ from dsl_tpu_torch.data.formatting import DEFAULT_CANVAS
 from dsl_tpu_torch.data.loader import DetDataLoader, MultiDataLoader
 from dsl_tpu_torch.data.pipelines import test_pipeline_params
 from dsl_tpu_torch.models import build_detector
+from dsl_tpu_torch.models.detectors.cascade_rcnn import roi_bbox_head_cfg
 from dsl_tpu_torch.models.detectors.two_stage import check_two_stage
 from dsl_tpu_torch.parallel import dist
 from dsl_tpu_torch.parallel.mesh import broadcast_state
@@ -91,7 +92,7 @@ def _refuse_unported(cfg, group=None):
         raise NotImplementedError("Dynamic R-CNN is not ported yet")
     if "rpn_head" in cfg.model:
         check_two_stage(torch.bfloat16 if cfg.get("fp16") else None, group)
-    head = cfg.model.get("bbox_head", {}) or {}
+    head = roi_bbox_head_cfg(cfg.model)
     for key in ("loss_cls", "loss_bbox"):
         kind = dict(head.get(key, {}) or {}).get("type")
         if kind in ("SeesawLoss", "GHMC", "GHMR"):
@@ -99,9 +100,9 @@ def _refuse_unported(cfg, group=None):
 
 
 def _check_num_classes(cfg, dataset, logger):
-    """NumClassCheckHook: warn where the head's ``num_classes`` is not the
-    dataset's number of classes."""
-    head_nc = cfg.model.get("bbox_head", {}).get("num_classes")
+    """NumClassCheckHook: warn where the head's ``num_classes`` (a
+    cascade's last stage's) is not the dataset's number of classes."""
+    head_nc = roi_bbox_head_cfg(cfg.model).get("num_classes")
     classes = getattr(dataset, "CLASSES", None)
     if head_nc is not None and classes and len(classes) != head_nc:
         logger.warning("num_classes mismatch: head has %d but dataset %s has "

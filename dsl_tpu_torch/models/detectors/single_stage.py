@@ -4,10 +4,12 @@ detectors' loss and predict entry points.
 Counterpart of ``dsl_tpu/models/detectors/single_stage.py``:
 ``SingleStageDetector`` / ``FCOS`` / ``RetinaNet`` / ``SSD`` (backbone ->
 neck, where there is one -> head), ``build_detector`` (which hands a
-config with an ``rpn_head`` or of type ``FastRCNN`` to
-``two_stage.build_two_stage_detector`` and a multi-head config to
-``multi_head.py``, as the JAX package does), and ``detector_loss`` /
-``detector_predict``, which route a two-stage detector to
+config with an ``rpn_head`` and ``bbox_heads`` to
+``cascade_rcnn.build_cascade_rcnn``, one with an ``rpn_head`` or of type
+``FastRCNN`` to ``two_stage.build_two_stage_detector`` and a multi-head
+config to ``multi_head.py``, as the JAX package does), and
+``detector_loss`` / ``detector_predict``, which route a Cascade R-CNN to
+``cascade_rcnn_loss`` / ``cascade_rcnn_predict``, a two-stage detector to
 ``two_stage_loss`` / ``two_stage_predict``, the standalone ``RPN`` to
 ``rpn_only_loss`` / ``rpn_only_predict``, a ``RetinaHead`` to
 ``retina_loss`` / ``retina_get_bboxes`` and an ``SSDHead`` to
@@ -32,6 +34,8 @@ from dsl_tpu_torch.models.dense_heads.retina_head import (
     RetinaHead, retina_get_bboxes, retina_loss)
 from dsl_tpu_torch.models.dense_heads.ssd_head import (
     SSDHead, ssd_get_bboxes, ssd_loss)
+from dsl_tpu_torch.models.detectors.cascade_rcnn import (
+    CascadeRCNN, build_cascade_rcnn, cascade_rcnn_loss, cascade_rcnn_predict)
 from dsl_tpu_torch.models.detectors.two_stage import (
     RPN, FastRCNN, TwoStageDetector, build_two_stage_detector,
     check_two_stage, rpn_only_loss, rpn_only_predict, two_stage_loss,
@@ -84,13 +88,17 @@ class SSD(SingleStageDetector):
 
 def build_detector(cfg: dict) -> nn.Module:
     """Build a detector from a model config dict: a config with an
-    ``rpn_head`` is a two-stage detector (``build_two_stage_detector``), one
-    with ``necks`` or ``bbox_heads`` DSL's co-training multi-head detector
+    ``rpn_head`` and ``bbox_heads`` is a cascade (``build_cascade_rcnn``),
+    one with an ``rpn_head`` alone a two-stage detector
+    (``build_two_stage_detector``), one with ``necks`` or ``bbox_heads``
+    and no ``rpn_head`` DSL's co-training multi-head detector
     (``multi_head.build_multi_head_detector``), as in the JAX package; else
     a single-stage one (FCOS and RetinaNet read no ``train_cfg``: their
     assignment options are the head's, as in the JAX package)."""
     cfg = dict(cfg)
     if "rpn_head" in cfg:
+        if "bbox_heads" in cfg:
+            return build_cascade_rcnn(cfg)
         return build_two_stage_detector(cfg)
     if "bbox_heads" in cfg or "necks" in cfg:
         from dsl_tpu_torch.models.detectors.multi_head import (
@@ -136,9 +144,9 @@ def _parse_losses(losses: dict):
 
 def detector_loss(detector: nn.Module, batch: dict, cur_iter: int = 0,
                   compute_dtype=None, mark=None, group=None):
-    """Training forward + loss of an FCOS, RetinaNet, SSD, Faster R-CNN or
-    standalone RPN detector (a Fast R-CNN has no loss, as in the JAX
-    package, and raises).
+    """Training forward + loss of an FCOS, RetinaNet, SSD, Faster R-CNN,
+    Cascade R-CNN or standalone RPN detector (a Fast R-CNN has no loss, as
+    in the JAX package, and raises).
 
     ``batch["images"]`` is (B, 3, H, W) on the detector's device; the other
     keys are the head's loss's. With ``compute_dtype=torch.bfloat16`` the
@@ -146,7 +154,8 @@ def detector_loss(detector: nn.Module, batch: dict, cur_iter: int = 0,
     variable (gradients reach the f32 parameters through the casts); the
     head outputs and the losses are f32. A two-stage detector runs
     ``two_stage_loss`` (in f32; a bf16 compute dtype or a process group
-    raises), its samplers' draws seeded by ``cur_iter``. ``mark(name)``,
+    raises), its samplers' draws seeded by ``cur_iter``; a Cascade R-CNN
+    runs ``cascade_rcnn_loss`` under the same refusals. ``mark(name)``,
     where given, is called once the forward is enqueued (``"forward"``),
     for a timing split. ``group`` (a process group, None for one process)
     is the single-stage loss's. The standalone RPN runs ``rpn_only_loss``
@@ -155,9 +164,11 @@ def detector_loss(detector: nn.Module, batch: dict, cur_iter: int = 0,
     if isinstance(detector, FastRCNN):
         raise NotImplementedError(
             "FastRCNN has no training loss: the JAX package has none")
-    if isinstance(detector, (TwoStageDetector, RPN)):
+    if isinstance(detector, (TwoStageDetector, RPN, CascadeRCNN)):
         check_two_stage(compute_dtype, group)
-        loss = rpn_only_loss if isinstance(detector, RPN) else two_stage_loss
+        loss = (rpn_only_loss if isinstance(detector, RPN)
+                else cascade_rcnn_loss if isinstance(detector, CascadeRCNN)
+                else two_stage_loss)
         return loss(detector, batch, cur_iter=cur_iter, mark=mark)
     head = _dense_head(detector)
     variables, images = to_compute(detector, batch["images"], compute_dtype)
@@ -207,7 +218,9 @@ def detector_predict(detector: nn.Module, images: torch.Tensor,
     ``with_nms=False`` (FCOS only) the decode's candidates instead, as
     ``fcos_get_bboxes`` gives them (boxes, scores, centerness), and the NMS
     kernel is not launched. A two-stage detector runs
-    ``two_stage_predict`` (f32 only: a bf16 compute dtype raises), the
+    ``two_stage_predict`` (f32 only: a bf16 compute dtype raises), a
+    Cascade R-CNN ``cascade_rcnn_predict`` (boxes only, as in the JAX
+    package, with or without a mask head; f32 only), the
     standalone RPN ``rpn_only_predict`` (its proposals are the detections,
     all of label 0), a ``RetinaHead`` ``retina_get_bboxes`` and an
     ``SSDHead`` ``ssd_get_bboxes``. A Fast R-CNN needs its proposals:
@@ -225,12 +238,14 @@ def detector_predict(detector: nn.Module, images: torch.Tensor,
                                       "neither with_nms=False nor params")
         return rpn_only_predict(detector, images, img_shapes=img_shapes,
                                 scale_factors=scale_factors)
-    if isinstance(detector, TwoStageDetector):
+    if isinstance(detector, (TwoStageDetector, CascadeRCNN)):
         check_two_stage(compute_dtype)
         if not with_nms:
             raise NotImplementedError("detector_predict(with_nms=False) "
                                       "gives a dense head's candidates")
-        return two_stage_predict(
+        predict = (cascade_rcnn_predict if isinstance(detector, CascadeRCNN)
+                   else two_stage_predict)
+        return predict(
             detector, images, img_shapes=img_shapes,
             scale_factors=scale_factors, test_cfg=test_cfg,
             variables=None if params is None else to_compute(

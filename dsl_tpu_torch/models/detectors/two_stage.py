@@ -1,5 +1,5 @@
-"""Two-stage detectors (Faster and Mask R-CNN, FPN and C4) and the halves
-(RPN, Fast R-CNN).
+"""Two-stage detectors (Faster, Mask and Mask Scoring R-CNN, FPN and C4) and
+the halves (RPN, Fast R-CNN).
 
 Counterpart of the Faster and Mask R-CNN branches of
 ``dsl_tpu/models/detectors/two_stage.py``: ``TwoStageDetector`` /
@@ -9,15 +9,19 @@ DC5 configs), ``MaskRCNN`` (an ``FCNMaskHead`` at ``roi_head.mask_head``
 on 14x14 RoIAlign features of the same levels), ``FasterRCNNC4`` and
 ``MaskRCNNC4`` (one C4 level at stride 16, 14x14 RoIs through the res5
 ``ResLayerSharedHead`` at ``roi_head.shared_head`` before the bbox head
-and before the mask head), ``build_two_stage_detector``,
+and before the mask head), ``MaskScoringRCNN`` (Mask R-CNN with a
+``MaskIoUHead`` at ``roi_head.mask_iou_head``), ``build_two_stage_detector``,
 ``parse_rcnn_train_cfg``, ``two_stage_loss`` (with the mask branch on the
 positives of the same samples where the batch has ``gt_mask_crops``: a
 mask config whose pipeline loads no masks trains without ``loss_mask``,
-as in the JAX package), ``two_stage_predict``, ``mask_logits_for_boxes``
-and ``mask_rcnn_predict`` (the boxes and each detection's 28x28
-probabilities of its class); the standalone ``RPN``
-(``rpn_only_loss``, ``rpn_only_predict``: the proposals are the
-detections) and ``FastRCNN`` (``fast_rcnn_predict`` on proposals passed
+as in the JAX package; Mask Scoring R-CNN's ``loss_mask_iou`` on the same
+positives, its IoU head fed the mask head's probabilities without a
+stop, so that loss also trains the mask head, as in the JAX package),
+``two_stage_predict``, ``mask_logits_for_boxes`` and ``mask_rcnn_predict``
+(the boxes and each detection's 28x28 probabilities of its class; Mask
+Scoring R-CNN's too, whose IoU head rescales no score at test time, as in
+the JAX package); the standalone ``RPN`` (``rpn_only_loss``,
+``rpn_only_predict``: the proposals are the detections) and ``FastRCNN`` (``fast_rcnn_predict`` on proposals passed
 in; the JAX package has no Fast R-CNN loss, and neither has the port).
 The bbox head sits at ``roi_head.bbox_head``, mmdet's name, so an mmdet
 checkpoint loads by its own keys; the weight bridge maps the JAX
@@ -27,8 +31,9 @@ As in the JAX package, training proposals are ``rpn_proposals`` with
 ``nms_pre = num_proposals = 512`` and predict's 1000, and the loss and the
 predict run in f32 whatever the compute dtype: here a bf16 compute dtype
 raises rather than run f32 unasked. The samplers' random draws (the RPN's
-256 anchors, the RoI head's 512 RoIs per image) come from one
-``torch.Generator`` seeded by the iteration (:func:`sampler_draws`); the
+256 anchors, the RoI head's 512 RoIs per image, each Cascade R-CNN
+stage's in turn) come from one ``torch.Generator`` seeded by the
+iteration (:func:`sampler_draws`); the
 JAX package draws threefry uniforms from ``fold_in(PRNGKey(0), iter)``,
 so the two sample other anchors and RoIs from one seed (the samplers
 themselves are equal given the same draws). The two-stage loss takes no
@@ -51,6 +56,8 @@ from dsl_tpu_torch.models.dense_heads.rpn_head import (
     RPNHead, rpn_loss, rpn_proposals)
 from dsl_tpu_torch.models.roi_heads.mask_head import (
     mask_head_loss, mask_targets_from_crops, select_positive_rois)
+from dsl_tpu_torch.models.roi_heads.maskiou_head import (
+    mask_iou_loss, mask_iou_target)
 from dsl_tpu_torch.models.roi_heads.standard_roi_head import (
     Shared2FCBBoxHead, extract_roi_feats, flat_rois, roi_head_loss,
     roi_head_predict, sample_batch_rois)
@@ -58,11 +65,9 @@ from dsl_tpu_torch.models.roi_heads.standard_roi_head import (
 # the JAX package's two-stage detectors and parts not ported yet
 UNPORTED_DETECTORS = (
     "DynamicRCNN", "PISAFasterRCNN", "PISAMaskRCNN", "DetectoRS",
-    "DoubleHeadRCNN", "PointRend", "GridRCNN", "MaskScoringRCNN",
-    "TridentFasterRCNN", "CascadeRCNN", "HTC", "HybridTaskCascade", "SCNet",
-    "SparseRCNN")
-UNPORTED_PARTS = ("mask_iou_head", "grid_head", "point_head",
-                  "roi_pool_pack", "bbox_heads")
+    "DoubleHeadRCNN", "PointRend", "GridRCNN", "TridentFasterRCNN", "HTC",
+    "HybridTaskCascade", "SCNet", "SparseRCNN")
+UNPORTED_PARTS = ("grid_head", "point_head", "roi_pool_pack")
 TRAIN_PROPOSALS = 512          # two_stage_loss's num_proposals in JAX
 TEST_PROPOSALS = 1000          # two_stage_predict's
 SAMPLER_SEED = 97              # the draws' generator: this * 2**32 + iteration
@@ -71,16 +76,19 @@ FAST_RCNN_STRIDES = (4, 8, 16, 32)   # fast_rcnn_predict's RoI levels in JAX
 
 
 class StandardRoIHead(nn.Module):
-    """Holds the bbox head, and the mask head and the shared head where
-    there are, under mmdet's names (``roi_head.bbox_head``,
-    ``roi_head.mask_head``, ``roi_head.shared_head``)."""
+    """Holds the bbox head, and the mask head, the shared head and the mask
+    IoU head where there are, under mmdet's names (``roi_head.bbox_head``,
+    ``roi_head.mask_head``, ``roi_head.shared_head``,
+    ``roi_head.mask_iou_head``)."""
 
     def __init__(self, bbox_head: nn.Module, mask_head: nn.Module | None = None,
-                 shared_head: nn.Module | None = None):
+                 shared_head: nn.Module | None = None,
+                 mask_iou_head: nn.Module | None = None):
         super().__init__()
         self.bbox_head = bbox_head
         self.mask_head = mask_head
         self.shared_head = shared_head
+        self.mask_iou_head = mask_iou_head
 
 
 @DETECTORS.register
@@ -89,12 +97,14 @@ class TwoStageDetector(nn.Module):
                  rpn_head: RPNHead, bbox_head: Shared2FCBBoxHead,
                  train_cfg: Any = None, test_cfg: Any = None,
                  mask_head: nn.Module | None = None,
-                 shared_head: nn.Module | None = None):
+                 shared_head: nn.Module | None = None,
+                 mask_iou_head: nn.Module | None = None):
         super().__init__()
         self.backbone = backbone
         self.neck = neck
         self.rpn_head = rpn_head
-        self.roi_head = StandardRoIHead(bbox_head, mask_head, shared_head)
+        self.roi_head = StandardRoIHead(bbox_head, mask_head, shared_head,
+                                        mask_iou_head)
         self.train_cfg = train_cfg
         self.test_cfg = test_cfg
 
@@ -111,13 +121,17 @@ class TwoStageDetector(nn.Module):
         return self.roi_head.shared_head
 
     @property
+    def mask_iou_head(self) -> nn.Module | None:
+        return self.roi_head.mask_iou_head
+
+    @property
     def strides(self) -> tuple:
         """The RoI levels' strides (the RPN's first four)."""
         return tuple(self.rpn_head.strides)[:4]
 
     def init_weights(self, generator: torch.Generator | None = None):
         for part in (self.backbone, self.neck, self.rpn_head, self.bbox_head,
-                     self.mask_head, self.shared_head):
+                     self.mask_head, self.shared_head, self.mask_iou_head):
             if part is not None:
                 part.init_weights(generator)
 
@@ -129,17 +143,21 @@ class TwoStageDetector(nn.Module):
                 else self.shared_head(roi_feats))
 
     def forward(self, inputs: torch.Tensor, training: bool = False,
-                stage: str = "rpn"):
+                stage: str = "rpn", mask_pred: torch.Tensor | None = None):
         """``stage="rpn"``: images NCHW -> (FPN levels, (RPN scores, RPN
         deltas)); ``stage="roi"``: RoI features (N, C, s, s) -> the bbox
         head's (cls_logits, deltas); ``stage="mask"``: RoI features -> the
-        mask head's logits (N, classes, S, S). The shared head, where there
-        is one, runs before either head. One forward for all, so that
+        mask head's logits (N, classes, S, S); ``stage="mask_iou"``: mask
+        RoI features and ``mask_pred`` (N, S, S) -> the mask IoU head's
+        (N, classes). The shared head, where there is one, runs before the
+        bbox and the mask head. One forward for all, so that
         ``functional_call`` can run each with other parameters."""
         if stage == "roi":
             return self.bbox_head(self._shared(inputs))
         if stage == "mask":
             return self.mask_head(self._shared(inputs))
+        if stage == "mask_iou":
+            return self.mask_iou_head(inputs, mask_pred)
         feats = self.extract_feat(inputs)
         return feats, self.rpn_head(feats, training=training)
 
@@ -167,7 +185,14 @@ class MaskRCNNC4(FasterRCNNC4):
     positive RoIs (and of the detections)."""
 
 
-MASK_DETECTORS = ("MaskRCNN", "MaskRCNNC4")
+@DETECTORS.register
+class MaskScoringRCNN(MaskRCNN):
+    """Mask Scoring R-CNN (``mmdet/models/detectors/mask_scoring_rcnn.py``):
+    Mask R-CNN and a MaskIoU head, trained on the mask head's positives.
+    As in the JAX package, its predict is Mask R-CNN's."""
+
+
+MASK_DETECTORS = ("MaskRCNN", "MaskRCNNC4", "MaskScoringRCNN")
 C4_DETECTORS = ("FasterRCNNC4", "MaskRCNNC4")
 
 
@@ -253,7 +278,8 @@ def build_two_stage_detector(cfg: dict) -> nn.Module:
     if det_type != "RPN":
         _check_head(cfg, "bbox_head", BBOX_HEADS)
     for key, allowed in (("mask_head", ("FCNMaskHead",)),
-                         ("shared_head", ("ResLayerSharedHead",))):
+                         ("shared_head", ("ResLayerSharedHead",)),
+                         ("mask_iou_head", ("MaskIoUHead",))):
         if cfg.get(key) is not None:
             _check_head(cfg, key, allowed)
     det_cls = MODELS.get(det_type)
@@ -266,7 +292,8 @@ def build_two_stage_detector(cfg: dict) -> nn.Module:
     if det_type != "FastRCNN":
         parts["rpn_head"] = build_from_cfg(dict(cfg.pop("rpn_head")), MODELS)
     for key, types in (("mask_head", MASK_DETECTORS),
-                       ("shared_head", C4_DETECTORS)):
+                       ("shared_head", C4_DETECTORS),
+                       ("mask_iou_head", ("MaskScoringRCNN",))):
         if (cfg.get(key) is not None) != (det_type in types):
             raise TypeError(f"{det_type} with {key}={cfg.get(key)!r}: the "
                             f"{key} is {' and '.join(types)}'s")
@@ -279,16 +306,19 @@ def build_two_stage_detector(cfg: dict) -> nn.Module:
         if "shared_head" in parts:
             bbox_cfg["fc_in_channels"] = parts["shared_head"].out_channels
         parts["bbox_head"] = build_from_cfg(bbox_cfg, MODELS)
-    if cfg.get("mask_head") is not None:
-        parts["mask_head"] = build_from_cfg(dict(cfg.pop("mask_head")), MODELS)
+    for key in ("mask_head", "mask_iou_head"):
+        if cfg.get(key) is not None:
+            parts[key] = build_from_cfg(dict(cfg.pop(key)), MODELS)
     return det_cls(**parts)
 
 
-def parse_rcnn_train_cfg(train_cfg) -> dict:
-    """A reference-style ``train_cfg.rcnn`` (assigner and sampler blocks)
-    as ``sample_rois`` keywords, with the reference Faster R-CNN defaults.
-    A sampler other than the random one raises."""
-    rc = dict(dict(train_cfg or {}).get("rcnn", {}) or {})
+def parse_rcnn_train_cfg(train_cfg, stage_cfg=None) -> dict:
+    """A reference-style ``train_cfg.rcnn`` (assigner and sampler blocks),
+    or ``stage_cfg``, one Cascade R-CNN stage's entry of a list
+    ``train_cfg.rcnn``, as ``sample_rois`` keywords, with the reference
+    Faster R-CNN defaults. A sampler other than the random one raises."""
+    rc = dict(stage_cfg if stage_cfg is not None
+              else dict(train_cfg or {}).get("rcnn", {}) or {})
     asn = dict(rc.get("assigner", {}) or {})
     smp = dict(rc.get("sampler", {}) or {})
     kind = smp.get("type", "RandomSampler")
@@ -305,15 +335,17 @@ def parse_rcnn_train_cfg(train_cfg) -> dict:
 
 
 def sampler_draws(cur_iter: int, batch_size: int, num_anchors: int,
-                  num_candidates: int, device) -> dict:
+                  num_candidates: int, device, stages: int = 1) -> dict:
     """The samplers' uniforms for one step: ``rpn`` (B, anchors) then
-    ``rcnn`` (B, proposals + GT slots), from a generator on ``device``
-    seeded by the iteration, so a step's samples repeat run to run."""
+    ``rcnn``, a tuple of ``stages`` (B, proposals + GT slots) tensors (one
+    per Cascade R-CNN stage, one otherwise) drawn in stage order, from a
+    generator on ``device`` seeded by the iteration, so a step's samples
+    repeat run to run."""
     gen = torch.Generator(device=device)
     gen.manual_seed(SAMPLER_SEED * 2 ** 32 + int(cur_iter))
     rpn = torch.rand((batch_size, num_anchors), generator=gen, device=device)
-    rcnn = torch.rand((batch_size, num_candidates), generator=gen,
-                      device=device)
+    rcnn = tuple(torch.rand((batch_size, num_candidates), generator=gen,
+                            device=device) for _ in range(stages))
     return dict(rpn=rpn, rcnn=rcnn)
 
 
@@ -353,23 +385,26 @@ def two_stage_loss(detector: TwoStageDetector, batch: dict, cur_iter: int = 0,
         detector.rpn_head, scores, deltas, img_shapes=batch.get("img_shapes"),
         nms_pre=TRAIN_PROPOSALS, num_proposals=TRAIN_PROPOSALS)
     head = detector.bbox_head
-    samples = sample_batch_rois(proposals, prop_valid, batch, draws["rcnn"],
+    samples = sample_batch_rois(proposals, prop_valid, batch, draws["rcnn"][0],
                                 head.num_classes, **rcnn_kw)
     losses.update(roi_head_loss(head, lambda rf: detector(rf, stage="roi"),
                                 feats, samples, batch, detector.strides))
     if detector.mask_head is not None and "gt_mask_crops" in batch:
-        losses["loss_mask"] = mask_branch_loss(detector, feats, samples, batch,
-                                               rcnn_kw["num_samples"])
+        losses.update(mask_branch_losses(detector, feats, samples, batch,
+                                         rcnn_kw["num_samples"]))
     return _parse_losses(losses)
 
 
-def mask_branch_loss(detector: TwoStageDetector, feats, samples: dict,
-                     batch: dict, num_samples: int) -> torch.Tensor:
+def mask_branch_losses(detector: nn.Module, feats, samples: dict, batch: dict,
+                       num_samples: int) -> dict:
     """``loss_mask`` on the positives of the RoI head's samples: the first
     ``num_samples // 4`` RoIs of each image with the positives first, their
     14x14 features (through the shared head where there is one), the mask
     head, the targets from ``batch["gt_mask_crops"]`` at the logits' size,
-    and the per-class BCE over the positives."""
+    and the per-class BCE over the positives. With a mask IoU head (Mask
+    Scoring R-CNN), also ``loss_mask_iou``: the head on the same features
+    and the assigned class's probabilities (not detached), against the IoU
+    with each instance's whole mask (``gt_mask_areas``)."""
     mh = detector.mask_head
     b = samples["rois"].shape[0]
     max_pos = max(1, num_samples // 4)
@@ -385,8 +420,27 @@ def mask_branch_loss(detector: TwoStageDetector, feats, samples: dict,
         batch["gt_mask_crops"], batch["gt_bboxes"], rois.reshape(-1, 4),
         batch_idx.reshape(-1), assigned.reshape(-1),
         mask_size=logits.shape[-1])
-    return mask_head_loss(logits, targets, labels.reshape(-1),
-                          pos.to(torch.float32), mh.num_classes)
+    pos_f = pos.to(torch.float32)
+    out = dict(loss_mask=mask_head_loss(logits, targets, labels.reshape(-1),
+                                        pos_f, mh.num_classes))
+    iou_head = getattr(detector, "mask_iou_head", None)
+    if iou_head is None:
+        return out
+    probs = class_probs(logits, labels, mh.num_classes)
+    k = batch["gt_bboxes"].shape[1]
+    bidx = batch_idx.reshape(-1)
+    crop_idx = bidx * k + assigned.reshape(-1).clamp(0, k - 1)
+    crops = batch["gt_mask_crops"]
+    iou_t = mask_iou_target(
+        probs, targets, pos_f,
+        gt_full_areas=batch["gt_mask_areas"].reshape(-1)[crop_idx],
+        crops=crops.reshape(-1, *crops.shape[2:])[crop_idx],
+        gt_boxes=batch["gt_bboxes"].reshape(-1, 4)[crop_idx],
+        rois=rois.reshape(-1, 4), img_shapes=batch["img_shapes"][bidx])
+    iou_pred = detector(roi_feats, stage="mask_iou", mask_pred=probs)
+    out["loss_mask_iou"] = mask_iou_loss(iou_pred, labels.reshape(-1), iou_t,
+                                         pos_f, iou_head.num_classes)
+    return out
 
 
 @torch.no_grad()

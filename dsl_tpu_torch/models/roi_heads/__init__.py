@@ -4,3 +4,4 @@ from dsl_tpu_torch.models.roi_heads.standard_roi_head import (  # noqa: F401
 from dsl_tpu_torch.models.roi_heads.mask_head import FCNMaskHead  # noqa: F401
 from dsl_tpu_torch.models.roi_heads.shared_heads import (  # noqa: F401
     BBoxHeadAvgPool, ResLayerSharedHead)
+from dsl_tpu_torch.models.roi_heads.maskiou_head import MaskIoUHead  # noqa: F401

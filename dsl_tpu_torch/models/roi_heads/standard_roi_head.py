@@ -5,8 +5,9 @@ Counterpart of ``dsl_tpu/models/roi_heads/standard_roi_head.py`` in the
 form Faster R-CNN runs it:
 
 - ``Shared2FCBBoxHead``: two shared FCs with relu, ``fc_cls`` over C+1
-  classes and a class-specific ``fc_reg`` (mmdet's names ``shared_fcs.i``,
-  ``fc_cls``, ``fc_reg``). It reads NCHW RoI features flattened
+  classes and a class-specific ``fc_reg`` of 4C outputs, or with
+  ``reg_class_agnostic`` (the Cascade R-CNN stages) one of 4 (mmdet's
+  names ``shared_fcs.i``, ``fc_cls``, ``fc_reg``). It reads NCHW RoI features flattened
   (c, h, w), mmdet's order; the JAX package flattens NHWC (h, w, c), and
   the weight bridge permutes ``shared_fc0``'s input rows;
 - ``Shared4Conv1FCBBoxHead`` (the gn+ws configs'): four shared 3x3 convs
@@ -24,16 +25,18 @@ form Faster R-CNN runs it:
   the lower index, as JAX's stable ``argsort``). The draws are an argument
   (B, P+K), so a test can hand it the JAX package's;
 - ``roi_head_loss`` / ``rcnn_bbox_loss``: softmax CE over the valid
-  samples and L1 (or SmoothL1) on the positives' class deltas, both over
+  samples and L1 (or SmoothL1) on the positives' class deltas (the one
+  4-vector of a class-agnostic head), both over
   the valid count, and ``acc``; with ``reg_decoded_bbox`` or an IoU-family
   loss (IoU, GIoU, BoundedIoU) the loss compares the decoded boxes with
   the GT boxes instead;
 - ``roi_head_predict`` / ``rcnn_decode_nms``: softmax, the per-class
-  decode from the proposals, clip, rescale, and ``multiclass_nms`` with
-  per-class boxes (one launch of the NMS kernel for the batch).
+  decode from the proposals (a class-agnostic head's one box for every
+  class), clip, rescale, and ``multiclass_nms`` with per-class boxes (one
+  launch of the NMS kernel for the batch).
 
 Variants the JAX module also holds raise ``NotImplementedError`` naming
-themselves: the class-agnostic and the cls-only heads (Cascade, Grid),
+themselves: the cls-only head (Grid R-CNN), SABL,
 generic and deformable RoI extraction, Seesaw, Balanced L1, MSE and the
 DIoU / CIoU losses, OHEM and the instance-balanced / IoU-balanced
 samplers, soft-NMS.
@@ -69,8 +72,6 @@ class _BBoxHead(nn.Module):
                  roi_aligned: bool):
         super().__init__()
         for flag, what in ((not with_reg, "with_reg=False (Grid R-CNN)"),
-                           (reg_class_agnostic,
-                            "reg_class_agnostic=True (Cascade R-CNN)"),
                            (roi_extractor != "single",
                             f"roi_extractor={roi_extractor!r}"),
                            (dict(loss_cls or {}).get("type", "CrossEntropyLoss")
@@ -84,6 +85,7 @@ class _BBoxHead(nn.Module):
         self.num_classes = num_classes
         self.in_channels = in_channels
         self.roi_size = roi_size
+        self.reg_class_agnostic = reg_class_agnostic
         self.target_means = tuple(target_means)
         self.target_stds = tuple(target_stds)
         self.loss_cls = loss_cls
@@ -92,7 +94,8 @@ class _BBoxHead(nn.Module):
         self.bbox_coder = bbox_coder
         self.roi_aligned = roi_aligned
         self.fc_cls = nn.Linear(fc_channels, num_classes + 1)
-        self.fc_reg = nn.Linear(fc_channels, num_classes * 4)
+        self.fc_reg = nn.Linear(fc_channels,
+                                4 if reg_class_agnostic else num_classes * 4)
 
     def init_weights(self, generator: torch.Generator | None = None):
         """mmdet's: Xavier-uniform shared FCs, normal 0.01 / 0.001
@@ -130,7 +133,8 @@ class Shared2FCBBoxHead(_BBoxHead):
             nn.Linear(fc_channels, fc_channels)])
 
     def forward(self, roi_feats: torch.Tensor):
-        """roi_feats (N, C, s, s) -> (cls_logits (N, C+1), deltas (N, 4C))."""
+        """roi_feats (N, C, s, s) -> (cls_logits (N, C+1), deltas (N, 4C),
+        or (N, 4) class-agnostic)."""
         return self._fcs(roi_feats)
 
 
@@ -354,7 +358,10 @@ def flat_rois(boxes: torch.Tensor) -> torch.Tensor:
 
 def select_reg_deltas(bbox_head, reg: torch.Tensor, labels: torch.Tensor):
     """Each RoI's regressed 4-vector for its class (labels clipped to
-    [0, C-1], so a background RoI reads class C-1's)."""
+    [0, C-1], so a background RoI reads class C-1's); a class-agnostic
+    head's one 4-vector."""
+    if bbox_head.reg_class_agnostic:
+        return reg.reshape(-1, 4)
     nc = bbox_head.num_classes
     cls_idx = labels.clamp(0, nc - 1)
     return torch.gather(reg.reshape(-1, nc, 4), 1,
@@ -411,8 +418,9 @@ def rcnn_decode_nms(bbox_head, cls_logits, reg, proposals, prop_valid,
     ``img_shapes``, divide by ``scale_factors``, multiclass NMS with
     per-class boxes over the valid proposals.
 
-    cls_logits (B*P, C+1), reg (B*P, 4C), proposals (B, P, 4), prop_valid
-    (B, P). Returns dets (B, max_per_img, 5), labels, valid."""
+    cls_logits (B*P, C+1), reg (B*P, 4C) or class-agnostic (B*P, 4),
+    proposals (B, P, 4), prop_valid (B, P). Returns dets (B, max_per_img,
+    5), labels, valid."""
     ncfg = dict(nms_cfg or {})
     if ncfg.get("type", "nms") != "nms":
         raise NotImplementedError(f"rcnn nms type {ncfg.get('type')!r} is "
@@ -422,8 +430,10 @@ def rcnn_decode_nms(bbox_head, cls_logits, reg, proposals, prop_valid,
     scores = torch.softmax(cls_logits, -1)[:, :nc].reshape(b, p, nc)
     _, dec, means, stds = resolve_delta_coder(
         bbox_head.bbox_coder, bbox_head.target_means, bbox_head.target_stds)
-    boxes = dec(proposals.reshape(-1, 1, 4).expand(-1, nc, 4),
-                reg.reshape(-1, nc, 4), means, stds).reshape(b, p, nc, 4)
+    reg = (reg.reshape(-1, 1, 4).expand(-1, nc, 4)
+           if bbox_head.reg_class_agnostic else reg.reshape(-1, nc, 4))
+    boxes = dec(proposals.reshape(-1, 1, 4).expand(-1, nc, 4), reg, means,
+                stds).reshape(b, p, nc, 4)
     if img_shapes is not None:
         boxes = clip_to_shapes(boxes, img_shapes)
     if scale_factors is not None:

@@ -11,11 +11,12 @@ plain nested dicts. What changes on the way:
   ``weight, bias, running_mean, running_var``; GroupNorm ``scale,bias`` <->
   ``weight, bias``; the per-level ``Scale`` keeps its scalar ``scale``;
 - Dense kernels (in, out) <-> ``nn.Linear`` weights (out, in). The RoI
-  head's ``shared_fc0`` reads RoI features flattened (h, w, c) in the JAX
-  package (NHWC) and (c, h, w) in the port (NCHW, mmdet's order): its
-  input rows are permuted on the way, so a JAX checkpoint computes the
-  same function here and an mmdet checkpoint's ``shared_fcs.0`` loads as
-  it is;
+  head's ``shared_fc0`` (each cascade stage's, and the mask IoU head's
+  ``fc0``) reads RoI features flattened (h, w, c) in the JAX package
+  (NHWC) and (c, h, w) in the port (NCHW, mmdet's order): its input rows
+  are permuted on the way, so a JAX checkpoint computes the same function
+  here and an mmdet checkpoint's ``shared_fcs.0`` (``fcs.0``) loads as it
+  is;
 - the mask head's ``upsample``: flax's ``ConvTranspose`` kernel (kh, kw,
   in, out) without ``transpose_kernel`` gives ``out[2i + a] = x[i]
   k[1 - a]``, torch's ``ConvTranspose2d`` weight (in, out, kh, kw) gives
@@ -31,9 +32,15 @@ plain nested dicts. What changes on the way:
   ``shared_norm3`` <-> ``shared_convs.3.conv`` / ``.gn``; SSD's modules
   keep the JAX package's names, ``l2_norm`` its ``weight``); a two-stage
   or Fast R-CNN detector's top-level ``bbox_head`` <->
-  ``roi_head.bbox_head``, a Mask R-CNN's ``mask_head.conv{i}``,
-  ``upsample`` and ``conv_logits`` <-> ``roi_head.mask_head.convs.{i}.conv``,
-  ``.upsample`` and ``.conv_logits``, a C4 detector's
+  ``roi_head.bbox_head``, a Cascade R-CNN's ``bbox_heads_{i}`` <->
+  ``roi_head.bbox_head.{i}`` (told from the multi-head detector's
+  ``bbox_heads_{i}`` by the ``rpn_head`` beside them), a Mask R-CNN's
+  ``mask_head.conv{i}``, ``upsample`` and ``conv_logits`` <->
+  ``roi_head.mask_head.convs.{i}.conv``, ``.upsample`` and
+  ``.conv_logits`` (a Cascade Mask R-CNN's one mask head too), a Mask
+  Scoring R-CNN's ``mask_iou_head.conv{i}``, ``fc{i}`` and
+  ``fc_mask_iou`` <-> ``roi_head.mask_iou_head.convs.{i}.conv``,
+  ``.fcs.{i}`` and ``.fc_mask_iou``, a C4 detector's
   ``shared_head.block{i}`` <-> ``roi_head.shared_head.layer{S+1}.{i}``
   (S the stage, from the blocks' width); a multi-head
   detector's ``necks_0`` and ``bbox_heads_1`` <-> ``necks.0`` and
@@ -113,12 +120,21 @@ _TO_FLAX = [
     (r"^roi_head\.bbox_head\b", lambda m, n: "bbox_head"),
 ]
 
-ROI_FC = "roi_head.bbox_head.shared_fcs.0"
+# the FCs that read RoI features flattened: a RoI head's (a cascade
+# stage's) first shared FC and the mask IoU head's first FC
+ROI_FC = re.compile(r"^roi_head\.(bbox_head(\.\d+)?\.shared_fcs|"
+                    r"mask_iou_head\.fcs)\.0$")
 MASK_UPSAMPLE = "roi_head.mask_head.upsample"
 _ROI_PARTS_TO_FLAX = [
+    (r"^roi_head\.bbox_head\.(\d+)\b", lambda m, n: f"bbox_heads_{m[1]}"),
     (r"^roi_head\.mask_head\.convs\.(\d+)\.conv\b",
      lambda m, n: f"mask_head.conv{m[1]}"),
     (r"^roi_head\.mask_head\b", lambda m, n: "mask_head"),
+    (r"^roi_head\.mask_iou_head\.convs\.(\d+)\.conv\b",
+     lambda m, n: f"mask_iou_head.conv{m[1]}"),
+    (r"^roi_head\.mask_iou_head\.fcs\.(\d+)\b",
+     lambda m, n: f"mask_iou_head.fc{m[1]}"),
+    (r"^roi_head\.mask_iou_head\b", lambda m, n: "mask_iou_head"),
     (r"^roi_head\.shared_head\.layer\d+\.(\d+)\b",
      lambda m, n: f"shared_head.block{m[1]}"),
 ]
@@ -130,10 +146,21 @@ def _roi_parts_to_torch(params: dict) -> list:
     if "fc_cls" in params.get("bbox_head", {}):
         # a two-stage or Fast R-CNN detector's RoI head
         rules.append((r"^bbox_head\b", lambda m, n: "roi_head.bbox_head"))
+    if "rpn_head" in params:
+        # a cascade's stages (a multi-head detector's bbox_heads_{i} have
+        # no RPN beside them)
+        rules.append((r"^bbox_heads_(\d+)\b",
+                      lambda m, n: f"roi_head.bbox_head.{m[1]}"))
     if "mask_head" in params:
         rules += [(r"^mask_head\.conv(\d+)\b",
                    lambda m, n: f"roi_head.mask_head.convs.{m[1]}.conv"),
                   (r"^mask_head\b", lambda m, n: "roi_head.mask_head")]
+    if "mask_iou_head" in params:
+        rules += [(r"^mask_iou_head\.conv(\d+)\b",
+                   lambda m, n: f"roi_head.mask_iou_head.convs.{m[1]}.conv"),
+                  (r"^mask_iou_head\.fc(\d+)\b",
+                   lambda m, n: f"roi_head.mask_iou_head.fcs.{m[1]}"),
+                  (r"^mask_iou_head\b", lambda m, n: "roi_head.mask_iou_head")]
     if "shared_head" in params:
         width = np.asarray(params["shared_head"]["block0"]["conv1"]["kernel"]
                            ).shape[-1]
@@ -144,12 +171,12 @@ def _roi_parts_to_torch(params: dict) -> list:
 
 
 def _roi_rows(n_in: int, channels: int, to_chw: bool) -> np.ndarray:
-    """The permutation of ``shared_fc0``'s n_in = channels * s * s input
-    rows from the JAX package's (h, w, c) order to the port's (c, h, w)
-    (or back)."""
+    """The permutation of a RoI FC's (``ROI_FC``) n_in = channels * s * s
+    input rows from the JAX package's (h, w, c) order to the port's
+    (c, h, w) (or back)."""
     s = int(round((n_in // channels) ** 0.5))
     if channels * s * s != n_in:
-        raise ValueError(f"shared_fc0 has {n_in} inputs, not {channels} "
+        raise ValueError(f"a RoI FC has {n_in} inputs, not {channels} "
                          f"channels times a square RoI")
     hwc = np.arange(n_in).reshape(s, s, channels)
     chw = hwc.transpose(2, 0, 1).reshape(-1)
@@ -188,8 +215,9 @@ def flax_to_state_dict(variables: dict) -> dict[str, torch.Tensor]:
                 name = {"mean": "running_mean", "var": "running_var"}[leaf]
             elif leaf == "kernel" and arr.ndim == 2:
                 name = "weight"
-                if module == ROI_FC:
-                    arr = arr[_roi_rows(arr.shape[0], _roi_channels(params),
+                if ROI_FC.match(module):
+                    arr = arr[_roi_rows(arr.shape[0],
+                                        _roi_channels(params, path),
                                         to_chw=True)]
                 arr = arr.T
             elif leaf == "kernel" and module == MASK_UPSAMPLE:
@@ -207,11 +235,15 @@ def flax_to_state_dict(variables: dict) -> dict[str, torch.Tensor]:
     return sd
 
 
-def _roi_channels(params: dict) -> int:
-    """The channels of the features ``shared_fc0`` reads: the last shared
-    conv's where the head has convs, else the RoI features' (the FPN's
-    output width, or the single level's, which the RPN reads)."""
-    head = params["bbox_head"]
+def _roi_channels(params: dict, path: tuple) -> int:
+    """The channels of the features the RoI FC at ``path`` (flax names)
+    reads: the mask IoU head's last conv's; the last shared conv's where
+    the bbox head has convs, else the RoI features' (the FPN's output
+    width, or the single level's, which the RPN reads)."""
+    head = params[path[0]]
+    if path[0] == "mask_iou_head":
+        last = max(int(k[4:]) for k in head if k.startswith("conv"))
+        return int(np.asarray(head[f"conv{last}"]["kernel"]).shape[-1])
     if "shared_conv3" in head:
         return int(np.asarray(head["shared_conv3"]["kernel"]).shape[-1])
     if "fpn_conv0" in params.get("neck", {}):
@@ -219,9 +251,16 @@ def _roi_channels(params: dict) -> int:
     return int(np.asarray(params["rpn_head"]["rpn_conv"]["kernel"]).shape[-2])
 
 
-def _roi_channels_torch(state_dict: dict) -> int:
-    """:func:`_roi_channels` on the port's names."""
-    for key, dim in (("roi_head.bbox_head.shared_convs.3.conv.weight", 0),
+def _roi_channels_torch(state_dict: dict, module: str) -> int:
+    """:func:`_roi_channels` on the port's names, for the RoI FC
+    ``module``."""
+    head = module.rsplit(".", 2)[0]
+    if head == "roi_head.mask_iou_head":
+        convs = [k for k in state_dict
+                 if re.match(rf"^{head}\.convs\.\d+\.conv\.weight$", k)]
+        last = max(convs, key=lambda k: int(k.split(".")[3]))
+        return int(state_dict[last].shape[0])
+    for key, dim in ((f"{head}.shared_convs.3.conv.weight", 0),
                      ("neck.fpn_convs.0.conv.weight", 0),
                      ("rpn_head.rpn_conv.weight", 1)):
         if key in state_dict:
@@ -250,9 +289,9 @@ def state_dict_to_flax(state_dict: dict) -> dict:
             leaf, arr = "kernel", np.transpose(arr, (2, 3, 1, 0))
         elif name == "weight" and arr.ndim == 2:
             leaf, arr = "kernel", arr.T
-            if module == ROI_FC:
+            if ROI_FC.match(module):
                 arr = arr[_roi_rows(arr.shape[0],
-                                    _roi_channels_torch(state_dict),
+                                    _roi_channels_torch(state_dict, module),
                                     to_chw=False)]
         elif name == "weight" and not module.endswith("l2_norm"):
             leaf = "scale"

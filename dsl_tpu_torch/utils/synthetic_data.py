@@ -39,7 +39,11 @@ narrow form; the inputs 128x128);
 :func:`voc_detector_config` points one of those VOC configs (whose data
 blocks name no pipeline) at a :func:`make_voc_dir` directory with the
 config's own train and test pipelines. ``TINY_MASK_RCNN`` is
-``TINY_FASTER_RCNN`` with a 2-conv, 32-channel ``FCNMaskHead``.
+``TINY_FASTER_RCNN`` with a 2-conv, 32-channel ``FCNMaskHead``;
+``TINY_MASK_SCORING_RCNN`` adds a 32-channel ``MaskIoUHead``;
+``TINY_CASCADE_RCNN`` has ``TINY_FASTER_RCNN``'s parts with three bbox
+heads at the cascade's stds, ``TINY_CASCADE_MASK_RCNN`` also
+``TINY_MASK_RCNN``'s mask head.
 
 :func:`make_coco_instance_dir` writes a COCO instance set (``train.json``,
 ``val.json`` and the images beside them) whose annotations carry every
@@ -352,6 +356,19 @@ TINY_MASK_RCNN = dict(
     mask_head=dict(type="FCNMaskHead", num_classes=20, in_channels=32,
                    conv_out_channels=32, num_convs=2, roi_size=14),
     test_cfg=dict(rcnn=dict(_TINY_TEST_CFG["rcnn"], mask_thr_binary=0.5)))
+TINY_MASK_SCORING_RCNN = dict(
+    TINY_MASK_RCNN, type="MaskScoringRCNN",
+    mask_iou_head=dict(type="MaskIoUHead", num_classes=20, in_channels=32,
+                       conv_out_channels=32, num_convs=4, fc_out_channels=64))
+TINY_CASCADE_RCNN = dict(
+    {k: v for k, v in TINY_FASTER_RCNN.items() if k != "bbox_head"},
+    type="CascadeRCNN",
+    bbox_heads=[dict(TINY_FASTER_RCNN["bbox_head"], target_stds=stds)
+                for stds in ([0.1, 0.1, 0.2, 0.2], [0.05, 0.05, 0.1, 0.1],
+                             [0.033, 0.033, 0.067, 0.067])])
+TINY_CASCADE_MASK_RCNN = dict(TINY_CASCADE_RCNN,
+                              mask_head=TINY_MASK_RCNN["mask_head"],
+                              test_cfg=TINY_MASK_RCNN["test_cfg"])
 TINY_SSD = dict(
     type="SSD",
     backbone=dict(type="ResNet", depth=18, out_indices=(2, 3),

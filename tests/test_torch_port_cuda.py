@@ -71,6 +71,13 @@ dependencies:
   targets equal but at ties at 0.5; the tiny Mask R-CNN's mask logits on
   the card agree with the CPU's (1e-4 of the largest magnitude) and its
   predict launches the NMS kernel twice;
+- the tiny Cascade Mask R-CNN's stage heads, mask head and predict on the
+  card agree with the CPU's (heads 1e-4 of the largest magnitude; the
+  dets as sets per image) with two NMS launches; the tiny Cascade Mask
+  R-CNN's and Mask Scoring R-CNN's losses on the card, the samplers'
+  draws made on the host, agree with the CPU's within 1e-4 relative (a
+  stage's sample may move only where a box crosses its IoU threshold by
+  the devices' rounding: 1e-3 for the later stages) with one launch;
 - ``train_detector`` and ``single_device_test`` refuse to start without
   CUDA (these run everywhere).
 """
@@ -814,3 +821,104 @@ def test_tiny_mask_rcnn_predict_on_the_card_matches_the_cpu(card):
     want = outs["cpu"]
     torch.testing.assert_close(outs["cuda"], want, rtol=0,
                                atol=1e-4 * max(1.0, float(want.abs().max())))
+
+
+def _seeded(cfg: dict):
+    import copy
+
+    from dsl_tpu_torch.utils.random_weights import fill_variables
+
+    det = build_detector(copy.deepcopy(cfg))
+    det.load_state_dict(flax_to_state_dict(fill_variables(
+        state_dict_to_flax(det.state_dict()))))
+    return det
+
+
+@pytest.mark.cuda
+def test_tiny_cascade_predict_on_the_card_matches_the_cpu(card):
+    import copy
+
+    from dsl_tpu_torch.models import detector_predict
+    from dsl_tpu_torch.utils.synthetic_data import TINY_CASCADE_MASK_RCNN
+
+    det = _seeded(TINY_CASCADE_MASK_RCNN).eval()
+    x = torch.from_numpy(np.random.RandomState(7).randn(
+        2, 3, 64, 96).astype(np.float32))
+    rois = torch.from_numpy(np.random.RandomState(8).randn(
+        9, 32, 14, 14).astype(np.float32))
+    outs, launches = {}, {}
+    for dev in (card, "cpu"):
+        d = copy.deepcopy(det).to(dev)
+        with torch.no_grad():
+            heads = [d(rois[..., :7, :7].to(dev), stage="roi", head=i)
+                     for i in range(3)]
+            heads.append(d(rois.to(dev), stage="mask"))
+        before = nms_keep.launches
+        dets = detector_predict(d, x.to(dev), device=dev)
+        launches[str(dev)] = nms_keep.launches - before
+        outs[str(dev)] = ([t.cpu() for h in heads for t in (
+            h if isinstance(h, tuple) else (h,))], [t.cpu() for t in dets])
+    assert launches["cuda"] == 2 and launches["cpu"] == 0
+    (got_h, got), (want_h, want) = outs["cuda"], outs["cpu"]
+    for g, w in zip(got_h, want_h):
+        torch.testing.assert_close(g, w, rtol=0,
+                                   atol=1e-4 * max(1.0, float(w.abs().max())))
+    assert torch.equal(got[2], want[2]) and int(got[2].sum()) > 50
+    for i in range(x.shape[0]):
+        rows = []
+        for d, lab, v in (got, want):
+            d, lab = d[i][v[i]].numpy(), lab[i][v[i]].numpy()
+            order = np.lexsort((np.round(d[:, 1], 1), np.round(d[:, 0], 1), lab))
+            rows.append((d[order], lab[order]))
+        np.testing.assert_array_equal(rows[0][1], rows[1][1])
+        np.testing.assert_allclose(rows[0][0], rows[1][0], rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["cascade_mask", "mask_scoring"])
+def test_tiny_two_stage_loss_on_the_card_matches_the_cpu(card, which,
+                                                         monkeypatch):
+    import copy
+
+    from dsl_tpu_torch.models.detectors import detector_loss
+    from dsl_tpu_torch.models.detectors import two_stage
+    from dsl_tpu_torch.utils.synthetic_data import (
+        TINY_CASCADE_MASK_RCNN, TINY_MASK_SCORING_RCNN)
+
+    cfg = (TINY_CASCADE_MASK_RCNN if which == "cascade_mask"
+           else TINY_MASK_SCORING_RCNN)
+    det = _seeded(cfg).train()
+    rng = np.random.RandomState(9)
+    b, k, m = 2, 4, 112
+    gtb = np.zeros((b, k, 4), np.float32)
+    for i in range(b):
+        for j in range(k):
+            x1, y1 = rng.uniform(0, 60), rng.uniform(0, 30)
+            gtb[i, j] = (x1, y1, x1 + rng.uniform(8, 36), y1 + rng.uniform(8, 30))
+    crops = (rng.rand(b, k, m, m) < 0.5).astype(np.uint8)
+    batch = dict(
+        images=rng.randn(b, 64, 96, 3).astype(np.float32), gt_bboxes=gtb,
+        gt_labels=rng.randint(0, 20, (b, k)), gt_valid=np.ones((b, k), bool),
+        gt_mask_crops=crops, img_shapes=np.tile(np.float32([64, 96]), (b, 1)),
+        gt_mask_areas=(crops.reshape(b, k, -1).mean(-1) * (gtb[..., 2] - gtb[..., 0])
+                       * (gtb[..., 3] - gtb[..., 1])).astype(np.float32))
+    real = two_stage.sampler_draws
+
+    def on_host(cur_iter, bs, a, n, device, stages=1):
+        draws = real(cur_iter, bs, a, n, "cpu", stages=stages)
+        return dict(rpn=draws["rpn"].to(device),
+                    rcnn=tuple(x.to(device) for x in draws["rcnn"]))
+
+    monkeypatch.setattr(two_stage, "sampler_draws", on_host)
+    got = {}
+    for dev in (card, "cpu"):
+        before = nms_keep.launches
+        _, log_vars = detector_loss(copy.deepcopy(det).to(dev),
+                                    to_torch(batch, dev), cur_iter=4)
+        got[str(dev)] = ({key: float(v) for key, v in log_vars.items()},
+                         nms_keep.launches - before)
+    (on_card, n_card), (on_cpu, n_cpu) = got["cuda"], got["cpu"]
+    assert n_card == 1 and n_cpu == 0 and set(on_card) == set(on_cpu)
+    for key, want in on_cpu.items():
+        rtol = 1e-3 if key.startswith(("s1.", "s2.")) else 1e-4
+        assert abs(on_card[key] - want) <= rtol * max(abs(want), 1e-3), key

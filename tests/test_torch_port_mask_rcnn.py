@@ -11,7 +11,7 @@ C4, a 2-block shared head of stage 1), f32:
 - ``select_positive_rois``: equal; ``mask_targets_from_crops`` on JAX's
   inputs: equal but at pixels whose JAX RoIAlign value lies within
   ``TIE`` of 0.5 (the two RoIAligns sum in other orders; counted);
-  ``loss_mask`` (``two_stage.mask_branch_loss``) given the same samples
+  ``loss_mask`` (``two_stage.mask_branch_losses``) given the same samples
   (the port's samplers draw otherwise than JAX's, so both packages are
   handed one sampler output) and the same features: 1e-5 relative, FPN
   and C4;
@@ -304,10 +304,8 @@ def test_loss_mask_matches_jax_given_its_samples(which, pair, pair_c4,
     def jax_targets(crops, gtb, rois, bidx, assigned, mask_size):
         own = mask_head.mask_targets_from_crops(crops, gtb, rois, bidx,
                                                 assigned, mask_size)
-        want = t(j_mask.mask_targets_from_crops(
-            *(jnp.asarray(a.numpy()) for a in (crops, gtb, rois, bidx,
-                                               assigned)),
-            mask_size=mask_size))
+        want = U.jax_mask_targets(crops, gtb, rois, bidx, assigned,
+                                  mask_size)
         flipped.append(int((own != want).sum()))
         return want
 
@@ -322,8 +320,9 @@ def test_loss_mask_matches_jax_given_its_samples(which, pair, pair_c4,
         var, jfeats, {k: jnp.asarray(v) for k, v in samples.items()}, jb)
     pb = {k: t(v, torch.int64 if k == "gt_labels" else None)
           for k, v in batch.items()}
-    got = two_stage.mask_branch_loss(
-        port, pfeats, {k: t(v) for k, v in samples.items()}, pb, num_samples)
+    got = two_stage.mask_branch_losses(
+        port, pfeats, {k: t(v) for k, v in samples.items()}, pb,
+        num_samples)["loss_mask"]
     assert abs(float(got.detach()) - float(want)) <= 1e-5 * abs(float(want))
     assert int(samples["is_pos"].sum()) > 4
     print(f"loss_mask ({which}): {flipped[0]} target pixels differ (ties)")
@@ -476,9 +475,9 @@ def test_unported_mask_parts_raise():
             TINY_MASK_RCNN["mask_head"],
             predictor_cfg=dict(type="NormedConv2d"))))
     for change, match in ((dict(type="PointRend"), "PointRend"),
-                          (dict(type="MaskScoringRCNN"), "MaskScoringRCNN"),
-                          (dict(mask_iou_head=dict(type="MaskIoUHead")),
-                           "mask_iou_head")):
+                          (dict(type="PISAMaskRCNN"), "PISAMaskRCNN"),
+                          (dict(grid_head=dict(type="GridHead")),
+                           "grid_head")):
         with pytest.raises(NotImplementedError, match=match):
             build_detector({**copy.deepcopy(TINY_MASK_RCNN), **change})
     with pytest.raises(TypeError, match="mask_head"):

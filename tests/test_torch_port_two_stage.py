@@ -530,11 +530,11 @@ def test_the_configs_build(config, kind, params):
 
 def test_unported_two_stage_variants_raise():
     for change, match in (
-            (dict(type="MaskScoringRCNN"), "MaskScoringRCNN"),
+            (dict(type="SCNet"), "SCNet"),
             (dict(type="GridRCNN"), "GridRCNN"),
-            (dict(mask_iou_head=dict(type="MaskIoUHead")), "mask_iou_head"),
-            (dict(bbox_head=dict(TINY_FASTER_RCNN["bbox_head"],
-                                 reg_class_agnostic=True)), "reg_class_agnostic"),
+            (dict(point_head=dict(type="MaskPointHead")), "point_head"),
+            (dict(bbox_head=dict(type="SABLHead", num_classes=20)),
+             "SABLHead"),
             (dict(bbox_head=dict(TINY_FASTER_RCNN["bbox_head"],
                                  loss_bbox=dict(type="CIoULoss"))), "CIoULoss"),
             (dict(bbox_head=dict(TINY_FASTER_RCNN["bbox_head"],
@@ -566,7 +566,7 @@ def jax_draws(cur_iter: int, b: int, num_anchors: int, num_cand: int) -> dict:
     rpn = jax.random.uniform(jax.random.fold_in(rng, 97), (b, num_anchors))
     rcnn = jnp.stack([jax.random.uniform(k, (num_cand,))
                       for k in jax.random.split(rng, b)])
-    return dict(rpn=t(rpn), rcnn=t(rcnn))
+    return dict(rpn=t(rpn), rcnn=(t(rcnn),))
 
 
 def sgd_step_against_jax(cfg: dict, batch: dict, monkeypatch=None,
@@ -637,7 +637,8 @@ def test_sampler_draws_repeat_per_iteration():
     a = two_stage.sampler_draws(3, 2, 100, 20, "cpu")
     b = two_stage.sampler_draws(3, 2, 100, 20, "cpu")
     c = two_stage.sampler_draws(4, 2, 100, 20, "cpu")
-    assert torch.equal(a["rpn"], b["rpn"]) and torch.equal(a["rcnn"], b["rcnn"])
+    assert torch.equal(a["rpn"], b["rpn"]) and len(a["rcnn"]) == 1
+    assert torch.equal(a["rcnn"][0], b["rcnn"][0])
     assert not torch.equal(a["rpn"], c["rpn"])
     assert float(a["rpn"].min()) >= 0 and float(a["rpn"].max()) < 1
 

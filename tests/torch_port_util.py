@@ -51,16 +51,44 @@ def _plain(tree):
     return tree
 
 
+_SHAPES: dict = {}
+_JAX_MASK_TARGETS: dict = {}
+
+
 def jax_detector_and_variables(cfg: dict, seed: int = 0, hw=(64, 96)):
+    """The JAX detector of ``cfg`` and its variables filled from ``seed``;
+    the variables' shapes traced once per config and input size."""
     import jax
     import jax.numpy as jnp
 
     from dsl_tpu.models import build_detector
 
     det = build_detector(copy.deepcopy(cfg))
-    shapes = jax.eval_shape(det.init, jax.random.PRNGKey(0),
-                            jnp.zeros((1, *hw, 3), jnp.float32))
-    return det, fill_variables(_plain(shapes), seed)
+    key = (repr(cfg), tuple(hw))
+    if key not in _SHAPES:
+        _SHAPES[key] = _plain(jax.eval_shape(
+            det.init, jax.random.PRNGKey(0), jnp.zeros((1, *hw, 3), jnp.float32)))
+    return det, fill_variables(_SHAPES[key], seed)
+
+
+def jax_mask_targets(crops, gt_bboxes, rois, batch_idx, assigned_gt,
+                     mask_size: int) -> torch.Tensor:
+    """JAX's ``mask_targets_from_crops`` on the port's tensors, under one
+    ``jax.jit`` per mask size shared by the files that hand JAX's targets
+    to the port's mask loss (eager, each call compiles its ops anew)."""
+    import jax
+    import jax.numpy as jnp
+
+    from dsl_tpu.models.roi_heads import mask_head
+
+    if mask_size not in _JAX_MASK_TARGETS:
+        _JAX_MASK_TARGETS[mask_size] = jax.jit(
+            lambda *a: mask_head.mask_targets_from_crops(*a,
+                                                         mask_size=mask_size))
+    out = _JAX_MASK_TARGETS[mask_size](*(
+        jnp.asarray(a.numpy()) for a in (crops, gt_bboxes, rois, batch_idx,
+                                         assigned_gt)))
+    return torch.from_numpy(np.array(out))
 
 
 def port_detector(cfg: dict, variables: dict):
