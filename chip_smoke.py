@@ -26,7 +26,7 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    full N = 2000), each predict must launch the NMS kernel once, and the
    keeps of the real NMS inputs must equal the plain version's. The f32 head
    outputs must agree with a CPU run of the same model on a small input.
-5. timing: predict ms (median, min and max of 20) and img/s in f32 and
+5. timing: predict ms (median, min and max of ``PREDICT_TIMED``) and img/s in f32 and
    bf16, one ``torch.profiler`` trace of each for the device's idle share
    and its largest kernels. Then the NMS kernel on four inputs (the
    recorded f32 predict input at B=8, the recorded request input at B=1,
@@ -42,14 +42,16 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    ``create_train_state``, ``make_train_step``) on one seeded batch of 2
    labeled and 2 unlabeled images at 800x1344 plus the half-res copy of the
    last one (the si pair), B=5. With every kernel count at 0: 3 warm-up and
-   20 timed steps in f32, the same from the same seeded state in bf16, then
+   ``TRAIN_STEPS`` timed steps in f32, the same from the same seeded state in bf16, then
    one ``make_eval_step(use_teacher=True)`` on the batch's images; then the
-   counts are read. Losses and ``grad_norm`` must be finite, ``step`` 23,
+   counts are read. Losses and ``grad_norm`` must be finite, ``step``
+   ``TRAIN_WARMUP + TRAIN_STEPS``,
    the frozen parameters bit-identical to their start, the teacher after
    the first step equal to ``ema_update`` of its start and the student;
    cuDNN held to its deterministic algorithms (as ``train_detector``
    holds it), a second f32 run from the same seeded state must repeat the
-   first bit for bit (every step's losses, every parameter after step 23);
+   first bit for bit (every step's losses, every parameter after the last
+   step);
    the first bf16 step's losses and ``grad_norm`` (si-soft aside) must part
    from the first f32 step's by more than 1e-5 and at most 2e-2 relative
    (bf16 ran, and near f32); the steps must launch the NMS kernel 0 times
@@ -65,7 +67,7 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    images, peak device memory, one ``torch.profiler`` trace of a step
    (device busy, idle share, the 10 largest kernels) and a split of one
    step by CUDA events into forward, targets + loss, backward, clip + SGD
-   and EMA; then what determinism costs: 4-step medians with
+   and EMA; then what determinism costs: ``DET_COST_STEPS``-step medians with
    ``cudnn.deterministic`` on and off, in turns.
 
 8. decode: nvJPEG (``data/image_io.read_image`` on the card) on each JPEG
@@ -100,7 +102,7 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    ``RandomAugmentBBox_Fast(aug_type='affine')``,
    ``RandomAugmentBBox(aug_type='strong')`` and ``UBAug`` each run on the
    card and on the CPU from the same seeds: images bit-identical, boxes
-   equal. Per transform: median ms per image over 20 (host clock to a
+   equal. Per transform: median ms per image over ``STRONG_TIMED`` (host clock to a
    synchronize), kernels per image (one ``torch.profiler`` trace), and host
    syncs per image (``torch.cuda.set_sync_debug_mode``); any sync fails.
 10. semi loop at full width: ``train_detector`` on the flagship config as
@@ -150,20 +152,21 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
 13. DSL's first step: ``python -m dsl_tpu_torch.tools.train`` on
    ``configs/fcos_semi/r50_caffe_mslonger_tricks_0.Xdata.py`` (caffe
    ResNet-50 FCOS at full width, 800x1344, no unlabeled set) in a
-   subprocess, overriding the schedule (2 epochs, evaluation after each,
+   subprocess, overriding the schedule (``BASELINE_EPOCHS`` epochs,
+   evaluation after each,
    a log line per step), the data paths (a synthetic semicoco directory of
    8 labeled, 8 unlabeled and 12 val images) and the weights (a seeded
    caffe ResNet-50 as the ``pretrained`` file in mmdet's layout, a seeded
    neck and head as ``load_from``): losses finite, the student's
    ``bbox_mAP`` finite in [0, 1] after each epoch, NMS once per evaluation
-   batch; ``python -m dsl_tpu_torch.tools.test ... --format-only --ema``
+   batch; the test CLI's ``--format-only --ema`` (:func:`run_test_cli`)
    on the unlabeled split (NMS once per batch) writes the bbox json (the
    EMA teacher's: 8 steps from seeded weights leave the student's scores
    under ``score_thr``);
    ``tools/generate_unlabel_annos_coco.py`` turns it into label files;
-   the port's ``SemiCOCODataset`` reads each one's boxes. The subprocesses
-   report their NMS launches. Then the baseline's step on its own
-   loader's batch, timed in this process (median of 20), its img/s and
+   the port's ``SemiCOCODataset`` reads each one's boxes. The subprocess
+   reports its NMS launches. Then the baseline's step on its own
+   loader's batch, timed in this process (median of ``BASELINE_TIMED``), its img/s and
    the phase's wall time.
 14. DSL's VOC workflow at full width (``configs/fcos_semi/voc/
    RLA_r50_fcos_semi_voc.py``, 20 classes), the NMS count at 0 before each
@@ -194,11 +197,13 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    ``python -m torch.distributed.run --standalone --nproc_per_node=1``
    with ``--launcher pytorch`` (NCCL, one rank): its last checkpoint
    bit-identical to phase 13's, and the test CLI under the same launcher
-   printing phase 13's ``bbox_mAP``. One flagship step at full width over
+   printing phase 13's ``bbox_mAP``. Then, in one spawn of the ranks
+   (``phase_dist_ranks``): one flagship step at full width and RLA depth
+   [1, 1, 1, 1] (``DIST_WIDTH``) over
    ``DIST_RANKS`` gloo ranks sharing the card (NCCL refuses two ranks on
    one card), each on its shard of a seeded global batch (2 labeled, 2
    unlabeled, the half-res copy, 800x1344), against one process stepping
-   the global batch (B=10) in a subprocess freed before the ranks start:
+   the global batch (B=10) in this process, freed before the ranks start:
    losses and ``grad_norm`` within ``DIST_STEP_REL``, updates banded as
    phase 6, both ranks' parameters and teachers bit-identical; the step's
    ms per rank, gloo-staged (not a measure of NCCL). The flagship's semi
@@ -252,7 +257,8 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    three inputs as in phase 5 (the kernels line's ``paths``). Then the
    train entry point on each at B=2 (f32, cuDNN deterministic): losses
    finite with every key, 1 NMS launch per Faster R-CNN step and 0 per
-   RetinaNet step, step ms (median of 10 after 3 warm-ups); RoIAlign
+   RetinaNet step, step ms (median of ``ANCHOR_STEPS`` after ``ANCHOR_WARMUP``
+   warm-ups); RoIAlign
    forward and backward ms at the step's shapes beside their bound; one
    step card vs CPU at 2x128x192 (losses 1e-4, ``grad_norm`` 1e-3,
    updates banded); two Faster R-CNN runs of 4 steps bit-identical. Then
@@ -295,11 +301,11 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    ``mask_rcnn_predict`` at B=8, 800x1344, f32: 2 NMS launches (N = 4819
    and 2000) whose keeps equal the plain version's, dets finite (8, 100, 5)
    with detections in every image, the (8, 100, 28, 28) probabilities in
-   [0, 1], the median of 5 predicts, the paste and RLE of one image's
+   [0, 1], the median of ``P18_TIMED`` predicts, the paste and RLE of one image's
    masks (ms per image), the mask head's logits card vs CPU within 1e-3.
    The train entry point at B=2 on seeded polygons' ``gt_mask_crops``
    (cuDNN deterministic): ``loss_mask`` finite, 1 NMS launch per step, the
-   median of 3 steps after a warm-up; one step card vs CPU at 2x128x192
+   median of ``P18_STEPS`` steps after a warm-up; one step card vs CPU at 2x128x192
    (losses 1e-4, ``grad_norm`` 1e-3, updates banded); two runs of 3 steps
    bit-identical. The train pipeline of
    ``mask_rcnn_r50_caffe_fpn_mstrain_1x_coco.py`` (masks loaded, six
@@ -327,14 +333,14 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    equal to the plain version's, dets finite (8, 100, 5) with detections in
    every image; the cascades give boxes only, as in the JAX package, Mask
    Scoring R-CNN also its (8, 100, 28, 28) probabilities in [0, 1]), the
-   median of 5 predicts and img/s, then one more predict's peak memory and
+   median of ``P18_TIMED`` predicts and img/s, then one more predict's peak memory and
    its ``torch.profiler`` trace, with RoIAlign's share of the kernels'
    time and the idle share (``roi_align_share``: retaken where the trace
    lost records); each stage's outputs card vs CPU within 1e-3
    (``cascade_probe``); the train entry point at B=2 on seeded polygons'
    crops (cuDNN deterministic): every stage's ``loss_cls``, ``loss_bbox``
    and ``loss_mask`` and Mask Scoring's ``loss_mask_iou`` finite, 1 NMS
-   launch per step, the median of 3 steps after a warm-up, their peak
+   launch per step, the median of ``P18_STEPS`` steps after a warm-up, their peak
    memory and one more step's trace as the predict's; for the two with
    masks one step card vs CPU at 2x128x192 (as phase 17 bands it, both
    legs on one leg's mask targets, every target pixel that differs
@@ -346,6 +352,37 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    [0, 1], 1 NMS launch per step and 2 per predicted batch. The NMS kernel
    timed on the cascade's RoI input (``cascade_b8`` in the kernels line's
    ``paths``).
+21. HTC, SCNet and DetectoRS at full width, the NMS count at 0 before
+   each part and read after it, through ``phase_variants``:
+   ``configs/htc/htc_r50_fpn_1x_coco.py`` (three ``HTCMaskHead``s with the
+   mask information flow, the ``FusedSemanticHead``),
+   ``configs/scnet/scnet_r50_fpn_1x_coco.py`` (class-specific stage heads,
+   the semantic, global-context and feature-relay heads) and
+   ``configs/detectors/detectors_htc_r50_1x_coco.py`` (HTC on two SAC
+   ResNet-50s and the RFP neck) uncut with seeded weights (every stage's
+   classifier seeded as phase 17's): one counted predict at B=8, 800x1344,
+   f32 (2 NMS launches, N = 4819 and 2000, keeps equal to the plain
+   version's, dets finite (8, 100, 5) with detections in every image, the
+   (8, 100, 28, 28) mask probabilities in [0, 1]), the median of ``HTC_TIMED`` (5)
+   predicts, one more predict's peak memory and trace (RoIAlign's share,
+   the semantic RoIAligns counted in it, and the idle share); the levels
+   (after the RFP neck), the semantic and global-context heads, each
+   stage's box head and each mask head card vs CPU within 1e-3
+   (``htc_probe``); steps at B=2 on seeded polygons' crops (cuDNN
+   deterministic): every loss finite (``loss_semantic_seg``, the stages'
+   ``loss_mask``, ``loss_glbctx``), 1 NMS launch per step, the median of ``HTC_STEPS`` (3)
+   after a warm-up, the peak memory and a traced step; for HTC one step
+   card vs CPU at 2x128x192 (both legs on one leg's mask targets) and two
+   runs of 3 steps bit-identical. Then HTC through ``train_detector`` with
+   ``configs/_base_/datasets/coco_instance_semantic.py``'s train pipeline
+   (masks, ``with_seg``, ``SegRescale``) for one epoch of phase 19's COCO
+   instance set and the test CLI's ``--eval bbox``: ``bbox_mAP`` in
+   [0, 1]. The NMS kernel timed on HTC's RoI input (``htc_b8``).
+
+Each phase logs its wall time (``[phase N] ... s``). The test CLI runs
+in this process (:func:`run_test_cli`), but under a launcher (phase 15);
+the train CLI runs as a process (phases 13 and 15), as a user launches
+it.
 
 f32 runs with TF32 off (``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32`` False): cuDNN convolutions would
@@ -380,8 +417,9 @@ AREA_OPS = 5
 NMS_PASSES = {"mask": "nms_mask_kernel", "scan": "nms_scan_kernel"}
 NMS_TRACE_REPS = 100          # nms_keep calls in one profiler trace
 NMS_TRACE_TRIES = 3           # traces taken before a lossy one fails the run
-TRAIN_WARMUP, TRAIN_STEPS = 3, 20
-DET_COST_STEPS = 4            # steps timed per turn for the cost of determinism
+TRAIN_WARMUP, TRAIN_STEPS = 3, 10
+DET_COST_STEPS = 2            # steps timed per turn for the cost of determinism
+PREDICT_TIMED = 10            # flagship predicts timed per dtype (phase 5)
 # the flagship's LR steps at epochs 20 and 26: with any real epoch length
 # the smoke's steps stay in the warm-up
 TRAIN_STEPS_PER_EPOCH = 1000
@@ -566,14 +604,22 @@ def recording_nms():
         core_nms.nms_keep = real
 
 
+_SEEDED: dict = {}
+
+
 def seeded_variables(cfg) -> dict:
-    """Seeded numpy weights in the flax layout for the config's detector."""
-    from dsl_tpu_torch.models import build_detector
+    """Seeded numpy weights in the flax layout for the config's detector
+    (filled once per model config: the workflows reuse their variant's; a
+    caller does not write them)."""
+    from dsl_tpu_torch.models.detectors.single_stage import empty_detector
     from dsl_tpu_torch.utils.jax_bridge import state_dict_to_flax
     from dsl_tpu_torch.utils.random_weights import fill_variables
 
-    shapes = state_dict_to_flax(build_detector(dict(cfg.model)).state_dict())
-    return fill_variables(shapes)
+    key = repr(cfg.model)
+    if key not in _SEEDED:
+        shapes = state_dict_to_flax(empty_detector(dict(cfg.model)).state_dict())
+        _SEEDED[key] = fill_variables(shapes)
+    return _SEEDED[key]
 
 
 def phase_main_path(cfg, variables):
@@ -703,12 +749,12 @@ def phase_timing(bundle, images, smi: str):
                                     device=DEVICE)
 
         torch.cuda.reset_peak_memory_stats()
-        times = sorted(host_ms(predict, reps=20))
+        times = sorted(host_ms(predict, reps=PREDICT_TIMED))
         ms = times[len(times) // 2]
         peak = torch.cuda.max_memory_allocated() / 2**30
         log(f"[time] predict {tag} B={BATCH} {CANVAS[0]}x{CANVAS[1]}: median "
             f"{ms:.2f} ms/batch (min {times[0]:.2f}, max {times[-1]:.2f}, "
-            f"20 reps), {BATCH / ms * 1e3:.1f} img/s, peak memory "
+            f"{PREDICT_TIMED} reps), {BATCH / ms * 1e3:.1f} img/s, peak memory "
             f"{peak:.2f} GiB  ({smi})")
         traced = device_busy(predict)
         if traced is None:
@@ -844,13 +890,13 @@ def train_batch(cfg, seed: int, canvas, n_labeled: int, n_unlabeled: int,
 def train_entry(cfg, variables, dtype, device):
     """The training entry point: detector with the seeded weights, frozen
     mask, the config's optimizer, train state and step."""
-    from dsl_tpu_torch.models import build_detector
+    from dsl_tpu_torch.models.detectors.single_stage import empty_detector
     from dsl_tpu_torch.train import (
         build_optimizer_from_cfg, create_train_state, frozen_backbone_mask,
         make_train_step)
     from dsl_tpu_torch.utils.jax_bridge import flax_to_state_dict
 
-    det = build_detector(dict(cfg.model))
+    det = empty_detector(dict(cfg.model))
     det.load_state_dict(flax_to_state_dict(variables))
     frozen = frozen_backbone_mask(
         det, dict(cfg.model.backbone).get("frozen_stages", -1))
@@ -869,7 +915,7 @@ def train_entry(cfg, variables, dtype, device):
 
 
 def phase_train(cfg, variables, smi: str):
-    """The train path, counted: 3 + 20 steps in f32 and in bf16 from the
+    """The train path, counted: ``TRAIN_WARMUP + TRAIN_STEPS`` steps in f32 and in bf16 from the
     same seeded state, then one teacher eval step, whose NMS keeps are held
     against the plain version. Returns the launch counts, the largest keep
     error and, per precision, the state, its step and the batch for the
@@ -1116,7 +1162,7 @@ SEMI_EPOCHS, SEMI_START = 2, 1
 # the flagship config's only overrides in the semi phase: its schedule
 OVERRIDES = {"runner.max_epochs": SEMI_EPOCHS,
              "data.unlabel_pred.start_point": SEMI_START}
-SEMI_TIMED_ITERS = 10
+SEMI_TIMED_ITERS = 5
 EXIF_ORIENTATIONS = (3, 6, 8)
 SEMI_UNREADABLE = "unlabeled_header_cut.jpg"
 # nvJPEG against OpenCV's decodes of the fixtures: libjpeg-turbo's "fancy"
@@ -1167,11 +1213,11 @@ def phase_decode(smi: str) -> dict:
         mean, over4, worst = decode_stats(got, want)
         data = path.read_bytes()
         times = sorted(host_ms(lambda: decode_jpeg(data, torch.device(DEVICE)),
-                               reps=20))
+                               reps=DECODE_TIMED))
         ms = times[len(times) // 2]
         log(f"[decode] nvJPEG {name} ({len(data)} bytes, {w}x{h}): vs cv2 "
             f"mean |diff| {mean:.3f} levels, {over4 * 100:.2f}% off by more "
-            f"than 4, max {worst}; {ms:.3f} ms per image (median of 20, min "
+            f"than 4, max {worst}; {ms:.3f} ms per image (median of {DECODE_TIMED}, min "
             f"{times[0]:.3f})  ({smi})")
         if (mean > DECODE_MEAN_LEVELS or over4 > DECODE_SHARE_OVER_4
                 or worst > DECODE_MAX_LEVELS):
@@ -1184,7 +1230,8 @@ def phase_decode(smi: str) -> dict:
     return out
 
 
-PROBE_FILES, PROBE_INFO_CALLS = 10000, 2000
+PROBE_FILES, PROBE_INFO_CALLS = 2500, 500
+DECODE_TIMED = 10             # nvJPEG decodes timed per fixture
 
 
 def phase_probe_timing(files, smi: str):
@@ -2006,7 +2053,7 @@ def phase_semi_overlap_and_timing(runner, smi: str, tmp: Path):
 # -- strong augmentations (phase 9) and evaluation (phase 11) -----------------
 
 STRONG_RUNS = 16              # seeded runs of each transform, card vs CPU
-STRONG_TIMED = 20             # images timed per transform
+STRONG_TIMED = 10             # images timed per transform
 STRONG_TRANSFORMS = (         # as the flagship config writes them
     dict(type="PatchShuffle", ratio=0.5, ranges=[0.0, 1.0],
          mode=["flip", "flop"]),
@@ -2346,8 +2393,8 @@ def phase_weights(cfg, variables, runner, semi_cfg: dict, tmp: Path,
 BASELINE_CONFIG = (ROOT / "configs" / "fcos_semi"
                    / "r50_caffe_mslonger_tricks_0.Xdata.py")
 BASELINE_LABELED, BASELINE_UNLABELED, BASELINE_VAL = 8, 8, 12
-BASELINE_EPOCHS = 2
-BASELINE_TIMED = 20
+BASELINE_EPOCHS = 1
+BASELINE_TIMED = 10
 
 
 def run_module(module: str, args: list[str], timeout: int = 600,
@@ -2383,9 +2430,32 @@ def run_module(module: str, args: list[str], timeout: int = 600,
             proc.stdout.splitlines())
 
 
+def run_test_cli(args: list[str], tag: str) -> tuple[int, list[str]]:
+    """The test CLI (``dsl_tpu_torch.tools.test.main``) on ``args`` and
+    ``--device DEVICE`` in this process, its last lines printed here;
+    returns the NMS launches it made and its output's lines, as
+    :func:`run_module` does without a process start."""
+    import io
+
+    import torch
+
+    from dsl_tpu_torch.ops.nms import nms_keep
+    from dsl_tpu_torch.tools import test as test_cli
+
+    before = nms_keep.launches
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        test_cli.main([*args, "--device", DEVICE])
+    torch.cuda.synchronize()
+    lines = out.getvalue().splitlines()
+    for line in lines[-6:]:
+        log(f"[{tag}]   | {line[:160]}")
+    return nms_keep.launches - before, lines
+
+
 def phase_baseline(tmp: Path, smi: str) -> tuple[int, dict]:
     """DSL's first step at full width: the baseline config trained by the
-    train CLI for 2 epochs (student evaluated after each), its unlabeled
+    train CLI for ``BASELINE_EPOCHS`` epochs (student evaluated after each), its unlabeled
     split's detections written by the test CLI with ``--format-only``,
     turned into label files by ``tools/generate_unlabel_annos_coco.py``,
     read by the port's ``SemiCOCODataset``; then the baseline's step timed
@@ -2402,7 +2472,7 @@ def phase_baseline(tmp: Path, smi: str) -> tuple[int, dict]:
     from dsl_tpu_torch.apis.test import BATCH_SIZE
     from dsl_tpu_torch.apis.train import build_dataset, deterministic_cudnn
     from dsl_tpu_torch.config import Config
-    from dsl_tpu_torch.models import build_detector
+    from dsl_tpu_torch.models.detectors.single_stage import empty_detector
     from dsl_tpu_torch.utils import synthetic_data
     from dsl_tpu_torch.utils.jax_bridge import flax_to_state_dict, state_dict_to_flax
     from dsl_tpu_torch.utils.random_weights import fill_variables
@@ -2417,7 +2487,7 @@ def phase_baseline(tmp: Path, smi: str) -> tuple[int, dict]:
     # seeded weights: the caffe ResNet-50 as the pretrained backbone file
     # (mmdet's layout), the neck and head (classes that score) as load_from
     sd = flax_to_state_dict(fill_variables(state_dict_to_flax(
-        build_detector(dict(cfg.model)).state_dict())))
+        empty_detector(dict(cfg.model)).state_dict())))
     pretrained, load_from = tmp / "r50_caffe_seeded.pth", tmp / "neck_head.pth"
     torch.save({k[len("backbone."):]: v for k, v in sd.items()
                 if k.startswith("backbone.")}, pretrained)
@@ -2474,19 +2544,18 @@ def phase_baseline(tmp: Path, smi: str) -> tuple[int, dict]:
     # student's scores under score_thr, the teacher keeps the seeded head
     out = tmp / "unlabeled.bbox.json"
     t0 = time.perf_counter()
-    test_launches, _ = run_module("dsl_tpu_torch.tools.test", [
+    test_launches, _ = run_test_cli([
         str(BASELINE_CONFIG), str(work / f"epoch_{BASELINE_EPOCHS}.pth"),
-        "--format-only", "--ema", "--out", str(out), "--device", DEVICE,
-        "--cfg-options", *options,
+        "--format-only", "--ema", "--out", str(out), "--cfg-options", *options,
         f"data.test.ann_file={paths['unlabeled']}",
-        f"data.test.img_prefix={paths['images']}"])
+        f"data.test.img_prefix={paths['images']}"], tag="baseline")
     test_s = time.perf_counter() - t0
     dets = _json.loads(out.read_text())
     want_batches = -(-BASELINE_UNLABELED // BATCH_SIZE)
     if not dets or test_launches != want_batches:
         raise AssertionError(f"--format-only: {len(dets)} detections, "
                              f"{test_launches} NMS launches")
-    log(f"[baseline] python -m dsl_tpu_torch.tools.test --format-only --ema on the "
+    log(f"[baseline] the test CLI --format-only --ema on the "
         f"{BASELINE_UNLABELED} unlabeled images: {len(dets)} detections in "
         f"{out.name} ({test_s:.1f} s); NMS launches {test_launches} (one per "
         f"batch of {BATCH_SIZE})")
@@ -2610,7 +2679,8 @@ def phase_voc(tmp: Path, smi: str) -> tuple[int, int]:
     from dsl_tpu_torch.data.pipelines import test_pipeline_params
     from dsl_tpu_torch.data.pipelines.image_ops import resize_linear_u8
     from dsl_tpu_torch.data.pipelines.transforms import keep_ratio_size
-    from dsl_tpu_torch.models import build_detector, detector_predict
+    from dsl_tpu_torch.models import detector_predict
+    from dsl_tpu_torch.models.detectors.single_stage import empty_detector
     from dsl_tpu_torch.ops.nms import nms_keep, nms_keep_reference
     from dsl_tpu_torch.utils import synthetic_data
     from dsl_tpu_torch.utils.checkpoint import save_weights
@@ -2648,15 +2718,15 @@ def phase_voc(tmp: Path, smi: str) -> tuple[int, int]:
 
     # 2. pseudo-labels: --format-only on the unlabeled SemiVOCDataset
     variables = seeded_variables(Config(cfg))
-    seeded = build_detector(dict(Config(cfg).model))
+    seeded = empty_detector(dict(Config(cfg).model))
     seeded.load_state_dict(flax_to_state_dict(variables))
     weights = tmp / "voc_seeded.pth"
     save_weights(str(weights), seeded)
     del seeded
     out = tmp / "unlabeled_voc.bbox.json"
-    fmt_launches, _ = run_module("dsl_tpu_torch.tools.test", [
+    fmt_launches, _ = run_test_cli([
         str(VOC_CONFIG), str(weights), "--format-only", "--out", str(out),
-        "--device", DEVICE, "--cfg-options", *voc_cli_options(
+        "--cfg-options", *voc_cli_options(
             cfg["test_pipeline"], type="SemiVOCDataset",
             ann_file=paths["unlabeled"], ann_path=paths["unlabel_store"],
             labelmapper=paths["category_info"],
@@ -2678,7 +2748,7 @@ def phase_voc(tmp: Path, smi: str) -> tuple[int, int]:
         raise AssertionError(f"pseudo-labels: {fmt_launches} NMS launches, "
                              f"{len(dets)} detections, store {sorted(store)[:3]}")
     launches += fmt_launches
-    log(f"[voc] python -m dsl_tpu_torch.tools.test --format-only on the "
+    log(f"[voc] the test CLI --format-only on the "
         f"unlabeled SemiVOCDataset: {len(dets)} detections (image ids 0-"
         f"{VOC_UNLABELED - 1}, the list's), NMS launches {fmt_launches} (one "
         f"per batch); tools/generate_unlabel_annos_voc.py: "
@@ -2738,9 +2808,9 @@ def phase_voc(tmp: Path, smi: str) -> tuple[int, int]:
     ckpt = str(tmp / "voc_work" / f"epoch_{epochs}.pth")
     metrics = {}
     for metric, kind in (("mAP", "VOCDataset"), ("bbox", "Voc2CocoDataset")):
-        n, lines = run_module("dsl_tpu_torch.tools.test", [
-            str(VOC_CONFIG), ckpt, "--ema", "--eval", metric, "--device",
-            DEVICE, "--cfg-options", *voc_cli_options(
+        n, lines = run_test_cli([
+            str(VOC_CONFIG), ckpt, "--ema", "--eval", metric,
+            "--cfg-options", *voc_cli_options(
                 cfg["test_pipeline"], type=kind, ann_file=voc["test"],
                 img_prefix=voc["voc_root"])], tag="voc")
         metrics[metric] = json.loads(next(x for x in lines if x.startswith("{")))
@@ -2751,7 +2821,7 @@ def phase_voc(tmp: Path, smi: str) -> tuple[int, int]:
             or not 0 <= metrics["mAP"]["mAP"] <= 1
             or not 0 <= metrics["bbox"]["bbox_mAP"] <= 1):
         raise AssertionError(f"CLI metrics {metrics}")
-    log(f"[voc] python -m dsl_tpu_torch.tools.test --ema --eval mAP on a "
+    log(f"[voc] the test CLI --ema --eval mAP on a "
         f"VOCDataset under VOC2007/ (11-point AP): {metrics['mAP']}; --eval "
         f"bbox on Voc2CocoDataset: {metrics['bbox']}; NMS launches "
         f"{n_val_batches} each")
@@ -2834,8 +2904,8 @@ def phase_voc(tmp: Path, smi: str) -> tuple[int, int]:
 # -- data parallelism across processes (phase 15) -----------------------------
 
 DIST_RANKS = 2                # gloo ranks sharing the one card
-DIST_WIDTH = "full"           # the flagship at full width
-DIST_TIMED = 5                # timed steps per rank after two warm-ups
+DIST_WIDTH = "full_d1"        # the flagship at full width, RLA depth [1, 1, 1, 1]
+DIST_TIMED = 3                # timed steps per rank after two warm-ups
 DIST_THREADS = 4              # CPU threads per rank
 # two ranks against one process on the global batch: losses and grad_norm
 # (f32 sums over 10 images against two sums of 5)
@@ -2929,44 +2999,52 @@ def phase_dist_nccl(tmp: Path, smi: str, baseline: dict) -> int:
     return train_launches + test_launches
 
 
-def phase_dist_step(tmp: Path, smi: str):
-    """One flagship step at full width over ``DIST_RANKS`` gloo ranks on
-    the card, each on its shard (2 labeled + 2 unlabeled + the half-res
-    copy at 800x1344) of the seeded global batch, against one process
-    stepping the global batch (B=10) in a subprocess, freed before the
-    ranks start: losses and ``grad_norm`` within ``DIST_STEP_REL``, the
-    updates banded as phase 6 bands them, both ranks' parameters and
-    teachers bit-identical; then each rank's step ms (gloo stages the
-    all-reduce through the host: not a measure of NCCL)."""
+def phase_dist_ranks(tmp: Path, smi: str) -> int:
+    """The runs on ``DIST_RANKS`` gloo ranks sharing the card, in one spawn
+    of the ranks (one process start each): :func:`dist_step_check`'s step,
+    then :func:`dist_semi_check`'s semi loop. The one-process step on the
+    global batch runs first, in this process, its memory freed before the
+    ranks start. Returns the ranks' NMS launches."""
     import torch
 
     import torch_port_dist_worker as W
+    from torch_port_util import tree_of
 
     torch.cuda.empty_cache()
-    ref = tmp / "dist_reference.pt"
-    code = ("import sys, torch\n"
-            f"sys.path.insert(0, {str(ROOT / 'tests')!r})\n"
-            "torch.backends.cudnn.allow_tf32 = False\n"
-            "torch.backends.cuda.matmul.allow_tf32 = False\n"
-            "import torch_port_dist_worker as W\n"
-            f"torch.save(W.reference_step({DIST_WIDTH!r}, {DIST_RANKS}, {CANVAS!r}, "
-            f"{DEVICE!r}), {str(ref)!r})\n")
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, text=True,
-                          capture_output=True, timeout=600)
-    if proc.returncode != 0:
-        raise RuntimeError(f"the one-process step exited {proc.returncode}:\n"
-                           f"{proc.stderr[-4000:]}")
+    want = W.reference_step(DIST_WIDTH, DIST_RANKS, CANVAS, DEVICE)
+    torch.cuda.empty_cache()              # its memory freed for the ranks
     ref_s = time.perf_counter() - t0
-    want = torch.load(ref, weights_only=False)
-    out = tmp / "dist_step"
-    out.mkdir()
+    root = tmp / "dist_semi"
+    root.mkdir()
+    cfg, paths = semi_config_for(root)
+    cfg["runner"]["max_epochs"] = 1
+    cfg["log_config"]["interval"] = 1
+    (root / "cfg.json").write_text(json.dumps(cfg))
+    before = tree_of(Path(paths["unlabel_store"]))
     t0 = time.perf_counter()
-    steps = [r["step"] for r in W.collect(W.spawn(
-        DIST_RANKS, out, DEVICE, [("step", dict(width=DIST_WIDTH, canvas=CANVAS,
-                                                timed=DIST_TIMED))],
-        threads=DIST_THREADS), DIST_RANKS, out)]
-    ranks_s = time.perf_counter() - t0
+    res = W.collect(W.spawn(DIST_RANKS, root, DEVICE, [
+        ("step", dict(width=DIST_WIDTH, canvas=CANVAS, timed=DIST_TIMED)),
+        ("train", dict(cfg=str(root / "cfg.json"), work_dir=str(root / "work"),
+                       refresh_after=True))], threads=DIST_THREADS),
+        DIST_RANKS, root)
+    wall = time.perf_counter() - t0
+    log(f"[dist] the ranks' step and semi loop in one spawn: {wall:.1f} s "
+        f"with process start")
+    dist_step_check([r["step"] for r in res], want, ref_s, smi)
+    return dist_semi_check([r["train"] for r in res], cfg, paths, before,
+                           root, smi)
+
+
+def dist_step_check(steps: list, want: dict, ref_s: float, smi: str):
+    """One flagship step at full width and RLA depth [1, 1, 1, 1] over
+    ``DIST_RANKS`` gloo ranks on the card, each on its shard (2 labeled + 2
+    unlabeled + the half-res copy at 800x1344) of the seeded global batch,
+    against one process stepping the global batch (B=10, ``want``): losses
+    and ``grad_norm`` within ``DIST_STEP_REL``, the updates banded as phase
+    6 bands them, both ranks' parameters and teachers bit-identical; then
+    each rank's step ms (gloo stages the all-reduce through the host: not a
+    measure of NCCL)."""
     if (any(s["params_sha"] != steps[0]["params_sha"]
             or s["teacher_sha"] != steps[0]["teacher_sha"]
             or s["metrics"] != steps[0]["metrics"] for s in steps)):
@@ -2975,16 +3053,16 @@ def phase_dist_step(tmp: Path, smi: str):
     rel = {k: abs(got[k] - v) / max(abs(v), 1e-12)
            for k, v in want["metrics"].items()}
     worst, l2 = banded_max_ratio(steps[0]["after"], want["after"], want["before"])
-    log(f"[dist] one flagship step, {DIST_RANKS} gloo ranks on the card (B=5 "
+    log(f"[dist] one flagship step ({DIST_WIDTH}), {DIST_RANKS} gloo ranks on the card (B=5 "
         f"each: 2 labeled, 2 unlabeled, the half-res copy, {CANVAS[0]}x"
         f"{CANVAS[1]}) vs one "
-        f"process on the global batch (B=10, a subprocess, {ref_s:.1f} s): "
+        f"process on the global batch (B=10, {ref_s:.1f} s): "
         + ", ".join(f"{k} {got[k]:.6f}/{want['metrics'][k]:.6f}"
                     for k in sorted(got))
         + f"; worst relative {max(rel.values()):.2e} (limit {DIST_STEP_REL}); "
         f"updates: worst banded ratio {worst:.3f} (limit 1), relative L2 "
         f"{l2:.2e} (limit 1e-3); both ranks' parameters and teachers "
-        f"bit-identical; {ranks_s:.1f} s with process start")
+        f"bit-identical")
     log(f"[time] the same step per rank, gloo-staged all-reduce (through the "
         f"host; not a measure of NCCL): median of {DIST_TIMED} "
         + ", ".join(f"rank {r} {s['step_ms']:.2f} ms" for r, s in enumerate(steps))
@@ -2993,21 +3071,21 @@ def phase_dist_step(tmp: Path, smi: str):
         raise AssertionError(f"two ranks vs one process: {rel}, {worst}, {l2}")
 
 
-def phase_dist_semi(tmp: Path, smi: str) -> int:
-    """The flagship's semi loop (``train_detector``) over ``DIST_RANKS``
-    gloo ranks on the card, one epoch on phase 10's data, then one refresh
-    of every unlabeled image from the final teacher on both ranks: both
-    ranks end with one model; every readable unlabeled label file is
-    rewritten (the cut one is not), and in the last refresh each once, by
-    the rank the chunk stride names; those files equal a one-process
-    refresh from the same teacher (``epoch_1.pth``'s; tags and counts, boxes
-    1 px, scores 1e-3); the teacher's evaluation split by batch over the
-    ranks gives one process's detections (paired the same way: each
-    process picks its own cuDNN algorithms) and metrics. Returns the
-    ranks' NMS launches (summed)."""
+def dist_semi_check(res: list, cfg: dict, paths: dict, before: dict,
+                    root: Path, smi: str) -> int:
+    """The flagship's semi loop (``train_detector``, ``cfg``: phase 10's
+    data and overrides, 1 epoch) over ``DIST_RANKS`` gloo ranks on the
+    card, then one refresh of every unlabeled image from the final teacher
+    on both ranks (``res``): both ranks end with one model; every readable
+    unlabeled label file is rewritten (the cut one is not, ``before`` the
+    store as it was), and in the last refresh each once, by the rank the
+    chunk stride names; those files equal a one-process refresh from the
+    same teacher (``epoch_1.pth``'s; tags and counts, boxes 1 px, scores
+    1e-3); the teacher's evaluation split by batch over the ranks gives one
+    process's detections (paired the same way: each process picks its own
+    cuDNN algorithms) and metrics. Returns the ranks' NMS launches
+    (summed)."""
     import shutil
-
-    import torch
 
     import torch_port_dist_worker as W
     from dsl_tpu_torch.apis import train_detector
@@ -3016,22 +3094,8 @@ def phase_dist_semi(tmp: Path, smi: str) -> int:
     from dsl_tpu_torch.config import Config
     from torch_port_util import tree_of
 
-    torch.cuda.empty_cache()
-    root = tmp / "dist_semi"
-    root.mkdir()
-    cfg, paths = semi_config_for(root)
-    cfg["runner"]["max_epochs"] = 1
-    cfg["log_config"]["interval"] = 1
-    (root / "cfg.json").write_text(json.dumps(cfg))
     store = Path(paths["unlabel_store"])
-    before = tree_of(store)
     work = root / "work"
-    t0 = time.perf_counter()
-    res = [r["train"] for r in W.collect(W.spawn(
-        DIST_RANKS, root, DEVICE, [("train", dict(
-            cfg=str(root / "cfg.json"), work_dir=str(work),
-            refresh_after=True))], threads=DIST_THREADS), DIST_RANKS, root)]
-    wall = time.perf_counter() - t0
     if any(r["student_sha"] != res[0]["student_sha"] or r["step"] != res[0]["step"]
            for r in res):
         raise AssertionError("the ranks end with different models")
@@ -3076,8 +3140,8 @@ def phase_dist_semi(tmp: Path, smi: str) -> int:
     launches = sum(r["nms_launches"] for r in res)
     log(f"[dist] train_detector on the flagship over {DIST_RANKS} gloo ranks "
         f"on the card, 1 epoch of {len(iters)} iterations (B=5 per rank: "
-        f"each rank's shard of the global batch), {wall:.1f} s with process "
-        f"start: one model on both ranks (step {res[0]['step']}); every "
+        f"each rank's shard of the global batch): one model on both ranks "
+        f"(step {res[0]['step']}); every "
         f"readable unlabeled label file rewritten, the cut one kept; the last "
         f"refresh's files each written once, chunk c by rank c mod "
         f"{DIST_RANKS} (" + "; ".join(f"rank {r}: {len(x['written'])} files"
@@ -3108,9 +3172,9 @@ def phase_dist_semi(tmp: Path, smi: str) -> int:
 # -- PNG, the multi-head detector, the new transforms and the config paths
 #    (phase 16) ----------------------------------------------------
 
-PNG_TIMED = 20                # decodes timed per PNG fixture
+PNG_TIMED = 10                # decodes timed per PNG fixture
 MH_HEADS = 2                  # (neck, head) pairs of the co-training model
-MH_TIMED, MH_WARMUP = 10, 3   # multi-head predicts timed after warm-ups
+MH_TIMED, MH_WARMUP = 5, 2    # multi-head predicts timed after warm-ups
 MH_TRAIN_STEPS = 3            # multi-head AdamW steps at B=5
 MH_OPTIMIZER = dict(type="AdamW", lr=1e-4, weight_decay=0.05)
 MH_ADAM_REL = 1e-6            # AdamW from equal gradients, card vs CPU
@@ -3235,9 +3299,9 @@ def phase_multihead(cfg, smi: str) -> tuple[int, int]:
     import numpy as np
     import torch
 
-    from dsl_tpu_torch.models import build_detector
     from dsl_tpu_torch.models.detectors.multi_head import (
         multi_head_loss, multi_head_predict)
+    from dsl_tpu_torch.models.detectors.single_stage import empty_detector
     from dsl_tpu_torch.ops.nms import nms_keep, nms_keep_reference
     from dsl_tpu_torch.train import build_optimizer_from_cfg
     from dsl_tpu_torch.utils.jax_bridge import flax_to_state_dict, state_dict_to_flax
@@ -3245,7 +3309,7 @@ def phase_multihead(cfg, smi: str) -> tuple[int, int]:
     from dsl_tpu_torch.utils.random_weights import fill_variables
 
     mh = multi_head_cfg(cfg)
-    det = build_detector(copy.deepcopy(mh))
+    det = empty_detector(copy.deepcopy(mh))
     variables = fill_variables(state_dict_to_flax(det.state_dict()))
     det.load_state_dict(flax_to_state_dict(variables))
     det.eval().to(DEVICE)
@@ -3352,14 +3416,14 @@ def multihead_card_vs_cpu(cfg, mh: dict, variables):
     gradient is near zero: the update itself is held on equal inputs)."""
     import torch
 
-    from dsl_tpu_torch.models import build_detector
     from dsl_tpu_torch.models.detectors.multi_head import multi_head_loss
+    from dsl_tpu_torch.models.detectors.single_stage import empty_detector
     from dsl_tpu_torch.train import build_optimizer_from_cfg
     from dsl_tpu_torch.utils.jax_bridge import flax_to_state_dict
 
     res = {}
     for device in (DEVICE, "cpu"):
-        det = build_detector(copy.deepcopy(mh))
+        det = empty_detector(copy.deepcopy(mh))
         det.load_state_dict(flax_to_state_dict(variables))
         det.to(device).train()
         batch = train_batch(cfg, TRAIN_SEED + 1, (128, 192), 1, 0, (8, 100),
@@ -3387,7 +3451,7 @@ def multihead_card_vs_cpu(cfg, mh: dict, variables):
                                      steps_per_epoch=TRAIN_STEPS_PER_EPOCH)
     after = {}
     for device in (DEVICE, "cpu"):
-        det = build_detector(copy.deepcopy(mh))
+        det = empty_detector(copy.deepcopy(mh))
         det.load_state_dict(flax_to_state_dict(variables))
         det.to(device)
         opt = tx.init(det)
@@ -3632,12 +3696,12 @@ FASTER_RCNN_VOC_CONFIG = (ROOT / "configs" / "pascal_voc"
                           / "faster_rcnn_r50_fpn_1x_voc0712.py")
 RPN_NMS_N = 4819              # 1000 candidates from each of P2-P5, 819 from P6
 ROI_NMS_N = 2000              # multiclass_nms's pre_nms_top
-ANCHOR_TIMED = 10             # predicts timed per detector and dtype
+ANCHOR_TIMED = 5              # predicts timed per detector and dtype
 ANCHOR_TRAIN_B = 2            # the configs' samples_per_gpu
-ANCHOR_WARMUP, ANCHOR_STEPS = 3, 10   # train steps: warm-ups, then timed
+ANCHOR_WARMUP, ANCHOR_STEPS = 2, 5    # train steps: warm-ups, then timed
 ANCHOR_DET_STEPS = 4          # Faster R-CNN steps per determinism run
 ANCHOR_SMALL = (128, 192)     # the card-vs-CPU inputs
-ROI_TIMED = 20                # RoIAlign forward / backward calls timed
+ROI_TIMED = 10                # RoIAlign forward / backward calls timed
 VOC17_EPOCHS = 1
 
 
@@ -3647,16 +3711,21 @@ def _flat_tensors(tree) -> list:
     return [tree]
 
 
-def card_vs_cpu_outputs(det, inputs, **kw) -> float:
+def card_vs_cpu_outputs(det, inputs, cpu_det=None, **kw) -> float:
     """The worst |card - CPU| / max(max |CPU|, 1) over every tensor of
-    ``det(inputs, **kw)``, the CPU run on a copy of the detector (tensor
-    keywords copied to the CPU too)."""
+    ``det(inputs, **kw)``, the CPU run on ``cpu_det`` (a copy of the
+    detector on the CPU, made here where not given; tensor keywords, and a
+    list of tensors as ``inputs``, copied to the CPU too)."""
     import torch
 
     cpu_kw = {k: v.cpu() if torch.is_tensor(v) else v for k, v in kw.items()}
+    cpu_in = ([x.cpu() for x in inputs] if isinstance(inputs, (list, tuple))
+              else inputs.cpu())
+    if cpu_det is None:
+        cpu_det = copy.deepcopy(det).cpu()
     with torch.no_grad():
         gpu = _flat_tensors(det(inputs, **kw))
-        cpu = _flat_tensors(copy.deepcopy(det).cpu()(inputs.cpu(), **cpu_kw))
+        cpu = _flat_tensors(cpu_det(cpu_in, **cpu_kw))
     return max(float((g.float().cpu() - c).abs().max()
                      / c.abs().max().clamp_min(1.0)) for g, c in zip(gpu, cpu))
 
@@ -3680,7 +3749,7 @@ def phase_anchor_predict(smi: str):
     NMS input holds 2000 candidates over ``score_thr`` (so it runs at its
     full N); head outputs (the FPN levels, the RPN's and the RoI head's on
     seeded RoI features; RetinaNet's) card vs CPU within 1e-3 of the
-    largest magnitude at 1x128x192; predict ms (median of 10) and img/s.
+    largest magnitude at 1x128x192; predict ms (median of ``ANCHOR_TIMED``) and img/s.
     Returns the launches, the worst keep difference, and the recorded
     (path, B, N, launches) and NMS inputs per path."""
     import numpy as np
@@ -4030,7 +4099,7 @@ def phase_anchor_voc(tmp: Path, smi: str) -> int:
     config's train and test pipelines and phase 14's VOC2007 directory),
     ``VOC17_EPOCHS`` epoch of its trainval split at B=2 with seeded
     weights, and the evaluation after it on the test split; then the test
-    CLI on the checkpoint with ``--eval mAP`` in a subprocess. The NMS
+    CLI on the checkpoint with ``--eval mAP`` (:func:`run_test_cli`). The NMS
     count is at 0 before each and read after: 1 launch per step (its
     training proposals) and 2 per predicted batch. Losses finite, ``mAP``
     in [0, 1]. Returns the NMS launches."""
@@ -4077,9 +4146,9 @@ def phase_anchor_voc(tmp: Path, smi: str) -> int:
                                                 "loss_cls", "loss_bbox", "loss"))
         + f"), VOC mAP after the epoch {val[-1]['mAP']:.4f}, NMS launches "
         f"{launches}")
-    child, out = run_module("dsl_tpu_torch.tools.test",
-                            [str(cfg_path), str(work / f"epoch_{VOC17_EPOCHS}.pth"),
-                             "--eval", "mAP"], tag="voc17")
+    child, out = run_test_cli([str(cfg_path),
+                               str(work / f"epoch_{VOC17_EPOCHS}.pth"),
+                               "--eval", "mAP"], tag="voc17")
     metrics = json.loads(next(x for x in reversed(out) if x.startswith("{")))
     if not 0.0 <= metrics["mAP"] <= 1.0 or child != 2 * batches:
         raise AssertionError(f"test CLI: {metrics}, {child} NMS launches")
@@ -4101,8 +4170,8 @@ VARIANT_CONFIGS = tuple(ROOT / "configs" / p for p in (
 SSD_CANVAS = (300, 300)
 SSD_NMS_N = 2000              # multiclass_nms's pre_nms_top
 ONE_LEVEL_RPN_NMS_N = 1000    # one level (DC5, C4): its nms_pre
-P18_TIMED = 5                 # predicts timed per path (median)
-P18_STEPS = 3                 # steps timed per path, after one warm-up
+P18_TIMED = 3                 # predicts timed per path (median)
+P18_STEPS = 2                 # steps timed per path, after one warm-up
 SSD_EPOCHS = 1
 # the standalone RPN configs' train_cfg (mmdet's rpn_r50_fpn.py); the
 # repo's file inherits Faster R-CNN's model, which sets none
@@ -4146,16 +4215,17 @@ def predict_counted(tag: str, fn, want_n: list, shape: tuple):
     return dets, valid, calls, worst
 
 
-def time_predict(tag: str, fn, b: int, smi: str, trace: bool = False) -> float:
-    """Median ms of ``P18_TIMED`` calls of ``fn`` (host clock to a
+def time_predict(tag: str, fn, b: int, smi: str, trace: bool = False,
+                 reps: int = P18_TIMED) -> float:
+    """Median ms of ``reps`` calls of ``fn`` (host clock to a
     synchronize), logged with img/s. With ``trace``, one more call's peak
     memory and its :func:`roi_align_share` are logged too."""
     import torch
 
-    times = sorted(host_ms(fn, reps=P18_TIMED))
+    times = sorted(host_ms(fn, reps=reps))
     ms = times[len(times) // 2]
     log(f"[time] {tag} predict B={b}: median {ms:.2f} ms/batch (min "
-        f"{times[0]:.2f}, max {times[-1]:.2f}, {P18_TIMED} reps), "
+        f"{times[0]:.2f}, max {times[-1]:.2f}, {reps} reps), "
         f"{b / ms * 1e3:.1f} img/s  ({smi})")
     if trace:
         torch.cuda.synchronize()
@@ -4169,8 +4239,9 @@ def time_predict(tag: str, fn, b: int, smi: str, trace: bool = False) -> float:
 
 
 def time_steps(tag: str, cfg, variables, batch, smi: str,
-               trace: bool = False) -> tuple[dict, int]:
-    """One warm-up and ``P18_STEPS`` timed f32 steps of the train entry
+               trace: bool = False, timed: int = P18_STEPS
+               ) -> tuple[dict, int]:
+    """One warm-up and ``timed`` f32 steps of the train entry
     point from the seeded weights: losses finite; the median step ms
     logged. With ``trace``, the peak memory over those steps and the
     :func:`roi_align_share` of further steps are logged too. Returns the
@@ -4182,15 +4253,15 @@ def time_steps(tag: str, cfg, variables, batch, smi: str,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     metrics, times, state, step = anchor_step_runs(cfg, variables, batch,
-                                                   1 + P18_STEPS)
+                                                   1 + timed)
     for m in metrics:
         if not all(math.isfinite(v) for v in m.values()):
             raise AssertionError(f"{tag} step: {m}")
-    timed = sorted(times[1:])
-    ms = timed[len(timed) // 2]
+    after = sorted(times[1:])
+    ms = after[len(after) // 2]
     b = batch["images"].shape[0]
     log(f"[time] {tag} train step f32 B={b}: median {ms:.2f} ms (min "
-        f"{timed[0]:.2f}, max {timed[-1]:.2f}, {P18_STEPS} after a warm-up), "
+        f"{after[0]:.2f}, max {after[-1]:.2f}, {timed} after a warm-up), "
         f"{b / ms * 1e3:.2f} img/s; last step " + ", ".join(
             f"{k} {v:.4f}" for k, v in sorted(metrics[-1].items()))
         + f"  ({smi})")
@@ -4383,9 +4454,9 @@ def phase_ssd_voc(tmp: Path, cfg, variables) -> int:
             f"{k} {steps[-1][k]:.4f}" for k in ("loss_cls", "loss_bbox",
                                                 "loss"))
         + f"), VOC mAP {val[-1]['mAP']:.4f}, NMS launches {launches}")
-    child, out = run_module("dsl_tpu_torch.tools.test",
-                            [str(cfg_path), str(work / f"epoch_{SSD_EPOCHS}.pth"),
-                             "--eval", "mAP"], tag="ssd18")
+    child, out = run_test_cli([str(cfg_path),
+                               str(work / f"epoch_{SSD_EPOCHS}.pth"),
+                               "--eval", "mAP"], tag="ssd18")
     metrics = json.loads(next(x for x in reversed(out) if x.startswith("{")))
     if not 0.0 <= metrics["mAP"] <= 1.0 or child != batches:
         raise AssertionError(f"test CLI: {metrics}, {child} NMS launches")
@@ -4484,28 +4555,40 @@ def phase_rpn_fast(smi: str):
 def expected_loss_keys(det) -> set:
     """The loss keys a two-stage detector's step gives on a batch with
     masks: the RPN's, the RoI head's (each cascade stage's, ``s{i}.``),
-    ``loss_mask`` where there is a mask head (per stage in a cascade) and
-    ``loss_mask_iou`` where there is a mask IoU head."""
+    ``loss_mask`` where there is a mask head (per stage in a cascade but
+    SCNet, whose one mask head runs after the stages), ``loss_mask_iou``
+    where there is a mask IoU head, ``loss_semantic_seg`` where there is a
+    semantic head (HTC, SCNet) and SCNet's ``loss_glbctx``."""
     roi = ["loss_cls", "loss_bbox"]
+    scnet = getattr(det, "glbctx_head", None) is not None
+    keys = {"loss_rpn_cls", "loss_rpn_bbox"}
     if getattr(det, "mask_head", None) is not None:
-        roi.append("loss_mask")
+        if scnet:
+            keys |= {"loss_mask", "loss_glbctx"}
+        else:
+            roi.append("loss_mask")
     heads = getattr(det, "bbox_heads", None)
-    keys = ({f"s{i}.{k}" for i in range(len(heads)) for k in roi}
-            if heads is not None else set(roi))
+    keys |= ({f"s{i}.{k}" for i in range(len(heads)) for k in roi}
+             if heads is not None else set(roi))
     if getattr(det, "mask_iou_head", None) is not None:
         keys.add("loss_mask_iou")
-    return keys | {"loss_rpn_cls", "loss_rpn_bbox"}
+    if getattr(det, "semantic_head", None) is not None:
+        keys.add("loss_semantic_seg")
+    return keys
 
 
 def phase_variants(smi: str, configs=VARIANT_CONFIGS, b: int = BATCH,
                    seed: int = 20, phase: str = "p18", probe=None,
-                   trace: bool = False):
+                   trace: bool = False, timed: int = P18_TIMED,
+                   steps: int = P18_STEPS):
     """Two-stage variants (``VARIANT_CONFIGS`` by default), uncut, seeded:
     one counted predict at B=``b`` (2 NMS launches: the RPN's at N =
     ``RPN_NMS_N``, or ``ONE_LEVEL_RPN_NMS_N`` on one level, the RoI head's
     at N = ``ROI_NMS_N``; keeps equal; a two-stage detector with a mask
     head predicts through ``mask_rcnn_predict``, its probabilities in
-    [0, 1], a cascade its boxes), timed, then timed steps at B=2 (on a :func:`mask_batch` where
+    [0, 1], a cascade its boxes, HTC and SCNet also their probabilities),
+    timed (the median of ``timed``), then ``steps`` timed steps after a
+    warm-up at B=2 (on a :func:`mask_batch` where
     there is a mask head; every key of :func:`expected_loss_keys`, finite;
     1 NMS launch per step). With ``trace``, the timed predict and steps
     also log their peak memory and :func:`roi_align_share`.
@@ -4542,9 +4625,10 @@ def phase_variants(smi: str, configs=VARIANT_CONFIGS, b: int = BATCH,
                  else RPN_NMS_N)
 
         def predict():
-            if not masks:
-                return detector_predict(det, images, device=DEVICE)
-            out = mask_rcnn_predict(det, images)
+            out = (mask_rcnn_predict(det, images) if masks else
+                   detector_predict(det, images, device=DEVICE))
+            if len(out) == 3:
+                return out
             if (out[3].shape[:2] != out[0].shape[:2]
                     or not bool(((out[3] >= 0) & (out[3] <= 1)).all())):
                 raise AssertionError(f"{tag}: mask probabilities "
@@ -4558,7 +4642,7 @@ def phase_variants(smi: str, configs=VARIANT_CONFIGS, b: int = BATCH,
         inputs[tag] = calls[1][:3]
         paths.append(dict(path=tag, B=b, N=ROI_NMS_N, launches=2,
                           predict_ms=time_predict(tag, predict, b, smi,
-                                                  trace=trace)))
+                                                  trace=trace, reps=timed)))
         if probe is not None:
             launches += probe(tag, cfg, variables, det, images)
         with_masks = getattr(det, "mask_head", None) is not None
@@ -4570,13 +4654,13 @@ def phase_variants(smi: str, configs=VARIANT_CONFIGS, b: int = BATCH,
             roi_bbox_head_cfg(cfg.model)["num_classes"], DEVICE)
         with deterministic_cudnn():
             nms_keep.launches = 0
-            m, steps = time_steps(tag, cfg, variables, batch, smi,
-                                  trace=trace)
+            m, taken = time_steps(tag, cfg, variables, batch, smi,
+                                  trace=trace, timed=steps)
             if not want_keys <= set(m) or not all(
                     np.isfinite(m[k]) for k in want_keys):
                 raise AssertionError(f"{tag} step: {m}, expected the keys "
                                      f"{sorted(want_keys)}")
-            if nms_keep.launches != steps:
+            if nms_keep.launches != taken:
                 raise AssertionError(f"{tag} steps: {nms_keep.launches} NMS "
                                      f"launches, expected 1 per step")
             launches += nms_keep.launches
@@ -4594,7 +4678,7 @@ C4_B = 2                      # the C4 predicts' batch
 MASK_TRAIN_IMAGES = 8         # one epoch of 4 steps at the config's B=2
 MASK_VAL_IMAGES = 4
 MASK_PIPE_SEEDS = 16          # the mask pipeline card vs CPU
-MASK_PASTE_REPS = 5           # pastes timed (median)
+MASK_PASTE_REPS = 3           # pastes timed (median)
 
 
 def mask_batch(seed: int, canvas, b: int, num_classes: int, device):
@@ -4837,7 +4921,7 @@ def phase_mask_workflow(tmp: Path, coco: dict, smi: str) -> tuple[int, int]:
     """``train_detector`` on ``MASK_MSTRAIN_CONFIG`` (masks through its
     pipeline) for one epoch of the COCO instance set (4 steps at B=2),
     its evaluation with ``bbox`` and ``segm``, then the test CLI's ``--eval
-    bbox segm`` in a subprocess; the val GT fed back as detections, masks
+    bbox segm`` (:func:`run_test_cli`); the val GT fed back as detections, masks
     included, scores ``segm_mAP`` 1.0; ``tta_test`` then ``tta_test_masks``
     on the val images: masks the images' size, keeps equal to the plain
     version's. Returns the NMS launches and the worst keep difference."""
@@ -4886,9 +4970,8 @@ def phase_mask_workflow(tmp: Path, coco: dict, smi: str) -> tuple[int, int]:
                                                 "loss_mask", "loss"))
         + f"), bbox_mAP {val[-1]['bbox_mAP']:.4f}, segm_mAP "
         f"{val[-1]['segm_mAP']:.4f}, NMS launches {launches}")
-    child, out = run_module("dsl_tpu_torch.tools.test",
-                            [str(cfg_path), str(work / "epoch_1.pth"),
-                             "--eval", "bbox", "segm"], tag="mask19")
+    child, out = run_test_cli([str(cfg_path), str(work / "epoch_1.pth"),
+                               "--eval", "bbox", "segm"], tag="mask19")
     metrics = json.loads(next(x for x in reversed(out) if x.startswith("{")))
     if (not 0.0 <= metrics["bbox_mAP"] <= 1.0
             or not 0.0 <= metrics["segm_mAP"] <= 1.0 or child != 2 * batches):
@@ -5086,14 +5169,18 @@ def shared_mask_targets():
     coordinate difference of that RoI between the legs and ``m / s`` the
     crop pixels per input pixel (``s`` the GT box's shorter side): a
     bilinear sample of a crop in [0, 1] moves by at most its shift along x
-    plus its shift along y. Yields the flips of each handed-over call."""
+    plus its shift along y. The legs run on two devices (the card's first):
+    a key seen again on the first leg's device is that leg's next call (an
+    HTC step calls once per stage), and the second leg's calls of a key
+    take the first leg's in order. Yields the flips of each handed-over
+    call."""
     import torch
 
     from dsl_tpu_torch.models.detectors import two_stage
     from dsl_tpu_torch.models.roi_heads import mask_head
 
     real, real_align = two_stage.mask_targets_from_crops, mask_head.roi_align
-    first, flips = {}, []
+    first, used, flips = {}, {}, []
 
     def shared(mask_crops, gt_bboxes, rois, batch_idx, assigned_gt, **kw):
         sampled = []
@@ -5110,10 +5197,13 @@ def shared_mask_targets():
             mask_head.roi_align = real_align
         key = (batch_idx.cpu().numpy().tobytes(),
                assigned_gt.cpu().numpy().tobytes())
-        if key not in first:
-            first[key] = own.cpu(), rois.cpu()
+        seen = first.setdefault(key, [])
+        if not seen or seen[0][2] == rois.device.type:
+            # the first leg's call (HTC's stages may repeat a key in a leg)
+            seen.append((own.cpu(), rois.cpu(), rois.device.type))
             return own
-        want, want_rois = first[key]
+        want, want_rois, _ = seen[used.get(key, 0)]
+        used[key] = used.get(key, 0) + 1
         flip = own.cpu() != want
         flips.append(int(flip.sum()))
         if flips[-1]:
@@ -5161,23 +5251,27 @@ def cascade_probe(smi: str):
 
         gen = torch.Generator(device=DEVICE).manual_seed(24)
         small = images[:1, :, :ANCHOR_SMALL[0], :ANCHOR_SMALL[1]]
-        rel = {"levels and RPN": card_vs_cpu_outputs(det, small)}
+        on_cpu = copy.deepcopy(det).cpu()
+        rel = {"levels and RPN": card_vs_cpu_outputs(det, small, on_cpu)}
         cascade = hasattr(det, "bbox_heads")
         for i, head in enumerate(det.bbox_heads if cascade else [det.bbox_head]):
             rf = torch.randn((64, head.in_channels, head.roi_size,
                               head.roi_size), generator=gen, device=DEVICE)
             rel[f"bbox head {i}"] = card_vs_cpu_outputs(
-                det, rf, stage="roi", **(dict(head=i) if cascade else {}))
+                det, rf, on_cpu, stage="roi",
+                **(dict(head=i) if cascade else {}))
         mh = det.mask_head
         if mh is not None:
             mf = torch.randn((16, mh.in_channels, mh.roi_size, mh.roi_size),
                              generator=gen, device=DEVICE)
-            rel["mask head"] = card_vs_cpu_outputs(det, mf, stage="mask")
+            rel["mask head"] = card_vs_cpu_outputs(det, mf, on_cpu,
+                                                   stage="mask")
             if getattr(det, "mask_iou_head", None) is not None:
                 probs = torch.rand((16, 2 * mh.roi_size, 2 * mh.roi_size),
                                    generator=gen, device=DEVICE)
                 rel["mask IoU head"] = card_vs_cpu_outputs(
-                    det, mf, stage="mask_iou", mask_pred=probs)
+                    det, mf, on_cpu, stage="mask_iou", mask_pred=probs)
+        del on_cpu
         log(f"[p20] {tag} outputs card vs CPU, worst |diff| / max|ref|: "
             + ", ".join(f"{k} {v:.3e}" for k, v in rel.items()))
         if max(rel.values()) > 1e-3:
@@ -5221,7 +5315,7 @@ def cascade_probe(smi: str):
 def phase_cascade_workflow(tmp: Path, coco: dict, smi: str) -> int:
     """``train_detector`` on ``CASCADE_MSTRAIN_CONFIG`` (its pipeline loads
     masks) for one epoch of phase 19's COCO instance set with ``bbox``
-    evaluation, then the test CLI's ``--eval bbox`` in a subprocess: every
+    evaluation, then the test CLI's ``--eval bbox`` (:func:`run_test_cli`): every
     stage's losses finite, ``bbox_mAP`` in [0, 1], 1 NMS launch per step
     and 2 per predicted batch. Returns the NMS launches."""
     import math
@@ -5267,13 +5361,195 @@ def phase_cascade_workflow(tmp: Path, coco: dict, smi: str) -> int:
         f"{len(steps)} steps, losses finite (last " + ", ".join(
             f"{k} {steps[-1][k]:.4f}" for k in keys + ["loss"])
         + f"), bbox_mAP {val[-1]['bbox_mAP']:.4f}, NMS launches {launches}")
-    child, out = run_module("dsl_tpu_torch.tools.test",
-                            [str(cfg_path), str(work / "epoch_1.pth"),
-                             "--eval", "bbox"], tag="cascade20")
+    child, out = run_test_cli([str(cfg_path), str(work / "epoch_1.pth"),
+                               "--eval", "bbox"], tag="cascade20")
     metrics = json.loads(next(x for x in reversed(out) if x.startswith("{")))
     if not 0.0 <= metrics["bbox_mAP"] <= 1.0 or child != 2 * batches:
         raise AssertionError(f"test CLI: {metrics}, {child} NMS launches")
     log(f"[p20] test CLI --eval bbox: bbox_mAP {metrics['bbox_mAP']}, NMS "
+        f"launches {child}; workflow {time.perf_counter() - t0:.1f} s")
+    return launches + child
+
+
+HTC_CONFIGS = tuple(ROOT / "configs" / p for p in (
+    "htc/htc_r50_fpn_1x_coco.py",
+    "scnet/scnet_r50_fpn_1x_coco.py",
+    "detectors/detectors_htc_r50_1x_coco.py"))
+# HTC's and SCNet's data: the COCO instance set with the semantic map
+# (``with_seg``, ``SegRescale``); htc_r50_fpn_1x_coco.py inherits the
+# box-only COCO pipeline, on which HTC's semantic target (made from the GT
+# masks) has nothing to read in either package
+SEMANTIC_DATA_CONFIG = (ROOT / "configs" / "_base_" / "datasets"
+                        / "coco_instance_semantic.py")
+HTC_TIMED, HTC_STEPS = 5, 3   # phase 21's predicts and steps timed (median)
+
+
+def _random_levels(det, small, gen):
+    """Seeded random levels of the shapes ``det`` gives ``small``."""
+    import torch
+
+    with torch.no_grad():
+        shapes = [tuple(f.shape) for f in det(small)[0]]
+    return [torch.randn(sh, generator=gen, device=DEVICE) for sh in shapes]
+
+
+def htc_probe(smi: str):
+    """:func:`phase_variants`' probe for phase 21: on the predict's
+    detector, card vs CPU within 1e-3 of the largest magnitude: the levels
+    (after the RFP neck for DetectoRS) and the RPN at 1x128x192, the
+    semantic head and SCNet's global-context head on seeded levels of those
+    shapes, each stage's box head on 64 seeded RoIs (an SCNet head with its
+    shared features), each HTC mask head on 16 (with the previous head's
+    features), SCNet's mask head and relay head; for HTC (the first config)
+    the train entry point at B=2 (cuDNN deterministic): one step card vs
+    CPU at 2x128x192 (losses 1e-4, ``grad_norm`` 1e-3, updates banded; both
+    legs on one leg's mask targets, :func:`shared_mask_targets`) and two
+    runs of ``CASCADE_DET_STEPS`` steps bit-identical. Returns the NMS
+    launches: 1 per step (the card's, in the card vs CPU step)."""
+    def probe(tag, cfg, variables, det, images) -> int:
+        import torch
+
+        from dsl_tpu_torch.apis.train import deterministic_cudnn
+        from dsl_tpu_torch.models.detectors.cascade_rcnn import (
+            SCNet, roi_bbox_head_cfg)
+        from dsl_tpu_torch.ops.nms import nms_keep
+
+        gen = torch.Generator(device=DEVICE).manual_seed(25)
+        small = images[:1, :, :ANCHOR_SMALL[0], :ANCHOR_SMALL[1]]
+        on_cpu = copy.deepcopy(det).cpu()
+        rel = {"levels and RPN": card_vs_cpu_outputs(det, small, on_cpu)}
+        levels = _random_levels(det, small, gen)
+        rel["semantic head"] = card_vs_cpu_outputs(det, levels, on_cpu,
+                                                   stage="semantic")
+        scnet = isinstance(det, SCNet)
+        if scnet:
+            rel["global-context head"] = card_vs_cpu_outputs(
+                det, levels, on_cpu, stage="glbctx")
+        for i, head in enumerate(det.bbox_heads):
+            rf = torch.randn((64, head.in_channels, head.roi_size,
+                              head.roi_size), generator=gen, device=DEVICE)
+            rel[f"bbox head {i}"] = card_vs_cpu_outputs(
+                det, rf, on_cpu, stage="roi", head=i, shared=scnet)
+        if scnet:
+            mh = det.mask_head
+            mf = torch.randn((16, mh.in_channels, mh.roi_size, mh.roi_size),
+                             generator=gen, device=DEVICE)
+            rel["mask head"] = card_vs_cpu_outputs(det, mf, on_cpu,
+                                                   stage="mask")
+            fc = torch.randn((16, det.relay_head.in_channels), generator=gen,
+                             device=DEVICE)
+            rel["relay head"] = card_vs_cpu_outputs(det, fc, on_cpu,
+                                                    stage="relay")
+        else:
+            for j, mh in enumerate(det.mask_heads):
+                mf = torch.randn((16, mh.in_channels, mh.roi_size,
+                                  mh.roi_size), generator=gen, device=DEVICE)
+                res = (None if j == 0 else torch.randn(
+                    (16, mh.conv_out_channels, mh.roi_size, mh.roi_size),
+                    generator=gen, device=DEVICE))
+                rel[f"mask head {j}"] = card_vs_cpu_outputs(
+                    det, mf, on_cpu, stage="htc_mask", head=j, res_feat=res)
+        del on_cpu
+        log(f"[p21] {tag} outputs card vs CPU, worst |diff| / max|ref|: "
+            + ", ".join(f"{k} {v:.3e}" for k, v in rel.items()))
+        if max(rel.values()) > 1e-3:
+            raise AssertionError(f"{tag}: card and CPU disagree: {rel}")
+        if cfg.model.get("type") != "HTC":
+            return 0
+        nc = roi_bbox_head_cfg(cfg.model)["num_classes"]
+        small_batch = mask_batch(TRAIN_SEED + 1, ANCHOR_SMALL, ANCHOR_TRAIN_B,
+                                 nc, "cpu")
+        batch = mask_batch(TRAIN_SEED, CANVAS, ANCHOR_TRAIN_B, nc, DEVICE)
+        with deterministic_cudnn():
+            nms_keep.launches = 0
+            with shared_mask_targets() as flips:
+                step_card_vs_cpu(tag, cfg, variables, ANCHOR_SMALL,
+                                 ANCHOR_TRAIN_B, nc, make_batch=lambda device: {
+                                     k: v.to(device) if hasattr(v, "to") else v
+                                     for k, v in small_batch.items()})
+            log(f"[p21] {tag} card vs CPU step: the CPU's own mask targets "
+                f"differ from the card's in {flips} pixels per call, each a "
+                f"tie of its RoIs' rounding; both legs trained on the card's")
+            runs = []
+            for _ in range(2):
+                m, _, st, _ = anchor_step_runs(cfg, variables, batch,
+                                               CASCADE_DET_STEPS)
+                runs += [m, {k: p.detach().clone() for k, p in
+                             st.student.named_parameters()}]
+                del st
+            check_deterministic(*runs)
+        if nms_keep.launches != 1 + 2 * CASCADE_DET_STEPS:
+            raise AssertionError(f"{tag}: {nms_keep.launches} NMS launches in "
+                                 f"the card vs CPU step and two runs of "
+                                 f"{CASCADE_DET_STEPS} steps, expected "
+                                 f"{1 + 2 * CASCADE_DET_STEPS}")
+        del batch
+        torch.cuda.empty_cache()
+        return nms_keep.launches
+
+    return probe
+
+
+def phase_htc_workflow(tmp: Path, coco: dict, smi: str) -> int:
+    """``train_detector`` on ``HTC_CONFIGS[0]`` with the train pipeline of
+    ``SEMANTIC_DATA_CONFIG`` (masks and the semantic map loaded,
+    ``SegRescale``) for one epoch of phase 19's COCO instance set with
+    ``bbox`` evaluation, then the test CLI's ``--eval bbox``
+    (:func:`run_test_cli`): every stage's losses and ``loss_semantic_seg`` finite,
+    ``bbox_mAP`` in [0, 1], 1 NMS launch per step and 2 per predicted
+    batch. Returns the NMS launches."""
+    import math
+
+    import torch
+
+    from dsl_tpu_torch.apis import train_detector
+    from dsl_tpu_torch.apis.test import BATCH_SIZE
+    from dsl_tpu_torch.config import Config
+    from dsl_tpu_torch.ops.nms import nms_keep
+    from dsl_tpu_torch.utils.synthetic_data import coco_instance_config
+
+    t0 = time.perf_counter()
+    raw = coco_instance_config(Config.fromfile(str(HTC_CONFIGS[0])).to_dict(),
+                               coco)
+    raw["data"]["train"]["pipeline"] = copy.deepcopy(
+        Config.fromfile(str(SEMANTIC_DATA_CONFIG)).train_pipeline)
+    raw["runner"]["max_epochs"] = 1
+    raw["log_config"] = dict(interval=1)
+    raw["evaluation"] = dict(interval=1, metric="bbox")
+    work = tmp / "htc21"
+    cfg_path = tmp / "htc21.py"
+    Config(raw).dump(str(cfg_path))
+    batches = math.ceil(MASK_VAL_IMAGES / BATCH_SIZE)
+    nms_keep.launches = 0
+    train_detector(Config(raw), str(work), device=DEVICE,
+                   variables=seeded_variables(Config(raw)))
+    torch.cuda.synchronize()
+    launches = nms_keep.launches
+    lines = [json.loads(x) for x in
+             (work / "train.log.json").read_text().splitlines()]
+    steps = [x for x in lines if x.get("mode") == "train"]
+    val = [x for x in lines if x.get("mode") == "val"]
+    keys = [f"s{i}.{k}" for i in range(3)
+            for k in ("loss_cls", "loss_bbox", "loss_mask")]
+    keys.append("loss_semantic_seg")
+    if not steps or not all(math.isfinite(x[k]) for x in steps for k in keys):
+        raise AssertionError(f"HTC train_detector losses: {steps}")
+    if len(val) != 1 or not 0.0 <= val[-1]["bbox_mAP"] <= 1.0:
+        raise AssertionError(f"HTC evaluation: {val}")
+    if launches != len(steps) + 2 * batches:
+        raise AssertionError(f"train_detector made {launches} NMS launches, "
+                             f"expected 1 per step and 2 per evaluation batch")
+    log(f"[p21] {HTC_CONFIGS[0].relative_to(ROOT)} train_detector through "
+        f"{SEMANTIC_DATA_CONFIG.relative_to(ROOT)}'s pipeline: {len(steps)} "
+        f"steps, losses finite (last " + ", ".join(
+            f"{k} {steps[-1][k]:.4f}" for k in keys + ["loss"])
+        + f"), bbox_mAP {val[-1]['bbox_mAP']:.4f}, NMS launches {launches}")
+    child, out = run_test_cli([str(cfg_path), str(work / "epoch_1.pth"),
+                               "--eval", "bbox"], tag="htc21")
+    metrics = json.loads(next(x for x in reversed(out) if x.startswith("{")))
+    if not 0.0 <= metrics["bbox_mAP"] <= 1.0 or child != 2 * batches:
+        raise AssertionError(f"test CLI: {metrics}, {child} NMS launches")
+    log(f"[p21] test CLI --eval bbox: bbox_mAP {metrics['bbox_mAP']}, NMS "
         f"launches {child}; workflow {time.perf_counter() - t0:.1f} s")
     return launches + child
 
@@ -5288,46 +5564,77 @@ def main() -> int:
     t_start = time.perf_counter()
     tests_on_path()
     name, smi = phase_device()
+    log(f"[phase 1] {time.perf_counter() - t_start:.1f} s")
+    t = time.perf_counter()
     phase_build()
+    log(f"[phase 2] {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
     case_err = phase_kernel_cases()
+    log(f"[phase 3] {time.perf_counter() - t:.1f} s")
     from dsl_tpu_torch.config import Config
 
     from dsl_tpu_torch.apis.train import deterministic_cudnn
 
+    t = time.perf_counter()
     cfg = Config.fromfile(str(CONFIG))
     variables = seeded_variables(cfg)
     bundle, images, launches, path_err, calls = phase_main_path(cfg, variables)
+    log(f"[phase 4] {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
     phase_timing(bundle, images, smi)
     nms_times = phase_nms_timing(calls, smi)["predict_b8"]
     del bundle, images, calls
     torch.cuda.empty_cache()
+    log(f"[phase 5] {time.perf_counter() - t:.1f} s")
     # as train_detector runs its steps: cuDNN's deterministic algorithms,
     # no autotuning (phase 7 also times the step without them)
     with deterministic_cudnn():
+        t = time.perf_counter()
         train_launches, train_err, runs, batch = phase_train(cfg, variables,
                                                              smi)
         launches["nms_keep"] += train_launches["nms_keep"]
+        t6 = time.perf_counter() - t
+        t = time.perf_counter()
         phase_train_timing(runs, batch, smi)
         del runs
         torch.cuda.empty_cache()
+        log(f"[phase 7] {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
         phase_train_card_vs_cpu(cfg, variables)
+        log(f"[phase 6] {t6 + time.perf_counter() - t:.1f} s (the runs "
+            f"{t6:.1f}, card vs CPU {time.perf_counter() - t:.1f})")
+    t = time.perf_counter()
     phase_decode(smi)
     phase_resize(smi)
+    log(f"[phase 8] {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
     phase_strong_aug(smi)
+    log(f"[phase 9] {time.perf_counter() - t:.1f} s")
     with tempfile.TemporaryDirectory(prefix="_semi_smoke_", dir=ROOT) as tmp:
+        t = time.perf_counter()
         runner, semi_launches, semi_cfg = phase_semi(variables, smi, Path(tmp))
         with deterministic_cudnn():          # as train_detector iterates
             semi_err = phase_semi_overlap_and_timing(runner, smi, Path(tmp))
+        log(f"[phase 10] {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
         eval_launches, eval_err = phase_eval(runner, semi_cfg, smi)
+        log(f"[phase 11] {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
         weights_launches = phase_weights(cfg, variables, runner, semi_cfg,
                                          Path(tmp), smi)
         del runner
         torch.cuda.empty_cache()
+        log(f"[phase 12] {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
         baseline_launches, baseline = phase_baseline(Path(tmp), smi)
+        log(f"[phase 13] {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
         voc_launches, voc_err = phase_voc(Path(tmp), smi)
+        log(f"[phase 14] {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
         dist_launches = phase_dist_nccl(Path(tmp), smi, baseline)
-        phase_dist_step(Path(tmp), smi)
-        dist_launches += phase_dist_semi(Path(tmp), smi)
+        dist_launches += phase_dist_ranks(Path(tmp), smi)
+        log(f"[phase 15] {time.perf_counter() - t:.1f} s")
         t16 = time.perf_counter()
         phase_png(Path(tmp), smi)
         mh_launches, mh_err = phase_multihead(cfg, smi)
@@ -5382,12 +5689,25 @@ def main() -> int:
         p18_paths.append(cascade_path)
         del cascade_inputs
         log(f"[phase 20] {time.perf_counter() - t20:.1f} s")
+        t21 = time.perf_counter()
+        htc_launches, htc_err, htc_paths, htc_inputs = phase_variants(
+            smi, HTC_CONFIGS, BATCH, seed=24, phase="p21",
+            probe=htc_probe(smi), trace=True, timed=HTC_TIMED,
+            steps=HTC_STEPS)
+        htc_launches += phase_htc_workflow(Path(tmp), coco, smi)
+        htc_path = dict(htc_paths[0], path="htc")
+        htc_path.update(nms_input_timing(
+            "htc_b8", *htc_inputs[HTC_CONFIGS[0].stem], smi))
+        p18_paths.append(htc_path)
+        del htc_inputs
+        log(f"[phase 21] {time.perf_counter() - t21:.1f} s")
     launches["nms_keep"] += (semi_launches + eval_launches + weights_launches
                              + baseline_launches + voc_launches + dist_launches
                              + mh_launches + cfg_launches + anchor_launches
                              + train17_launches + voc17_launches
                              + ssd_launches + rpn_launches + variant_launches
-                             + mask_launches + cascade_launches)
+                             + mask_launches + cascade_launches
+                             + htc_launches)
     kernels = [dict(
         name="nms_keep", route="cuda",
         source="dsl_tpu_torch/csrc/nms_kernel.cu",
@@ -5396,11 +5716,11 @@ def main() -> int:
         max_abs_err=float(max(case_err, path_err, train_err, semi_err,
                               eval_err, voc_err, mh_err, cfg_err, anchor_err,
                               ssd_err, rpn_err, variant_err, mask_err,
-                              flow_err, c4_err, cascade_err)),
+                              flow_err, c4_err, cascade_err, htc_err)),
         ms=nms_times["ms"], plain_ms=nms_times["plain_ms"],
         bound_ms=nms_times["bound_ms"], bound_by=nms_times["bound_by"],
         library_ms=None,
-        # the anchor-based detectors' inputs (phases 17-20), each timed alike
+        # the anchor-based detectors' inputs (phases 17-21), each timed alike
         paths=[{k: v for k, v in e.items() if k in (
             "path", "B", "N", "launches", "ms", "plain_ms", "bound_ms",
             "bound_by")} for e in anchor_paths + p18_paths])]

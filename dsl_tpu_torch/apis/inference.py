@@ -26,6 +26,7 @@ from dsl_tpu_torch.config import Config
 from dsl_tpu_torch.data.image_io import read_image
 from dsl_tpu_torch.data.pipelines.image_ops import resize_linear_u8
 from dsl_tpu_torch.models import build_detector, detector_predict
+from dsl_tpu_torch.models.detectors.single_stage import empty_detector
 from dsl_tpu_torch.models.detectors.cascade_rcnn import roi_bbox_head_cfg
 from dsl_tpu_torch.utils.checkpoint import load_weights
 from dsl_tpu_torch.utils.device import resolve_device
@@ -58,12 +59,15 @@ def load_detector(model_cfg: dict, checkpoint: str | None = None,
     the checkpoint holds the weights, as in mmdet's ``init_detector``."""
     model = dict(model_cfg)
     model["backbone"] = {**dict(model["backbone"]), "pretrained": None}
-    detector = build_detector(model)
     if checkpoint:
+        # both loads set every parameter and buffer or raise
+        detector = empty_detector(model)
         load_weights(checkpoint, detector, ema=ema)
     elif variables is not None:
+        detector = empty_detector(model)
         detector.load_state_dict(flax_to_state_dict(variables))
     else:
+        detector = build_detector(model)
         detector.init_weights(torch.Generator().manual_seed(0))
     return detector
 
@@ -106,15 +110,16 @@ def preprocess(bundle: DetectorBundle, img):
 
 def inference_detector(bundle: DetectorBundle, img):
     """img: file path or BGR ndarray. Returns a list per class of (n, 5)
-    (a cascade's classes are its last stage's; the JAX function reads a
-    ``bbox_head`` and raises on a cascade config)."""
+    (a cascade's classes are its last stage's, an HTC's and an SCNet's
+    boxes without their masks; the JAX function reads a ``bbox_head`` and
+    raises on a cascade config)."""
     if isinstance(img, (str, os.PathLike)):
         img = read_image(img, bundle.device)
     canvas, shapes, sf = preprocess(bundle, img)
     dets, labels, valid = detector_predict(
         bundle.detector, canvas, img_shapes=shapes, scale_factors=sf,
         test_cfg=dict(bundle.cfg.model.get("test_cfg", {}) or {}),
-        device=bundle.device)
+        device=bundle.device)[:3]
     keep = valid[0].cpu().numpy()
     dets = dets[0].cpu().numpy()[keep]
     labels = labels[0].cpu().numpy()[keep]

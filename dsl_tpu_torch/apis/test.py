@@ -16,7 +16,9 @@ device until the last batch is queued. ``flip`` mirrors each decoded
 image before its resize, and the detections stay in the mirrored frame.
 A Mask R-CNN (``MaskRCNN`` and ``MaskScoringRCNN``, as the JAX package
 names them: the C4 form and Cascade Mask R-CNN are tested for their boxes,
-as there) predicts through
+as there; HTC and SCNet, whose predicts give masks too, are tested for
+their boxes here, where the JAX function, whose list does not name them,
+fails to unpack their four outputs) predicts through
 ``two_stage.mask_rcnn_predict``; after the last batch is queued, each
 image's 28x28 probabilities are pasted at its boxes in the original size on
 the device (``mask_head.paste_masks``), copied out and encoded as
@@ -63,7 +65,8 @@ DEFAULT_NORM = dict(mean=(123.675, 116.28, 103.53),
 BATCH_SIZE = 8                # images per predict, as the JAX package's
 MASK_TTA_BATCH = 4            # tta_test_masks' batch_size in the JAX package
 # the detectors whose test results carry masks: the JAX package's list less
-# YOLACT, which is not ported (a Cascade Mask R-CNN's are boxes, as in JAX)
+# YOLACT, which is not ported (a Cascade Mask R-CNN's are boxes, as in JAX;
+# an HTC's and an SCNet's too, where the JAX function raises)
 MASK_RESULTS = ("MaskRCNN", "MaskScoringRCNN")
 
 

@@ -9,7 +9,14 @@ tensor there. Boxes and labels stay host numpy arrays. Instance masks
 RLE is decoded on the host, a polygon list rasterised on the device, an
 entry of None is an empty mask; with ``poly2mask=False`` and only
 polygons they stay ``PolygonMasks``, as the JAX package keeps them.
-Semantic segmentation (``with_seg``) is not ported yet and raises.
+The semantic map (``with_seg``) is an (H, W) uint8 tensor on the same
+device: the PNG named after the image under ``results["seg_prefix"]``,
+read as ``cv2.imread(..., IMREAD_GRAYSCALE)`` reads a gray PNG (a colour
+or palette PNG raises: the port's PNG reader has no route to gray for
+them), or all 255 (ignored) where there is no prefix or no readable file,
+as the JAX package does. No dataset puts ``seg_prefix`` in the results
+(``CustomDataset`` takes a config's ``seg_prefix`` and drops it, in both
+packages), so through a dataset the map is all 255.
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ import torch
 
 from dsl_tpu_torch.core.masks import (
     BitmapMasks, PolygonMasks, decode_rle, rasterize_polygons)
+from dsl_tpu_torch.data import png
 from dsl_tpu_torch.data.image_io import read_image
 from dsl_tpu_torch.registry import PIPELINES
 from dsl_tpu_torch.utils.device import to_device
@@ -58,12 +66,10 @@ class LoadAnnotations:
     def __init__(self, with_bbox: bool = True, with_label: bool = True,
                  with_mask: bool = False, with_seg: bool = False,
                  poly2mask: bool = True):
-        if with_seg:
-            raise NotImplementedError(
-                "LoadAnnotations: semantic segmentation is not ported yet")
         self.with_bbox = with_bbox
         self.with_label = with_label
         self.with_mask = with_mask
+        self.with_seg = with_seg
         self.poly2mask = poly2mask
 
     def __call__(self, results, rng, pyrng=None):
@@ -80,7 +86,22 @@ class LoadAnnotations:
         if self.with_mask:
             results["gt_masks"] = self._load_masks(results, ann)
             results["mask_fields"] = ["gt_masks"]
+        if self.with_seg:
+            results["gt_semantic_seg"] = self._load_semantic_seg(results)
+            results["seg_fields"] = ["gt_semantic_seg"]
         return results
+
+    def _load_semantic_seg(self, results) -> torch.Tensor:
+        h = results["img_info"]["height"]
+        w = results["img_info"]["width"]
+        device = torch.device(results["device"])
+        prefix = results.get("seg_prefix")
+        if prefix:
+            name = osp.splitext(results["img_info"]["filename"])[0] + ".png"
+            seg = read_gray_png(osp.join(prefix, name), device)
+            if seg is not None:
+                return seg
+        return torch.full((h, w), 255, dtype=torch.uint8, device=device)
 
     def _load_masks(self, results, ann):
         """The annotation's masks at the image's size, by the JAX package's
@@ -101,6 +122,33 @@ class LoadAnnotations:
         if self.poly2mask or not polys or len(bitmaps) != len(polys):
             return BitmapMasks(bitmaps, h, w, device)
         return PolygonMasks(polys, h, w)
+
+
+def read_gray_png(path: str, device) -> torch.Tensor | None:
+    """(H, W) uint8 on ``device`` as ``cv2.imread(path, IMREAD_GRAYSCALE)``
+    reads a gray PNG (with or without alpha, any bit depth); None where
+    OpenCV reads no image (no file, or one libpng stops on). A PNG of
+    another colour type, or a file that is not a PNG, raises."""
+    if not osp.isfile(path):
+        return None
+    with open(path, "rb") as f:
+        data = f.read()
+    if not data.startswith(png.SIGNATURE):
+        raise NotImplementedError(f"{path}: a semantic map that is not a PNG; "
+                                  f"the port reads PNG maps only")
+    try:
+        image = png.parse(data)
+    except png.PngError:
+        return None
+    if image.color_type not in (0, 4):
+        raise NotImplementedError(
+            f"{path}: PNG colour type {image.color_type}: the port's PNG "
+            f"reader has no route to gray for it (cv2.IMREAD_GRAYSCALE "
+            f"mixes the channels); gray maps only")
+    try:
+        return png.decode(data, device)[..., 0].contiguous()
+    except png.PngError:
+        return None
 
 
 @PIPELINES.register

@@ -18,7 +18,11 @@ an 8x upscale. ``Resize``, ``RandomFlip`` and ``Pad`` carry the instance
 masks of ``results["mask_fields"]`` as the JAX transforms do (nearest
 resize, flip, zero pad of ``core/masks.BitmapMasks``); a ``PolygonMasks``
 has no ``resize`` and no ``pad`` in either package, so ``Resize`` and
-``Pad`` fail on it.
+``Pad`` fail on it. They carry the semantic maps of
+``results["seg_fields"]`` too (an (H, W) uint8 tensor: OpenCV's
+``INTER_NEAREST`` resize by ``image_ops.resize_nearest``, the flip, a pad
+of 255), and ``SegRescale`` resizes them by a factor, the size rounded as
+``int(x * s + 0.5)``, as the JAX transforms do.
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ import torch
 from dsl_tpu_torch.data.image_io import read_image
 from dsl_tpu_torch.data.pipelines.compose import Compose
 from dsl_tpu_torch.data.pipelines.image_ops import (
-    resize_linear_f32, resize_linear_u8)
+    resize_linear_f32, resize_linear_u8, resize_nearest)
 from dsl_tpu_torch.registry import PIPELINES
 from dsl_tpu_torch.utils.device import to_device
 
@@ -117,6 +121,8 @@ class Resize:
             results[key] = boxes
         for key in results.get("mask_fields", []):
             results[key] = results[key].resize((new_h, new_w))
+        for key in results.get("seg_fields", []):
+            results[key] = resize_nearest(results[key], new_h, new_w)
         return results
 
 
@@ -268,6 +274,8 @@ class RandomFlip:
                 results[key] = b
             for key in results.get("mask_fields", []):
                 results[key] = results[key].flip(results["flip_direction"])
+            for key in results.get("seg_fields", []):
+                results[key] = results[key].flip(1 if horizontal else 0)
         return results
 
 
@@ -312,9 +320,33 @@ class Pad:
         results["img"] = out
         for key in results.get("mask_fields", []):
             results[key] = results[key].pad((th, tw))
+        for key in results.get("seg_fields", []):
+            seg = results[key]
+            padded = seg.new_full((th, tw), 255)
+            padded[:seg.shape[0], :seg.shape[1]] = seg
+            results[key] = padded
         results["pad_shape"] = tuple(out.shape)
         results["pad_fixed_size"] = self.size
         results["pad_size_divisor"] = self.size_divisor
+        return results
+
+
+@PIPELINES.register
+class SegRescale:
+    """The semantic maps resized by ``scale_factor`` (OpenCV's
+    ``INTER_NEAREST``); HTC's semantic head works at 1/8 of the input."""
+
+    def __init__(self, scale_factor=1.0):
+        self.scale_factor = scale_factor
+
+    def __call__(self, results, rng=None, pyrng=None):
+        if self.scale_factor == 1:
+            return results
+        for key in results.get("seg_fields", []):
+            seg = results[key]
+            nh = int(seg.shape[0] * self.scale_factor + 0.5)
+            nw = int(seg.shape[1] * self.scale_factor + 0.5)
+            results[key] = resize_nearest(seg, nh, nw)
         return results
 
 

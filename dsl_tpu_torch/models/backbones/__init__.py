@@ -2,3 +2,5 @@ from dsl_tpu_torch.models.backbones.resnet import (  # noqa: F401
     ResNet, ResNetV1d, ResNeXt)
 from dsl_tpu_torch.models.backbones.rla_resnet import RLAResNet  # noqa: F401
 from dsl_tpu_torch.models.backbones.ssd_vgg import SSDVGG  # noqa: F401
+from dsl_tpu_torch.models.backbones.detectors_resnet import (  # noqa: F401
+    DetectoRSResNet, DetectoRSResNeXt)

@@ -8,7 +8,10 @@ config with an ``rpn_head`` and ``bbox_heads`` to
 ``cascade_rcnn.build_cascade_rcnn``, one with an ``rpn_head`` or of type
 ``FastRCNN`` to ``two_stage.build_two_stage_detector`` and a multi-head
 config to ``multi_head.py``, as the JAX package does), and
-``detector_loss`` / ``detector_predict``, which route a Cascade R-CNN to
+``detector_loss`` / ``detector_predict``, which route an HTC to
+``htc_loss`` / ``htc_predict`` and an SCNet to ``scnet_loss`` /
+``scnet_predict`` (whose predicts give the ``mask_rcnn_predict`` 4-tuple,
+as the JAX package's do), a Cascade R-CNN to
 ``cascade_rcnn_loss`` / ``cascade_rcnn_predict``, a two-stage detector to
 ``two_stage_loss`` / ``two_stage_predict``, the standalone ``RPN`` to
 ``rpn_only_loss`` / ``rpn_only_predict``, a ``RetinaHead`` to
@@ -35,7 +38,8 @@ from dsl_tpu_torch.models.dense_heads.retina_head import (
 from dsl_tpu_torch.models.dense_heads.ssd_head import (
     SSDHead, ssd_get_bboxes, ssd_loss)
 from dsl_tpu_torch.models.detectors.cascade_rcnn import (
-    CascadeRCNN, build_cascade_rcnn, cascade_rcnn_loss, cascade_rcnn_predict)
+    HTC, CascadeRCNN, SCNet, build_cascade_rcnn, cascade_rcnn_loss,
+    cascade_rcnn_predict, htc_loss, htc_predict, scnet_loss, scnet_predict)
 from dsl_tpu_torch.models.detectors.two_stage import (
     RPN, FastRCNN, TwoStageDetector, build_two_stage_detector,
     check_two_stage, rpn_only_loss, rpn_only_predict, two_stage_loss,
@@ -119,6 +123,15 @@ def build_detector(cfg: dict) -> nn.Module:
                    test_cfg=cfg.get("test_cfg"))
 
 
+def empty_detector(cfg: dict) -> nn.Module:
+    """:func:`build_detector` with its weights uninitialised (built on the
+    meta device, then given CPU storage), for a caller that loads every
+    parameter and buffer next: it skips the modules' random init."""
+    with torch.device("meta"):
+        detector = build_detector(cfg)
+    return detector.to_empty(device="cpu")
+
+
 def _dense_head(detector: nn.Module) -> nn.Module:
     head = getattr(detector, "bbox_head", None)
     if head is None:
@@ -145,7 +158,7 @@ def _parse_losses(losses: dict):
 def detector_loss(detector: nn.Module, batch: dict, cur_iter: int = 0,
                   compute_dtype=None, mark=None, group=None):
     """Training forward + loss of an FCOS, RetinaNet, SSD, Faster R-CNN,
-    Cascade R-CNN or standalone RPN detector (a Fast R-CNN has no loss, as
+    Cascade R-CNN, HTC, SCNet or standalone RPN detector (a Fast R-CNN has no loss, as
     in the JAX package, and raises).
 
     ``batch["images"]`` is (B, 3, H, W) on the detector's device; the other
@@ -155,7 +168,8 @@ def detector_loss(detector: nn.Module, batch: dict, cur_iter: int = 0,
     head outputs and the losses are f32. A two-stage detector runs
     ``two_stage_loss`` (in f32; a bf16 compute dtype or a process group
     raises), its samplers' draws seeded by ``cur_iter``; a Cascade R-CNN
-    runs ``cascade_rcnn_loss`` under the same refusals. ``mark(name)``,
+    runs ``cascade_rcnn_loss``, an HTC ``htc_loss`` and an SCNet
+    ``scnet_loss`` under the same refusals. ``mark(name)``,
     where given, is called once the forward is enqueued (``"forward"``),
     for a timing split. ``group`` (a process group, None for one process)
     is the single-stage loss's. The standalone RPN runs ``rpn_only_loss``
@@ -167,6 +181,8 @@ def detector_loss(detector: nn.Module, batch: dict, cur_iter: int = 0,
     if isinstance(detector, (TwoStageDetector, RPN, CascadeRCNN)):
         check_two_stage(compute_dtype, group)
         loss = (rpn_only_loss if isinstance(detector, RPN)
+                else htc_loss if isinstance(detector, HTC)
+                else scnet_loss if isinstance(detector, SCNet)
                 else cascade_rcnn_loss if isinstance(detector, CascadeRCNN)
                 else two_stage_loss)
         return loss(detector, batch, cur_iter=cur_iter, mark=mark)
@@ -220,7 +236,9 @@ def detector_predict(detector: nn.Module, images: torch.Tensor,
     kernel is not launched. A two-stage detector runs
     ``two_stage_predict`` (f32 only: a bf16 compute dtype raises), a
     Cascade R-CNN ``cascade_rcnn_predict`` (boxes only, as in the JAX
-    package, with or without a mask head; f32 only), the
+    package, with or without a mask head; f32 only), an HTC ``htc_predict``
+    and an SCNet ``scnet_predict`` (dets, labels, valid and the masks'
+    probabilities (B, N, S, S), as in the JAX package; f32 only), the
     standalone RPN ``rpn_only_predict`` (its proposals are the detections,
     all of label 0), a ``RetinaHead`` ``retina_get_bboxes`` and an
     ``SSDHead`` ``ssd_get_bboxes``. A Fast R-CNN needs its proposals:
@@ -243,7 +261,9 @@ def detector_predict(detector: nn.Module, images: torch.Tensor,
         if not with_nms:
             raise NotImplementedError("detector_predict(with_nms=False) "
                                       "gives a dense head's candidates")
-        predict = (cascade_rcnn_predict if isinstance(detector, CascadeRCNN)
+        predict = (htc_predict if isinstance(detector, HTC)
+                   else scnet_predict if isinstance(detector, SCNet)
+                   else cascade_rcnn_predict if isinstance(detector, CascadeRCNN)
                    else two_stage_predict)
         return predict(
             detector, images, img_shapes=img_shapes,

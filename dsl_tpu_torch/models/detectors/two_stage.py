@@ -10,7 +10,9 @@ on 14x14 RoIAlign features of the same levels), ``FasterRCNNC4`` and
 ``MaskRCNNC4`` (one C4 level at stride 16, 14x14 RoIs through the res5
 ``ResLayerSharedHead`` at ``roi_head.shared_head`` before the bbox head
 and before the mask head), ``MaskScoringRCNN`` (Mask R-CNN with a
-``MaskIoUHead`` at ``roi_head.mask_iou_head``), ``build_two_stage_detector``,
+``MaskIoUHead`` at ``roi_head.mask_iou_head``), ``DetectoRS`` (Faster
+R-CNN whose neck, RFP, reads the image beside the backbone's levels),
+``build_two_stage_detector``,
 ``parse_rcnn_train_cfg``, ``two_stage_loss`` (with the mask branch on the
 positives of the same samples where the batch has ``gt_mask_crops``: a
 mask config whose pipeline loads no masks trains without ``loss_mask``,
@@ -64,9 +66,8 @@ from dsl_tpu_torch.models.roi_heads.standard_roi_head import (
 
 # the JAX package's two-stage detectors and parts not ported yet
 UNPORTED_DETECTORS = (
-    "DynamicRCNN", "PISAFasterRCNN", "PISAMaskRCNN", "DetectoRS",
-    "DoubleHeadRCNN", "PointRend", "GridRCNN", "TridentFasterRCNN", "HTC",
-    "HybridTaskCascade", "SCNet", "SparseRCNN")
+    "DynamicRCNN", "PISAFasterRCNN", "PISAMaskRCNN", "DoubleHeadRCNN",
+    "PointRend", "GridRCNN", "TridentFasterRCNN", "SparseRCNN")
 UNPORTED_PARTS = ("grid_head", "point_head", "roi_pool_pack")
 TRAIN_PROPOSALS = 512          # two_stage_loss's num_proposals in JAX
 TEST_PROPOSALS = 1000          # two_stage_predict's
@@ -192,6 +193,17 @@ class MaskScoringRCNN(MaskRCNN):
     As in the JAX package, its predict is Mask R-CNN's."""
 
 
+@DETECTORS.register
+class DetectoRS(TwoStageDetector):
+    """DetectoRS on Faster R-CNN (``configs/detectors``): the SAC backbone
+    and the RFP neck, which reruns its own backbone on the image, so it
+    reads ``(image, C2..C5)``. DetectoRS on a cascade is built by
+    ``cascade_rcnn.build_cascade_rcnn``."""
+
+    def extract_feat(self, images: torch.Tensor):
+        return self.neck((images, *self.backbone(images)))
+
+
 MASK_DETECTORS = ("MaskRCNN", "MaskRCNNC4", "MaskScoringRCNN")
 C4_DETECTORS = ("FasterRCNNC4", "MaskRCNNC4")
 
@@ -285,6 +297,9 @@ def build_two_stage_detector(cfg: dict) -> nn.Module:
     det_cls = MODELS.get(det_type)
     if det_cls is None:
         raise KeyError(f"unknown detector type {det_type}")
+    if not issubclass(det_cls, (TwoStageDetector, RPN, FastRCNN)):
+        raise TypeError(f"{det_type} is a cascade: its config has bbox_heads "
+                        f"(one per stage), not one bbox_head")
     parts = dict(backbone=build_from_cfg(dict(cfg.pop("backbone")), MODELS),
                  neck=build_from_cfg(dict(neck_cfg), MODELS),
                  train_cfg=cfg.pop("train_cfg", None),

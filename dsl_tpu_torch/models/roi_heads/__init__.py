@@ -5,3 +5,7 @@ from dsl_tpu_torch.models.roi_heads.mask_head import FCNMaskHead  # noqa: F401
 from dsl_tpu_torch.models.roi_heads.shared_heads import (  # noqa: F401
     BBoxHeadAvgPool, ResLayerSharedHead)
 from dsl_tpu_torch.models.roi_heads.maskiou_head import MaskIoUHead  # noqa: F401
+from dsl_tpu_torch.models.roi_heads.htc import (  # noqa: F401
+    FusedSemanticHead, HTCMaskHead)
+from dsl_tpu_torch.models.roi_heads.scnet import (  # noqa: F401
+    FeatureRelayHead, GlobalContextHead, SCNetBBoxHead, SCNetMaskHead)

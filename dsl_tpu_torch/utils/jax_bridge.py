@@ -17,7 +17,12 @@ plain nested dicts. What changes on the way:
   are permuted on the way, so a JAX checkpoint computes the same function
   here and an mmdet checkpoint's ``shared_fcs.0`` (``fcs.0``) loads as it
   is;
-- the mask head's ``upsample``: flax's ``ConvTranspose`` kernel (kh, kw,
+- SCNet's relay head's ``fc`` writes a (s, s, c) map in the JAX package
+  and a (c, s, s) one in the port (mmdet's order): its output rows
+  (weight and bias) are permuted on the way;
+- a SAC's ``weight`` and ``weight_diff`` (flax params of that name, HWIO)
+  <-> OIHW, as a kernel;
+- the mask head's ``upsample`` (each HTC stage's too): flax's ``ConvTranspose`` kernel (kh, kw,
   in, out) without ``transpose_kernel`` gives ``out[2i + a] = x[i]
   k[1 - a]``, torch's ``ConvTranspose2d`` weight (in, out, kh, kw) gives
   ``out[2i + a] = x[i] w[a]``: the kernel is flipped in both spatial axes
@@ -42,7 +47,22 @@ plain nested dicts. What changes on the way:
   ``fc_mask_iou`` <-> ``roi_head.mask_iou_head.convs.{i}.conv``,
   ``.fcs.{i}`` and ``.fc_mask_iou``, a C4 detector's
   ``shared_head.block{i}`` <-> ``roi_head.shared_head.layer{S+1}.{i}``
-  (S the stage, from the blocks' width); a multi-head
+  (S the stage, from the blocks' width); an HTC's ``mask_heads_{i}``
+  (``conv{j}``, ``conv_res``) <-> ``roi_head.mask_head.{i}`` (``convs.{j}.conv``,
+  ``conv_res.conv``) and its ``semantic_head`` (``lateral{i}``, ``conv{i}``,
+  ``conv_embedding``, ``conv_logits``) <-> ``roi_head.semantic_head``
+  (``lateral_convs.{i}.conv``, ``convs.{i}.conv``, ``conv_embedding.conv``,
+  ``conv_logits``); an SCNet's ``glbctx_head`` (``res{i}`` or ``conv{i}``,
+  ``fc``), ``relay_head`` and mask head's ``res{i}`` <->
+  ``roi_head.glbctx_head`` (``convs.{i}``, ``convs.{i}.conv``, ``fc``),
+  ``roi_head.feat_relay_head`` and ``roi_head.mask_head.convs.{i}``; a
+  DetectoRS backbone's ``stem_conv``, ``stem_bn`` and ``stages_{S}_{B}``
+  <-> ``conv1``, ``bn1`` and ``layer{S+1}.{B}`` (the second backbone of
+  the RFP neck's too, ``neck.rfp_modules_{i}`` <-> ``neck.rfp_modules.{i}``),
+  the RFP neck's ``fpn`` at the neck's top level (mmdet's ``RFP`` is an
+  ``FPN``) and ``rfp_aspp.aspp{i}`` <-> ``rfp_aspp.aspp.{i}`` (told from a
+  ResNet by a SAC's ``weight_diff`` or an ``rfp_conv`` in its blocks: a
+  DetectoRS backbone with neither has a ResNet's names here); a multi-head
   detector's ``necks_0`` and ``bbox_heads_1`` <-> ``necks.0`` and
   ``bbox_heads.1`` (its necks are alike: the first one's laterals count
   for all). A block
@@ -91,6 +111,37 @@ _TO_TORCH = [
 # RLA-ResNet
 _RESNET_TO_TORCH = [(r"\blayer(\d+)_(\d+)\b", lambda m, n: f"layer{m[1]}.{m[2]}")]
 
+# DetectoRS: the backbones' stems and blocks, the RFP neck's parts
+_DETECTORS_TO_TORCH = [
+    (r"^neck\.fpn\.", lambda m, n: "neck."),
+    (r"^neck\.rfp_modules_(\d+)\.", lambda m, n: f"neck.rfp_modules.{m[1]}."),
+    (r"^neck\.rfp_aspp\.aspp(\d+)\b", lambda m, n: f"neck.rfp_aspp.aspp.{m[1]}"),
+    (r"^(backbone|neck\.rfp_modules\.\d+)\.stem_conv\b",
+     lambda m, n: f"{m[1]}.conv1"),
+    (r"^(backbone|neck\.rfp_modules\.\d+)\.stem_bn\b",
+     lambda m, n: f"{m[1]}.bn1"),
+    (r"^(backbone|neck\.rfp_modules\.\d+)\.stages_(\d+)_(\d+)\b",
+     lambda m, n: f"{m[1]}.layer{int(m[2]) + 1}.{m[3]}"),
+]
+# the same back: the backbone's where it is DetectoRS's, the neck's where
+# it is the RFP
+_DETECTORS_BACKBONE_TO_FLAX = [
+    (r"^backbone\.conv1\b", lambda m, n: "backbone.stem_conv"),
+    (r"^backbone\.bn1\b", lambda m, n: "backbone.stem_bn"),
+    (r"^backbone\.layer(\d+)\.(\d+)\b",
+     lambda m, n: f"backbone.stages_{int(m[1]) - 1}_{m[2]}"),
+]
+_RFP_TO_FLAX = [
+    (r"^neck\.rfp_aspp\.aspp\.(\d+)\b", lambda m, n: f"neck.rfp_aspp.aspp{m[1]}"),
+    (r"^neck\.(lateral_convs|fpn_convs)\.", lambda m, n: f"neck.fpn.{m[1]}."),
+    (r"^neck\.rfp_modules\.(\d+)\.conv1\b",
+     lambda m, n: f"neck.rfp_modules_{m[1]}.stem_conv"),
+    (r"^neck\.rfp_modules\.(\d+)\.bn1\b",
+     lambda m, n: f"neck.rfp_modules_{m[1]}.stem_bn"),
+    (r"^neck\.rfp_modules\.(\d+)\.layer(\d+)\.(\d+)\b",
+     lambda m, n: f"neck.rfp_modules_{m[1]}.stages_{int(m[2]) - 1}_{m[3]}"),
+]
+
 _TO_FLAX = [
     (r"\b(necks|bbox_heads)\.(\d+)\b", lambda m, n: f"{m[1]}_{m[2]}"),
     (r"\bstages\.(\d+)\.(\d+)\b", lambda m, n: f"layer{int(m[1]) + 1}_{m[2]}"),
@@ -124,12 +175,35 @@ _TO_FLAX = [
 # stage's) first shared FC and the mask IoU head's first FC
 ROI_FC = re.compile(r"^roi_head\.(bbox_head(\.\d+)?\.shared_fcs|"
                     r"mask_iou_head\.fcs)\.0$")
-MASK_UPSAMPLE = "roi_head.mask_head.upsample"
+# the mask heads' transposed convs (a Mask R-CNN's, each HTC stage's)
+MASK_UPSAMPLE = re.compile(r"^roi_head\.mask_head(\.\d+)?\.upsample$")
+# SCNet's relay FC, whose output rows are a (c, s, s) map in the port
+RELAY_FC = "roi_head.feat_relay_head.fc"
 _ROI_PARTS_TO_FLAX = [
     (r"^roi_head\.bbox_head\.(\d+)\b", lambda m, n: f"bbox_heads_{m[1]}"),
+    (r"^roi_head\.mask_head\.(\d+)\.convs\.(\d+)\.conv\b",
+     lambda m, n: f"mask_heads_{m[1]}.conv{m[2]}"),
+    (r"^roi_head\.mask_head\.(\d+)\.conv_res\.conv\b",
+     lambda m, n: f"mask_heads_{m[1]}.conv_res"),
+    (r"^roi_head\.mask_head\.(\d+)\b", lambda m, n: f"mask_heads_{m[1]}"),
     (r"^roi_head\.mask_head\.convs\.(\d+)\.conv\b",
      lambda m, n: f"mask_head.conv{m[1]}"),
+    (r"^roi_head\.mask_head\.convs\.(\d+)\b",
+     lambda m, n: f"mask_head.res{m[1]}"),
     (r"^roi_head\.mask_head\b", lambda m, n: "mask_head"),
+    (r"^roi_head\.semantic_head\.lateral_convs\.(\d+)\.conv\b",
+     lambda m, n: f"semantic_head.lateral{m[1]}"),
+    (r"^roi_head\.semantic_head\.convs\.(\d+)\.conv\b",
+     lambda m, n: f"semantic_head.conv{m[1]}"),
+    (r"^roi_head\.semantic_head\.conv_embedding\.conv\b",
+     lambda m, n: "semantic_head.conv_embedding"),
+    (r"^roi_head\.semantic_head\b", lambda m, n: "semantic_head"),
+    (r"^roi_head\.glbctx_head\.convs\.(\d+)\.conv\b",
+     lambda m, n: f"glbctx_head.conv{m[1]}"),
+    (r"^roi_head\.glbctx_head\.convs\.(\d+)\b",
+     lambda m, n: f"glbctx_head.res{m[1]}"),
+    (r"^roi_head\.glbctx_head\b", lambda m, n: "glbctx_head"),
+    (r"^roi_head\.feat_relay_head\b", lambda m, n: "relay_head"),
     (r"^roi_head\.mask_iou_head\.convs\.(\d+)\.conv\b",
      lambda m, n: f"mask_iou_head.conv{m[1]}"),
     (r"^roi_head\.mask_iou_head\.fcs\.(\d+)\b",
@@ -154,7 +228,32 @@ def _roi_parts_to_torch(params: dict) -> list:
     if "mask_head" in params:
         rules += [(r"^mask_head\.conv(\d+)\b",
                    lambda m, n: f"roi_head.mask_head.convs.{m[1]}.conv"),
+                  (r"^mask_head\.res(\d+)\b",
+                   lambda m, n: f"roi_head.mask_head.convs.{m[1]}"),
                   (r"^mask_head\b", lambda m, n: "roi_head.mask_head")]
+    if "mask_heads_0" in params:
+        rules += [(r"^mask_heads_(\d+)\.conv(\d+)\b",
+                   lambda m, n: f"roi_head.mask_head.{m[1]}.convs.{m[2]}.conv"),
+                  (r"^mask_heads_(\d+)\.conv_res\b",
+                   lambda m, n: f"roi_head.mask_head.{m[1]}.conv_res.conv"),
+                  (r"^mask_heads_(\d+)\b",
+                   lambda m, n: f"roi_head.mask_head.{m[1]}")]
+    if "semantic_head" in params:
+        rules += [(r"^semantic_head\.lateral(\d+)\b", lambda m, n:
+                   f"roi_head.semantic_head.lateral_convs.{m[1]}.conv"),
+                  (r"^semantic_head\.conv(\d+)\b",
+                   lambda m, n: f"roi_head.semantic_head.convs.{m[1]}.conv"),
+                  (r"^semantic_head\.conv_embedding\b",
+                   lambda m, n: "roi_head.semantic_head.conv_embedding.conv"),
+                  (r"^semantic_head\b", lambda m, n: "roi_head.semantic_head")]
+    if "glbctx_head" in params:
+        rules += [(r"^glbctx_head\.res(\d+)\b",
+                   lambda m, n: f"roi_head.glbctx_head.convs.{m[1]}"),
+                  (r"^glbctx_head\.conv(\d+)\b",
+                   lambda m, n: f"roi_head.glbctx_head.convs.{m[1]}.conv"),
+                  (r"^glbctx_head\b", lambda m, n: "roi_head.glbctx_head")]
+    if "relay_head" in params:
+        rules.append((r"^relay_head\b", lambda m, n: "roi_head.feat_relay_head"))
     if "mask_iou_head" in params:
         rules += [(r"^mask_iou_head\.conv(\d+)\b",
                    lambda m, n: f"roi_head.mask_iou_head.convs.{m[1]}.conv"),
@@ -201,9 +300,10 @@ def flax_to_state_dict(variables: dict) -> dict[str, torch.Tensor]:
     """flax ``{"params", "batch_stats"}`` tree of arrays -> port state_dict."""
     params = variables["params"]
     neck = params.get("neck", params.get("necks_0", {}))
+    neck = neck.get("fpn", neck)
     n_lat = sum(1 for k in neck if k.startswith("lateral_conv"))
     rla = "conv_out0" in params.get("backbone", {})
-    rules = _roi_parts_to_torch(params) + (
+    rules = _roi_parts_to_torch(params) + _DETECTORS_TO_TORCH + (
         _TO_TORCH if rla else _RESNET_TO_TORCH + _TO_TORCH)
     sd: dict[str, torch.Tensor] = {}
     for collection in ("params", "batch_stats"):
@@ -219,8 +319,19 @@ def flax_to_state_dict(variables: dict) -> dict[str, torch.Tensor]:
                     arr = arr[_roi_rows(arr.shape[0],
                                         _roi_channels(params, path),
                                         to_chw=True)]
+                if module == RELAY_FC:
+                    arr = arr[:, _roi_rows(arr.shape[1],
+                                           _roi_channels(params, path),
+                                           to_chw=True)]
                 arr = arr.T
-            elif leaf == "kernel" and module == MASK_UPSAMPLE:
+            elif leaf == "bias" and module == RELAY_FC:
+                name = leaf
+                arr = arr[_roi_rows(arr.shape[0], _roi_channels(params, path),
+                                    to_chw=True)]
+            elif leaf in ("weight", "weight_diff") and arr.ndim == 4:
+                name = leaf                       # a SAC's kernels
+                arr = np.transpose(arr, (3, 2, 0, 1))
+            elif leaf == "kernel" and MASK_UPSAMPLE.match(module):
                 name = "weight"
                 arr = np.transpose(arr, (2, 3, 0, 1))[:, :, ::-1, ::-1]
             elif leaf == "kernel":
@@ -246,8 +357,10 @@ def _roi_channels(params: dict, path: tuple) -> int:
         return int(np.asarray(head[f"conv{last}"]["kernel"]).shape[-1])
     if "shared_conv3" in head:
         return int(np.asarray(head["shared_conv3"]["kernel"]).shape[-1])
-    if "fpn_conv0" in params.get("neck", {}):
-        return int(np.asarray(params["neck"]["fpn_conv0"]["kernel"]).shape[-1])
+    neck = params.get("neck", {})
+    neck = neck.get("fpn", neck)
+    if "fpn_conv0" in neck:
+        return int(np.asarray(neck["fpn_conv0"]["kernel"]).shape[-1])
     return int(np.asarray(params["rpn_head"]["rpn_conv"]["kernel"]).shape[-2])
 
 
@@ -273,6 +386,12 @@ def state_dict_to_flax(state_dict: dict) -> dict:
     arrays (the inverse of :func:`flax_to_state_dict`)."""
     n_lat = len({m[1] for k in state_dict
                  if (m := re.match(r"necks?(?:\.0)?\.lateral_convs\.(\d+)\.", k))})
+    detectors = any(re.match(r"^backbone\..*\.(weight_diff|rfp_conv\.)", k)
+                    for k in state_dict)
+    rfp = "neck.rfp_weight.weight" in state_dict
+    rules = (_ROI_PARTS_TO_FLAX
+             + (_DETECTORS_BACKBONE_TO_FLAX if detectors else [])
+             + (_RFP_TO_FLAX if rfp else []) + _TO_FLAX)
     out: dict = {"params": {}, "batch_stats": {}}
     for key, value in state_dict.items():
         module, name = key.rsplit(".", 1)
@@ -282,7 +401,10 @@ def state_dict_to_flax(state_dict: dict) -> dict:
         collection = "params"
         if name in ("running_mean", "running_var"):
             collection, leaf = "batch_stats", name[len("running_"):]
-        elif name == "weight" and module == MASK_UPSAMPLE:
+        elif name in ("weight", "weight_diff") and (
+                f"{module}.weight_diff" in state_dict):
+            leaf, arr = name, np.transpose(arr, (2, 3, 1, 0))   # a SAC's
+        elif name == "weight" and MASK_UPSAMPLE.match(module):
             leaf, arr = "kernel", np.transpose(arr[:, :, ::-1, ::-1],
                                                (2, 3, 0, 1))
         elif name == "weight" and arr.ndim == 4:
@@ -293,13 +415,20 @@ def state_dict_to_flax(state_dict: dict) -> dict:
                 arr = arr[_roi_rows(arr.shape[0],
                                     _roi_channels_torch(state_dict, module),
                                     to_chw=False)]
+            if module == RELAY_FC:
+                arr = arr[:, _roi_rows(arr.shape[1],
+                                       _roi_channels_torch(state_dict, module),
+                                       to_chw=False)]
         elif name == "weight" and not module.endswith("l2_norm"):
             leaf = "scale"
         else:
             leaf = name
+            if module == RELAY_FC:
+                arr = arr[_roi_rows(arr.shape[0],
+                                    _roi_channels_torch(state_dict, module),
+                                    to_chw=False)]
         d = out[collection]
-        for part in _rename(module, _ROI_PARTS_TO_FLAX + _TO_FLAX,
-                            n_lat).split("."):
+        for part in _rename(module, rules, n_lat).split("."):
             d = d.setdefault(part, {})
         d[leaf] = np.array(arr)
     return out

@@ -29,6 +29,11 @@ parity tests (no pretrained checkpoint ships with the repo).
   class) candidates per proposal, so the RoI NMS sees its full 2000);
   its regressor (``fc_reg``) small, so class boxes stay near the
   proposals;
+- DetectoRS's SAC (its kernels are flax params named ``weight`` and
+  ``weight_diff``): ``weight`` as any kernel, ``weight_diff``, the context
+  1x1s (``pre_context``, ``post_context``) and the RFP's ``rfp_conv``
+  small (0.1 of a kernel's scale), so a SAC block keeps its input's
+  scale as a plain conv does, through both backbones;
 - SSD's per-level classifiers (``cls_conv{l}``, A x (C + 1) channels, the
   background last in each anchor's block) as the RoI head's, so each
   anchor's softmax puts about 1/9 on each live class, above SSD's
@@ -98,7 +103,11 @@ def fill_variables(shapes: dict, seed: int = 0) -> dict:
         elif path[-1] == "bias" and path[-2] in ("retina_reg", "rpn_reg",
                                                  "fc_reg"):
             v = 0.05 * rng.randn(*shape)
-        elif name == "kernel":
+        elif name == "weight_diff" or (
+                name == "kernel" and path[-2] in ("pre_context", "post_context",
+                                                  "rfp_conv")):
+            v = rng.randn(*shape) * 0.1 / np.sqrt(np.prod(shape[:-1]))
+        elif name == "kernel" or (name == "weight" and len(shape) == 4):
             v = rng.randn(*shape) / np.sqrt(np.prod(shape[:-1]))
         elif name == "var":
             v = rng.uniform(0.5, 1.5, shape)

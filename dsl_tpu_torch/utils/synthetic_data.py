@@ -43,7 +43,15 @@ config's own train and test pipelines. ``TINY_MASK_RCNN`` is
 ``TINY_MASK_SCORING_RCNN`` adds a 32-channel ``MaskIoUHead``;
 ``TINY_CASCADE_RCNN`` has ``TINY_FASTER_RCNN``'s parts with three bbox
 heads at the cascade's stds, ``TINY_CASCADE_MASK_RCNN`` also
-``TINY_MASK_RCNN``'s mask head.
+``TINY_MASK_RCNN``'s mask head. ``TINY_HTC`` is ``TINY_CASCADE_RCNN`` with
+three 2-conv, 32-channel ``HTCMaskHead``s (the first without
+``conv_res``) and a 1-conv, 32-channel ``FusedSemanticHead`` of 24
+classes; ``TINY_SCNET`` has three 32-wide ``SCNetBBoxHead``s, a
+one-block ``SCNetMaskHead``, the same semantic head, a one-block
+``GlobalContextHead`` and a 64-to-32 ``FeatureRelayHead``;
+``TINY_DETECTORS_FASTER`` is DetectoRS on ``TINY_FASTER_RCNN``'s RPN and
+RoI head, whose backbones keep depth 50 (the only depths, and widths,
+the JAX package's DetectoRS has), the RFP neck 32 wide.
 
 :func:`make_coco_instance_dir` writes a COCO instance set (``train.json``,
 ``val.json`` and the images beside them) whose annotations carry every
@@ -369,6 +377,38 @@ TINY_CASCADE_RCNN = dict(
 TINY_CASCADE_MASK_RCNN = dict(TINY_CASCADE_RCNN,
                               mask_head=TINY_MASK_RCNN["mask_head"],
                               test_cfg=TINY_MASK_RCNN["test_cfg"])
+_TINY_SEMANTIC = dict(type="FusedSemanticHead", num_ins=5, fusion_level=1,
+                      num_convs=1, in_channels=32, conv_out_channels=32,
+                      num_classes=24, loss_weight=0.2)
+TINY_HTC = dict(
+    TINY_CASCADE_RCNN, type="HTC",
+    mask_heads=[dict(type="HTCMaskHead", num_classes=20, in_channels=32,
+                     conv_out_channels=32, num_convs=2, roi_size=14,
+                     with_conv_res=i > 0) for i in range(3)],
+    semantic_head=_TINY_SEMANTIC, test_cfg=TINY_MASK_RCNN["test_cfg"])
+TINY_SCNET = dict(
+    TINY_CASCADE_RCNN, type="SCNet",
+    bbox_heads=[dict(type="SCNetBBoxHead", num_classes=20, in_channels=32,
+                     roi_size=7, fc_channels=64, target_stds=stds)
+                for stds in ([0.1, 0.1, 0.2, 0.2], [0.05, 0.05, 0.1, 0.1],
+                             [0.033, 0.033, 0.067, 0.067])],
+    mask_head=dict(type="SCNetMaskHead", num_classes=20, in_channels=32,
+                   conv_out_channels=32, num_convs=2, roi_size=14),
+    semantic_head=_TINY_SEMANTIC,
+    glbctx_head=dict(type="GlobalContextHead", num_convs=2, in_channels=32,
+                     conv_out_channels=32, num_classes=20, loss_weight=3.0,
+                     conv_to_res=True),
+    relay_head=dict(type="FeatureRelayHead", in_channels=64,
+                    out_conv_channels=32, roi_feat_size=7, scale_factor=2),
+    test_cfg=TINY_MASK_RCNN["test_cfg"])
+_TINY_DETECTORS_BACKBONE = dict(type="DetectoRSResNet", depth=50,
+                                out_indices=(0, 1, 2, 3),
+                                sac_stages=(1, 2, 3), rfp_inplanes=32)
+TINY_DETECTORS_FASTER = dict(
+    TINY_FASTER_RCNN, type="DetectoRS", backbone=_TINY_DETECTORS_BACKBONE,
+    neck=dict(type="RFP", in_channels=[256, 512, 1024, 2048],
+              out_channels=32, num_outs=5, rfp_steps=2, aspp_out_channels=8,
+              rfp_backbone=_TINY_DETECTORS_BACKBONE))
 TINY_SSD = dict(
     type="SSD",
     backbone=dict(type="ResNet", depth=18, out_indices=(2, 3),

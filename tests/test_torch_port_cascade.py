@@ -23,8 +23,9 @@ classes), f32:
 - the weight bridge both ways, an mmdet-keyed ``.pth`` loaded, and one with
   mmdet's three mask heads refused naming their keys;
 - every config of ``configs/cascade_rcnn/`` built on the meta device, with
-  the JAX package's parameter counts for four; HTC, SCNet, DetectoRS, an
-  RFP neck and a SABL stage refused by name;
+  the JAX package's parameter counts for four; Sparse R-CNN and a SABL
+  stage refused by name (HTC, SCNet and DetectoRS are ported: their own
+  files);
 - ``single_device_test`` (boxes only for Cascade Mask R-CNN, as in JAX),
   ``tta_test``, ``inference_detector``, the test CLI with ``--eval bbox``
   and its refusal of ``--eval segm``, on a tiny COCO instance set;
@@ -413,10 +414,7 @@ def test_the_cascade_configs_build(config):
 
 def test_unported_cascades_raise():
     for change, match in (
-            (dict(type="HTC"), "HTC"), (dict(type="SCNet"), "SCNet"),
-            (dict(type="DetectoRS"), "DetectoRS"),
-            (dict(mask_heads=[TINY_CASCADE_MASK_RCNN["mask_head"]]), "HTC"),
-            (dict(neck=dict(type="RFP")), "RFP"),
+            (dict(type="SparseRCNN"), "SparseRCNN"),
             (dict(bbox_heads=[dict(type="SABLHead", num_classes=20)] * 3),
              "SABLHead")):
         with pytest.raises(NotImplementedError, match=match):

@@ -78,6 +78,17 @@ dependencies:
   draws made on the host, agree with the CPU's within 1e-4 relative (a
   stage's sample may move only where a box crosses its IoU threshold by
   the devices' rounding: 1e-3 for the later stages) with one launch;
+- the tiny HTC's and SCNet's heads (the semantic head on seeded levels,
+  the mask heads with the information flow, the global-context, relay and
+  box heads) and predicts on the card agree with the CPU's (heads 1e-4 of
+  the largest magnitude; the dets as sets per image, the masks'
+  probabilities of the paired dets 1e-4) with two NMS launches, and their
+  losses, the samplers' draws made on the host, within 1e-4 relative
+  (1e-3 for the later stages and the mask losses, whose samples and
+  targets move with the RoIs' rounding) with one launch;
+- ``htc.resize_bilinear`` (JAX's resize as two matrix products) and a
+  SAC block (its average pool and spatial means) on the card agree with
+  the CPU within 1e-5, and their backward repeats bit for bit;
 - ``train_detector`` and ``single_device_test`` refuse to start without
   CUDA (these run everywhere).
 """
@@ -922,3 +933,170 @@ def test_tiny_two_stage_loss_on_the_card_matches_the_cpu(card, which,
     for key, want in on_cpu.items():
         rtol = 1e-3 if key.startswith(("s1.", "s2.")) else 1e-4
         assert abs(on_card[key] - want) <= rtol * max(abs(want), 1e-3), key
+
+
+def _dets_as_sets(got, want, extra=None):
+    """Per image the valid dets of two predicts sorted alike (label, x1, y1
+    rounded): labels equal, boxes and scores within 1e-5 relative and 1e-4,
+    and the rows of ``extra`` (per-det tensors, e.g. mask probabilities)
+    within 1e-4."""
+    for i in range(got[0].shape[0]):
+        rows = []
+        for out in (got, want):
+            v = out[2][i].numpy()
+            d, lab = out[0][i].numpy()[v], out[1][i].numpy()[v]
+            order = np.lexsort((np.round(d[:, 1], 1), np.round(d[:, 0], 1),
+                                lab))
+            rows.append((d[order], lab[order],
+                         None if extra is None else out[3][i].numpy()[v][order]))
+        np.testing.assert_array_equal(rows[0][1], rows[1][1])
+        np.testing.assert_allclose(rows[0][0], rows[1][0], rtol=1e-5, atol=1e-4)
+        if extra is not None:
+            np.testing.assert_allclose(rows[0][2], rows[1][2], rtol=0,
+                                       atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["htc", "scnet"])
+def test_tiny_htc_and_scnet_on_the_card_match_the_cpu(card, which):
+    import copy
+
+    from dsl_tpu_torch.models import detector_predict
+    from dsl_tpu_torch.utils.synthetic_data import TINY_HTC, TINY_SCNET
+
+    det = _seeded(TINY_HTC if which == "htc" else TINY_SCNET).eval()
+    rng = np.random.RandomState(10)
+    x = torch.from_numpy(rng.randn(2, 3, 64, 96).astype(np.float32))
+    rois = torch.from_numpy(rng.randn(9, 32, 14, 14).astype(np.float32))
+    fc = torch.from_numpy(rng.randn(9, 64).astype(np.float32))
+    with torch.no_grad():
+        levels = [torch.from_numpy(rng.randn(*f.shape).astype(np.float32))
+                  for f in det(x)[0]]
+    outs, launches = {}, {}
+    for dev in (card, "cpu"):
+        d = copy.deepcopy(det).to(dev)
+        lv = [f.to(dev) for f in levels]
+        with torch.no_grad():
+            heads = [d(lv, stage="semantic")]
+            heads += [d(rois[..., :7, :7].to(dev), stage="roi", head=i,
+                        shared=which == "scnet") for i in range(3)]
+            if which == "htc":
+                res = None
+                for j in range(3):
+                    out = d(rois.to(dev), stage="htc_mask", head=j,
+                            res_feat=res)
+                    heads.append(out)
+                    res = out[1]
+            else:
+                heads += [d(lv, stage="glbctx"), d(fc.to(dev), stage="relay"),
+                          d(rois.to(dev), stage="mask")]
+        before = nms_keep.launches
+        dets = detector_predict(d, x.to(dev), device=dev)
+        launches[str(dev)] = nms_keep.launches - before
+        outs[str(dev)] = ([t.cpu() for h in heads for t in (
+            h if isinstance(h, tuple) else (h,))], [t.cpu() for t in dets])
+    assert launches["cuda"] == 2 and launches["cpu"] == 0
+    (got_h, got), (want_h, want) = outs["cuda"], outs["cpu"]
+    for g, w in zip(got_h, want_h):
+        torch.testing.assert_close(g, w, rtol=0,
+                                   atol=1e-4 * max(1.0, float(w.abs().max())))
+    assert torch.equal(got[2], want[2]) and int(got[2].sum()) > 50
+    _dets_as_sets(got, want, extra=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["htc", "scnet"])
+def test_tiny_htc_and_scnet_losses_on_the_card_match_the_cpu(card, which,
+                                                             monkeypatch):
+    import copy
+
+    from dsl_tpu_torch.models.detectors import detector_loss
+    from dsl_tpu_torch.models.detectors import two_stage
+    from dsl_tpu_torch.utils.synthetic_data import TINY_HTC, TINY_SCNET
+
+    det = _seeded(TINY_HTC if which == "htc" else TINY_SCNET).train()
+    rng = np.random.RandomState(11)
+    b, k, m = 2, 4, 112
+    gtb = np.zeros((b, k, 4), np.float32)
+    for i in range(b):
+        for j in range(k):
+            x1, y1 = rng.uniform(0, 60), rng.uniform(0, 30)
+            gtb[i, j] = (x1, y1, x1 + rng.uniform(8, 36), y1 + rng.uniform(8, 30))
+    batch = dict(
+        images=rng.randn(b, 64, 96, 3).astype(np.float32), gt_bboxes=gtb,
+        gt_labels=rng.randint(0, 20, (b, k)), gt_valid=np.ones((b, k), bool),
+        gt_mask_crops=(rng.rand(b, k, m, m) < 0.5).astype(np.uint8),
+        img_shapes=np.tile(np.float32([64, 96]), (b, 1)))
+    real = two_stage.sampler_draws
+
+    def on_host(cur_iter, bs, a, n, device, stages=1):
+        draws = real(cur_iter, bs, a, n, "cpu", stages=stages)
+        return dict(rpn=draws["rpn"].to(device),
+                    rcnn=tuple(x.to(device) for x in draws["rcnn"]))
+
+    monkeypatch.setattr(two_stage, "sampler_draws", on_host)
+    got = {}
+    for dev in (card, "cpu"):
+        before = nms_keep.launches
+        _, log_vars = detector_loss(copy.deepcopy(det).to(dev),
+                                    to_torch(batch, dev), cur_iter=4)
+        got[str(dev)] = ({key: float(v) for key, v in log_vars.items()},
+                         nms_keep.launches - before)
+    (on_card, n_card), (on_cpu, n_cpu) = got["cuda"], got["cpu"]
+    assert n_card == 1 and n_cpu == 0 and set(on_card) == set(on_cpu)
+    for key, want in on_cpu.items():
+        rtol = (1e-3 if key.startswith(("s1.", "s2.")) or "mask" in key
+                or key == "loss" else 1e-4)
+        assert abs(on_card[key] - want) <= rtol * max(abs(want), 1e-3), key
+
+
+@pytest.mark.cuda
+def test_resize_and_sac_on_the_card_match_the_cpu_and_repeat(card):
+    """Under cuDNN's deterministic algorithms, as ``train_detector`` runs
+    its steps (a convolution's backward may add with atomics without
+    them)."""
+    from dsl_tpu_torch.apis.train import deterministic_cudnn
+    from dsl_tpu_torch.models.backbones.detectors_resnet import SAConv
+    from dsl_tpu_torch.models.roi_heads.htc import resize_bilinear
+
+    rng = np.random.RandomState(12)
+    sac = SAConv(32, 32, stride=2)
+    sac.init_weights(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        sac.weight_diff.normal_(0, 0.05, generator=torch.Generator().manual_seed(1))
+    cases = [
+        (lambda t, dev: resize_bilinear(t, (8, 12)),
+         rng.randn(2, 16, 17, 23).astype(np.float32), None),
+        (lambda t, dev: resize_bilinear(t, (40, 56)),
+         rng.randn(2, 16, 5, 7).astype(np.float32), None),
+        (lambda t, dev, m=sac: m.to(dev)(t),
+         rng.randn(2, 32, 21, 27).astype(np.float32), sac),
+    ]
+    for fn, x, module in cases:
+        got = {}
+        for dev in (card, "cpu", card):
+            with deterministic_cudnn():
+                _forward_backward(fn, x, module, dev, got)
+        (c_out, c_grads), (r_out, r_grads) = got["cuda"]
+        assert torch.equal(c_out, r_out) and all(
+            torch.equal(a, b) for a, b in zip(c_grads, r_grads))
+        w_out, w_grads = got["cpu"][0]
+        for a, b in zip([c_out] + c_grads, [w_out] + w_grads):
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-5 * max(
+                1.0, float(b.abs().max())))
+
+
+def _forward_backward(fn, x, module, dev, got: dict):
+    """``fn`` on ``x`` on ``dev``, backward of a seeded gradient; the output
+    and the gradients (the input's, the module's) appended to
+    ``got[dev]``."""
+    t = torch.from_numpy(x).to(dev).requires_grad_()
+    out = fn(t, dev)
+    g = torch.from_numpy(np.random.RandomState(13).randn(
+        *out.shape).astype(np.float32)).to(dev)
+    out.backward(g)
+    grads = [t.grad.cpu()] + ([p.grad.cpu().clone() for p in
+                               module.parameters()] if module else [])
+    if module is not None:
+        module.zero_grad()
+    got.setdefault(str(dev), []).append((out.detach().cpu(), grads))

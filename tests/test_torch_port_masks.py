@@ -224,8 +224,8 @@ def test_load_annotations_masks_are_jax(coco, poly2mask):
                     np.testing.assert_array_equal(p, q)
     assert "BitmapMasks" in kinds
     assert ("PolygonMasks" in kinds) == (not poly2mask)
-    with pytest.raises(NotImplementedError, match="semantic"):
-        Compose([dict(type="LoadAnnotations", with_seg=True)])
+    # the semantic map loads too (held to JAX's in test_torch_port_htc.py)
+    assert Compose([dict(type="LoadAnnotations", with_seg=True)])
 
 
 @pytest.mark.parametrize("seed", range(4))

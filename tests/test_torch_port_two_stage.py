@@ -530,7 +530,7 @@ def test_the_configs_build(config, kind, params):
 
 def test_unported_two_stage_variants_raise():
     for change, match in (
-            (dict(type="SCNet"), "SCNet"),
+            (dict(type="DoubleHeadRCNN"), "DoubleHeadRCNN"),
             (dict(type="GridRCNN"), "GridRCNN"),
             (dict(point_head=dict(type="MaskPointHead")), "point_head"),
             (dict(bbox_head=dict(type="SABLHead", num_classes=20)),
@@ -546,6 +546,9 @@ def test_unported_two_stage_variants_raise():
     with pytest.raises(NotImplementedError, match="OHEMSampler"):
         two_stage.parse_rcnn_train_cfg(dict(rcnn=dict(
             sampler=dict(type="OHEMSampler"))))
+    # SCNet is ported, as a cascade: one bbox head is not its config
+    with pytest.raises(TypeError, match="bbox_heads"):
+        build_detector(dict(copy.deepcopy(TINY_FASTER_RCNN), type="SCNet"))
 
 
 def test_bf16_and_group_raise(pair):

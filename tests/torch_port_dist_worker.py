@@ -6,7 +6,8 @@ card). It imports no JAX, so the card's machine can run it.
 rank joins a gloo group at ``init_method``, runs the named tasks, writes
 its results to ``out/rank_<r>.pt`` and leaves the group. The tasks:
 
-- ``step``: one train step of the flagship (its width from ``width``) on
+- ``step``: one train step of the flagship (its width and depth from
+  ``width``, :func:`model_cfg`) on
   this rank's shard of the seeded global batch (:func:`shards`), the loss
   normalizers and gradients summed over the ranks; its metrics, its
   parameters' and teacher's sha256, and (rank 0) its parameters, for
@@ -43,26 +44,33 @@ NORM = dict(mean=[123.675, 116.28, 103.53], std=[58.395, 57.12, 57.375],
 
 
 def model_cfg(width: str) -> dict:
-    return copy.deepcopy(U.TINY_CFG if width == "tiny" else U.full_cfg())
+    """The flagship: ``"tiny"`` (``TINY_CFG``), ``"full"``, or ``"full_d1"``
+    (full width at RLA depth [1, 1, 1, 1])."""
+    if width == "tiny":
+        return copy.deepcopy(U.TINY_CFG)
+    cfg = U.full_cfg()
+    if width == "full_d1":
+        cfg["backbone"]["layers"] = [1, 1, 1, 1]
+    return cfg
 
 
 def seeded_variables(width: str) -> dict:
     """Seeded flax-layout weights of the flagship (tiny or full width)."""
-    from dsl_tpu_torch.models import build_detector
+    from dsl_tpu_torch.models.detectors.single_stage import empty_detector
     from dsl_tpu_torch.utils.jax_bridge import state_dict_to_flax
     from dsl_tpu_torch.utils.random_weights import fill_variables
 
     return fill_variables(state_dict_to_flax(
-        build_detector(model_cfg(width)).state_dict()))
+        empty_detector(model_cfg(width)).state_dict()))
 
 
 def seeded_detector(width: str, variables: str | None = None):
     """The flagship with seeded weights, or those saved at ``variables``
     (a flax-layout tree, ``torch.save``'d)."""
-    from dsl_tpu_torch.models import build_detector
+    from dsl_tpu_torch.models.detectors.single_stage import empty_detector
     from dsl_tpu_torch.utils.jax_bridge import flax_to_state_dict
 
-    det = build_detector(model_cfg(width))
+    det = empty_detector(model_cfg(width))
     tree = (seeded_variables(width) if variables is None
             else torch.load(variables, weights_only=False))
     det.load_state_dict(flax_to_state_dict(tree))
