@@ -363,14 +363,14 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    classifier seeded as phase 17's): one counted predict at B=8, 800x1344,
    f32 (2 NMS launches, N = 4819 and 2000, keeps equal to the plain
    version's, dets finite (8, 100, 5) with detections in every image, the
-   (8, 100, 28, 28) mask probabilities in [0, 1]), the median of ``HTC_TIMED`` (5)
+   (8, 100, 28, 28) mask probabilities in [0, 1]), the median of ``HTC_TIMED`` (3)
    predicts, one more predict's peak memory and trace (RoIAlign's share,
    the semantic RoIAligns counted in it, and the idle share); the levels
    (after the RFP neck), the semantic and global-context heads, each
    stage's box head and each mask head card vs CPU within 1e-3
    (``htc_probe``); steps at B=2 on seeded polygons' crops (cuDNN
    deterministic): every loss finite (``loss_semantic_seg``, the stages'
-   ``loss_mask``, ``loss_glbctx``), 1 NMS launch per step, the median of ``HTC_STEPS`` (3)
+   ``loss_mask``, ``loss_glbctx``), 1 NMS launch per step, the median of ``HTC_STEPS`` (2)
    after a warm-up, the peak memory and a traced step; for HTC one step
    card vs CPU at 2x128x192 (both legs on one leg's mask targets) and two
    runs of 3 steps bit-identical. Then HTC through ``train_detector`` with
@@ -378,6 +378,42 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    (masks, ``with_seg``, ``SegRescale``) for one epoch of phase 19's COCO
    instance set and the test CLI's ``--eval bbox``: ``bbox_mAP`` in
    [0, 1]. The NMS kernel timed on HTC's RoI input (``htc_b8``).
+22. PointRend, YOLACT and the Seesaw normed-mask Mask R-CNN at full width,
+   the NMS count at 0 before each part and read after it. Through
+   ``phase_variants``: ``configs/point_rend/point_rend_r50_caffe_fpn_
+   mstrain_1x_coco.py`` (80 classes; the coarse head's 7x7 logits, two
+   subdivision steps of 196 points) and ``configs/seesaw_loss/
+   mask_rcnn_r50_fpn_random_seesaw_loss_normed_mask_mstrain_2x_lvis_v1.py``
+   (1203 classes as configured, the classifier's C + 2 logits seeded so
+   that the split activation leaves the RoI NMS its full N) uncut with
+   seeded weights: one counted predict each at B=8, 800x1344, f32 (2 NMS
+   launches, N = 4819 and 2000, keeps equal to the plain version's, dets
+   finite (8, 100, 5) with detections in every image, (8, 100, 28, 28)
+   probabilities in [0, 1]), the median of ``P22_TIMED`` predicts; card vs
+   CPU within 1e-3 (``slice15_probe``): the levels and the RPN, the box
+   head, the mask head, PointRend's point head and one subdivision step
+   (integer coarse logits, whose upsample is exact on both, so both pick
+   the same cells), the Seesaw head's split-activation scores; steps at
+   B=2 on seeded polygons' crops (cuDNN deterministic): every loss finite
+   (``loss_point``, ``loss_cls_objectness``), 1 NMS launch per step; one
+   step card vs CPU at 2x128x192 each (both legs on one leg's mask
+   targets and the host's sampler and point draws), and for PointRend two
+   runs of 3 steps bit-identical. The Seesaw config then trains one epoch
+   through ``train_detector`` on phase 19's COCO instance set in place of
+   LVIS (``coco_instance.py``'s pipeline): its ``SeesawCounter`` ends at
+   one plus the valid GT labels it was fed. YOLACT
+   (``configs/yolact/yolact_r50_1x8_coco.py``, uncut, 80 classes;
+   ``phase_yolact``): predict at B=8, 800x1344 with no NMS launch (fast
+   NMS), dets finite (8, 100, 5) with detections in every image, the
+   (8, 100, 56, 56) crops in [0, 1], timed; ``fast_nms`` on the recorded
+   input card vs CPU, equal on the valid rows; the head, protonet and segm
+   outputs card vs CPU within 1e-3; a step at B=2 (``loss_cls``,
+   ``loss_bbox``, ``loss_mask``, ``loss_segm`` finite, no NMS), one step
+   card vs CPU banded as phase 6; then ``train_detector`` for one epoch
+   through ``coco_instance.py``'s pipeline with ``bbox`` and ``segm``
+   evaluation and the test CLI's ``--eval bbox segm``: ``bbox_mAP`` and
+   ``segm_mAP`` in [0, 1]. The NMS kernel timed on PointRend's and the
+   Seesaw head's RoI inputs (``point_rend_b8``, ``seesaw_b8``).
 
 Each phase logs its wall time (``[phase N] ... s``). The test CLI runs
 in this process (:func:`run_test_cli`), but under a launcher (phase 15);
@@ -419,7 +455,7 @@ NMS_TRACE_REPS = 100          # nms_keep calls in one profiler trace
 NMS_TRACE_TRIES = 3           # traces taken before a lossy one fails the run
 TRAIN_WARMUP, TRAIN_STEPS = 3, 10
 DET_COST_STEPS = 2            # steps timed per turn for the cost of determinism
-PREDICT_TIMED = 10            # flagship predicts timed per dtype (phase 5)
+PREDICT_TIMED = 5             # flagship predicts timed per dtype (phase 5)
 # the flagship's LR steps at epochs 20 and 26: with any real epoch length
 # the smoke's steps stay in the warm-up
 TRAIN_STEPS_PER_EPOCH = 1000
@@ -2394,7 +2430,7 @@ BASELINE_CONFIG = (ROOT / "configs" / "fcos_semi"
                    / "r50_caffe_mslonger_tricks_0.Xdata.py")
 BASELINE_LABELED, BASELINE_UNLABELED, BASELINE_VAL = 8, 8, 12
 BASELINE_EPOCHS = 1
-BASELINE_TIMED = 10
+BASELINE_TIMED = 5
 
 
 def run_module(module: str, args: list[str], timeout: int = 600,
@@ -3696,7 +3732,7 @@ FASTER_RCNN_VOC_CONFIG = (ROOT / "configs" / "pascal_voc"
                           / "faster_rcnn_r50_fpn_1x_voc0712.py")
 RPN_NMS_N = 4819              # 1000 candidates from each of P2-P5, 819 from P6
 ROI_NMS_N = 2000              # multiclass_nms's pre_nms_top
-ANCHOR_TIMED = 5              # predicts timed per detector and dtype
+ANCHOR_TIMED = 3              # predicts timed per detector and dtype
 ANCHOR_TRAIN_B = 2            # the configs' samples_per_gpu
 ANCHOR_WARMUP, ANCHOR_STEPS = 2, 5    # train steps: warm-ups, then timed
 ANCHOR_DET_STEPS = 4          # Faster R-CNN steps per determinism run
@@ -3869,16 +3905,18 @@ def anchor_batch(seed: int, canvas, b: int, num_classes: int, device):
 
 @contextlib.contextmanager
 def host_sampler_draws():
-    """The two-stage samplers' draws made on the CPU and moved to the
-    device, so that a step on the card and one on the CPU sample alike."""
+    """The two-stage samplers' draws (PointRend's point draws too) made on
+    the CPU and moved to the device, so that a step on the card and one on
+    the CPU sample alike."""
     from dsl_tpu_torch.models.detectors import two_stage
 
     real = two_stage.sampler_draws
 
-    def on_host(cur_iter, b, a, n, device, stages=1):
-        draws = real(cur_iter, b, a, n, "cpu", stages=stages)
-        return dict(rpn=draws["rpn"].to(device),
-                    rcnn=tuple(x.to(device) for x in draws["rcnn"]))
+    def on_host(cur_iter, b, a, n, device, **kw):
+        draws = real(cur_iter, b, a, n, "cpu", **kw)
+        return {key: (v.to(device) if hasattr(v, "to")
+                      else tuple(x.to(device) for x in v))
+                for key, v in draws.items()}
 
     two_stage.sampler_draws = on_host
     try:
@@ -4216,10 +4254,11 @@ def predict_counted(tag: str, fn, want_n: list, shape: tuple):
 
 
 def time_predict(tag: str, fn, b: int, smi: str, trace: bool = False,
-                 reps: int = P18_TIMED) -> float:
+                 reps: int = P18_TIMED, peak: bool = False) -> float:
     """Median ms of ``reps`` calls of ``fn`` (host clock to a
-    synchronize), logged with img/s. With ``trace``, one more call's peak
-    memory and its :func:`roi_align_share` are logged too."""
+    synchronize), logged with img/s. With ``trace`` or ``peak``, one more
+    call's peak memory is logged too, and with ``trace`` its
+    :func:`roi_align_share`."""
     import torch
 
     times = sorted(host_ms(fn, reps=reps))
@@ -4227,25 +4266,27 @@ def time_predict(tag: str, fn, b: int, smi: str, trace: bool = False,
     log(f"[time] {tag} predict B={b}: median {ms:.2f} ms/batch (min "
         f"{times[0]:.2f}, max {times[-1]:.2f}, {reps} reps), "
         f"{b / ms * 1e3:.1f} img/s  ({smi})")
-    if trace:
+    if trace or peak:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         fn()
         torch.cuda.synchronize()
         log(f"[time] {tag} predict B={b}: peak memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  ({smi})")
+    if trace:
         roi_align_share(f"{tag} predict B={b}", fn, smi)
     return ms
 
 
 def time_steps(tag: str, cfg, variables, batch, smi: str,
-               trace: bool = False, timed: int = P18_STEPS
-               ) -> tuple[dict, int]:
+               trace: bool = False, timed: int = P18_STEPS,
+               peak: bool = False) -> tuple[dict, int]:
     """One warm-up and ``timed`` f32 steps of the train entry
     point from the seeded weights: losses finite; the median step ms
-    logged. With ``trace``, the peak memory over those steps and the
-    :func:`roi_align_share` of further steps are logged too. Returns the
-    last timed step's metrics and the number of steps taken."""
+    logged. With ``trace`` or ``peak``, the peak memory over those steps
+    is logged too, and with ``trace`` the :func:`roi_align_share` of
+    further steps. Returns the last timed step's metrics and the number of
+    steps taken."""
     import math
 
     import torch
@@ -4266,9 +4307,10 @@ def time_steps(tag: str, cfg, variables, batch, smi: str,
             f"{k} {v:.4f}" for k, v in sorted(metrics[-1].items()))
         + f"  ({smi})")
     steps = len(metrics)
-    if trace:
+    if trace or peak:
         log(f"[time] {tag} train step f32 B={b}: peak memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  ({smi})")
+    if trace:
         steps += roi_align_share(f"{tag} train step B={b}",
                                  lambda: step(state, batch), smi)["calls"]
     del state, step
@@ -4558,7 +4600,9 @@ def expected_loss_keys(det) -> set:
     ``loss_mask`` where there is a mask head (per stage in a cascade but
     SCNet, whose one mask head runs after the stages), ``loss_mask_iou``
     where there is a mask IoU head, ``loss_semantic_seg`` where there is a
-    semantic head (HTC, SCNet) and SCNet's ``loss_glbctx``."""
+    semantic head (HTC, SCNet), SCNet's ``loss_glbctx``, ``loss_point``
+    where there is a point head (PointRend) and ``loss_cls_objectness``
+    per SeesawLoss head."""
     roi = ["loss_cls", "loss_bbox"]
     scnet = getattr(det, "glbctx_head", None) is not None
     keys = {"loss_rpn_cls", "loss_rpn_bbox"}
@@ -4574,13 +4618,19 @@ def expected_loss_keys(det) -> set:
         keys.add("loss_mask_iou")
     if getattr(det, "semantic_head", None) is not None:
         keys.add("loss_semantic_seg")
+    if getattr(det, "point_head", None) is not None:
+        keys.add("loss_point")
+    for i, head in enumerate(heads if heads is not None else [det.bbox_head]):
+        if getattr(head, "seesaw", False):
+            keys.add("loss_cls_objectness" if heads is None
+                     else f"s{i}.loss_cls_objectness")
     return keys
 
 
 def phase_variants(smi: str, configs=VARIANT_CONFIGS, b: int = BATCH,
                    seed: int = 20, phase: str = "p18", probe=None,
                    trace: bool = False, timed: int = P18_TIMED,
-                   steps: int = P18_STEPS):
+                   steps: int = P18_STEPS, peak: bool = False):
     """Two-stage variants (``VARIANT_CONFIGS`` by default), uncut, seeded:
     one counted predict at B=``b`` (2 NMS launches: the RPN's at N =
     ``RPN_NMS_N``, or ``ONE_LEVEL_RPN_NMS_N`` on one level, the RoI head's
@@ -4591,7 +4641,8 @@ def phase_variants(smi: str, configs=VARIANT_CONFIGS, b: int = BATCH,
     warm-up at B=2 (on a :func:`mask_batch` where
     there is a mask head; every key of :func:`expected_loss_keys`, finite;
     1 NMS launch per step). With ``trace``, the timed predict and steps
-    also log their peak memory and :func:`roi_align_share`.
+    also log their peak memory and :func:`roi_align_share`, with ``peak``
+    their peak memory alone.
     ``probe(tag, cfg, variables, det, images)``, where given, runs after
     the timed predict and returns the NMS launches it made. Returns the NMS
     launches, the worst keep difference, and per config its path entry
@@ -4629,7 +4680,10 @@ def phase_variants(smi: str, configs=VARIANT_CONFIGS, b: int = BATCH,
                    detector_predict(det, images, device=DEVICE))
             if len(out) == 3:
                 return out
+            # PointRend's two subdivision steps make its 7x7 logits 28x28
+            refined = getattr(det, "point_head", None) is not None
             if (out[3].shape[:2] != out[0].shape[:2]
+                    or (refined and tuple(out[3].shape[2:]) != (28, 28))
                     or not bool(((out[3] >= 0) & (out[3] <= 1)).all())):
                 raise AssertionError(f"{tag}: mask probabilities "
                                      f"{tuple(out[3].shape)}")
@@ -4642,7 +4696,8 @@ def phase_variants(smi: str, configs=VARIANT_CONFIGS, b: int = BATCH,
         inputs[tag] = calls[1][:3]
         paths.append(dict(path=tag, B=b, N=ROI_NMS_N, launches=2,
                           predict_ms=time_predict(tag, predict, b, smi,
-                                                  trace=trace, reps=timed)))
+                                                  trace=trace, reps=timed,
+                                                  peak=peak)))
         if probe is not None:
             launches += probe(tag, cfg, variables, det, images)
         with_masks = getattr(det, "mask_head", None) is not None
@@ -4655,7 +4710,7 @@ def phase_variants(smi: str, configs=VARIANT_CONFIGS, b: int = BATCH,
         with deterministic_cudnn():
             nms_keep.launches = 0
             m, taken = time_steps(tag, cfg, variables, batch, smi,
-                                  trace=trace, timed=steps)
+                                  trace=trace, timed=steps, peak=peak)
             if not want_keys <= set(m) or not all(
                     np.isfinite(m[k]) for k in want_keys):
                 raise AssertionError(f"{tag} step: {m}, expected the keys "
@@ -5381,7 +5436,7 @@ HTC_CONFIGS = tuple(ROOT / "configs" / p for p in (
 # masks) has nothing to read in either package
 SEMANTIC_DATA_CONFIG = (ROOT / "configs" / "_base_" / "datasets"
                         / "coco_instance_semantic.py")
-HTC_TIMED, HTC_STEPS = 5, 3   # phase 21's predicts and steps timed (median)
+HTC_TIMED, HTC_STEPS = 3, 2   # phase 21's predicts and steps timed (median)
 
 
 def _random_levels(det, small, gen):
@@ -5554,6 +5609,337 @@ def phase_htc_workflow(tmp: Path, coco: dict, smi: str) -> int:
     return launches + child
 
 
+POINT_REND_CONFIG = (ROOT / "configs" / "point_rend"
+                     / "point_rend_r50_caffe_fpn_mstrain_1x_coco.py")
+SEESAW_CONFIG = (ROOT / "configs" / "seesaw_loss" / "mask_rcnn_r50_fpn_random_"
+                 "seesaw_loss_normed_mask_mstrain_2x_lvis_v1.py")
+YOLACT_CONFIG = ROOT / "configs" / "yolact" / "yolact_r50_1x8_coco.py"
+# the instance pipeline that loads masks (YOLACT's config inherits the
+# box-only one; the Seesaw config's LVIS train set names none)
+INSTANCE_DATA_CONFIG = (ROOT / "configs" / "_base_" / "datasets"
+                        / "coco_instance.py")
+P22_TIMED, P22_STEPS = 3, 1   # phase 22's predicts and steps timed (median)
+P22_DET_STEPS = 3             # PointRend's steps per determinism run
+
+
+def _rel_diff(got, want) -> float:
+    """|card - CPU| / max(max |CPU|, 1), the card's tensor copied out."""
+    return float((got.float().cpu() - want).abs().max()
+                 / want.abs().max().clamp_min(1.0))
+
+
+def slice15_probe(smi: str):
+    """:func:`phase_variants`' probe for phase 22's two-stage detectors:
+    card vs CPU within 1e-3 of the largest magnitude: the levels and the
+    RPN at 1x128x192, the box head on 64 seeded RoIs, the mask head on 16;
+    PointRend's point head on 16 x 196 seeded points and one subdivision
+    step on 2 x 8 detections (integer coarse logits: their 2x upsample is
+    exact on both devices, so both pick the same cells); the Seesaw head's
+    split-activation scores on 64 seeded logit rows. Then the train entry
+    point at B=2 (cuDNN deterministic): one step card vs CPU at 2x128x192
+    (losses 1e-4, ``grad_norm`` 1e-3, updates banded; both legs on one
+    leg's mask targets and the host's draws, the point draws included),
+    and for PointRend two runs of ``P22_DET_STEPS`` steps bit-identical.
+    Returns the NMS launches: 1 per step."""
+    def probe(tag, cfg, variables, det, images) -> int:
+        import torch
+
+        from dsl_tpu_torch.apis.train import deterministic_cudnn
+        from dsl_tpu_torch.models.roi_heads import point_rend as pr
+        from dsl_tpu_torch.models.roi_heads.standard_roi_head import (
+            split_scores)
+        from dsl_tpu_torch.ops.nms import nms_keep
+
+        gen = torch.Generator(device=DEVICE).manual_seed(26)
+        small = images[:1, :, :ANCHOR_SMALL[0], :ANCHOR_SMALL[1]]
+        on_cpu = copy.deepcopy(det).cpu()
+        rel = {"levels and RPN": card_vs_cpu_outputs(det, small, on_cpu)}
+        head, mh, ph = det.bbox_head, det.mask_head, det.point_head
+        rf = torch.randn((64, head.in_channels, head.roi_size, head.roi_size),
+                         generator=gen, device=DEVICE)
+        rel["bbox head"] = card_vs_cpu_outputs(det, rf, on_cpu, stage="roi")
+        mf = torch.randn((16, mh.in_channels, mh.roi_size, mh.roi_size),
+                         generator=gen, device=DEVICE)
+        rel["mask head"] = card_vs_cpu_outputs(det, mf, on_cpu, stage="mask")
+        if ph is not None:
+            nc = ph.num_classes
+            fine = torch.randn((16, 196, ph.in_channels), generator=gen,
+                               device=DEVICE)
+            coarse = torch.randn((16, 196, nc), generator=gen, device=DEVICE)
+            rel["point head"] = card_vs_cpu_outputs(det, fine, on_cpu,
+                                                    stage="point", coarse=coarse)
+            with torch.no_grad():
+                p2 = det(small)[0][0]
+            logits = torch.randint(-3, 4, (1, 8, nc, 7, 7), generator=gen,
+                                   device=DEVICE).float()
+            boxes = torch.rand((1, 8, 4), generator=gen, device=DEVICE) * 60
+            boxes[..., 2:] += boxes[..., :2] + 8
+            labels = torch.randint(0, nc, (1, 8), generator=gen, device=DEVICE)
+            out = {}
+            for d, dev in ((det, DEVICE), (on_cpu, "cpu")):
+                with torch.no_grad():
+                    out[dev] = pr.point_rend_refine(
+                        logits.to(dev), p2.to(dev), boxes.to(dev),
+                        labels.to(dev),
+                        lambda f, c, d=d: d(f, stage="point", coarse=c),
+                        subdivision_steps=1)
+            rel["subdivision step"] = _rel_diff(out[DEVICE], out["cpu"])
+        if head.seesaw:
+            rows = torch.randn((64, head.num_classes + 2), generator=gen,
+                               device=DEVICE) * 3
+            rel["split activation"] = _rel_diff(
+                split_scores(head, rows), split_scores(on_cpu.bbox_head,
+                                                       rows.cpu()))
+        del on_cpu
+        log(f"[p22] {tag} outputs card vs CPU, worst |diff| / max|ref|: "
+            + ", ".join(f"{k} {v:.3e}" for k, v in rel.items()))
+        if max(rel.values()) > 1e-3:
+            raise AssertionError(f"{tag}: card and CPU disagree: {rel}")
+        nc = head.num_classes
+        small_batch = mask_batch(TRAIN_SEED + 1, ANCHOR_SMALL, ANCHOR_TRAIN_B,
+                                 nc, "cpu")
+        runs_det = P22_DET_STEPS if ph is not None else 0
+        with deterministic_cudnn():
+            nms_keep.launches = 0
+            with shared_mask_targets() as flips:
+                step_card_vs_cpu(tag, cfg, variables, ANCHOR_SMALL,
+                                 ANCHOR_TRAIN_B, nc, make_batch=lambda device: {
+                                     k: v.to(device) if hasattr(v, "to") else v
+                                     for k, v in small_batch.items()})
+            log(f"[p22] {tag} card vs CPU step: the CPU's own mask targets "
+                f"differ from the card's in {flips} pixels per call, each a "
+                f"tie of its RoIs' rounding; both legs trained on the card's")
+            if runs_det:
+                batch = mask_batch(TRAIN_SEED, CANVAS, ANCHOR_TRAIN_B, nc,
+                                   DEVICE)
+                runs = []
+                for _ in range(2):
+                    m, _, st, _ = anchor_step_runs(cfg, variables, batch,
+                                                   runs_det)
+                    runs += [m, {k: p.detach().clone() for k, p in
+                                 st.student.named_parameters()}]
+                    del st
+                check_deterministic(*runs)
+                del batch
+        if nms_keep.launches != 1 + 2 * runs_det:
+            raise AssertionError(f"{tag}: {nms_keep.launches} NMS launches in "
+                                 f"the card vs CPU step and the determinism "
+                                 f"runs, expected {1 + 2 * runs_det}")
+        torch.cuda.empty_cache()
+        return nms_keep.launches
+
+    return probe
+
+
+def _instance_cfg(path: Path, coco: dict) -> dict:
+    """A config on phase 19's COCO instance set, its train pipeline
+    ``INSTANCE_DATA_CONFIG``'s (masks loaded), one epoch, logs every step."""
+    from dsl_tpu_torch.config import Config
+    from dsl_tpu_torch.utils.synthetic_data import coco_instance_config
+
+    raw = coco_instance_config(Config.fromfile(str(path)).to_dict(), coco)
+    raw["data"]["train"]["pipeline"] = copy.deepcopy(
+        Config.fromfile(str(INSTANCE_DATA_CONFIG)).train_pipeline)
+    raw["runner"] = dict(raw.get("runner") or {}, max_epochs=1)
+    raw["log_config"] = dict(interval=1)
+    return raw
+
+
+def phase_seesaw_workflow(tmp: Path, coco: dict) -> int:
+    """``train_detector`` on ``SEESAW_CONFIG`` for one epoch of phase 19's
+    COCO instance set in place of LVIS (the model as configured, 1203
+    classes; no evaluation): ``loss_cls_objectness`` finite, 1 NMS launch
+    per step, and its ``SeesawCounter`` at one plus the valid GT labels it
+    was fed, class by class. Returns the NMS launches."""
+    import math
+
+    import torch
+
+    from dsl_tpu_torch.apis import train as train_api
+    from dsl_tpu_torch.config import Config
+    from dsl_tpu_torch.ops.nms import nms_keep
+
+    t0 = time.perf_counter()
+    raw = _instance_cfg(SEESAW_CONFIG, coco)
+    raw["evaluation"] = {}
+    fed, wrappers = [], []
+    real = train_api.with_seesaw_counts
+
+    def recording(step, nc, device):
+        wrapped = real(step, nc, device)
+
+        def inner(state, batch, **kw):
+            fed.append(batch["gt_labels"][batch["gt_valid"]].clone())
+            return wrapped(state, batch, **kw)
+
+        wrappers.append(wrapped)
+        return inner
+
+    train_api.with_seesaw_counts = recording
+    nms_keep.launches = 0
+    try:
+        train_api.train_detector(Config(raw), str(tmp / "seesaw22"),
+                                 device=DEVICE,
+                                 variables=seeded_variables(Config(raw)))
+    finally:
+        train_api.with_seesaw_counts = real
+    torch.cuda.synchronize()
+    launches = nms_keep.launches
+    labels = torch.cat(fed).long()
+    counts = wrappers[0].counter.counts
+    want = torch.ones_like(counts).index_add_(
+        0, labels.to(counts.device), torch.ones_like(labels, dtype=counts.dtype))
+    if not torch.equal(counts, want):
+        raise AssertionError(f"SeesawCounter {counts.sum()} after "
+                             f"{len(labels)} labels: not one plus the labels")
+    lines = [json.loads(x) for x in
+             (tmp / "seesaw22" / "train.log.json").read_text().splitlines()]
+    steps = [x for x in lines if x.get("mode") == "train"]
+    if not steps or not all(math.isfinite(x["loss_cls_objectness"])
+                            for x in steps):
+        raise AssertionError(f"Seesaw train_detector losses: {steps}")
+    if launches != len(steps):
+        raise AssertionError(f"train_detector made {launches} NMS launches, "
+                             f"expected 1 per step")
+    log(f"[p22] {SEESAW_CONFIG.relative_to(ROOT)} train_detector on the COCO "
+        f"instance set: {len(steps)} steps, last loss_cls "
+        f"{steps[-1]['loss_cls']:.4f}, loss_cls_objectness "
+        f"{steps[-1]['loss_cls_objectness']:.4f}; SeesawCounter = 1 + the "
+        f"{len(labels)} valid GT labels fed ({int((counts > 1).sum())} "
+        f"classes seen), NMS launches {launches}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def phase_yolact(tmp: Path, coco: dict, smi: str) -> float:
+    """YOLACT R-50 (``YOLACT_CONFIG``, uncut, seeded weights): the predict
+    at B=8, 800x1344, f32 with the NMS count at 0 (fast NMS: no launch),
+    its checks and time; ``fast_nms`` on the predict's recorded input card
+    vs CPU (equal on the valid rows); the head, protonet and segm outputs
+    card vs CPU at 1x128x192 within 1e-3; the steps at B=2 (cuDNN
+    deterministic; no NMS launch) and one step card vs CPU; then
+    ``train_detector`` for one epoch through ``INSTANCE_DATA_CONFIG``'s
+    pipeline with ``bbox`` and ``segm`` evaluation and the test CLI's
+    ``--eval bbox segm``: ``bbox_mAP`` and ``segm_mAP`` in [0, 1]. Returns
+    the predict's median ms."""
+    import math
+
+    import torch
+
+    from dsl_tpu_torch.apis import init_detector, train_detector
+    from dsl_tpu_torch.apis.train import deterministic_cudnn
+    from dsl_tpu_torch.config import Config
+    from dsl_tpu_torch.core import nms as core_nms
+    from dsl_tpu_torch.models.dense_heads import yolact_head
+    from dsl_tpu_torch.ops.nms import nms_keep
+
+    cfg = Config.fromfile(str(YOLACT_CONFIG))
+    variables = seeded_variables(cfg)
+    det = init_detector(cfg, variables=variables, device=DEVICE).detector
+    tag = YOLACT_CONFIG.stem
+    log(f"[p22] {YOLACT_CONFIG.relative_to(ROOT)}: YOLACT, "
+        f"{sum(p.numel() for p in det.parameters()) / 1e6:.2f} M parameters")
+    gen = torch.Generator(device=DEVICE).manual_seed(27)
+    images = torch.randn((BATCH, 3, *CANVAS), generator=gen, device=DEVICE)
+    recorded = []
+    real_fast = yolact_head.fast_nms
+
+    def recording(*args, **kw):
+        recorded.append((args, kw))
+        return real_fast(*args, **kw)
+
+    yolact_head.fast_nms = recording
+    nms_keep.launches = 0
+    try:
+        dets, labels, valid, crops = yolact_head.yolact_full_predict(det,
+                                                                     images)
+        torch.cuda.synchronize()
+    finally:
+        yolact_head.fast_nms = real_fast
+    per_img = valid.sum(1).tolist()
+    if (nms_keep.launches != 0 or tuple(dets.shape) != (BATCH, 100, 5)
+            or not bool(torch.isfinite(dets).all()) or min(per_img) == 0
+            or tuple(crops.shape) != (BATCH, 100, 56, 56)
+            or not bool(((crops >= 0) & (crops <= 1)).all())):
+        raise AssertionError(f"{tag} predict: {nms_keep.launches} NMS "
+                             f"launches, dets {tuple(dets.shape)}, valid per "
+                             f"image {per_img}, crops {tuple(crops.shape)}")
+    (boxes, scores), kw = recorded[0]
+    on_cpu = core_nms.fast_nms(boxes.cpu(), scores.cpu(), **kw)
+    for g, w in zip(core_nms.fast_nms(boxes, scores, **kw), on_cpu):
+        g = g.cpu()
+        if not torch.equal(g[on_cpu[3]], w[on_cpu[3]]):
+            raise AssertionError(f"{tag}: fast_nms on the card differs from "
+                                 f"the CPU's on the valid rows")
+    log(f"[p22] {tag} predict B={BATCH}: dets {tuple(dets.shape)} finite, "
+        f"valid per image {per_img}, crops {tuple(crops.shape)} in [0, 1], "
+        f"0 NMS launches; fast_nms on {tuple(scores.shape)} card = CPU on the "
+        f"{int(on_cpu[3].sum())} valid rows")
+    ms = time_predict(tag, lambda: yolact_head.yolact_full_predict(det, images),
+                      BATCH, smi, reps=P22_TIMED, peak=True)
+    small = images[:1, :, :ANCHOR_SMALL[0], :ANCHOR_SMALL[1]]
+    rel = card_vs_cpu_outputs(det, small)
+    log(f"[p22] {tag} head, protonet and segm outputs card vs CPU at "
+        f"1x{ANCHOR_SMALL[0]}x{ANCHOR_SMALL[1]}: worst |diff| / max|ref| = "
+        f"{rel:.3e}")
+    if rel > 1e-3:
+        raise AssertionError(f"{tag}: card and CPU disagree: {rel}")
+    del det, images, recorded
+    torch.cuda.empty_cache()
+    nc = cfg.model.bbox_head.num_classes
+    batch = mask_batch(TRAIN_SEED, CANVAS, ANCHOR_TRAIN_B, nc, DEVICE)
+    small_batch = mask_batch(TRAIN_SEED + 1, ANCHOR_SMALL, ANCHOR_TRAIN_B, nc,
+                             "cpu")
+    with deterministic_cudnn():
+        nms_keep.launches = 0
+        m, _ = time_steps(tag, cfg, variables, batch, smi, timed=P22_STEPS,
+                          peak=True)
+        keys = ("loss_cls", "loss_bbox", "loss_mask", "loss_segm")
+        if not all(math.isfinite(m[k]) for k in keys) or nms_keep.launches:
+            raise AssertionError(f"{tag} step: {m}, {nms_keep.launches} NMS "
+                                 f"launches")
+        step_card_vs_cpu(tag, cfg, variables, ANCHOR_SMALL, ANCHOR_TRAIN_B,
+                         nc, make_batch=lambda device: {
+                             k: v.to(device) if hasattr(v, "to") else v
+                             for k, v in small_batch.items()})
+    del batch
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    raw = _instance_cfg(YOLACT_CONFIG, coco)
+    raw["evaluation"] = dict(interval=1, metric=["bbox", "segm"])
+    work = tmp / "yolact22"
+    cfg_path = tmp / "yolact22.py"
+    Config(raw).dump(str(cfg_path))
+    nms_keep.launches = 0
+    train_detector(Config(raw), str(work), device=DEVICE,
+                   variables=seeded_variables(Config(raw)))
+    lines = [json.loads(x) for x in
+             (work / "train.log.json").read_text().splitlines()]
+    steps = [x for x in lines if x.get("mode") == "train"]
+    val = [x for x in lines if x.get("mode") == "val"]
+    if not steps or not all(math.isfinite(x[k]) for x in steps for k in keys):
+        raise AssertionError(f"YOLACT train_detector losses: {steps}")
+    if len(val) != 1 or not all(0.0 <= val[-1][k] <= 1.0
+                                for k in ("bbox_mAP", "segm_mAP")):
+        raise AssertionError(f"YOLACT evaluation: {val}")
+    child, out = run_test_cli([str(cfg_path), str(work / "epoch_1.pth"),
+                               "--eval", "bbox", "segm"], tag="yolact22")
+    metrics = json.loads(next(x for x in reversed(out) if x.startswith("{")))
+    if (not all(0.0 <= metrics[k] <= 1.0 for k in ("bbox_mAP", "segm_mAP"))
+            or nms_keep.launches or child):
+        raise AssertionError(f"YOLACT workflow: {metrics}, NMS launches "
+                             f"{nms_keep.launches}")
+    log(f"[p22] {YOLACT_CONFIG.relative_to(ROOT)} train_detector through "
+        f"{INSTANCE_DATA_CONFIG.relative_to(ROOT)}'s pipeline: {len(steps)} "
+        f"steps, losses finite (last " + ", ".join(
+            f"{k} {steps[-1][k]:.4f}" for k in keys)
+        + f"), bbox_mAP {val[-1]['bbox_mAP']:.4f}, segm_mAP "
+        f"{val[-1]['segm_mAP']:.4f}; test CLI --eval bbox segm: bbox_mAP "
+        f"{metrics['bbox_mAP']}, segm_mAP {metrics['segm_mAP']}; 0 NMS "
+        f"launches; workflow {time.perf_counter() - t0:.1f} s")
+    return ms
+
+
 def main() -> int:
     import torch
 
@@ -5701,13 +6087,35 @@ def main() -> int:
         p18_paths.append(htc_path)
         del htc_inputs
         log(f"[phase 21] {time.perf_counter() - t21:.1f} s")
+        t22 = time.perf_counter()
+        slice_launches, slice_err, slice_paths, slice_inputs = phase_variants(
+            smi, (POINT_REND_CONFIG, SEESAW_CONFIG), BATCH, seed=26,
+            phase="p22", probe=slice15_probe(smi), timed=P22_TIMED,
+            steps=P22_STEPS, peak=True)
+        slice_launches += phase_seesaw_workflow(Path(tmp), coco)
+        for entry, path, label in zip(slice_paths,
+                                      (POINT_REND_CONFIG, SEESAW_CONFIG),
+                                      ("point_rend", "seesaw")):
+            # the seeded classifiers leave the RoI NMS its full N
+            roi_valid = slice_inputs[path.stem][1].sum(1).tolist()
+            if min(roi_valid) < ROI_NMS_N:
+                raise AssertionError(f"{label}: fewer than {ROI_NMS_N} RoI "
+                                     f"NMS candidates over score_thr: "
+                                     f"{roi_valid}")
+            entry = dict(entry, path=label)
+            entry.update(nms_input_timing(f"{label}_b8",
+                                          *slice_inputs[path.stem], smi))
+            p18_paths.append(entry)
+        del slice_inputs
+        phase_yolact(Path(tmp), coco, smi)
+        log(f"[phase 22] {time.perf_counter() - t22:.1f} s")
     launches["nms_keep"] += (semi_launches + eval_launches + weights_launches
                              + baseline_launches + voc_launches + dist_launches
                              + mh_launches + cfg_launches + anchor_launches
                              + train17_launches + voc17_launches
                              + ssd_launches + rpn_launches + variant_launches
                              + mask_launches + cascade_launches
-                             + htc_launches)
+                             + htc_launches + slice_launches)
     kernels = [dict(
         name="nms_keep", route="cuda",
         source="dsl_tpu_torch/csrc/nms_kernel.cu",
@@ -5716,11 +6124,12 @@ def main() -> int:
         max_abs_err=float(max(case_err, path_err, train_err, semi_err,
                               eval_err, voc_err, mh_err, cfg_err, anchor_err,
                               ssd_err, rpn_err, variant_err, mask_err,
-                              flow_err, c4_err, cascade_err, htc_err)),
+                              flow_err, c4_err, cascade_err, htc_err,
+                              slice_err)),
         ms=nms_times["ms"], plain_ms=nms_times["plain_ms"],
         bound_ms=nms_times["bound_ms"], bound_by=nms_times["bound_by"],
         library_ms=None,
-        # the anchor-based detectors' inputs (phases 17-21), each timed alike
+        # the anchor-based detectors' inputs (phases 17-22), each timed alike
         paths=[{k: v for k, v in e.items() if k in (
             "path", "B", "N", "launches", "ms", "plain_ms", "bound_ms",
             "bound_by")} for e in anchor_paths + p18_paths])]

@@ -2,7 +2,7 @@
 
 Counterpart of ``dsl_tpu/apis/test.py`` (``single_device_test``,
 ``tta_test``, ``tta_test_dense``, ``merge_aug_detections``) for the
-ported detectors (FCOS, RetinaNet, SSD, the two-stage detectors and
+ported detectors (FCOS, RetinaNet, SSD, YOLACT, the two-stage detectors and
 Cascade R-CNN; ``tta_test_dense`` is FCOS's). In ``single_device_test`` each image is read onto the device
 (``data/image_io.read_image``, nvJPEG on the card), resized keeping its
 ratio to ``img_scale`` (``resize_linear_u8``, exact to ``cv2.resize``), normalized
@@ -15,12 +15,14 @@ rows only (FCOS predicts each image on its own). The results stay on the
 device until the last batch is queued. ``flip`` mirrors each decoded
 image before its resize, and the detections stay in the mirrored frame.
 A Mask R-CNN (``MaskRCNN`` and ``MaskScoringRCNN``, as the JAX package
-names them: the C4 form and Cascade Mask R-CNN are tested for their boxes,
-as there; HTC and SCNet, whose predicts give masks too, are tested for
-their boxes here, where the JAX function, whose list does not name them,
-fails to unpack their four outputs) predicts through
-``two_stage.mask_rcnn_predict``; after the last batch is queued, each
-image's 28x28 probabilities are pasted at its boxes in the original size on
+names them: the C4 form, PointRend and Cascade Mask R-CNN are tested for
+their boxes, as there; HTC and SCNet, whose predicts give masks too, are
+tested for their boxes here, where the JAX function, whose list does not
+name them, fails to unpack their four outputs) predicts through
+``two_stage.mask_rcnn_predict``, YOLACT through
+``yolact_head.yolact_full_predict`` (56x56 crops, no NMS kernel); after the
+last batch is queued, each image's probabilities are pasted at its boxes in
+the original size on
 the device (``mask_head.paste_masks``), copied out and encoded as
 uncompressed RLEs (``core/masks.encode_rle``) one image at a time, so no
 image's full-size masks outlive its encoding: its result is (dets, labels,
@@ -64,10 +66,10 @@ DEFAULT_NORM = dict(mean=(123.675, 116.28, 103.53),
                     std=(58.395, 57.12, 57.375), to_rgb=True)
 BATCH_SIZE = 8                # images per predict, as the JAX package's
 MASK_TTA_BATCH = 4            # tta_test_masks' batch_size in the JAX package
-# the detectors whose test results carry masks: the JAX package's list less
-# YOLACT, which is not ported (a Cascade Mask R-CNN's are boxes, as in JAX;
-# an HTC's and an SCNet's too, where the JAX function raises)
-MASK_RESULTS = ("MaskRCNN", "MaskScoringRCNN")
+# the detectors whose test results carry masks: the JAX package's list (a
+# Cascade Mask R-CNN's and a PointRend's are boxes, as in JAX; an HTC's and
+# an SCNet's too, where the JAX function raises)
+MASK_RESULTS = ("MaskRCNN", "MaskScoringRCNN", "YOLACT")
 
 
 def _path(dataset, idx: int) -> str:
@@ -147,11 +149,16 @@ def single_device_test(detector, params, dataset, test_cfg=None,
     device = resolve_device(device)
     norm = img_norm or DEFAULT_NORM
     if with_masks:
+        from dsl_tpu_torch.models.dense_heads.yolact_head import (
+            yolact_full_predict)
         from dsl_tpu_torch.models.detectors.two_stage import mask_rcnn_predict
         from dsl_tpu_torch.utils.precision import to_compute
 
+        mask_predict = (yolact_full_predict if det_name == "YOLACT"
+                        else mask_rcnn_predict)
+
         def predict(images, shapes, sfs):
-            return mask_rcnn_predict(
+            return mask_predict(
                 detector, images, img_shapes=shapes, scale_factors=sfs,
                 test_cfg=test_cfg, variables=None if params is None
                 else to_compute(detector, images, None, params)[0])

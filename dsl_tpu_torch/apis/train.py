@@ -37,12 +37,19 @@ runner runs, cuDNN is held to its deterministic algorithms
 (:func:`deterministic_cudnn`), so one seed gives one model, as in the JAX
 package; its nondeterministic backward algorithms made the f32 step part
 run to run. The process's flags come back when ``train_detector`` returns.
-Not ported yet, and refused with ``NotImplementedError``: Dynamic R-CNN
-and the other two-stage variants (``build_detector`` names them), Seesaw
-and GHM losses, and for a two-stage detector (Faster R-CNN) ``fp16`` (its
-loss runs in f32, as in the JAX package, which ignores the dtype there)
-and data parallelism. A weight file that fails to load raises, where the
-JAX package warns and trains from its init. ``variables`` (a flax-layout
+A bbox head with ``SeesawLoss`` (a cascade's too) trains with a
+:class:`SeesawCounter` of the classes (``with_seesaw_counts``): before each
+step the batch's valid GT labels are added to it and the counts reach the
+loss as ``batch["cum_samples"]``, as in the JAX package (whose loop keeps
+none for a cascade, which has no ``bbox_head`` there: its cascade trains on
+counts of one). Not ported yet, and refused with ``NotImplementedError``:
+Dynamic R-CNN and the other two-stage variants (``build_detector`` names
+them), the GHM losses, SeesawLoss under data parallelism (each rank would
+count its own shard; the JAX package counts the global batch), and for a
+two-stage detector (Faster R-CNN) ``fp16`` (its loss runs in f32, as in
+the JAX package, which ignores the dtype there) and data parallelism. A
+weight file that fails to load raises, where the JAX package warns and
+trains from its init. ``variables`` (a flax-layout
 tree, through the weight bridge) replaces the init and the ``pretrained``
 file. The pipelines draw from one ``np.random.RandomState(seed)`` and one
 ``random.Random(seed)``, as the JAX package's draw from the global
@@ -62,6 +69,7 @@ import numpy as np
 import torch
 
 from dsl_tpu_torch.apis.test import single_device_test
+from dsl_tpu_torch.core.losses import SeesawCounter
 from dsl_tpu_torch.data import datasets  # noqa: F401 (registers the datasets)
 from dsl_tpu_torch.data.formatting import DEFAULT_CANVAS
 from dsl_tpu_torch.data.loader import DetDataLoader, MultiDataLoader
@@ -87,16 +95,44 @@ DEFAULT_NORM = dict(mean=(123.675, 116.28, 103.53),
                     std=(58.395, 57.12, 57.375), to_rgb=True)
 
 
+def _seesaw_classes(model_cfg: dict) -> int | None:
+    """The class count of a SeesawLoss bbox head (a cascade's last
+    stage's), else None."""
+    head = roi_bbox_head_cfg(model_cfg)
+    if dict(head.get("loss_cls", {}) or {}).get("type") == "SeesawLoss":
+        return int(head["num_classes"])
+    return None
+
+
 def _refuse_unported(cfg, group=None):
     if cfg.model.get("type") == "DynamicRCNN":
         raise NotImplementedError("Dynamic R-CNN is not ported yet")
+    if group is not None and _seesaw_classes(cfg.model) is not None:
+        raise NotImplementedError(
+            "SeesawLoss under data parallelism: the JAX package counts the "
+            "global batch's labels, a rank sees its shard's")
     if "rpn_head" in cfg.model:
         check_two_stage(torch.bfloat16 if cfg.get("fp16") else None, group)
     head = roi_bbox_head_cfg(cfg.model)
     for key in ("loss_cls", "loss_bbox"):
         kind = dict(head.get(key, {}) or {}).get("type")
-        if kind in ("SeesawLoss", "GHMC", "GHMR"):
+        if kind in ("GHMC", "GHMR"):
             raise NotImplementedError(f"{kind} is not ported yet")
+
+
+def with_seesaw_counts(train_step, num_classes: int, device):
+    """``train_step`` behind a :class:`SeesawCounter` on ``device``: each
+    batch's valid GT labels counted, then ``batch["cum_samples"]`` set to
+    the counts, before the step. The counter is the wrapper's
+    ``counter``."""
+    counter = SeesawCounter(num_classes, device)
+
+    def step(state, batch, **kw):
+        counter.update(batch["gt_labels"], batch.get("gt_valid"))
+        return train_step(state, dict(batch, cum_samples=counter.counts), **kw)
+
+    step.counter = counter
+    return step
 
 
 def _check_num_classes(cfg, dataset, logger):
@@ -207,6 +243,9 @@ def train_detector(cfg, work_dir: str, resume_from: str | None = None,
         ema_start_iter=ema_cfg.get("start_point", 1),
         compute_dtype=compute_dtype, frozen_mask=frozen, device=device,
         group=group)
+    if _seesaw_classes(cfg.model) is not None:
+        train_step = with_seesaw_counts(train_step,
+                                        _seesaw_classes(cfg.model), device)
 
     refresher, adathres_file = None, None
     if semi and "unlabel_pred" in data_cfg:

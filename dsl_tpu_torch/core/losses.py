@@ -3,7 +3,9 @@
 Counterpart of the part of ``dsl_tpu/core/losses.py`` that the ported
 heads use: ``weight_reduce_loss``, ``sigmoid_focal_loss``,
 ``binary_cross_entropy``, ``giou_loss``, ``iou_loss``,
-``bounded_iou_loss``, ``cross_entropy``, ``smooth_l1_loss`` and ``l1_loss``. They follow mmdet's contract: an optional
+``bounded_iou_loss``, ``cross_entropy``, ``smooth_l1_loss``, ``l1_loss``,
+and the Seesaw loss of the split (C + 2) RoI classifier (``seesaw_ce_loss``,
+``seesaw_loss``, ``SeesawCounter``). They follow mmdet's contract: an optional
 elementwise ``weight``, a ``reduction`` in {'none', 'mean', 'sum'}, and an
 ``avg_factor`` that replaces the denominator of 'mean'. Everything is dense
 over fixed shapes, with masking by weight, so a point of weight 0 still
@@ -161,3 +163,97 @@ def l1_loss(pred: torch.Tensor, target: torch.Tensor,
             reduction: str = "mean", avg_factor=None):
     return weight_reduce_loss(_abs(pred - target), weight, reduction,
                               avg_factor)
+
+
+def seesaw_ce_loss(cls_score: torch.Tensor, labels: torch.Tensor,
+                   cum_samples: torch.Tensor, p: float = 0.8, q: float = 2.0,
+                   eps: float = 1e-2, weight: torch.Tensor | None = None,
+                   reduction: str = "mean", avg_factor=None):
+    """Seesaw cross-entropy over (N, C) class logits, labels (N,) in [0, C):
+    each other class's logit is raised by the log of its mitigation factor
+    ``(N_j / N_i)^p`` where class j is rarer than the label i (cumulative
+    counts ``cum_samples`` (C,), floored at 1) times its compensation factor
+    ``(s_j / s_i)^q`` where its softmax score s_j (no gradient) passes the
+    label's (floored at ``eps``). Each row's factors are computed from the
+    label's count directly: the same divisions as the JAX package's (C, C)
+    ratio matrix gathered at the labels."""
+    labels = labels.to(torch.int64)
+    nc = cls_score.shape[-1]
+    onehot = (labels[..., None] == torch.arange(nc, device=labels.device)
+              ).to(cls_score.dtype)
+    seesaw = torch.ones_like(cls_score)
+    one = cls_score.new_ones(())
+    if p > 0:
+        cs = torch.clamp_min(cum_samples.to(cls_score.dtype), 1.0)
+        ratio = cs[None, :] / cs[labels][:, None]
+        seesaw = seesaw * torch.where(ratio < 1.0, torch.pow(ratio, p), one)
+    if q > 0:
+        scores = torch.softmax(cls_score.detach(), dim=-1)
+        self_s = torch.gather(scores, -1, labels[..., None])
+        score_ratio = scores / torch.maximum(self_s, scores.new_full((), eps))
+        seesaw = seesaw * torch.where(score_ratio > 1.0,
+                                      torch.pow(score_ratio, q), one)
+    adjusted = cls_score + torch.log(torch.maximum(
+        seesaw, seesaw.new_full((), 1e-12))) * (1 - onehot)
+    logp = torch.log_softmax(adjusted, dim=-1)
+    nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
+    return weight_reduce_loss(nll, weight, reduction, avg_factor)
+
+
+def seesaw_loss(cls_score: torch.Tensor, labels: torch.Tensor,
+                cum_samples: torch.Tensor, num_classes: int, p: float = 0.8,
+                q: float = 2.0, eps: float = 1e-2,
+                weight: torch.Tensor | None = None, avg_factor=None):
+    """The split head's loss: ``cls_score`` (N, C + 2) is C class logits and
+    2 objectness logits, labels (N,) with C the background. Returns
+    ``(loss_classes, loss_objectness, new_cum_samples)``: the counts
+    (C + 1,) plus this call's labels (the background slot included), the
+    objectness cross-entropy (positive 0, background 1) under ``weight``
+    over ``avg_factor``, and :func:`seesaw_ce_loss` of the positives (their
+    own average) on the new counts."""
+    if cls_score.shape[-1] != num_classes + 2:
+        raise ValueError(f"SeesawLoss reads C + 2 = {num_classes + 2} logits, "
+                         f"got {cls_score.shape[-1]}")
+    labels = labels.to(torch.int64)
+    pos = labels < num_classes
+    new_cum = cum_samples.index_add(
+        0, labels.clamp(0, num_classes).reshape(-1),
+        torch.ones(labels.numel(), dtype=cum_samples.dtype,
+                   device=cum_samples.device))
+    obj_logp = torch.log_softmax(cls_score[..., -2:], dim=-1)
+    obj_labels = (~pos).to(torch.int64)
+    loss_obj = weight_reduce_loss(
+        -torch.gather(obj_logp, -1, obj_labels[..., None])[..., 0], weight,
+        "mean", avg_factor)
+    pos_w = pos.to(cls_score.dtype)
+    if weight is not None:
+        pos_w = pos_w * weight
+    loss_classes = seesaw_ce_loss(
+        cls_score[..., :-2], labels.clamp(0, num_classes - 1),
+        new_cum[:num_classes], p=p, q=q, eps=eps, weight=pos_w,
+        reduction="mean", avg_factor=torch.clamp_min(pos_w.sum(), 1.0))
+    return loss_classes, loss_obj, new_cum
+
+
+class SeesawCounter:
+    """The running per-class sample counts that ``SeesawLoss`` reads, kept
+    by the train loop: C + 1 entries starting at one, each batch's valid GT
+    labels added before its step (``update``), then passed in as
+    ``batch["cum_samples"]``. The counts stay on ``device``: an update adds
+    ones and zeros, which sum exactly in any order."""
+
+    def __init__(self, num_classes: int, device="cpu"):
+        self.num_classes = num_classes
+        self.counts = torch.ones((num_classes + 1,), dtype=torch.float32,
+                                 device=device)
+
+    def update(self, gt_labels: torch.Tensor,
+               gt_valid: torch.Tensor | None = None) -> torch.Tensor:
+        labels = gt_labels.reshape(-1).to(torch.int64).clamp(
+            0, self.num_classes)
+        ones = (torch.ones(labels.shape, dtype=torch.float32,
+                           device=labels.device) if gt_valid is None
+                else gt_valid.reshape(-1).to(torch.float32))
+        self.counts.index_add_(0, labels.to(self.counts.device),
+                               ones.to(self.counts.device))
+        return self.counts

@@ -1,7 +1,7 @@
 """Hard NMS family with static output sizes and an explicit batch dimension.
 
 Counterpart of ``dsl_tpu/core/nms.py`` (``nms``, ``batched_nms``,
-``multiclass_nms``), where the JAX package vmaps over images: here every
+``multiclass_nms``, ``fast_nms``), where the JAX package vmaps over images: here every
 function takes (B, ...) inputs and calls :func:`nms_keep` once for the whole
 batch. JAX's ``argsort`` is stable and ``lax.top_k`` breaks ties toward the
 lower index; ``torch.topk`` promises no tie order, so every ranking here is
@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from dsl_tpu_torch.core.boxes import bbox_overlaps
 from dsl_tpu_torch.ops.nms import nms_keep
 
 NEG_INF = -1e30
@@ -136,5 +137,34 @@ def soft_nms(*args, **kwargs):
     raise NotImplementedError("soft_nms is not ported yet")
 
 
-def fast_nms(*args, **kwargs):
-    raise NotImplementedError("fast_nms is not ported yet")
+def fast_nms(boxes: torch.Tensor, scores: torch.Tensor,
+             score_thr: float = 0.05, iou_threshold: float = 0.5,
+             top_k: int = 200, max_num: int = 100):
+    """YOLACT's fast NMS over a batch: per image and class, the ``top_k``
+    best boxes; a box is kept when its IoU with every higher-scored box of
+    its class (kept or not) is at most ``iou_threshold`` and its score
+    passes ``score_thr``; then the ``max_num`` best kept (class, box)
+    pairs. One (C, K, K) IoU per image, no NMS kernel (the JAX package's is
+    plain XLA too).
+
+    boxes (B, N, 4) shared by the classes, scores (B, N, C) (no background
+    column). Returns dets (B, M, 5), labels (B, M), box_idx (B, M) (the
+    row of ``boxes`` each slot reads: for an invalid slot the one JAX's
+    ``top_k`` order gives, whose coefficients fill YOLACT's empty crops),
+    valid (B, M), M = min(max_num, C * K)."""
+    b, n, c = scores.shape
+    k = min(top_k, n)
+    top_s, idx = _sort_desc(scores.transpose(1, 2), k)        # (B, C, K)
+    bx = _gather_rows(boxes, idx.reshape(b, c * k)).reshape(b, c, k, 4)
+    iou = torch.triu(bbox_overlaps(bx, bx), diagonal=1)        # (B, C, K, K)
+    keep = (iou.amax(dim=2) <= iou_threshold) & (top_s > score_thr)
+    flat = torch.where(keep, top_s, torch.full_like(top_s, NEG_INF)
+                       ).reshape(b, -1)
+    out_s, out_i = _sort_desc(flat, min(max_num, c * k))
+    box_idx = torch.gather(idx.reshape(b, -1), 1, out_i)
+    valid = out_s > NEG_INF / 2
+    dets = torch.cat([_gather_rows(boxes, box_idx) * valid[..., None],
+                      torch.where(valid, out_s, out_s.new_zeros(()))[..., None]],
+                     dim=-1)
+    labels = torch.where(valid, out_i // k, torch.zeros_like(out_i))
+    return dets, labels, box_idx, valid

@@ -6,3 +6,5 @@ from dsl_tpu_torch.models.dense_heads.rpn_head import (  # noqa: F401
     RPNHead, rpn_loss, rpn_proposals)
 from dsl_tpu_torch.models.dense_heads.ssd_head import (  # noqa: F401
     SSDHead, ssd_get_bboxes, ssd_loss)
+from dsl_tpu_torch.models.dense_heads.yolact_head import (  # noqa: F401
+    YOLACTHead, YOLACTProtonet, YOLACTSegmHead, yolact_loss, yolact_predict)

@@ -1,9 +1,11 @@
-"""Single-stage detectors (FCOS, RetinaNet, SSD), build_detector, and the
-detectors' loss and predict entry points.
+"""Single-stage detectors (FCOS, RetinaNet, SSD, YOLACT), build_detector,
+and the detectors' loss and predict entry points.
 
 Counterpart of ``dsl_tpu/models/detectors/single_stage.py``:
 ``SingleStageDetector`` / ``FCOS`` / ``RetinaNet`` / ``SSD`` (backbone ->
-neck, where there is one -> head), ``build_detector`` (which hands a
+neck, where there is one -> head), ``YOLACT`` (the head's three outputs,
+then the protonet's prototypes and the segm head's logits, both on P3;
+mmdet calls the protonet ``mask_head``), ``build_detector`` (which hands a
 config with an ``rpn_head`` and ``bbox_heads`` to
 ``cascade_rcnn.build_cascade_rcnn``, one with an ``rpn_head`` or of type
 ``FastRCNN`` to ``two_stage.build_two_stage_detector`` and a multi-head
@@ -15,8 +17,11 @@ as the JAX package's do), a Cascade R-CNN to
 ``cascade_rcnn_loss`` / ``cascade_rcnn_predict``, a two-stage detector to
 ``two_stage_loss`` / ``two_stage_predict``, the standalone ``RPN`` to
 ``rpn_only_loss`` / ``rpn_only_predict``, a ``RetinaHead`` to
-``retina_loss`` / ``retina_get_bboxes`` and an ``SSDHead`` to
-``ssd_loss`` / ``ssd_get_bboxes``. ``FastRCNN`` predicts on proposals
+``retina_loss`` / ``retina_get_bboxes``, an ``SSDHead`` to
+``ssd_loss`` / ``ssd_get_bboxes`` and a ``YOLACTHead`` to
+``yolact_loss`` (with the protonet's ``loss_mask_weight``) /
+``yolact_predict`` (its boxes; ``yolact_head.yolact_full_predict`` gives
+the masks too). ``FastRCNN`` predicts on proposals
 passed in (``two_stage.fast_rcnn_predict``), and has no loss, as in the
 JAX package. Other detector families and heads are not ported yet and
 raise.
@@ -37,6 +42,8 @@ from dsl_tpu_torch.models.dense_heads.retina_head import (
     RetinaHead, retina_get_bboxes, retina_loss)
 from dsl_tpu_torch.models.dense_heads.ssd_head import (
     SSDHead, ssd_get_bboxes, ssd_loss)
+from dsl_tpu_torch.models.dense_heads.yolact_head import (
+    YOLACTHead, yolact_loss, yolact_predict)
 from dsl_tpu_torch.models.detectors.cascade_rcnn import (
     HTC, CascadeRCNN, SCNet, build_cascade_rcnn, cascade_rcnn_loss,
     cascade_rcnn_predict, htc_loss, htc_predict, scnet_loss, scnet_predict)
@@ -90,6 +97,35 @@ class SSD(SingleStageDetector):
     """SSD = SingleStageDetector with an SSDHead (no neck in SSD300/512)."""
 
 
+@DETECTORS.register
+class YOLACT(SingleStageDetector):
+    """YOLACT (``mmdet/models/detectors/yolact.py``): the box head with
+    mask coefficients, the protonet (``mask_head``, mmdet's name) and the
+    segm head, both on the first level."""
+
+    def __init__(self, backbone: nn.Module, neck: nn.Module,
+                 bbox_head: nn.Module, segm_head: nn.Module,
+                 mask_head: nn.Module, test_cfg: Any = None):
+        super().__init__(backbone, neck, bbox_head, test_cfg)
+        self.segm_head = segm_head
+        self.mask_head = mask_head
+
+    def init_weights(self, generator: torch.Generator | None = None):
+        super().init_weights(generator)
+        self.segm_head.init_weights(generator)
+        self.mask_head.init_weights(generator)
+
+    def forward(self, images: torch.Tensor, training: bool = False):
+        """images NCHW -> (cls_scores, bbox_preds, coeff_preds) (NHWC per
+        level), prototypes (B, P, 2h, 2w) and segm logits (B, C, h, w), h x
+        w the first level's."""
+        feats = self.extract_feat(images)
+        cls_scores, bbox_preds, coeff_preds = self.bbox_head(
+            feats, training=training)
+        return (cls_scores, bbox_preds, coeff_preds, self.mask_head(feats[0]),
+                self.segm_head(feats[0]))
+
+
 def build_detector(cfg: dict) -> nn.Module:
     """Build a detector from a model config dict: a config with an
     ``rpn_head`` and ``bbox_heads`` is a cascade (``build_cascade_rcnn``),
@@ -119,8 +155,17 @@ def build_detector(cfg: dict) -> nn.Module:
         raise NotImplementedError("stacked necks are not ported yet")
     neck = build_from_cfg(dict(neck_cfg), MODELS) if neck_cfg else None
     head = build_from_cfg(dict(cfg.pop("bbox_head")), MODELS)
+    extra = {}
+    if det_type == "YOLACT":
+        # the protonet is mmdet's ``mask_head`` (the JAX package's
+        # ``proto_head``)
+        extra = dict(segm_head=build_from_cfg(dict(cfg.pop("segm_head")),
+                                              MODELS),
+                     mask_head=build_from_cfg(dict(
+                         cfg.pop("mask_head", None) or cfg.pop("proto_head")),
+                         MODELS))
     return det_cls(backbone=backbone, neck=neck, bbox_head=head,
-                   test_cfg=cfg.get("test_cfg"))
+                   test_cfg=cfg.get("test_cfg"), **extra)
 
 
 def empty_detector(cfg: dict) -> nn.Module:
@@ -138,10 +183,10 @@ def _dense_head(detector: nn.Module) -> nn.Module:
         raise NotImplementedError(
             f"{type(detector).__name__}: a multi-head detector has its own "
             f"loss and predict (models/detectors/multi_head.py)")
-    if not isinstance(head, (FCOSHead, RetinaHead, SSDHead)):
+    if not isinstance(head, (FCOSHead, RetinaHead, SSDHead, YOLACTHead)):
         raise NotImplementedError(
             f"{type(head).__name__} is not ported yet: only FCOSHead, "
-            f"RetinaHead and SSDHead")
+            f"RetinaHead, SSDHead and YOLACTHead")
     return head
 
 
@@ -196,6 +241,10 @@ def detector_loss(detector: nn.Module, batch: dict, cur_iter: int = 0,
         return _parse_losses(retina_loss(head, *outputs, batch, group=group))
     if isinstance(head, SSDHead):
         return _parse_losses(ssd_loss(head, *outputs, batch, group=group))
+    if isinstance(head, YOLACTHead):
+        return _parse_losses(yolact_loss(
+            head, outputs, batch, group=group,
+            mask_weight=detector.mask_head.loss_mask_weight))
     return _parse_losses(fcos_loss(head, *outputs, batch, cur_iter=cur_iter,
                                    group=group))
 
@@ -240,8 +289,10 @@ def detector_predict(detector: nn.Module, images: torch.Tensor,
     and an SCNet ``scnet_predict`` (dets, labels, valid and the masks'
     probabilities (B, N, S, S), as in the JAX package; f32 only), the
     standalone RPN ``rpn_only_predict`` (its proposals are the detections,
-    all of label 0), a ``RetinaHead`` ``retina_get_bboxes`` and an
-    ``SSDHead`` ``ssd_get_bboxes``. A Fast R-CNN needs its proposals:
+    all of label 0), a ``RetinaHead`` ``retina_get_bboxes``, an
+    ``SSDHead`` ``ssd_get_bboxes`` and a ``YOLACTHead`` ``yolact_predict``'s
+    boxes (fast NMS: no launch of the NMS kernel; the masks come from
+    ``yolact_head.yolact_full_predict``). A Fast R-CNN needs its proposals:
     ``two_stage.fast_rcnn_predict``.
     """
     device = resolve_device(device)
@@ -275,6 +326,17 @@ def detector_predict(detector: nn.Module, images: torch.Tensor,
     nms_cfg = dict(tc.get("nms", {}) or {})
     variables, images = to_compute(detector, images, compute_dtype, params)
     outputs = outputs_to_f32(functional_call(detector, variables, (images,)))
+    if isinstance(head, YOLACTHead):
+        if not with_nms:
+            raise NotImplementedError("detector_predict(with_nms=False) is "
+                                      "FCOS's: YOLACT's is not ported yet")
+        return yolact_predict(
+            head, outputs, img_shapes=img_shapes, scale_factors=scale_factors,
+            nms_pre=tc.get("nms_pre", 1000),
+            score_thr=tc.get("score_thr", 0.05),
+            iou_threshold=nms_cfg.get("iou_threshold", 0.6),
+            max_per_img=tc.get("max_per_img", 100),
+            img_hw=tuple(images.shape[2:4]))[:3]
     if isinstance(head, (RetinaHead, SSDHead)):
         if not with_nms:
             raise NotImplementedError(

@@ -10,7 +10,9 @@ on 14x14 RoIAlign features of the same levels), ``FasterRCNNC4`` and
 ``MaskRCNNC4`` (one C4 level at stride 16, 14x14 RoIs through the res5
 ``ResLayerSharedHead`` at ``roi_head.shared_head`` before the bbox head
 and before the mask head), ``MaskScoringRCNN`` (Mask R-CNN with a
-``MaskIoUHead`` at ``roi_head.mask_iou_head``), ``DetectoRS`` (Faster
+``MaskIoUHead`` at ``roi_head.mask_iou_head``), ``PointRend`` (Mask
+R-CNN whose mask head is a ``CoarseMaskHead`` of 7x7 logits, with a
+``MaskPointHead`` at ``roi_head.point_head``), ``DetectoRS`` (Faster
 R-CNN whose neck, RFP, reads the image beside the backbone's levels),
 ``build_two_stage_detector``,
 ``parse_rcnn_train_cfg``, ``two_stage_loss`` (with the mask branch on the
@@ -18,12 +20,16 @@ positives of the same samples where the batch has ``gt_mask_crops``: a
 mask config whose pipeline loads no masks trains without ``loss_mask``,
 as in the JAX package; Mask Scoring R-CNN's ``loss_mask_iou`` on the same
 positives, its IoU head fed the mask head's probabilities without a
-stop, so that loss also trains the mask head, as in the JAX package),
+stop, so that loss also trains the mask head, as in the JAX package;
+PointRend's ``loss_point`` on the same positives' importance-sampled
+points),
 ``two_stage_predict``, ``mask_logits_for_boxes`` and ``mask_rcnn_predict``
 (the boxes and each detection's 28x28 probabilities of its class; Mask
 Scoring R-CNN's too, whose IoU head rescales no score at test time, as in
-the JAX package); the standalone ``RPN`` (``rpn_only_loss``,
-``rpn_only_predict``: the proposals are the detections) and ``FastRCNN`` (``fast_rcnn_predict`` on proposals passed
+the JAX package; PointRend's from its 7x7 coarse logits through
+``subdivision_steps`` of the point head, ``point_rend_refine``); the
+standalone ``RPN`` (``rpn_only_loss``, ``rpn_only_predict``: the
+proposals are the detections) and ``FastRCNN`` (``fast_rcnn_predict`` on proposals passed
 in; the JAX package has no Fast R-CNN loss, and neither has the port).
 The bbox head sits at ``roi_head.bbox_head``, mmdet's name, so an mmdet
 checkpoint loads by its own keys; the weight bridge maps the JAX
@@ -34,8 +40,8 @@ As in the JAX package, training proposals are ``rpn_proposals`` with
 predict run in f32 whatever the compute dtype: here a bf16 compute dtype
 raises rather than run f32 unasked. The samplers' random draws (the RPN's
 256 anchors, the RoI head's 512 RoIs per image, each Cascade R-CNN
-stage's in turn) come from one ``torch.Generator`` seeded by the
-iteration (:func:`sampler_draws`); the
+stage's in turn, then PointRend's point draws) come from one
+``torch.Generator`` seeded by the iteration (:func:`sampler_draws`); the
 JAX package draws threefry uniforms from ``fold_in(PRNGKey(0), iter)``,
 so the two sample other anchors and RoIs from one seed (the samplers
 themselves are equal given the same draws). The two-stage loss takes no
@@ -60,6 +66,9 @@ from dsl_tpu_torch.models.roi_heads.mask_head import (
     mask_head_loss, mask_targets_from_crops, select_positive_rois)
 from dsl_tpu_torch.models.roi_heads.maskiou_head import (
     mask_iou_loss, mask_iou_target)
+from dsl_tpu_torch.models.roi_heads.point_rend import (
+    IMPORTANCE_RATIO, OVERSAMPLE_RATIO, TRAIN_POINTS, point_branch_loss,
+    point_rend_refine, uncertain_points_train)
 from dsl_tpu_torch.models.roi_heads.standard_roi_head import (
     Shared2FCBBoxHead, extract_roi_feats, flat_rois, roi_head_loss,
     roi_head_predict, sample_batch_rois)
@@ -67,8 +76,8 @@ from dsl_tpu_torch.models.roi_heads.standard_roi_head import (
 # the JAX package's two-stage detectors and parts not ported yet
 UNPORTED_DETECTORS = (
     "DynamicRCNN", "PISAFasterRCNN", "PISAMaskRCNN", "DoubleHeadRCNN",
-    "PointRend", "GridRCNN", "TridentFasterRCNN", "SparseRCNN")
-UNPORTED_PARTS = ("grid_head", "point_head", "roi_pool_pack")
+    "GridRCNN", "TridentFasterRCNN", "SparseRCNN")
+UNPORTED_PARTS = ("grid_head", "roi_pool_pack")
 TRAIN_PROPOSALS = 512          # two_stage_loss's num_proposals in JAX
 TEST_PROPOSALS = 1000          # two_stage_predict's
 SAMPLER_SEED = 97              # the draws' generator: this * 2**32 + iteration
@@ -77,19 +86,22 @@ FAST_RCNN_STRIDES = (4, 8, 16, 32)   # fast_rcnn_predict's RoI levels in JAX
 
 
 class StandardRoIHead(nn.Module):
-    """Holds the bbox head, and the mask head, the shared head and the mask
-    IoU head where there are, under mmdet's names (``roi_head.bbox_head``,
-    ``roi_head.mask_head``, ``roi_head.shared_head``,
-    ``roi_head.mask_iou_head``)."""
+    """Holds the bbox head, and the mask head, the shared head, the mask
+    IoU head and the point head where there are, under mmdet's names
+    (``roi_head.bbox_head``, ``roi_head.mask_head``,
+    ``roi_head.shared_head``, ``roi_head.mask_iou_head``,
+    ``roi_head.point_head``)."""
 
     def __init__(self, bbox_head: nn.Module, mask_head: nn.Module | None = None,
                  shared_head: nn.Module | None = None,
-                 mask_iou_head: nn.Module | None = None):
+                 mask_iou_head: nn.Module | None = None,
+                 point_head: nn.Module | None = None):
         super().__init__()
         self.bbox_head = bbox_head
         self.mask_head = mask_head
         self.shared_head = shared_head
         self.mask_iou_head = mask_iou_head
+        self.point_head = point_head
 
 
 @DETECTORS.register
@@ -99,13 +111,14 @@ class TwoStageDetector(nn.Module):
                  train_cfg: Any = None, test_cfg: Any = None,
                  mask_head: nn.Module | None = None,
                  shared_head: nn.Module | None = None,
-                 mask_iou_head: nn.Module | None = None):
+                 mask_iou_head: nn.Module | None = None,
+                 point_head: nn.Module | None = None):
         super().__init__()
         self.backbone = backbone
         self.neck = neck
         self.rpn_head = rpn_head
         self.roi_head = StandardRoIHead(bbox_head, mask_head, shared_head,
-                                        mask_iou_head)
+                                        mask_iou_head, point_head)
         self.train_cfg = train_cfg
         self.test_cfg = test_cfg
 
@@ -126,13 +139,18 @@ class TwoStageDetector(nn.Module):
         return self.roi_head.mask_iou_head
 
     @property
+    def point_head(self) -> nn.Module | None:
+        return self.roi_head.point_head
+
+    @property
     def strides(self) -> tuple:
         """The RoI levels' strides (the RPN's first four)."""
         return tuple(self.rpn_head.strides)[:4]
 
     def init_weights(self, generator: torch.Generator | None = None):
         for part in (self.backbone, self.neck, self.rpn_head, self.bbox_head,
-                     self.mask_head, self.shared_head, self.mask_iou_head):
+                     self.mask_head, self.shared_head, self.mask_iou_head,
+                     self.point_head):
             if part is not None:
                 part.init_weights(generator)
 
@@ -144,21 +162,26 @@ class TwoStageDetector(nn.Module):
                 else self.shared_head(roi_feats))
 
     def forward(self, inputs: torch.Tensor, training: bool = False,
-                stage: str = "rpn", mask_pred: torch.Tensor | None = None):
+                stage: str = "rpn", mask_pred: torch.Tensor | None = None,
+                coarse: torch.Tensor | None = None):
         """``stage="rpn"``: images NCHW -> (FPN levels, (RPN scores, RPN
         deltas)); ``stage="roi"``: RoI features (N, C, s, s) -> the bbox
         head's (cls_logits, deltas); ``stage="mask"``: RoI features -> the
         mask head's logits (N, classes, S, S); ``stage="mask_iou"``: mask
         RoI features and ``mask_pred`` (N, S, S) -> the mask IoU head's
-        (N, classes). The shared head, where there is one, runs before the
-        bbox and the mask head. One forward for all, so that
-        ``functional_call`` can run each with other parameters."""
+        (N, classes); ``stage="point"``: fine point features (..., P, C)
+        and the ``coarse`` logits at the points (..., P, classes) -> the
+        point head's (..., P, classes). The shared head, where there is
+        one, runs before the bbox and the mask head. One forward for all,
+        so that ``functional_call`` can run each with other parameters."""
         if stage == "roi":
             return self.bbox_head(self._shared(inputs))
         if stage == "mask":
             return self.mask_head(self._shared(inputs))
         if stage == "mask_iou":
             return self.mask_iou_head(inputs, mask_pred)
+        if stage == "point":
+            return self.point_head(inputs, coarse)
         feats = self.extract_feat(inputs)
         return feats, self.rpn_head(feats, training=training)
 
@@ -204,7 +227,15 @@ class DetectoRS(TwoStageDetector):
         return self.neck((images, *self.backbone(images)))
 
 
-MASK_DETECTORS = ("MaskRCNN", "MaskRCNNC4", "MaskScoringRCNN")
+@DETECTORS.register
+class PointRend(MaskRCNN):
+    """PointRend (``mmdet/models/detectors/point_rend.py``): Mask R-CNN
+    whose mask head gives coarse 7x7 logits, refined at test time by the
+    point head on the most uncertain points of a finer grid, and trained
+    with ``loss_point`` on importance-sampled points."""
+
+
+MASK_DETECTORS = ("MaskRCNN", "MaskRCNNC4", "MaskScoringRCNN", "PointRend")
 C4_DETECTORS = ("FasterRCNNC4", "MaskRCNNC4")
 
 
@@ -289,9 +320,10 @@ def build_two_stage_detector(cfg: dict) -> nn.Module:
         _check_head(cfg, "rpn_head", ("RPNHead",))
     if det_type != "RPN":
         _check_head(cfg, "bbox_head", BBOX_HEADS)
-    for key, allowed in (("mask_head", ("FCNMaskHead",)),
+    for key, allowed in (("mask_head", ("FCNMaskHead", "CoarseMaskHead")),
                          ("shared_head", ("ResLayerSharedHead",)),
-                         ("mask_iou_head", ("MaskIoUHead",))):
+                         ("mask_iou_head", ("MaskIoUHead",)),
+                         ("point_head", ("MaskPointHead",))):
         if cfg.get(key) is not None:
             _check_head(cfg, key, allowed)
     det_cls = MODELS.get(det_type)
@@ -308,7 +340,8 @@ def build_two_stage_detector(cfg: dict) -> nn.Module:
         parts["rpn_head"] = build_from_cfg(dict(cfg.pop("rpn_head")), MODELS)
     for key, types in (("mask_head", MASK_DETECTORS),
                        ("shared_head", C4_DETECTORS),
-                       ("mask_iou_head", ("MaskScoringRCNN",))):
+                       ("mask_iou_head", ("MaskScoringRCNN",)),
+                       ("point_head", ("PointRend",))):
         if (cfg.get(key) is not None) != (det_type in types):
             raise TypeError(f"{det_type} with {key}={cfg.get(key)!r}: the "
                             f"{key} is {' and '.join(types)}'s")
@@ -321,7 +354,7 @@ def build_two_stage_detector(cfg: dict) -> nn.Module:
         if "shared_head" in parts:
             bbox_cfg["fc_in_channels"] = parts["shared_head"].out_channels
         parts["bbox_head"] = build_from_cfg(bbox_cfg, MODELS)
-    for key in ("mask_head", "mask_iou_head"):
+    for key in ("mask_head", "mask_iou_head", "point_head"):
         if cfg.get(key) is not None:
             parts[key] = build_from_cfg(dict(cfg.pop(key)), MODELS)
     return det_cls(**parts)
@@ -350,10 +383,14 @@ def parse_rcnn_train_cfg(train_cfg, stage_cfg=None) -> dict:
 
 
 def sampler_draws(cur_iter: int, batch_size: int, num_anchors: int,
-                  num_candidates: int, device, stages: int = 1) -> dict:
+                  num_candidates: int, device, stages: int = 1,
+                  points: tuple | None = None) -> dict:
     """The samplers' uniforms for one step: ``rpn`` (B, anchors) then
     ``rcnn``, a tuple of ``stages`` (B, proposals + GT slots) tensors (one
-    per Cascade R-CNN stage, one otherwise) drawn in stage order, from a
+    per Cascade R-CNN stage, one otherwise) drawn in stage order, then,
+    where ``points`` = (RoIs, oversampled, fill) is given (PointRend),
+    ``point``: the (RoIs, oversampled, 2) and (RoIs, fill, 2) uniform
+    points of :func:`point_rend.uncertain_points_train`; all from a
     generator on ``device`` seeded by the iteration, so a step's samples
     repeat run to run."""
     gen = torch.Generator(device=device)
@@ -361,7 +398,23 @@ def sampler_draws(cur_iter: int, batch_size: int, num_anchors: int,
     rpn = torch.rand((batch_size, num_anchors), generator=gen, device=device)
     rcnn = tuple(torch.rand((batch_size, num_candidates), generator=gen,
                             device=device) for _ in range(stages))
-    return dict(rpn=rpn, rcnn=rcnn)
+    out = dict(rpn=rpn, rcnn=rcnn)
+    if points is not None:
+        rois, over, fill = points
+        out["point"] = tuple(torch.rand((rois, k, 2), generator=gen,
+                                        device=device) for k in (over, fill))
+    return out
+
+
+def point_draw_shape(detector, batch_size: int, num_samples: int):
+    """PointRend's ``points`` argument of :func:`sampler_draws` (the mask
+    branch's B * num_samples // 4 RoIs, the oversampled and the fill points
+    of ``TRAIN_POINTS``), None for another detector."""
+    if getattr(detector, "point_head", None) is None:
+        return None
+    n_imp = int(IMPORTANCE_RATIO * TRAIN_POINTS)
+    return (batch_size * max(1, num_samples // 4),
+            int(TRAIN_POINTS * OVERSAMPLE_RATIO), TRAIN_POINTS - n_imp)
 
 
 def check_two_stage(compute_dtype=None, group=None):
@@ -391,9 +444,12 @@ def two_stage_loss(detector: TwoStageDetector, batch: dict, cur_iter: int = 0,
     if mark is not None:
         mark("forward")
     num_anchors = sum(s[0].numel() for s in scores)
-    draws = sampler_draws(cur_iter, scores[0].shape[0], num_anchors,
+    b = scores[0].shape[0]
+    points = point_draw_shape(detector, b, rcnn_kw["num_samples"])
+    draws = sampler_draws(cur_iter, b, num_anchors,
                           TRAIN_PROPOSALS + batch["gt_bboxes"].shape[1],
-                          scores[0].device)
+                          scores[0].device,
+                          **({} if points is None else dict(points=points)))
     losses = rpn_loss(detector.rpn_head, scores, deltas, batch, draws["rpn"],
                       train_cfg=dict(tc.get("rpn", {}) or {}))
     proposals, _, prop_valid = rpn_proposals(
@@ -406,12 +462,13 @@ def two_stage_loss(detector: TwoStageDetector, batch: dict, cur_iter: int = 0,
                                 feats, samples, batch, detector.strides))
     if detector.mask_head is not None and "gt_mask_crops" in batch:
         losses.update(mask_branch_losses(detector, feats, samples, batch,
-                                         rcnn_kw["num_samples"]))
+                                         rcnn_kw["num_samples"],
+                                         draws.get("point")))
     return _parse_losses(losses)
 
 
 def mask_branch_losses(detector: nn.Module, feats, samples: dict, batch: dict,
-                       num_samples: int) -> dict:
+                       num_samples: int, point_draws=None) -> dict:
     """``loss_mask`` on the positives of the RoI head's samples: the first
     ``num_samples // 4`` RoIs of each image with the positives first, their
     14x14 features (through the shared head where there is one), the mask
@@ -419,7 +476,10 @@ def mask_branch_losses(detector: nn.Module, feats, samples: dict, batch: dict,
     and the per-class BCE over the positives. With a mask IoU head (Mask
     Scoring R-CNN), also ``loss_mask_iou``: the head on the same features
     and the assigned class's probabilities (not detached), against the IoU
-    with each instance's whole mask (``gt_mask_areas``)."""
+    with each instance's whole mask (``gt_mask_areas``). With a point head
+    (PointRend), also ``loss_point`` on the points
+    ``uncertain_points_train`` picks from ``point_draws`` (oversampled,
+    fill)."""
     mh = detector.mask_head
     b = samples["rois"].shape[0]
     max_pos = max(1, num_samples // 4)
@@ -438,6 +498,12 @@ def mask_branch_losses(detector: nn.Module, feats, samples: dict, batch: dict,
     pos_f = pos.to(torch.float32)
     out = dict(loss_mask=mask_head_loss(logits, targets, labels.reshape(-1),
                                         pos_f, mh.num_classes))
+    if getattr(detector, "point_head", None) is not None:
+        rel = uncertain_points_train(*point_draws, logits, labels.reshape(-1))
+        out["loss_point"] = point_branch_loss(
+            lambda fine, cpts: detector(fine, stage="point", coarse=cpts),
+            feats[0], logits, rel, rois, labels, assigned, is_pos, batch,
+            stride=detector.strides[0])
     iou_head = getattr(detector, "mask_iou_head", None)
     if iou_head is None:
         return out
@@ -531,8 +597,11 @@ def mask_rcnn_predict(detector: TwoStageDetector, images: torch.Tensor,
     """:func:`two_stage_predict`'s boxes, then the mask head at the
     detections (scaled back to the input's frame): dets (B, N, 5) in the
     original frame, labels, valid and each detection's probabilities of
-    its class, (B, N, S, S). The host pastes them at the boxes
-    (``mask_head.paste_masks``). Two launches of the NMS kernel."""
+    its class, (B, N, S, S). With a point head (PointRend) the coarse
+    logits go through ``test_cfg``'s ``subdivision_steps`` (2) of
+    ``subdivision_num_points`` (196), P2 the fine level. The host pastes
+    them at the boxes (``mask_head.paste_masks``). Two launches of the NMS
+    kernel."""
     from dsl_tpu_torch.models.detectors.single_stage import (
         check_predict_device)
 
@@ -545,6 +614,14 @@ def mask_rcnn_predict(detector: TwoStageDetector, images: torch.Tensor,
     if scale_factors is not None:
         boxes_in = boxes_in * scale_factors[:, None, :]
     logits = mask_logits_for_boxes(detector, feats, boxes_in, valid, call)
+    if detector.point_head is not None:
+        tc = dict(test_cfg or detector.test_cfg or {})
+        logits = point_rend_refine(
+            logits.reshape(b, n, *logits.shape[1:]), feats[0], boxes_in,
+            labels, lambda fine, cpts: call(fine, stage="point", coarse=cpts),
+            subdivision_steps=int(tc.get("subdivision_steps", 2)),
+            num_points=int(tc.get("subdivision_num_points", 196)),
+            stride=detector.strides[0]).flatten(0, 1)
     probs = class_probs(logits, labels, detector.mask_head.num_classes)
     s = probs.shape[-1]
     return dets, labels, valid, probs.reshape(b, n, s, s)

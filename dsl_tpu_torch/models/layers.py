@@ -1,7 +1,8 @@
 """Shared building blocks: convs, norms, scale.
 
 Counterpart of the parts of ``dsl_tpu/models/layers.py`` that the ported
-detectors use (``WSConv`` is mmcv's ``ConvWS2d``). Tensors are NCHW. Convolutions take explicit padding
+detectors use (``WSConv`` is mmcv's ``ConvWS2d``; ``NormedConv2d`` is the
+JAX package's ``NormedConv``). Tensors are NCHW. Convolutions take explicit padding
 ``p = d*(k-1)//2`` (none for 1x1), which is what the JAX package passes to
 ``nn.Conv``, so the two frameworks pad alike at every stride.
 """
@@ -100,6 +101,37 @@ class WSConv(nn.Conv2d):
         std = torch.sqrt(var + 1e-12)
         w = ((flat - mean) / (std + self.eps)).reshape(w.shape)
         return self._conv_forward(x, w.to(x.dtype), self.bias)
+
+
+class NormedConv2d(nn.Module):
+    """The Seesaw configs' normed mask predictor as the JAX package's
+    ``NormedConv`` computes it: each output's weights divided by their L2
+    norm over (in, kh, kw), each pixel's input by its L2 norm over the
+    channels (1e-6 inside both square roots), the conv (padding k // 2),
+    times ``tempearture``; no bias. mmdet's ``NormedConv2d`` has a bias and
+    adds its eps outside the root: a checkpoint holding that bias raises
+    naming the key."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: int = 1, tempearture: float = 20.0):
+        super().__init__()
+        self.kernel_size = kernel_size
+        self.tempearture = float(tempearture)
+        self.weight = nn.Parameter(torch.empty(out_channels, in_channels,
+                                               kernel_size, kernel_size))
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        if f"{prefix}bias" in state_dict:
+            raise KeyError(f"{prefix}bias: the normed predictor has no bias "
+                           f"(the JAX package's NormedConv; mmdet's "
+                           f"NormedConv2d adds one)")
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.weight
+        wn = w / torch.sqrt((w * w).sum(dim=(1, 2, 3), keepdim=True) + 1e-6)
+        xn = x / torch.sqrt((x * x).sum(dim=1, keepdim=True) + 1e-6)
+        return F.conv2d(xn, wn, padding=self.kernel_size // 2) * self.tempearture
 
 
 def is_ws(conv_cfg: dict | None) -> bool:

@@ -1,9 +1,11 @@
 """Feature Pyramid Network, NCHW.
 
-Counterpart of ``dsl_tpu/models/necks/fpn.py`` without a norm, with the
-nearest top-down upsample: the levels from ``start_level`` to the last
-come from lateral + top-down fusion, then ``num_outs`` minus those extra
-levels:
+Counterpart of ``dsl_tpu/models/necks/fpn.py``: the levels from
+``start_level`` to the last come from lateral + top-down fusion (the
+top-down upsample nearest 2x, cropped to the lateral's size, or with
+``upsample_cfg=dict(mode='bilinear')``, YOLACT's, ``jax.image.resize``'s
+bilinear to the lateral's exact size, ``ops/resize.py``), then
+``num_outs`` minus those extra levels:
 
 - ``add_extra_convs=False`` (Faster R-CNN): each a max-pool of the level
   before with kernel 1 and stride 2 (the input's even rows and columns);
@@ -34,6 +36,7 @@ from torch import nn
 
 from dsl_tpu_torch.registry import NECKS
 from dsl_tpu_torch.models.layers import make_conv, make_norm
+from dsl_tpu_torch.ops.resize import resize_bilinear
 
 
 def _upsample_nearest_2x(x: torch.Tensor, target_hw) -> torch.Tensor:
@@ -80,8 +83,11 @@ class FPN(nn.Module):
         if norm_cfg is not None and norm_cfg.get("type") != "GN":
             raise NotImplementedError(f"FPN norm {norm_cfg.get('type')} is "
                                       f"not ported yet: only GN")
-        if (upsample_cfg or {}).get("mode", "nearest") != "nearest":
-            raise NotImplementedError("only nearest FPN upsampling is ported")
+        self.upsample_mode = (upsample_cfg or {}).get("mode", "nearest")
+        if self.upsample_mode not in ("nearest", "bilinear"):
+            raise NotImplementedError(f"FPN upsample mode "
+                                      f"{self.upsample_mode!r}: only nearest "
+                                      f"and bilinear are ported")
         self.in_channels = list(in_channels)
         self.start_level = start_level
         self.relu_before_extra_convs = relu_before_extra_convs
@@ -119,9 +125,11 @@ class FPN(nn.Module):
         used = inputs[self.start_level:]
         n_used = len(used)
         laterals = [lat(x) for lat, x in zip(self.lateral_convs, used)]
+        up = (resize_bilinear if self.upsample_mode == "bilinear"
+              else _upsample_nearest_2x)
         for i in range(n_used - 1, 0, -1):
-            laterals[i - 1] = laterals[i - 1] + _upsample_nearest_2x(
-                laterals[i], laterals[i - 1].shape[2:])
+            laterals[i - 1] = laterals[i - 1] + up(laterals[i],
+                                                   laterals[i - 1].shape[2:])
         outs = [self.fpn_convs[i](laterals[i]) for i in range(n_used)]
         if not self.add_extra_convs:
             while len(outs) < self.num_outs:

@@ -9,3 +9,5 @@ from dsl_tpu_torch.models.roi_heads.htc import (  # noqa: F401
     FusedSemanticHead, HTCMaskHead)
 from dsl_tpu_torch.models.roi_heads.scnet import (  # noqa: F401
     FeatureRelayHead, GlobalContextHead, SCNetBBoxHead, SCNetMaskHead)
+from dsl_tpu_torch.models.roi_heads.point_rend import (  # noqa: F401
+    CoarseMaskHead, MaskPointHead)

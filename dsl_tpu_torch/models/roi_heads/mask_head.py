@@ -10,8 +10,9 @@ Counterpart of ``dsl_tpu/models/roi_heads/mask_head.py``:
   JAX head is NHWC and its flax ``ConvTranspose`` (padding 'SAME', kernel
   not transposed) computes ``out[2i + a] = x[i] k[1 - a]``: the weight
   bridge flips the 2x2 kernel and swaps its channels
-  (``utils/jax_bridge.py``). The ``NormedConv2d`` predictor (the Seesaw
-  configs') is not ported yet and raises;
+  (``utils/jax_bridge.py``). With ``predictor_cfg=dict(type=
+  'NormedConv2d')`` (the Seesaw configs') ``conv_logits`` is the JAX
+  package's ``NormedConv`` (``layers.NormedConv2d``, no bias);
 - ``gt_mask_crop``: one GT mask cropped to its box (floor and ceil,
   at least a pixel) and resized to (M, M) by OpenCV's float
   ``INTER_LINEAR`` (``image_ops.resize_linear_f32``, on the mask's device);
@@ -41,7 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from dsl_tpu_torch.data.pipelines.image_ops import resize_linear_f32
-from dsl_tpu_torch.models.layers import he_normal_
+from dsl_tpu_torch.models.layers import NormedConv2d, he_normal_
 from dsl_tpu_torch.ops.roi_align import roi_align
 from dsl_tpu_torch.registry import HEADS
 
@@ -66,10 +67,7 @@ class FCNMaskHead(nn.Module):
                  roi_size: int = 14, predictor_cfg: dict | None = None):
         super().__init__()
         pred = dict(predictor_cfg or {})
-        if pred.get("type") == "NormedConv2d":
-            raise NotImplementedError("FCNMaskHead predictor_cfg NormedConv2d "
-                                      "is not ported yet")
-        if pred and pred.get("type") != "Conv":
+        if pred and pred.get("type") not in ("Conv", "NormedConv2d"):
             raise ValueError(f"unsupported mask predictor_cfg: {pred}")
         self.num_classes = num_classes
         self.in_channels = in_channels
@@ -79,14 +77,22 @@ class FCNMaskHead(nn.Module):
                                    for i in range(num_convs))
         self.upsample = nn.ConvTranspose2d(chans[-1], conv_out_channels, 2,
                                            stride=2)
-        self.conv_logits = nn.Conv2d(conv_out_channels, num_classes, 1)
+        self.conv_logits = (
+            NormedConv2d(conv_out_channels, num_classes, 1,
+                         float(pred.get("tempearture", 20)))
+            if pred.get("type") == "NormedConv2d"
+            else nn.Conv2d(conv_out_channels, num_classes, 1))
 
     def init_weights(self, generator: torch.Generator | None = None):
         """He-normal convs and upsample, normal 0.001 logits (the JAX
-        head's ``conv_logits``), zero biases."""
+        head's ``conv_logits``; a normed predictor's he-normal), zero
+        biases."""
         for conv in [c.conv for c in self.convs] + [self.upsample]:
             he_normal_(conv.weight, generator)
             nn.init.zeros_(conv.bias)
+        if isinstance(self.conv_logits, NormedConv2d):
+            he_normal_(self.conv_logits.weight, generator)
+            return
         nn.init.normal_(self.conv_logits.weight, 0.0, 0.001,
                         generator=generator)
         nn.init.zeros_(self.conv_logits.bias)

@@ -16,7 +16,7 @@ Counterpart of ``dsl_tpu/models/roi_heads/scnet.py``, NCHW:
 - ``FeatureRelayHead``: an FC to ``s * s * c`` (mmdet's ``fc``) read as a
   (c, s, s) map, mmdet's order (the JAX package reads (s, s, c), and the
   weight bridge permutes the FC's output rows), then
-  ``jax.image.resize``'s bilinear enlargement (``htc.resize_bilinear``);
+  ``jax.image.resize``'s bilinear enlargement (``ops/resize.py``);
 - ``GlobalContextHead``: on the last FPN level, ``num_convs // 2``
   simplified blocks (``conv_to_res``) or ``num_convs`` 3x3 convs with relu
   (mmdet's ``convs.i``), the spatial mean, and ``fc``, a logit per class;
@@ -37,9 +37,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from dsl_tpu_torch.models.layers import he_normal_, make_norm
-from dsl_tpu_torch.models.roi_heads.htc import _ConvModule, resize_bilinear
+from dsl_tpu_torch.models.roi_heads.htc import _ConvModule
 from dsl_tpu_torch.models.roi_heads.mask_head import FCNMaskHead
 from dsl_tpu_torch.models.roi_heads.standard_roi_head import Shared2FCBBoxHead
+from dsl_tpu_torch.ops.resize import resize_bilinear
 from dsl_tpu_torch.registry import HEADS
 
 

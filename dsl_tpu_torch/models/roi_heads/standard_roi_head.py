@@ -30,6 +30,14 @@ form Faster R-CNN runs it:
   the valid count, and ``acc``; with ``reg_decoded_bbox`` or an IoU-family
   loss (IoU, GIoU, BoundedIoU) the loss compares the decoded boxes with
   the GT boxes instead;
+- ``loss_cls=dict(type='SeesawLoss')`` (the Seesaw configs'): ``fc_cls``
+  has C + 2 outputs (the classes, then positive and negative objectness);
+  the loss gives ``loss_cls`` (the Seesaw CE of the positives, on
+  ``batch["cum_samples"]``, the train loop's counts, or ones) and
+  ``loss_cls_objectness`` (``core/losses.py::seesaw_loss``; its
+  ``loss_weight`` is not read, as in the JAX package); predict scores each
+  class by its softmax over the C classes times the positive objectness
+  (the split activation);
 - ``roi_head_predict`` / ``rcnn_decode_nms``: softmax, the per-class
   decode from the proposals (a class-agnostic head's one box for every
   class), clip, rescale, and ``multiclass_nms`` with per-class boxes (one
@@ -37,7 +45,7 @@ form Faster R-CNN runs it:
 
 Variants the JAX module also holds raise ``NotImplementedError`` naming
 themselves: the cls-only head (Grid R-CNN), SABL,
-generic and deformable RoI extraction, Seesaw, Balanced L1, MSE and the
+generic and deformable RoI extraction, Balanced L1, MSE and the
 DIoU / CIoU losses, OHEM and the instance-balanced / IoU-balanced
 samplers, soft-NMS.
 """
@@ -75,7 +83,7 @@ class _BBoxHead(nn.Module):
                            (roi_extractor != "single",
                             f"roi_extractor={roi_extractor!r}"),
                            (dict(loss_cls or {}).get("type", "CrossEntropyLoss")
-                            != "CrossEntropyLoss",
+                            not in ("CrossEntropyLoss", "SeesawLoss"),
                             f"loss_cls {dict(loss_cls or {}).get('type')}")):
             if flag:
                 raise NotImplementedError(
@@ -93,7 +101,9 @@ class _BBoxHead(nn.Module):
         self.reg_decoded_bbox = reg_decoded_bbox
         self.bbox_coder = bbox_coder
         self.roi_aligned = roi_aligned
-        self.fc_cls = nn.Linear(fc_channels, num_classes + 1)
+        self.seesaw = is_seesaw(self)
+        self.fc_cls = nn.Linear(fc_channels,
+                                num_classes + (2 if self.seesaw else 1))
         self.fc_reg = nn.Linear(fc_channels,
                                 4 if reg_class_agnostic else num_classes * 4)
 
@@ -193,6 +203,12 @@ class Shared4Conv1FCBBoxHead(_BBoxHead):
         for conv in self.shared_convs:
             x = conv(x)
         return self._fcs(x)
+
+
+def is_seesaw(bbox_head) -> bool:
+    """Whether the head's ``loss_cls`` is SeesawLoss (C + 2 logits)."""
+    return dict(getattr(bbox_head, "loss_cls", None) or {}).get(
+        "type") == "SeesawLoss"
 
 
 def map_rois_to_levels(rois: torch.Tensor, num_levels: int,
@@ -378,9 +394,21 @@ def rcnn_bbox_loss(bbox_head, cls_logits, reg, samples: dict, batch: dict):
     valid_f = samples["valid"].reshape(-1).to(torch.float32)
     pos_f = samples["is_pos"].reshape(-1).to(torch.float32)
     num_valid = torch.clamp_min(valid_f.sum(), 1.0)
-    lw = float(dict(bbox_head.loss_cls or {}).get("loss_weight", 1.0))
-    loss_cls = lw * L.cross_entropy(cls_logits, labels, weight=valid_f,
-                                    avg_factor=num_valid)
+    cls_cfg = dict(bbox_head.loss_cls or {})
+    out = {}
+    if is_seesaw(bbox_head):
+        nc = bbox_head.num_classes
+        cum = batch.get("cum_samples")
+        if cum is None:
+            cum = torch.ones((nc + 1,), dtype=torch.float32,
+                             device=cls_logits.device)
+        loss_cls, out["loss_cls_objectness"], _ = L.seesaw_loss(
+            cls_logits, labels, cum, nc, p=float(cls_cfg.get("p", 0.8)),
+            q=float(cls_cfg.get("q", 2.0)), weight=valid_f,
+            avg_factor=num_valid)
+    else:
+        loss_cls = float(cls_cfg.get("loss_weight", 1.0)) * L.cross_entropy(
+            cls_logits, labels, weight=valid_f, avg_factor=num_valid)
     gt = _gather_rows(batch["gt_bboxes"],
                       samples["assigned"].clamp_min(0)).reshape(-1, 4)
     enc, dec, means, stds = resolve_delta_coder(
@@ -396,7 +424,7 @@ def rcnn_bbox_loss(bbox_head, cls_logits, reg, samples: dict, batch: dict):
                            num_valid)
     acc = ((cls_logits.argmax(-1) == labels).to(torch.float32)
            * valid_f).sum() / num_valid
-    return dict(loss_cls=loss_cls, acc=acc, loss_bbox=loss_reg)
+    return dict(loss_cls=loss_cls, acc=acc, **out, loss_bbox=loss_reg)
 
 
 def roi_head_loss(bbox_head, head_fn, feats, samples: dict, batch: dict,
@@ -410,15 +438,28 @@ def roi_head_loss(bbox_head, head_fn, feats, samples: dict, batch: dict,
     return rcnn_bbox_loss(bbox_head, cls_logits, reg, samples, batch)
 
 
+def split_scores(bbox_head, cls_logits: torch.Tensor) -> torch.Tensor:
+    """(N, C) class scores: the softmax over C+1 less the background, or
+    under SeesawLoss the softmax over the C classes times the softmax of
+    the 2 objectness logits' positive (mmdet's ``get_activation``)."""
+    nc = bbox_head.num_classes
+    if not is_seesaw(bbox_head):
+        return torch.softmax(cls_logits, -1)[:, :nc]
+    obj = torch.softmax(cls_logits[:, nc:], -1)
+    return torch.softmax(cls_logits[:, :nc], -1) * obj[:, 0:1]
+
+
 def rcnn_decode_nms(bbox_head, cls_logits, reg, proposals, prop_valid,
                     img_shapes=None, scale_factors=None,
                     score_thr: float = 0.05, iou_threshold: float = 0.5,
                     max_per_img: int = 100, nms_cfg: dict | None = None):
-    """Softmax over C+1, the per-class decode from the proposals, clip to
-    ``img_shapes``, divide by ``scale_factors``, multiclass NMS with
-    per-class boxes over the valid proposals.
+    """Softmax over C+1 (under SeesawLoss the softmax over the C classes
+    times the positive objectness), the per-class decode from the
+    proposals, clip to ``img_shapes``, divide by ``scale_factors``,
+    multiclass NMS with per-class boxes over the valid proposals.
 
-    cls_logits (B*P, C+1), reg (B*P, 4C) or class-agnostic (B*P, 4),
+    cls_logits (B*P, C+1) (C+2 under SeesawLoss), reg (B*P, 4C) or
+    class-agnostic (B*P, 4),
     proposals (B, P, 4), prop_valid (B, P). Returns dets (B, max_per_img,
     5), labels, valid."""
     ncfg = dict(nms_cfg or {})
@@ -427,7 +468,7 @@ def rcnn_decode_nms(bbox_head, cls_logits, reg, proposals, prop_valid,
                                   f"not ported yet")
     nc = bbox_head.num_classes
     b, p = proposals.shape[:2]
-    scores = torch.softmax(cls_logits, -1)[:, :nc].reshape(b, p, nc)
+    scores = split_scores(bbox_head, cls_logits).reshape(b, p, nc)
     _, dec, means, stds = resolve_delta_coder(
         bbox_head.bbox_coder, bbox_head.target_means, bbox_head.target_stds)
     reg = (reg.reshape(-1, 1, 4).expand(-1, nc, 4)

@@ -74,6 +74,15 @@ class _GatherRows(torch.autograd.Function):
         return table_grad, None, None, None
 
 
+def gather_rows(table: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
+                valid: torch.Tensor) -> torch.Tensor:
+    """out[n, i, j] = sum_t table[idx[t, n, i, j]] * w[t, n, i, j] (zero
+    where ``valid[n]`` is False), whose backward puts the gradients back
+    into the table in one order (the RoIAlign gather; PointRend's point
+    samples read it too)."""
+    return _GatherRows.apply(table, idx, w, valid)
+
+
 def _axis_taps(lo, extent, size, n_out: int, s: int, aligned: bool):
     """Sample positions along one axis of each RoI, clipped to the map:
     (low index, high index, fraction), each (N, n_out, s)."""

@@ -17,6 +17,10 @@ plain nested dicts. What changes on the way:
   are permuted on the way, so a JAX checkpoint computes the same function
   here and an mmdet checkpoint's ``shared_fcs.0`` (``fcs.0``) loads as it
   is;
+- PointRend's coarse mask head flattens (h, w, c) into its ``fc0`` and
+  writes its logits (h, w, classes) in the JAX package, (c, h, w) and
+  (classes, h, w) in the port (mmdet's orders): ``fcs.0``'s input rows and
+  ``fc_logits``' output rows (weight and bias) are permuted on the way;
 - SCNet's relay head's ``fc`` writes a (s, s, c) map in the JAX package
   and a (c, s, s) one in the port (mmdet's order): its output rows
   (weight and bias) are permuted on the way;
@@ -45,7 +49,16 @@ plain nested dicts. What changes on the way:
   ``.conv_logits`` (a Cascade Mask R-CNN's one mask head too), a Mask
   Scoring R-CNN's ``mask_iou_head.conv{i}``, ``fc{i}`` and
   ``fc_mask_iou`` <-> ``roi_head.mask_iou_head.convs.{i}.conv``,
-  ``.fcs.{i}`` and ``.fc_mask_iou``, a C4 detector's
+  ``.fcs.{i}`` and ``.fc_mask_iou``, PointRend's coarse mask head's
+  ``mask_head.downsample_conv`` and ``fc{i}`` <->
+  ``roi_head.mask_head.downsample_conv.conv`` and ``.fcs.{i}`` and its
+  point head's ``point_head.fc{i}`` <-> ``roi_head.point_head.fcs.{i}.conv``
+  (mmdet's ``Conv1d`` weights, (out, in, 1), against the JAX package's
+  ``Dense`` kernels), YOLACT's ``bbox_head.head_conv{i}`` <->
+  ``bbox_head.head_convs.{i}.conv`` and its ``proto_head`` (``proto_conv{j}``,
+  ``post_up_conv``, ``proto_out``) <-> mmdet's protonet ``Sequential``
+  (``mask_head.protonet.{2j}``, then the two indices after the upsample
+  and its relu), a C4 detector's
   ``shared_head.block{i}`` <-> ``roi_head.shared_head.layer{S+1}.{i}``
   (S the stage, from the blocks' width); an HTC's ``mask_heads_{i}``
   (``conv{j}``, ``conv_res``) <-> ``roi_head.mask_head.{i}`` (``convs.{j}.conv``,
@@ -86,7 +99,8 @@ import torch
 _TO_TORCH = [
     (r"\b(necks|bbox_heads)_(\d+)\b", lambda m, n: f"{m[1]}.{m[2]}"),
     (r"\blayer(\d+)_(\d+)\b", lambda m, n: f"stages.{int(m[1]) - 1}.{m[2]}"),
-    (r"\bdownsample_conv\b", lambda m, n: "downsample.0"),
+    # a ResNet block's (PointRend's coarse mask head has its own)
+    (r"(?<!mask_head\.)\bdownsample_conv\b", lambda m, n: "downsample.0"),
     (r"\bdownsample_bn\b", lambda m, n: "downsample.1"),
     (r"\bconv_out(\d+)\b", lambda m, n: f"conv_outs.{m[1]}"),
     (r"\brecurrent_conv(\d+)\b", lambda m, n: f"recurrent_convs.{m[1]}"),
@@ -179,6 +193,12 @@ ROI_FC = re.compile(r"^roi_head\.(bbox_head(\.\d+)?\.shared_fcs|"
 MASK_UPSAMPLE = re.compile(r"^roi_head\.mask_head(\.\d+)?\.upsample$")
 # SCNet's relay FC, whose output rows are a (c, s, s) map in the port
 RELAY_FC = "roi_head.feat_relay_head.fc"
+# PointRend's coarse mask head: its first FC reads (c, h, w), its logits are
+# (classes, h, w) in the port
+COARSE_FC0 = "roi_head.mask_head.fcs.0"
+COARSE_LOGITS = "roi_head.mask_head.fc_logits"
+# PointRend's point head: mmdet's Conv1d weights (out, in, 1)
+POINT_FC = re.compile(r"^roi_head\.point_head\.(fcs\.\d+\.conv|fc_logits)$")
 _ROI_PARTS_TO_FLAX = [
     (r"^roi_head\.bbox_head\.(\d+)\b", lambda m, n: f"bbox_heads_{m[1]}"),
     (r"^roi_head\.mask_head\.(\d+)\.convs\.(\d+)\.conv\b",
@@ -186,6 +206,14 @@ _ROI_PARTS_TO_FLAX = [
     (r"^roi_head\.mask_head\.(\d+)\.conv_res\.conv\b",
      lambda m, n: f"mask_heads_{m[1]}.conv_res"),
     (r"^roi_head\.mask_head\.(\d+)\b", lambda m, n: f"mask_heads_{m[1]}"),
+    (r"^roi_head\.mask_head\.downsample_conv\.conv\b",
+     lambda m, n: "mask_head.downsample_conv"),
+    (r"^roi_head\.mask_head\.fcs\.(\d+)\b", lambda m, n: f"mask_head.fc{m[1]}"),
+    (r"^roi_head\.point_head\.fcs\.(\d+)\.conv\b",
+     lambda m, n: f"point_head.fc{m[1]}"),
+    (r"^roi_head\.point_head\b", lambda m, n: "point_head"),
+    (r"^bbox_head\.head_convs\.(\d+)\.conv\b",
+     lambda m, n: f"bbox_head.head_conv{m[1]}"),
     (r"^roi_head\.mask_head\.convs\.(\d+)\.conv\b",
      lambda m, n: f"mask_head.conv{m[1]}"),
     (r"^roi_head\.mask_head\.convs\.(\d+)\b",
@@ -225,8 +253,28 @@ def _roi_parts_to_torch(params: dict) -> list:
         # no RPN beside them)
         rules.append((r"^bbox_heads_(\d+)\b",
                       lambda m, n: f"roi_head.bbox_head.{m[1]}"))
+    if "point_head" in params:
+        rules += [(r"^point_head\.fc(\d+)\b",
+                   lambda m, n: f"roi_head.point_head.fcs.{m[1]}.conv"),
+                  (r"^point_head\b", lambda m, n: "roi_head.point_head")]
+    if "proto_head" in params:
+        n_proto = sum(1 for k in params["proto_head"]
+                      if k.startswith("proto_conv"))
+        rules += [(r"^proto_head\.proto_conv(\d+)\b",
+                   lambda m, n: f"mask_head.protonet.{2 * int(m[1])}"),
+                  (r"^proto_head\.post_up_conv\b",
+                   lambda m, n: f"mask_head.protonet.{2 * n_proto + 2}"),
+                  (r"^proto_head\.proto_out\b",
+                   lambda m, n: f"mask_head.protonet.{2 * n_proto + 4}")]
+    if "head_conv0" in params.get("bbox_head", {}):
+        rules.append((r"^bbox_head\.head_conv(\d+)\b",
+                      lambda m, n: f"bbox_head.head_convs.{m[1]}.conv"))
     if "mask_head" in params:
-        rules += [(r"^mask_head\.conv(\d+)\b",
+        rules += [(r"^mask_head\.downsample_conv\b",
+                   lambda m, n: "roi_head.mask_head.downsample_conv.conv"),
+                  (r"^mask_head\.fc(\d+)\b",
+                   lambda m, n: f"roi_head.mask_head.fcs.{m[1]}"),
+                  (r"^mask_head\.conv(\d+)\b",
                    lambda m, n: f"roi_head.mask_head.convs.{m[1]}.conv"),
                   (r"^mask_head\.res(\d+)\b",
                    lambda m, n: f"roi_head.mask_head.convs.{m[1]}"),
@@ -323,11 +371,22 @@ def flax_to_state_dict(variables: dict) -> dict[str, torch.Tensor]:
                     arr = arr[:, _roi_rows(arr.shape[1],
                                            _roi_channels(params, path),
                                            to_chw=True)]
+                if module == COARSE_FC0:
+                    arr = arr[_roi_rows(arr.shape[0], _coarse_dims(params)[0],
+                                        to_chw=True)]
+                if module == COARSE_LOGITS:
+                    arr = arr[:, _roi_rows(arr.shape[1],
+                                           _coarse_dims(params)[1],
+                                           to_chw=True)]
                 arr = arr.T
-            elif leaf == "bias" and module == RELAY_FC:
+                if POINT_FC.match(module):
+                    arr = arr[:, :, None]
+            elif leaf == "bias" and module in (RELAY_FC, COARSE_LOGITS):
                 name = leaf
-                arr = arr[_roi_rows(arr.shape[0], _roi_channels(params, path),
-                                    to_chw=True)]
+                arr = arr[_roi_rows(
+                    arr.shape[0], _coarse_dims(params)[1]
+                    if module == COARSE_LOGITS else _roi_channels(params, path),
+                    to_chw=True)]
             elif leaf in ("weight", "weight_diff") and arr.ndim == 4:
                 name = leaf                       # a SAC's kernels
                 arr = np.transpose(arr, (3, 2, 0, 1))
@@ -364,6 +423,39 @@ def _roi_channels(params: dict, path: tuple) -> int:
     return int(np.asarray(params["rpn_head"]["rpn_conv"]["kernel"]).shape[-2])
 
 
+def _coarse_dims(params: dict) -> tuple[int, int]:
+    """PointRend's coarse mask head (flax names): (the channels its
+    ``fc0`` reads per cell, its classes)."""
+    mh = params["mask_head"]
+    convs = sorted(int(k[4:]) for k in mh if re.fullmatch(r"conv\d+", k))
+    if "downsample_conv" in mh:
+        ch = np.asarray(mh["downsample_conv"]["kernel"]).shape[-1]
+    elif convs:
+        ch = np.asarray(mh[f"conv{convs[-1]}"]["kernel"]).shape[-1]
+    else:
+        ch = _roi_channels(params, ("mask_head", "fc0", "kernel"))
+    cells = np.asarray(mh["fc0"]["kernel"]).shape[0] // ch
+    return int(ch), int(np.asarray(mh["fc_logits"]["kernel"]).shape[1]
+                        // cells)
+
+
+def _coarse_dims_torch(state_dict: dict) -> tuple[int, int]:
+    """:func:`_coarse_dims` on the port's names."""
+    head = "roi_head.mask_head"
+    convs = [k for k in state_dict
+             if re.match(rf"^{head}\.convs\.\d+\.conv\.weight$", k)]
+    if f"{head}.downsample_conv.conv.weight" in state_dict:
+        ch = state_dict[f"{head}.downsample_conv.conv.weight"].shape[0]
+    elif convs:
+        ch = state_dict[max(convs, key=lambda k: int(k.split(".")[3]))
+                        ].shape[0]
+    else:
+        ch = _roi_channels_torch(state_dict, f"{head}.fcs.0")
+    cells = state_dict[f"{COARSE_FC0}.weight"].shape[1] // ch
+    return int(ch), int(state_dict[f"{COARSE_LOGITS}.weight"].shape[0]
+                        // cells)
+
+
 def _roi_channels_torch(state_dict: dict, module: str) -> int:
     """:func:`_roi_channels` on the port's names, for the RoI FC
     ``module``."""
@@ -389,7 +481,13 @@ def state_dict_to_flax(state_dict: dict) -> dict:
     detectors = any(re.match(r"^backbone\..*\.(weight_diff|rfp_conv\.)", k)
                     for k in state_dict)
     rfp = "neck.rfp_weight.weight" in state_dict
+    protonet = sorted({int(m[1]) for k in state_dict
+                       if (m := re.match(r"^mask_head\.protonet\.(\d+)\.", k))})
+    proto_names = {i: f"proto_conv{j}" for j, i in enumerate(protonet[:-2])}
+    proto_names.update(zip(protonet[-2:], ("post_up_conv", "proto_out")))
     rules = (_ROI_PARTS_TO_FLAX
+             + [(r"^mask_head\.protonet\.(\d+)\b",
+                 lambda m, n: f"proto_head.{proto_names[int(m[1])]}")]
              + (_DETECTORS_BACKBONE_TO_FLAX if detectors else [])
              + (_RFP_TO_FLAX if rfp else []) + _TO_FLAX)
     out: dict = {"params": {}, "batch_stats": {}}
@@ -409,6 +507,8 @@ def state_dict_to_flax(state_dict: dict) -> dict:
                                                (2, 3, 0, 1))
         elif name == "weight" and arr.ndim == 4:
             leaf, arr = "kernel", np.transpose(arr, (2, 3, 1, 0))
+        elif name == "weight" and arr.ndim == 3 and POINT_FC.match(module):
+            leaf, arr = "kernel", arr[:, :, 0].T
         elif name == "weight" and arr.ndim == 2:
             leaf, arr = "kernel", arr.T
             if ROI_FC.match(module):
@@ -419,6 +519,14 @@ def state_dict_to_flax(state_dict: dict) -> dict:
                 arr = arr[:, _roi_rows(arr.shape[1],
                                        _roi_channels_torch(state_dict, module),
                                        to_chw=False)]
+            if module == COARSE_FC0:
+                arr = arr[_roi_rows(arr.shape[0],
+                                    _coarse_dims_torch(state_dict)[0],
+                                    to_chw=False)]
+            if module == COARSE_LOGITS:
+                arr = arr[:, _roi_rows(arr.shape[1],
+                                       _coarse_dims_torch(state_dict)[1],
+                                       to_chw=False)]
         elif name == "weight" and not module.endswith("l2_norm"):
             leaf = "scale"
         else:
@@ -426,6 +534,10 @@ def state_dict_to_flax(state_dict: dict) -> dict:
             if module == RELAY_FC:
                 arr = arr[_roi_rows(arr.shape[0],
                                     _roi_channels_torch(state_dict, module),
+                                    to_chw=False)]
+            if module == COARSE_LOGITS:
+                arr = arr[_roi_rows(arr.shape[0],
+                                    _coarse_dims_torch(state_dict)[1],
                                     to_chw=False)]
         d = out[collection]
         for part in _rename(module, rules, n_lat).split("."):

@@ -28,7 +28,10 @@ parity tests (no pretrained checkpoint ships with the repo).
   about 1/9 on each live class, above ``score_thr`` 0.05 (8 (proposal,
   class) candidates per proposal, so the RoI NMS sees its full 2000);
   its regressor (``fc_reg``) small, so class boxes stay near the
-  proposals;
+  proposals; under SeesawLoss (C + 2 outputs beside a regressor of 4C) the
+  same class logits, the positive objectness at 2 and the negative at 0,
+  so each live class scores about 1/9 x 0.88 (the split activation) and
+  the RoI NMS again sees its full 2000;
 - DetectoRS's SAC (its kernels are flax params named ``weight`` and
   ``weight_diff``): ``weight`` as any kernel, ``weight_diff``, the context
   1x1s (``pre_context``, ``post_context``) and the RFP's ``rfp_conv``
@@ -59,6 +62,14 @@ def fill_variables(shapes: dict, seed: int = 0) -> dict:
     # cls_conv{i} are towers beside their conv_cls / retina_cls)
     ssd = ("cls_conv0" in head and "conv_cls" not in head
            and "retina_cls" not in head)
+
+    def seesaw(path, shape):
+        # SeesawLoss's C + 2 logits beside a class-specific regressor's 4C
+        parent = shapes["params"]
+        for key in path[1:-2]:
+            parent = parent[key]
+        reg = parent.get("fc_reg", {}).get("bias")
+        return reg is not None and reg.shape[0] == 4 * (shape[0] - 2)
 
     def ssd_pred(path):
         return (ssd and len(path) >= 3 and path[-3] == "bbox_head"
@@ -91,6 +102,12 @@ def fill_variables(shapes: dict, seed: int = 0) -> dict:
         elif path[-2:] == ("retina_cls", "bias"):
             live = np.arange(shape[0]) % (shape[0] // retina_anchors) < LIVE_CLASSES
             v = np.where(live, rng.uniform(-1.5, 1.0, shape), -8.0)
+        elif path[-2:] == ("fc_cls", "bias") and seesaw(path, shape):
+            classes = np.arange(shape[0])
+            v = np.where(classes < LIVE_CLASSES, rng.uniform(1.0, 2.0, shape),
+                         np.where(classes == shape[0] - 2, 2.0,
+                                  np.where(classes == shape[0] - 1, 0.0,
+                                           -8.0)))
         elif path[-2:] == ("fc_cls", "bias"):
             classes = np.arange(shape[0])
             v = np.where(classes < LIVE_CLASSES, rng.uniform(1.0, 2.0, shape),

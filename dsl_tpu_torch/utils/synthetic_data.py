@@ -52,6 +52,12 @@ one-block ``SCNetMaskHead``, the same semantic head, a one-block
 ``TINY_DETECTORS_FASTER`` is DetectoRS on ``TINY_FASTER_RCNN``'s RPN and
 RoI head, whose backbones keep depth 50 (the only depths, and widths,
 the JAX package's DetectoRS has), the RFP neck 32 wide.
+``TINY_POINT_REND`` is ``TINY_MASK_RCNN`` with a 64-wide ``CoarseMaskHead``
+(7x7 logits) and a 32-wide 3-FC ``MaskPointHead`` (two subdivision steps
+of 196 points); ``TINY_YOLACT`` is YOLACT on the ResNet-18 (nothing
+frozen), the bilinear FPN, a 32-wide head of 8 prototypes and the
+protonet at 32; ``TINY_SEESAW`` is ``TINY_MASK_RCNN`` with ``SeesawLoss``
+and the normed mask predictor (the Seesaw configs' parts).
 
 :func:`make_coco_instance_dir` writes a COCO instance set (``train.json``,
 ``val.json`` and the images beside them) whose annotations carry every
@@ -377,6 +383,40 @@ TINY_CASCADE_RCNN = dict(
 TINY_CASCADE_MASK_RCNN = dict(TINY_CASCADE_RCNN,
                               mask_head=TINY_MASK_RCNN["mask_head"],
                               test_cfg=TINY_MASK_RCNN["test_cfg"])
+TINY_POINT_REND = dict(
+    TINY_MASK_RCNN, type="PointRend",
+    mask_head=dict(type="CoarseMaskHead", num_classes=20, in_channels=32,
+                   roi_size=14, num_convs=0, conv_out_channels=32, num_fcs=2,
+                   fc_out_channels=64, downsample_factor=2),
+    point_head=dict(type="MaskPointHead", num_classes=20, num_fcs=3,
+                    in_channels=32, fc_channels=32,
+                    coarse_pred_each_layer=True),
+    test_cfg=dict(TINY_MASK_RCNN["test_cfg"], subdivision_steps=2,
+                  subdivision_num_points=196, scale_factor=2))
+TINY_YOLACT = dict(
+    type="YOLACT",
+    backbone=dict(_TINY_BACKBONE, frozen_stages=-1, norm_eval=False,
+                  zero_init_residual=False),
+    neck=dict(type="FPN", in_channels=[64, 128, 256, 512], out_channels=32,
+              start_level=1, num_outs=5, add_extra_convs="on_input",
+              upsample_cfg=dict(mode="bilinear")),
+    bbox_head=dict(type="YOLACTHead", num_classes=20, in_channels=32,
+                   feat_channels=32, num_head_convs=1, num_protos=8,
+                   anchor_generator=dict(octave_base_scale=3,
+                                         scales_per_octave=1,
+                                         ratios=[0.5, 1.0, 2.0],
+                                         strides=[8, 16, 32, 64, 128])),
+    segm_head=dict(type="YOLACTSegmHead", num_classes=20, in_channels=32),
+    mask_head=dict(type="YOLACTProtonet", num_protos=8, in_channels=32,
+                   proto_channels=(32, 32, 32), loss_mask_weight=6.125),
+    test_cfg=dict(nms_pre=1000, score_thr=0.05, iou_thr=0.5,
+                  nms=dict(iou_threshold=0.5), max_per_img=100))
+_SEESAW = dict(type="SeesawLoss", p=0.8, q=2.0, loss_weight=1.0)
+TINY_SEESAW = dict(
+    TINY_MASK_RCNN,
+    bbox_head=dict(TINY_MASK_RCNN["bbox_head"], loss_cls=_SEESAW),
+    mask_head=dict(TINY_MASK_RCNN["mask_head"],
+                   predictor_cfg=dict(type="NormedConv2d", tempearture=20)))
 _TINY_SEMANTIC = dict(type="FusedSemanticHead", num_ins=5, fusion_level=1,
                       num_convs=1, in_channels=32, conv_out_channels=32,
                       num_classes=24, loss_weight=0.2)

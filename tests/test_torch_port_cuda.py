@@ -89,6 +89,15 @@ dependencies:
 - ``htc.resize_bilinear`` (JAX's resize as two matrix products) and a
   SAC block (its average pool and spatial means) on the card agree with
   the CPU within 1e-5, and their backward repeats bit for bit;
+- the tiny PointRend's, YOLACT's and Seesaw Mask R-CNN's heads (the coarse
+  and point heads and a subdivision; the head, protonet and segm head; the
+  normed mask head and the split activation) and predicts on the card
+  agree with the CPU's (heads 1e-4 of the largest magnitude; the dets as
+  sets per image), with 2, 0 and 2 NMS launches; ``fast_nms`` on the card
+  equals the CPU's; their losses, the samplers' and points' draws made on
+  the host, within 1e-4 relative (1e-3 for the mask and point losses,
+  whose samples and targets move with the RoIs' rounding), with 1, 0 and
+  1 launches;
 - ``train_detector`` and ``single_device_test`` refuse to start without
   CUDA (these run everywhere).
 """
@@ -1084,6 +1093,142 @@ def test_resize_and_sac_on_the_card_match_the_cpu_and_repeat(card):
         for a, b in zip([c_out] + c_grads, [w_out] + w_grads):
             torch.testing.assert_close(a, b, rtol=0, atol=1e-5 * max(
                 1.0, float(b.abs().max())))
+
+
+_SLICE15 = ("point_rend", "yolact", "seesaw")
+
+
+def _slice15(which: str):
+    from dsl_tpu_torch.utils.synthetic_data import (
+        TINY_POINT_REND, TINY_SEESAW, TINY_YOLACT)
+
+    return {"point_rend": TINY_POINT_REND, "yolact": TINY_YOLACT,
+            "seesaw": TINY_SEESAW}[which]
+
+
+def _slice15_heads(d, which: str, dev) -> list:
+    """The heads of one slice-15 detector on seeded inputs."""
+    from dsl_tpu_torch.models.roi_heads import point_rend as pr
+    from dsl_tpu_torch.models.roi_heads import standard_roi_head as roi
+
+    rng = np.random.RandomState(14)
+    rois = torch.from_numpy(rng.randn(6, 32, 14, 14).astype(np.float32)).to(dev)
+    with torch.no_grad():
+        if which == "yolact":
+            x = torch.from_numpy(rng.randn(2, 3, 64, 96).astype(np.float32))
+            out = d(x.to(dev))
+            return [*out[0], *out[1], *out[2], out[3], out[4]]
+        mask = d(rois, stage="mask")
+        if which == "seesaw":
+            logits = torch.from_numpy(rng.randn(9, 22).astype(np.float32))
+            return [mask, roi.split_scores(d.bbox_head, logits.to(dev))]
+        fine = torch.from_numpy(rng.randn(6, 5, 32).astype(np.float32)).to(dev)
+        point = d(fine, stage="point", coarse=torch.from_numpy(
+            rng.randn(6, 5, 20).astype(np.float32)).to(dev))
+        p2 = torch.from_numpy(rng.randn(2, 32, 16, 24).astype(np.float32))
+        boxes = torch.tensor([[[4., 5., 40., 30.]] * 3] * 2)
+        refined = pr.point_rend_refine(
+            mask.reshape(2, 3, 20, 7, 7), p2.to(dev), boxes.to(dev),
+            torch.tensor([[1, 2, 3]] * 2).to(dev),
+            lambda f, c: d(f, stage="point", coarse=c), subdivision_steps=1)
+        return [mask, point, refined]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", _SLICE15)
+def test_slice15_heads_and_predicts_on_the_card_match_the_cpu(card, which):
+    import copy
+
+    from dsl_tpu_torch.models.dense_heads.yolact_head import (
+        yolact_full_predict)
+    from dsl_tpu_torch.models.detectors.two_stage import mask_rcnn_predict
+
+    det = _seeded(_slice15(which)).eval()
+    x = torch.from_numpy(np.random.RandomState(15).randn(
+        2, 3, 64, 96).astype(np.float32))
+    predict = yolact_full_predict if which == "yolact" else mask_rcnn_predict
+    outs, launches = {}, {}
+    for dev in (card, "cpu"):
+        d = copy.deepcopy(det).to(dev)
+        heads = [h.cpu() for h in _slice15_heads(d, which, dev)]
+        before = nms_keep.launches
+        out = predict(d, x.to(dev))
+        launches[str(dev)] = nms_keep.launches - before
+        outs[str(dev)] = (heads, [o.cpu() for o in out])
+    assert launches["cuda"] == (0 if which == "yolact" else 2)
+    assert launches["cpu"] == 0
+    (got_h, got), (want_h, want) = outs["cuda"], outs["cpu"]
+    for g, w in zip(got_h, want_h):
+        torch.testing.assert_close(g, w, rtol=0,
+                                   atol=1e-4 * max(1.0, float(w.abs().max())))
+    assert torch.equal(got[2], want[2]) and int(got[2].sum()) > 0
+    _dets_as_sets(got, want, extra=True)
+
+
+@pytest.mark.cuda
+def test_fast_nms_on_the_card_equals_the_cpu(card):
+    from dsl_tpu_torch.core.nms import fast_nms
+
+    rng = np.random.RandomState(16)
+    x1, y1 = rng.uniform(0, 400, (4, 3000)), rng.uniform(0, 300, (4, 3000))
+    boxes = torch.from_numpy(np.stack(
+        [x1, y1, x1 + rng.uniform(8, 120, x1.shape),
+         y1 + rng.uniform(8, 120, x1.shape)], -1).astype(np.float32))
+    scores = torch.from_numpy(rng.choice(
+        [0.01, 0.06, 0.3, 0.8], (4, 3000, 80),
+        p=[0.97, 0.01, 0.01, 0.01]).astype(np.float32))
+    got = fast_nms(boxes.to(card), scores.to(card))
+    want = fast_nms(boxes, scores)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert int(want[3].sum()) > 100
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", _SLICE15)
+def test_slice15_losses_on_the_card_match_the_cpu(card, which, monkeypatch):
+    import copy
+
+    from dsl_tpu_torch.models.detectors import detector_loss
+    from dsl_tpu_torch.models.detectors import two_stage
+
+    det = _seeded(_slice15(which)).train()
+    rng = np.random.RandomState(17)
+    b, k, m = 2, 4, 112
+    gtb = np.zeros((b, k, 4), np.float32)
+    for i in range(b):
+        for j in range(k):
+            x1, y1 = rng.uniform(0, 60), rng.uniform(0, 30)
+            gtb[i, j] = (x1, y1, x1 + rng.uniform(8, 36), y1 + rng.uniform(8, 30))
+    batch = dict(
+        images=rng.randn(b, 64, 96, 3).astype(np.float32), gt_bboxes=gtb,
+        gt_labels=rng.randint(0, 20, (b, k)), gt_valid=np.ones((b, k), bool),
+        gt_mask_crops=(rng.rand(b, k, m, m) < 0.5).astype(np.uint8),
+        img_shapes=np.tile(np.float32([64, 96]), (b, 1)),
+        cum_samples=np.exp(rng.uniform(0, 5, 21)).round().astype(np.float32))
+    real = two_stage.sampler_draws
+
+    def on_host(cur_iter, bs, a, n, device, **kw):
+        draws = real(cur_iter, bs, a, n, "cpu", **kw)
+        return {key: (v.to(device) if torch.is_tensor(v)
+                      else tuple(x.to(device) for x in v))
+                for key, v in draws.items()}
+
+    monkeypatch.setattr(two_stage, "sampler_draws", on_host)
+    got = {}
+    for dev in (card, "cpu"):
+        before = nms_keep.launches
+        _, log_vars = detector_loss(copy.deepcopy(det).to(dev),
+                                    to_torch(batch, dev), cur_iter=4)
+        got[str(dev)] = ({key: float(v) for key, v in log_vars.items()},
+                         nms_keep.launches - before)
+    (on_card, n_card), (on_cpu, n_cpu) = got["cuda"], got["cpu"]
+    assert n_card == (0 if which == "yolact" else 1) and n_cpu == 0
+    assert set(on_card) == set(on_cpu)
+    for key, want in on_cpu.items():
+        rtol = (1e-3 if key in ("loss_mask", "loss_point", "loss")
+                else 1e-4)
+        assert abs(on_card[key] - want) <= rtol * max(abs(want), 1e-3), key
 
 
 def _forward_backward(fn, x, module, dev, got: dict):

@@ -470,12 +470,15 @@ def test_the_mask_rcnn_configs_build(config):
 
 
 def test_unported_mask_parts_raise():
-    with pytest.raises(NotImplementedError, match="NormedConv2d"):
-        build_detector(dict(copy.deepcopy(TINY_MASK_RCNN), mask_head=dict(
-            TINY_MASK_RCNN["mask_head"],
-            predictor_cfg=dict(type="NormedConv2d"))))
-    for change, match in ((dict(type="PointRend"), "PointRend"),
-                          (dict(type="PISAMaskRCNN"), "PISAMaskRCNN"),
+    # the normed predictor and PointRend are ported (their own files): the
+    # predictor builds without a bias, PointRend needs its point head
+    det = build_detector(dict(copy.deepcopy(TINY_MASK_RCNN), mask_head=dict(
+        TINY_MASK_RCNN["mask_head"],
+        predictor_cfg=dict(type="NormedConv2d"))))
+    assert not hasattr(det.mask_head.conv_logits, "bias")
+    with pytest.raises(TypeError, match="point_head"):
+        build_detector(dict(copy.deepcopy(TINY_MASK_RCNN), type="PointRend"))
+    for change, match in ((dict(type="PISAMaskRCNN"), "PISAMaskRCNN"),
                           (dict(grid_head=dict(type="GridHead")),
                            "grid_head")):
         with pytest.raises(NotImplementedError, match=match):

@@ -532,7 +532,6 @@ def test_unported_two_stage_variants_raise():
     for change, match in (
             (dict(type="DoubleHeadRCNN"), "DoubleHeadRCNN"),
             (dict(type="GridRCNN"), "GridRCNN"),
-            (dict(point_head=dict(type="MaskPointHead")), "point_head"),
             (dict(bbox_head=dict(type="SABLHead", num_classes=20)),
              "SABLHead"),
             (dict(bbox_head=dict(TINY_FASTER_RCNN["bbox_head"],
@@ -543,6 +542,10 @@ def test_unported_two_stage_variants_raise():
             (dict(rpn_head=dict(type="GARPNHead")), "GARPNHead")):
         with pytest.raises(NotImplementedError, match=match):
             build_detector({**copy.deepcopy(TINY_FASTER_RCNN), **change})
+    # a point head is PointRend's (ported: its own file)
+    with pytest.raises(TypeError, match="point_head"):
+        build_detector(dict(copy.deepcopy(TINY_FASTER_RCNN),
+                            point_head=dict(type="MaskPointHead")))
     with pytest.raises(NotImplementedError, match="OHEMSampler"):
         two_stage.parse_rcnn_train_cfg(dict(rcnn=dict(
             sampler=dict(type="OHEMSampler"))))
