@@ -414,6 +414,29 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    evaluation and the test CLI's ``--eval bbox segm``: ``bbox_mAP`` and
    ``segm_mAP`` in [0, 1]. The NMS kernel timed on PointRend's and the
    Seesaw head's RoI inputs (``point_rend_b8``, ``seesaw_b8``).
+23. The remaining backbones at full width, uncut, seeded, the NMS count at
+   0 before each part and read after it. Through ``phase_variants``
+   (``SLICE16_CONFIGS``): HRNetV2p-W32 Faster R-CNN (the RPN's NMS at N =
+   4756: HRFPN's P6 pools P2 at 16), RegNetX-3.2GF Mask R-CNN, ResNeSt-50
+   and Res2Net-50 Faster R-CNN: one counted predict each at B=8, 800x1344
+   (2 NMS launches, keeps equal, dets finite (8, 100, 5) with detections
+   in every image, the Mask R-CNN's probabilities in [0, 1]), the median of
+   ``P23_TIMED`` predicts and one step after a warm-up at B=2 (losses
+   finite, 1 NMS launch per step), each with its peak memory; card vs CPU
+   within 1e-3 at 1x128x192 (``slice16_probe``): the backbone's levels
+   (HRNet's four branches), the neck's levels and the RPN, the box head,
+   the mask head; for HRNet one step card vs CPU at 2x128x192 banded as
+   phase 6 and two runs of 3 steps bit-identical. FCOS HRNetV2p-W18
+   (``phase_hrnet_fcos``) and SSD on MobileNetV2 (``phase_ssd_mobilenet``):
+   a counted predict (1 launch at N = 2000), timed, the levels and head
+   outputs card vs CPU, a step (no NMS), each with its peak memory; FCOS
+   then through ``train_detector`` for one epoch of phase 19's COCO set
+   with ``bbox`` evaluation and the test CLI's ``--eval bbox``
+   (``bbox_mAP`` in [0, 1], NMS once per evaluation batch). Whether the
+   backward of RegNet's grouped and MobileNetV2's depthwise 3x3s repeats
+   under cuDNN's deterministic algorithms is read and logged
+   (``conv_backward_repeats``). The NMS kernel timed on HRNet's RoI input
+   and FCOS-HRNet's (``hrnet_rcnn_b8``, ``hrnet_fcos_b8``).
 
 Each phase logs its wall time (``[phase N] ... s``). The test CLI runs
 in this process (:func:`run_test_cli`), but under a launcher (phase 15);
@@ -430,6 +453,7 @@ The last lines are the kernels JSON line and the
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import copy
 import json
@@ -437,6 +461,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -640,22 +665,71 @@ def recording_nms():
         core_nms.nms_keep = real
 
 
+# repr(model config) -> the future of its seeded weights; the later phases'
+# are filled on one host thread (``prefetch_seeded_variables``) while the
+# card runs the phases before them
 _SEEDED: dict = {}
+_SEEDED_LOCK = threading.Lock()
+_STATE_DICTS: dict = {}
+
+
+def _lowest_priority():
+    """The fill thread yields the host's cores to the phases' own host
+    work (this thread's nice value: Linux schedules threads as tasks)."""
+    os.setpriority(os.PRIO_PROCESS, threading.get_native_id(), 19)
+
+
+_PREFETCH = concurrent.futures.ThreadPoolExecutor(
+    max_workers=1, initializer=_lowest_priority)
+
+
+def _filled(model: dict) -> dict:
+    from dsl_tpu_torch.models.detectors.single_stage import empty_detector
+    from dsl_tpu_torch.utils.jax_bridge import state_dict_to_flax
+    from dsl_tpu_torch.utils.random_weights import fill_variables
+
+    return fill_variables(state_dict_to_flax(empty_detector(model).state_dict()))
 
 
 def seeded_variables(cfg) -> dict:
     """Seeded numpy weights in the flax layout for the config's detector
     (filled once per model config: the workflows reuse their variant's; a
-    caller does not write them)."""
-    from dsl_tpu_torch.models.detectors.single_stage import empty_detector
-    from dsl_tpu_torch.utils.jax_bridge import state_dict_to_flax
-    from dsl_tpu_torch.utils.random_weights import fill_variables
-
+    caller does not write them). A fill the host thread has not started is
+    cancelled and made here; one it is running is waited for."""
     key = repr(cfg.model)
-    if key not in _SEEDED:
-        shapes = state_dict_to_flax(empty_detector(dict(cfg.model)).state_dict())
-        _SEEDED[key] = fill_variables(shapes)
-    return _SEEDED[key]
+    with _SEEDED_LOCK:
+        fut = _SEEDED.get(key)
+        here = fut is None or fut.cancel()
+        if here:
+            fut = _SEEDED[key] = concurrent.futures.Future()
+    if here:
+        fut.set_result(_filled(dict(cfg.model)))
+    return fut.result()
+
+
+def prefetch_seeded_variables(paths):
+    """Queue the seeded weights of the configs at ``paths`` for the host
+    thread, in order: a numpy fill of up to 133 M parameters each, which
+    would otherwise hold the card idle when its phase starts."""
+    from dsl_tpu_torch.config import Config
+
+    for path in paths:
+        cfg = Config.fromfile(str(path))
+        key = repr(cfg.model)
+        with _SEEDED_LOCK:
+            if key not in _SEEDED:
+                _SEEDED[key] = _PREFETCH.submit(_filled, dict(cfg.model))
+
+
+def seeded_state_dict(variables: dict) -> dict:
+    """``flax_to_state_dict`` of a weights tree, made once per tree and
+    kept with it (loading copies it, so the steps' entry points share
+    it)."""
+    from dsl_tpu_torch.utils.jax_bridge import flax_to_state_dict
+
+    if id(variables) not in _STATE_DICTS:
+        _STATE_DICTS[id(variables)] = (variables, flax_to_state_dict(variables))
+    return _STATE_DICTS[id(variables)][1]
 
 
 def phase_main_path(cfg, variables):
@@ -900,7 +974,8 @@ def nms_input_timing(name: str, boxes, valid, thr, smi: str) -> dict:
         f"{bound:.6f} ms ({bound_by}), {device / bound:.1f}x the bound"
         f"  ({smi})")
     return dict(ms=device, wrapper_ms=wrapper, plain_ms=plain,
-                bound_ms=bound, bound_by=bound_by, **passes)
+                bound_ms=bound, bound_by=bound_by, kept=int(keep.sum()),
+                **passes)
 
 
 def train_batch(cfg, seed: int, canvas, n_labeled: int, n_unlabeled: int,
@@ -930,10 +1005,9 @@ def train_entry(cfg, variables, dtype, device):
     from dsl_tpu_torch.train import (
         build_optimizer_from_cfg, create_train_state, frozen_backbone_mask,
         make_train_step)
-    from dsl_tpu_torch.utils.jax_bridge import flax_to_state_dict
 
     det = empty_detector(dict(cfg.model))
-    det.load_state_dict(flax_to_state_dict(variables))
+    det.load_state_dict(seeded_state_dict(variables))
     frozen = frozen_backbone_mask(
         det, dict(cfg.model.backbone).get("frozen_stages", -1))
     tx, _ = build_optimizer_from_cfg(
@@ -3731,6 +3805,7 @@ RETINANET_CONFIG = ROOT / "configs" / "retinanet" / "retinanet_r50_fpn_1x_coco.p
 FASTER_RCNN_VOC_CONFIG = (ROOT / "configs" / "pascal_voc"
                           / "faster_rcnn_r50_fpn_1x_voc0712.py")
 RPN_NMS_N = 4819              # 1000 candidates from each of P2-P5, 819 from P6
+HRFPN_RPN_NMS_N = 4756        # HRFPN's P6 pools P2 at 16: 12x21 x 3 anchors
 ROI_NMS_N = 2000              # multiclass_nms's pre_nms_top
 ANCHOR_TIMED = 3              # predicts timed per detector and dtype
 ANCHOR_TRAIN_B = 2            # the configs' samples_per_gpu
@@ -4209,7 +4284,7 @@ SSD_CANVAS = (300, 300)
 SSD_NMS_N = 2000              # multiclass_nms's pre_nms_top
 ONE_LEVEL_RPN_NMS_N = 1000    # one level (DC5, C4): its nms_pre
 P18_TIMED = 3                 # predicts timed per path (median)
-P18_STEPS = 2                 # steps timed per path, after one warm-up
+P18_STEPS = 1                 # steps timed per path, after one warm-up
 SSD_EPOCHS = 1
 # the standalone RPN configs' train_cfg (mmdet's rpn_r50_fpn.py); the
 # repo's file inherits Faster R-CNN's model, which sets none
@@ -4673,6 +4748,7 @@ def phase_variants(smi: str, configs=VARIANT_CONFIGS, b: int = BATCH,
             f"{sum(p.numel() for p in det.parameters()) / 1e6:.2f} M "
             f"parameters")
         rpn_n = (ONE_LEVEL_RPN_NMS_N if len(det.rpn_head.strides) == 1
+                 else HRFPN_RPN_NMS_N if type(det.neck).__name__ == "HRFPN"
                  else RPN_NMS_N)
 
         def predict():
@@ -5436,7 +5512,7 @@ HTC_CONFIGS = tuple(ROOT / "configs" / p for p in (
 # masks) has nothing to read in either package
 SEMANTIC_DATA_CONFIG = (ROOT / "configs" / "_base_" / "datasets"
                         / "coco_instance_semantic.py")
-HTC_TIMED, HTC_STEPS = 3, 2   # phase 21's predicts and steps timed (median)
+HTC_TIMED, HTC_STEPS = 3, 1   # phase 21's predicts and steps timed (median)
 
 
 def _random_levels(det, small, gen):
@@ -5940,6 +6016,286 @@ def phase_yolact(tmp: Path, coco: dict, smi: str) -> float:
     return ms
 
 
+HRNET_CONFIG = (ROOT / "configs" / "hrnet"
+                / "faster_rcnn_hrnetv2p_w32_1x_coco.py")
+HRNET_FCOS_CONFIG = (ROOT / "configs" / "hrnet"
+                     / "fcos_hrnetv2p_w18_gn-head_4x4_1x_coco.py")
+SLICE16_CONFIGS = (HRNET_CONFIG, *(ROOT / "configs" / p for p in (
+    "regnet/mask_rcnn_regnetx-3.2GF_fpn_1x_coco.py",
+    "resnest/faster_rcnn_s50_fpn_syncbn-backbone+head_mstrain-range_1x_coco.py",
+    "res2net/faster_rcnn_r2_50_fpn_coco.py")))
+SSD_MOBILENET_CONFIG = ROOT / "configs" / "ssd" / "ssd_mobilenetv2_coco.py"
+P23_TIMED, P23_STEPS = 3, 1   # phase 23's predicts and steps timed (median)
+P23_DET_STEPS = 3             # HRNet's steps per determinism run
+# (name, channels, groups, input H, W, stride) of the grouped and depthwise
+# 3x3 convolutions of a B=2 step at 800x1344: RegNetX-3.2GF's first and
+# second block of each stage, MobileNetV2's depthwise convs
+GROUPED_CONVS = (
+    ("regnet layer1.0", 96, 2, 400, 672, 2), ("regnet layer1.1", 96, 2, 200, 336, 1),
+    ("regnet layer2.0", 192, 4, 200, 336, 2), ("regnet layer2.1", 192, 4, 100, 168, 1),
+    ("regnet layer3.0", 432, 9, 100, 168, 2), ("regnet layer3.1", 432, 9, 50, 84, 1),
+    ("regnet layer4.0", 1008, 21, 50, 84, 2), ("regnet layer4.1", 1008, 21, 25, 42, 1),
+    ("mobilenet layer1.0", 32, 32, 400, 672, 1), ("mobilenet layer2.0", 96, 96, 400, 672, 2),
+    ("mobilenet layer2.1", 144, 144, 200, 336, 1), ("mobilenet layer3.0", 144, 144, 200, 336, 2),
+    ("mobilenet layer3.1", 192, 192, 100, 168, 1), ("mobilenet layer4.0", 192, 192, 100, 168, 2),
+    ("mobilenet layer4.1", 384, 384, 50, 84, 1), ("mobilenet layer6.0", 576, 576, 50, 84, 2),
+    ("mobilenet layer6.1", 960, 960, 25, 42, 1))
+
+
+def slice16_probe(smi: str):
+    """:func:`phase_variants`' probe for phase 23's two-stage detectors:
+    card vs CPU within 1e-3 of the largest magnitude at 1x128x192: the
+    backbone's levels (HRNet's four branches), the neck's levels and the
+    RPN, the box head on 64 seeded RoIs, the mask head on 16 where there is
+    one. For HRNet (``HRNET_CONFIG``) then the train entry point at B=2
+    (cuDNN deterministic): one step card vs CPU at 2x128x192 (losses 1e-4,
+    ``grad_norm`` 1e-3, updates banded; the host's draws) and two runs of
+    ``P23_DET_STEPS`` steps at 800x1344 bit-identical. Returns the NMS
+    launches: 1 per step."""
+    def probe(tag, cfg, variables, det, images) -> int:
+        import torch
+
+        from dsl_tpu_torch.apis.train import deterministic_cudnn
+        from dsl_tpu_torch.ops.nms import nms_keep
+
+        gen = torch.Generator(device=DEVICE).manual_seed(27)
+        small = images[:1, :, :ANCHOR_SMALL[0], :ANCHOR_SMALL[1]]
+        on_cpu = copy.deepcopy(det).cpu()
+        rel = {"backbone": card_vs_cpu_outputs(det.backbone, small,
+                                               on_cpu.backbone),
+               "levels and RPN": card_vs_cpu_outputs(det, small, on_cpu)}
+        head, mh = det.bbox_head, det.mask_head
+        rf = torch.randn((64, head.in_channels, head.roi_size, head.roi_size),
+                         generator=gen, device=DEVICE)
+        rel["bbox head"] = card_vs_cpu_outputs(det, rf, on_cpu, stage="roi")
+        if mh is not None:
+            mf = torch.randn((16, mh.in_channels, mh.roi_size, mh.roi_size),
+                             generator=gen, device=DEVICE)
+            rel["mask head"] = card_vs_cpu_outputs(det, mf, on_cpu,
+                                                   stage="mask")
+        del on_cpu
+        log(f"[p23] {tag} outputs card vs CPU at 1x{ANCHOR_SMALL[0]}x"
+            f"{ANCHOR_SMALL[1]}, worst |diff| / max|ref|: "
+            + ", ".join(f"{k} {v:.3e}" for k, v in rel.items()))
+        if max(rel.values()) > 1e-3:
+            raise AssertionError(f"{tag}: card and CPU disagree: {rel}")
+        if tag != HRNET_CONFIG.stem:
+            return 0
+        nc = head.num_classes
+        with deterministic_cudnn():
+            nms_keep.launches = 0
+            step_card_vs_cpu(tag, cfg, variables, ANCHOR_SMALL,
+                             ANCHOR_TRAIN_B, nc)
+            batch = anchor_batch(TRAIN_SEED, CANVAS, ANCHOR_TRAIN_B, nc,
+                                 DEVICE)
+            runs = []
+            for _ in range(2):
+                m, _, st, _ = anchor_step_runs(cfg, variables, batch,
+                                               P23_DET_STEPS)
+                runs += [m, {k: p.detach().clone() for k, p in
+                             st.student.named_parameters()}]
+                del st
+            check_deterministic(*runs)
+            log(f"[p23] {tag}: two runs of {P23_DET_STEPS} steps at "
+                f"{ANCHOR_TRAIN_B}x{CANVAS[0]}x{CANVAS[1]} bit-identical "
+                f"(the fuse's nearest resize and HRFPN's bilinear are matrix "
+                f"products)")
+            del batch
+        if nms_keep.launches != 1 + 2 * P23_DET_STEPS:
+            raise AssertionError(f"{tag}: {nms_keep.launches} NMS launches in "
+                                 f"the card vs CPU step and the determinism "
+                                 f"runs, expected {1 + 2 * P23_DET_STEPS}")
+        torch.cuda.empty_cache()
+        return nms_keep.launches
+
+    return probe
+
+
+def _single_stage_checks(tag: str, cfg, det, images, smi: str,
+                         want_n: int) -> tuple[int, dict, tuple]:
+    """A single-stage detector of phase 23 (uncut, seeded): one counted
+    predict at B=8 (1 NMS launch at N = ``want_n``, keeps equal, dets finite
+    with detections in every image), timed with its peak memory; the
+    backbone's levels, the neck's and the head outputs card vs CPU within
+    1e-3 of the largest magnitude at 1x128x192; a step at B=2 (cuDNN
+    deterministic; losses finite, no NMS), timed with its peak memory.
+    Returns (the worst keep difference, the path entry, the recorded NMS
+    input)."""
+    import torch
+
+    from dsl_tpu_torch.apis.train import deterministic_cudnn
+    from dsl_tpu_torch.models import detector_predict
+    from dsl_tpu_torch.ops.nms import nms_keep
+
+    log(f"[p23] {tag}: {type(det).__name__} ({type(det.backbone).__name__}, "
+        f"{type(det.neck).__name__}), "
+        f"{sum(p.numel() for p in det.parameters()) / 1e6:.2f} M parameters")
+
+    def predict():
+        return detector_predict(det, images, device=DEVICE)
+
+    _, _, calls, worst = predict_counted(
+        tag, predict, [want_n], (BATCH, cfg.model.test_cfg.max_per_img, 5))
+    ms = time_predict(tag, predict, BATCH, smi, reps=P23_TIMED, peak=True)
+    small = images[:1, :, :ANCHOR_SMALL[0], :ANCHOR_SMALL[1]]
+    on_cpu = copy.deepcopy(det).cpu()
+    rel = {"backbone": card_vs_cpu_outputs(det.backbone, small,
+                                           on_cpu.backbone),
+           "neck": card_vs_cpu_outputs(
+               lambda x: det.neck(det.backbone(x)), small,
+               lambda x: on_cpu.neck(on_cpu.backbone(x))),
+           "head outputs": card_vs_cpu_outputs(det, small, on_cpu)}
+    del on_cpu
+    log(f"[p23] {tag} outputs card vs CPU at 1x{ANCHOR_SMALL[0]}x"
+        f"{ANCHOR_SMALL[1]}, worst |diff| / max|ref|: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in rel.items()))
+    if max(rel.values()) > 1e-3:
+        raise AssertionError(f"{tag}: card and CPU disagree: {rel}")
+    variables = seeded_variables(cfg)
+    batch = anchor_batch(TRAIN_SEED, CANVAS, ANCHOR_TRAIN_B,
+                         cfg.model.bbox_head.num_classes, DEVICE)
+    with deterministic_cudnn():
+        nms_keep.launches = 0
+        time_steps(tag, cfg, variables, batch, smi, timed=P23_STEPS,
+                   peak=True)
+        if nms_keep.launches:
+            raise AssertionError(f"{tag} steps: {nms_keep.launches} NMS "
+                                 f"launches, expected none")
+    del batch
+    torch.cuda.empty_cache()
+    return worst, dict(B=BATCH, N=want_n, launches=1, predict_ms=ms), \
+        calls[0][:3]
+
+
+def phase_hrnet_fcos(tmp: Path, coco: dict, smi: str):
+    """FCOS HRNetV2p-W18 (``HRNET_FCOS_CONFIG``, uncut, seeded): the
+    :func:`_single_stage_checks` (1 NMS launch per predict at N =
+    ``ROI_NMS_N``), then ``train_detector`` for one epoch of phase 19's COCO
+    set with ``bbox`` evaluation and the test CLI's ``--eval bbox``
+    (:func:`run_test_cli`): losses finite, ``bbox_mAP`` in [0, 1], NMS once
+    per evaluation batch and none in a step. Returns (NMS launches, the
+    worst keep difference, the path entry, the recorded NMS input)."""
+    import math
+
+    import torch
+
+    from dsl_tpu_torch.apis import init_detector, train_detector
+    from dsl_tpu_torch.apis.test import BATCH_SIZE
+    from dsl_tpu_torch.config import Config
+    from dsl_tpu_torch.ops.nms import nms_keep
+    from dsl_tpu_torch.utils.synthetic_data import coco_instance_config
+
+    cfg = Config.fromfile(str(HRNET_FCOS_CONFIG))
+    det = init_detector(cfg, variables=seeded_variables(cfg),
+                        device=DEVICE).detector
+    gen = torch.Generator(device=DEVICE).manual_seed(28)
+    images = torch.randn((BATCH, 3, *CANVAS), generator=gen, device=DEVICE)
+    worst, path, nms_input = _single_stage_checks(
+        HRNET_FCOS_CONFIG.stem, cfg, det, images, smi, ROI_NMS_N)
+    del det, images
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    raw = coco_instance_config(cfg.to_dict(), coco)
+    raw["runner"] = dict(raw.get("runner") or {}, max_epochs=1)
+    raw["log_config"] = dict(interval=1)
+    raw["evaluation"] = dict(interval=1, metric="bbox")
+    work = tmp / "hrnet_fcos23"
+    cfg_path = tmp / "hrnet_fcos23.py"
+    Config(raw).dump(str(cfg_path))
+    batches = math.ceil(MASK_VAL_IMAGES / BATCH_SIZE)
+    nms_keep.launches = 0
+    train_detector(Config(raw), str(work), device=DEVICE,
+                   variables=seeded_variables(Config(raw)))
+    torch.cuda.synchronize()
+    launches = nms_keep.launches
+    lines = [json.loads(x) for x in
+             (work / "train.log.json").read_text().splitlines()]
+    steps = [x for x in lines if x.get("mode") == "train"]
+    val = [x for x in lines if x.get("mode") == "val"]
+    keys = sorted(k for k in steps[-1] if k.startswith("loss")) if steps else []
+    if not steps or not all(math.isfinite(x[k]) for x in steps for k in keys):
+        raise AssertionError(f"FCOS-HRNet train_detector losses: {steps}")
+    if len(val) != 1 or not 0.0 <= val[-1]["bbox_mAP"] <= 1.0:
+        raise AssertionError(f"FCOS-HRNet evaluation: {val}")
+    if launches != batches:
+        raise AssertionError(f"train_detector made {launches} NMS launches, "
+                             f"expected 1 per evaluation batch ({batches}) "
+                             f"and none in a step")
+    log(f"[p23] {HRNET_FCOS_CONFIG.relative_to(ROOT)} train_detector: "
+        f"{len(steps)} steps, losses finite (last " + ", ".join(
+            f"{k} {steps[-1][k]:.4f}" for k in keys)
+        + f"), bbox_mAP {val[-1]['bbox_mAP']:.4f}, NMS launches {launches}")
+    child, out = run_test_cli([str(cfg_path), str(work / "epoch_1.pth"),
+                               "--eval", "bbox"], tag="hrnet_fcos23")
+    metrics = json.loads(next(x for x in reversed(out) if x.startswith("{")))
+    if not 0.0 <= metrics["bbox_mAP"] <= 1.0 or child != batches:
+        raise AssertionError(f"test CLI: {metrics}, {child} NMS launches")
+    log(f"[p23] test CLI --eval bbox: bbox_mAP {metrics['bbox_mAP']}, NMS "
+        f"launches {child}; workflow {time.perf_counter() - t0:.1f} s")
+    return 1 + launches + child, worst, path, nms_input
+
+
+def phase_ssd_mobilenet(smi: str) -> tuple[int, int]:
+    """SSD on MobileNetV2 (``SSD_MOBILENET_CONFIG``: an FPN, five levels at
+    strides 4-64, uncut, seeded): the :func:`_single_stage_checks` (1 NMS
+    launch per predict at N = ``SSD_NMS_N``). Returns (NMS launches, the
+    worst keep difference)."""
+    import torch
+
+    from dsl_tpu_torch.apis import init_detector
+    from dsl_tpu_torch.config import Config
+
+    cfg = Config.fromfile(str(SSD_MOBILENET_CONFIG))
+    det = init_detector(cfg, variables=seeded_variables(cfg),
+                        device=DEVICE).detector
+    gen = torch.Generator(device=DEVICE).manual_seed(29)
+    images = torch.randn((BATCH, 3, *CANVAS), generator=gen, device=DEVICE)
+    worst = _single_stage_checks(SSD_MOBILENET_CONFIG.stem, cfg, det, images,
+                                 smi, SSD_NMS_N)[0]
+    del det, images
+    torch.cuda.empty_cache()
+    return 1, worst
+
+
+def conv_backward_repeats(smi: str):
+    """Whether the backward of the grouped and depthwise 3x3 convolutions
+    of slice 16 (``GROUPED_CONVS``: RegNetX-3.2GF's, MobileNetV2's, at a
+    B=2 step's shapes at 800x1344) repeats bit for bit under cuDNN's
+    deterministic algorithms, as ``train_detector`` runs: the input's and
+    the weight's gradients of two backward passes of one seeded forward
+    compared. Logged, not asserted: the step's determinism is checked
+    where the card gives it (HRNet, phase 23; the f32 flagship, phase 6)."""
+    import torch
+    import torch.nn.functional as F
+
+    from dsl_tpu_torch.apis.train import deterministic_cudnn
+
+    gen = torch.Generator(device=DEVICE).manual_seed(30)
+    results = []
+    with deterministic_cudnn():
+        for name, c, groups, h, w, stride in GROUPED_CONVS:
+            x = torch.randn((ANCHOR_TRAIN_B, c, h, w), generator=gen,
+                            device=DEVICE)
+            wt = torch.randn((c, c // groups, 3, 3), generator=gen,
+                             device=DEVICE) * (9 * c // groups) ** -0.5
+            grads = []
+            for _ in range(2):
+                xi, wi = x.clone().requires_grad_(), wt.clone().requires_grad_()
+                out = F.conv2d(xi, wi, None, stride, 1, 1, groups)
+                g = torch.randn(out.shape, generator=torch.Generator(
+                    device=DEVICE).manual_seed(31), device=DEVICE)
+                out.backward(g)
+                grads.append((xi.grad, wi.grad))
+            same = (torch.equal(grads[0][0], grads[1][0]),
+                    torch.equal(grads[0][1], grads[1][1]))
+            results.append((name, *same))
+            del x, wt, grads
+    torch.cuda.empty_cache()
+    log("[p23] grouped / depthwise conv backward under cuDNN deterministic, "
+        "two passes bit-identical (input grad, weight grad): " + ", ".join(
+            f"{n} {a}/{b}" for n, a, b in results) + f"  ({smi})")
+
+
 def main() -> int:
     import torch
 
@@ -5964,6 +6320,14 @@ def main() -> int:
     t = time.perf_counter()
     cfg = Config.fromfile(str(CONFIG))
     variables = seeded_variables(cfg)
+    # the models of phases 17-23, in the order they run
+    prefetch_seeded_variables((
+        FASTER_RCNN_CONFIG, RETINANET_CONFIG, FASTER_RCNN_VOC_CONFIG,
+        SSD_VOC_CONFIG, RPN_CONFIG, FAST_RCNN_CONFIG, *VARIANT_CONFIGS,
+        MASK_RCNN_CONFIG, MASK_MSTRAIN_CONFIG, *C4_CONFIGS, *CASCADE_CONFIGS,
+        CASCADE_MSTRAIN_CONFIG, *HTC_CONFIGS, POINT_REND_CONFIG,
+        SEESAW_CONFIG, YOLACT_CONFIG, *SLICE16_CONFIGS, HRNET_FCOS_CONFIG,
+        SSD_MOBILENET_CONFIG))
     bundle, images, launches, path_err, calls = phase_main_path(cfg, variables)
     log(f"[phase 4] {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
@@ -6109,13 +6473,34 @@ def main() -> int:
         del slice_inputs
         phase_yolact(Path(tmp), coco, smi)
         log(f"[phase 22] {time.perf_counter() - t22:.1f} s")
+        t23 = time.perf_counter()
+        s16_launches, s16_err, s16_paths, s16_inputs = phase_variants(
+            smi, SLICE16_CONFIGS, BATCH, seed=27, phase="p23",
+            probe=slice16_probe(smi), timed=P23_TIMED, steps=P23_STEPS,
+            peak=True)
+        entry = dict(s16_paths[0], path="hrnet_rcnn")
+        entry.update(nms_input_timing("hrnet_rcnn_b8",
+                                      *s16_inputs[HRNET_CONFIG.stem], smi))
+        p18_paths.append(entry)
+        del s16_inputs
+        fcos_launches, fcos_err, fcos_path, fcos_input = phase_hrnet_fcos(
+            Path(tmp), coco, smi)
+        fcos_path.update(path="hrnet_fcos",
+                         **nms_input_timing("hrnet_fcos_b8", *fcos_input, smi))
+        p18_paths.append(fcos_path)
+        del fcos_input
+        ssd23_launches, ssd23_err = phase_ssd_mobilenet(smi)
+        s16_launches += fcos_launches + ssd23_launches
+        s16_err = max(s16_err, fcos_err, ssd23_err)
+        conv_backward_repeats(smi)
+        log(f"[phase 23] {time.perf_counter() - t23:.1f} s")
     launches["nms_keep"] += (semi_launches + eval_launches + weights_launches
                              + baseline_launches + voc_launches + dist_launches
                              + mh_launches + cfg_launches + anchor_launches
                              + train17_launches + voc17_launches
                              + ssd_launches + rpn_launches + variant_launches
                              + mask_launches + cascade_launches
-                             + htc_launches + slice_launches)
+                             + htc_launches + slice_launches + s16_launches)
     kernels = [dict(
         name="nms_keep", route="cuda",
         source="dsl_tpu_torch/csrc/nms_kernel.cu",
@@ -6125,14 +6510,15 @@ def main() -> int:
                               eval_err, voc_err, mh_err, cfg_err, anchor_err,
                               ssd_err, rpn_err, variant_err, mask_err,
                               flow_err, c4_err, cascade_err, htc_err,
-                              slice_err)),
+                              slice_err, s16_err)),
         ms=nms_times["ms"], plain_ms=nms_times["plain_ms"],
         bound_ms=nms_times["bound_ms"], bound_by=nms_times["bound_by"],
         library_ms=None,
         # the anchor-based detectors' inputs (phases 17-22), each timed alike
         paths=[{k: v for k, v in e.items() if k in (
-            "path", "B", "N", "launches", "ms", "plain_ms", "bound_ms",
-            "bound_by")} for e in anchor_paths + p18_paths])]
+            "path", "B", "N", "kept", "launches", "ms", "plain_ms",
+            "bound_ms", "bound_by")} for e in anchor_paths + p18_paths])]
+    _PREFETCH.shutdown(cancel_futures=True)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -58,7 +58,9 @@ def load_detector(model_cfg: dict, checkpoint: str | None = None,
     keeps its random init). The backbone's ``pretrained`` file is not read:
     the checkpoint holds the weights, as in mmdet's ``init_detector``."""
     model = dict(model_cfg)
-    model["backbone"] = {**dict(model["backbone"]), "pretrained": None}
+    if "pretrained" in model["backbone"]:
+        # (a backbone without the option, ResNeSt's, keeps none)
+        model["backbone"] = {**dict(model["backbone"]), "pretrained": None}
     if checkpoint:
         # both loads set every parameter and buffer or raise
         detector = empty_detector(model)

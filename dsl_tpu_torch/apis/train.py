@@ -37,12 +37,13 @@ runner runs, cuDNN is held to its deterministic algorithms
 (:func:`deterministic_cudnn`), so one seed gives one model, as in the JAX
 package; its nondeterministic backward algorithms made the f32 step part
 run to run. The process's flags come back when ``train_detector`` returns.
-A bbox head with ``SeesawLoss`` (a cascade's too) trains with a
-:class:`SeesawCounter` of the classes (``with_seesaw_counts``): before each
-step the batch's valid GT labels are added to it and the counts reach the
-loss as ``batch["cum_samples"]``, as in the JAX package (whose loop keeps
-none for a cascade, which has no ``bbox_head`` there: its cascade trains on
-counts of one). Not ported yet, and refused with ``NotImplementedError``:
+A detector with a top-level ``bbox_head`` whose loss is ``SeesawLoss``
+(Mask R-CNN's) trains with a :class:`SeesawCounter` of the classes
+(``with_seesaw_counts``): before each step the batch's valid GT labels are
+added to it and the counts reach the loss as ``batch["cum_samples"]``, as
+in the JAX package. A cascade has ``bbox_heads`` and no ``bbox_head``
+there, so its loop keeps no counter and each stage's SeesawLoss reads
+counts of one; so does the port's. Not ported yet, and refused with ``NotImplementedError``:
 Dynamic R-CNN and the other two-stage variants (``build_detector`` names
 them), the GHM losses, SeesawLoss under data parallelism (each rank would
 count its own shard; the JAX package counts the global batch), and for a
@@ -96,9 +97,13 @@ DEFAULT_NORM = dict(mean=(123.675, 116.28, 103.53),
 
 
 def _seesaw_classes(model_cfg: dict) -> int | None:
-    """The class count of a SeesawLoss bbox head (a cascade's last
-    stage's), else None."""
-    head = roi_bbox_head_cfg(model_cfg)
+    """The class count of the detector's top-level bbox head where its loss
+    is SeesawLoss, else None: the head the JAX package's ``train_detector``
+    reads (``detector.bbox_head``), which a cascade or a multi-head
+    detector (``bbox_heads``) does not have."""
+    if model_cfg.get("bbox_heads"):
+        return None
+    head = dict(model_cfg.get("bbox_head") or {})
     if dict(head.get("loss_cls", {}) or {}).get("type") == "SeesawLoss":
         return int(head["num_classes"])
     return None

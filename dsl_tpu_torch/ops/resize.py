@@ -10,7 +10,8 @@ product too, so it repeats bit for bit on the card, where the backward of
 ``F.interpolate`` adds with atomics (and, without ``antialias``, it would
 not shrink as JAX does). The users: HTC's semantic head, SCNet's relay
 head, PointRend's subdivision, YOLACT's protonet and the FPN's bilinear
-top-down path (YOLACT's).
+top-down path (YOLACT's). ``resize_nearest`` is ``jax.image.resize``'s
+nearest rule the same way, with 0/1 selection matrices (HRNet's fuse).
 """
 
 from __future__ import annotations
@@ -65,4 +66,41 @@ def resize_bilinear(x: torch.Tensor, out_hw) -> torch.Tensor:
         x = torch.matmul(_weights_on(h, oh, x.device).to(x.dtype), x)
     if w != ow:
         x = torch.matmul(x, _weights_on(w, ow, x.device).to(x.dtype).T)
+    return x
+
+
+@functools.lru_cache(maxsize=64)
+def jax_nearest_index(src: int, dst: int) -> np.ndarray:
+    """The source index of each of ``dst`` outputs along one axis under
+    ``jax.image.resize(..., "nearest")``: ``floor((i + 0.5) * src / dst)``
+    in f32, as JAX computes it. This is ``F.interpolate``'s
+    ``"nearest-exact"``, not its ``"nearest"`` (``floor(i * src / dst)``),
+    which picks otherwise wherever ``src`` does not divide ``dst`` (7 -> 13,
+    13 -> 25). Cached; never written."""
+    pos = ((np.arange(dst, dtype=np.float32) + np.float32(0.5))
+           * np.float32(src) / np.float32(dst))
+    return np.minimum(np.floor(pos).astype(np.int64), src - 1)
+
+
+def _selection_on(src: int, dst: int, device: torch.device) -> torch.Tensor:
+    key = ("nearest", src, dst, str(device))
+    if key not in _WEIGHTS_ON:
+        sel = np.zeros((dst, src), np.float32)
+        sel[np.arange(dst), jax_nearest_index(src, dst)] = 1.0
+        _WEIGHTS_ON[key] = to_device(torch.from_numpy(sel), device)
+    return _WEIGHTS_ON[key]
+
+
+def resize_nearest(x: torch.Tensor, out_hw) -> torch.Tensor:
+    """(..., H, W) -> (..., oh, ow) as ``jax.image.resize(..., "nearest")``
+    resizes the spatial axes (HRNet's fuse), as products with 0/1 selection
+    matrices: each output is one input times 1 plus zeros, so the values
+    are the gather's bit for bit, and the backward is a matrix product
+    that repeats on the card (a gather's adds with atomics)."""
+    h, w = x.shape[-2:]
+    oh, ow = int(out_hw[0]), int(out_hw[1])
+    if h != oh:
+        x = torch.matmul(_selection_on(h, oh, x.device).to(x.dtype), x)
+    if w != ow:
+        x = torch.matmul(x, _selection_on(w, ow, x.device).to(x.dtype).T)
     return x

@@ -80,7 +80,23 @@ plain nested dicts. What changes on the way:
   ``bbox_heads.1`` (its necks are alike: the first one's laterals count
   for all). A block
   ``layerS_B`` is an RLA-ResNet's ``stages.{S-1}.B`` where the backbone has
-  the RLA hidden-state convs (``conv_out0``), else a ResNet's ``layerS.B``.
+  the RLA hidden-state convs (``conv_out0``), else a ResNet's ``layerS.B``;
+- the backbones of slice 16 under mmdet's names: HRNet's
+  ``transition{s}_{b}_conv`` / ``_bn`` <-> ``transition{s+1}.{b}.{0,1}``
+  (an adapted branch) or ``.{b}.0.{0,1}`` (a new one, told by the branch
+  count of the stage before), ``stage{S}_module{m}`` <-> ``stage{S}.{m}``,
+  ``branch{b}_block{k}`` <-> ``branches.{b}.{k}``, ``fuse{i}_{j}_conv`` /
+  ``_bn`` <-> ``fuse_layers.{i}.{j}.{0,1}`` and ``fuse{i}_{j}_ds{k}_conv`` /
+  ``_bn`` <-> ``fuse_layers.{i}.{j}.{k}.{0,1}``; HRFPN's ``reduction_conv``
+  and ``fpn_conv{i}`` <-> ``reduction_conv.conv`` and ``fpn_convs.{i}.conv``;
+  the avg-down shortcut of ResNeSt and Res2Net (``downsample_conv`` /
+  ``_bn`` <-> ``downsample.{1,2}``, ``downsample.0`` being mmdet's pool),
+  Res2Net's ``conv2_{k}`` / ``bn2_{k}`` <-> ``convs.{k}`` / ``bns.{k}``,
+  ResNeSt's split-attention FCs (the JAX package's ``Dense`` kernels (in,
+  out) <-> mmdet's 1x1 convs (out, in, 1, 1)), MobileNetV2's ``conv1`` /
+  ``bn1`` <-> ``conv1.{conv,bn}`` and ``{expand,depthwise,project}_{conv,bn}``
+  <-> ``{expand,depthwise,linear}_conv.{conv,bn}``. RegNet has a ResNet's
+  names.
 
 ``dsl_tpu_torch.train.bridge`` carries a whole train state across on top of
 these two.
@@ -124,6 +140,104 @@ _TO_TORCH = [
 # a ResNet's blocks, applied before _TO_TORCH where the backbone is no
 # RLA-ResNet
 _RESNET_TO_TORCH = [(r"\blayer(\d+)_(\d+)\b", lambda m, n: f"layer{m[1]}.{m[2]}")]
+
+# the split-attention FCs of a ResNeSt block: Dense kernels in the JAX
+# package, 1x1 convs in the port (mmdet's)
+SA_FC = re.compile(r"^backbone\.layer\d+\.\d+\.conv2\.fc[12]$")
+_BLOCK = r"^(backbone\.layer\d+_\d+)"        # a backbone block, flax names
+_TBLOCK = r"^(backbone\.layer\d+\.\d+)"      # the same, the port's names
+
+
+def _backbone_to_torch(params: dict) -> list:
+    """The renames of an HRNet, ResNeSt, Res2Net or MobileNetV2 backbone
+    and of an HRFPN neck (flax -> port), applied before the ResNet rules."""
+    bb = params.get("backbone", {})
+    blocks = [v for k, v in bb.items() if re.fullmatch(r"layer\d+_\d+", k)]
+    rules = []
+    if "stage2_module0" in bb:
+        # a transition's branch b is new where the stage before had b or
+        # fewer branches (stage 1 has one)
+        prev = {0: 1}
+        for si in (1, 2):
+            prev[si] = sum(1 for k in bb.get(f"stage{si + 1}_module0", {})
+                           if re.fullmatch(r"branch\d+_block0", k))
+        rules += [
+            (r"^backbone\.transition(\d+)_(\d+)_(conv|bn)$",
+             lambda m, n: (f"backbone.transition{int(m[1]) + 1}.{m[2]}."
+                           + ("0." if int(m[2]) >= prev[int(m[1])] else "")
+                           + ("0" if m[3] == "conv" else "1"))),
+            (r"^backbone\.(stage\d)_module(\d+)\b",
+             lambda m, n: f"backbone.{m[1]}.{m[2]}"),
+            (r"\bbranch(\d+)_block(\d+)\b",
+             lambda m, n: f"branches.{m[1]}.{m[2]}"),
+            (r"\bfuse(\d+)_(\d+)_ds(\d+)_(conv|bn)$",
+             lambda m, n: (f"fuse_layers.{m[1]}.{m[2]}.{m[3]}."
+                           + ("0" if m[4] == "conv" else "1"))),
+            (r"\bfuse(\d+)_(\d+)_(conv|bn)$",
+             lambda m, n: (f"fuse_layers.{m[1]}.{m[2]}."
+                           + ("0" if m[3] == "conv" else "1")))]
+    if any("conv2_0" in b or "fc1" in b.get("conv2", {}) for b in blocks):
+        # Res2Net's or ResNeSt's avg-down shortcut, Res2Net's scale convs
+        rules += [(_BLOCK + r"\.downsample_conv$",
+                   lambda m, n: f"{m[1]}.downsample.1"),
+                  (_BLOCK + r"\.downsample_bn$",
+                   lambda m, n: f"{m[1]}.downsample.2"),
+                  (_BLOCK + r"\.conv2_(\d+)$", lambda m, n: f"{m[1]}.convs.{m[2]}"),
+                  (_BLOCK + r"\.bn2_(\d+)$", lambda m, n: f"{m[1]}.bns.{m[2]}")]
+    if any("depthwise_conv" in b for b in blocks):
+        rules += [(r"^backbone\.conv1$", lambda m, n: "backbone.conv1.conv"),
+                  (r"^backbone\.bn1$", lambda m, n: "backbone.conv1.bn"),
+                  (_BLOCK + r"\.(expand|depthwise)_(conv|bn)$",
+                   lambda m, n: f"{m[1]}.{m[2]}_conv.{m[3]}"),
+                  (_BLOCK + r"\.project_(conv|bn)$",
+                   lambda m, n: f"{m[1]}.linear_conv.{m[2]}")]
+    if "reduction_conv" in params.get("neck", {}):
+        rules.append((r"^neck\.reduction_conv$",
+                      lambda m, n: "neck.reduction_conv.conv"))
+    return rules
+
+
+def _backbone_to_flax(state_dict: dict) -> list:
+    """:func:`_backbone_to_torch`'s renames back (port -> flax), applied
+    before the ResNet rules."""
+    keys = list(state_dict)
+    rules = []
+    if any(k.startswith("backbone.stage2.0.") for k in keys):
+        rules += [
+            (r"^backbone\.transition(\d+)\.(\d+)\.(?:0\.)?([01])$",
+             lambda m, n: (f"backbone.transition{int(m[1]) - 1}_{m[2]}_"
+                           + ("conv" if m[3] == "0" else "bn"))),
+            (r"^backbone\.(stage\d)\.(\d+)\b",
+             lambda m, n: f"backbone.{m[1]}_module{m[2]}"),
+            (r"\bbranches\.(\d+)\.(\d+)\b",
+             lambda m, n: f"branch{m[1]}_block{m[2]}"),
+            (r"\bfuse_layers\.(\d+)\.(\d+)\.(\d+)\.([01])$",
+             lambda m, n: (f"fuse{m[1]}_{m[2]}_ds{m[3]}_"
+                           + ("conv" if m[4] == "0" else "bn"))),
+            (r"\bfuse_layers\.(\d+)\.(\d+)\.([01])$",
+             lambda m, n: (f"fuse{m[1]}_{m[2]}_"
+                           + ("conv" if m[3] == "0" else "bn")))]
+    if any(re.match(_TBLOCK + r"\.downsample\.2\.", k) for k in keys):
+        rules += [(_TBLOCK + r"\.downsample\.1$",
+                   lambda m, n: f"{m[1]}.downsample_conv"),
+                  (_TBLOCK + r"\.downsample\.2$",
+                   lambda m, n: f"{m[1]}.downsample_bn"),
+                  (_TBLOCK + r"\.convs\.(\d+)$", lambda m, n: f"{m[1]}.conv2_{m[2]}"),
+                  (_TBLOCK + r"\.bns\.(\d+)$", lambda m, n: f"{m[1]}.bn2_{m[2]}")]
+    if any(".depthwise_conv." in k for k in keys):
+        rules += [(r"^backbone\.conv1\.conv$", lambda m, n: "backbone.conv1"),
+                  (r"^backbone\.conv1\.bn$", lambda m, n: "backbone.bn1"),
+                  (_TBLOCK + r"\.(expand|depthwise)_conv\.(conv|bn)$",
+                   lambda m, n: f"{m[1]}.{m[2]}_{m[3]}"),
+                  (_TBLOCK + r"\.linear_conv\.(conv|bn)$",
+                   lambda m, n: f"{m[1]}.project_{m[2]}")]
+    if "neck.reduction_conv.conv.weight" in state_dict:
+        rules += [(r"^neck\.reduction_conv\.conv$",
+                   lambda m, n: "neck.reduction_conv"),
+                  (r"^neck\.fpn_convs\.(\d+)\.conv$",
+                   lambda m, n: f"neck.fpn_conv{m[1]}")]
+    return rules
+
 
 # DetectoRS: the backbones' stems and blocks, the RFP neck's parts
 _DETECTORS_TO_TORCH = [
@@ -351,8 +465,9 @@ def flax_to_state_dict(variables: dict) -> dict[str, torch.Tensor]:
     neck = neck.get("fpn", neck)
     n_lat = sum(1 for k in neck if k.startswith("lateral_conv"))
     rla = "conv_out0" in params.get("backbone", {})
-    rules = _roi_parts_to_torch(params) + _DETECTORS_TO_TORCH + (
-        _TO_TORCH if rla else _RESNET_TO_TORCH + _TO_TORCH)
+    rules = (_roi_parts_to_torch(params) + _backbone_to_torch(params)
+             + _DETECTORS_TO_TORCH
+             + (_TO_TORCH if rla else _RESNET_TO_TORCH + _TO_TORCH))
     sd: dict[str, torch.Tensor] = {}
     for collection in ("params", "batch_stats"):
         for path, arr in _leaves(variables.get(collection, {})):
@@ -381,6 +496,8 @@ def flax_to_state_dict(variables: dict) -> dict[str, torch.Tensor]:
                 arr = arr.T
                 if POINT_FC.match(module):
                     arr = arr[:, :, None]
+                if SA_FC.match(module):
+                    arr = arr[:, :, None, None]
             elif leaf == "bias" and module in (RELAY_FC, COARSE_LOGITS):
                 name = leaf
                 arr = arr[_roi_rows(
@@ -489,7 +606,8 @@ def state_dict_to_flax(state_dict: dict) -> dict:
              + [(r"^mask_head\.protonet\.(\d+)\b",
                  lambda m, n: f"proto_head.{proto_names[int(m[1])]}")]
              + (_DETECTORS_BACKBONE_TO_FLAX if detectors else [])
-             + (_RFP_TO_FLAX if rfp else []) + _TO_FLAX)
+             + (_RFP_TO_FLAX if rfp else []) + _backbone_to_flax(state_dict)
+             + _TO_FLAX)
     out: dict = {"params": {}, "batch_stats": {}}
     for key, value in state_dict.items():
         module, name = key.rsplit(".", 1)
@@ -505,6 +623,8 @@ def state_dict_to_flax(state_dict: dict) -> dict:
         elif name == "weight" and MASK_UPSAMPLE.match(module):
             leaf, arr = "kernel", np.transpose(arr[:, :, ::-1, ::-1],
                                                (2, 3, 0, 1))
+        elif name == "weight" and SA_FC.match(module):
+            leaf, arr = "kernel", arr[:, :, 0, 0].T
         elif name == "weight" and arr.ndim == 4:
             leaf, arr = "kernel", np.transpose(arr, (2, 3, 1, 0))
         elif name == "weight" and arr.ndim == 3 and POINT_FC.match(module):

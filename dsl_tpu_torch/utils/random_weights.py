@@ -37,6 +37,15 @@ parity tests (no pretrained checkpoint ships with the repo).
   1x1s (``pre_context``, ``post_context``) and the RFP's ``rfp_conv``
   small (0.1 of a kernel's scale), so a SAC block keeps its input's
   scale as a plain conv does, through both backbones;
+- HRNet's fuse convs (``fuse{i}_{j}_conv``, ``fuse{i}_{j}_ds{k}_conv``)
+  small too: each fused branch is a sum over every branch, and at the
+  plain scale seven modules of such sums lift HRNet-W32's branches to
+  3e4 (to about 700 with them), where the RoI head's logits are the
+  features' noise, not its biases, and its NMS sees half its 2000
+  candidates; grouped and depthwise kernels (RegNet, ResNeSt, MobileNetV2)
+  and ResNeSt's split-attention FCs take the plain fill, their fan-in
+  being the group's (a flax kernel's (kh, kw, in / groups) axes) or the
+  Dense kernel's input;
 - SSD's per-level classifiers (``cls_conv{l}``, A x (C + 1) channels, the
   background last in each anchor's block) as the RoI head's, so each
   anchor's softmax puts about 1/9 on each live class, above SSD's
@@ -121,8 +130,9 @@ def fill_variables(shapes: dict, seed: int = 0) -> dict:
                                                  "fc_reg"):
             v = 0.05 * rng.randn(*shape)
         elif name == "weight_diff" or (
-                name == "kernel" and path[-2] in ("pre_context", "post_context",
-                                                  "rfp_conv")):
+                name == "kernel" and (path[-2] in ("pre_context",
+                                                   "post_context", "rfp_conv")
+                                      or path[-2].startswith("fuse"))):
             v = rng.randn(*shape) * 0.1 / np.sqrt(np.prod(shape[:-1]))
         elif name == "kernel" or (name == "weight" and len(shape) == 4):
             v = rng.randn(*shape) / np.sqrt(np.prod(shape[:-1]))

@@ -449,6 +449,57 @@ TINY_DETECTORS_FASTER = dict(
     neck=dict(type="RFP", in_channels=[256, 512, 1024, 2048],
               out_channels=32, num_outs=5, rfp_steps=2, aspp_out_channels=8,
               rfp_backbone=_TINY_DETECTORS_BACKBONE))
+# slice 16's backbones on the tiny detectors: HRNet at a few blocks and
+# narrow branches (its stem stays 64 wide, as in both packages), RegNet's
+# shallowest arch (16 blocks), ResNeSt-50 and Res2Net-50 with narrow stems / stages (the
+# packages have no shallower depth), MobileNetV2 at a quarter width
+_TINY_HRNET = dict(type="HRNet", extra=dict(
+    stage1=dict(num_modules=1, num_branches=1, block="BOTTLENECK",
+                num_blocks=(1,), num_channels=(8,)),
+    stage2=dict(num_modules=1, num_branches=2, block="BASIC",
+                num_blocks=(1, 1), num_channels=(4, 8)),
+    stage3=dict(num_modules=1, num_branches=3, block="BASIC",
+                num_blocks=(1, 1, 1), num_channels=(4, 8, 16)),
+    stage4=dict(num_modules=2, num_branches=4, block="BASIC",
+                num_blocks=(1, 2, 1, 1), num_channels=(4, 8, 16, 32))))
+_TINY_HRFPN = dict(type="HRFPN", in_channels=[4, 8, 16, 32], out_channels=32,
+                   num_outs=5)
+TINY_HRNET_FASTER = dict(TINY_FASTER_RCNN, backbone=_TINY_HRNET,
+                         neck=_TINY_HRFPN)
+TINY_HRNET_FCOS = dict(
+    type="FCOS", backbone=_TINY_HRNET, neck=_TINY_HRFPN,
+    bbox_head=dict(type="FCOSHead", num_classes=20, in_channels=32,
+                   stacked_convs=1, feat_channels=32,
+                   strides=[8, 16, 32, 64, 128], norm_on_bbox=True,
+                   centerness_on_reg=True, center_sampling=True),
+    test_cfg=dict(nms_pre=1000, score_thr=0.05,
+                  nms=dict(iou_threshold=0.6), max_per_img=100))
+TINY_REGNET_MASK = dict(
+    TINY_MASK_RCNN,
+    backbone=dict(type="RegNet", arch="regnetx_800mf", out_indices=(0, 1, 2, 3),
+                  frozen_stages=1),
+    neck=dict(TINY_MASK_RCNN["neck"], in_channels=[64, 128, 288, 672]))
+TINY_RESNEST_FASTER = dict(
+    TINY_FASTER_RCNN,
+    backbone=dict(type="ResNeSt", depth=50, radix=2, groups=1, base_width=4,
+                  stem_channels=16, out_indices=(0, 1, 2, 3)),
+    neck=dict(TINY_FASTER_RCNN["neck"], in_channels=[256, 512, 1024, 2048]))
+TINY_RES2NET_FASTER = dict(
+    TINY_FASTER_RCNN,
+    backbone=dict(type="Res2Net", depth=50, scales=4, base_width=26,
+                  base_channels=16, out_indices=(0, 1, 2, 3),
+                  frozen_stages=1),
+    neck=dict(TINY_FASTER_RCNN["neck"], in_channels=[64, 128, 256, 512]))
+TINY_SSD_MOBILENET = dict(
+    type="SSD",
+    backbone=dict(type="MobileNetV2", widen_factor=0.25,
+                  out_indices=(1, 2, 4, 6)),
+    neck=dict(type="FPN", in_channels=[8, 8, 24, 80], out_channels=32,
+              start_level=0, add_extra_convs="on_output", num_outs=5),
+    bbox_head=dict(type="SSDHead", num_classes=20,
+                   in_channels=(32, 32, 32, 32, 32), strides=[4, 8, 16, 32, 64]),
+    test_cfg=dict(nms_pre=1000, score_thr=0.02,
+                  nms=dict(type="nms", iou_threshold=0.45), max_per_img=100))
 TINY_SSD = dict(
     type="SSD",
     backbone=dict(type="ResNet", depth=18, out_indices=(2, 3),

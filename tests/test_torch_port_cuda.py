@@ -98,6 +98,12 @@ dependencies:
   the host, within 1e-4 relative (1e-3 for the mask and point losses,
   whose samples and targets move with the RoIs' rounding), with 1, 0 and
   1 launches;
+- slice 16's backbones (the tiny HRNet under Faster R-CNN and FCOS,
+  RegNetX-400MF, ResNeSt-50, Res2Net-50, MobileNetV2 at a quarter width),
+  their levels and their necks' on the card agree with the CPU's (1e-4 of
+  the largest magnitude); HRNet's nearest resize (an odd size), an
+  ``HRModule``'s fuse and ``HRFPN`` (average and max pooling) on the card
+  agree with the CPU within 1e-5 and their backward repeats bit for bit;
 - ``train_detector`` and ``single_device_test`` refuse to start without
   CUDA (these run everywhere).
 """
@@ -1245,3 +1251,84 @@ def _forward_backward(fn, x, module, dev, got: dict):
     if module is not None:
         module.zero_grad()
     got.setdefault(str(dev), []).append((out.detach().cpu(), grads))
+
+
+_SLICE16 = ("hrnet_faster", "hrnet_fcos", "regnet", "resnest", "res2net",
+            "mobilenet_v2")
+
+
+def _slice16(which: str):
+    from dsl_tpu_torch.utils import synthetic_data as S
+
+    return {"hrnet_faster": S.TINY_HRNET_FASTER,
+            "hrnet_fcos": S.TINY_HRNET_FCOS, "regnet": S.TINY_REGNET_MASK,
+            "resnest": S.TINY_RESNEST_FASTER,
+            "res2net": S.TINY_RES2NET_FASTER,
+            "mobilenet_v2": S.TINY_SSD_MOBILENET}[which]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", _SLICE16)
+def test_slice16_levels_on_the_card_match_the_cpu(card, which):
+    import copy
+
+    det = _seeded(_slice16(which)).eval()
+    x = torch.from_numpy(np.random.RandomState(16).randn(
+        2, 3, 64, 96).astype(np.float32))
+    outs = {}
+    for dev in (card, "cpu"):
+        d = copy.deepcopy(det).to(dev)
+        with torch.no_grad():
+            feats = d.backbone(x.to(dev))
+            outs[str(dev)] = [t.cpu() for t in (*feats, *d.neck(feats))]
+    assert len(outs["cuda"]) == 9
+    for g, w in zip(outs["cuda"], outs["cpu"]):
+        torch.testing.assert_close(g, w, rtol=0,
+                                   atol=1e-4 * max(1.0, float(w.abs().max())))
+
+
+@pytest.mark.cuda
+def test_hrnet_fuse_and_hrfpn_repeat_on_the_card(card):
+    """Under cuDNN's deterministic algorithms, as ``train_detector`` runs
+    its steps: the nearest resize and HRFPN's bilinear are matrix products,
+    whose backward repeats (a gather's adds with atomics)."""
+    import torch.nn.functional as F
+
+    from dsl_tpu_torch.apis.train import deterministic_cudnn
+    from dsl_tpu_torch.models.backbones.hrnet import HRModule
+    from dsl_tpu_torch.models.necks.hrfpn import HRFPN
+    from dsl_tpu_torch.ops.resize import resize_nearest
+
+    rng = np.random.RandomState(17)
+    gen = torch.Generator().manual_seed(0)
+    fuse = HRModule(3, (1, 1, 1), (8, 8, 8))
+    necks = [HRFPN((8, 8, 8), 16, 4, pooling) for pooling in ("AVG", "MAX")]
+    for m in [fuse] + necks:
+        for p in m.parameters():
+            with torch.no_grad():
+                p.normal_(0, 0.3, generator=gen)
+
+    def branches(t):
+        # three branches halved from an odd size: 25x37 -> 13x19 -> 7x10
+        return [t, F.avg_pool2d(t, 3, 2, 1), F.avg_pool2d(t, 5, 4, 2)]
+
+    cases = [(lambda t, dev: resize_nearest(t, (13, 25)),
+              rng.randn(2, 16, 7, 13).astype(np.float32), None),
+             (lambda t, dev, m=fuse: torch.cat(
+                 [y.flatten(1) for y in m.to(dev)(branches(t))], 1),
+              rng.randn(2, 8, 25, 37).astype(np.float32), fuse)]
+    cases += [(lambda t, dev, m=neck: torch.cat(
+        [y.flatten(1) for y in m.to(dev)(branches(t))], 1),
+        rng.randn(2, 8, 32, 48).astype(np.float32), neck) for neck in necks]
+    for fn, x, module in cases:
+        got = {}
+        for dev in (card, "cpu", card):
+            with deterministic_cudnn():
+                _forward_backward(fn, x, module, dev, got)
+        (c_out, c_grads), (r_out, r_grads) = got["cuda"]
+        assert torch.equal(c_out, r_out) and all(
+            torch.equal(a, b) for a, b in zip(c_grads, r_grads))
+        w_out, w_grads = got["cpu"][0]
+        for a, b in zip([c_out] + c_grads, [w_out] + w_grads):
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-5 * max(
+                1.0, float(b.abs().max())))

@@ -24,13 +24,19 @@ on ``TINY_CASCADE_MASK_RCNN``'s parts, at 64x96:
 - ``with_seesaw_counts``: each step sees the counts with its own batch's
   valid labels already added; SeesawLoss refused by name under data
   parallelism;
+- the counter kept where the JAX package's ``train_detector`` keeps one
+  (``dsl_tpu/apis/train.py:140-146`` reads ``detector.bbox_head``): for
+  the Seesaw Mask R-CNN, not for the Seesaw cascade (it has
+  ``bbox_heads``), which trains on counts of one in both packages;
 - the weight bridge both ways; an mmdet ``.pth`` with the normed
   predictor's bias refused naming the key;
 - every config of ``configs/seesaw_loss/`` built on the meta device, with
   the JAX package's parameter counts for two;
 - slow: the whole loss with JAX's draws, targets and counts against
-  JAX's, and one epoch of ``train_detector`` with the synthetic COCO
-  instance set, whose counter ends at one plus the valid GT labels fed.
+  JAX's (1e-5 relative); the Seesaw cascade's whole loss without counts
+  against JAX's, which reads ones (1e-5 relative); one epoch of
+  ``train_detector`` with the synthetic COCO instance set, whose counter
+  ends at one plus the valid GT labels fed.
 """
 
 import copy
@@ -303,6 +309,26 @@ def test_counts_reach_each_step_with_its_own_labels():
         train_api._refuse_unported(cfg, group=object())
 
 
+@pytest.mark.parametrize("cfg", [TINY_SEESAW, TINY_SEESAW_CASCADE],
+                         ids=["mask_rcnn", "cascade"])
+def test_the_counter_is_kept_where_jax_keeps_one(cfg):
+    from dsl_tpu.models import build_detector as j_build
+
+    # the head JAX's train_detector reads (a flax module: nothing compiles)
+    head = getattr(j_build(copy.deepcopy(cfg)), "bbox_head", None)
+    counts = dict(getattr(head, "loss_cls", None) or {}).get(
+        "type") == "SeesawLoss"
+    assert counts == (cfg is TINY_SEESAW)
+    assert train_api._seesaw_classes(cfg) == (head.num_classes if counts
+                                              else None)
+    # data parallelism is refused for the configs that count; the cascade
+    # meets the two-stage detectors' refusal instead
+    with pytest.raises(NotImplementedError,
+                       match="SeesawLoss" if counts else "two-stage"):
+        train_api._refuse_unported(Config(dict(model=copy.deepcopy(cfg))),
+                                   group=object())
+
+
 def test_bridge_round_trip_and_mmdet_bias_refused(pair, tmp_path):
     from dsl_tpu_torch.utils.torch_import import load_torch_detector
 
@@ -367,6 +393,37 @@ def test_seesaw_loss_matches_jax(pair, monkeypatch):
     for k in ("loss_rpn_cls", "loss_rpn_bbox", "loss_cls",
               "loss_cls_objectness", "loss_bbox", "loss_mask"):
         _close(got[k], want[k])
+
+
+@pytest.mark.slow
+def test_seesaw_cascade_loss_without_counts_matches_jax(cascade_pair,
+                                                        monkeypatch):
+    """The cascade's whole loss with no ``cum_samples``, as both packages'
+    ``train_detector`` run it: each stage's SeesawLoss on counts of one."""
+    from test_torch_port_cascade import jax_cascade_draws
+
+    det, var, port = cascade_pair
+    batch = mask_batch(14)
+    batch["images"] = U.images(14, B, HW)
+    assert "cum_samples" not in batch
+    want = jax.jit(lambda v, b_: j_cas.cascade_rcnn_loss(
+        det, v, b_, rng_key=jax.random.fold_in(
+            jax.random.PRNGKey(0), jnp.asarray(4, jnp.uint32)))[1])(
+        var, {k: jnp.asarray(v) for k, v in batch.items()})
+    monkeypatch.setattr(two_stage, "sampler_draws",
+                        lambda it, b, a, n, dev, stages=None:
+                        jax_cascade_draws(it, b, a, n, stages))
+    monkeypatch.setattr(two_stage, "mask_targets_from_crops",
+                        U.jax_mask_targets)
+    pb = {k: t(v, torch.int64 if k == "gt_labels" else None)
+          for k, v in batch.items()}
+    pb["images"] = U.nchw(batch["images"])
+    _, got = cascade_rcnn.cascade_rcnn_loss(copy.deepcopy(port).train(), pb,
+                                            cur_iter=4)
+    assert {f"s{i}.loss_cls_objectness" for i in range(3)} <= set(want)
+    assert set(got) == set(want)
+    for k, v in want.items():
+        _close(got[k], v)
 
 
 @pytest.mark.slow

@@ -71,6 +71,16 @@ def jax_detector_and_variables(cfg: dict, seed: int = 0, hw=(64, 96)):
     return det, fill_variables(_SHAPES[key], seed)
 
 
+def jax_run(fn, *args):
+    """``jax.jit(fn)(*args)``, compiled without LLVM's expensive passes:
+    the same values on the backbones of ``test_torch_port_hrnet.py`` and
+    ``test_torch_port_backbones.py`` at about half the compile time."""
+    import jax
+
+    return jax.jit(fn).lower(*args).compile(compiler_options={
+        "xla_llvm_disable_expensive_passes": True})(*args)
+
+
 def jax_mask_targets(crops, gt_bboxes, rois, batch_idx, assigned_gt,
                      mask_size: int) -> torch.Tensor:
     """JAX's ``mask_targets_from_crops`` on the port's tensors, under one
