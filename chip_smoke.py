@@ -437,6 +437,27 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    under cuDNN's deterministic algorithms is read and logged
    (``conv_backward_repeats``). The NMS kernel timed on HRNet's RoI input
    and FCOS-HRNet's (``hrnet_rcnn_b8``, ``hrnet_fcos_b8``).
+24. Deformable convolution and VarifocalNet at full width, uncut, seeded,
+   the NMS count at 0 before each part and read after it. VFNet R50 with
+   DCNv2 in c3-c5 and the star convs (``VFNET_CONFIG``, through
+   ``_single_stage_checks``): a counted predict at B=8, 800x1344 (1 NMS
+   launch at N = 2000, keeps equal, dets finite with detections in every
+   image), the median of ``P24_TIMED`` predicts and of ``P24_STEPS`` steps
+   at B=2 after a warm-up (losses finite, no NMS), each with its peak
+   memory; the levels and head outputs card vs CPU within 1e-3 at
+   1x128x192; one ``torch.profiler`` trace of a predict giving the share
+   of kernel time in ``deform_conv2d`` (:func:`deform_conv_share`); two
+   runs of ``P24_DET_STEPS`` f32 steps from one seed bit-identical in every
+   loss and parameter (cuDNN deterministic). Through ``phase_variants``
+   (``DCN_RCNN_CONFIGS``): Faster R-CNN R50 with modulated DCN in c3-c5 at
+   4 offset groups and with the modulated deformable RoI pooling pack:
+   counted predicts (2 launches), timed, a step, each with its peak
+   memory; card vs CPU within 1e-3 at 1x128x192 (``slice16_probe``), and
+   the pack's deformable RoI extraction on 64 seeded RoIs of the small
+   levels card vs CPU (``slice17_probe``). FCOS R50 caffe with DCN in c3-c5
+   and DCNv2 on its towers' last conv (``FCOS_DCN_CONFIG``): a counted
+   predict at B=8, timed. The NMS kernel timed on VFNet's input and the
+   group-4 DCN Faster R-CNN's RoI input (``vfnet_b8``, ``dcn_rcnn_b8``).
 
 Each phase logs its wall time (``[phase N] ... s``). The test CLI runs
 in this process (:func:`run_test_cli`), but under a launcher (phase 15);
@@ -5178,6 +5199,7 @@ CASCADE_CONFIGS = tuple(ROOT / "configs" / p for p in (
 CASCADE_MSTRAIN_CONFIG = (ROOT / "configs" / "cascade_rcnn"
                           / "cascade_mask_rcnn_r50_fpn_mstrain_3x_coco.py")
 ROI_RANGE = "roi_align"       # the profiler range around RoIAlign's calls
+DCN_RANGE = "deform_conv2d"   # the profiler range around deform_conv2d's calls
 TRACED_RANGE = "traced"       # the profiler range around the traced call
 TRACE_LOST = 0.01             # share of launches a trace may lack records of
 CASCADE_DET_STEPS = 3         # steps per determinism run
@@ -5213,8 +5235,41 @@ def roi_align_ranges():
         roi_align._GatherRows.backward = staticmethod(real_bwd)
 
 
-def roi_align_share(tag: str, fn, smi: str) -> dict:
-    """One torch.profiler trace of ``fn()`` under :func:`roi_align_ranges`:
+@contextlib.contextmanager
+def deform_conv_ranges():
+    """Every ``ops.deform_conv.deform_conv2d`` forward (the DCN backbones'
+    and heads' convs, VFNet's star convs) in a ``record_function`` range
+    named ``DCN_RANGE``, for a predict's trace."""
+    import torch
+
+    from dsl_tpu_torch.ops import deform_conv
+
+    real = deform_conv.deform_conv2d
+
+    def wrapped(*args, **kw):
+        with torch.profiler.record_function(DCN_RANGE):
+            return real(*args, **kw)
+
+    deform_conv.deform_conv2d = wrapped
+    try:
+        yield
+    finally:
+        deform_conv.deform_conv2d = real
+
+
+def deform_conv_share(tag: str, fn, smi: str) -> dict:
+    """:func:`roi_align_share` of ``fn()`` for deformable convolution:
+    its forward's device ms and share of the kernels' time."""
+    return roi_align_share(tag, fn, smi, scope=deform_conv_ranges,
+                           range_name=DCN_RANGE, what="deform_conv2d")
+
+
+def roi_align_share(tag: str, fn, smi: str, scope=roi_align_ranges,
+                    range_name: str = ROI_RANGE,
+                    what: str = "RoIAlign") -> dict:
+    """One torch.profiler trace of ``fn()`` under ``scope`` (by default
+    :func:`roi_align_ranges`; its ranges named ``range_name``, ``what`` in
+    the log):
     RoIAlign's device ms (the kernels its ranges launched), every kernel's
     device ms, RoIAlign's share of them and the device's idle share of the
     traced window (the call's range, first event to last), logged. A
@@ -5233,7 +5288,7 @@ def roi_align_share(tag: str, fn, smi: str) -> dict:
     from torch.profiler import ProfilerActivity, profile, record_function
 
     for tries in range(1, NMS_TRACE_TRIES + 1):
-        with roi_align_ranges(), profile(
+        with scope(), profile(
                 activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
@@ -5251,13 +5306,13 @@ def roi_align_share(tag: str, fn, smi: str) -> dict:
         ran = {e.id for e in every if e.device_type == DeviceType.CUDA}
         # the trace mirrors each range on the device's timeline: not a kernel
         events = [e for e in every if e.name != TRACED_RANGE and (
-            e.id not in before and e.name != ROI_RANGE
+            e.id not in before and e.name != range_name
             if e.device_type == DeviceType.CUDA else e.time_range.start >= t0)]
         launches = sorted((e for e in events if e.device_type == DeviceType.CPU
                            and "LaunchKernel" in e.name),
                           key=lambda e: e.time_range.start)
         ranges = [e for e in events
-                  if e.name == ROI_RANGE and e.device_type == DeviceType.CPU]
+                  if e.name == range_name and e.device_type == DeviceType.CPU]
         where = [(i, e.name, getattr(e.cpu_parent, "name", None))
                  for i, e in enumerate(launches) if e.id not in ran]
         in_roi = sum(r.time_range.start <= launches[i].time_range.start
@@ -5267,9 +5322,9 @@ def roi_align_share(tag: str, fn, smi: str) -> dict:
                 and not empty and ranges):
             break
         log(f"[trace] {tag}: the profiler lost the records of {len(where)} "
-            f"of {len(launches)} kernel launches ({in_roi} in RoIAlign; "
+            f"of {len(launches)} kernel launches ({in_roi} in {what}; "
             f"launch index, call, op: {where[:2]} to {where[-1:]}); {empty} "
-            f"of {len(ranges)} RoIAlign ranges without a kernel")
+            f"of {len(ranges)} {what} ranges without a kernel")
     else:
         raise AssertionError(f"{tag}: {NMS_TRACE_TRIES} profiler traces each "
                              f"lost records")
@@ -5278,7 +5333,7 @@ def roi_align_share(tag: str, fn, smi: str) -> dict:
                     if e.device_type == DeviceType.CUDA) / 1e3
     roi_ms = sum(e.device_time_total for e in ranges) / 1e3
     idle = 1.0 - busy[0] / busy[1]
-    log(f"[trace] {tag}: {len(ranges)} RoIAlign ranges, RoIAlign "
+    log(f"[trace] {tag}: {len(ranges)} {what} ranges, {what} "
         f"{roi_ms:.3f} ms, {roi_ms / kernel_ms:.4f} of the kernels' time; "
         f"kernels {kernel_ms:.3f} ms ({busy[2]} kernels, {len(launches)} "
         f"launches, {len(where)} without a record: {where[:3]}), busy {busy[0]:.3f} of {busy[1]:.3f} ms, idle "
@@ -6042,7 +6097,7 @@ GROUPED_CONVS = (
     ("mobilenet layer6.1", 960, 960, 25, 42, 1))
 
 
-def slice16_probe(smi: str):
+def slice16_probe(smi: str, phase: str = "p23"):
     """:func:`phase_variants`' probe for phase 23's two-stage detectors:
     card vs CPU within 1e-3 of the largest magnitude at 1x128x192: the
     backbone's levels (HRNet's four branches), the neck's levels and the
@@ -6074,7 +6129,7 @@ def slice16_probe(smi: str):
             rel["mask head"] = card_vs_cpu_outputs(det, mf, on_cpu,
                                                    stage="mask")
         del on_cpu
-        log(f"[p23] {tag} outputs card vs CPU at 1x{ANCHOR_SMALL[0]}x"
+        log(f"[{phase}] {tag} outputs card vs CPU at 1x{ANCHOR_SMALL[0]}x"
             f"{ANCHOR_SMALL[1]}, worst |diff| / max|ref|: "
             + ", ".join(f"{k} {v:.3e}" for k, v in rel.items()))
         if max(rel.values()) > 1e-3:
@@ -6112,23 +6167,25 @@ def slice16_probe(smi: str):
 
 
 def _single_stage_checks(tag: str, cfg, det, images, smi: str,
-                         want_n: int) -> tuple[int, dict, tuple]:
-    """A single-stage detector of phase 23 (uncut, seeded): one counted
-    predict at B=8 (1 NMS launch at N = ``want_n``, keeps equal, dets finite
-    with detections in every image), timed with its peak memory; the
-    backbone's levels, the neck's and the head outputs card vs CPU within
-    1e-3 of the largest magnitude at 1x128x192; a step at B=2 (cuDNN
-    deterministic; losses finite, no NMS), timed with its peak memory.
-    Returns (the worst keep difference, the path entry, the recorded NMS
-    input)."""
+                         want_n: int, timed: int = P23_TIMED,
+                         steps: int = P23_STEPS, phase: str = "p23"
+                         ) -> tuple[int, dict, tuple]:
+    """A single-stage detector of phase 23 or 24 (uncut, seeded): one
+    counted predict at B=8 (1 NMS launch at N = ``want_n``, keeps equal,
+    dets finite with detections in every image), the median of ``timed``
+    with its peak memory; the backbone's levels, the neck's and the head
+    outputs card vs CPU within 1e-3 of the largest magnitude at 1x128x192;
+    ``steps`` steps at B=2 after a warm-up (cuDNN deterministic; losses
+    finite, no NMS), timed with their peak memory. Returns (the worst keep
+    difference, the path entry, the recorded NMS input)."""
     import torch
 
     from dsl_tpu_torch.apis.train import deterministic_cudnn
     from dsl_tpu_torch.models import detector_predict
     from dsl_tpu_torch.ops.nms import nms_keep
 
-    log(f"[p23] {tag}: {type(det).__name__} ({type(det.backbone).__name__}, "
-        f"{type(det.neck).__name__}), "
+    log(f"[{phase}] {tag}: {type(det).__name__} "
+        f"({type(det.backbone).__name__}, {type(det.neck).__name__}), "
         f"{sum(p.numel() for p in det.parameters()) / 1e6:.2f} M parameters")
 
     def predict():
@@ -6136,7 +6193,7 @@ def _single_stage_checks(tag: str, cfg, det, images, smi: str,
 
     _, _, calls, worst = predict_counted(
         tag, predict, [want_n], (BATCH, cfg.model.test_cfg.max_per_img, 5))
-    ms = time_predict(tag, predict, BATCH, smi, reps=P23_TIMED, peak=True)
+    ms = time_predict(tag, predict, BATCH, smi, reps=timed, peak=True)
     small = images[:1, :, :ANCHOR_SMALL[0], :ANCHOR_SMALL[1]]
     on_cpu = copy.deepcopy(det).cpu()
     rel = {"backbone": card_vs_cpu_outputs(det.backbone, small,
@@ -6146,7 +6203,7 @@ def _single_stage_checks(tag: str, cfg, det, images, smi: str,
                lambda x: on_cpu.neck(on_cpu.backbone(x))),
            "head outputs": card_vs_cpu_outputs(det, small, on_cpu)}
     del on_cpu
-    log(f"[p23] {tag} outputs card vs CPU at 1x{ANCHOR_SMALL[0]}x"
+    log(f"[{phase}] {tag} outputs card vs CPU at 1x{ANCHOR_SMALL[0]}x"
         f"{ANCHOR_SMALL[1]}, worst |diff| / max|ref|: "
         + ", ".join(f"{k} {v:.3e}" for k, v in rel.items()))
     if max(rel.values()) > 1e-3:
@@ -6156,8 +6213,7 @@ def _single_stage_checks(tag: str, cfg, det, images, smi: str,
                          cfg.model.bbox_head.num_classes, DEVICE)
     with deterministic_cudnn():
         nms_keep.launches = 0
-        time_steps(tag, cfg, variables, batch, smi, timed=P23_STEPS,
-                   peak=True)
+        time_steps(tag, cfg, variables, batch, smi, timed=steps, peak=True)
         if nms_keep.launches:
             raise AssertionError(f"{tag} steps: {nms_keep.launches} NMS "
                                  f"launches, expected none")
@@ -6296,6 +6352,153 @@ def conv_backward_repeats(smi: str):
             f"{n} {a}/{b}" for n, a, b in results) + f"  ({smi})")
 
 
+VFNET_CONFIG = (ROOT / "configs" / "vfnet"
+                / "vfnet_r50_fpn_mdconv_c3-c5_mstrain_2x_coco.py")
+DCN_RCNN_CONFIGS = tuple(ROOT / "configs" / "dcn" / p for p in (
+    "faster_rcnn_r50_fpn_mdconv_c3-c5_group4_1x_coco.py",
+    "faster_rcnn_r50_fpn_mdpool_1x_coco.py"))
+FCOS_DCN_CONFIG = (ROOT / "configs" / "fcos" / "fcos_center-normbbox-"
+                   "centeronreg-giou_r50_caffe_fpn_gn-head_dcn_1x_coco.py")
+P24_TIMED, P24_STEPS = 3, 3   # phase 24's predicts and steps timed (median)
+P24_DET_STEPS = 2             # VFNet's steps per determinism run
+
+
+def slice17_probe(smi: str):
+    """:func:`slice16_probe` for phase 24's two-stage detectors, then, for
+    the one with a deformable RoI pooling pack, its RoI extraction card vs
+    CPU within 1e-3 on 64 seeded RoIs of seeded levels at 128x192 (the
+    pack's offsets and mask, the deformable re-pool). Returns the NMS
+    launches (none)."""
+    base = slice16_probe(smi, phase="p24")
+
+    def probe(tag, cfg, variables, det, images) -> int:
+        import torch
+
+        from dsl_tpu_torch.models.roi_heads.standard_roi_head import (
+            extract_roi_feats)
+
+        launches = base(tag, cfg, variables, det, images)
+        if det.roi_pool_pack is None:
+            return launches
+        gen = torch.Generator(device=DEVICE).manual_seed(31)
+        levels = [torch.randn((1, det.bbox_head.in_channels,
+                               ANCHOR_SMALL[0] // s,
+                               ANCHOR_SMALL[1] // s), generator=gen,
+                              device=DEVICE) for s in det.strides]
+        xy = torch.rand((64, 2), generator=gen, device=DEVICE) * 150 - 10
+        wh = torch.exp(torch.rand((64, 2), generator=gen, device=DEVICE) * 5)
+        rois = torch.cat([torch.zeros((64, 1), device=DEVICE), xy, xy + wh], 1)
+        valid = torch.ones((64,), dtype=torch.bool, device=DEVICE)
+        on_cpu = copy.deepcopy(det).cpu()
+
+        def extract(d, fs, r, v):
+            return extract_roi_feats(fs, r, v, d.strides, 7, True,
+                                     (lambda rf: d(rf, stage="pack"),
+                                      d.roi_pool_pack))
+
+        with torch.no_grad():
+            got = extract(det, levels, rois, valid)
+            want = extract(on_cpu, [f.cpu() for f in levels], rois.cpu(),
+                           valid.cpu())
+        diff = float((got.cpu() - want).abs().max()
+                     / want.abs().max().clamp_min(1.0))
+        log(f"[p24] {tag} deformable RoI extraction card vs CPU on 64 RoIs, "
+            f"worst |diff| / max|ref| {diff:.3e}")
+        if diff > 1e-3:
+            raise AssertionError(f"{tag}: the deformable RoI extraction "
+                                 f"differs card vs CPU: {diff}")
+        return launches
+
+    return probe
+
+
+def phase_vfnet(smi: str):
+    """VFNet R50 with DCNv2 in c3-c5 (``VFNET_CONFIG``, uncut, seeded):
+    the :func:`_single_stage_checks` (1 NMS launch per predict at N =
+    ``ROI_NMS_N``, ``P24_TIMED`` predicts and ``P24_STEPS`` steps timed),
+    a trace of a predict for deformable convolution's share
+    (:func:`deform_conv_share`), then two runs of ``P24_DET_STEPS`` f32
+    steps from one seed at B=2 bit-identical (cuDNN deterministic).
+    Returns (NMS launches, the worst keep difference, the path entry, the
+    recorded NMS input)."""
+    import torch
+
+    from dsl_tpu_torch.apis import init_detector
+    from dsl_tpu_torch.apis.train import deterministic_cudnn
+    from dsl_tpu_torch.config import Config
+    from dsl_tpu_torch.models import detector_predict
+    from dsl_tpu_torch.ops.nms import nms_keep
+
+    cfg = Config.fromfile(str(VFNET_CONFIG))
+    variables = seeded_variables(cfg)
+    det = init_detector(cfg, variables=variables, device=DEVICE).detector
+    gen = torch.Generator(device=DEVICE).manual_seed(32)
+    images = torch.randn((BATCH, 3, *CANVAS), generator=gen, device=DEVICE)
+    tag = VFNET_CONFIG.stem
+    worst, path, nms_input = _single_stage_checks(
+        tag, cfg, det, images, smi, ROI_NMS_N, timed=P24_TIMED,
+        steps=P24_STEPS, phase="p24")
+    share = deform_conv_share(f"{tag} predict B={BATCH}",
+                              lambda: detector_predict(det, images,
+                                                       device=DEVICE), smi)
+    path.update(dcn_share=share["roi_ms"] / share["kernel_ms"])
+    del det, images
+    torch.cuda.empty_cache()
+    batch = anchor_batch(TRAIN_SEED, CANVAS, ANCHOR_TRAIN_B,
+                         cfg.model.bbox_head.num_classes, DEVICE)
+    with deterministic_cudnn():
+        nms_keep.launches = 0
+        runs = []
+        for _ in range(2):
+            m, _, st, _ = anchor_step_runs(cfg, variables, batch,
+                                           P24_DET_STEPS)
+            runs += [m, {k: p.detach().clone() for k, p in
+                         st.student.named_parameters()}]
+            del st
+        check_deterministic(*runs)
+        if nms_keep.launches:
+            raise AssertionError(f"{tag} steps: {nms_keep.launches} NMS "
+                                 f"launches, expected none")
+    log(f"[p24] {tag}: two runs of {P24_DET_STEPS} steps at "
+        f"{ANCHOR_TRAIN_B}x{CANVAS[0]}x{CANVAS[1]} bit-identical (the "
+        f"deformable gathers' backward a sorted index_put_)")
+    del batch, runs
+    torch.cuda.empty_cache()
+    return 1, worst, path, nms_input
+
+
+def phase_fcos_dcn(smi: str) -> tuple[int, int]:
+    """FCOS R50 caffe with DCN in c3-c5 and DCNv2 on its towers' last conv
+    (``FCOS_DCN_CONFIG``, uncut, seeded): one counted predict at B=8 (1
+    NMS launch at N = ``ROI_NMS_N``, keeps equal, dets finite with
+    detections in every image), the median of ``P24_TIMED``. Returns (NMS
+    launches, the worst keep difference)."""
+    import torch
+
+    from dsl_tpu_torch.apis import init_detector
+    from dsl_tpu_torch.config import Config
+    from dsl_tpu_torch.models import detector_predict
+
+    cfg = Config.fromfile(str(FCOS_DCN_CONFIG))
+    det = init_detector(cfg, variables=seeded_variables(cfg),
+                        device=DEVICE).detector
+    gen = torch.Generator(device=DEVICE).manual_seed(33)
+    images = torch.randn((BATCH, 3, *CANVAS), generator=gen, device=DEVICE)
+    tag = FCOS_DCN_CONFIG.stem
+    log(f"[p24] {tag}: {type(det).__name__}, "
+        f"{sum(p.numel() for p in det.parameters()) / 1e6:.2f} M parameters")
+
+    def predict():
+        return detector_predict(det, images, device=DEVICE)
+
+    _, _, _, worst = predict_counted(
+        tag, predict, [ROI_NMS_N], (BATCH, cfg.model.test_cfg.max_per_img, 5))
+    time_predict(tag, predict, BATCH, smi, reps=P24_TIMED, peak=True)
+    del det, images
+    torch.cuda.empty_cache()
+    return 1, worst
+
+
 def main() -> int:
     import torch
 
@@ -6327,7 +6530,8 @@ def main() -> int:
         MASK_RCNN_CONFIG, MASK_MSTRAIN_CONFIG, *C4_CONFIGS, *CASCADE_CONFIGS,
         CASCADE_MSTRAIN_CONFIG, *HTC_CONFIGS, POINT_REND_CONFIG,
         SEESAW_CONFIG, YOLACT_CONFIG, *SLICE16_CONFIGS, HRNET_FCOS_CONFIG,
-        SSD_MOBILENET_CONFIG))
+        SSD_MOBILENET_CONFIG, VFNET_CONFIG, *DCN_RCNN_CONFIGS,
+        FCOS_DCN_CONFIG))
     bundle, images, launches, path_err, calls = phase_main_path(cfg, variables)
     log(f"[phase 4] {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
@@ -6494,13 +6698,33 @@ def main() -> int:
         s16_err = max(s16_err, fcos_err, ssd23_err)
         conv_backward_repeats(smi)
         log(f"[phase 23] {time.perf_counter() - t23:.1f} s")
+        t24 = time.perf_counter()
+        vf_launches, vf_err, vf_path, vf_input = phase_vfnet(smi)
+        vf_path.update(path="vfnet",
+                       **nms_input_timing("vfnet_b8", *vf_input, smi))
+        p18_paths.append(vf_path)
+        del vf_input
+        dcn_launches, dcn_err, dcn_paths, dcn_inputs = phase_variants(
+            smi, DCN_RCNN_CONFIGS, BATCH, seed=34, phase="p24",
+            probe=slice17_probe(smi), timed=P24_TIMED, steps=P23_STEPS,
+            peak=True)
+        entry = dict(dcn_paths[0], path="dcn_rcnn")
+        entry.update(nms_input_timing(
+            "dcn_rcnn_b8", *dcn_inputs[DCN_RCNN_CONFIGS[0].stem], smi))
+        p18_paths.append(entry)
+        del dcn_inputs
+        fd_launches, fd_err = phase_fcos_dcn(smi)
+        s17_launches = vf_launches + dcn_launches + fd_launches
+        s17_err = max(vf_err, dcn_err, fd_err)
+        log(f"[phase 24] {time.perf_counter() - t24:.1f} s")
     launches["nms_keep"] += (semi_launches + eval_launches + weights_launches
                              + baseline_launches + voc_launches + dist_launches
                              + mh_launches + cfg_launches + anchor_launches
                              + train17_launches + voc17_launches
                              + ssd_launches + rpn_launches + variant_launches
                              + mask_launches + cascade_launches
-                             + htc_launches + slice_launches + s16_launches)
+                             + htc_launches + slice_launches + s16_launches
+                             + s17_launches)
     kernels = [dict(
         name="nms_keep", route="cuda",
         source="dsl_tpu_torch/csrc/nms_kernel.cu",
@@ -6510,11 +6734,11 @@ def main() -> int:
                               eval_err, voc_err, mh_err, cfg_err, anchor_err,
                               ssd_err, rpn_err, variant_err, mask_err,
                               flow_err, c4_err, cascade_err, htc_err,
-                              slice_err, s16_err)),
+                              slice_err, s16_err, s17_err)),
         ms=nms_times["ms"], plain_ms=nms_times["plain_ms"],
         bound_ms=nms_times["bound_ms"], bound_by=nms_times["bound_by"],
         library_ms=None,
-        # the anchor-based detectors' inputs (phases 17-22), each timed alike
+        # the other detectors' inputs (phases 17-24), each timed alike
         paths=[{k: v for k, v in e.items() if k in (
             "path", "B", "N", "kept", "launches", "ms", "plain_ms",
             "bound_ms", "bound_by")} for e in anchor_paths + p18_paths])]

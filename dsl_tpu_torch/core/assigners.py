@@ -1,4 +1,4 @@
-"""MaxIoU assignment over dense anchors, batched over images.
+"""MaxIoU and ATSS assignment over dense anchors, batched over images.
 
 Counterpart of ``dsl_tpu/core/assigners.py::max_iou_assign`` (which vmaps
 ``_max_iou_assign_single`` over images): every result is a dense
@@ -12,8 +12,15 @@ last GT whose best the anchor is, as the reference's loop over GTs
 overwrites. With ``gt_max_assign_all=False`` (SSD) only each GT's first
 best anchor is forced, not every anchor tied at its best. ``inside``
 (the RPN's ``allowed_border`` filter) takes the anchors outside an image
-out of the assignment: background, weight 0, never a GT's best. ATSS is
-not ported yet.
+out of the assignment: background, weight 0, never a GT's best.
+
+``atss_assign`` is ``dsl_tpu/core/assigners.py::atss_assign``: per level
+the anchors at most as far from a GT's centre as its k-th nearest (every
+anchor tied at the k-th distance counts, so a level can give more than
+k), the IoU threshold mean + std over those candidates (the mean over the
+candidates alone, as ``jnp.nanmean`` over a NaN-masked array), positives
+where the IoU reaches it and the anchor's centre lies strictly inside the
+GT, each positive taking its first best GT.
 """
 
 from __future__ import annotations
@@ -103,3 +110,50 @@ def anchor_inside_flags(anchors: torch.Tensor, img_shapes: torch.Tensor,
             & (anchors[None, :, 1] >= -allowed_border)
             & (anchors[None, :, 2] < w + allowed_border)
             & (anchors[None, :, 3] < h + allowed_border))
+
+
+def atss_assign(anchors, num_anchors_per_level, gt_bboxes, gt_labels,
+                gt_valid, topk: int = 9, num_classes: int = 80):
+    """Batched ATSS: anchors (A, 4) shared by the images, levels of
+    ``num_anchors_per_level`` anchors in order, gt_* (B, K, ...) padded
+    (gt_valid (B, K) bool). Returns labels (B, A) int64 (``num_classes``
+    for background), assigned (B, A) int64 (-1 for background), weights
+    (B, A) f32 (ones) and the IoU (B, A): the assigned GT's where positive,
+    else the best over the GTs (padded ones at 0)."""
+    b = gt_bboxes.shape[0]
+    zero = gt_bboxes.new_zeros(())
+    ious = bbox_overlaps(anchors.expand(b, *anchors.shape), gt_bboxes)
+    ious = torch.where(gt_valid[:, None, :], ious, zero)        # (B, A, K)
+    acx = (anchors[:, 0] + anchors[:, 2]) * 0.5
+    acy = (anchors[:, 1] + anchors[:, 3]) * 0.5
+    gcx = (gt_bboxes[..., 0] + gt_bboxes[..., 2]) * 0.5
+    gcy = (gt_bboxes[..., 1] + gt_bboxes[..., 3]) * 0.5
+    dist = torch.sqrt((acx[None, :, None] - gcx[:, None, :]) ** 2
+                      + (acy[None, :, None] - gcy[:, None, :]) ** 2)
+    cands, start = [], 0
+    for n in num_anchors_per_level:
+        lvl = dist[:, start:start + n]                          # (B, n, K)
+        kth = torch.topk(lvl, min(topk, n), dim=1, largest=False).values[:, -1]
+        cands.append(lvl <= kth[:, None, :])
+        start += n
+    cand = torch.cat(cands, dim=1)
+    count = cand.sum(dim=1).to(ious.dtype)                      # (B, K)
+    mean = torch.where(cand, ious, zero).sum(dim=1) / count
+    var = torch.where(cand, (ious - mean[:, None, :]) ** 2, zero).sum(dim=1) \
+        / count
+    thr = mean + torch.sqrt(var)
+    inside = ((acx[None, :, None] > gt_bboxes[:, None, :, 0])
+              & (acx[None, :, None] < gt_bboxes[:, None, :, 2])
+              & (acy[None, :, None] > gt_bboxes[:, None, :, 1])
+              & (acy[None, :, None] < gt_bboxes[:, None, :, 3]))
+    pos_mask = cand & (ious >= thr[:, None, :]) & inside & gt_valid[:, None, :]
+    pos_ious = torch.where(pos_mask, ious, gt_bboxes.new_full((), -1.0))
+    max_iou = pos_ious.amax(dim=-1)
+    argmax = pos_ious.argmax(dim=-1)        # the first maximum, as jnp.argmax
+    is_pos = max_iou > 0
+    labels = torch.where(is_pos, torch.gather(gt_labels.to(torch.int64), 1,
+                                              argmax),
+                         torch.full_like(argmax, num_classes))
+    assigned = torch.where(is_pos, argmax, torch.full_like(argmax, -1))
+    return (labels, assigned, torch.ones(labels.shape, device=labels.device),
+            torch.where(is_pos, max_iou, ious.amax(dim=-1)))

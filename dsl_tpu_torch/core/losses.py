@@ -4,7 +4,7 @@ Counterpart of the part of ``dsl_tpu/core/losses.py`` that the ported
 heads use: ``weight_reduce_loss``, ``sigmoid_focal_loss``,
 ``binary_cross_entropy``, ``giou_loss``, ``iou_loss``,
 ``bounded_iou_loss``, ``cross_entropy``, ``smooth_l1_loss``, ``l1_loss``,
-and the Seesaw loss of the split (C + 2) RoI classifier (``seesaw_ce_loss``,
+``varifocal_loss`` (VFNet's), and the Seesaw loss of the split (C + 2) RoI classifier (``seesaw_ce_loss``,
 ``seesaw_loss``, ``SeesawCounter``). They follow mmdet's contract: an optional
 elementwise ``weight``, a ``reduction`` in {'none', 'mean', 'sum'}, and an
 ``avg_factor`` that replaces the denominator of 'mean'. Everything is dense
@@ -69,6 +69,26 @@ def sigmoid_focal_loss(logits: torch.Tensor, targets: torch.Tensor,
     p_t = p * onehot + (1 - p) * (1 - onehot)
     alpha_t = alpha * onehot + (1 - alpha) * (1 - onehot)
     loss = alpha_t * torch.pow(1 - p_t, gamma) * ce
+    if weight is not None and weight.dim() == loss.dim() - 1:
+        weight = weight[..., None]
+    return weight_reduce_loss(loss, weight, reduction, avg_factor)
+
+
+def varifocal_loss(logits: torch.Tensor, targets: torch.Tensor,
+                   alpha: float = 0.75, gamma: float = 2.0,
+                   iou_weighted: bool = True,
+                   weight: torch.Tensor | None = None,
+                   reduction: str = "mean", avg_factor=None):
+    """Varifocal loss over (..., C) logits: BCE against the IoU-aware
+    targets (the IoU at a positive's class, 0 elsewhere), a positive
+    weighted by its target (1 without ``iou_weighted``), a negative by
+    ``alpha * |sigmoid - target| ** gamma`` with the sigmoid detached."""
+    sigma = torch.sigmoid(logits)
+    pos = (targets > 0).to(logits.dtype)
+    neg_w = alpha * torch.pow(torch.abs(sigma.detach() - targets), gamma) \
+        * (1 - pos)
+    focal_w = (targets * pos if iou_weighted else pos) + neg_w
+    loss = _bce_with_logits(logits, targets) * focal_w
     if weight is not None and weight.dim() == loss.dim() - 1:
         weight = weight[..., None]
     return weight_reduce_loss(loss, weight, reduction, avg_factor)

@@ -13,8 +13,12 @@ changes stride or width. ``arch`` names one of ``ARCH_PARAMS``
 Submodule names are mmdet's (a ResNet's): ``conv1``, ``bn1``,
 ``layer{i}.{j}.conv{1,2,3}``, ``.bn{1,2,3}``, ``.downsample.{0,1}``. BN is
 FrozenBatchNorm; ``frozen_stages`` freezes the stem and ``layer1..k``
-(``layers.is_frozen``). Deformable convolution (``dcn=``) is not ported
-yet and raises; an mmdet checkpoint's DCN offsets raise naming the key.
+(``layers.is_frozen``). ``dcn`` (with ``stage_with_dcn``) makes the 3x3
+conv of those stages' blocks a deformable one with one offset group, as
+the JAX package builds it (``ops/deform_conv.py``; it reads the ``dcn``
+type and no ``deform_groups``; mmcv's ``conv2.conv_offset`` names); an
+mmdet checkpoint's DCN offsets for a conv that is plain here raise
+naming the key.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from torch import nn
 
 from dsl_tpu_torch.models.layers import (
     conv1x1, conv3x3, he_normal_, is_frozen, make_conv, make_norm)
+from dsl_tpu_torch.ops.deform_conv import DeformConv2dPack, dcn_pack
 from dsl_tpu_torch.registry import BACKBONES
 from dsl_tpu_torch.utils.torch_import import load_torch_backbone
 
@@ -62,24 +67,35 @@ def generate_regnet(w0, wa, wm, depth, group_w=1, q=8):
     return sw, sd
 
 
-def refuse_dcn_offsets(state_dict: dict, prefix: str):
+def refuse_dcn_offsets(module: nn.Module, state_dict: dict, prefix: str):
     """Raise naming an mmdet checkpoint's deformable-conv offsets under
-    ``prefix``: the port's convolutions are plain (queue item 3)."""
+    ``prefix`` whose conv is a plain one in ``module`` (a backbone built
+    without ``dcn`` at that stage): the offsets would be dropped."""
+    deform = {f"{prefix}{name}." for name, m in module.named_modules()
+              if isinstance(m, DeformConv2dPack)}
     offsets = sorted(k for k in state_dict
-                     if k.startswith(prefix) and ".conv_offset." in k)
+                     if k.startswith(prefix) and ".conv_offset." in k
+                     and k.split("conv_offset.")[0] not in deform)
     if offsets:
-        raise KeyError(f"{offsets[:4]}: a deformable convolution's offsets; "
-                       f"deformable convolution is not ported yet")
+        raise KeyError(f"{offsets[:4]}: a deformable convolution's offsets "
+                       f"for a conv that is plain in this backbone (no dcn "
+                       f"at its stage)")
 
 
 class RegBlock(nn.Module):
     def __init__(self, inplanes: int, width: int, stride: int,
-                 group_width: int, norm_cfg: dict | None = None):
+                 group_width: int, norm_cfg: dict | None = None,
+                 dcn: dict | None = None):
         super().__init__()
         groups = max(1, width // group_width)
         self.conv1 = conv1x1(inplanes, width)
         self.bn1 = make_norm(norm_cfg, width)
-        self.conv2 = make_conv(None, width, width, 3, stride, groups=groups)
+        # the JAX package's RegBlock takes the dcn type alone: one offset
+        # group whatever deform_groups says
+        self.conv2 = (make_conv(None, width, width, 3, stride, groups=groups)
+                      if dcn is None else
+                      dcn_pack(dict(type=dcn.get("type", "DCNv2")), width,
+                               width, stride, groups=groups))
         self.bn2 = make_norm(norm_cfg, width)
         self.conv3 = conv1x1(width, width)
         self.bn3 = make_norm(norm_cfg, width)
@@ -106,9 +122,6 @@ class RegNet(nn.Module):
                  stage_with_dcn: Sequence[bool] = (False,) * 4):
         super().__init__()
         # norm_eval is accepted for config parity: BN is FrozenBatchNorm
-        if dcn is not None and any(stage_with_dcn):
-            raise NotImplementedError("RegNet(dcn=...): deformable "
-                                      "convolution is not ported yet")
         p = ARCH_PARAMS[arch]
         widths, depths = generate_regnet(p["w0"], p["wa"], p["wm"],
                                          p["depth"], p["group_w"])
@@ -122,9 +135,10 @@ class RegNet(nn.Module):
         for i in range(4):
             blocks = []
             for j in range(depths[i]):
-                blocks.append(RegBlock(inplanes, widths[i],
-                                       strides[i] if j == 0 else 1,
-                                       p["group_w"], norm_cfg))
+                blocks.append(RegBlock(
+                    inplanes, widths[i], strides[i] if j == 0 else 1,
+                    p["group_w"], norm_cfg,
+                    dcn if dcn is not None and stage_with_dcn[i] else None))
                 inplanes = widths[i]
             self.add_module(f"layer{i + 1}", nn.Sequential(*blocks))
         for name, param in self.named_parameters():
@@ -132,7 +146,7 @@ class RegNet(nn.Module):
                 param.requires_grad_(False)
 
     def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
-        refuse_dcn_offsets(state_dict, prefix)
+        refuse_dcn_offsets(self, state_dict, prefix)
         super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
 
     def init_weights(self, generator: torch.Generator | None = None):

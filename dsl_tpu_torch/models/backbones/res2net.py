@@ -17,10 +17,12 @@ Submodule names are mmdet's: ``conv1``, ``bn1``, ``layer{i}.{j}.conv1``,
 ``.bn1``, ``.convs.{k}``, ``.bns.{k}``, ``.conv3``, ``.bn3``,
 ``.downsample.{1,2}`` (``downsample.0`` is the pool). BN is
 FrozenBatchNorm; ``frozen_stages`` freezes the stem and ``layer1..k``
-(``layers.is_frozen``). ``style`` other than ``'pytorch'`` raises, as in
-the JAX package; so do deformable convolution (``dcn=``, not ported yet)
-and an mmdet checkpoint's deep stem (``stem.*``) or DCN offsets, each
-naming the key.
+(``layers.is_frozen``). ``dcn`` (with ``stage_with_dcn``) makes every
+scale conv of those stages' blocks a deformable one (``ops/deform_conv.py``,
+mmcv's ``convs.{k}.conv_offset`` names). ``style`` other than
+``'pytorch'`` raises, as in the JAX package; so do an mmdet checkpoint's
+deep stem (``stem.*``) and DCN offsets for a conv that is plain here,
+each naming the key.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from torch import nn
 
 from dsl_tpu_torch.models.backbones.regnet import refuse_dcn_offsets
 from dsl_tpu_torch.models.backbones.resnest import avg_down
+from dsl_tpu_torch.ops.deform_conv import dcn_pack
 from dsl_tpu_torch.models.layers import (
     conv1x1, conv3x3, he_normal_, is_frozen, make_conv, make_norm,
     max_pool_3x3_s2)
@@ -47,7 +50,8 @@ class Bottle2neck(nn.Module):
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
                  scales: int = 4, base_width: int = 26,
-                 stage_type: str = "normal", norm_cfg: dict | None = None):
+                 stage_type: str = "normal", norm_cfg: dict | None = None,
+                 dcn: dict | None = None):
         super().__init__()
         width = int(planes * base_width / 64.0)
         out = planes * self.expansion
@@ -56,8 +60,10 @@ class Bottle2neck(nn.Module):
         self.stage_type = stage_type
         self.conv1 = conv1x1(inplanes, width * scales)
         self.bn1 = make_norm(norm_cfg, width * scales)
-        self.convs = nn.ModuleList(conv3x3(width, width, stride)
-                                   for _ in range(scales - 1))
+        self.convs = nn.ModuleList(
+            conv3x3(width, width, stride) if dcn is None
+            else dcn_pack(dcn, width, width, stride)
+            for _ in range(scales - 1))
         self.bns = nn.ModuleList(make_norm(norm_cfg, width)
                                  for _ in range(scales - 1))
         self.conv3 = conv1x1(width * scales, out)
@@ -97,9 +103,6 @@ class Res2Net(nn.Module):
             raise NotImplementedError(
                 f"Res2Net: only style='pytorch' (the reference's res2net "
                 f"configs all use it), got {style!r}")
-        if dcn is not None and any(stage_with_dcn):
-            raise NotImplementedError("Res2Net(dcn=...): deformable "
-                                      "convolution is not ported yet")
         self.out_indices = tuple(out_indices)
         self.pretrained = pretrained
         self.conv1 = make_conv(None, 3, 64, 7, stride=2)
@@ -111,7 +114,8 @@ class Res2Net(nn.Module):
             for j in range(n):
                 blocks.append(Bottle2neck(
                     inplanes, planes, strides[i] if j == 0 else 1, scales,
-                    base_width, "stage" if j == 0 else "normal", norm_cfg))
+                    base_width, "stage" if j == 0 else "normal", norm_cfg,
+                    dcn if dcn is not None and stage_with_dcn[i] else None))
                 inplanes = planes * Bottle2neck.expansion
             self.add_module(f"layer{i + 1}", nn.Sequential(*blocks))
         for name, p in self.named_parameters():
@@ -123,7 +127,7 @@ class Res2Net(nn.Module):
         if stem:
             raise KeyError(f"{stem[:4]}: mmdet's deep stem; the JAX package's "
                            f"Res2Net (and the port's) has a 7x7 conv1")
-        refuse_dcn_offsets(state_dict, prefix)
+        refuse_dcn_offsets(self, state_dict, prefix)
         super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
 
     def init_weights(self, generator: torch.Generator | None = None):

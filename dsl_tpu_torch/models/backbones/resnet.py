@@ -22,8 +22,13 @@ ResNeXt (``groups``, ``base_width``: a bottleneck's 3x3 is grouped and
 ``avg_down``: the shortcut's stride taken by a floor-mode average pool
 before ``downsample.{0,1}``, as the JAX package pools) are ported, as
 is ``conv_cfg=dict(type='ConvWS')`` on every conv. As in the JAX package,
-``frozen_stages`` does not freeze a deep stem. Deformable convs (``dcn``)
-and ``plugins`` are not ported yet and raise.
+``frozen_stages`` does not freeze a deep stem. ``dcn`` (with
+``stage_with_dcn``) makes the 3x3 conv of those stages' bottlenecks a
+deformable one (``ops/deform_conv.py``: mmcv's ``conv2.weight`` and
+``conv2.conv_offset``; DCNv2 modulated, ``deform_groups``, the stride on
+it in pytorch style, grouped for ResNeXt); a BasicBlock with ``dcn``
+raises, as in the JAX package (mmdet's asserts). ``plugins`` are not
+ported yet and raise.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from torch import nn
 from dsl_tpu_torch.models.layers import (
     conv1x1, conv3x3, he_normal_, is_frozen, is_ws, make_conv, make_norm,
     max_pool_3x3_s2)
+from dsl_tpu_torch.ops.deform_conv import dcn_pack
 from dsl_tpu_torch.registry import BACKBONES
 from dsl_tpu_torch.utils.torch_import import load_torch_backbone
 
@@ -103,15 +109,17 @@ class Bottleneck(nn.Module):
                  norm_cfg: dict | None = None,
                  zero_init_residual: bool = True, groups: int = 1,
                  base_width: int = 64, conv_cfg: dict | None = None,
-                 avg_down: bool = False):
+                 avg_down: bool = False, dcn: dict | None = None):
         super().__init__()
         out = planes * self.expansion
         width = int(planes * (base_width / 64.0)) * groups
         s1, s2 = (stride, 1) if style == "caffe" else (1, stride)
         self.conv1 = conv1x1(inplanes, width, s1, conv_cfg=conv_cfg)
         self.bn1 = make_norm(norm_cfg, width)
-        self.conv2 = make_conv(conv_cfg, width, width, 3, s2, dilation,
-                               groups=groups)
+        # the JAX package's deformable conv2 ignores conv_cfg (no ConvWS)
+        self.conv2 = (make_conv(conv_cfg, width, width, 3, s2, dilation,
+                                groups=groups) if dcn is None else
+                      dcn_pack(dcn, width, width, s2, dilation, groups))
         self.bn2 = make_norm(norm_cfg, width)
         self.conv3 = conv1x1(width, out, conv_cfg=conv_cfg)
         self.bn3 = make_norm(norm_cfg, out, zero_init=zero_init_residual)
@@ -144,8 +152,7 @@ class ResNet(nn.Module):
                  deep_stem: bool = False, avg_down: bool = False):
         super().__init__()
         # norm_eval is accepted for config parity: BN is FrozenBatchNorm
-        for name, used in (("dcn", dcn is not None),
-                           ("plugins", bool(plugins)),
+        for name, used in (("plugins", bool(plugins)),
                            ("conv_cfg", bool(conv_cfg) and not is_ws(conv_cfg))):
             if used:
                 raise NotImplementedError(f"ResNet({name}=...) is not ported "
@@ -172,12 +179,18 @@ class ResNet(nn.Module):
         for i in range(num_stages):
             planes = base_channels * 2 ** i
             blocks = []
+            stage_dcn = dcn if dcn is not None and stage_with_dcn[i] else None
+            if stage_dcn is not None and kind != "bottleneck":
+                raise NotImplementedError(
+                    "dcn on BasicBlock (depth<50) is not supported (mmdet "
+                    "parity: BasicBlock asserts dcn is None)")
             for j in range(stage_blocks[i]):
                 stride = strides[i] if j == 0 else 1
                 if kind == "bottleneck":
                     block = Bottleneck(inplanes, planes, stride, dilations[i],
                                        style, norm_cfg, zero_init_residual,
-                                       groups, base_width, conv_cfg, avg_down)
+                                       groups, base_width, conv_cfg, avg_down,
+                                       stage_dcn)
                 else:
                     block = BasicBlock(inplanes, planes, stride, dilations[i],
                                        norm_cfg, zero_init_residual, conv_cfg,

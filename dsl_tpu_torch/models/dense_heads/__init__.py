@@ -8,3 +8,5 @@ from dsl_tpu_torch.models.dense_heads.ssd_head import (  # noqa: F401
     SSDHead, ssd_get_bboxes, ssd_loss)
 from dsl_tpu_torch.models.dense_heads.yolact_head import (  # noqa: F401
     YOLACTHead, YOLACTProtonet, YOLACTSegmHead, yolact_loss, yolact_predict)
+from dsl_tpu_torch.models.dense_heads.vfnet_head import (  # noqa: F401
+    VFNetHead, vfnet_get_bboxes, vfnet_loss)

@@ -10,7 +10,10 @@ per level, the JAX package's layout, so that loss and decode flatten
 ``(y, x, c)`` exactly as it does there.
 
 Submodule names are mmdet's: ``cls_convs.i.{conv,gn}``, ``reg_convs.i``,
-``conv_cls``, ``conv_reg``, ``conv_centerness``, ``scales.i``.
+``conv_cls``, ``conv_reg``, ``conv_centerness``, ``scales.i``. With
+``dcn_on_last_conv`` each tower's last conv is a modulated deformable conv
+(DCNv2, ``ops/deform_conv.py``: mmcv's ``conv.weight``, ``conv.bias``,
+``conv.conv_offset``), shared over the levels as the plain convs are.
 """
 
 from __future__ import annotations
@@ -29,17 +32,21 @@ from dsl_tpu_torch.core.nms import multiclass_nms
 from dsl_tpu_torch.core.points import MlvlPointGenerator
 from dsl_tpu_torch.core.targets import (
     INF, centerness_target, expand_point_metadata, fcos_targets, ignore_weight)
+from dsl_tpu_torch.ops.deform_conv import DeformConv2dPack
 from dsl_tpu_torch.parallel.mesh import all_reduce_sum
 from dsl_tpu_torch.models.layers import (
     GroupNorm, Scale, bias_init_with_prob, normal_init)
 
 
 class _TowerConv(nn.Module):
-    """conv -> GN -> relu, with mmcv ``ConvModule``'s ``conv``/``gn`` names."""
+    """conv -> GN -> relu, with mmcv ``ConvModule``'s ``conv``/``gn`` names;
+    the conv a DCNv2 one where ``deform``."""
 
-    def __init__(self, cin: int, cout: int, use_bias: bool):
+    def __init__(self, cin: int, cout: int, use_bias: bool,
+                 deform: bool = False):
         super().__init__()
-        self.conv = nn.Conv2d(cin, cout, 3, padding=1, bias=use_bias)
+        self.conv = (DeformConv2dPack(cin, cout, 3, bias=use_bias) if deform
+                     else nn.Conv2d(cin, cout, 3, padding=1, bias=use_bias))
         self.gn = GroupNorm(cout, 32)
 
     def forward(self, x):
@@ -74,8 +81,6 @@ class FCOSHead(nn.Module):
                  loss_centerness: dict | None = None,
                  norm_cfg: dict | None = None):
         super().__init__()
-        if dcn_on_last_conv:
-            raise NotImplementedError("FCOSHead dcn_on_last_conv is not ported yet")
         self.num_classes = num_classes
         self.strides = list(strides)
         self.regress_ranges = [tuple(r) for r in regress_ranges]
@@ -92,11 +97,12 @@ class FCOSHead(nn.Module):
         use_bias = (conv_bias if isinstance(conv_bias, bool)
                     else norm_cfg is None)
         chans = [in_channels] + [feat_channels] * stacked_convs
+        last = stacked_convs - 1 if dcn_on_last_conv else -1
         self.cls_convs = nn.ModuleList(
-            _TowerConv(chans[i], chans[i + 1], use_bias)
+            _TowerConv(chans[i], chans[i + 1], use_bias, i == last)
             for i in range(stacked_convs))
         self.reg_convs = nn.ModuleList(
-            _TowerConv(chans[i], chans[i + 1], use_bias)
+            _TowerConv(chans[i], chans[i + 1], use_bias, i == last)
             for i in range(stacked_convs))
         self.conv_cls = nn.Conv2d(feat_channels, num_classes, 3, padding=1)
         self.conv_reg = nn.Conv2d(feat_channels, 4, 3, padding=1)

@@ -1,5 +1,5 @@
-"""Single-stage detectors (FCOS, RetinaNet, SSD, YOLACT), build_detector,
-and the detectors' loss and predict entry points.
+"""Single-stage detectors (FCOS, RetinaNet, SSD, YOLACT, VFNet),
+build_detector, and the detectors' loss and predict entry points.
 
 Counterpart of ``dsl_tpu/models/detectors/single_stage.py``:
 ``SingleStageDetector`` / ``FCOS`` / ``RetinaNet`` / ``SSD`` (backbone ->
@@ -18,7 +18,8 @@ as the JAX package's do), a Cascade R-CNN to
 ``two_stage_loss`` / ``two_stage_predict``, the standalone ``RPN`` to
 ``rpn_only_loss`` / ``rpn_only_predict``, a ``RetinaHead`` to
 ``retina_loss`` / ``retina_get_bboxes``, an ``SSDHead`` to
-``ssd_loss`` / ``ssd_get_bboxes`` and a ``YOLACTHead`` to
+``ssd_loss`` / ``ssd_get_bboxes``, a ``VFNetHead`` to ``vfnet_loss`` /
+``vfnet_get_bboxes`` and a ``YOLACTHead`` to
 ``yolact_loss`` (with the protonet's ``loss_mask_weight``) /
 ``yolact_predict`` (its boxes; ``yolact_head.yolact_full_predict`` gives
 the masks too). ``FastRCNN`` predicts on proposals
@@ -42,6 +43,8 @@ from dsl_tpu_torch.models.dense_heads.retina_head import (
     RetinaHead, retina_get_bboxes, retina_loss)
 from dsl_tpu_torch.models.dense_heads.ssd_head import (
     SSDHead, ssd_get_bboxes, ssd_loss)
+from dsl_tpu_torch.models.dense_heads.vfnet_head import (
+    VFNetHead, vfnet_get_bboxes, vfnet_loss)
 from dsl_tpu_torch.models.dense_heads.yolact_head import (
     YOLACTHead, yolact_loss, yolact_predict)
 from dsl_tpu_torch.models.detectors.cascade_rcnn import (
@@ -95,6 +98,11 @@ class RetinaNet(SingleStageDetector):
 @DETECTORS.register
 class SSD(SingleStageDetector):
     """SSD = SingleStageDetector with an SSDHead (no neck in SSD300/512)."""
+
+
+@DETECTORS.register
+class VFNet(SingleStageDetector):
+    """VarifocalNet = SingleStageDetector with a VFNetHead."""
 
 
 @DETECTORS.register
@@ -183,10 +191,11 @@ def _dense_head(detector: nn.Module) -> nn.Module:
         raise NotImplementedError(
             f"{type(detector).__name__}: a multi-head detector has its own "
             f"loss and predict (models/detectors/multi_head.py)")
-    if not isinstance(head, (FCOSHead, RetinaHead, SSDHead, YOLACTHead)):
+    if not isinstance(head, (FCOSHead, RetinaHead, SSDHead, YOLACTHead,
+                             VFNetHead)):
         raise NotImplementedError(
             f"{type(head).__name__} is not ported yet: only FCOSHead, "
-            f"RetinaHead, SSDHead and YOLACTHead")
+            f"RetinaHead, SSDHead, YOLACTHead and VFNetHead")
     return head
 
 
@@ -202,9 +211,9 @@ def _parse_losses(losses: dict):
 
 def detector_loss(detector: nn.Module, batch: dict, cur_iter: int = 0,
                   compute_dtype=None, mark=None, group=None):
-    """Training forward + loss of an FCOS, RetinaNet, SSD, Faster R-CNN,
-    Cascade R-CNN, HTC, SCNet or standalone RPN detector (a Fast R-CNN has no loss, as
-    in the JAX package, and raises).
+    """Training forward + loss of an FCOS, RetinaNet, SSD, VFNet, Faster
+    R-CNN, Cascade R-CNN, HTC, SCNet or standalone RPN detector (a Fast
+    R-CNN has no loss, as in the JAX package, and raises).
 
     ``batch["images"]`` is (B, 3, H, W) on the detector's device; the other
     keys are the head's loss's. With ``compute_dtype=torch.bfloat16`` the
@@ -241,6 +250,8 @@ def detector_loss(detector: nn.Module, batch: dict, cur_iter: int = 0,
         return _parse_losses(retina_loss(head, *outputs, batch, group=group))
     if isinstance(head, SSDHead):
         return _parse_losses(ssd_loss(head, *outputs, batch, group=group))
+    if isinstance(head, VFNetHead):
+        return _parse_losses(vfnet_loss(head, *outputs, batch, group=group))
     if isinstance(head, YOLACTHead):
         return _parse_losses(yolact_loss(
             head, outputs, batch, group=group,
@@ -290,7 +301,8 @@ def detector_predict(detector: nn.Module, images: torch.Tensor,
     probabilities (B, N, S, S), as in the JAX package; f32 only), the
     standalone RPN ``rpn_only_predict`` (its proposals are the detections,
     all of label 0), a ``RetinaHead`` ``retina_get_bboxes``, an
-    ``SSDHead`` ``ssd_get_bboxes`` and a ``YOLACTHead`` ``yolact_predict``'s
+    ``SSDHead`` ``ssd_get_bboxes``, a ``VFNetHead`` ``vfnet_get_bboxes``
+    (its refined boxes) and a ``YOLACTHead`` ``yolact_predict``'s
     boxes (fast NMS: no launch of the NMS kernel; the masks come from
     ``yolact_head.yolact_full_predict``). A Fast R-CNN needs its proposals:
     ``two_stage.fast_rcnn_predict``.
@@ -337,13 +349,14 @@ def detector_predict(detector: nn.Module, images: torch.Tensor,
             iou_threshold=nms_cfg.get("iou_threshold", 0.6),
             max_per_img=tc.get("max_per_img", 100),
             img_hw=tuple(images.shape[2:4]))[:3]
-    if isinstance(head, (RetinaHead, SSDHead)):
+    if isinstance(head, (RetinaHead, SSDHead, VFNetHead)):
         if not with_nms:
             raise NotImplementedError(
                 f"detector_predict(with_nms=False) is FCOS's: "
                 f"{type(head).__name__}'s is not ported yet")
-        decode = retina_get_bboxes if isinstance(head, RetinaHead) \
-            else ssd_get_bboxes
+        decode = (retina_get_bboxes if isinstance(head, RetinaHead)
+                  else vfnet_get_bboxes if isinstance(head, VFNetHead)
+                  else ssd_get_bboxes)
         return decode(
             head, *outputs, img_shapes=img_shapes,
             scale_factors=scale_factors, nms_pre=tc.get("nms_pre", 1000),

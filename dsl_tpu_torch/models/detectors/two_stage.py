@@ -15,7 +15,10 @@ R-CNN whose mask head is a ``CoarseMaskHead`` of 7x7 logits, with a
 ``MaskPointHead`` at ``roi_head.point_head``), ``DetectoRS`` (Faster
 R-CNN whose neck, RFP, reads the image beside the backbone's levels),
 ``build_two_stage_detector``,
-``parse_rcnn_train_cfg``, ``two_stage_loss`` (with the mask branch on the
+``parse_rcnn_train_cfg``, ``two_stage_loss`` (the box head's RoI features
+pooled deformably where the detector has a ``roi_pool_pack``, the dpool
+and mdpool configs', at ``roi_head.roi_pool_pack``; the mask branch pools
+plainly, as in the JAX package; with the mask branch on the
 positives of the same samples where the batch has ``gt_mask_crops``: a
 mask config whose pipeline loads no masks trains without ``loss_mask``,
 as in the JAX package; Mask Scoring R-CNN's ``loss_mask_iou`` on the same
@@ -77,7 +80,7 @@ from dsl_tpu_torch.models.roi_heads.standard_roi_head import (
 UNPORTED_DETECTORS = (
     "DynamicRCNN", "PISAFasterRCNN", "PISAMaskRCNN", "DoubleHeadRCNN",
     "GridRCNN", "TridentFasterRCNN", "SparseRCNN")
-UNPORTED_PARTS = ("grid_head", "roi_pool_pack")
+UNPORTED_PARTS = ("grid_head",)
 TRAIN_PROPOSALS = 512          # two_stage_loss's num_proposals in JAX
 TEST_PROPOSALS = 1000          # two_stage_predict's
 SAMPLER_SEED = 97              # the draws' generator: this * 2**32 + iteration
@@ -87,21 +90,45 @@ FAST_RCNN_STRIDES = (4, 8, 16, 32)   # fast_rcnn_predict's RoI levels in JAX
 
 class StandardRoIHead(nn.Module):
     """Holds the bbox head, and the mask head, the shared head, the mask
-    IoU head and the point head where there are, under mmdet's names
-    (``roi_head.bbox_head``, ``roi_head.mask_head``,
-    ``roi_head.shared_head``, ``roi_head.mask_iou_head``,
-    ``roi_head.point_head``)."""
+    IoU head, the point head and the deformable RoI pooling's pack where
+    there are, under mmdet's names (``roi_head.bbox_head``,
+    ``roi_head.mask_head``, ``roi_head.shared_head``,
+    ``roi_head.mask_iou_head``, ``roi_head.point_head``) and the JAX
+    package's (``roi_head.roi_pool_pack``: mmdet keeps one pack per level
+    in ``roi_head.bbox_roi_extractor.roi_layers.{i}``, the JAX package one
+    for all; an mmdet checkpoint loads where its levels' packs are equal,
+    and raises naming the keys where they differ)."""
 
     def __init__(self, bbox_head: nn.Module, mask_head: nn.Module | None = None,
                  shared_head: nn.Module | None = None,
                  mask_iou_head: nn.Module | None = None,
-                 point_head: nn.Module | None = None):
+                 point_head: nn.Module | None = None,
+                 roi_pool_pack: nn.Module | None = None):
         super().__init__()
         self.bbox_head = bbox_head
         self.mask_head = mask_head
         self.shared_head = shared_head
         self.mask_iou_head = mask_iou_head
         self.point_head = point_head
+        self.roi_pool_pack = roi_pool_pack
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        layers = prefix + "bbox_roi_extractor.roi_layers."
+        per_level: dict = {}
+        for key in [k for k in state_dict if k.startswith(layers)]:
+            level, name = key[len(layers):].split(".", 1)
+            per_level.setdefault(name, {})[level] = state_dict.pop(key)
+        for name, levels in per_level.items():
+            first = levels[min(levels)]
+            if self.roi_pool_pack is None or not all(
+                    torch.equal(v, first) for v in levels.values()):
+                raise KeyError(
+                    f"{[layers + lv + '.' + name for lv in sorted(levels)]}: "
+                    f"per-level deformable RoI pooling packs that differ (or "
+                    f"a detector without one); the JAX package's and the "
+                    f"port's pack is one for all levels")
+            state_dict[f"{prefix}roi_pool_pack.{name}"] = first
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
 
 
 @DETECTORS.register
@@ -112,13 +139,15 @@ class TwoStageDetector(nn.Module):
                  mask_head: nn.Module | None = None,
                  shared_head: nn.Module | None = None,
                  mask_iou_head: nn.Module | None = None,
-                 point_head: nn.Module | None = None):
+                 point_head: nn.Module | None = None,
+                 roi_pool_pack: nn.Module | None = None):
         super().__init__()
         self.backbone = backbone
         self.neck = neck
         self.rpn_head = rpn_head
         self.roi_head = StandardRoIHead(bbox_head, mask_head, shared_head,
-                                        mask_iou_head, point_head)
+                                        mask_iou_head, point_head,
+                                        roi_pool_pack)
         self.train_cfg = train_cfg
         self.test_cfg = test_cfg
 
@@ -143,6 +172,10 @@ class TwoStageDetector(nn.Module):
         return self.roi_head.point_head
 
     @property
+    def roi_pool_pack(self) -> nn.Module | None:
+        return self.roi_head.roi_pool_pack
+
+    @property
     def strides(self) -> tuple:
         """The RoI levels' strides (the RPN's first four)."""
         return tuple(self.rpn_head.strides)[:4]
@@ -150,7 +183,7 @@ class TwoStageDetector(nn.Module):
     def init_weights(self, generator: torch.Generator | None = None):
         for part in (self.backbone, self.neck, self.rpn_head, self.bbox_head,
                      self.mask_head, self.shared_head, self.mask_iou_head,
-                     self.point_head):
+                     self.point_head, self.roi_pool_pack):
             if part is not None:
                 part.init_weights(generator)
 
@@ -171,9 +204,13 @@ class TwoStageDetector(nn.Module):
         RoI features and ``mask_pred`` (N, S, S) -> the mask IoU head's
         (N, classes); ``stage="point"``: fine point features (..., P, C)
         and the ``coarse`` logits at the points (..., P, classes) -> the
-        point head's (..., P, classes). The shared head, where there is
-        one, runs before the bbox and the mask head. One forward for all,
-        so that ``functional_call`` can run each with other parameters."""
+        point head's (..., P, classes); ``stage="pack"``: plain RoI
+        features -> the deformable RoI pooling pack's (offsets, mask). The
+        shared head, where there is one, runs before the bbox and the mask
+        head. One forward for all, so that ``functional_call`` can run each
+        with other parameters."""
+        if stage == "pack":
+            return self.roi_pool_pack(inputs)
         if stage == "roi":
             return self.bbox_head(self._shared(inputs))
         if stage == "mask":
@@ -357,6 +394,14 @@ def build_two_stage_detector(cfg: dict) -> nn.Module:
     for key in ("mask_head", "mask_iou_head", "point_head"):
         if cfg.get(key) is not None:
             parts[key] = build_from_cfg(dict(cfg.pop(key)), MODELS)
+    if cfg.get("roi_pool_pack") is not None:
+        if not issubclass(det_cls, TwoStageDetector):
+            raise TypeError(f"{det_type} with a roi_pool_pack: the pack is a "
+                            f"two-stage RoI head's")
+        _check_head(cfg, "roi_pool_pack", ("DeformRoIPoolPack",
+                                           "ModulatedDeformRoIPoolPack"))
+        parts["roi_pool_pack"] = build_from_cfg(dict(cfg.pop("roi_pool_pack")),
+                                                MODELS)
     return det_cls(**parts)
 
 
@@ -459,7 +504,8 @@ def two_stage_loss(detector: TwoStageDetector, batch: dict, cur_iter: int = 0,
     samples = sample_batch_rois(proposals, prop_valid, batch, draws["rcnn"][0],
                                 head.num_classes, **rcnn_kw)
     losses.update(roi_head_loss(head, lambda rf: detector(rf, stage="roi"),
-                                feats, samples, batch, detector.strides))
+                                feats, samples, batch, detector.strides,
+                                _pack(detector, detector)))
     if detector.mask_head is not None and "gt_mask_crops" in batch:
         losses.update(mask_branch_losses(detector, feats, samples, batch,
                                          rcnn_kw["num_samples"],
@@ -538,6 +584,14 @@ def two_stage_predict(detector: TwoStageDetector, images: torch.Tensor,
                   scale_factors, test_cfg)[1:]
 
 
+def _pack(detector: TwoStageDetector, call):
+    """``extract_roi_feats``' ``pack`` of the detector (through ``call``,
+    its forward or a functional call of it), None without a
+    ``roi_pool_pack``."""
+    pk = detector.roi_pool_pack
+    return None if pk is None else (lambda rf: call(rf, stage="pack"), pk)
+
+
 def _caller(detector: TwoStageDetector, variables: dict | None):
     """The detector's forward, or a functional call of it with
     ``variables`` (name -> tensor) in place of its own."""
@@ -564,7 +618,8 @@ def _boxes(detector, call, images, img_shapes, scale_factors, test_cfg):
         scale_factors=scale_factors, strides=detector.strides,
         score_thr=rcnn.get("score_thr", 0.05),
         iou_threshold=nms_cfg.get("iou_threshold", 0.5),
-        max_per_img=rcnn.get("max_per_img", 100), nms_cfg=nms_cfg))
+        max_per_img=rcnn.get("max_per_img", 100), nms_cfg=nms_cfg,
+        pack=_pack(detector, call)))
 
 
 def mask_logits_for_boxes(detector: TwoStageDetector, feats, boxes_in,

@@ -13,6 +13,17 @@ form Faster R-CNN runs it:
 - ``Shared4Conv1FCBBoxHead`` (the gn+ws configs'): four shared 3x3 convs
   (``conv_cfg`` ConvWS, ``norm_cfg`` GN, no bias under a norm; mmdet's
   ``shared_convs.i.conv`` / ``.gn``) with relu, then one shared FC;
+- ``DeformRoIPoolPack`` / ``ModulatedDeformRoIPoolPack`` (the dpool and
+  mdpool configs' ``roi_pool_pack``, one for all levels as in the JAX
+  package): mmcv's ``offset_fc`` (three FCs, the last zero at the start)
+  on the plain-pooled features gives each bin's (dx, dy), and the
+  modulated one's ``mask_fc`` (two FCs, the last zero at the start, then
+  a sigmoid) each bin's weight; the FCs read (c, h, w) and ``offset_fc``
+  writes (2, h, w), mmcv's orders (the weight bridge permutes the JAX
+  package's (h, w, c) and (h, w, 2));
+  ``extract_roi_feats`` with ``pack`` re-pools each RoI from its level at
+  the learned shifts (``ops/roi_align.deform_roi_align_rows``) and weighs
+  the bins by the mask;
 - ``map_rois_to_levels`` (``floor(log2(sqrt(area) / 56 + 1e-6))`` clipped
   to the first 4 levels) and ``extract_roi_feats``, which gathers each RoI
   from its own level in one pass over a row table of the levels
@@ -45,7 +56,7 @@ form Faster R-CNN runs it:
 
 Variants the JAX module also holds raise ``NotImplementedError`` naming
 themselves: the cls-only head (Grid R-CNN), SABL,
-generic and deformable RoI extraction, Balanced L1, MSE and the
+generic RoI extraction, Balanced L1, MSE and the
 DIoU / CIoU losses, OHEM and the instance-balanced / IoU-balanced
 samplers, soft-NMS.
 """
@@ -64,7 +75,7 @@ from dsl_tpu_torch.core.assigners import max_iou_assign_single
 from dsl_tpu_torch.core.boxes import clip_to_shapes, resolve_delta_coder
 from dsl_tpu_torch.core.nms import _gather_rows, multiclass_nms
 from dsl_tpu_torch.models.layers import he_normal_, make_conv, make_norm
-from dsl_tpu_torch.ops.roi_align import roi_align_rows
+from dsl_tpu_torch.ops.roi_align import deform_roi_align_rows, roi_align_rows
 
 
 class _BBoxHead(nn.Module):
@@ -205,6 +216,65 @@ class Shared4Conv1FCBBoxHead(_BBoxHead):
         return self._fcs(x)
 
 
+@HEADS.register
+class DeformRoIPoolPack(nn.Module):
+    """The offset (and, ``modulated``, mask) predictor of deformable RoI
+    pooling, mmcv's ``DeformRoIPoolPack`` / ``ModulatedDeformRoIPoolPack``
+    FCs as the JAX package builds them: ``offset_fc`` FC-relu-FC-relu-FC to
+    oh * ow * 2, ``mask_fc`` FC-relu-FC to oh * ow and a sigmoid, both on
+    the (c, h, w)-flattened RoI features; the last FC of each zero at the
+    start, so the pooling starts as RoIAlign's."""
+
+    def __init__(self, output_size: int = 7, output_channels: int = 256,
+                 deform_fc_channels: int = 1024, gamma: float = 0.1,
+                 modulated: bool = False):
+        super().__init__()
+        self.output_size = output_size
+        self.gamma = gamma
+        self.modulated = modulated
+        n_in = output_size * output_size * output_channels
+        cells = output_size * output_size
+        self.offset_fc = nn.Sequential(
+            nn.Linear(n_in, deform_fc_channels), nn.ReLU(),
+            nn.Linear(deform_fc_channels, deform_fc_channels), nn.ReLU(),
+            nn.Linear(deform_fc_channels, cells * 2))
+        self.mask_fc = (nn.Sequential(
+            nn.Linear(n_in, deform_fc_channels), nn.ReLU(),
+            nn.Linear(deform_fc_channels, cells), nn.Sigmoid())
+            if modulated else None)
+
+    def init_weights(self, generator: torch.Generator | None = None):
+        """flax's default for the hidden FCs (the JAX package's init:
+        LeCun normal, zero bias), zeros for the last of each branch."""
+        for seq in (self.offset_fc, self.mask_fc):
+            if seq is None:
+                continue
+            fcs = [m for m in seq if isinstance(m, nn.Linear)]
+            for fc in fcs:
+                std = (1.0 / fc.in_features) ** 0.5 / 0.87962566103423978
+                nn.init.trunc_normal_(fc.weight, 0.0, std, -2 * std, 2 * std,
+                                      generator=generator)
+                nn.init.zeros_(fc.bias)
+            nn.init.zeros_(fcs[-1].weight)
+
+    def forward(self, roi_feats: torch.Tensor):
+        """roi_feats (N, C, s, s) -> (offsets (N, s, s, 2) as (dx, dy),
+        mask (N, 1, s, s) or None)."""
+        n, s = roi_feats.shape[0], self.output_size
+        x = roi_feats.reshape(n, -1)
+        off = self.offset_fc(x).reshape(n, 2, s, s).permute(0, 2, 3, 1)
+        if self.mask_fc is None:
+            return off, None
+        return off, self.mask_fc(x).reshape(n, 1, s, s)
+
+
+@HEADS.register
+class ModulatedDeformRoIPoolPack(DeformRoIPoolPack):
+    def __init__(self, **kwargs):
+        kwargs.setdefault("modulated", True)
+        super().__init__(**kwargs)
+
+
 def is_seesaw(bbox_head) -> bool:
     """Whether the head's ``loss_cls`` is SeesawLoss (C + 2 logits)."""
     return dict(getattr(bbox_head, "loss_cls", None) or {}).get(
@@ -259,14 +329,28 @@ def level_table(feats: Sequence[torch.Tensor], rois: torch.Tensor,
 
 def extract_roi_feats(feats: Sequence[torch.Tensor], rois: torch.Tensor,
                       valid: torch.Tensor, strides: Sequence[int],
-                      roi_size: int = 7, aligned: bool = True) -> torch.Tensor:
+                      roi_size: int = 7, aligned: bool = True,
+                      pack=None) -> torch.Tensor:
     """Multi-level RoIAlign (``sampling_ratio=2``): each RoI (N, 5)
     ``(batch_idx, x1, y1, x2, y2)`` from its level of ``feats[:4]`` (NCHW),
-    in one gather over those levels' rows. Returns (N, C, s, s)."""
+    in one gather over those levels' rows. With ``pack`` = (its forward,
+    the ``DeformRoIPoolPack``), the deformable RoI pooling of the JAX
+    package's ``_extract_for_head``: the pack on these features gives the
+    bins' offsets (and mask), the RoIs are pooled again from their levels
+    at those shifts (always aligned, as JAX's), times the mask. Returns
+    (N, C, s, s)."""
     table, base, height, width, scale = level_table(feats, rois, strides)
     out = roi_align_rows(table, rois[:, 1:5], base, height, width, scale,
                          valid, (roi_size, roi_size), 2, aligned)
-    return out.permute(0, 3, 1, 2)
+    out = out.permute(0, 3, 1, 2)
+    if pack is None:
+        return out
+    pack_fn, pk = pack
+    offsets, mask = pack_fn(out)
+    out = deform_roi_align_rows(table, rois[:, 1:5], offsets, base, height,
+                                width, scale, valid, (roi_size, roi_size), 2,
+                                pk.gamma).permute(0, 3, 1, 2)
+    return out if mask is None else out * mask
 
 
 def resolve_rcnn_bbox_loss(cfg):
@@ -428,12 +512,14 @@ def rcnn_bbox_loss(bbox_head, cls_logits, reg, samples: dict, batch: dict):
 
 
 def roi_head_loss(bbox_head, head_fn, feats, samples: dict, batch: dict,
-                  strides: Sequence[int]) -> dict:
-    """Extract the sampled RoIs' features, run the bbox head (``head_fn``,
+                  strides: Sequence[int], pack=None) -> dict:
+    """Extract the sampled RoIs' features (deformably with ``pack``, as
+    :func:`extract_roi_feats` takes it), run the bbox head (``head_fn``,
     the head itself or a functional call of it), and its losses."""
     roi_feats = extract_roi_feats(feats, flat_rois(samples["rois"]),
                                   samples["valid"].reshape(-1), strides,
-                                  bbox_head.roi_size, bbox_head.roi_aligned)
+                                  bbox_head.roi_size, bbox_head.roi_aligned,
+                                  pack)
     cls_logits, reg = head_fn(roi_feats)
     return rcnn_bbox_loss(bbox_head, cls_logits, reg, samples, batch)
 
@@ -489,12 +575,14 @@ def roi_head_predict(bbox_head, head_fn, feats, proposals, prop_valid,
                      img_shapes=None, scale_factors=None,
                      strides: Sequence[int] = (4, 8, 16, 32),
                      score_thr: float = 0.05, iou_threshold: float = 0.5,
-                     max_per_img: int = 100, nms_cfg: dict | None = None):
-    """Every proposal's features, the bbox head (``head_fn``), then
-    :func:`rcnn_decode_nms`."""
+                     max_per_img: int = 100, nms_cfg: dict | None = None,
+                     pack=None):
+    """Every proposal's features (deformably with ``pack``), the bbox head
+    (``head_fn``), then :func:`rcnn_decode_nms`."""
     roi_feats = extract_roi_feats(feats, flat_rois(proposals),
                                   prop_valid.reshape(-1), strides,
-                                  bbox_head.roi_size, bbox_head.roi_aligned)
+                                  bbox_head.roi_size, bbox_head.roi_aligned,
+                                  pack)
     cls_logits, reg = head_fn(roi_feats)
     return rcnn_decode_nms(bbox_head, cls_logits, reg, proposals, prop_valid,
                            img_shapes=img_shapes, scale_factors=scale_factors,

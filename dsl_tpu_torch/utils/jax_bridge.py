@@ -135,6 +135,15 @@ _TO_TORCH = [
     (r"\blateral_norm(\d+)\b", lambda m, n: f"lateral_convs.{m[1]}.gn"),
     (r"\bfpn_norm(\d+)\b", lambda m, n: f"fpn_convs.{m[1]}.gn"),
     (r"\bextra_norm(\d+)\b", lambda m, n: f"fpn_convs.{n + int(m[1])}.gn"),
+    (r"^bbox_head\.vfnet_reg_conv$", lambda m, n: "bbox_head.vfnet_reg_conv.conv"),
+    (r"^bbox_head\.vfnet_reg_conv_gn$", lambda m, n: "bbox_head.vfnet_reg_conv.gn"),
+    (r"^bbox_head\.(reg_refine|cls)_dconv$",
+     lambda m, n: f"bbox_head.vfnet_{m[1]}_dconv"),
+    (r"\bscale_refine(\d+)\b", lambda m, n: f"scales_refine.{m[1]}"),
+    (r"^roi_pool_pack\.offset_fc(\d)$",
+     lambda m, n: f"roi_head.roi_pool_pack.offset_fc.{2 * int(m[1])}"),
+    (r"^roi_pool_pack\.mask_fc(\d)$",
+     lambda m, n: f"roi_head.roi_pool_pack.mask_fc.{2 * int(m[1])}"),
 ]
 
 # a ResNet's blocks, applied before _TO_TORCH where the backbone is no
@@ -176,7 +185,8 @@ def _backbone_to_torch(params: dict) -> list:
             (r"\bfuse(\d+)_(\d+)_(conv|bn)$",
              lambda m, n: (f"fuse_layers.{m[1]}.{m[2]}."
                            + ("0" if m[3] == "conv" else "1")))]
-    if any("conv2_0" in b or "fc1" in b.get("conv2", {}) for b in blocks):
+    if any(any(re.fullmatch(r"conv2_\d+(_offset|_kernel)?", k) for k in b)
+           or "fc1" in b.get("conv2", {}) for b in blocks):
         # Res2Net's or ResNeSt's avg-down shortcut, Res2Net's scale convs
         rules += [(_BLOCK + r"\.downsample_conv$",
                    lambda m, n: f"{m[1]}.downsample.1"),
@@ -297,6 +307,13 @@ _TO_FLAX = [
      lambda m, n: (f"fpn_norm{m[1]}" if int(m[1]) < n
                    else f"extra_norm{int(m[1]) - n}")),
     (r"^roi_head\.bbox_head\b", lambda m, n: "bbox_head"),
+    (r"^bbox_head\.vfnet_reg_conv\.conv$", lambda m, n: "bbox_head.vfnet_reg_conv"),
+    (r"^bbox_head\.vfnet_reg_conv\.gn$", lambda m, n: "bbox_head.vfnet_reg_conv_gn"),
+    (r"^bbox_head\.vfnet_(reg_refine|cls)_dconv$",
+     lambda m, n: f"bbox_head.{m[1]}_dconv"),
+    (r"\bscales_refine\.(\d+)\b", lambda m, n: f"scale_refine{m[1]}"),
+    (r"^roi_head\.roi_pool_pack\.(offset|mask)_fc\.(\d)$",
+     lambda m, n: f"roi_pool_pack.{m[1]}_fc{int(m[2]) // 2}"),
 ]
 
 # the FCs that read RoI features flattened: a RoI head's (a cascade
@@ -313,6 +330,10 @@ COARSE_FC0 = "roi_head.mask_head.fcs.0"
 COARSE_LOGITS = "roi_head.mask_head.fc_logits"
 # PointRend's point head: mmdet's Conv1d weights (out, in, 1)
 POINT_FC = re.compile(r"^roi_head\.point_head\.(fcs\.\d+\.conv|fc_logits)$")
+# the deformable RoI pooling pack's FCs: the first of each branch reads RoI
+# features flattened, offset_fc's last writes the bins' (dx, dy)
+PACK_IN_FC = re.compile(r"^roi_head\.roi_pool_pack\.(offset|mask)_fc\.0$")
+PACK_OFFSET_FC = "roi_head.roi_pool_pack.offset_fc.4"
 _ROI_PARTS_TO_FLAX = [
     (r"^roi_head\.bbox_head\.(\d+)\b", lambda m, n: f"bbox_heads_{m[1]}"),
     (r"^roi_head\.mask_head\.(\d+)\.convs\.(\d+)\.conv\b",
@@ -471,8 +492,15 @@ def flax_to_state_dict(variables: dict) -> dict[str, torch.Tensor]:
     sd: dict[str, torch.Tensor] = {}
     for collection in ("params", "batch_stats"):
         for path, arr in _leaves(variables.get(collection, {})):
-            module = _rename(".".join(path[:-1]), rules, n_lat)
-            leaf = path[-1]
+            mod_path, leaf, suffix = path[:-1], path[-1], ""
+            dcn = re.fullmatch(r"(\w+)_(kernel|bias)", leaf)
+            if dcn:
+                # a deformable conv's own kernel or bias, a leaf of its parent
+                mod_path, leaf = mod_path + (dcn[1],), dcn[2]
+            elif mod_path and mod_path[-1].endswith("_offset"):
+                mod_path = mod_path[:-1] + (mod_path[-1][:-len("_offset")],)
+                suffix = ".conv_offset"
+            module = _rename(".".join(mod_path), rules, n_lat) + suffix
             arr = np.asarray(arr)
             if collection == "batch_stats":
                 name = {"mean": "running_mean", "var": "running_var"}[leaf]
@@ -493,11 +521,19 @@ def flax_to_state_dict(variables: dict) -> dict[str, torch.Tensor]:
                     arr = arr[:, _roi_rows(arr.shape[1],
                                            _coarse_dims(params)[1],
                                            to_chw=True)]
+                if PACK_IN_FC.match(module):
+                    arr = arr[_roi_rows(arr.shape[0], _pack_channels(params),
+                                        to_chw=True)]
+                if module == PACK_OFFSET_FC:
+                    arr = arr[:, _roi_rows(arr.shape[1], 2, to_chw=True)]
                 arr = arr.T
                 if POINT_FC.match(module):
                     arr = arr[:, :, None]
                 if SA_FC.match(module):
                     arr = arr[:, :, None, None]
+            elif leaf == "bias" and module == PACK_OFFSET_FC:
+                name = leaf
+                arr = arr[_roi_rows(arr.shape[0], 2, to_chw=True)]
             elif leaf == "bias" and module in (RELAY_FC, COARSE_LOGITS):
                 name = leaf
                 arr = arr[_roi_rows(
@@ -514,7 +550,8 @@ def flax_to_state_dict(variables: dict) -> dict[str, torch.Tensor]:
                 name = "weight"
                 arr = np.transpose(arr, (3, 2, 0, 1))
             elif leaf == "scale":
-                name = "scale" if re.search(r"\bscales\.\d+$", module) else "weight"
+                name = ("scale" if re.search(r"\bscales(_refine)?\.\d+$", module)
+                        else "weight")
             else:
                 name = leaf
             # np.array, not ascontiguousarray, which makes 0-d arrays 1-d
@@ -538,6 +575,15 @@ def _roi_channels(params: dict, path: tuple) -> int:
     if "fpn_conv0" in neck:
         return int(np.asarray(neck["fpn_conv0"]["kernel"]).shape[-1])
     return int(np.asarray(params["rpn_head"]["rpn_conv"]["kernel"]).shape[-2])
+
+
+def _pack_channels(params: dict) -> int:
+    """The channels of the RoI features the deformable RoI pooling pack
+    reads (flax names): its first FC's inputs over the bins, which its
+    ``offset_fc2`` counts twice."""
+    pk = params["roi_pool_pack"]
+    cells = np.asarray(pk["offset_fc2"]["kernel"]).shape[1] // 2
+    return int(np.asarray(pk["offset_fc0"]["kernel"]).shape[0] // cells)
 
 
 def _coarse_dims(params: dict) -> tuple[int, int]:
@@ -571,6 +617,13 @@ def _coarse_dims_torch(state_dict: dict) -> tuple[int, int]:
     cells = state_dict[f"{COARSE_FC0}.weight"].shape[1] // ch
     return int(ch), int(state_dict[f"{COARSE_LOGITS}.weight"].shape[0]
                         // cells)
+
+
+def _pack_channels_torch(state_dict: dict) -> int:
+    """:func:`_pack_channels` on the port's names."""
+    cells = state_dict[f"{PACK_OFFSET_FC}.weight"].shape[0] // 2
+    return int(state_dict["roi_head.roi_pool_pack.offset_fc.0.weight"].shape[1]
+               // cells)
 
 
 def _roi_channels_torch(state_dict: dict, module: str) -> int:
@@ -609,12 +662,35 @@ def state_dict_to_flax(state_dict: dict) -> dict:
              + (_RFP_TO_FLAX if rfp else []) + _backbone_to_flax(state_dict)
              + _TO_FLAX)
     out: dict = {"params": {}, "batch_stats": {}}
+    # the port's deformable convs: an mmcv pack (with its conv_offset) or
+    # VFNet's star convs
+    deform = {k[:-len(".conv_offset.weight")] for k in state_dict
+              if k.endswith(".conv_offset.weight")}
+    deform |= {m for m in ("bbox_head.vfnet_reg_refine_dconv",
+                           "bbox_head.vfnet_cls_dconv")
+               if f"{m}.weight" in state_dict}
     for key, value in state_dict.items():
         module, name = key.rsplit(".", 1)
         if name == "num_batches_tracked":
             continue
         arr = value.detach().cpu().numpy()
         collection = "params"
+        if module in deform or module.endswith(".conv_offset"):
+            kind = "kernel" if name == "weight" else name
+            if module in deform:
+                # a leaf of its parent: X_kernel (HWIO), X_bias
+                parent, own = _rename(module, rules, n_lat).rsplit(".", 1)
+                leaf = f"{own}_{kind}"
+            else:
+                parent = _rename(module[:-len(".conv_offset")], rules,
+                                 n_lat) + "_offset"
+                leaf = kind
+            d = out["params"]
+            for part in parent.split("."):
+                d = d.setdefault(part, {})
+            d[leaf] = np.array(np.transpose(arr, (2, 3, 1, 0))
+                               if arr.ndim == 4 else arr)
+            continue
         if name in ("running_mean", "running_var"):
             collection, leaf = "batch_stats", name[len("running_"):]
         elif name in ("weight", "weight_diff") and (
@@ -647,6 +723,12 @@ def state_dict_to_flax(state_dict: dict) -> dict:
                 arr = arr[:, _roi_rows(arr.shape[1],
                                        _coarse_dims_torch(state_dict)[1],
                                        to_chw=False)]
+            if PACK_IN_FC.match(module):
+                arr = arr[_roi_rows(arr.shape[0],
+                                    _pack_channels_torch(state_dict),
+                                    to_chw=False)]
+            if module == PACK_OFFSET_FC:
+                arr = arr[:, _roi_rows(arr.shape[1], 2, to_chw=False)]
         elif name == "weight" and not module.endswith("l2_norm"):
             leaf = "scale"
         else:
@@ -659,6 +741,8 @@ def state_dict_to_flax(state_dict: dict) -> dict:
                 arr = arr[_roi_rows(arr.shape[0],
                                     _coarse_dims_torch(state_dict)[1],
                                     to_chw=False)]
+            if module == PACK_OFFSET_FC:
+                arr = arr[_roi_rows(arr.shape[0], 2, to_chw=False)]
         d = out[collection]
         for part in _rename(module, rules, n_lat).split("."):
             d = d.setdefault(part, {})

@@ -46,6 +46,10 @@ parity tests (no pretrained checkpoint ships with the repo).
   and ResNeSt's split-attention FCs take the plain fill, their fan-in
   being the group's (a flax kernel's (kh, kw, in / groups) axes) or the
   Dense kernel's input;
+- a deformable conv's kernel, a flax leaf named ``X_kernel`` (the
+  backbones' ``conv2_kernel``, the towers' last conv's, VFNet's star
+  convs'), as any kernel; its offset conv (``X_offset``) too, so the
+  seeded offsets are of order one pixel;
 - SSD's per-level classifiers (``cls_conv{l}``, A x (C + 1) channels, the
   background last in each anchor's block) as the RoI head's, so each
   anchor's softmax puts about 1/9 on each live class, above SSD's
@@ -134,7 +138,8 @@ def fill_variables(shapes: dict, seed: int = 0) -> dict:
                                                    "post_context", "rfp_conv")
                                       or path[-2].startswith("fuse"))):
             v = rng.randn(*shape) * 0.1 / np.sqrt(np.prod(shape[:-1]))
-        elif name == "kernel" or (name == "weight" and len(shape) == 4):
+        elif (name == "kernel" or (name == "weight" and len(shape) == 4)
+              or (name.endswith("_kernel") and len(shape) == 4)):
             v = rng.randn(*shape) / np.sqrt(np.prod(shape[:-1]))
         elif name == "var":
             v = rng.uniform(0.5, 1.5, shape)

@@ -520,6 +520,51 @@ TINY_SSD = dict(
     test_cfg=dict(nms_pre=1000, score_thr=0.02,
                   nms=dict(type="nms", iou_threshold=0.45), max_per_img=200))
 
+# slice 17's deformable parts on the tiny detectors: a ResNet-50 at a
+# quarter width (the packages' smallest bottleneck depth) with DCNv2 and 2
+# offset groups in c5 alone (the JAX package traces each deformable conv
+# tap by tap and group by group: c3-c5 at 4 groups takes 14 s to trace),
+# the deformable RoI pooling packs at 64 wide, FCOS (caffe, GN head) with
+# DCN in c5 and DCNv2 on the towers' last conv, VFNet with both, 2-conv
+# towers 32 wide
+_TINY_DCN_BACKBONE = dict(type="ResNet", depth=50, stem_channels=16,
+                          base_channels=16, out_indices=(0, 1, 2, 3),
+                          frozen_stages=1, style="pytorch",
+                          dcn=dict(type="DCNv2", deform_groups=2),
+                          stage_with_dcn=(False, False, False, True))
+TINY_DCN_FASTER = dict(TINY_FASTER_RCNN, backbone=_TINY_DCN_BACKBONE)
+TINY_DPOOL_FASTER = dict(
+    TINY_FASTER_RCNN,
+    roi_pool_pack=dict(type="DeformRoIPoolPack", output_size=7,
+                       output_channels=32, deform_fc_channels=64))
+TINY_MDPOOL_FASTER = dict(
+    TINY_FASTER_RCNN,
+    roi_pool_pack=dict(type="ModulatedDeformRoIPoolPack", output_size=7,
+                       output_channels=32, deform_fc_channels=64))
+TINY_FCOS_DCN = dict(
+    type="FCOS",
+    backbone=dict(_TINY_DCN_BACKBONE, style="caffe", dcn=dict(type="DCN")),
+    neck=dict(type="FPN", in_channels=[64, 128, 256, 512], out_channels=32,
+              start_level=1, add_extra_convs="on_output", num_outs=5,
+              relu_before_extra_convs=True),
+    bbox_head=dict(type="FCOSHead", num_classes=20, in_channels=32,
+                   stacked_convs=2, feat_channels=32,
+                   strides=[8, 16, 32, 64, 128], norm_on_bbox=True,
+                   centerness_on_reg=True, center_sampling=True,
+                   dcn_on_last_conv=True, conv_bias=True,
+                   norm_cfg=dict(type="GN", num_groups=32)),
+    test_cfg=dict(nms_pre=1000, score_thr=0.05,
+                  nms=dict(iou_threshold=0.6), max_per_img=100))
+TINY_VFNET = dict(
+    type="VFNet", backbone=dict(_TINY_DCN_BACKBONE, dcn=dict(type="DCNv2")),
+    neck=TINY_FCOS_DCN["neck"],
+    bbox_head=dict(type="VFNetHead", num_classes=20, in_channels=32,
+                   feat_channels=32, stacked_convs=2,
+                   strides=[8, 16, 32, 64, 128], gradient_mul=0.1,
+                   dcn_on_last_conv=True),
+    test_cfg=dict(nms_pre=1000, score_thr=0.05,
+                  nms=dict(iou_threshold=0.6), max_per_img=100))
+
 
 def ssd_pipeline(pipeline: list) -> list:
     """A copy of an SSD pipeline (``configs/_base_/datasets/wider_face.py``'s

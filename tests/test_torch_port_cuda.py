@@ -104,6 +104,12 @@ dependencies:
   the largest magnitude); HRNet's nearest resize (an odd size), an
   ``HRModule``'s fuse and ``HRFPN`` (average and max pooling) on the card
   agree with the CPU within 1e-5 and their backward repeats bit for bit;
+- deformable convolution (v1 at dilation 2, DCNv2 at stride 2 with 4
+  offset groups and a grouped kernel) and deformable RoI pooling on the
+  card agree with the CPU within 1e-5, forward and every gradient (the
+  input's, the offsets', the mask's, the kernel's), at offsets that move
+  samples off the map; two backward passes on the card give the same
+  bits;
 - ``train_detector`` and ``single_device_test`` refuse to start without
   CUDA (these run everywhere).
 """
@@ -1332,3 +1338,60 @@ def test_hrnet_fuse_and_hrfpn_repeat_on_the_card(card):
         for a, b in zip([c_out] + c_grads, [w_out] + w_grads):
             torch.testing.assert_close(a, b, rtol=0, atol=1e-5 * max(
                 1.0, float(b.abs().max())))
+
+
+def _deform_runs(fn, arrays, dev, g, runs: int):
+    """``fn`` on ``arrays`` (made tensors on ``dev`` needing a gradient),
+    ``runs`` times: each run's output and gradients on the CPU."""
+    out_all = []
+    for _ in range(runs):
+        ts = [torch.from_numpy(a).to(dev).requires_grad_() for a in arrays]
+        out = fn(*ts)
+        out.backward(torch.from_numpy(g).to(dev))
+        out_all.append([out.detach().cpu()] + [t.grad.cpu() for t in ts])
+    return out_all
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["v1_dilation2", "v2_stride2_dg4_grouped",
+                                  "roi_pool_modulated"])
+def test_deformable_ops_on_the_card_match_the_cpu_and_repeat(card, case):
+    from dsl_tpu_torch.ops.deform_conv import deform_conv2d
+    from dsl_tpu_torch.ops.roi_align import deform_roi_align
+
+    rng = np.random.RandomState(15)
+    if case == "roi_pool_modulated":
+        rois = torch.from_numpy(np.concatenate(
+            [rng.randint(0, 2, (40, 1)), rng.rand(40, 2) * 90 - 10,
+             rng.rand(40, 2) * 60 + 90], 1).astype(np.float32))
+        arrays = [rng.randn(2, 16, 24, 32).astype(np.float32),
+                  (1.5 * rng.randn(40, 7, 7, 2)).astype(np.float32),
+                  rng.rand(40, 1, 7, 7).astype(np.float32)]
+
+        def fn(f, off, m):
+            return deform_roi_align(f, rois.to(f.device), off, (7, 7), 0.25,
+                                    2, 0.1) * m
+        out_shape = (40, 16, 7, 7)
+    else:
+        v2 = case != "v1_dilation2"
+        stride, dil, dg, groups = (2, 1, 4, 4) if v2 else (1, 2, 1, 1)
+        h, w = 21, 27
+        oh, ow = -(-h // stride), -(-w // stride)
+        arrays = [rng.randn(2, 32, h, w).astype(np.float32),
+                  (2.5 * rng.randn(2, dg * 18, oh, ow)).astype(np.float32),
+                  (rng.randn(16, 32 // groups, 3, 3) * 0.1).astype(np.float32)]
+        if v2:
+            arrays.append(rng.rand(2, dg * 9, oh, ow).astype(np.float32))
+
+        def fn(x, off, wt, *m):
+            return deform_conv2d(x, off, wt, mask=m[0] if m else None,
+                                 stride=stride, dilation=dil,
+                                 deform_groups=dg)
+        out_shape = (2, 16, oh, ow)
+    g = rng.randn(*out_shape).astype(np.float32)
+    on_card = _deform_runs(fn, arrays, card, g, 2)
+    on_cpu = _deform_runs(fn, arrays, "cpu", g, 1)[0]
+    assert all(torch.equal(a, b) for a, b in zip(*on_card))
+    for a, b in zip(on_card[0], on_cpu):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5 * max(
+            1.0, float(b.abs().max())))

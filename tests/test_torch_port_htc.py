@@ -27,9 +27,9 @@ Seeded numpy inputs through each JAX function and its port, at 64x96 and
 - the loss's keys, the information flow's gradients (stage 2's mask loss
   reaches heads 0-2, stage 0's head 0 alone) and the semantic loss's;
 - the weight bridge both ways and an mmdet-keyed ``.pth`` loaded;
-- every config of ``configs/htc/`` but the dconv one built on the meta
-  device (that one refuses its ``dcn``), with the JAX package's parameter
-  counts for two;
+- every config of ``configs/htc/`` built on the meta device (the dconv
+  one with its deformable convs), with the JAX package's parameter counts
+  for two;
 - ``LoadAnnotations(with_seg=True)`` (a gray PNG under ``seg_prefix``,
   and none), ``Resize``, ``RandomFlip``, ``Pad`` and ``SegRescale(1/8)``:
   ``gt_semantic_seg`` bit for bit JAX's; a colour PNG refused; through a
@@ -417,14 +417,13 @@ def test_bridge_round_trip_and_mmdet_pth(pair, tmp_path):
 def test_the_htc_configs_build(config):
     from dsl_tpu_torch.config import Config
 
+    from dsl_tpu_torch.ops.deform_conv import DeformConv2dPack
+
     model = dict(Config.fromfile(f"configs/{config}").model)
-    if "dconv" in config:
-        with pytest.raises(NotImplementedError, match="dcn"):
-            with torch.device("meta"):
-                build_detector(model)
-        return
     with torch.device("meta"):
         det = build_detector(model)
+    assert any(isinstance(m, DeformConv2dPack) for m in det.modules()) == (
+        "dconv" in config)
     assert type(det).__name__ == "HTC" and len(det.mask_heads) == 3
     assert (det.semantic_head is None) == ("without_semantic" in config)
     assert det.mask_heads[0].conv_res is None and det.mask_heads[2].conv_res

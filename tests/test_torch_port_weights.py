@@ -109,17 +109,28 @@ def test_resnet50_matches_jax(style):
     assert any(got_mask.values()) and not all(got_mask.values())
 
 
+_DCN_STAGES = (False, True, True, True)
+
+
 @pytest.mark.parametrize("option", [
-    dict(dcn=dict(type="DCN")), dict(dcn=dict(type="DCNv2", deform_groups=4)),
+    dict(dcn=dict(type="DCN"), stage_with_dcn=_DCN_STAGES, depth=18),
+    dict(dcn=dict(type="DCNv2", deform_groups=4), stage_with_dcn=_DCN_STAGES,
+         depth=34),
     dict(plugins=[dict(cfg=dict(type="GeneralizedAttention"),
                        position="after_conv2")]),
-    dict(conv_cfg=dict(type="DCNv2")), dict(dcn=dict(type="DCNv2")),
+    dict(conv_cfg=dict(type="DCNv2")),
+    dict(dcn=dict(type="DCNv3"), stage_with_dcn=_DCN_STAGES),
     dict(plugins=[dict(cfg=dict(type="ContextBlock"))])])
 def test_resnet_refuses_unported_options(option):
     # (V1d's deep_stem / avg_down and ResNeXt's groups / base_width are
-    # ported: tests/test_torch_port_variants.py)
+    # ported: tests/test_torch_port_variants.py; deformable convs on a
+    # bottleneck too: tests/test_torch_port_dcn.py. What stays refused is
+    # DCN on a BasicBlock, as in the JAX package, and a DCN type other
+    # than mmcv's DCN and DCNv2)
+    option = dict(option)
+    depth = option.pop("depth", 50)
     with pytest.raises(NotImplementedError, match=next(iter(option))):
-        ResNet(depth=50, **option)
+        ResNet(depth=depth, **option)
 
 
 def _seeded(kind, seed):
