@@ -458,11 +458,34 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    and DCNv2 on its towers' last conv (``FCOS_DCN_CONFIG``): a counted
    predict at B=8, timed. The NMS kernel timed on VFNet's input and the
    group-4 DCN Faster R-CNN's RoI input (``vfnet_b8``, ``dcn_rcnn_b8``).
+25. The ResNet plugins and the other necks at full width, uncut, seeded,
+   the NMS count at 0 before each part and read after it. Through
+   ``phase_variants`` (``PLUGIN_NECK_CONFIGS``, 800x1344): Mask R-CNN R50
+   with GCNet's ContextBlock in c3-c5, Faster R-CNN R50 with
+   GeneralizedAttention ``'1111'`` in c4-c5, PAFPN, FPN_CARAFE and Libra's
+   ``[FPN, BFP]`` with Balanced L1 (its steps with ``RandomSampler``:
+   ``CombinedSampler`` raises, :func:`random_sampler`): counted predicts at
+   B=8 (2 launches, keeps equal), the median of ``P25_TIMED``, a step at
+   B=2 after a warm-up, each with its peak memory; card vs CPU within 1e-3
+   at 1x128x192 (``slice16_probe``); one ``torch.profiler`` trace of the
+   attention detector's predict for GeneralizedAttention's share of the
+   kernels' time, and two runs of ``P25_DET_STEPS`` steps of the CARAFE
+   one bit-identical (``plugin_neck_probe``). FPG Faster R-CNN
+   (``FPG_CONFIG``) the same at 640x640 (the RPN's N = 4300). Through
+   ``_single_stage_checks`` (``phase_plugin_neck_single``): RetinaNet on
+   NAS-FPN with RetinaSepBNHead at 640x640, Libra RetinaNet and NAS-FCOS
+   at 800x1344 (1 launch per predict; a step for the first two; NAS-FCOS's
+   predict traced for its 20 deformable convs' share). The NMS
+   kernel timed on FPG's RPN input and NAS-FPN RetinaNet's
+   (``fpg_rcnn_b8``, ``nas_retina_b8``).
 
 Each phase logs its wall time (``[phase N] ... s``). The test CLI runs
 in this process (:func:`run_test_cli`), but under a launcher (phase 15);
 the train CLI runs as a process (phases 13 and 15), as a user launches
-it.
+it. The traces are read from the profiler's raw records
+(:func:`trace_events`), not from ``prof.events()``, whose event tree
+costs seconds of host time for a traced step; ``python -m
+dsl_tpu_torch.tools.smoke_profile`` times the smoke function by function.
 
 f32 runs with TF32 off (``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32`` False): cuDNN convolutions would
@@ -484,6 +507,7 @@ import sys
 import tempfile
 import threading
 import time
+import typing
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -550,6 +574,50 @@ def host_ms(fn, reps: int, warmup: int = 2) -> list[float]:
     return times
 
 
+class TraceEvent(typing.NamedTuple):
+    """One record of a torch.profiler trace (:func:`trace_events`)."""
+    name: str
+    device_type: object       # torch.autograd.DeviceType
+    start: float              # µs, the host's clock
+    end: float
+    id: int                   # correlation id: a launch's equals its kernel's
+    linked: int               # the op a kernel or launch belongs to (0: an op)
+    thread: int
+
+
+def trace_events(prof) -> list[TraceEvent]:
+    """The records of a finished torch.profiler trace, read from the
+    profiler's kineto results. ``prof.events()`` would build a
+    ``FunctionEvent`` per record and their tree first: about 65 µs of host
+    time a record, seconds for a traced step's 10^5 records."""
+    return [TraceEvent(e.name(), e.device_type(), e.start_ns() / 1e3,
+                       e.end_ns() / 1e3, e.correlation_id(),
+                       e.linked_correlation_id(), e.start_thread_id())
+            for e in prof.profiler.kineto_results.events()]
+
+
+def range_kernel_us(events, ranges) -> list[float]:
+    """Device µs of the kernels each of ``ranges`` (``record_function``
+    ranges among ``events``, :func:`trace_events`) launched, as torch's
+    event tree counts a range's ``device_time_total``: a kernel belongs to
+    the op that launched it (its ``linked``), and to a range where that op
+    ran inside it on the range's thread."""
+    from torch.autograd import DeviceType
+
+    ops = {e.id: e for e in events
+           if e.device_type == DeviceType.CPU and not e.linked}
+    out = [0.0] * len(ranges)
+    for k in events:
+        op = ops.get(k.linked) if k.device_type == DeviceType.CUDA else None
+        if op is None:
+            continue
+        for i, r in enumerate(ranges):
+            if (op.thread == r.thread and r.start <= op.start
+                    and op.end <= r.end):
+                out[i] += k.end - k.start
+    return out
+
+
 def device_busy(fn) -> tuple[float, float, int, list] | None:
     """One torch.profiler trace of fn(): the union of device kernel time,
     the traced window (first event to last), the number of kernels and the
@@ -561,14 +629,14 @@ def device_busy(fn) -> tuple[float, float, int, list] | None:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return events_busy(prof.events())
+    return events_busy(trace_events(prof))
 
 
 def events_busy(events) -> tuple[float, float, int, list] | None:
-    """:func:`device_busy` of a trace's events."""
+    """:func:`device_busy` of a trace's events (:func:`trace_events`)."""
     from torch.autograd import DeviceType
 
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+    spans = sorted((e.start, e.end) for e in events
                    if e.device_type == DeviceType.CUDA)
     if not spans:
         return None
@@ -580,12 +648,11 @@ def events_busy(events) -> tuple[float, float, int, list] | None:
         else:
             cur_end = max(cur_end, e)
     busy += cur_end - cur_start
-    window = (max(e.time_range.end for e in events)
-              - min(e.time_range.start for e in events))
+    window = max(e.end for e in events) - min(e.start for e in events)
     per_name: dict[str, float] = {}
     for e in events:
         if e.device_type == DeviceType.CUDA:
-            per_name[e.name] = per_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+            per_name[e.name] = per_name.get(e.name, 0.0) + e.end - e.start
     top = sorted(per_name.items(), key=lambda kv: -kv[1])[:10]
     return busy / 1e3, window / 1e3, len(spans), top
 
@@ -600,7 +667,8 @@ def device_ops(fn) -> tuple[int, int] | None:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    names = [e.name for e in trace_events(prof)
+             if e.device_type == DeviceType.CUDA]
     if not names:
         return None
     copies = sum(n.startswith(("Memcpy", "Memset")) for n in names)
@@ -934,12 +1002,12 @@ def nms_pass_ms(boxes, valid, thr) -> dict[str, float]:
             torch.cuda.synchronize()
         total = {p: 0.0 for p in NMS_PASSES}
         count = {p: 0 for p in NMS_PASSES}
-        for e in prof.events():
+        for e in trace_events(prof):
             if e.device_type != DeviceType.CUDA:
                 continue
             for p, kname in NMS_PASSES.items():
                 if kname in e.name:
-                    total[p] += e.time_range.elapsed_us()
+                    total[p] += e.end - e.start
                     count[p] += 1
         if max(count.values()) > NMS_TRACE_REPS:
             raise AssertionError(f"profiler saw {count} NMS pass kernels over "
@@ -3826,6 +3894,7 @@ RETINANET_CONFIG = ROOT / "configs" / "retinanet" / "retinanet_r50_fpn_1x_coco.p
 FASTER_RCNN_VOC_CONFIG = (ROOT / "configs" / "pascal_voc"
                           / "faster_rcnn_r50_fpn_1x_voc0712.py")
 RPN_NMS_N = 4819              # 1000 candidates from each of P2-P5, 819 from P6
+RPN_NMS_N_640 = 4300          # at 640x640: 1000 from each of P2-P5, 10x10x3 from P6
 HRFPN_RPN_NMS_N = 4756        # HRFPN's P6 pools P2 at 16: 12x21 x 3 anchors
 ROI_NMS_N = 2000              # multiclass_nms's pre_nms_top
 ANCHOR_TIMED = 3              # predicts timed per detector and dtype
@@ -4726,7 +4795,8 @@ def expected_loss_keys(det) -> set:
 def phase_variants(smi: str, configs=VARIANT_CONFIGS, b: int = BATCH,
                    seed: int = 20, phase: str = "p18", probe=None,
                    trace: bool = False, timed: int = P18_TIMED,
-                   steps: int = P18_STEPS, peak: bool = False):
+                   steps: int = P18_STEPS, peak: bool = False,
+                   canvas=None, prepare=None):
     """Two-stage variants (``VARIANT_CONFIGS`` by default), uncut, seeded:
     one counted predict at B=``b`` (2 NMS launches: the RPN's at N =
     ``RPN_NMS_N``, or ``ONE_LEVEL_RPN_NMS_N`` on one level, the RoI head's
@@ -4755,8 +4825,9 @@ def phase_variants(smi: str, configs=VARIANT_CONFIGS, b: int = BATCH,
         TwoStageDetector, mask_rcnn_predict)
     from dsl_tpu_torch.ops.nms import nms_keep
 
+    canvas = canvas or CANVAS
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
-    images = torch.randn((b, 3, *CANVAS), generator=gen, device=DEVICE)
+    images = torch.randn((b, 3, *canvas), generator=gen, device=DEVICE)
     launches, worst, paths, inputs = 0, 0, [], {}
     for path in configs:
         cfg = Config.fromfile(str(path))
@@ -4770,7 +4841,8 @@ def phase_variants(smi: str, configs=VARIANT_CONFIGS, b: int = BATCH,
             f"parameters")
         rpn_n = (ONE_LEVEL_RPN_NMS_N if len(det.rpn_head.strides) == 1
                  else HRFPN_RPN_NMS_N if type(det.neck).__name__ == "HRFPN"
-                 else RPN_NMS_N)
+                 else RPN_NMS_N if tuple(canvas) == tuple(CANVAS)
+                 else RPN_NMS_N_640)
 
         def predict():
             out = (mask_rcnn_predict(det, images) if masks else
@@ -4791,6 +4863,7 @@ def phase_variants(smi: str, configs=VARIANT_CONFIGS, b: int = BATCH,
             (b, cfg.model.test_cfg.rcnn.max_per_img, 5))
         launches, worst = launches + 2, max(worst, w)
         inputs[tag] = calls[1][:3]
+        inputs[f"{tag}_rpn"] = calls[0][:3]
         paths.append(dict(path=tag, B=b, N=ROI_NMS_N, launches=2,
                           predict_ms=time_predict(tag, predict, b, smi,
                                                   trace=trace, reps=timed,
@@ -4802,12 +4875,13 @@ def phase_variants(smi: str, configs=VARIANT_CONFIGS, b: int = BATCH,
         del det
         torch.cuda.empty_cache()
         batch = (mask_batch if with_masks else anchor_batch)(
-            TRAIN_SEED, CANVAS, ANCHOR_TRAIN_B,
+            TRAIN_SEED, canvas, ANCHOR_TRAIN_B,
             roi_bbox_head_cfg(cfg.model)["num_classes"], DEVICE)
         with deterministic_cudnn():
             nms_keep.launches = 0
-            m, taken = time_steps(tag, cfg, variables, batch, smi,
-                                  trace=trace, timed=steps, peak=peak)
+            m, taken = time_steps(tag, prepare(cfg) if prepare else cfg,
+                                  variables, batch, smi, trace=trace,
+                                  timed=steps, peak=peak)
             if not want_keys <= set(m) or not all(
                     np.isfinite(m[k]) for k in want_keys):
                 raise AssertionError(f"{tag} step: {m}, expected the keys "
@@ -5295,29 +5369,32 @@ def roi_align_share(tag: str, fn, smi: str, scope=roi_align_ranges,
             with record_function(TRACED_RANGE):
                 fn()
                 torch.cuda.synchronize()
-        every = prof.events()
-        t0 = next(e.time_range.start for e in every
+        every = trace_events(prof)
+        t0 = next(e.start for e in every
                   if e.name == TRACED_RANGE and e.device_type == DeviceType.CPU)
         # the warm-up call's runtime calls; their kernels are told apart by
         # correlation id, not by time (the device's clock, mapped onto the
         # host's, can put the call's first kernels a little before t0)
         before = {e.id for e in every if e.device_type == DeviceType.CPU
-                  and e.name.startswith("cu") and e.time_range.start < t0}
+                  and e.name.startswith("cu") and e.start < t0}
         ran = {e.id for e in every if e.device_type == DeviceType.CUDA}
         # the trace mirrors each range on the device's timeline: not a kernel
         events = [e for e in every if e.name != TRACED_RANGE and (
             e.id not in before and e.name != range_name
-            if e.device_type == DeviceType.CUDA else e.time_range.start >= t0)]
+            if e.device_type == DeviceType.CUDA else e.start >= t0)]
         launches = sorted((e for e in events if e.device_type == DeviceType.CPU
                            and "LaunchKernel" in e.name),
-                          key=lambda e: e.time_range.start)
+                          key=lambda e: e.start)
         ranges = [e for e in events
                   if e.name == range_name and e.device_type == DeviceType.CPU]
-        where = [(i, e.name, getattr(e.cpu_parent, "name", None))
+        range_us = range_kernel_us(events, ranges)
+        ops = {e.id: e for e in events
+               if e.device_type == DeviceType.CPU and not e.linked}
+        where = [(i, e.name, getattr(ops.get(e.linked), "name", None))
                  for i, e in enumerate(launches) if e.id not in ran]
-        in_roi = sum(r.time_range.start <= launches[i].time_range.start
-                     <= r.time_range.end for i, _, _ in where for r in ranges)
-        empty = sum(e.device_time_total == 0 for e in ranges)
+        in_roi = sum(r.start <= launches[i].start <= r.end
+                     for i, _, _ in where for r in ranges)
+        empty = sum(us == 0 for us in range_us)
         if (len(where) <= TRACE_LOST * len(launches) and not in_roi
                 and not empty and ranges):
             break
@@ -5329,9 +5406,9 @@ def roi_align_share(tag: str, fn, smi: str, scope=roi_align_ranges,
         raise AssertionError(f"{tag}: {NMS_TRACE_TRIES} profiler traces each "
                              f"lost records")
     busy = events_busy(events)
-    kernel_ms = sum(e.time_range.elapsed_us() for e in events
+    kernel_ms = sum(e.end - e.start for e in events
                     if e.device_type == DeviceType.CUDA) / 1e3
-    roi_ms = sum(e.device_time_total for e in ranges) / 1e3
+    roi_ms = sum(range_us) / 1e3
     idle = 1.0 - busy[0] / busy[1]
     log(f"[trace] {tag}: {len(ranges)} {what} ranges, {what} "
         f"{roi_ms:.3f} ms, {roi_ms / kernel_ms:.4f} of the kernels' time; "
@@ -6168,7 +6245,8 @@ def slice16_probe(smi: str, phase: str = "p23"):
 
 def _single_stage_checks(tag: str, cfg, det, images, smi: str,
                          want_n: int, timed: int = P23_TIMED,
-                         steps: int = P23_STEPS, phase: str = "p23"
+                         steps: int = P23_STEPS, phase: str = "p23",
+                         canvas=None, train: bool = True
                          ) -> tuple[int, dict, tuple]:
     """A single-stage detector of phase 23 or 24 (uncut, seeded): one
     counted predict at B=8 (1 NMS launch at N = ``want_n``, keeps equal,
@@ -6176,8 +6254,10 @@ def _single_stage_checks(tag: str, cfg, det, images, smi: str,
     with its peak memory; the backbone's levels, the neck's and the head
     outputs card vs CPU within 1e-3 of the largest magnitude at 1x128x192;
     ``steps`` steps at B=2 after a warm-up (cuDNN deterministic; losses
-    finite, no NMS), timed with their peak memory. Returns (the worst keep
-    difference, the path entry, the recorded NMS input)."""
+    finite, no NMS), timed with their peak memory, on ``canvas`` (the
+    images' size, ``CANVAS`` by default), unless ``train`` is False.
+    Returns (the worst keep difference, the path entry, the recorded NMS
+    input)."""
     import torch
 
     from dsl_tpu_torch.apis.train import deterministic_cudnn
@@ -6208,16 +6288,18 @@ def _single_stage_checks(tag: str, cfg, det, images, smi: str,
         + ", ".join(f"{k} {v:.3e}" for k, v in rel.items()))
     if max(rel.values()) > 1e-3:
         raise AssertionError(f"{tag}: card and CPU disagree: {rel}")
-    variables = seeded_variables(cfg)
-    batch = anchor_batch(TRAIN_SEED, CANVAS, ANCHOR_TRAIN_B,
-                         cfg.model.bbox_head.num_classes, DEVICE)
-    with deterministic_cudnn():
-        nms_keep.launches = 0
-        time_steps(tag, cfg, variables, batch, smi, timed=steps, peak=True)
-        if nms_keep.launches:
-            raise AssertionError(f"{tag} steps: {nms_keep.launches} NMS "
-                                 f"launches, expected none")
-    del batch
+    if train:
+        variables = seeded_variables(cfg)
+        batch = anchor_batch(TRAIN_SEED, canvas or CANVAS, ANCHOR_TRAIN_B,
+                             cfg.model.bbox_head.num_classes, DEVICE)
+        with deterministic_cudnn():
+            nms_keep.launches = 0
+            time_steps(tag, cfg, variables, batch, smi, timed=steps,
+                       peak=True)
+            if nms_keep.launches:
+                raise AssertionError(f"{tag} steps: {nms_keep.launches} NMS "
+                                     f"launches, expected none")
+        del batch
     torch.cuda.empty_cache()
     return worst, dict(B=BATCH, N=want_n, launches=1, predict_ms=ms), \
         calls[0][:3]
@@ -6499,6 +6581,161 @@ def phase_fcos_dcn(smi: str) -> tuple[int, int]:
     return 1, worst
 
 
+GCB_CONFIG = (ROOT / "configs" / "gcnet"
+              / "mask_rcnn_r50_fpn_r4_gcb_c3-c5_1x_coco.py")
+ATTENTION_CONFIG = (ROOT / "configs" / "empirical_attention"
+                    / "faster_rcnn_r50_fpn_attention_1111_1x_coco.py")
+CARAFE_CONFIG = ROOT / "configs" / "carafe" / "faster_rcnn_r50_fpn_carafe_1x_coco.py"
+LIBRA_CONFIG = (ROOT / "configs" / "libra_rcnn"
+                / "libra_faster_rcnn_r50_fpn_1x_coco.py")
+PLUGIN_NECK_CONFIGS = (GCB_CONFIG, ATTENTION_CONFIG,
+                   ROOT / "configs" / "pafpn" / "faster_rcnn_r50_pafpn_1x_coco.py",
+                   CARAFE_CONFIG, LIBRA_CONFIG)
+FPG_CONFIG = ROOT / "configs" / "fpg" / "faster_rcnn_r50_fpg_crop640_50e_coco.py"
+NAS_RETINA_CONFIG = (ROOT / "configs" / "nas_fpn"
+                     / "retinanet_r50_fpn_crop640_50e_coco.py")
+PLUGIN_NECK_SINGLE = (
+    (NAS_RETINA_CONFIG, "nas_retina", True),
+    (ROOT / "configs" / "libra_rcnn" / "libra_retinanet_r50_fpn_1x_coco.py",
+     "libra_retina", True),
+    (ROOT / "configs" / "nas_fcos"
+     / "nas_fcos_nashead_r50_caffe_fpn_gn-head_4x4_1x_coco.py", "nas_fcos",
+     False))
+CROP_CANVAS = (640, 640)      # NAS-FPN's and FPG's crops (an odd P5 raises)
+P25_TIMED, P25_STEPS = 3, 1   # phase 25's predicts and steps timed (median)
+P25_DET_STEPS = 2             # CARAFE's steps per determinism run
+ATTENTION_RANGE = "generalized_attention"
+
+
+def random_sampler(cfg):
+    """``cfg`` with Libra's ``CombinedSampler`` replaced by the random
+    sampler (it raises in the port's training; the JAX package trains it
+    as the random sampler); another config as it is."""
+    from dsl_tpu_torch.config import Config
+
+    rcnn = (cfg.model.get("train_cfg") or {}).get("rcnn") or {}
+    if (rcnn.get("sampler") or {}).get("type") != "CombinedSampler":
+        return cfg
+    d = cfg.to_dict()
+    d["model"]["train_cfg"]["rcnn"]["sampler"] = dict(
+        type="RandomSampler", num=512, pos_fraction=0.25,
+        add_gt_as_proposals=True)
+    return Config(d)
+
+
+@contextlib.contextmanager
+def attention_ranges():
+    """Every ``GeneralizedAttention`` forward in a ``record_function`` range
+    named ``ATTENTION_RANGE``, for a predict's trace."""
+    import torch
+
+    from dsl_tpu_torch.models.layers import GeneralizedAttention
+
+    real = GeneralizedAttention.forward
+
+    def wrapped(self, x):
+        with torch.profiler.record_function(ATTENTION_RANGE):
+            return real(self, x)
+
+    GeneralizedAttention.forward = wrapped
+    try:
+        yield
+    finally:
+        GeneralizedAttention.forward = real
+
+
+def plugin_neck_probe(smi: str):
+    """:func:`slice16_probe` for phase 25's two-stage detectors, then for
+    the attention one (``ATTENTION_CONFIG``) one trace of a predict for
+    GeneralizedAttention's share of the kernels' time
+    (:func:`roi_align_share` over :func:`attention_ranges`), and for the
+    CARAFE one (``CARAFE_CONFIG``) two f32 runs of ``P25_DET_STEPS`` steps
+    from one seed at B=2 that must be bit-identical in every loss and
+    parameter (cuDNN deterministic). Returns the NMS launches (1 per
+    step)."""
+    base = slice16_probe(smi, phase="p25")
+
+    def probe(tag, cfg, variables, det, images) -> int:
+        import torch
+
+        from dsl_tpu_torch.apis.train import deterministic_cudnn
+        from dsl_tpu_torch.models import detector_predict
+        from dsl_tpu_torch.ops.nms import nms_keep
+
+        launches = base(tag, cfg, variables, det, images)
+        if tag == ATTENTION_CONFIG.stem:
+            roi_align_share(
+                f"{tag} predict B={images.shape[0]}",
+                lambda: detector_predict(det, images, device=DEVICE), smi,
+                scope=attention_ranges, range_name=ATTENTION_RANGE,
+                what="GeneralizedAttention")
+        if tag != CARAFE_CONFIG.stem:
+            return launches
+        batch = anchor_batch(TRAIN_SEED, CANVAS, ANCHOR_TRAIN_B,
+                             det.bbox_head.num_classes, DEVICE)
+        with deterministic_cudnn():
+            nms_keep.launches = 0
+            runs = []
+            for _ in range(2):
+                m, _, st, _ = anchor_step_runs(cfg, variables, batch,
+                                               P25_DET_STEPS)
+                runs += [m, {k: p.detach().clone() for k, p in
+                             st.student.named_parameters()}]
+                del st
+            check_deterministic(*runs)
+        if nms_keep.launches != 2 * P25_DET_STEPS:
+            raise AssertionError(f"{tag}: {nms_keep.launches} NMS launches in "
+                                 f"the determinism runs, expected "
+                                 f"{2 * P25_DET_STEPS}")
+        log(f"[p25] {tag}: two runs of {P25_DET_STEPS} steps at "
+            f"{ANCHOR_TRAIN_B}x{CANVAS[0]}x{CANVAS[1]} bit-identical (CARAFE's "
+            f"taps are slices, its kernels a pixel shuffle)")
+        del batch, runs
+        torch.cuda.empty_cache()
+        return launches + nms_keep.launches
+
+    return probe
+
+
+def phase_plugin_neck_single(smi: str):
+    """Phase 25's single-stage detectors (``PLUGIN_NECK_SINGLE``, uncut,
+    seeded): RetinaNet on NAS-FPN with RetinaSepBNHead at 640x640, Libra
+    RetinaNet (BFP ``conv``, Balanced L1) and NAS-FCOS at 800x1344, each
+    through :func:`_single_stage_checks` (1 NMS launch per predict at N =
+    ``ROI_NMS_N``, ``P25_TIMED`` predicts timed, card vs CPU at 1x128x192,
+    ``P25_STEPS`` steps for the first two; for NAS-FCOS, whose towers hold
+    20 deformable convs, a trace of a predict for their share,
+    :func:`deform_conv_share`). Returns (NMS launches, the worst keep
+    difference, {label: (path entry, recorded NMS input)})."""
+    import torch
+
+    from dsl_tpu_torch.apis import init_detector
+    from dsl_tpu_torch.config import Config
+    from dsl_tpu_torch.models import detector_predict
+
+    launches, worst, out = 0, 0, {}
+    for path, label, train in PLUGIN_NECK_SINGLE:
+        cfg = Config.fromfile(str(path))
+        det = init_detector(cfg, variables=seeded_variables(cfg),
+                            device=DEVICE).detector
+        canvas = CROP_CANVAS if path == NAS_RETINA_CONFIG else CANVAS
+        gen = torch.Generator(device=DEVICE).manual_seed(35)
+        images = torch.randn((BATCH, 3, *canvas), generator=gen,
+                             device=DEVICE)
+        w, entry, nms_input = _single_stage_checks(
+            path.stem, cfg, det, images, smi, ROI_NMS_N, timed=P25_TIMED,
+            steps=P25_STEPS, phase="p25", canvas=canvas, train=train)
+        if label == "nas_fcos":
+            deform_conv_share(
+                f"{path.stem} predict B={BATCH}",
+                lambda: detector_predict(det, images, device=DEVICE), smi)
+        launches, worst = launches + 1, max(worst, w)
+        out[label] = (entry, nms_input)
+        del det, images
+        torch.cuda.empty_cache()
+    return launches, worst, out
+
+
 def main() -> int:
     import torch
 
@@ -6523,7 +6760,7 @@ def main() -> int:
     t = time.perf_counter()
     cfg = Config.fromfile(str(CONFIG))
     variables = seeded_variables(cfg)
-    # the models of phases 17-23, in the order they run
+    # the models of phases 17-25, in the order they run
     prefetch_seeded_variables((
         FASTER_RCNN_CONFIG, RETINANET_CONFIG, FASTER_RCNN_VOC_CONFIG,
         SSD_VOC_CONFIG, RPN_CONFIG, FAST_RCNN_CONFIG, *VARIANT_CONFIGS,
@@ -6531,7 +6768,8 @@ def main() -> int:
         CASCADE_MSTRAIN_CONFIG, *HTC_CONFIGS, POINT_REND_CONFIG,
         SEESAW_CONFIG, YOLACT_CONFIG, *SLICE16_CONFIGS, HRNET_FCOS_CONFIG,
         SSD_MOBILENET_CONFIG, VFNET_CONFIG, *DCN_RCNN_CONFIGS,
-        FCOS_DCN_CONFIG))
+        FCOS_DCN_CONFIG, *PLUGIN_NECK_CONFIGS, FPG_CONFIG,
+        *(p for p, _, _ in PLUGIN_NECK_SINGLE)))
     bundle, images, launches, path_err, calls = phase_main_path(cfg, variables)
     log(f"[phase 4] {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
@@ -6717,6 +6955,30 @@ def main() -> int:
         s17_launches = vf_launches + dcn_launches + fd_launches
         s17_err = max(vf_err, dcn_err, fd_err)
         log(f"[phase 24] {time.perf_counter() - t24:.1f} s")
+        t25 = time.perf_counter()
+        probe25 = plugin_neck_probe(smi)
+        p25_launches, p25_err, _, _ = phase_variants(
+            smi, PLUGIN_NECK_CONFIGS, BATCH, seed=36, phase="p25",
+            probe=probe25, timed=P25_TIMED, steps=P25_STEPS, peak=True,
+            prepare=random_sampler)
+        fpg_launches, fpg_err, fpg_paths, fpg_inputs = phase_variants(
+            smi, (FPG_CONFIG,), BATCH, seed=37, phase="p25",
+            probe=slice16_probe(smi, phase="p25"), timed=P25_TIMED,
+            steps=P25_STEPS, peak=True, canvas=CROP_CANVAS)
+        entry = dict(fpg_paths[0], path="fpg_rcnn", N=RPN_NMS_N_640)
+        entry.update(nms_input_timing(
+            "fpg_rcnn_b8", *fpg_inputs[f"{FPG_CONFIG.stem}_rpn"], smi))
+        p18_paths.append(entry)
+        del fpg_inputs
+        ss_launches, ss_err, ss_out = phase_plugin_neck_single(smi)
+        entry, nms_input = ss_out["nas_retina"]
+        entry.update(path="nas_retina",
+                     **nms_input_timing("nas_retina_b8", *nms_input, smi))
+        p18_paths.append(entry)
+        del ss_out
+        p25_launches += fpg_launches + ss_launches
+        p25_err = max(p25_err, fpg_err, ss_err)
+        log(f"[phase 25] {time.perf_counter() - t25:.1f} s")
     launches["nms_keep"] += (semi_launches + eval_launches + weights_launches
                              + baseline_launches + voc_launches + dist_launches
                              + mh_launches + cfg_launches + anchor_launches
@@ -6724,7 +6986,7 @@ def main() -> int:
                              + ssd_launches + rpn_launches + variant_launches
                              + mask_launches + cascade_launches
                              + htc_launches + slice_launches + s16_launches
-                             + s17_launches)
+                             + s17_launches + p25_launches)
     kernels = [dict(
         name="nms_keep", route="cuda",
         source="dsl_tpu_torch/csrc/nms_kernel.cu",
@@ -6734,11 +6996,11 @@ def main() -> int:
                               eval_err, voc_err, mh_err, cfg_err, anchor_err,
                               ssd_err, rpn_err, variant_err, mask_err,
                               flow_err, c4_err, cascade_err, htc_err,
-                              slice_err, s16_err, s17_err)),
+                              slice_err, s16_err, s17_err, p25_err)),
         ms=nms_times["ms"], plain_ms=nms_times["plain_ms"],
         bound_ms=nms_times["bound_ms"], bound_by=nms_times["bound_by"],
         library_ms=None,
-        # the other detectors' inputs (phases 17-24), each timed alike
+        # the other detectors' inputs (phases 17-25), each timed alike
         paths=[{k: v for k, v in e.items() if k in (
             "path", "B", "N", "kept", "launches", "ms", "plain_ms",
             "bound_ms", "bound_by")} for e in anchor_paths + p18_paths])]

@@ -4,6 +4,7 @@ Counterpart of the part of ``dsl_tpu/core/losses.py`` that the ported
 heads use: ``weight_reduce_loss``, ``sigmoid_focal_loss``,
 ``binary_cross_entropy``, ``giou_loss``, ``iou_loss``,
 ``bounded_iou_loss``, ``cross_entropy``, ``smooth_l1_loss``, ``l1_loss``,
+``balanced_l1_loss`` (Libra R-CNN's),
 ``varifocal_loss`` (VFNet's), and the Seesaw loss of the split (C + 2) RoI classifier (``seesaw_ce_loss``,
 ``seesaw_loss``, ``SeesawCounter``). They follow mmdet's contract: an optional
 elementwise ``weight``, a ``reduction`` in {'none', 'mean', 'sum'}, and an
@@ -16,6 +17,8 @@ so a tie splits the gradient as it does in JAX.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -183,6 +186,23 @@ def l1_loss(pred: torch.Tensor, target: torch.Tensor,
             reduction: str = "mean", avg_factor=None):
     return weight_reduce_loss(_abs(pred - target), weight, reduction,
                               avg_factor)
+
+
+def balanced_l1_loss(pred: torch.Tensor, target: torch.Tensor,
+                     beta: float = 1.0, alpha: float = 0.5,
+                     gamma: float = 1.5, weight: torch.Tensor | None = None,
+                     reduction: str = "mean", avg_factor=None):
+    """Balanced L1 (Libra R-CNN): with b = e^(gamma / alpha) - 1, a
+    log-shaped branch ``alpha / b * (b |d| + 1) * log1p(b |d| / beta) -
+    alpha |d|`` below ``beta`` and ``gamma |d| + gamma / b - alpha * beta``
+    from it, as the JAX package writes it."""
+    diff = _abs(pred - target)
+    b = math.e ** (gamma / alpha) - 1
+    loss = torch.where(
+        diff < beta,
+        alpha / b * (b * diff + 1) * torch.log1p(b * diff / beta) - alpha * diff,
+        gamma * diff + gamma / b - alpha * beta)
+    return weight_reduce_loss(loss, weight, reduction, avg_factor)
 
 
 def seesaw_ce_loss(cls_score: torch.Tensor, labels: torch.Tensor,

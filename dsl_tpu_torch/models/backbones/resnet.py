@@ -27,8 +27,15 @@ is ``conv_cfg=dict(type='ConvWS')`` on every conv. As in the JAX package,
 deformable one (``ops/deform_conv.py``: mmcv's ``conv2.weight`` and
 ``conv2.conv_offset``; DCNv2 modulated, ``deform_groups``, the stride on
 it in pytorch style, grouped for ResNeXt); a BasicBlock with ``dcn``
-raises, as in the JAX package (mmdet's asserts). ``plugins`` are not
-ported yet and raise.
+raises, as in the JAX package (mmdet's asserts). ``plugins`` run in a
+bottleneck, as the JAX package runs them: GCNet's ``ContextBlock`` and
+``GeneralizedAttention`` (``models/layers.py``) at ``after_conv2`` (on the
+relu'd 3x3 output) or ``after_conv3`` (on the last norm's output, before
+the residual sum), in config order, in the stages their ``stages`` flags
+pick. A plugin is named by mmcv's abbreviation plus its ``postfix``
+(``context_block``, ``gen_attention_block``). Another position (the JAX
+package never runs one), a plugin on a BasicBlock and another plugin type
+raise.
 """
 
 from __future__ import annotations
@@ -40,8 +47,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from dsl_tpu_torch.models.layers import (
-    conv1x1, conv3x3, he_normal_, is_frozen, is_ws, make_conv, make_norm,
-    max_pool_3x3_s2)
+    ContextBlock, GeneralizedAttention, conv1x1, conv3x3, he_normal_,
+    is_frozen, is_ws, make_conv, make_norm, max_pool_3x3_s2)
 from dsl_tpu_torch.ops.deform_conv import dcn_pack
 from dsl_tpu_torch.registry import BACKBONES
 from dsl_tpu_torch.utils.torch_import import load_torch_backbone
@@ -101,6 +108,28 @@ class BasicBlock(nn.Module):
         return F.relu(out + identity)
 
 
+PLUGINS = {"ContextBlock": ("context_block", ContextBlock),
+           "GeneralizedAttention": ("gen_attention_block",
+                                    GeneralizedAttention)}
+PLUGIN_POSITIONS = ("after_conv2", "after_conv3")
+
+
+def stage_plugins(plugins, stage: int) -> list[dict]:
+    """The plugin entries of ``plugins`` whose ``stages`` flags (all
+    stages where absent) pick ``stage``; a position the JAX package does
+    not run raises."""
+    picked = []
+    for p in plugins or ():
+        position = p.get("position", "after_conv3")
+        if position not in PLUGIN_POSITIONS:
+            raise NotImplementedError(
+                f"plugins at {position!r}: the JAX package runs them only "
+                f"{' and '.join(PLUGIN_POSITIONS)}")
+        if tuple(p.get("stages", (True,) * 4))[stage]:
+            picked.append(dict(p))
+    return picked
+
+
 class Bottleneck(nn.Module):
     expansion = 4
 
@@ -109,7 +138,8 @@ class Bottleneck(nn.Module):
                  norm_cfg: dict | None = None,
                  zero_init_residual: bool = True, groups: int = 1,
                  base_width: int = 64, conv_cfg: dict | None = None,
-                 avg_down: bool = False, dcn: dict | None = None):
+                 avg_down: bool = False, dcn: dict | None = None,
+                 plugins: list[dict] | None = None):
         super().__init__()
         out = planes * self.expansion
         width = int(planes * (base_width / 64.0)) * groups
@@ -126,11 +156,32 @@ class Bottleneck(nn.Module):
         self.downsample = (_downsample(inplanes, out, stride, norm_cfg,
                                        conv_cfg, avg_down)
                            if stride != 1 or inplanes != out else None)
+        self.plugin_names = {pos: [] for pos in PLUGIN_POSITIONS}
+        for p in plugins or ():
+            cfg = dict(p["cfg"])
+            kind = cfg.pop("type")
+            if kind not in PLUGINS:
+                raise NotImplementedError(f"plugin {kind} is not ported: "
+                                          f"only {', '.join(PLUGINS)}")
+            abbr, cls = PLUGINS[kind]
+            name = abbr + str(p.get("postfix", ""))
+            if hasattr(self, name):
+                raise ValueError(f"duplicate plugin {name}")
+            position = p.get("position", "after_conv3")
+            self.add_module(name, cls(width if position == "after_conv2"
+                                      else out, **cfg))
+            self.plugin_names[position].append(name)
+
+    def _plugins(self, x: torch.Tensor, position: str) -> torch.Tensor:
+        for name in self.plugin_names[position]:
+            x = getattr(self, name)(x)
+        return x
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = F.relu(self.bn1(self.conv1(x)))
         out = F.relu(self.bn2(self.conv2(out)))
-        out = self.bn3(self.conv3(out))
+        out = self._plugins(out, "after_conv2")
+        out = self._plugins(self.bn3(self.conv3(out)), "after_conv3")
         identity = x if self.downsample is None else self.downsample(x)
         return F.relu(out + identity)
 
@@ -152,11 +203,8 @@ class ResNet(nn.Module):
                  deep_stem: bool = False, avg_down: bool = False):
         super().__init__()
         # norm_eval is accepted for config parity: BN is FrozenBatchNorm
-        for name, used in (("plugins", bool(plugins)),
-                           ("conv_cfg", bool(conv_cfg) and not is_ws(conv_cfg))):
-            if used:
-                raise NotImplementedError(f"ResNet({name}=...) is not ported "
-                                          f"yet")
+        if conv_cfg and not is_ws(conv_cfg):
+            raise NotImplementedError("ResNet(conv_cfg=...) is not ported yet")
         if depth not in ARCH_SETTINGS:
             raise KeyError(f"invalid depth {depth} for ResNet")
         kind, stage_blocks = ARCH_SETTINGS[depth]
@@ -176,6 +224,7 @@ class ResNet(nn.Module):
         self.deep_stem = deep_stem
         inplanes = stem_channels
         self.stage_names = []
+        widths = []
         for i in range(num_stages):
             planes = base_channels * 2 ** i
             blocks = []
@@ -184,13 +233,17 @@ class ResNet(nn.Module):
                 raise NotImplementedError(
                     "dcn on BasicBlock (depth<50) is not supported (mmdet "
                     "parity: BasicBlock asserts dcn is None)")
+            picked = stage_plugins(plugins, i)
+            if picked and kind != "bottleneck":
+                raise NotImplementedError("plugins on a BasicBlock are not "
+                                          "supported (as in the JAX package)")
             for j in range(stage_blocks[i]):
                 stride = strides[i] if j == 0 else 1
                 if kind == "bottleneck":
                     block = Bottleneck(inplanes, planes, stride, dilations[i],
                                        style, norm_cfg, zero_init_residual,
                                        groups, base_width, conv_cfg, avg_down,
-                                       stage_dcn)
+                                       stage_dcn, picked)
                 else:
                     block = BasicBlock(inplanes, planes, stride, dilations[i],
                                        norm_cfg, zero_init_residual, conv_cfg,
@@ -200,6 +253,11 @@ class ResNet(nn.Module):
             name = f"layer{i + 1}"
             self.add_module(name, nn.Sequential(*blocks))
             self.stage_names.append(name)
+            widths.append(inplanes)
+        # the widths of the levels that come out (the necks that, as flax
+        # does, read their input widths from the levels: models/necks/
+        # channel_mapper.py::build_neck)
+        self.out_channels = tuple(widths[i] for i in self.out_indices)
         for name, p in self.named_parameters():
             if is_frozen(name, frozen_stages):
                 p.requires_grad_(False)
@@ -210,6 +268,9 @@ class ResNet(nn.Module):
         for m in self.modules():
             if isinstance(m, nn.Conv2d):
                 he_normal_(m.weight, generator)
+        for m in self.modules():
+            if isinstance(m, (ContextBlock, GeneralizedAttention)):
+                m.init_weights(generator)
         if self.pretrained:
             load_torch_backbone(self.pretrained, self)
 

@@ -10,3 +10,5 @@ from dsl_tpu_torch.models.dense_heads.yolact_head import (  # noqa: F401
     YOLACTHead, YOLACTProtonet, YOLACTSegmHead, yolact_loss, yolact_predict)
 from dsl_tpu_torch.models.dense_heads.vfnet_head import (  # noqa: F401
     VFNetHead, vfnet_get_bboxes, vfnet_loss)
+from dsl_tpu_torch.models.dense_heads.nasfcos_head import (  # noqa: F401
+    NASFCOSHead)

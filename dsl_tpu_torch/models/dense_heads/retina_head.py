@@ -13,8 +13,9 @@ ranks of a process group; as in the JAX loss, ``loss_weight`` is not
 read); the decode takes each
 level's ``nms_pre`` best anchors by their best class score, decodes, clips
 and rescales them, then ``multiclass_nms`` (one launch of the NMS kernel
-for the batch). ``RetinaSepBNHead`` and the GHM and Balanced L1 losses
-the JAX function also takes are not ported yet and raise.
+for the batch). ``RetinaSepBNHead`` (NAS-FPN's) shares each tower conv over
+the levels with a FrozenBatchNorm per (level, conv). The GHM losses the
+JAX function also takes are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -31,7 +32,8 @@ from dsl_tpu_torch.core.anchors import anchor_generator_from_cfg
 from dsl_tpu_torch.core.assigners import max_iou_assign
 from dsl_tpu_torch.core.boxes import clip_to_shapes, resolve_delta_coder
 from dsl_tpu_torch.core.nms import _gather_rows, _sort_desc, multiclass_nms
-from dsl_tpu_torch.models.layers import bias_init_with_prob, normal_init
+from dsl_tpu_torch.models.layers import (
+    FrozenBatchNorm, bias_init_with_prob, normal_init)
 from dsl_tpu_torch.parallel.mesh import all_reduce_sum
 
 
@@ -66,7 +68,7 @@ class RetinaHead(nn.Module):
         if cls_type != "FocalLoss":
             raise NotImplementedError(f"RetinaHead loss_cls {cls_type} is not "
                                       f"ported yet")
-        if bbox_type not in ("L1Loss", "SmoothL1Loss"):
+        if bbox_type not in ("L1Loss", "SmoothL1Loss", "BalancedL1Loss"):
             raise NotImplementedError(f"RetinaHead loss_bbox {bbox_type} is "
                                       f"not ported yet")
         resolve_delta_coder(bbox_coder)
@@ -115,13 +117,60 @@ class RetinaHead(nn.Module):
         return tuple(cls_scores), tuple(bbox_preds)
 
 
+class _SepBNConv(nn.Module):
+    """mmcv ``ConvModule`` of a shared 3x3 conv (no bias) and this
+    level's FrozenBatchNorm, then a relu."""
+
+    def __init__(self, conv: nn.Conv2d, channels: int):
+        super().__init__()
+        self.conv = conv
+        self.bn = FrozenBatchNorm(channels)
+
+    def forward(self, x):
+        return F.relu(self.bn(self.conv(x)))
+
+
 @HEADS.register
 class RetinaSepBNHead(RetinaHead):
-    """NAS-FPN's Retina head (convs shared over levels, a BN per level):
-    not ported yet."""
+    """NAS-FPN's Retina head, as the JAX package's ``RetinaSepBNHead``:
+    the tower convs (3x3, no bias) are shared over the ``num_ins`` levels,
+    each level with its own FrozenBatchNorm after each conv. The names are
+    mmdet's: ``cls_convs.{level}.{i}.conv`` (one module under every level,
+    as mmdet ties them) and ``.bn``; the predictors are RetinaNet's."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("RetinaSepBNHead is not ported yet")
+    def __init__(self, num_ins: int = 5, **kwargs):
+        super().__init__(**kwargs)
+        stacked = len(self.cls_convs)
+        chans = [kwargs.get("in_channels", 256)] + [
+            kwargs.get("feat_channels", 256)] * stacked
+        self.num_ins = num_ins
+
+        def towers():
+            shared = [nn.Conv2d(chans[i], chans[i + 1], 3, padding=1,
+                                bias=False) for i in range(stacked)]
+            return nn.ModuleList(
+                nn.ModuleList(_SepBNConv(shared[i], chans[i + 1])
+                              for i in range(stacked))
+                for _ in range(num_ins))
+
+        self.cls_convs = towers()
+        self.reg_convs = towers()
+
+    def forward(self, feats, training: bool = False):
+        if len(feats) != self.num_ins:
+            raise ValueError(f"RetinaSepBNHead: {len(feats)} levels for "
+                             f"num_ins {self.num_ins}")
+        cls_scores, bbox_preds = [], []
+        for x, cls_tower, reg_tower in zip(feats, self.cls_convs,
+                                           self.reg_convs):
+            cf, rf = x, x
+            for conv in cls_tower:
+                cf = conv(cf)
+            for conv in reg_tower:
+                rf = conv(rf)
+            cls_scores.append(self.retina_cls(cf).permute(0, 2, 3, 1))
+            bbox_preds.append(self.retina_reg(rf).permute(0, 2, 3, 1))
+        return tuple(cls_scores), tuple(bbox_preds)
 
 
 def retina_loss(head: RetinaHead, cls_scores, bbox_preds, batch: dict,
@@ -149,7 +198,13 @@ def retina_loss(head: RetinaHead, cls_scores, bbox_preds, batch: dict,
     deltas = enc(anchors[None], gt, means, stds)
     bbox_cfg = dict(head.loss_bbox or {})
     posw = pos.to(torch.float32)[..., None]
-    if bbox_cfg.get("type", "L1Loss") == "SmoothL1Loss":
+    if bbox_cfg.get("type") == "BalancedL1Loss":
+        loss_bbox = L.balanced_l1_loss(
+            flat_reg, deltas, weight=posw, avg_factor=num_pos,
+            alpha=float(bbox_cfg.get("alpha", 0.5)),
+            gamma=float(bbox_cfg.get("gamma", 1.5)),
+            beta=float(bbox_cfg.get("beta", 1.0)))
+    elif bbox_cfg.get("type", "L1Loss") == "SmoothL1Loss":
         loss_bbox = L.smooth_l1_loss(flat_reg, deltas,
                                      beta=float(bbox_cfg.get("beta", 1.0)),
                                      weight=posw, avg_factor=num_pos)

@@ -260,7 +260,9 @@ def build_cascade_rcnn(cfg: dict) -> CascadeRCNN:
         raise KeyError(f"unknown cascade detector type {det_type}")
     neck_cfg = cfg.pop("neck")
     if isinstance(neck_cfg, (list, tuple)):
-        raise NotImplementedError("stacked necks are not ported yet")
+        raise NotImplementedError(
+            "a list neck on a cascade: the JAX package's cascade builder "
+            "takes none")
     _check_head(cfg, "rpn_head", ("RPNHead",))
     heads = []
     for i, c in enumerate(cfg.pop("bbox_heads")):

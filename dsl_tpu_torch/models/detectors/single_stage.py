@@ -54,6 +54,7 @@ from dsl_tpu_torch.models.detectors.two_stage import (
     RPN, FastRCNN, TwoStageDetector, build_two_stage_detector,
     check_two_stage, rpn_only_loss, rpn_only_predict, two_stage_loss,
     two_stage_predict)
+from dsl_tpu_torch.models.necks.channel_mapper import build_neck
 from dsl_tpu_torch.utils.device import resolve_device
 from dsl_tpu_torch.utils.precision import outputs_to_f32, to_compute
 
@@ -159,9 +160,7 @@ def build_detector(cfg: dict) -> nn.Module:
         raise KeyError(f"unknown detector type {det_type}")
     backbone = build_from_cfg(dict(cfg.pop("backbone")), MODELS)
     neck_cfg = cfg.pop("neck", None)
-    if isinstance(neck_cfg, (list, tuple)):
-        raise NotImplementedError("stacked necks are not ported yet")
-    neck = build_from_cfg(dict(neck_cfg), MODELS) if neck_cfg else None
+    neck = build_neck(neck_cfg, backbone) if neck_cfg else None
     head = build_from_cfg(dict(cfg.pop("bbox_head")), MODELS)
     extra = {}
     if det_type == "YOLACT":

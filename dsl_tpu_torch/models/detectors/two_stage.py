@@ -65,6 +65,7 @@ from torch.func import functional_call
 from dsl_tpu_torch.registry import DETECTORS, MODELS, build_from_cfg
 from dsl_tpu_torch.models.dense_heads.rpn_head import (
     RPNHead, rpn_loss, rpn_proposals)
+from dsl_tpu_torch.models.necks.channel_mapper import build_neck
 from dsl_tpu_torch.models.roi_heads.mask_head import (
     mask_head_loss, mask_targets_from_crops, select_positive_rois)
 from dsl_tpu_torch.models.roi_heads.maskiou_head import (
@@ -351,8 +352,6 @@ def build_two_stage_detector(cfg: dict) -> nn.Module:
             raise NotImplementedError(f"a two-stage detector with {key!r} is "
                                       f"not ported yet")
     neck_cfg = cfg.pop("neck")
-    if isinstance(neck_cfg, (list, tuple)):
-        raise NotImplementedError("stacked necks are not ported yet")
     if det_type != "FastRCNN":
         _check_head(cfg, "rpn_head", ("RPNHead",))
     if det_type != "RPN":
@@ -369,8 +368,8 @@ def build_two_stage_detector(cfg: dict) -> nn.Module:
     if not issubclass(det_cls, (TwoStageDetector, RPN, FastRCNN)):
         raise TypeError(f"{det_type} is a cascade: its config has bbox_heads "
                         f"(one per stage), not one bbox_head")
-    parts = dict(backbone=build_from_cfg(dict(cfg.pop("backbone")), MODELS),
-                 neck=build_from_cfg(dict(neck_cfg), MODELS),
+    backbone = build_from_cfg(dict(cfg.pop("backbone")), MODELS)
+    parts = dict(backbone=backbone, neck=build_neck(neck_cfg, backbone),
                  train_cfg=cfg.pop("train_cfg", None),
                  test_cfg=cfg.pop("test_cfg", None))
     if det_type != "FastRCNN":

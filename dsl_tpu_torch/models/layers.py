@@ -211,3 +211,243 @@ def is_frozen(name: str, frozen_stages: int) -> bool:
         return int(parts[0][len("layer"):]) <= frozen_stages
     return (parts[0] in ("stages", "conv_outs", "recurrent_convs", "stage_bns")
             and int(parts[1]) < frozen_stages)
+
+
+class _ContextLayerNorm(nn.Module):
+    """flax ``LayerNorm`` over the channels of a (B, C, 1, 1) context, as
+    the JAX package's ``ContextBlock`` normalises it: epsilon 1e-6, the
+    variance taken as ``max(E[x^2] - E[x]^2, 0)`` (flax's fast variance),
+    then ``(x - mean) * (rsqrt(var + eps) * scale) + bias``. The affine
+    parameters are (C, 1, 1), mmcv's ``LayerNorm([planes, 1, 1])``
+    shapes, so an mmdet checkpoint loads by its own keys."""
+
+    eps = 1e-6
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(channels, 1, 1))
+        self.bias = nn.Parameter(torch.zeros(channels, 1, 1))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mean = x.mean(dim=1, keepdim=True)
+        var = torch.clamp_min((x * x).mean(dim=1, keepdim=True)
+                              - mean * mean, 0.0)
+        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) \
+            + self.bias
+
+
+class ContextBlock(nn.Module):
+    """GCNet's global-context block, as ``dsl_tpu/models/layers.py``'s
+    ``ContextBlock`` computes it (mmcv's ``context_block.py``): the
+    context is the attention-pooled feature (``conv_mask``, a softmax over
+    H*W) or the mean (``pooling_type='avg'``); each fusion transforms it
+    by a 1x1 to ``planes`` channels, the LayerNorm above, a relu and a
+    zero-initialised 1x1 back; ``channel_mul`` multiplies its sigmoid onto
+    every position, then ``channel_add`` adds its own. Submodule names are
+    mmcv's (``conv_mask``, ``channel_add_conv.{0,1,3}``,
+    ``channel_mul_conv.{0,1,3}``)."""
+
+    def __init__(self, in_channels: int, ratio: float = 1.0 / 4,
+                 pooling_type: str = "att",
+                 fusion_types=("channel_add",)):
+        super().__init__()
+        if pooling_type not in ("att", "avg"):
+            raise ValueError(f"ContextBlock pooling_type {pooling_type!r}")
+        fusion_types = tuple(fusion_types)
+        if not fusion_types or set(fusion_types) - {"channel_add",
+                                                    "channel_mul"}:
+            raise ValueError(f"ContextBlock fusion_types {fusion_types}")
+        planes = max(int(in_channels * ratio), 1)
+        self.pooling_type = pooling_type
+        self.conv_mask = (nn.Conv2d(in_channels, 1, 1)
+                          if pooling_type == "att" else None)
+
+        def transform():
+            return nn.Sequential(nn.Conv2d(in_channels, planes, 1),
+                                 _ContextLayerNorm(planes), nn.ReLU(),
+                                 nn.Conv2d(planes, in_channels, 1))
+
+        self.channel_add_conv = (transform() if "channel_add" in fusion_types
+                                 else None)
+        self.channel_mul_conv = (transform() if "channel_mul" in fusion_types
+                                 else None)
+
+    def init_weights(self, generator: torch.Generator | None = None):
+        """He-normal convs, the last of each transform zero (the block
+        starts as the identity), as the JAX package initialises it."""
+        for m in self.modules():
+            if isinstance(m, nn.Conv2d):
+                he_normal_(m.weight, generator)
+                nn.init.zeros_(m.bias)
+        for t in (self.channel_add_conv, self.channel_mul_conv):
+            if t is not None:
+                nn.init.zeros_(t[3].weight)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c, h, w = x.shape
+        if self.conv_mask is not None:
+            attn = torch.softmax(self.conv_mask(x).reshape(b, h * w, 1), dim=1)
+            ctx = torch.bmm(x.reshape(b, c, h * w), attn).reshape(b, c, 1, 1)
+        else:
+            ctx = x.mean(dim=(2, 3), keepdim=True)
+        out = x
+        if self.channel_mul_conv is not None:
+            out = out * torch.sigmoid(self.channel_mul_conv(ctx))
+        if self.channel_add_conv is not None:
+            out = out + self.channel_add_conv(ctx)
+        return out
+
+
+def refuse_foreign_keys(module: nn.Module, state_dict: dict, prefix: str,
+                        what: str):
+    """From a module's ``_load_from_state_dict``: raise naming the first
+    key under ``prefix`` that is none of the module's own (an mmdet
+    checkpoint of a part the JAX package builds otherwise)."""
+    own = set(module.state_dict())
+    for key in state_dict:
+        if key.startswith(prefix) and key[len(prefix):] not in own:
+            raise KeyError(f"{key}: no counterpart in {what}")
+
+
+class GeneralizedAttention(nn.Module):
+    """Generalized spatial attention as ``dsl_tpu/models/layers.py``'s
+    ``GeneralizedAttention`` computes it (an independent design, not
+    mmcv's): the logits of each of ``num_heads`` heads are the sum of the
+    terms the ``attention_type`` bits select, [0] query . key, [1] query .
+    relative position, [2] a learned bias . key, [3] a learned bias .
+    relative position, over keys and values subsampled by ``kv_stride``
+    (every ``kv_stride``-th row and column); the position term factorises
+    additively over y and x, each offset's sine features through
+    ``geom_fc_y`` / ``geom_fc_x``. ``spatial_range`` > 0 masks keys farther
+    than it in y or x with -1e9. A softmax over the keys weighs the
+    values; ``proj_conv``'s output, times the zero-initialised ``gamma``,
+    is added to the input.
+
+    Channels split head-major, as the JAX package's ``reshape(b, h, w, m,
+    dk)``: ``view(B, m, dk, H, W)`` in NCHW. The parameters carry the JAX
+    package's names (``query_conv`` only where term 0 or 1 is on, as
+    there; ``key_conv`` always); a key of mmcv's module that has no
+    counterpart here (``appr_geom_fc_x``, ``appr_bias``, ...) raises on
+    load, naming the key."""
+
+    def __init__(self, in_channels: int, num_heads: int = 8,
+                 attention_type: str = "1111", kv_stride: int = 2,
+                 spatial_range: int = -1, position_magnitude: float = 1.0):
+        super().__init__()
+        if len(attention_type) != 4 or set(attention_type) - {"0", "1"}:
+            raise ValueError(f"attention_type {attention_type!r}: four bits")
+        self.bits = [ch == "1" for ch in attention_type]
+        self.num_heads = num_heads
+        self.kv_stride = kv_stride
+        self.spatial_range = spatial_range
+        self.position_magnitude = position_magnitude
+        m = num_heads
+        dk = max(in_channels // m, 1)
+        self.dk = dk
+        bits = self.bits
+        self.query_conv = (nn.Conv2d(in_channels, m * dk, 1, bias=False)
+                           if bits[0] or bits[1] else None)
+        self.key_conv = nn.Conv2d(in_channels, m * dk, 1, bias=False)
+        self.value_conv = nn.Conv2d(in_channels, in_channels, 1, bias=False)
+        self.key_content_bias = (nn.Parameter(torch.zeros(m, dk)) if bits[2]
+                                 else None)
+        if bits[1] or bits[3]:
+            half = max(dk, 2) // 2
+            self.geom_fc_y = nn.Linear(2 * half, m * dk, bias=False)
+            self.geom_fc_x = nn.Linear(2 * half, m * dk, bias=False)
+        else:
+            self.geom_fc_y = self.geom_fc_x = None
+        self.geom_bias = nn.Parameter(torch.zeros(m, dk)) if bits[3] else None
+        self.proj_conv = nn.Conv2d(in_channels, in_channels, 1)
+        self.gamma = nn.Parameter(torch.zeros(()))
+
+    def init_weights(self, generator: torch.Generator | None = None):
+        """The JAX package's init: he-normal 1x1s, normal(1/sqrt(dk))
+        biases, lecun-normal position FCs, ``gamma`` 0."""
+        for conv in (self.query_conv, self.key_conv, self.value_conv,
+                     self.proj_conv):
+            if conv is not None:
+                he_normal_(conv.weight, generator)
+        nn.init.zeros_(self.proj_conv.bias)
+        for p in (self.key_content_bias, self.geom_bias):
+            if p is not None:
+                nn.init.normal_(p, 0.0, self.dk ** -0.5, generator=generator)
+        for fc in (self.geom_fc_y, self.geom_fc_x):
+            if fc is not None:
+                std = fc.in_features ** -0.5 / 0.87962566103423978
+                nn.init.trunc_normal_(fc.weight, 0.0, std, -2 * std, 2 * std,
+                                      generator=generator)
+        nn.init.zeros_(self.gamma)
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        refuse_foreign_keys(self, state_dict, prefix, "the JAX package's "
+                            "GeneralizedAttention (mmcv's differs)")
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
+
+    def _pos_embed(self, n: int, nk: int, device, dtype) -> torch.Tensor:
+        """Sine features of the offsets i - j * kv_stride: (n, nk, 2 *
+        half), as the JAX package's ``_pos_embed``."""
+        half = max(self.dk, 2) // 2
+        rel = (torch.arange(n, dtype=torch.float32, device=device)[:, None]
+               - torch.arange(nk, dtype=torch.float32, device=device)[None]
+               * self.kv_stride)
+        freq = torch.pow(torch.tensor(100.0, device=device),
+                         -torch.arange(half, dtype=torch.float32,
+                                       device=device) / half)
+        ang = rel[..., None] * freq / self.position_magnitude
+        return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bits = self.bits
+        b, c, h, w = x.shape
+        m, dk, s = self.num_heads, self.dk, self.kv_stride
+        kv = x[:, :, ::s, ::s]
+        hk, wk = kv.shape[2:]
+        k = self.key_conv(kv).reshape(b, m, dk, hk, wk)
+        v = self.value_conv(kv).reshape(b, m, c // m, hk * wk)
+        q = (self.query_conv(x).reshape(b, m, dk, h, w) * dk ** -0.5
+             if self.query_conv is not None else None)
+        terms = []
+        if bits[0]:
+            qeff = q
+            if bits[2]:
+                qeff = q + self.key_content_bias.to(x.dtype)[None, :, :,
+                                                             None, None]
+            terms.append(torch.einsum("bmdyw,bmdvu->bmywvu", qeff, k))
+        elif bits[2]:
+            # the bias alone: one logit per key, the same at every query
+            terms.append(torch.einsum("md,bmdvu->bmvu",
+                                      self.key_content_bias.to(x.dtype),
+                                      k)[:, :, None, None])
+        if bits[1] or bits[3]:
+            ry = self.geom_fc_y(self._pos_embed(h, hk, x.device, x.dtype)
+                                ).reshape(h, hk, m, dk)
+            rx = self.geom_fc_x(self._pos_embed(w, wk, x.device, x.dtype)
+                                ).reshape(w, wk, m, dk)
+            qg = q if bits[1] else x.new_zeros((b, m, dk, h, w))
+            if bits[3]:
+                qg = qg + self.geom_bias.to(x.dtype)[None, :, :, None, None]
+            terms.append(torch.einsum("bmdyw,yvmd->bmywv", qg, ry)[..., None])
+            terms.append(torch.einsum("bmdyw,wumd->bmywu", qg, rx)[
+                ..., None, :])
+        logits = None
+        for t in terms:
+            logits = t if logits is None else logits + t
+        if logits is None:
+            logits = x.new_zeros((b, m, 1, 1, hk, wk))
+        if self.spatial_range > 0:
+            dev = x.device
+            yy = (torch.arange(h, device=dev)[:, None]
+                  - torch.arange(hk, device=dev)[None] * s).abs()
+            xx = (torch.arange(w, device=dev)[:, None]
+                  - torch.arange(wk, device=dev)[None] * s).abs()
+            near = ((yy[:, None, :, None] <= self.spatial_range)
+                    & (xx[None, :, None, :] <= self.spatial_range))
+            logits = logits.masked_fill(~near, -1e9)
+        # (B, m, 1, 1, Hk, Wk) where no term depends on the query: one
+        # softmax serves every position
+        nq = logits.shape[2] * logits.shape[3]
+        attn = torch.softmax(logits.reshape(b, m, nq, hk * wk), dim=-1)
+        out = torch.matmul(v, attn.transpose(2, 3))
+        out = out.expand(b, m, c // m, h * w).reshape(b, c, h, w)
+        return x + self.gamma.to(x.dtype) * self.proj_conv(out)

@@ -56,9 +56,8 @@ form Faster R-CNN runs it:
 
 Variants the JAX module also holds raise ``NotImplementedError`` naming
 themselves: the cls-only head (Grid R-CNN), SABL,
-generic RoI extraction, Balanced L1, MSE and the
-DIoU / CIoU losses, OHEM and the instance-balanced / IoU-balanced
-samplers, soft-NMS.
+generic RoI extraction, MSE and the DIoU / CIoU losses, OHEM and the
+instance-balanced / IoU-balanced samplers, soft-NMS.
 """
 
 from __future__ import annotations
@@ -356,7 +355,8 @@ def extract_roi_feats(feats: Sequence[torch.Tensor], rois: torch.Tensor,
 def resolve_rcnn_bbox_loss(cfg):
     """The bbox head's ``loss_bbox`` config -> ``(fn, decoded)``, ``fn(pred,
     target, pos_weight, avg_factor)``: L1 (the default, as every reference
-    two-stage config) or SmoothL1(beta) on deltas; IoU, GIoU and
+    two-stage config), SmoothL1(beta) or Libra's BalancedL1(alpha, gamma,
+    beta) on deltas; IoU, GIoU and
     BoundedIoU(beta) on decoded boxes (``decoded`` True); the others
     raise."""
     cfg = dict(cfg or {})
@@ -369,6 +369,13 @@ def resolve_rcnn_bbox_loss(cfg):
         beta = float(cfg.get("beta", 1.0))
         return (lambda p, tg, w, af: lw * L.smooth_l1_loss(
             p, tg, beta=beta, weight=w[:, None], avg_factor=af)), False
+    if t == "BalancedL1Loss":
+        beta = float(cfg.get("beta", 1.0))
+        alpha = float(cfg.get("alpha", 0.5))
+        gamma = float(cfg.get("gamma", 1.5))
+        return (lambda p, tg, w, af: lw * L.balanced_l1_loss(
+            p, tg, beta=beta, alpha=alpha, gamma=gamma, weight=w[:, None],
+            avg_factor=af)), False
     if t in ("IoULoss", "GIoULoss"):
         fn = L.iou_loss if t == "IoULoss" else L.giou_loss
         return (lambda p, tg, w, af: lw * fn(p, tg, weight=w,

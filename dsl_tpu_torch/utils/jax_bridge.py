@@ -96,7 +96,25 @@ plain nested dicts. What changes on the way:
   out) <-> mmdet's 1x1 convs (out, in, 1, 1)), MobileNetV2's ``conv1`` /
   ``bn1`` <-> ``conv1.{conv,bn}`` and ``{expand,depthwise,project}_{conv,bn}``
   <-> ``{expand,depthwise,linear}_conv.{conv,bn}``. RegNet has a ResNet's
-  names.
+  names;
+- the plugins and the other necks: a bottleneck's ``plugin{k}`` <-> mmcv's abbreviation
+  (``context_block``, ``gen_attention_block``; back by each block's order
+  of appearance), a ContextBlock's ``channel_{add,mul}_conv1`` / ``_ln`` /
+  ``_conv2`` <-> ``channel_{add,mul}_conv.{0,1,3}`` (its LayerNorm's
+  affine (planes,) <-> mmcv's (planes, 1, 1)); a list neck's ``necks_{i}``
+  <-> ``neck.{i}``; BFP's ``refine`` <-> ``refine.conv``; PAFPN's
+  ``downsample_conv{i}`` and ``pafpn_conv{i}`` <-> ``downsample_convs.{i}.conv``
+  and ``pafpn_convs.{i-1}.conv``; FPN_CARAFE's ``lateral{i}`` and
+  ``up{i}`` <-> ``lateral_convs.{i}.conv`` and ``upsample_modules.{i-1}``,
+  the content encoder's output channels permuted from the JAX package's
+  sub-pixel-major order to mmcv's tap-major one (and back);
+  RetinaSepBNHead's ``{cls,reg}_conv{i}`` <-> every level's
+  ``{cls,reg}_convs.{l}.{i}.conv`` (one kernel, as mmdet ties them) and
+  ``{cls,reg}_bn_l{l}_s{i}`` <-> ``.{l}.{i}.bn``; NASFCOSHead's
+  ``{cls,reg}_op{i}`` (a deformable op's kernel its own leaf, its offset
+  conv ``conv_offset``) <-> ``{cls,reg}_convs.{i}.conv`` and ``.gn``. The
+  NAS-FPN, NAS-FCOS FPN, FPG and GeneralizedAttention modules carry the
+  JAX package's names.
 
 ``dsl_tpu_torch.train.bridge`` carries a whole train state across on top of
 these two.
@@ -205,6 +223,142 @@ def _backbone_to_torch(params: dict) -> list:
         rules.append((r"^neck\.reduction_conv$",
                       lambda m, n: "neck.reduction_conv.conv"))
     return rules
+
+
+def _plugin_rules(params: dict) -> list:
+    """A bottleneck's ``plugin{k}`` (flax) -> mmcv's abbreviation, told by
+    its parts (a ContextBlock's ``conv_mask`` or transforms), and a
+    ContextBlock's transform convs and LayerNorm."""
+    abbr = {}
+    for name, block in params.get("backbone", {}).items():
+        for k, part in block.items() if isinstance(block, dict) else ():
+            if re.fullmatch(r"plugin\d+", k):
+                context = any(c == "conv_mask" or c.startswith("channel_")
+                              for c in part)
+                abbr[(name, k)] = ("context_block" if context
+                                   else "gen_attention_block")
+    if not abbr:
+        return []
+    return [(r"^backbone\.(layer\d+_\d+)\.(plugin\d+)\b",
+             lambda m, n: f"backbone.{m[1]}.{abbr[(m[1], m[2])]}"),
+            (r"\.(channel_(?:add|mul))_conv1$", lambda m, n: f".{m[1]}_conv.0"),
+            (r"\.(channel_(?:add|mul))_ln$", lambda m, n: f".{m[1]}_conv.1"),
+            (r"\.(channel_(?:add|mul))_conv2$", lambda m, n: f".{m[1]}_conv.3")]
+
+
+def _plugins_to_flax(state_dict: dict) -> list:
+    """:func:`_plugin_rules` back: each block's plugins numbered in their
+    order in the state dict (the module's, which is the config's)."""
+    index: dict = {}
+    for key in state_dict:
+        m = re.match(r"^(backbone\.layer\d+\.\d+)\."
+                     r"((?:context_block|gen_attention_block)\w*)\.", key)
+        if m and (m[1], m[2]) not in index:
+            index[(m[1], m[2])] = sum(1 for b, _ in index if b == m[1])
+    if not index:
+        return []
+    return [(r"^(backbone\.layer\d+\.\d+)\."
+             r"((?:context_block|gen_attention_block)\w*)\b",
+             lambda m, n: f"{m[1]}.plugin{index[(m[1], m[2])]}"),
+            (r"\.(channel_(?:add|mul))_conv\.0$", lambda m, n: f".{m[1]}_conv1"),
+            (r"\.(channel_(?:add|mul))_conv\.1$", lambda m, n: f".{m[1]}_ln"),
+            (r"\.(channel_(?:add|mul))_conv\.3$", lambda m, n: f".{m[1]}_conv2")]
+
+
+def _neck_to_torch(params: dict) -> list:
+    """The renames of a list neck, BFP, PAFPN and FPN_CARAFE (flax ->
+    port), applied before the FPN rules."""
+    neck = params.get("neck", {})
+    parts = [neck] + [v for k, v in neck.items() if re.fullmatch(r"necks_\d+", k)]
+    rules = [(r"^neck\.necks_(\d+)\b", lambda m, n: f"neck.{m[1]}")]
+    if any("refine" in p for p in parts):
+        rules.append((r"^neck\.((?:\d+\.)?)refine$",
+                      lambda m, n: f"neck.{m[1]}refine.conv"))
+    if "pafpn_conv1" in neck:
+        rules += [(r"^neck\.downsample_conv(\d+)$",
+                   lambda m, n: f"neck.downsample_convs.{m[1]}.conv"),
+                  (r"^neck\.pafpn_conv(\d+)$",
+                   lambda m, n: f"neck.pafpn_convs.{int(m[1]) - 1}.conv")]
+    if "up1" in neck:
+        rules += [(r"^neck\.lateral(\d+)$",
+                   lambda m, n: f"neck.lateral_convs.{m[1]}.conv"),
+                  (r"^neck\.up(\d+)\b",
+                   lambda m, n: f"neck.upsample_modules.{int(m[1]) - 1}")]
+    return rules
+
+
+def _neck_to_flax(state_dict: dict) -> list:
+    """:func:`_neck_to_torch`'s renames back, applied before the FPN
+    rules."""
+    keys = list(state_dict)
+    rules = [(r"^neck\.(\d+)\.", lambda m, n: f"neck.necks_{m[1]}.")]
+    if any(re.match(r"^neck\.(\d+\.)?refine\.conv\.", k) for k in keys):
+        rules.append((r"^neck\.((?:necks_\d+\.)?)refine\.conv$",
+                      lambda m, n: f"neck.{m[1]}refine"))
+    if any(k.startswith("neck.pafpn_convs.") for k in keys):
+        rules += [(r"^neck\.downsample_convs\.(\d+)\.conv$",
+                   lambda m, n: f"neck.downsample_conv{m[1]}"),
+                  (r"^neck\.pafpn_convs\.(\d+)\.conv$",
+                   lambda m, n: f"neck.pafpn_conv{int(m[1]) + 1}")]
+    if any(k.startswith("neck.upsample_modules.") for k in keys):
+        rules += [(r"^neck\.lateral_convs\.(\d+)\.conv$",
+                   lambda m, n: f"neck.lateral{m[1]}"),
+                  (r"^neck\.upsample_modules\.(\d+)\b",
+                   lambda m, n: f"neck.up{int(m[1]) + 1}")]
+    return rules
+
+
+def _heads_to_torch(params: dict) -> list:
+    """The renames of NASFCOSHead's and RetinaSepBNHead's towers (flax ->
+    port), applied before the FCOS / RetinaNet rules."""
+    head = params.get("bbox_head", {})
+    rules = []
+    if "cls_op0" in head:
+        rules += [(r"^bbox_head\.(cls|reg)_op(\d+)$",
+                   lambda m, n: f"bbox_head.{m[1]}_convs.{m[2]}.conv"),
+                  (r"^bbox_head\.(cls|reg)_op(\d+)\.(conv|gn)$",
+                   lambda m, n: f"bbox_head.{m[1]}_convs.{m[2]}.{m[3]}")]
+    if "cls_bn_l0_s0" in head:
+        rules.append((r"^bbox_head\.(cls|reg)_bn_l(\d+)_s(\d+)$",
+                      lambda m, n: f"bbox_head.{m[1]}_convs.{m[2]}.{m[3]}.bn"))
+    return rules
+
+
+def _heads_to_flax(state_dict: dict) -> list:
+    """:func:`_heads_to_torch`'s renames back."""
+    rules = []
+    if NASFCOS_OFFSETS <= set(state_dict):
+        rules.append((r"^bbox_head\.(cls|reg)_convs\.(\d+)\.(conv|gn)\b",
+                      lambda m, n: f"bbox_head.{m[1]}_op{m[2]}.{m[3]}"))
+    if "bbox_head.cls_convs.0.0.bn.weight" in state_dict:
+        rules += [(r"^bbox_head\.(cls|reg)_convs\.(\d+)\.(\d+)\.bn$",
+                   lambda m, n: f"bbox_head.{m[1]}_bn_l{m[2]}_s{m[3]}"),
+                  (r"^bbox_head\.(cls|reg)_convs\.\d+\.(\d+)\.conv$",
+                   lambda m, n: f"bbox_head.{m[1]}_conv{m[2]}")]
+    return rules
+
+
+# FPN_CARAFE's content encoders, whose output channels are tap-major here
+# and sub-pixel-major in the JAX package
+CARAFE_ENCODER = re.compile(r"^neck\.upsample_modules\.\d+\.content_encoder$")
+# a ContextBlock's LayerNorm, whose affine parameters are (planes, 1, 1)
+CONTEXT_LN = re.compile(r"\.context_block\w*\.channel_(add|mul)_conv\.1$")
+# RetinaSepBNHead's tied tower convs, one per (level, conv) here
+SEPBN_CONV = re.compile(r"^bbox_head\.(cls|reg)_convs\.(\d+)\.(\d+)\.conv\.weight$")
+# NASFCOSHead's deformable ops (FCOS's dcn_on_last_conv has one, the last)
+NASFCOS_OFFSETS = {"bbox_head.cls_convs.0.conv.conv_offset.weight",
+                   "bbox_head.cls_convs.2.conv.conv_offset.weight"}
+# GeneralizedAttention's parameters whose names end in _bias (not a
+# deformable conv's bias)
+ATTENTION_BIASES = ("key_content_bias", "geom_bias")
+
+
+def _carafe_order(n_out: int, scale: int = 2) -> np.ndarray:
+    """The JAX package's content-encoder channel of each of mmcv's: mmcv's
+    channel t * scale**2 + q is the JAX package's q * k*k + t (q the
+    sub-pixel, t the tap)."""
+    s2 = scale * scale
+    return np.arange(n_out).reshape(s2, n_out // s2).T.reshape(-1)
 
 
 def _backbone_to_flax(state_dict: dict) -> list:
@@ -483,17 +637,19 @@ def flax_to_state_dict(variables: dict) -> dict[str, torch.Tensor]:
     """flax ``{"params", "batch_stats"}`` tree of arrays -> port state_dict."""
     params = variables["params"]
     neck = params.get("neck", params.get("necks_0", {}))
-    neck = neck.get("fpn", neck)
+    neck = neck.get("fpn", neck.get("necks_0", neck))
     n_lat = sum(1 for k in neck if k.startswith("lateral_conv"))
     rla = "conv_out0" in params.get("backbone", {})
     rules = (_roi_parts_to_torch(params) + _backbone_to_torch(params)
-             + _DETECTORS_TO_TORCH
+             + _plugin_rules(params) + _neck_to_torch(params)
+             + _heads_to_torch(params) + _DETECTORS_TO_TORCH
              + (_TO_TORCH if rla else _RESNET_TO_TORCH + _TO_TORCH))
     sd: dict[str, torch.Tensor] = {}
     for collection in ("params", "batch_stats"):
         for path, arr in _leaves(variables.get(collection, {})):
             mod_path, leaf, suffix = path[:-1], path[-1], ""
-            dcn = re.fullmatch(r"(\w+)_(kernel|bias)", leaf)
+            dcn = (re.fullmatch(r"(\w+)_(kernel|bias)", leaf)
+                   if leaf not in ATTENTION_BIASES else None)
             if dcn:
                 # a deformable conv's own kernel or bias, a leaf of its parent
                 mod_path, leaf = mod_path + (dcn[1],), dcn[2]
@@ -531,6 +687,14 @@ def flax_to_state_dict(variables: dict) -> dict[str, torch.Tensor]:
                     arr = arr[:, :, None]
                 if SA_FC.match(module):
                     arr = arr[:, :, None, None]
+            elif CONTEXT_LN.search(module):
+                name = "weight" if leaf == "scale" else leaf
+                arr = arr.reshape(-1, 1, 1)
+            elif CARAFE_ENCODER.match(module):
+                name = "weight" if leaf == "kernel" else leaf
+                arr = arr[..., _carafe_order(arr.shape[-1])]
+                if leaf == "kernel":
+                    arr = np.transpose(arr, (3, 2, 0, 1))
             elif leaf == "bias" and module == PACK_OFFSET_FC:
                 name = leaf
                 arr = arr[_roi_rows(arr.shape[0], 2, to_chw=True)]
@@ -556,6 +720,16 @@ def flax_to_state_dict(variables: dict) -> dict[str, torch.Tensor]:
                 name = leaf
             # np.array, not ascontiguousarray, which makes 0-d arrays 1-d
             sd[f"{module}.{name}"] = torch.from_numpy(np.array(arr, np.float32))
+    if "cls_bn_l0_s0" in params.get("bbox_head", {}):
+        # RetinaSepBNHead: its one kernel per tower conv under every level
+        levels = sum(1 for k in params["bbox_head"]
+                     if re.fullmatch(r"cls_bn_l\d+_s0", k))
+        for key in [k for k in sd
+                    if re.fullmatch(r"bbox_head\.(cls|reg)_convs\.\d+\.conv\.weight", k)]:
+            kind, i = key.split(".")[1], key.split(".")[2]
+            w = sd.pop(key)
+            for lvl in range(levels):
+                sd[f"bbox_head.{kind}.{lvl}.{i}.conv.weight"] = w
     return sd
 
 
@@ -660,7 +834,8 @@ def state_dict_to_flax(state_dict: dict) -> dict:
                  lambda m, n: f"proto_head.{proto_names[int(m[1])]}")]
              + (_DETECTORS_BACKBONE_TO_FLAX if detectors else [])
              + (_RFP_TO_FLAX if rfp else []) + _backbone_to_flax(state_dict)
-             + _TO_FLAX)
+             + _plugins_to_flax(state_dict) + _neck_to_flax(state_dict)
+             + _heads_to_flax(state_dict) + _TO_FLAX)
     out: dict = {"params": {}, "batch_stats": {}}
     # the port's deformable convs: an mmcv pack (with its conv_offset) or
     # VFNet's star convs
@@ -669,15 +844,22 @@ def state_dict_to_flax(state_dict: dict) -> dict:
     deform |= {m for m in ("bbox_head.vfnet_reg_refine_dconv",
                            "bbox_head.vfnet_cls_dconv")
                if f"{m}.weight" in state_dict}
+    nasfcos = NASFCOS_OFFSETS <= set(state_dict)
     for key, value in state_dict.items():
         module, name = key.rsplit(".", 1)
         if name == "num_batches_tracked":
             continue
+        sepbn = SEPBN_CONV.match(key)
+        if sepbn and sepbn[2] != "0":
+            continue                  # a tied kernel: level 0's is the one
         arr = value.detach().cpu().numpy()
         collection = "params"
         if module in deform or module.endswith(".conv_offset"):
             kind = "kernel" if name == "weight" else name
-            if module in deform:
+            if module in deform and nasfcos and module.startswith("bbox_head."):
+                # NASFCOSHead's deformable op: its kernel a leaf of the op
+                parent, leaf = _rename(module, rules, n_lat)[:-len(".conv")], kind
+            elif module in deform:
                 # a leaf of its parent: X_kernel (HWIO), X_bias
                 parent, own = _rename(module, rules, n_lat).rsplit(".", 1)
                 leaf = f"{own}_{kind}"
@@ -693,6 +875,14 @@ def state_dict_to_flax(state_dict: dict) -> dict:
             continue
         if name in ("running_mean", "running_var"):
             collection, leaf = "batch_stats", name[len("running_"):]
+        elif CONTEXT_LN.search(module):
+            leaf, arr = ("scale" if name == "weight" else name), arr.reshape(-1)
+        elif CARAFE_ENCODER.match(module):
+            if name == "weight":
+                leaf, arr = "kernel", np.transpose(arr, (2, 3, 1, 0))
+            else:
+                leaf = name
+            arr = arr[..., np.argsort(_carafe_order(arr.shape[-1]))]
         elif name in ("weight", "weight_diff") and (
                 f"{module}.weight_diff" in state_dict):
             leaf, arr = name, np.transpose(arr, (2, 3, 1, 0))   # a SAC's

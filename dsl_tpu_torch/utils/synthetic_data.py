@@ -565,6 +565,75 @@ TINY_VFNET = dict(
     test_cfg=dict(nms_pre=1000, score_thr=0.05,
                   nms=dict(iou_threshold=0.6), max_per_img=100))
 
+# the plugins and necks: a ResNet-50 at a quarter width with GCNet's ContextBlock in
+# c3-c5 and GeneralizedAttention ('1111', kv_stride 2) in c4-c5 (their JAX
+# packages' own blocks), the other necks at 32 wide (NAS-FPN
+# and FPG at stack_times 2), Libra's Balanced L1, RetinaSepBNHead, NAS-FCOS
+_GCB = dict(cfg=dict(type="ContextBlock", ratio=1. / 4),
+            stages=(False, True, True, True), position="after_conv3")
+_ATTENTION = dict(cfg=dict(type="GeneralizedAttention", spatial_range=-1,
+                           num_heads=8, attention_type="1111", kv_stride=2),
+                  stages=(False, False, True, True), position="after_conv2")
+_TINY_PLUGIN_BACKBONE = dict(type="ResNet", depth=50, stem_channels=16,
+                             base_channels=16, out_indices=(0, 1, 2, 3),
+                             frozen_stages=1, style="pytorch",
+                             plugins=[_GCB, _ATTENTION])
+TINY_GCB_MASK_RCNN = dict(
+    TINY_MASK_RCNN, backbone=dict(_TINY_PLUGIN_BACKBONE, plugins=[_GCB]))
+TINY_ATTENTION_FASTER = dict(
+    TINY_FASTER_RCNN, backbone=dict(_TINY_PLUGIN_BACKBONE,
+                                    plugins=[_ATTENTION]))
+TINY_PAFPN_FASTER = dict(
+    TINY_FASTER_RCNN, neck=dict(TINY_FASTER_RCNN["neck"], type="PAFPN"))
+TINY_CARAFE_FASTER = dict(
+    TINY_FASTER_RCNN,
+    neck=dict(type="FPN_CARAFE", in_channels=[64, 128, 256, 512],
+              out_channels=32, num_outs=5))
+_BALANCED_L1 = dict(type="BalancedL1Loss", alpha=0.5, gamma=1.5, beta=1.0,
+                    loss_weight=1.0)
+TINY_LIBRA_FASTER = dict(
+    TINY_FASTER_RCNN,
+    neck=[TINY_FASTER_RCNN["neck"],
+          dict(type="BFP", in_channels=32, num_levels=5, refine_level=2,
+               refine_type="non_local")],
+    bbox_head=dict(TINY_FASTER_RCNN["bbox_head"], loss_bbox=_BALANCED_L1),
+    train_cfg=dict(rcnn=dict(sampler=dict(
+        type="CombinedSampler", num=512, pos_fraction=0.25,
+        add_gt_as_proposals=True,
+        pos_sampler=dict(type="InstanceBalancedPosSampler"),
+        neg_sampler=dict(type="IoUBalancedNegSampler", floor_thr=-1,
+                         floor_fraction=0, num_bins=3)))))
+TINY_LIBRA_RETINANET = dict(
+    TINY_RETINANET,
+    neck=[TINY_RETINANET["neck"],
+          dict(type="BFP", in_channels=32, num_levels=5, refine_level=2,
+               refine_type="conv")],
+    bbox_head=dict(TINY_RETINANET["bbox_head"],
+                   loss_bbox=dict(_BALANCED_L1, beta=0.11)))
+TINY_NASFPN_RETINANET = dict(
+    TINY_RETINANET,
+    neck=dict(type="NASFPN", in_channels=[128, 256, 512], out_channels=32,
+              num_outs=5, stack_times=2, start_level=1),
+    bbox_head=dict(TINY_RETINANET["bbox_head"], type="RetinaSepBNHead",
+                   num_ins=5))
+TINY_FPG_FASTER = dict(
+    TINY_FASTER_RCNN,
+    neck=dict(type="FPG", in_channels=[64, 128, 256, 512], out_channels=32,
+              num_outs=5, stack_times=2))
+TINY_FPG_RETINANET = dict(TINY_RETINANET, neck=TINY_FPG_FASTER["neck"])
+TINY_NASFCOS = dict(
+    type="FCOS",
+    backbone=dict(_TINY_BACKBONE, style="caffe"),
+    neck=dict(type="NASFCOS_FPN", in_channels=[128, 256, 512],
+              out_channels=32, num_outs=5),
+    bbox_head=dict(type="NASFCOSHead", num_classes=20, in_channels=32,
+                   feat_channels=32, strides=[8, 16, 32, 64, 128],
+                   norm_on_bbox=True, centerness_on_reg=True,
+                   center_sampling=True, conv_bias=True,
+                   norm_cfg=dict(type="GN", num_groups=32)),
+    test_cfg=dict(nms_pre=1000, score_thr=0.05,
+                  nms=dict(iou_threshold=0.6), max_per_img=100))
+
 
 def ssd_pipeline(pipeline: list) -> list:
     """A copy of an SSD pipeline (``configs/_base_/datasets/wider_face.py``'s

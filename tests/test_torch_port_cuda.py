@@ -110,6 +110,15 @@ dependencies:
   input's, the offsets', the mask's, the kernel's), at offsets that move
   samples off the map; two backward passes on the card give the same
   bits;
+- the plugins' and necks' ops: ``carafe`` (5x5 taps at scale 2 on an odd source),
+  ``GeneralizedAttention`` (``'1111'``, ``kv_stride`` 2, ``spatial_range``
+  3, on an odd map) and NAS-FPN's resize (its repeat and its pool) on the
+  card agree with the CPU within 1e-5, forward and every gradient (the
+  input's, the kernels', every parameter's), and two backward passes on
+  the card give the same bits;
+- ``chip_smoke.py``'s walk of a trace's raw records gives the kernels' time
+  and each ``record_function`` range's, forward and backward, of torch's
+  own event tree within 1e-3;
 - ``train_detector`` and ``single_device_test`` refuse to start without
   CUDA (these run everywhere).
 """
@@ -1395,3 +1404,128 @@ def test_deformable_ops_on_the_card_match_the_cpu_and_repeat(card, case):
     for a, b in zip(on_card[0], on_cpu):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-5 * max(
             1.0, float(b.abs().max())))
+
+
+def _plugin_neck_case(case: str):
+    """(fn(*tensors, dev), numpy inputs, output shape, module or None)."""
+    rng = np.random.RandomState(18)
+    if case == "carafe":
+        from dsl_tpu_torch.ops.misc_ops import carafe
+
+        x = rng.randn(2, 16, 13, 21).astype(np.float32)
+        m = np.exp(rng.randn(2, 25, 26, 42))
+        m = (m / m.sum(1, keepdims=True)).astype(np.float32)
+        return (lambda xt, mt, dev: carafe(xt, mt, 5, 2)), [x, m], \
+            (2, 16, 26, 42), None
+    if case == "generalized_attention":
+        from dsl_tpu_torch.models.layers import GeneralizedAttention
+
+        module = GeneralizedAttention(64, num_heads=8, attention_type="1111",
+                                      kv_stride=2, spatial_range=3)
+        gen = torch.Generator().manual_seed(18)
+        with torch.no_grad():
+            for p in module.parameters():
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.2)
+        x = rng.randn(2, 64, 25, 37).astype(np.float32)
+        return (lambda xt, dev: module.to(dev)(xt)), [x], (2, 64, 25, 37), \
+            module
+    from dsl_tpu_torch.models.necks.nas_fpn import _resize_to
+
+    x = rng.randn(2, 16, 13, 21).astype(np.float32)
+    y = rng.randn(2, 16, 52, 84).astype(np.float32)
+    return (lambda xt, yt, dev: torch.cat(
+        [_resize_to(xt, (52, 84)).flatten(1),
+         _resize_to(yt, (13, 21)).flatten(1)], 1)), [x, y], \
+        (2, 16 * (52 * 84 + 13 * 21)), None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["carafe", "generalized_attention",
+                                  "nas_fpn_resize"])
+def test_plugin_and_neck_ops_on_the_card_match_the_cpu_and_repeat(card, case):
+    fn, arrays, out_shape, module = _plugin_neck_case(case)
+    g = np.random.RandomState(19).randn(*out_shape).astype(np.float32)
+    runs = {}
+    for key, dev, n in (("card", card, 2), ("cpu", "cpu", 1)):
+        runs[key] = []
+        for _ in range(n):
+            ts = [torch.from_numpy(a).to(dev).requires_grad_() for a in arrays]
+            if module is not None:
+                module.to(dev).zero_grad(set_to_none=True)
+            out = fn(*ts, dev)
+            out.backward(torch.from_numpy(g).to(dev))
+            params = [] if module is None else [
+                p.grad.detach().cpu().clone() for p in module.parameters()]
+            runs[key].append([out.detach().cpu()]
+                             + [t.grad.cpu() for t in ts] + params)
+    first, second = runs["card"]
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    for a, b in zip(first, runs["cpu"][0]):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5 * max(
+            1.0, float(b.abs().max())))
+
+
+@pytest.mark.cuda
+def test_the_smokes_trace_walk_matches_torchs_event_tree(card):
+    """``chip_smoke.py`` reads a trace's raw records (``trace_events``,
+    ``range_kernel_us``) where ``prof.events()`` would first build torch's
+    event tree (seconds of host time for a traced step): the kernels'
+    total and each ``record_function`` range's kernel time, forward and in
+    autograd's backward thread, agree with the tree's within 1e-3."""
+    import sys
+    from pathlib import Path
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+
+    class Ranged(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, w):
+            ctx.save_for_backward(x, w)
+            return x @ w
+
+        @staticmethod
+        def backward(ctx, g):
+            x, w = ctx.saved_tensors
+            with record_function("r"):
+                return g @ w.t(), x.t() @ g
+
+    gen = torch.Generator(device=card).manual_seed(0)
+    x = torch.randn(512, 512, device=card, generator=gen, requires_grad=True)
+    w = torch.randn(512, 512, device=card, generator=gen, requires_grad=True)
+
+    def fn():
+        with record_function("r"):
+            y = torch.relu(Ranged.apply(x, w))
+        (y * y).sum().backward()
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+    events = chip_smoke.trace_events(prof)
+    ranges = sorted((e for e in events if e.name == "r"
+                     and e.device_type == DeviceType.CPU),
+                    key=lambda e: e.start)
+    ours = chip_smoke.range_kernel_us(events, ranges)
+    tree = prof.events()
+    theirs = [e.device_time_total for e in sorted(
+        (e for e in tree if e.name == "r" and e.device_type == DeviceType.CPU),
+        key=lambda e: e.time_range.start)]
+    assert len(ranges) == len(theirs) == 6
+    assert len({r.thread for r in ranges}) == 2
+    assert all(t > 0 for t in theirs)
+    for a, b in zip(ours, theirs):
+        assert abs(a - b) <= 1e-3 * b
+    kernels = [e.end - e.start for e in events
+               if e.device_type == DeviceType.CUDA and e.name != "r"]
+    want = [e.time_range.elapsed_us() for e in tree
+            if e.device_type == DeviceType.CUDA and e.name != "r"]
+    assert len(kernels) == len(want)
+    assert abs(sum(kernels) - sum(want)) <= 1e-3 * sum(want)

@@ -36,7 +36,8 @@ FCOS on a caffe ResNet with DCN and DCNv2 on its towers' last conv):
 - the weight bridge both ways, mmdet's ``conv2.conv_offset`` and
   ``offset_fc`` / ``mask_fc`` names (an mmdet file keeps one pack per
   level: equal ones load, differing ones raise naming the keys);
-- what stays refused by name in both packages (``plugins``, DCN on a
+- what stays refused by name in both packages (a plugin at a position
+  the JAX package never runs, DCN on a
   BasicBlock, RepPoints);
 - every config of ``configs/dcn/`` (and the DCN FCOS and RegNet ones)
   built on the meta device, with the JAX package's parameter counts.
@@ -492,8 +493,9 @@ def test_bridge_round_trip_and_mmdet_names(cfg, tmp_path):
 
 @pytest.mark.parametrize("what", ["plugins", "basic_block_dcn", "reppoints"])
 def test_what_stays_refused(what):
-    """``plugins`` and RepPoints are not ported: the port refuses them by
-    name; DCN on a BasicBlock raises in both packages."""
+    """RepPoints is not ported and a plugin at a position the JAX package
+    never runs is refused: the port refuses them by name; DCN on a
+    BasicBlock raises in both packages."""
     if what == "reppoints":
         model = dict(Config.fromfile(
             "configs/reppoints/reppoints_moment_r50_fpn_1x_coco.py").model)
@@ -502,9 +504,11 @@ def test_what_stays_refused(what):
             build_detector(model)
         return
     if what == "plugins":
+        # plugins run now; one at a position the JAX package
+        # never runs stays refused
         cfg = dict(_TINY_BACKBONE, plugins=[dict(
             cfg=dict(type="ContextBlock", ratio=1. / 16),
-            stages=(False, True, True, True), position="after_conv3")])
+            stages=(False, True, True, True), position="after_conv1")])
         with pytest.raises(NotImplementedError, match="plugins"):
             build_from_cfg(cfg, MODELS)
         return

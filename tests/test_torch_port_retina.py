@@ -135,9 +135,9 @@ def test_bridge_round_trip(pair):
 
 def test_unported_variants_raise():
     for change, match in (
-            (dict(type="RetinaSepBNHead"), "RetinaSepBNHead"),
+            (dict(type="GARetinaHead"), "GARetinaHead"),
             (dict(loss_cls=dict(type="GHMC")), "GHMC"),
-            (dict(loss_bbox=dict(type="BalancedL1Loss")), "BalancedL1Loss"),
+            (dict(loss_bbox=dict(type="GHMR")), "GHMR"),
             (dict(loss_bbox=dict(type="GIoULoss")), "GIoULoss")):
         cfg = copy.deepcopy(TINY_RETINANET)
         cfg["bbox_head"].update(change)

@@ -117,16 +117,18 @@ _DCN_STAGES = (False, True, True, True)
     dict(dcn=dict(type="DCNv2", deform_groups=4), stage_with_dcn=_DCN_STAGES,
          depth=34),
     dict(plugins=[dict(cfg=dict(type="GeneralizedAttention"),
-                       position="after_conv2")]),
+                       position="after_conv1")]),
     dict(conv_cfg=dict(type="DCNv2")),
     dict(dcn=dict(type="DCNv3"), stage_with_dcn=_DCN_STAGES),
-    dict(plugins=[dict(cfg=dict(type="ContextBlock"))])])
+    dict(plugins=[dict(cfg=dict(type="ContextBlock"))], depth=18)])
 def test_resnet_refuses_unported_options(option):
     # (V1d's deep_stem / avg_down and ResNeXt's groups / base_width are
     # ported: tests/test_torch_port_variants.py; deformable convs on a
-    # bottleneck too: tests/test_torch_port_dcn.py. What stays refused is
-    # DCN on a BasicBlock, as in the JAX package, and a DCN type other
-    # than mmcv's DCN and DCNv2)
+    # bottleneck too: tests/test_torch_port_dcn.py, and the plugins on a
+    # bottleneck: tests/test_torch_port_plugins.py. What stays refused is
+    # DCN or a plugin on a BasicBlock, as in the JAX package, a plugin at
+    # a position the JAX package never runs, and a DCN type other than
+    # mmcv's DCN and DCNv2)
     option = dict(option)
     depth = option.pop("depth", 50)
     with pytest.raises(NotImplementedError, match=next(iter(option))):
